@@ -82,7 +82,6 @@ class GLMParams:
         checks = [
             (self.input_file_format != InputFormatType.LIBSVM,
              f"--input-file-format {self.input_file_format}"),
-            (self.optimizer_type == OptimizerType.TRON, "--optimizer TRON"),
             (self.streaming_chunk_rows > 0, "--streaming-chunk-rows"),
             (self.tensor_cache_dir is not None, "--tensor-cache"),
             (self.persistent_cache_dir is not None, "--persistent-cache"),
@@ -103,6 +102,18 @@ class GLMParams:
             errors.append("--training-data-directory is required")
         if not self.output_dir:
             errors.append("--output-directory is required")
+        if self.optimizer_type == OptimizerType.TRON and self.regularization_type in (
+            RegularizationType.L1,
+            RegularizationType.ELASTIC_NET,
+        ):
+            errors.append(
+                f"TRON optimizer does not support {self.regularization_type.value} "
+                "regularization"
+            )
+        if self.task_type == TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM and (
+            self.optimizer_type == OptimizerType.TRON
+        ):
+            errors.append("smoothed hinge loss is first-order only; use LBFGS")
         if self.regularization_type == RegularizationType.ELASTIC_NET:
             a = self.elastic_net_alpha
             if a is not None and not (0.0 <= a <= 1.0):

@@ -47,7 +47,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "losses.cuh"
+
 namespace {
+
+using photon::loss_and_d1;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -71,36 +75,6 @@ struct Storage<__nv_bfloat16> {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
 };
-
-__device__ __forceinline__ void loss_and_d1(int loss, float z, float y,
-                                            float* l, float* d1) {
-  if (loss == 0) {  // logistic, y in {0, 1}
-    *l = fmaxf(z, 0.f) + log1pf(expf(-fabsf(z))) - y * z;
-    *d1 = 1.f / (1.f + expf(-z)) - y;
-  } else if (loss == 1) {  // squared
-    const float r = z - y;
-    *l = 0.5f * r * r;
-    *d1 = r;
-  } else if (loss == 2) {  // Poisson
-    const float e = expf(z);
-    *l = e - y * z;
-    *d1 = e - y;
-  } else {  // smoothed hinge on t = (2y - 1) z
-    const float s = 2.f * y - 1.f;
-    const float t = s * z;
-    if (t <= 0.f) {
-      *l = 0.5f - t;
-      *d1 = -s;
-    } else if (t < 1.f) {
-      const float u = 1.f - t;
-      *l = 0.5f * u * u;
-      *d1 = s * (t - 1.f);
-    } else {
-      *l = 0.f;
-      *d1 = 0.f;
-    }
-  }
-}
 
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {

@@ -2,16 +2,37 @@
 in-memory part of photon_ml_tpu/io/index_map.py).
 
 Reference spec: util/IndexMap.scala:25-49 (two-way map, feature key
-"name\\x01term"). The partitioned off-heap store is not yet ported.
+"name\\x01term"). Built indices equal the JAX package's (the same
+crc32-partitioned, sorted order). The partitioned off-heap store is not yet
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import zlib
+from typing import Dict, Iterable, List, Optional
 
 DELIMITER = "\x01"  # reference feature key separator (Utils.scala getFeatureKey)
 INTERCEPT_KEY = "(INTERCEPT)"  # reference constant GLMSuite.INTERCEPT_NAME_TERM
+
+
+def feature_key(name: str, term: str = "") -> str:
+    return f"{name}{DELIMITER}{term}"
+
+
+def partition_keys(feature_keys: Iterable[str], num_partitions: int) -> List[List[str]]:
+    """Canonical index-assignment order: dedup, drop the intercept key,
+    crc32-hash-partition, sort within each partition (FeatureIndexingJob
+    hash-partition parity)."""
+    keys = set(feature_keys)
+    keys.discard(INTERCEPT_KEY)
+    parts: List[List[str]] = [[] for _ in range(num_partitions)]
+    for k in keys:
+        parts[zlib.crc32(k.encode()) % num_partitions].append(k)
+    for p in parts:
+        p.sort()
+    return parts
 
 
 @dataclasses.dataclass
@@ -23,6 +44,12 @@ class IndexMap:
 
     def __len__(self) -> int:
         return len(self.index_to_name)
+
+    def get_index(self, key: str) -> int:
+        return self.name_to_index.get(key, -1)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.name_to_index
 
     def get_feature_name(self, idx: int) -> Optional[str]:
         return self.index_to_name[idx] if 0 <= idx < len(self.index_to_name) else None
@@ -39,3 +66,15 @@ class IndexMap:
         if add_intercept:
             names.append(INTERCEPT_KEY)
         return IndexMap({k: i for i, k in enumerate(names)}, names)
+
+    @staticmethod
+    def build(feature_keys: Iterable[str], add_intercept: bool = True,
+              num_partitions: int = 1) -> "IndexMap":
+        """Deterministic build: hash-partitioned names, sorted within each
+        partition, concatenated; the intercept, when added, last."""
+        ordered: List[str] = []
+        for p in partition_keys(feature_keys, num_partitions):
+            ordered.extend(p)
+        if add_intercept:
+            ordered.append(INTERCEPT_KEY)
+        return IndexMap({k: i for i, k in enumerate(ordered)}, ordered)

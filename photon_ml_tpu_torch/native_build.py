@@ -2,8 +2,8 @@
 
 Each source under ``csrc/`` is compiled on first use into a shared library
 with a plain C interface, ``_build/lib<stem>-<hash>.so`` inside the package
-(the hash covers the source and the flags, so an edited source never loads a
-stale library). Nothing is prebuilt: the library is made from the sources in
+(the hash covers the source, the shared headers and the flags, so an edited
+source never loads a stale library). Nothing is prebuilt: the library is made from the sources in
 the checkout on the machine that has the card.
 """
 
@@ -48,8 +48,14 @@ def nvcc_path() -> str:
 
 
 def library_path(source_name: str, flags: Sequence[str] = NVCC_FLAGS) -> str:
-    with open(os.path.join(CSRC_DIR, source_name), "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(tuple(flags)).encode()).hexdigest()
+    """The library's path; its hash covers the source, every shared header
+    of ``csrc/`` (``*.cuh``) and the flags."""
+    h = hashlib.sha256(repr(tuple(flags)).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in [source_name] + headers:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    digest = h.hexdigest()
     stem = os.path.splitext(source_name)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
 

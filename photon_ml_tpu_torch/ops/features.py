@@ -32,7 +32,7 @@ def _round_to(v: Tensor, storage: torch.dtype) -> Tensor:
 class DenseFeatures:
     """Dense (N, D) feature matrix, stored in bf16, f32 or f64."""
 
-    matrix: Tensor  # (N, D)
+    matrix: Tensor  # (N, D), or (E, M, D) for E lanes
 
     @property
     def num_rows(self) -> int:
@@ -40,17 +40,26 @@ class DenseFeatures:
 
     @property
     def dim(self) -> int:
-        return self.matrix.shape[1]
+        return self.matrix.shape[-1]
 
     def to_dense(self) -> Tensor:
         return self.matrix.to(_acc_dtype(self.matrix.dtype))
 
     def matvec(self, w: Tensor) -> Tensor:
-        return self.to_dense() @ _round_to(w, self.matrix.dtype)
+        return _matvec(self.to_dense(), _round_to(w, self.matrix.dtype))
 
     def rmatvec(self, d: Tensor) -> Tensor:
-        return _round_to(d, self.matrix.dtype) @ self.to_dense()
+        return _rmatvec(self.to_dense(), _round_to(d, self.matrix.dtype))
 
     def sq_rmatvec(self, d: Tensor) -> Tensor:
-        acc = _acc_dtype(self.matrix.dtype)
-        return d.to(acc) @ torch.square(self.to_dense())
+        return _rmatvec(torch.square(self.to_dense()), d.to(_acc_dtype(self.matrix.dtype)))
+
+
+# A stack of lanes, (E, M, D) with (E, D) coefficients, contracts lane by
+# lane; a single (N, D) matrix keeps the plain matrix-vector product.
+def _matvec(x: Tensor, w: Tensor) -> Tensor:
+    return x @ w if x.dim() == 2 else torch.matmul(x, w.unsqueeze(-1)).squeeze(-1)
+
+
+def _rmatvec(x: Tensor, d: Tensor) -> Tensor:
+    return d @ x if x.dim() == 2 else torch.matmul(d.unsqueeze(-2), x).squeeze(-2)

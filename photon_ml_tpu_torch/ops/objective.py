@@ -1,5 +1,5 @@
 """The GLM objective: value / gradient / Hessian-vector / Hessian-diagonal
-(port of the dense path of photon_ml_tpu/ops/objective.py).
+(port of photon_ml_tpu/ops/objective.py).
 
   value(w) = sum_i weight_i * l(z_i, y_i) + l2/2 * ||w||^2
   z_i      = x_i . w_eff + margin_shift + offset_i,   w_eff = w * factor
@@ -7,6 +7,12 @@
 Raw data is never normalized in memory. Padding rows carry weight 0 and
 contribute an exact 0 to every sum (hard mask, so inf/nan garbage in a
 padding row's loss is zeroed too).
+
+A batch is one problem, ``(N,)`` rows of a dense ``(N, D)`` matrix with
+``(D,)`` coefficients, or a stack of lanes (the random effect's entities):
+``(E, M)`` rows of a dense ``(E, M, D)`` stack or a ``SparseSlab``, with
+``(E, D)`` coefficients; values then come back per lane, ``(E,)``. Rows of a
+slab are summed through the fixed-association ``tree_row_sum``.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Optional, Tuple
 import torch
 
 from photon_ml_tpu_torch.ops.features import DenseFeatures
+from photon_ml_tpu_torch.ops import fused_sparse
+from photon_ml_tpu_torch.ops.fused_sparse import SparseSlab, tree_row_sum
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 
@@ -28,10 +36,10 @@ class GLMBatch:
     """Struct-of-arrays batch (data/LabeledPoint.scala:28-62: label,
     features, offset, weight)."""
 
-    features: DenseFeatures
-    labels: Tensor  # (N,)
-    offsets: Tensor  # (N,)
-    weights: Tensor  # (N,) — 0 marks padding rows
+    features: object  # DenseFeatures or SparseSlab
+    labels: Tensor  # (N,) or (E, M)
+    offsets: Tensor  # like labels
+    weights: Tensor  # like labels — 0 marks padding rows
 
     @property
     def num_rows(self) -> int:
@@ -46,7 +54,7 @@ class GLMBatch:
         return self.labels.device
 
     @staticmethod
-    def create(features: DenseFeatures, labels: Tensor, offsets=None, weights=None) -> "GLMBatch":
+    def create(features, labels: Tensor, offsets=None, weights=None) -> "GLMBatch":
         if offsets is None:
             offsets = torch.zeros_like(labels)
         if weights is None:
@@ -60,6 +68,19 @@ def _wmul(weights: Tensor, x: Tensor) -> Tensor:
     return torch.where(weights > 0.0, weights * x, torch.zeros_like(x))
 
 
+def _row_sum(features, x: Tensor) -> Tensor:
+    """Row reduction per problem: the fixed-association pairwise tree for a
+    slab (every sparse family and the fused kernels' wrappers share it, so
+    the scalars agree across families), a plain sum for dense rows."""
+    if isinstance(features, SparseSlab):
+        return tree_row_sum(x)
+    return torch.sum(x, dim=-1)
+
+
+def _l2_term(w: Tensor, l2_weight) -> Tensor:
+    return 0.5 * l2_weight * torch.sum(torch.square(w), dim=-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class GLMObjective:
     """Objective bundle for one pointwise loss.
@@ -69,6 +90,12 @@ class GLMObjective:
     ``value_and_grad`` runs the fused single-pass pieces — the CUDA kernel on
     a CUDA batch — with normalization and L2 folded around them here exactly
     as on the plain path. f64 storage is never fused.
+
+    A ``SparseSlab`` whose ``kernel`` is ``pallas*`` (and whose values are
+    not f64) takes the fused sparse pieces in ``value_and_grad`` and
+    ``hessian_vector``: the GEVM and HVP kernels on a CUDA slab.
+    Normalization shifts apply to single problems; the random effect's
+    lanes run with the identity normalization, as in the JAX package.
     """
 
     loss: PointwiseLoss
@@ -80,8 +107,8 @@ class GLMObjective:
 
     def value(self, w, batch: GLMBatch, norm: NormalizationContext, l2_weight=0.0) -> Tensor:
         z = self.margins(w, batch, norm)
-        total = torch.sum(_wmul(batch.weights, self.loss.loss(z, batch.labels)))
-        return total + 0.5 * l2_weight * torch.sum(torch.square(w))
+        total = _row_sum(batch.features, _wmul(batch.weights, self.loss.loss(z, batch.labels)))
+        return total + _l2_term(w, l2_weight)
 
     def value_and_grad(self, w, batch: GLMBatch, norm: NormalizationContext,
                        l2_weight=0.0) -> Tuple[Tensor, Tensor]:
@@ -97,16 +124,23 @@ class GLMObjective:
             lv, grad_eff, sum_d = lv.to(w.dtype), grad_eff.to(w.dtype), sum_d.to(w.dtype)
             if norm.shifts is not None:
                 grad_eff = grad_eff - norm.shifts * sum_d
+        elif self._use_sparse_fused(batch):
+            offsets = batch.offsets + norm.margin_shift(w_eff)
+            lv, grad_eff, sum_d = fused_sparse.fused_value_grad_parts(
+                self.loss, batch.features, batch.labels, batch.weights, offsets, w_eff,
+            )
+            lv, grad_eff, sum_d = lv.to(w.dtype), grad_eff.to(w.dtype), sum_d.to(w.dtype)
+            if norm.shifts is not None:
+                grad_eff = grad_eff - norm.shifts * sum_d.unsqueeze(-1)
         else:
             z = batch.features.matvec(w_eff) + norm.margin_shift(w_eff) + batch.offsets
-            lv = torch.sum(_wmul(batch.weights, self.loss.loss(z, batch.labels)))
+            lv = _row_sum(batch.features, _wmul(batch.weights, self.loss.loss(z, batch.labels)))
             d = _wmul(batch.weights, self.loss.d1(z, batch.labels))
             grad_eff = batch.features.rmatvec(d)
             if norm.shifts is not None:
-                grad_eff = grad_eff - norm.shifts * torch.sum(d)
+                grad_eff = grad_eff - norm.shifts * _row_sum(batch.features, d).unsqueeze(-1)
         grad = grad_eff * norm.factors if norm.factors is not None else grad_eff
-        value = lv + 0.5 * l2_weight * torch.sum(torch.square(w))
-        return value, grad + l2_weight * w
+        return lv + _l2_term(w, l2_weight), grad + l2_weight * w
 
     def _use_fused(self, batch: GLMBatch) -> bool:
         """Static dispatch to the fused single-pass pieces."""
@@ -116,25 +150,46 @@ class GLMObjective:
             and batch.features.matrix.dtype != torch.float64
         )
 
+    @staticmethod
+    def _use_sparse_fused(batch: GLMBatch) -> bool:
+        """Dispatch to the fused sparse pieces: the slab's ``kernel`` names
+        the family (f64 values are never fused)."""
+        return (
+            isinstance(batch.features, SparseSlab)
+            and batch.features.kernel.startswith("pallas")
+            and batch.features.val.dtype != torch.float64
+        )
+
     def hessian_vector(self, w, v, batch: GLMBatch, norm: NormalizationContext,
                        l2_weight=0.0) -> Tensor:
         """H(w) @ v (HessianVectorAggregator.scala:90-116 algebra, batched)."""
         w_eff = norm.effective_coefficients(w)
         v_eff = norm.effective_coefficients(v)
-        z = batch.features.matvec(w_eff) + norm.margin_shift(w_eff) + batch.offsets
-        d2 = _wmul(batch.weights, self.loss.d2(z, batch.labels))
-        zv = batch.features.matvec(v_eff) + norm.margin_shift(v_eff)
-        c = d2 * zv
-        hv_eff = batch.features.rmatvec(c)
-        if norm.shifts is not None:
-            hv_eff = hv_eff - norm.shifts * torch.sum(c)
+        if self._use_sparse_fused(batch):
+            # one pass over the slab feeds both contractions and the transpose
+            offsets = batch.offsets + norm.margin_shift(w_eff)
+            hv_eff, sum_c = fused_sparse.fused_hvp_parts(
+                self.loss, batch.features, batch.labels, batch.weights, offsets,
+                w_eff, v_eff, norm.margin_shift(v_eff),
+            )
+            hv_eff = hv_eff.to(w.dtype)
+            if norm.shifts is not None:
+                hv_eff = hv_eff - norm.shifts * sum_c.to(w.dtype).unsqueeze(-1)
+        else:
+            z = batch.features.matvec(w_eff) + norm.margin_shift(w_eff) + batch.offsets
+            d2 = _wmul(batch.weights, self.loss.d2(z, batch.labels))
+            zv = batch.features.matvec(v_eff) + norm.margin_shift(v_eff)
+            c = d2 * zv
+            hv_eff = batch.features.rmatvec(c)
+            if norm.shifts is not None:
+                hv_eff = hv_eff - norm.shifts * _row_sum(batch.features, c).unsqueeze(-1)
         hv = hv_eff * norm.factors if norm.factors is not None else hv_eff
         return hv + l2_weight * v
 
     def hessian_diagonal(self, w, batch: GLMBatch, norm: NormalizationContext,
                          l2_weight=0.0) -> Tensor:
         """diag(H) = factor^2 * [(X^2)^T d2 - 2 shift (X^T d2) + shift^2 sum(d2)]
-        + l2 (TwiceDiffFunction.scala:151-162 behavior)."""
+        + l2 (TwiceDiffFunction.scala:151-162 behavior). Dense batches."""
         w_eff = norm.effective_coefficients(w)
         z = batch.features.matvec(w_eff) + norm.margin_shift(w_eff) + batch.offsets
         d2 = _wmul(batch.weights, self.loss.d2(z, batch.labels))

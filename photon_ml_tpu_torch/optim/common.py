@@ -22,17 +22,25 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """Solve configuration. Defaults mirror the reference: LBFGS max 80
-    iterations / tol 1e-7 / 10 corrections (LBFGS.scala:136-139). TRON's
-    fields are not yet ported."""
+    iterations / tol 1e-7 / 10 corrections (LBFGS.scala:136-139); TRON max
+    15 / tol 1e-5 / 20 CG iterations (TRON.scala:226-233)."""
 
     max_iterations: int = 80
     tolerance: float = 1e-7
+    # LBFGS
     num_corrections: int = 10
     max_line_search_steps: int = 25
+    # TRON
+    max_cg_iterations: int = 20
+    max_improvement_failures: int = 5
 
     @staticmethod
     def lbfgs_default() -> "OptimizerConfig":
         return OptimizerConfig(max_iterations=80, tolerance=1e-7)
+
+    @staticmethod
+    def tron_default() -> "OptimizerConfig":
+        return OptimizerConfig(max_iterations=15, tolerance=1e-5)
 
 
 class OptResult(NamedTuple):
@@ -57,4 +65,45 @@ def summarize_result(res: OptResult) -> str:
     return (
         f"value={float(res.value):.6g} |grad|={float(res.grad_norm):.3e} "
         f"iters={int(res.iterations)} reason={reason}"
+    )
+
+
+def iteration_histogram(iterations) -> str:
+    """Power-of-2 histogram of per-lane iteration counts, e.g.
+    ``<=4:120 <=8:30 <=32:1``."""
+    import numpy as np
+
+    iters = np.asarray(iterations).ravel()
+    if iters.size == 0:
+        return "(empty)"
+    top = int(iters.max())
+    parts = []
+    lo, hi = -1, 1
+    while lo < top:
+        n = int(np.sum((iters > lo) & (iters <= hi)))
+        if n:
+            parts.append(f"<={hi}:{n}")
+        lo = hi
+        hi *= 2
+    return " ".join(parts) if parts else "(empty)"
+
+
+def summarize_stacked_results(res: OptResult) -> str:
+    """Summary of a lane-batched solve: convergence-reason counts and the
+    iteration histogram (RandomEffectOptimizationTracker.scala:62-95)."""
+    import numpy as np
+
+    reasons = res.reason.detach().cpu().numpy().ravel()
+    iters = res.iterations.detach().cpu().numpy().ravel()
+    values = res.value.detach().cpu().numpy().ravel()
+    counts = {
+        ConvergenceReason(int(code)).name: int(n)
+        for code, n in zip(*np.unique(reasons, return_counts=True))
+        if code != 0
+    }
+    return (
+        f"entities={reasons.size} convergenceReasons={counts} "
+        f"iterations(mean={iters.mean():.1f} max={int(iters.max())} "
+        f"histogram: {iteration_histogram(iters)}) "
+        f"value(mean={values.mean():.6g} max={values.max():.6g})"
     )

@@ -3,7 +3,8 @@ photon_ml_tpu/optim/problem.py).
 
 Reference spec: optimization/GeneralizedLinearOptimizationProblem.scala:42-279
 and OptimizerFactory.scala:49-70. LBFGS accepts any once-differentiable loss
-(L1/elastic net switch it to OWL-QN). TRON is not yet ported. Variances are
+(L1/elastic net switch it to OWL-QN); TRON needs a twice-differentiable loss
+and refuses L1/elastic net (Params.scala:177-180). Variances are
 1 / diag(Hessian) as in the reference.
 """
 
@@ -21,6 +22,7 @@ from photon_ml_tpu_torch.ops.objective import GLMBatch, GLMObjective
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.optim.common import OptimizerConfig, OptResult
 from photon_ml_tpu_torch.optim.lbfgs import lbfgs_minimize_lanes
+from photon_ml_tpu_torch.optim.tron import tron_minimize_lanes
 from photon_ml_tpu_torch.types import OptimizerType, RegularizationType, TaskType, real_dtype
 
 Tensor = torch.Tensor
@@ -52,7 +54,7 @@ class GLMOptimizationProblem:
 
     task: TaskType
     optimizer: OptimizerType = OptimizerType.LBFGS
-    # None -> the reference defaults (LBFGS 80 iterations / 1e-7)
+    # None -> the reference defaults (LBFGS 80 / 1e-7, TRON 15 / 1e-5)
     optimizer_config: Optional[OptimizerConfig] = None
     regularization: RegularizationContext = dataclasses.field(
         default_factory=RegularizationContext.none
@@ -66,10 +68,22 @@ class GLMOptimizationProblem:
     track_coefficients: bool = False
 
     def __post_init__(self):
-        if self.optimizer == OptimizerType.TRON:
-            raise ValueError("--optimizer TRON is not yet ported to photon_ml_tpu_torch")
+        tron = self.optimizer == OptimizerType.TRON
         if self.optimizer_config is None:
-            object.__setattr__(self, "optimizer_config", OptimizerConfig.lbfgs_default())
+            cfg = OptimizerConfig.tron_default() if tron else OptimizerConfig.lbfgs_default()
+            object.__setattr__(self, "optimizer_config", cfg)
+        if tron:
+            if not losses_mod.for_task(self.task).twice_differentiable:
+                raise ValueError(
+                    f"TRON requires a twice-differentiable loss; {self.task} is first-order "
+                    "only (OptimizerFactory.scala:49-70 parity)"
+                )
+            if self.regularization.reg_type in (RegularizationType.L1,
+                                                RegularizationType.ELASTIC_NET):
+                raise ValueError(
+                    "TRON does not support L1/ELASTIC_NET regularization "
+                    "(Params.scala:177-180 parity)"
+                )
 
     @property
     def objective(self) -> GLMObjective:
@@ -99,13 +113,28 @@ class GLMOptimizationProblem:
             vals, grads = zip(*(obj.value_and_grad(w, batch, norm, l2) for w in w_lanes))
             return torch.stack(vals), torch.stack(grads)
 
-        res = lbfgs_minimize_lanes(
-            lane_vg, w0[None], self.optimizer_config, l1_weight=l1,
-            track_coefficients=self.track_coefficients,
-        )
+        if self.optimizer == OptimizerType.TRON:
+            def lane_hvp(w_lanes, v_lanes):
+                return torch.stack([obj.hessian_vector(w, v, batch, norm, l2)
+                                    for w, v in zip(w_lanes, v_lanes)])
+
+            res = tron_minimize_lanes(
+                lane_vg, lane_hvp, w0[None], self.optimizer_config,
+                track_coefficients=self.track_coefficients,
+            )
+        else:
+            res = lbfgs_minimize_lanes(
+                lane_vg, w0[None], self.optimizer_config, l1_weight=l1,
+                track_coefficients=self.track_coefficients,
+            )
         result = OptResult(*(None if f is None else f[0] for f in res))
         w = result.coefficients
         variances = None
         if self.compute_variance:
             variances = variances_from_hessian_diag(obj.hessian_diagonal(w, batch, norm, l2))
         return GeneralizedLinearModel(Coefficients(w, variances), self.task), result
+
+    def regularization_term_value(self, w: Tensor, reg_weight: Optional[float] = None) -> Tensor:
+        """lambda_1 * ||w||_1 + lambda_2/2 * ||w||^2 (GLOP.scala:235-278)."""
+        l1, l2 = _split_reg_weight(self.regularization, reg_weight)
+        return l1 * torch.sum(torch.abs(w)) + 0.5 * l2 * torch.sum(torch.square(w))

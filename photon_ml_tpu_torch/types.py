@@ -48,6 +48,12 @@ class DataValidationType(enum.Enum):
     VALIDATE_DISABLED = "VALIDATE_DISABLED"
 
 
+class ModelOutputMode(enum.Enum):
+    ALL = "ALL"
+    BEST = "BEST"
+    NONE = "NONE"
+
+
 class ConvergenceReason(enum.IntEnum):
     """Why an optimizer stopped (AbstractOptimizer.scala:47-61 parity).
 

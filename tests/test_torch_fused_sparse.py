@@ -1,0 +1,259 @@
+"""The port's sparse slab and the plain version of its GEVM/HVP kernels
+against the JAX package (CPU).
+
+The same numpy inputs go to both packages. The plain pieces are held
+against the JAX Pallas kernels run in interpret mode (lane by lane) and
+against the JAX ``scatter`` family (vmapped) at the ``elementwise``
+tolerance of tests/tolerances.py: interpret mode and the CPU scatter agree
+with each other only to float tolerance, not bitwise. ``tree_row_sum`` is
+the same adds in the same order, so it must match bitwise, and the slab
+build is byte-equal with the shape ladder off.
+"""
+
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from photon_ml_tpu.ops import fused_sparse as jfs
+from photon_ml_tpu.ops import losses as jlosses
+from photon_ml_tpu_torch.ops import fused_sparse as tfs
+from photon_ml_tpu_torch.ops import losses as tlosses
+from photon_ml_tpu_torch.ops.features import DenseFeatures
+from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+from photon_ml_tpu_torch.ops.objective import GLMBatch, GLMObjective
+from tolerances import assert_allclose
+
+LOSSES = ["logistic", "squared", "poisson", "smoothed_hinge"]
+
+
+def _dense_stack(rng, e, m, d, max_nnz=6):
+    """(E, M, D) stack with 0..max_nnz non-zeros per row (some rows empty)."""
+    x = np.zeros((e, m, d), np.float32)
+    nnz = rng.integers(0, max_nnz + 1, size=(e, m))
+    for i in range(e):
+        for r in range(m):
+            cols = rng.choice(d, size=nnz[i, r], replace=False)
+            x[i, r, cols] = rng.normal(size=nnz[i, r])
+    return x
+
+
+def _inputs(seed, loss_name, e=4, m=19, d=33):
+    rng = np.random.default_rng(seed)
+    x = _dense_stack(rng, e, m, d)
+    if loss_name == "poisson":
+        y = rng.poisson(1.5, size=(e, m)).astype(np.float32)
+    elif loss_name == "squared":
+        y = rng.normal(size=(e, m)).astype(np.float32)
+    else:
+        y = (rng.random((e, m)) < 0.5).astype(np.float32)
+    wt = rng.uniform(0.5, 2.0, size=(e, m)).astype(np.float32)
+    off = rng.normal(scale=0.2, size=(e, m)).astype(np.float32)
+    wt[:, -2:] = 0.0
+    off[:, -2:] = 1e4  # padding rows whose loss overflows: masked to an exact 0
+    w = (rng.normal(size=(e, d)) * 0.3).astype(np.float32)
+    v = rng.normal(size=(e, d)).astype(np.float32)
+    vshift = rng.normal(size=e).astype(np.float32)
+    return x, y, wt, off, w, v, vshift
+
+
+def _slabs(x, kernel, val_dtype=np.float32):
+    j = jfs.build_sparse_slab(x, bucketer="off", kernel=kernel)
+    jslab = jfs.SparseSlab(j.idx, j.val.astype(val_dtype), j.dim, kernel)
+    tslab = tfs.build_sparse_slab(torch.from_numpy(x), kernel=kernel)
+    if val_dtype != np.float32:
+        tslab = tslab.astype(torch.bfloat16)
+    return jslab, tslab
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _jax_interpret_lanes(fn, jslab, *lane_args):
+    """Run a lane-level JAX pallas function lane by lane (interpret mode)."""
+    outs = []
+    for i in range(jslab.idx.shape[0]):
+        lane = jfs.SparseSlab(jslab.idx[i], jslab.val[i], jslab.dim, jslab.kernel)
+        outs.append(fn(lane, *(jnp.asarray(a[i]) for a in lane_args)))
+    return [np.stack([np.asarray(o[k]) for o in outs]) for k in range(len(outs[0]))]
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("loss_name", LOSSES)
+def test_plain_gevm_matches_jax_pallas_interpret(loss_name, storage):
+    x, y, wt, off, w, _, _ = _inputs(3 + len(loss_name), loss_name)
+    val_dtype = jnp.bfloat16 if storage == "bf16" else np.float32
+    jslab, tslab = _slabs(x, "pallas", val_dtype)
+    jl, tl = getattr(jlosses, loss_name), getattr(tlosses, loss_name)
+    want = _jax_interpret_lanes(
+        lambda s, yy, ww, oo, wv: jfs.fused_value_grad_parts(jl, s, yy, ww, oo, wv, interpret=True),
+        jslab, y, wt, off, w,
+    )
+    got = tfs.fused_value_grad_parts(tl, tslab, *_t(y, wt, off, w))
+    assert [tuple(g.shape) for g in got] == [(4,), (4, 33), (4,)]
+    for g, e in zip(got, want):
+        assert g.dtype == torch.float32
+        assert_allclose(g.numpy(), e, kind="elementwise")
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("loss_name", LOSSES)
+def test_plain_hvp_matches_jax_pallas_interpret(loss_name, storage):
+    x, y, wt, off, w, v, vshift = _inputs(5 + len(loss_name), loss_name)
+    val_dtype = jnp.bfloat16 if storage == "bf16" else np.float32
+    jslab, tslab = _slabs(x, "pallas", val_dtype)
+    jl, tl = getattr(jlosses, loss_name), getattr(tlosses, loss_name)
+    want = _jax_interpret_lanes(
+        lambda s, yy, ww, oo, wv, vv, vs: jfs.fused_hvp_parts(jl, s, yy, ww, oo, wv, vv, vs,
+                                                              interpret=True),
+        jslab, y, wt, off, w, v, vshift,
+    )
+    got = tfs.fused_hvp_parts(tl, tslab, *_t(y, wt, off, w, v, vshift))
+    assert [tuple(g.shape) for g in got] == [(4, 33), (4,)]
+    for g, e in zip(got, want):
+        assert_allclose(g.numpy(), e, kind="elementwise")
+
+
+@pytest.mark.parametrize("loss_name", LOSSES)
+def test_plain_parts_match_jax_scatter_family(loss_name):
+    """The JAX generic slab path (scatter family), vmapped over lanes."""
+    x, y, wt, off, w, v, vshift = _inputs(11 + len(loss_name), loss_name, e=6, m=32, d=64)
+    jslab, tslab = _slabs(x, "scatter")
+    jl, tl = getattr(jlosses, loss_name), getattr(tlosses, loss_name)
+
+    def vg(s, yy, ww, oo, wv):
+        z = s.matvec(wv) + oo
+        wl = jnp.where(ww > 0, ww * jl.loss(z, yy), 0.0)
+        d = jnp.where(ww > 0, ww * jl.d1(z, yy), 0.0)
+        return jfs.tree_row_sum(wl), s.rmatvec(d), jfs.tree_row_sum(d)
+
+    def hvp(s, yy, ww, oo, wv, vv, vs):
+        z = s.matvec(wv) + oo
+        c = jnp.where(ww > 0, ww * jl.d2(z, yy), 0.0) * (s.matvec(vv) + vs)
+        return s.rmatvec(c), jfs.tree_row_sum(c)
+
+    J = lambda *a: [jnp.asarray(b) for b in a]
+    want_vg = jax.vmap(vg)(jslab, *J(y, wt, off, w))
+    want_hvp = jax.vmap(hvp)(jslab, *J(y, wt, off, w, v, vshift))
+    got_vg = tfs.fused_value_grad_parts(tl, tslab.with_kernel("scatter"), *_t(y, wt, off, w))
+    got_hvp = tfs.fused_hvp_parts(tl, tslab, *_t(y, wt, off, w, v, vshift))
+    for g, e in zip(list(got_vg) + list(got_hvp), list(want_vg) + list(want_hvp)):
+        assert_allclose(g.numpy(), np.asarray(e), kind="elementwise")
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 8, 37, 64, 100])
+def test_tree_row_sum_is_bitwise_the_jax_tree(n):
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(5, n)) * 10.0 ** rng.integers(-3, 4, size=(5, n))).astype(np.float32)
+    got = tfs.tree_row_sum(torch.from_numpy(x)).numpy()
+    want = np.asarray(jfs.tree_row_sum(jnp.asarray(x)))
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape,max_nnz", [((4, 19, 33), 6), ((3, 8, 5), 1), ((2, 7, 9), 9),
+                                           ((5, 16), 4)])
+def test_build_sparse_slab_is_byte_equal_to_jax(shape, max_nnz):
+    rng = np.random.default_rng(sum(shape))
+    if len(shape) == 3:
+        x = _dense_stack(rng, *shape, max_nnz=max_nnz)
+    else:
+        x = _dense_stack(rng, 1, *shape, max_nnz=max_nnz)[0]
+    x[0, 0] = 0.0  # an empty row
+    want = jfs.build_sparse_slab(x, bucketer="off")
+    got = tfs.build_sparse_slab(torch.from_numpy(x))
+    assert got.dim == want.dim and got.kernel == want.kernel
+    for g, e in ((got.idx, want.idx), (got.val, want.val)):
+        g, e = g.numpy(), np.asarray(e)
+        assert g.dtype == e.dtype and g.shape == e.shape
+        assert g.tobytes() == e.tobytes()
+    assert tfs.slab_nnz_stats(got) == jfs.slab_nnz_stats(want)
+    assert torch.equal(got.to_dense().reshape(x.shape), torch.from_numpy(x))
+
+
+def test_column_order_lists_each_columns_slots_in_flat_order():
+    x, *_ = _inputs(1, "logistic", e=3, m=11, d=17)
+    slab = tfs.build_sparse_slab(torch.from_numpy(x))
+    perm, col_start = slab.column_order()
+    e, m, k = slab.idx.shape
+    assert perm.dtype == col_start.dtype == torch.int32
+    assert tuple(perm.shape) == (e, m * k) and tuple(col_start.shape) == (e, 18)
+    idx, val = slab.idx.reshape(e, -1), slab.val.reshape(e, -1)
+    for lane in range(e):
+        assert int(col_start[lane, -1]) == int((val[lane] != 0).sum())
+        for j in range(17):
+            slots = perm[lane, col_start[lane, j]:col_start[lane, j + 1]].long()
+            assert torch.all(idx[lane, slots] == j) and torch.all(val[lane, slots] != 0)
+            assert torch.all(slots[1:] > slots[:-1])  # flat (m, k) order
+
+
+def test_sparse_spec_grammar(monkeypatch):
+    monkeypatch.delenv("PHOTON_SPARSE_KERNEL", raising=False)
+    assert tfs.resolve_sparse_kernel(None) is None
+    for off in ("off", "", "none", "0", "false"):
+        assert tfs.resolve_sparse_kernel(off) is None
+    for fam in ("scatter", "segment", "flat", "pallas", "pallas:256", "PALLAS"):
+        assert tfs.resolve_sparse_kernel(fam) == fam.lower()
+        assert tfs.resolve_sparse_kernel(fam) == jfs.resolve_sparse_kernel(fam)
+    monkeypatch.setenv("PHOTON_SPARSE_KERNEL", "pallas")
+    assert tfs.resolve_sparse_kernel(None) == "pallas"
+    for race in ("auto", "on", "race"):
+        with pytest.raises(ValueError, match="not yet ported"):
+            tfs.resolve_sparse_kernel(race)
+    for bad in ("bogus", "flat:128", "scatter:8"):
+        with pytest.raises(ValueError, match="bad sparse-kernel spec"):
+            tfs.resolve_sparse_kernel(bad)
+
+
+def test_f64_slab_is_never_fused():
+    x, *_ = _inputs(2, "logistic")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        slab = tfs.build_and_select(torch.from_numpy(x.astype(np.float64)), "pallas", "re")
+    assert slab.kernel == "scatter" and any("float64" in str(w.message) for w in caught)
+    assert tfs.build_and_select(torch.from_numpy(x), "pallas:256", "re").kernel == "pallas:256"
+
+
+@pytest.mark.parametrize("loss_name", LOSSES)
+def test_objective_on_slab_lanes_matches_dense_lanes(loss_name):
+    """value_and_grad and hessian_vector of lane-batched batches: the fused
+    slab pieces, the plain slab path and the dense (E, M, D) stack agree."""
+    x, y, wt, off, w, v, _ = _inputs(21 + len(loss_name), loss_name)
+    obj = GLMObjective(getattr(tlosses, loss_name))
+    norm = NormalizationContext.identity()
+    yt, wtt, offt, wv, vv = _t(y, wt, off, w, v)
+    slab = tfs.build_sparse_slab(torch.from_numpy(x))
+    batches = [GLMBatch(DenseFeatures(torch.from_numpy(x)), yt, offt, wtt)] + [
+        GLMBatch(slab.with_kernel(k), yt, offt, wtt) for k in ("scatter", "pallas")
+    ]
+    outs = [obj.value_and_grad(wv, b, norm, 0.3) + (obj.hessian_vector(wv, vv, b, norm, 0.3),)
+            for b in batches]
+    assert tuple(outs[0][0].shape) == (4,) and tuple(outs[0][1].shape) == (4, 33)
+    for other in outs[1:]:
+        for g, e in zip(other, outs[0]):
+            assert_allclose(g.numpy(), e.numpy(), kind="elementwise")
+    # slab families share one arithmetic on the CPU: bitwise equal
+    for g, e in zip(outs[2], outs[1]):
+        assert torch.equal(g, e)
+
+
+def test_kernel_wrappers_refuse_cpu_slabs():
+    x, y, wt, off, w, v, vshift = _inputs(4, "logistic")
+    slab = tfs.build_sparse_slab(torch.from_numpy(x))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfs.sparse_gevm_kernel(tlosses.logistic, slab, *_t(y, wt, off, w))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfs.sparse_hvp_kernel(tlosses.logistic, slab, *_t(y, wt, off, w, v, vshift))
+
+
+def test_slab_square_pieces_match_jax():
+    x, y, *_ = _inputs(8, "logistic", e=3, m=9, d=13)
+    jslab, tslab = _slabs(x, "scatter")
+    want_norms = jax.vmap(lambda s: s.row_sq_norms())(jslab)
+    want_sq = jax.vmap(lambda s, d: s.sq_rmatvec(d))(jslab, jnp.asarray(y))
+    assert_allclose(tslab.row_sq_norms().numpy(), np.asarray(want_norms), kind="elementwise")
+    assert_allclose(tslab.sq_rmatvec(torch.from_numpy(y)).numpy(), np.asarray(want_sq),
+                    kind="elementwise")

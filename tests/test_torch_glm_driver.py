@@ -59,9 +59,16 @@ def _argv(tmp_path, task, out, *extra):
 
 
 def test_driver_matches_jax_driver(task_dirs):
-    task, tmp = task_dirs
-    jd = jdriver.main(_argv(tmp, task, "jax"))
-    td = tdriver.main(_argv(tmp, task, "torch", "--device", "cpu"))
+    _check_drivers_agree(*task_dirs)
+
+
+def test_tron_driver_matches_jax_driver(task_dirs):
+    _check_drivers_agree(*task_dirs, "--optimizer", "TRON")
+
+
+def _check_drivers_agree(task, tmp, *extra):
+    jd = jdriver.main(_argv(tmp, task, "jax", *extra))
+    td = tdriver.main(_argv(tmp, task, "torch", "--device", "cpu", *extra))
 
     assert td.stage == tdriver.DriverStage.VALIDATED
     assert td.best_reg_weight == jd.best_reg_weight
@@ -89,7 +96,7 @@ def test_driver_matches_jax_driver(task_dirs):
 
 
 OUT_OF_SLICE = [
-    (["--optimizer", "TRON"], "--optimizer TRON"),
+    (["--selected-features-file", "features.txt"], "--selected-features-file"),
     (["--streaming-chunk-rows", "64"], "--streaming-chunk-rows"),
     (["--diagnostic-mode", "VALIDATE"], "--diagnostic-mode VALIDATE"),
     (["--coefficient-box-constraints", "[]"], "--coefficient-box-constraints"),
@@ -118,3 +125,23 @@ def test_avro_input_and_sparse_width_raise(tmp_path):
     wide = [a if a != str(D) else "5000" for a in argv]
     with pytest.raises(ValueError, match="sparse layout .* not yet ported"):
         tdriver.main(wide)
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--optimizer", "TRON", "--regularization-type", "L1"], "TRON optimizer does not support L1"),
+    (["--optimizer", "TRON", "--regularization-type", "ELASTIC_NET"],
+     "TRON optimizer does not support ELASTIC_NET"),
+])
+def test_tron_refuses_l1_as_the_jax_driver_does(tmp_path, extra, message):
+    argv = _argv(tmp_path, "LOGISTIC_REGRESSION", "out", *extra)
+    with pytest.raises(ValueError, match=message):
+        jdriver.main(argv)
+    with pytest.raises(ValueError, match=message):
+        tdriver.main(argv + ["--device", "cpu"])
+
+
+def test_tron_refuses_the_smoothed_hinge(tmp_path):
+    argv = _argv(tmp_path, "SMOOTHED_HINGE_LOSS_LINEAR_SVM", "out", "--device", "cpu",
+                 "--optimizer", "TRON")
+    with pytest.raises(ValueError, match="first-order only"):
+        tdriver.main(argv)

@@ -40,7 +40,13 @@ def test_importing_every_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 30  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 51  # every module was imported
+    for mod in ("photon_ml_tpu_torch.ops.fused_sparse", "photon_ml_tpu_torch.optim.tron",
+                "photon_ml_tpu_torch.data.game", "photon_ml_tpu_torch.algorithm.random_effect",
+                "photon_ml_tpu_torch.algorithm.coordinate_descent",
+                "photon_ml_tpu_torch.io.avro_data", "photon_ml_tpu_torch.io.model_io",
+                "photon_ml_tpu_torch.cli.game_training_driver"):
+        assert mod in _modules()
 
 
 def _imported_roots(path):
@@ -89,6 +95,20 @@ def test_cuda_requested_without_a_card_raises(tmp_path):
             "--task", "LOGISTIC_REGRESSION", "--input-file-format", "LIBSVM",
         ])
     assert not (tmp_path / "out").exists()  # nothing ran on the CPU instead
+
+
+def test_game_driver_on_cuda_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the no-card refusal cannot be exercised")
+    from photon_ml_tpu_torch.cli import game_training_driver
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        game_training_driver.main([
+            "--train-input-dirs", str(tmp_path), "--output-dir", str(tmp_path / "out"),
+            "--task-type", "LOGISTIC_REGRESSION", "--updating-sequence", "fixed",
+            "--fixed-effect-data-configurations", "fixed:global,1",
+        ])
+    assert not (tmp_path / "out").exists()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

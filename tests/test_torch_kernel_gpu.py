@@ -1,13 +1,13 @@
-"""The CUDA kernel of photon_ml_tpu_torch/csrc/fused_glm.cu against its
-plain PyTorch version, on the card. Every test here needs a CUDA card (the
-kernel has no CPU mode): each carries the ``gpu`` marker and skips where
-``torch.cuda`` is unavailable. This file imports no JAX, so it runs on a
-machine with only PyTorch:
+"""The CUDA kernels of photon_ml_tpu_torch/csrc/ (fused_glm.cu and
+fused_sparse.cu) against their plain PyTorch versions, on the card. Every
+test here needs a CUDA card (a kernel has no CPU mode): each carries the
+``gpu`` marker and skips where ``torch.cuda`` is unavailable. This file
+imports no JAX, so it runs on a machine with only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel_gpu.py
 
-Tolerance: value and gradient relative error, and the error of sum d over
-sum |d|, 1e-5 in f32 (summation order only) and 1e-3 in bf16 (the rounding
+Tolerance of the dense kernel: value and gradient relative error, and the
+error of sum d over sum |d|, 1e-5 in f32 (summation order only) and 1e-3 in bf16 (the rounding
 of d to bf16 can land on the other side of an ulp when the margin's
 summation order differs).
 """
@@ -87,3 +87,87 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         tfused.fused_value_grad_kernel(lo, torch.zeros((4, 4097), device=cuda_device),
                                        y[:4], wt[:4], off[:4], torch.zeros(4097, device=cuda_device))
+
+
+# --- the sparse-slab GEVM and HVP kernels of csrc/fused_sparse.cu ----------
+# Loss sums and gradient/HVP by relative error; sum d and sum c by error
+# over |sum| + sum |.|; 1e-5 in f32 and with bf16 values alike (both sides
+# compute in f32 on the same promoted values: summation order only).
+
+from photon_ml_tpu_torch.ops import fused_sparse as tsparse  # noqa: E402
+
+
+def _slab_inputs(seed, loss_name, e, m, d, max_nnz, device, full=False):
+    rng = np.random.default_rng(seed)
+    x = np.zeros((e, m, d), np.float32)
+    nnz = np.full((e, m), max_nnz) if full else rng.integers(1, max_nnz + 1, size=(e, m))
+    for i in range(e):
+        for r in range(m):
+            cols = rng.choice(d, size=nnz[i, r], replace=False)
+            x[i, r, cols] = rng.normal(size=nnz[i, r])
+    _, y, wt, off, _ = _inputs(seed, loss_name, e * m, 1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    w = (rng.normal(size=(e, d)) * 0.1).astype(np.float32)
+    v = rng.normal(size=(e, d)).astype(np.float32)
+    vshift = rng.normal(size=e).astype(np.float32)
+    slab = tsparse.build_sparse_slab(t(x), kernel="pallas")
+    rows = lambda a: t(a.reshape(e, m))
+    return slab, rows(y), rows(wt), rows(off), t(w), t(v), t(vshift)
+
+
+def _close(got, want, tol, scale=None):
+    err = torch.linalg.vector_norm((got - want).double())
+    ref = torch.linalg.vector_norm(want.double()) if scale is None else scale
+    return bool(err <= tol * ref + 1e-30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("loss_name", LOSSES)
+def test_sparse_kernels_match_plain_on_card(cuda_device, loss_name, storage):
+    tol = 1e-5
+    # the full width, a ragged M, K=1, an odd D, a wide D, and the GAME
+    # driver's slab shape (M=12, D=K=9, every slot filled)
+    for e, m, d, max_nnz, full in ((256, 64, 2048, 16, False), (128, 37, 2048, 16, False),
+                                   (64, 64, 2048, 1, False), (64, 64, 65, 9, False),
+                                   (32, 48, 4096, 16, False), (2000, 12, 9, 9, True)):
+        slab, y, wt, off, w, v, vshift = _slab_inputs(e + m + d, loss_name, e, m, d, max_nnz,
+                                                      cuda_device, full)
+        if storage == "bf16":
+            slab = slab.astype(torch.bfloat16)
+        loss = getattr(tlosses, loss_name)
+        before = (tsparse.sparse_gevm_kernel.launches, tsparse.sparse_hvp_kernel.launches)
+        got = tsparse.fused_value_grad_parts(loss, slab, y, wt, off, w)
+        again = tsparse.fused_value_grad_parts(loss, slab, y, wt, off, w)
+        hvp = tsparse.fused_hvp_parts(loss, slab, y, wt, off, w, v, vshift)
+        hvp_again = tsparse.fused_hvp_parts(loss, slab, y, wt, off, w, v, vshift)
+        want = tsparse.fused_value_grad_parts_plain(loss, slab, y, wt, off, w)
+        want_hvp = tsparse.fused_hvp_parts_plain(loss, slab, y, wt, off, w, v, vshift)
+        torch.cuda.synchronize()
+        assert (tsparse.sparse_gevm_kernel.launches, tsparse.sparse_hvp_kernel.launches) == (
+            before[0] + 2, before[1] + 2)
+        assert all(torch.equal(a, b) for a, b in zip(got + hvp, again + hvp_again))
+        z = slab.matvec(w) + off
+        d_abs = torch.where(wt > 0, wt * loss.d1(z, y), torch.zeros_like(z)).abs().sum(-1)
+        c_abs = (torch.where(wt > 0, wt * loss.d2(z, y), torch.zeros_like(z))
+                 * (slab.matvec(v) + vshift[:, None])).abs().sum(-1)
+        assert _close(got[0], want[0], tol) and _close(got[1], want[1], tol)
+        assert torch.all((got[2] - want[2]).abs() <= tol * (want[2].abs() + d_abs))
+        assert _close(hvp[0], want_hvp[0], tol)
+        assert torch.all((hvp[1] - want_hvp[1]).abs() <= tol * (want_hvp[1].abs() + c_abs))
+
+
+@pytest.mark.gpu
+def test_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    slab, y, wt, off, w, v, vshift = _slab_inputs(0, "logistic", 8, 16, 32, 4, cuda_device)
+    lo = tlosses.logistic
+    with pytest.raises(ValueError):
+        tsparse.sparse_gevm_kernel(lo, slab.astype(torch.float64), y, wt, off, w)
+    with pytest.raises(ValueError):
+        tsparse.sparse_gevm_kernel(lo, slab, y.double(), wt, off, w)
+    with pytest.raises(ValueError):
+        tsparse.sparse_gevm_kernel(lo, slab, y, wt, off, w[:, :31])
+    with pytest.raises(ValueError):
+        tsparse.sparse_hvp_kernel(lo, slab, y, wt, off, w, v, vshift.cpu())
+    with pytest.raises(ValueError):
+        tsparse.sparse_hvp_kernel(lo, slab, y, wt, off, w, v.t().contiguous().t(), vshift[:4])
