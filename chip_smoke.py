@@ -29,6 +29,7 @@ package is not beside this script. Imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import statistics
@@ -56,7 +57,8 @@ CHECK_SHAPES = ((N_FULL, D_FULL), (N_FULL - 37, D_FULL), (65536, D_FULL),
 # how every kernel's time is read (both methods, for every kernel)
 MS_METHOD = ("ms: median of 30 per-launch CUDA-event readings (host launch time between "
              "calls included); graph_ms: median of 30 CUDA-graph replays of 20 launches, "
-             "per launch")
+             "per launch; host_ms (sparse kernels): host clock over 200 calls enqueued back "
+             "to back, per call")
 
 
 def fail(msg: str) -> None:
@@ -96,6 +98,20 @@ def time_ms(torch, fn, runs: int = 30, warmup: int = 3) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def host_ms(torch, fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn``: ``calls`` calls enqueued back to
+    back on the host's clock, before the closing synchronize (the launch
+    path's own cost, where it exceeds the device's)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e3
 
 
 def graph_ms(torch, fn, reps: int = 20, runs: int = 30) -> float:
@@ -371,13 +387,20 @@ E_RE, M_RE, D_RE = 1024, 64, 2048
 GAME_USERS, GAME_D_FIXED, GAME_D_RANDOM = 20000, 32, 8
 GAME_AUC_FLOOR = 0.6
 # kernel-vs-plain cases: (E, M, D, largest row nnz, every slot filled): the
-# full width, a ragged M, K=1, an odd D, a wide D, and the GAME driver's slab
+# full width, a ragged M, K=1, an odd D, a wide D, the GAME driver's slab
 # (one lane per user, up to 12 training rows, 8 features and the intercept,
-# every row dense)
+# every row dense); besides, D=4096 with 10 lanes per block (w and v read
+# through __ldg), lanes that straddle the packed blocks' edge (30 lanes per
+# block, the last block holds 10), and lanes too large to stage (slab and
+# row values in device memory, 32-bit slot positions)
 SPARSE_CASES = ((E_RE, M_RE, D_RE, 16, False), (E_RE, 37, D_RE, 16, False),
                 (E_RE, M_RE, D_RE, 1, False), (E_RE, M_RE, 65, 9, False),
-                (256, M_RE, 4096, 16, False),
+                (256, M_RE, 4096, 16, False), (256, 12, 4096, 9, False),
+                (1000, 7, 300, 5, False), (4, 40000, 64, 4, False),
                 (GAME_USERS, 12, GAME_D_RANDOM + 1, GAME_D_RANDOM + 1, True))
+# phase 8's shapes: the full width, and the GAME driver's slab
+SPARSE_TIME_SHAPES = (("full width", E_RE, M_RE, D_RE, 16, False),
+                      ("driver shape", GAME_USERS, 12, GAME_D_RANDOM + 1, GAME_D_RANDOM + 1, True))
 SPARSE_TOL = 1e-5  # f32 and bf16 values alike: both sides compute in f32
 
 
@@ -427,7 +450,8 @@ def hold_sparse(torch, fused_sparse, loss, slab, y, wt, off, w, v, vshift, label
     """Both sparse kernels (through their wrappers) against the plain
     version on the same inputs: loss sums, gradient and HVP by relative
     error, sum d and sum c by error over |sum| + sum |.|, all within
-    SPARSE_TOL; two runs bitwise equal. Returns max |kernel - plain| per
+    SPARSE_TOL; two runs bitwise equal; the kernels' sums bitwise
+    tree_row_sum of their own row values. Returns max |kernel - plain| per
     kernel."""
     got = fused_sparse.fused_value_grad_parts(loss, slab, y, wt, off, w)
     again = fused_sparse.fused_value_grad_parts(loss, slab, y, wt, off, w)
@@ -457,90 +481,155 @@ def hold_sparse(torch, fused_sparse, loss, slab, y, wt, off, w, v, vshift, label
     check(all(x <= SPARSE_TOL for x in errs.values()),
           f"sparse kernel disagrees with plain beyond {SPARSE_TOL}: {label}")
     check(same, f"two sparse kernel runs differ: {label}")
+    check(kernel_sums_are_trees(torch, fused_sparse, loss, slab, y, wt, off, w, v, vshift),
+          f"in-kernel row sums are not tree_row_sum of the kernel's row values: {label}")
     return {"gevm": max(float((a - b).abs().max()) for a, b in zip(got, want)),
             "hvp": max(float((a - b).abs().max()) for a, b in zip(hvp, want_hvp))}
 
 
+def kernel_sums_are_trees(torch, fused_sparse, loss, slab, y, wt, off, w, v, vshift):
+    """Both kernels once more, handed a buffer for their row values: each
+    per-lane sum they return equals tree_row_sum of those values, bit for
+    bit."""
+    e, m = slab.idx.shape[:2]
+    f32 = lambda t: t.float().contiguous()
+    y, wt, off, w, v, vshift = (f32(t) for t in (y, wt, off, w, v, vshift))
+    rows = torch.empty((2, e, m), device=w.device)
+    sum_wl, _, sum_d = fused_sparse.sparse_gevm_kernel(loss, slab, y, wt, off, w, row_values=rows)
+    c = torch.empty((1, e, m), device=w.device)
+    _, sum_c = fused_sparse.sparse_hvp_kernel(loss, slab, y, wt, off, w, v, vshift, row_values=c)
+    tree = fused_sparse.tree_row_sum
+    return (torch.equal(sum_wl, tree(rows[0])) and torch.equal(sum_d, tree(rows[1]))
+            and torch.equal(sum_c, tree(c[0])))
+
+
 def phase_sparse_vs_plain(torch, fused_sparse, losses):
     """Phase 7: both sparse kernels against the plain version, every case,
-    all four losses, f32 and (at full width) bf16 values; all outputs held;
-    two runs bitwise equal."""
+    all four losses, f32 and bf16 values; all outputs held; two runs bitwise
+    equal; the in-kernel row sums bitwise tree_row_sum."""
     say("== phase 7: sparse GEVM and HVP kernels against their plain version")
     max_abs = {"gevm": 0.0, "hvp": 0.0}
     cases = 0
-    grid = [(c, torch.float32) for c in SPARSE_CASES] + [(SPARSE_CASES[0], torch.bfloat16)]
+    grid = [(c, dt) for c in SPARSE_CASES for dt in (torch.float32, torch.bfloat16)]
     for (e, m, d, kmax, full), dtype in grid:
         for loss in (losses.logistic, losses.squared, losses.poisson, losses.smoothed_hinge):
             slab, *rest = sparse_inputs(torch, fused_sparse, loss, e, m, d, kmax,
                                         SEED + e + m + d + kmax, full=full)
             slab = slab.astype(dtype)
+            plan = fused_sparse.plan_launch(e, m, slab.max_nnz, d, slab.val.element_size(), False)
             label = (f"{str(dtype)[6:]:8s} E={e} M={m:2d} D={d:4d} K={slab.max_nnz:2d} "
+                     f"L={plan.lanes_per_block:2d} "
                      f"{'full ' if full else ''}{loss.name:14s}")
             errs = hold_sparse(torch, fused_sparse, loss, slab, *rest, label)
             max_abs = {k: max(max_abs[k], errs[k]) for k in max_abs}
             cases += 1
     say(f"  {cases} cases within {SPARSE_TOL} (f32 and bf16 values; loss sums, gradient and "
-        f"HVP by relative error, sum d and sum c by error over |sum| + sum |.|); max |kernel - "
+        f"HVP by relative error, sum d and sum c by error over |sum| + sum |.|; L lanes per "
+        f"block; in-kernel sums bitwise tree_row_sum of the kernel's row values); max |kernel - "
         f"plain| GEVM {max_abs['gevm']:.3e}, HVP {max_abs['hvp']:.3e}")
     return max_abs
 
 
+def sparse_bytes(e, m, k, d):
+    """Bytes each sparse function must move, each input read once and each
+    output written once: the slab (idx, val f32), y/wt/off, w (and v,
+    vshift), and the outputs (grad or hvp, and the per-lane sums)."""
+    slab_b, rows_b, cols_b = 8 * e * m * k, 12 * e * m, 4 * e * d
+    return {"gevm": slab_b + rows_b + cols_b + cols_b + 8 * e,
+            "hvp": slab_b + rows_b + 2 * cols_b + 4 * e + cols_b + 4 * e}
+
+
+def launches_of_one_call(torch, fn):
+    """The device kernels and the aten operators of one call, by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(torch)
+    events = prof.events()
+    kernels = [ev.name for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
+    ops = sorted({ev.name for ev in events if ev.name.startswith("aten::")})
+    return kernels, ops
+
+
 def phase_sparse_times(torch, fused_sparse, losses):
-    """Phase 8: each sparse kernel at the full-width shape (logistic, f32),
-    by both methods (per-launch CUDA events, CUDA-graph replay), beside its
-    bound and the plain version's time (context only)."""
-    say(f"== phase 8: sparse kernel times at E={E_RE} M={M_RE} D={D_RE} K=16 (logistic, f32): "
-        "median of 30 per-launch CUDA-event readings; graph: median of 30 CUDA-graph replays "
-        "of 20 launches")
+    """Phase 8: each sparse kernel's call (``fused_value_grad_parts``,
+    ``fused_hvp_parts``) at the full-width shape and at the GAME driver's
+    slab shape (logistic, f32), by both methods (per-launch CUDA events,
+    CUDA-graph replay) and the host clock, twice each, beside its bound,
+    its tables' bytes and the plain version's time (context only). One
+    call's launches are counted by torch.profiler and by the wrappers'
+    counts."""
+    say("== phase 8: sparse kernel times (logistic, f32): median of 30 per-launch CUDA-event "
+        "readings; graph: median of 30 CUDA-graph replays of 20 launches, per launch; host: "
+        "host clock over 200 calls enqueued back to back, per call")
     loss = losses.logistic
-    slab, y, wt, off, w, v, vshift = sparse_inputs(torch, fused_sparse, loss, E_RE, M_RE, D_RE, 16, SEED)
-    e, m, k = slab.idx.shape
-    slab.column_order()  # built once per slab, outside the timed calls
-    nnz = int((slab.val != 0).sum())
-    gevm = lambda: fused_sparse.sparse_gevm_kernel(loss, slab, y, wt, off, w)
-    hvp = lambda: fused_sparse.sparse_hvp_kernel(loss, slab, y, wt, off, w, v, vshift)
-    plain = {
-        "gevm": lambda: fused_sparse.fused_value_grad_parts_plain(loss, slab, y, wt, off, w),
-        "hvp": lambda: fused_sparse.fused_hvp_parts_plain(loss, slab, y, wt, off, w, v, vshift),
-    }
-    # bytes the function must move, each input read once and each output
-    # written once: the slab (idx, val), y/wt/off, w (and v, vshift), the
-    # row outputs and grad (hvp)
-    slab_b, rows_b, cols_b = 8 * e * m * k, 4 * e * m, 4 * e * D_RE
-    nbytes = {"gevm": slab_b + 3 * rows_b + cols_b + 2 * rows_b + cols_b,
-              "hvp": slab_b + 3 * rows_b + 2 * cols_b + 4 * e + rows_b + cols_b}
-    # the design also reads its column tables (col_start whole, perm for the
-    # nnz real slots): an overhead of this design, not of the function, so
-    # printed beside the bound and not in it
-    tables_b = 4 * e * (D_RE + 1) + 4 * nnz
-    # flops: 2 per slot per contraction (the margin loops over all K slots),
-    # 2 per real slot for the transpose
-    flops = {"gevm": 2 * e * m * k + 2 * nnz, "hvp": 4 * e * m * k + 2 * nnz}
     out = {}
-    for name, fn in (("gevm", gevm), ("hvp", hvp)):
-        ms0 = time_ms(torch, fn)
-        graph0 = graph_ms(torch, fn)
-        plain_ms = time_ms(torch, plain[name])
-        ms1 = time_ms(torch, fn)
-        graph1 = graph_ms(torch, fn)
-        bytes_ms, ops_ms = nbytes[name] / MEM_RATE * 1e3, flops[name] / FP32_RATE * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        design_ms = (nbytes[name] + tables_b) / MEM_RATE * 1e3
-        ms, graph = statistics.median([ms0, ms1]), statistics.median([graph0, graph1])
-        out[name] = {"ms": ms, "ms_runs": [ms0, ms1], "graph_ms": graph,
-                     "graph_ms_runs": [graph0, graph1],
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                     "bytes": nbytes[name], "flops": flops[name], "share_of_bound": bound_ms / ms,
-                     "share_of_bound_graph": bound_ms / graph, "table_bytes": tables_b,
-                     "design_bytes_ms": design_ms,
-                     "shape": f"E={e} M={m} K={k} D={D_RE} nnz={nnz} f32"}
-        say(f"  {name}: kernel {ms0:.5f} / {ms1:.5f} ms (graph {graph0:.5f} / {graph1:.5f} ms)   "
-            f"plain {plain_ms:.4f} ms (context only)   "
-            f"bound {bound_ms:.5f} ms = {nbytes[name]} B / {MEM_RATE / 1e12:.2f} TB/s ({CARD}; "
-            f"ops bound {ops_ms:.5f} ms)   share of bound {bound_ms / ms:.3f} (graph "
-            f"{bound_ms / graph:.3f})   design overhead: column tables {tables_b} B, with them "
-            f"{design_ms:.5f} ms")
+    for label, e_, m_, d, kmax, full in SPARSE_TIME_SHAPES:
+        slab, y, wt, off, w, v, vshift = sparse_inputs(torch, fused_sparse, loss, e_, m_, d, kmax,
+                                                       SEED, full=full)
+        e, m, k = slab.idx.shape
+        tables = slab.kernel_tables()  # built once per slab, outside the timed calls
+        nnz = int((slab.val != 0).sum())
+        calls = {
+            "gevm": lambda: fused_sparse.fused_value_grad_parts(loss, slab, y, wt, off, w),
+            "hvp": lambda: fused_sparse.fused_hvp_parts(loss, slab, y, wt, off, w, v, vshift),
+        }
+        plain = {
+            "gevm": lambda: fused_sparse.fused_value_grad_parts_plain(loss, slab, y, wt, off, w),
+            "hvp": lambda: fused_sparse.fused_hvp_parts_plain(loss, slab, y, wt, off, w, v, vshift),
+        }
+        nbytes = sparse_bytes(e, m, k, d)
+        # flops: 2 per slot per contraction (the margin loops over all K
+        # slots), 2 per real slot for the transpose
+        flops = {"gevm": 2 * e * m * k + 2 * nnz, "hvp": 4 * e * m * k + 2 * nnz}
+        shape = f"E={e} M={m} K={k} D={d} nnz={nnz} f32"
+        say(f"  {label}: {shape}; column tables {tables.nbytes} B")
+        res = {}
+        for name in ("gevm", "hvp"):
+            plan = slab._kernel_launch(name).plan
+            say(f"    {name}: {plan.blocks} blocks of {plan.lanes_per_block} lanes, "
+                f"{plan.row_threads} threads a row, {plan.smem_bytes} B of shared memory each")
+            counter = fused_sparse.sparse_gevm_kernel if name == "gevm" else fused_sparse.sparse_hvp_kernel
+            before = counter.launches
+            kernels, ops = launches_of_one_call(torch, calls[name])
+            check(counter.launches == before + 1, f"{name}: one call did not count one launch")
+            check(not any(op in ops for op in ("aten::add", "aten::constant_pad_nd", "aten::pad")),
+                  f"{name}: one call ran row-sum operators {ops}")
+            check(kernels, f"{name}: torch.profiler recorded no device kernel for one call "
+                           "(CUPTI traced nothing), so the launch count cannot be shown")
+            check(len(kernels) == 1, f"{name}: one call launched {len(kernels)} device kernels")
+            say(f"    {name}: one call = {len(kernels)} device kernel(s) by torch.profiler "
+                f"{sorted(set(kernels))}, launch count +1, aten ops {ops}")
+            ev, gr, ho = [], [], []
+            for _ in range(2):
+                ev.append(time_ms(torch, calls[name]))
+                gr.append(graph_ms(torch, calls[name]))
+                ho.append(host_ms(torch, calls[name]))
+            plain_ms = time_ms(torch, plain[name])
+            bytes_ms, ops_ms = nbytes[name] / MEM_RATE * 1e3, flops[name] / FP32_RATE * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            ms, graph = statistics.median(ev), statistics.median(gr)
+            r = {"ms": ms, "ms_runs": ev, "graph_ms": graph, "graph_ms_runs": gr,
+                 "host_ms": statistics.median(ho),
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "bytes": nbytes[name], "flops": flops[name], "share_of_bound": bound_ms / ms,
+                 "share_of_bound_graph": bound_ms / graph, "table_bytes": tables.nbytes,
+                 "design_bytes_ms": (nbytes[name] + tables.nbytes) / MEM_RATE * 1e3,
+                 "device_kernels_per_call": len(kernels), "shape": shape,
+                 "plan": dataclasses.asdict(plan)}
+            say(f"    {name}: call {' / '.join(f'{x:.5f}' for x in ev)} ms (graph "
+                f"{' / '.join(f'{x:.5f}' for x in gr)} ms; host "
+                f"{' / '.join(f'{x:.5f}' for x in ho)} ms)   plain {plain_ms:.4f} ms "
+                f"(context only)   bound {bound_ms:.5f} ms = {nbytes[name]} B / "
+                f"{MEM_RATE / 1e12:.2f} TB/s ({CARD}; ops bound {ops_ms:.5f} ms)   share of "
+                f"bound {bound_ms / ms:.3f} (graph {bound_ms / graph:.3f})   design overhead: "
+                f"column tables {tables.nbytes} B, with them {r['design_bytes_ms']:.5f} ms")
+            res[name] = r
+        out[label] = res
     return out
 
 
@@ -591,7 +680,7 @@ def phase_re_solve(torch, fused_sparse, times, dev="cuda"):
         for spec in ("pallas", "scatter"):
             coord = RandomEffectCoordinate(ds, TaskType.LOGISTIC_REGRESSION, OptimizerType(opt),
                                            cfg, RegularizationContext.l2(0.5), sparse_kernel=spec)
-            coord.slab.column_order()  # built once per slab, outside the timed solve
+            coord.slab.kernel_tables()  # built once per slab, outside the timed solve
             sync(torch)
             for c in counters:
                 c.launches = 0
@@ -738,7 +827,9 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
             + " ".join(f"{v:.6f}" for v in result.objective_history)
             + f"; GEVM launches {launches['gevm']}, HVP {launches['hvp']}; entities "
             f"{driver.re_datasets['per-user'].num_entities}, slab "
-            f"{None if slab is None else tuple(slab.idx.shape)}; wall {wall:.2f} s; stages "
+            f"{None if slab is None else tuple(slab.idx.shape)}"
+            + ("" if slab is None else f" (column tables {slab.kernel_tables().nbytes} B)")
+            + f"; wall {wall:.2f} s; stages "
             + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
         runs[spec] = (result, launches, stages, wall, metrics["AUC"])
         if spec == "pallas":
@@ -803,8 +894,8 @@ def main() -> None:
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(native_build.build, sources))
     say(f"  {[os.path.relpath(p_, here) for p_ in paths]} built in {time.perf_counter() - t0:.2f} s")
-    for src in sources:
-        log = native_build.build_logs.get(os.path.splitext(src)[0], "").splitlines()
+    for src, path in zip(sources, paths):
+        log = native_build.build_logs.get(path, "").splitlines()
         regs = [line.split("Used ")[1].split(" registers")[0] for line in log if "registers" in line]
         spills = sum(1 for line in log if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"))
         say(f"  ptxas {src}: registers per kernel {regs}; kernels with spills or stack: {spills}")
@@ -816,7 +907,7 @@ def main() -> None:
         driver_launches = phase_driver(torch, fused_glm, workdir)
     sparse_err = phase_sparse_vs_plain(torch, fused_sparse, losses)
     sparse_times = phase_sparse_times(torch, fused_sparse, losses)
-    re_runs = phase_re_solve(torch, fused_sparse, sparse_times)
+    re_runs = phase_re_solve(torch, fused_sparse, sparse_times["full width"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as workdir:
         game_runs = phase_game_driver(torch, fused_sparse, workdir)
 
@@ -840,12 +931,14 @@ def main() -> None:
         "shape": f"N={N_FULL} D={D_FULL} bf16",
         "f32": times["float32"],
     }]
-    # GEVM's main path is the GAME driver (LBFGS, the quickstart); HVP's is
-    # the random-effect TRON solve, the driver's LBFGS never calls it
-    for key, kname, line, main_launches in (
-            ("gevm", "fused_sparse_gevm", 485, game_runs["pallas"]["launches"]["gevm"]),
-            ("hvp", "fused_sparse_hvp", 527, re_runs["TRON"]["launches"]["hvp"])):
-        t = sparse_times[key]
+    # GEVM's main path is the GAME driver (LBFGS, the quickstart), at the
+    # driver's slab shape; HVP's is the random-effect TRON solve at full
+    # width, the driver's LBFGS never calls it
+    for key, kname, line, main_launches, main_shape in (
+            ("gevm", "fused_sparse_gevm", 485, game_runs["pallas"]["launches"]["gevm"],
+             "driver shape"),
+            ("hvp", "fused_sparse_hvp", 527, re_runs["TRON"]["launches"]["hvp"], "full width")):
+        t = sparse_times[main_shape][key]
         kernels.append({
             "name": kname,
             "route": "cuda",
@@ -858,13 +951,16 @@ def main() -> None:
             "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key]),
             "ms": t["ms"],
             "graph_ms": t["graph_ms"],
+            "host_ms": t["host_ms"],
             "ms_method": MS_METHOD,
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
             "shape": t["shape"],
+            "table_bytes": t["table_bytes"],
             "design_bytes_ms": t["design_bytes_ms"],
+            "shapes": {label: sparse_times[label][key] for label in sparse_times},
         })
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))

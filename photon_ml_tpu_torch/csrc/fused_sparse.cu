@@ -6,19 +6,22 @@
 // slots at column 0 and value 0. For one pointwise loss (ids as in
 // losses.cuh) and lane e:
 //
-//   GEVM   z_m    = sum_k w[e, idx_mk] * val_mk + off_m           (k order)
-//          wl_m   = [wt_m > 0] * wt_m * loss(z_m, y_m)     -> row_wl (E, M)
-//          d_m    = [wt_m > 0] * wt_m * loss'(z_m, y_m)    -> row_d  (E, M)
-//          grad_j = sum_{(m,k): idx_mk = j} val_mk * d_m   -> grad   (E, D)
+//   GEVM   z_m    = sum_k w[e, idx_mk] * val_mk + off_m
+//          wl_m   = [wt_m > 0] * wt_m * loss(z_m, y_m)
+//          d_m    = [wt_m > 0] * wt_m * loss'(z_m, y_m)
+//          grad_j = sum_{(m,k): idx_mk = j} val_mk * d_m   -> grad (E, D)
+//          tree_row_sum(wl), tree_row_sum(d)               -> (E,), (E,)
 //   HVP    z_m as above, zv_m = sum_k v[e, idx_mk] * val_mk + vshift_e
-//          c_m    = [wt_m > 0] * wt_m * loss''(z_m, y_m) * zv_m -> row_c (E, M)
-//          hvp_j  = sum_{(m,k): idx_mk = j} val_mk * c_m   -> hvp    (E, D)
+//          c_m    = [wt_m > 0] * wt_m * loss''(z_m, y_m) * zv_m
+//          hvp_j  = sum_{(m,k): idx_mk = j} val_mk * c_m   -> hvp (E, D)
+//          tree_row_sum(c)                                 -> (E,)
 //
 // Every product is f32 (a bf16 value is promoted, w and v are never
-// rounded to its type) and the row outputs stay unreduced: the wrapper sums
-// them with the port's fixed-association tree_row_sum, as the JAX wrappers do.
-// The hard [wt > 0] mask gives an exact 0 even when a padding row's loss
-// overflows to inf/nan.
+// rounded to its type). The row sums, which the kernel takes itself, use
+// the adjacent-pair tree of tree_row_sum (M zero-padded to a power of two):
+// the port's fixed association, never a stride-halving shuffle. The transpose sums each column's slots in flat
+// (m, k) order. The hard [wt > 0] mask gives an exact 0 even when a padding
+// row's loss overflows to inf/nan.
 //
 // Replaces the two Pallas kernels of photon_ml_tpu/ops/fused_sparse.py:
 //   :365 _make_gevm_kernel (launched by _gevm_fn, :485)
@@ -29,27 +32,47 @@
 //
 // What bounds it on an H100: device-memory bytes. Per slot it reads an index
 // and a value, gathers one or two f32 coefficients and does two or four
-// flops; per lane it writes D gradient columns. There is no reuse for the
-// tensor cores or the caches to exploit beyond the lane's coefficient row.
-// The bound counts only those bytes; the column tables below are this
-// design's own traffic on top (col_start is 4 (D + 1) bytes per lane however
-// few columns are populated, perm 4 bytes per real slot).
+// flops; per lane it writes D gradient columns and one or two sums. With
+// every lane in flight at once, what a block waits on in sequence (loads
+// that depend on loads, phases between barriers) sets the time as much as
+// the bytes do, so the design keeps that chain short.
 //
-// Design (a simple first version):
-//   * one CTA of 256 threads per lane; the grid covers all E lanes;
-//   * row phase: thread t takes rows t, t + 256, ...; it gathers w (and v)
-//     for the row's K slots straight from device memory (the lane's row of
-//     w is small and stays in L1/L2), computes z, the loss terms and d (or
-//     c) and writes them to the row outputs;
-//   * column phase, after __syncthreads (which makes the row outputs written
-//     by the CTA visible to all its threads): the column-owner transpose.
-//     perm (E, M*K) lists each lane's non-padding slots stably sorted by
-//     column, so each column's slots keep their flat (m, k) order, and
-//     col_start (E, D+1) delimits them (both built once per slab by the
-//     wrapper in plain PyTorch). Thread t owns columns t, t + 256, ... and
-//     sums val * d over its slots in that order, exactly the scatter order
-//     of the TPU kernel, with no atomics: two runs give bitwise-equal
-//     results.
+// Design:
+//   * lanes packed into blocks: a block of 256 threads takes
+//     `lanes_per_block` whole lanes (enough for about 1024 slots, more where
+//     the grid would otherwise need a second wave), so a lane never spans
+//     two blocks and nothing crosses blocks;
+//   * staging: the block's lanes are contiguous, so their idx/val, their
+//     y/wt/off, their rows of w (and v) and their entries of the column
+//     tables are each one contiguous range of device memory. The block
+//     copies every range into shared memory with 16-byte cp.async, whole
+//     16-byte granules, every thread issuing a share, all in flight together:
+//     one round trip for the lanes' table offsets, then one wait (a 1-D bulk
+//     TMA copy would need 16-byte-aligned ranges and a barrier per range;
+//     these ranges are 1-10 KB and start anywhere). Whether the lanes' data
+//     is staged (kStaged), and their rows of w and v (kStageCoef), is the
+//     wrapper's plan, a template argument here, so no access branches on it;
+//     what is not staged is read from device memory through __ldg (w and v
+//     when D is too wide; everything for a lane too large to stage, its row
+//     values then in a device scratch);
+//   * margins: a group of `row_threads` threads (a power of two, at most
+//     32, no more than K needs and no more than the block's rows leave
+//     room for) shares a row; each gathers its slots' coefficients from
+//     shared memory and sums its share of them in k order, and the group adds its
+//     partials by shuffles in the adjacent-pair order;
+//   * loss terms: one thread per row, into shared memory (zero-padded to a
+//     power of two rows per lane);
+//   * column phase: per-slab tables sized by the non-zeros (built once by
+//     the wrapper, SparseSlab.kernel_tables) list each lane's populated
+//     columns and, per column, its slots in flat (m, k) order. A thread owns
+//     a column and sums val * d over its slots from shared memory in that
+//     order: no atomics, bitwise repeatable, the TPU's scatter order. The
+//     lanes' gradient rows are zero-filled first with 16-byte stores;
+//   * row sums: a warp per lane and sum; each thread first adds its
+//     contiguous share of the rows in adjacent pairs, then shuffles finish
+//     the tree (lane i adds lane i + s for i a multiple of 2s): level for
+//     level the association of tree_row_sum, with no barrier between levels.
+//     Nothing else runs per call: one launch.
 // Products use __fmul_rn and sums __fadd_rn, so nvcc does not contract them
 // into fused multiply-adds: each step rounds as the plain version does.
 
@@ -59,9 +82,42 @@
 
 #include "losses.cuh"
 
+namespace photon {
+
+// A slab's launch description, built once per slab and kernel by the
+// wrapper (ops/fused_sparse.py, _SlabPlan mirrors this layout).
+struct SlabPlan {
+  const int* idx;         // (E, M, K) int32
+  const void* val;        // (E, M, K) f32 or bf16
+  const int* lane_cols;   // (E + 1,) each lane's first entry in cols/col_end
+  const int* lane_slots;  // (E + 1,) each lane's first slot in `slots`
+  const int* cols;        // (C,) populated column of each entry
+  const int* col_end;     // (C,) end of each entry's slots in `slots`
+  const void* slots;      // (nnz,) lane-local slot m * K + k, uint16 or int32
+  long long lanes;
+  int m, k, d;
+  int val_bf16;           // 1: val is bf16
+  int slot16;             // 1: slots are uint16
+  int lanes_per_block;
+  int row_threads;        // threads per row: a power of two, at most 32
+  int rows_pow2;          // M rounded up to a power of two
+  int table_cols;         // staged table entries a block holds at most
+  int table_slots;        // staged slot positions a block holds at most
+  int staged;             // 1: slab, y/wt/off, row values, tables in shared memory
+  int stage_coef;         // 1: w (and v) staged in shared memory
+  int smem_bytes;
+};
+
+}  // namespace photon
+
 namespace {
 
+using photon::SlabPlan;
+
 constexpr int kThreads = 256;
+// eight resident blocks an SM (32 registers a thread): the wrapper packs
+// lanes so that the grid is one such wave where it can (BLOCKS_PER_SM)
+constexpr int kMinBlocks = 8;
 
 template <typename V>
 struct Val;
@@ -78,172 +134,372 @@ struct Val<__nv_bfloat16> {
   }
 };
 
-// sum_k x[idx_k] * val_k in k order
-template <typename V>
-__device__ __forceinline__ float row_dot(const int* __restrict__ idx,
-                                         const V* __restrict__ val,
-                                         const float* __restrict__ x, int k) {
-  float acc = 0.f;
-  for (int q = 0; q < k; ++q)
-    acc = __fadd_rn(acc, __fmul_rn(__ldg(x + idx[q]), Val<V>::f(val[q])));
-  return acc;
+// a load from shared memory, or from device memory through the read-only path
+template <bool kShared, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (kShared) return *p;
+  else return __ldg(p);
 }
 
-// out[j] = sum over column j's slots, in flat order, of val * row_coef[row];
-// row_coef was written earlier in this launch, so it is read with plain
-// (coherent) loads
-template <typename V>
-__device__ __forceinline__ void column_pass(const V* __restrict__ val,
-                                            const int* __restrict__ perm,
-                                            const int* __restrict__ col_start,
-                                            const float* row_coef, int k, int d,
-                                            float* __restrict__ out) {
-  for (int j = threadIdx.x; j < d; j += kThreads) {
-    float acc = 0.f;
-    const int end = col_start[j + 1];
-    for (int p = col_start[j]; p < end; ++p) {
-      const int q = perm[p];
-      acc = __fadd_rn(acc, __fmul_rn(Val<V>::f(val[q]), row_coef[q / k]));
-    }
-    out[j] = acc;
+__host__ __device__ inline long long align16(long long n) {
+  return (n + 15) & ~15LL;
+}
+
+// a staged range of n bytes takes 16 more, for the granule rounding of stage()
+__host__ __device__ inline long long staged_bytes(long long n) {
+  return align16(n) + 16;
+}
+
+// Shared-memory layout, in bytes: the lanes' table offsets; when staged,
+// two (L, rows_pow2) arrays of row values, y/wt/off, idx, val and the
+// block's table entries (table_cols columns and table_slots slots at most);
+// then w (and v) when stage_coef.
+struct Layout {
+  long long rows, rowvec, idx, val, cols, col_end, slots, coef, total;
+};
+
+__host__ __device__ inline Layout layout(const SlabPlan& p, bool hvp) {
+  const long long l = p.lanes_per_block;
+  const long long slots = l * p.m * p.k;
+  const bool s = p.staged != 0;
+  Layout o;
+  o.rows = align16(8 * (l + 1));
+  o.rowvec = o.rows + (s ? align16(8 * l * p.rows_pow2) : 0);
+  o.idx = o.rowvec + (s ? 3 * staged_bytes(4 * l * p.m) : 0);
+  o.val = o.idx + (s ? staged_bytes(4 * slots) : 0);
+  o.cols = o.val + (s ? staged_bytes((p.val_bf16 ? 2 : 4) * slots) : 0);
+  o.col_end = o.cols + (s ? staged_bytes(4LL * p.table_cols) : 0);
+  o.slots = o.col_end + (s ? staged_bytes(4LL * p.table_cols) : 0);
+  o.coef = o.slots + (s ? staged_bytes((p.slot16 ? 2LL : 4LL) * p.table_slots) : 0);
+  o.total = o.coef + (p.stage_coef ? (hvp ? 2 : 1) * staged_bytes(4 * l * p.d) : 0);
+  return o;
+}
+
+// Copies the device-memory elements [src, src + n) into shared memory at
+// dst with 16-byte cp.async over the whole granules that hold them; returns
+// where src's first element landed. Device allocations are 512-byte
+// granular, so those granules lie inside src's allocation.
+template <typename T>
+__device__ __forceinline__ const T* stage(char* dst, const T* src, long long n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t lo = a & ~uintptr_t(15);
+  const int chunks =
+      n > 0 ? (int)((((a + sizeof(T) * n + 15) & ~uintptr_t(15)) - lo) >> 4) : 0;
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + 16 * i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(lo + 16 * (uintptr_t)i));
   }
+  return reinterpret_cast<const T*>(dst + (a - lo));
 }
 
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-    sparse_gevm(const int* __restrict__ idx, const V* __restrict__ val,
-                const float* __restrict__ y, const float* __restrict__ wt,
-                const float* __restrict__ off, const float* __restrict__ w,
-                const int* __restrict__ perm, const int* __restrict__ col_start,
-                int m, int k, int d, int loss, float* __restrict__ row_wl,
-                float* row_d, float* __restrict__ grad) {
-  const long long e = blockIdx.x;
-  const long long r0 = e * m;
-  const long long s0 = r0 * k;
-  const float* lw = w + e * d;
-  for (int r = threadIdx.x; r < m; r += kThreads) {
-    const long long s = s0 + (long long)r * k;
-    const float z = __fadd_rn(row_dot(idx + s, val + s, lw, k), off[r0 + r]);
-    float l, g;
-    photon::loss_and_d1(loss, z, y[r0 + r], &l, &g);
-    const float wi = wt[r0 + r];
-    row_wl[r0 + r] = wi > 0.f ? __fmul_rn(wi, l) : 0.f;
-    row_d[r0 + r] = wi > 0.f ? __fmul_rn(wi, g) : 0.f;
+// out[0, n) = 0 with 16-byte stores between a scalar head and tail
+__device__ __forceinline__ void zero_fill(float* out, int n) {
+  const int head = min(n, (int)((16 - (reinterpret_cast<uintptr_t>(out) & 15)) & 15) / 4);
+  const int body = (n - head) / 4;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) out[i] = 0.f;
+  float4* v = reinterpret_cast<float4*>(out + head);
+  for (int i = threadIdx.x; i < body; i += blockDim.x) v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = head + 4 * body + threadIdx.x; i < n; i += blockDim.x) out[i] = 0.f;
+}
+
+// Adjacent-pair tree over `width` consecutive lanes (a power of two, at most
+// 32): lane i adds lane i + s for s = 1, 2, 4, ...; the first lane of each
+// group ends with the group's sum, in tree_row_sum's association.
+__device__ __forceinline__ float pair_tree(float x, unsigned mask, int width) {
+  for (int s = 1; s < width; s <<= 1)
+    x = __fadd_rn(x, __shfl_down_sync(mask, x, s, width));
+  return x;
+}
+
+// One launch for all lanes. GEVM (kHvp false): out = grad, sum_a = sum wl,
+// sum_b = sum d. HVP: out = hvp, sum_a = sum c. rows_out, when not null,
+// receives the row values ((wl, d) or (c,), E, M); scratch holds them when
+// they are not staged (2 * lanes_per_block * rows_pow2 floats per block).
+template <typename V, typename S, bool kHvp, bool kStaged, bool kStageCoef>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    sparse_pass(const SlabPlan p, int loss, const float* __restrict__ y,
+                const float* __restrict__ wt, const float* __restrict__ off,
+                const float* __restrict__ w, const float* __restrict__ v,
+                const float* __restrict__ vshift, int vshift_stride,
+                float* __restrict__ out, float* __restrict__ sum_a,
+                float* __restrict__ sum_b, float* __restrict__ rows_out,
+                float* scratch) {
+  extern __shared__ __align__(16) char smem[];
+  const int m = p.m, k = p.k, d = p.d, pw = p.rows_pow2;
+  const long long e0 = (long long)blockIdx.x * p.lanes_per_block;
+  const int nl = (int)min((long long)p.lanes_per_block, p.lanes - e0);
+  const int nrows = nl * m;
+  const Layout lay = layout(p, kHvp);
+
+  // 1. start the copies that need nothing: slab, row vectors, coefficients
+  const int* ix = p.idx + e0 * m * k;
+  const V* vx = static_cast<const V*>(p.val) + e0 * m * k;
+  const float* ry = y + e0 * m;
+  const float* rwt = wt + e0 * m;
+  const float* roff = off + e0 * m;
+  const float* cw = w + e0 * d;
+  const float* cv = kHvp ? v + e0 * d : nullptr;
+  if constexpr (kStaged) {
+    const long long vec_b = staged_bytes(4LL * p.lanes_per_block * m);
+    ix = stage(smem + lay.idx, ix, (long long)nrows * k);
+    vx = stage(smem + lay.val, vx, (long long)nrows * k);
+    ry = stage(smem + lay.rowvec, ry, nrows);
+    rwt = stage(smem + lay.rowvec + vec_b, rwt, nrows);
+    roff = stage(smem + lay.rowvec + 2 * vec_b, roff, nrows);
+  }
+  if constexpr (kStageCoef) {
+    cw = stage(smem + lay.coef, cw, (long long)nl * d);
+    if (kHvp)
+      cv = stage(smem + lay.coef + staged_bytes(4LL * p.lanes_per_block * d), cv,
+                 (long long)nl * d);
+  }
+
+  // 2. the lanes' offsets into the column tables; meanwhile zero the
+  // lanes' gradient rows and the row values' padding
+  int* lane_cols = reinterpret_cast<int*>(smem);
+  int* slot_range = lane_cols + nl + 1;
+  for (int i = threadIdx.x; i <= nl; i += blockDim.x) lane_cols[i] = __ldg(p.lane_cols + e0 + i);
+  if (threadIdx.x < 2) slot_range[threadIdx.x] = __ldg(p.lane_slots + e0 + threadIdx.x * nl);
+  float* rv = kStaged ? reinterpret_cast<float*>(smem + lay.rows)
+                      : scratch + (long long)blockIdx.x * 2 * p.lanes_per_block * pw;
+  float* rv1 = rv + nl * pw;
+  const int pad = pw - m;
+  for (int i = threadIdx.x; i < 2 * nl * pad; i += blockDim.x)
+    rv[(i / pad) * pw + m + i % pad] = 0.f;
+  zero_fill(out + e0 * d, nl * d);
+  __syncthreads();
+
+  // 3. the block's column-table entries, then wait for every copy
+  const int c_lo = lane_cols[0], c_hi = lane_cols[nl];
+  const int s_lo = slot_range[0];
+  const int* tcol = p.cols + c_lo;
+  const int* tend = p.col_end + c_lo;
+  const S* tslot = static_cast<const S*>(p.slots) + s_lo;
+  if constexpr (kStaged) {
+    tcol = stage(smem + lay.cols, tcol, c_hi - c_lo);
+    tend = stage(smem + lay.col_end, tend, c_hi - c_lo);
+    tslot = stage(smem + lay.slots, tslot, slot_range[1] - s_lo);
+  }
+  if constexpr (kStaged || kStageCoef) {
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __syncthreads();
-  column_pass(val + s0, perm + s0, col_start + e * (d + 1), row_d + r0, k, d,
-              grad + e * d);
-}
 
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-    sparse_hvp(const int* __restrict__ idx, const V* __restrict__ val,
-               const float* __restrict__ y, const float* __restrict__ wt,
-               const float* __restrict__ off, const float* __restrict__ w,
-               const float* __restrict__ v, const float* __restrict__ vshift,
-               const int* __restrict__ perm, const int* __restrict__ col_start,
-               int m, int k, int d, int loss, float* row_c,
-               float* __restrict__ hvp) {
-  const long long e = blockIdx.x;
-  const long long r0 = e * m;
-  const long long s0 = r0 * k;
-  const float* lw = w + e * d;
-  const float* lv = v + e * d;
-  const float shift = vshift[e];
-  for (int r = threadIdx.x; r < m; r += kThreads) {
-    const long long s = s0 + (long long)r * k;
-    // one pass over the row's slots feeds both contractions
+  // 4. margins: a group of tpr threads per row; z (GEVM) into rv1, z and zv
+  // (HVP) into rv1 and rv
+  const int tpr = p.row_threads;
+  const int grp = threadIdx.x / tpr, t = threadIdx.x % tpr;
+  const unsigned mask =
+      tpr == 32 ? 0xffffffffu : ((1u << tpr) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(tpr - 1));
+  for (int r = grp; r < nrows; r += kThreads / tpr) {
+    const int li = r / m;
+    const int q0 = r * k;
+    const float* lw = cw + li * d;
     float z = 0.f, zv = 0.f;
-    for (int q = 0; q < k; ++q) {
-      const int j = idx[s + q];
-      const float x = Val<V>::f(val[s + q]);
-      z = __fadd_rn(z, __fmul_rn(__ldg(lw + j), x));
-      zv = __fadd_rn(zv, __fmul_rn(__ldg(lv + j), x));
+    for (int q = t; q < k; q += tpr) {
+      const int j = ld<kStaged>(ix + q0 + q);
+      const float x = Val<V>::f(ld<kStaged>(vx + q0 + q));
+      z = __fadd_rn(z, __fmul_rn(ld<kStageCoef>(lw + j), x));
+      if (kHvp) zv = __fadd_rn(zv, __fmul_rn(ld<kStageCoef>(cv + li * d + j), x));
     }
-    z = __fadd_rn(z, off[r0 + r]);
-    zv = __fadd_rn(zv, shift);
-    const float wi = wt[r0 + r];
-    const float d2 =
-        wi > 0.f ? __fmul_rn(wi, photon::loss_d2(loss, z, y[r0 + r])) : 0.f;
-    row_c[r0 + r] = __fmul_rn(d2, zv);
+    z = pair_tree(z, mask, tpr);
+    if (kHvp) zv = pair_tree(zv, mask, tpr);
+    if (t == 0) {
+      const int at = li * pw + r - li * m;
+      rv1[at] = z;
+      if (kHvp) rv[at] = zv;
+    }
   }
   __syncthreads();
-  column_pass(val + s0, perm + s0, col_start + e * (d + 1), row_c + r0, k, d,
-              hvp + e * d);
+
+  // 5. loss terms, one thread per row: (wl, d) into (rv, rv1), or c into rv
+  for (int r = threadIdx.x; r < nrows; r += kThreads) {
+    const int li = r / m;
+    const int at = li * pw + r - li * m;
+    const float z = __fadd_rn(rv1[at], ld<kStaged>(roff + r));
+    const float wi = ld<kStaged>(rwt + r);
+    if (kHvp) {
+      const float zv = __fadd_rn(rv[at], __ldg(vshift + (e0 + li) * vshift_stride));
+      const float d2 =
+          wi > 0.f ? __fmul_rn(wi, photon::loss_d2(loss, z, ld<kStaged>(ry + r))) : 0.f;
+      rv[at] = __fmul_rn(d2, zv);
+    } else {
+      float l, g;
+      photon::loss_and_d1(loss, z, ld<kStaged>(ry + r), &l, &g);
+      rv[at] = wi > 0.f ? __fmul_rn(wi, l) : 0.f;
+      rv1[at] = wi > 0.f ? __fmul_rn(wi, g) : 0.f;
+    }
+  }
+  __syncthreads();
+  constexpr int nrv = kHvp ? 1 : 2;
+  if (rows_out != nullptr) {
+    for (int i = threadIdx.x; i < nrv * nrows; i += kThreads) {
+      const int a = i / nrows, r = i - a * nrows, li = r / m;
+      rows_out[(a * p.lanes + e0) * m + r] = rv[(a * nl + li) * pw + r - li * m];
+    }
+  }
+
+  // 6. column phase: a thread owns a populated column of one of the lanes
+  const float* coef_rows = kHvp ? rv : rv1;
+  // q / k as a multiply-shift: exact for 16-bit slot positions
+  const unsigned long long inv_k = ((1ULL << 32) + k - 1) / k;
+  for (int c = c_lo + threadIdx.x; c < c_hi; c += kThreads) {
+    int lo = 0, hi = nl;  // lane_cols[lo] <= c < lane_cols[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (lane_cols[mid] <= c) lo = mid; else hi = mid;
+    }
+    const int i = c - c_lo;
+    const int beg = (i == 0 ? s_lo : ld<kStaged>(tend + i - 1)) - s_lo;
+    const int end = ld<kStaged>(tend + i) - s_lo;
+    const float* rc = coef_rows + lo * pw;
+    const V* lval = vx + lo * m * k;
+    float acc = 0.f;
+    for (int s = beg; s < end; ++s) {
+      const int q = (int)ld<kStaged>(tslot + s);
+      const int row = sizeof(S) == 2 ? (int)((q * inv_k) >> 32) : q / k;
+      acc = __fadd_rn(acc, __fmul_rn(Val<V>::f(ld<kStaged>(lval + q)), rc[row]));
+    }
+    out[(e0 + lo) * d + ld<kStaged>(tcol + i)] = acc;
+  }
+
+  __syncthreads();
+
+  // 7. row sums: a warp per (sum, lane)
+  const int lane = threadIdx.x & 31, width = pw < 32 ? pw : 32, share = pw / width;
+  for (int u = threadIdx.x >> 5; u < nrv * nl; u += kThreads / 32) {
+    float* x = rv + u * pw + lane * share;
+    float acc = 0.f;
+    if (lane < width) {
+      for (int s = 1; s < share; s <<= 1)
+        for (int i = 0; i < share; i += 2 * s) x[i] = __fadd_rn(x[i], x[i + s]);
+      acc = x[0];
+    }
+    acc = pair_tree(acc, 0xffffffffu, width);
+    if (lane == 0) (u < nl ? sum_a : sum_b)[e0 + u % nl] = acc;
+  }
 }
 
-bool bad_shape(long long lanes, int m, int k, int d) {
-  return lanes < 1 || lanes > 2147483647LL || m < 1 || k < 1 || d < 1;
+// Once per kernel and process: the most dynamic shared memory a block may
+// have, and the SM's carveout at its largest shared share, so that the
+// resident blocks the plan counts on fit (the settings hold for the card
+// that is current then; the port drives one card).
+template <typename V, typename S, bool kHvp, bool kStaged, bool kStageCoef>
+int configure() {
+  auto kernel = sparse_pass<V, S, kHvp, kStaged, kStageCoef>;
+  static int done = 0;
+  if (done) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  done = err == cudaSuccess;
+  return (int)err;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Both return a cudaError_t code; 0 means the kernel was launched on
-// `stream`. Pointers are device pointers of contiguous tensors: idx, perm
-// and col_start int32; val f32 (val_is_bf16 = 0) or bf16; everything else
-// f32. Shapes: idx, val, perm (lanes, m, k); y, wt, off and the row
-// outputs (lanes, m); w, v and grad/hvp (lanes, d); col_start (lanes, d+1);
-// vshift (lanes,).
-int photon_sparse_gevm(const void* idx, const void* val, int val_is_bf16,
-                       const void* y, const void* wt, const void* off,
-                       const void* w, const void* perm, const void* col_start,
-                       long long lanes, int m, int k, int d, int loss,
-                       void* row_wl, void* row_d, void* grad, void* stream) {
-  if (bad_shape(lanes, m, k, d)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)lanes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ix = static_cast<const int*>(idx);
-  const float* fy = static_cast<const float*>(y);
-  const float* fwt = static_cast<const float*>(wt);
-  const float* foff = static_cast<const float*>(off);
-  const float* fw = static_cast<const float*>(w);
-  const int* ip = static_cast<const int*>(perm);
-  const int* ic = static_cast<const int*>(col_start);
-  float* owl = static_cast<float*>(row_wl);
-  float* od = static_cast<float*>(row_d);
-  float* og = static_cast<float*>(grad);
-  if (val_is_bf16)
-    sparse_gevm<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        ix, static_cast<const __nv_bfloat16*>(val), fy, fwt, foff, fw, ip, ic,
-        m, k, d, loss, owl, od, og);
-  else
-    sparse_gevm<float><<<grid, kThreads, 0, s>>>(
-        ix, static_cast<const float*>(val), fy, fwt, foff, fw, ip, ic, m, k, d,
-        loss, owl, od, og);
+template <typename V, typename S, bool kHvp, bool kStaged, bool kStageCoef>
+int launch(const SlabPlan& p, int loss, const float* y, const float* wt,
+           const float* off, const float* w, const float* v,
+           const float* vshift, int vs, float* out, float* sum_a, float* sum_b,
+           float* rows_out, float* scratch, cudaStream_t stream) {
+  auto kernel = sparse_pass<V, S, kHvp, kStaged, kStageCoef>;
+  const int err = configure<V, S, kHvp, kStaged, kStageCoef>();
+  if (err != 0) return err;
+  const long long blocks = (p.lanes + p.lanes_per_block - 1) / p.lanes_per_block;
+  kernel<<<(unsigned)blocks, kThreads, p.smem_bytes, stream>>>(
+      p, loss, y, wt, off, w, v, vshift, vs, out, sum_a, sum_b, rows_out, scratch);
   return (int)cudaGetLastError();
 }
 
-int photon_sparse_hvp(const void* idx, const void* val, int val_is_bf16,
-                      const void* y, const void* wt, const void* off,
-                      const void* w, const void* v, const void* vshift,
-                      const void* perm, const void* col_start, long long lanes,
-                      int m, int k, int d, int loss, void* row_c, void* hvp,
-                      void* stream) {
-  if (bad_shape(lanes, m, k, d)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)lanes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ix = static_cast<const int*>(idx);
+template <typename V, typename S, bool kHvp>
+int launch_plan(const SlabPlan& p, int loss, const float* y, const float* wt,
+                const float* off, const float* w, const float* v,
+                const float* vshift, int vs, float* out, float* sum_a, float* sum_b,
+                float* rows_out, float* scratch, cudaStream_t stream) {
+  if (p.staged) {
+    if (p.stage_coef)
+      return launch<V, S, kHvp, true, true>(p, loss, y, wt, off, w, v, vshift, vs, out, sum_a, sum_b, rows_out, scratch, stream);
+    return launch<V, S, kHvp, true, false>(p, loss, y, wt, off, w, v, vshift, vs, out, sum_a, sum_b, rows_out, scratch, stream);
+  }
+  if (p.stage_coef)
+    return launch<V, S, kHvp, false, true>(p, loss, y, wt, off, w, v, vshift, vs, out, sum_a, sum_b, rows_out, scratch, stream);
+  return launch<V, S, kHvp, false, false>(p, loss, y, wt, off, w, v, vshift, vs, out, sum_a, sum_b, rows_out, scratch, stream);
+}
+
+bool bad_plan(const SlabPlan* p, bool hvp) {
+  if (p == nullptr || p->lanes < 1 || p->lanes > 2147483647LL || p->m < 1 ||
+      p->k < 1 || p->d < 1 || p->lanes_per_block < 1)
+    return true;
+  const int t = p->row_threads;
+  if (t < 1 || t > 32 || (t & (t - 1)) != 0) return true;
+  if (p->rows_pow2 < p->m || (p->rows_pow2 & (p->rows_pow2 - 1)) != 0) return true;
+  if (p->table_cols < 0 || p->table_slots < 0) return true;
+  if ((long long)p->lanes_per_block * p->m * p->k > 2147483647LL ||
+      (long long)p->lanes_per_block * p->d > 2147483647LL)
+    return true;
+  const long long need = layout(*p, hvp).total;
+  return need != p->smem_bytes || need > 227 * 1024;
+}
+
+template <bool kHvp>
+int dispatch(const SlabPlan* p, int loss, const void* y, const void* wt,
+             const void* off, const void* w, const void* v,
+             const void* vshift, int vs, void* out, void* sum_a, void* sum_b,
+             void* rows_out, void* scratch, void* stream) {
+  if (bad_plan(p, kHvp)) return (int)cudaErrorInvalidValue;
   const float* fy = static_cast<const float*>(y);
   const float* fwt = static_cast<const float*>(wt);
   const float* foff = static_cast<const float*>(off);
   const float* fw = static_cast<const float*>(w);
   const float* fv = static_cast<const float*>(v);
   const float* fs = static_cast<const float*>(vshift);
-  const int* ip = static_cast<const int*>(perm);
-  const int* ic = static_cast<const int*>(col_start);
-  float* oc = static_cast<float*>(row_c);
-  float* oh = static_cast<float*>(hvp);
-  if (val_is_bf16)
-    sparse_hvp<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        ix, static_cast<const __nv_bfloat16*>(val), fy, fwt, foff, fw, fv, fs,
-        ip, ic, m, k, d, loss, oc, oh);
-  else
-    sparse_hvp<float><<<grid, kThreads, 0, s>>>(
-        ix, static_cast<const float*>(val), fy, fwt, foff, fw, fv, fs, ip, ic,
-        m, k, d, loss, oc, oh);
-  return (int)cudaGetLastError();
+  float* o = static_cast<float*>(out);
+  float* sa = static_cast<float*>(sum_a);
+  float* sb = static_cast<float*>(sum_b);
+  float* ro = static_cast<float*>(rows_out);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p->val_bf16) {
+    if (p->slot16)
+      return launch_plan<__nv_bfloat16, uint16_t, kHvp>(*p, loss, fy, fwt, foff, fw, fv, fs, vs, o, sa, sb, ro, sc, s);
+    return launch_plan<__nv_bfloat16, int, kHvp>(*p, loss, fy, fwt, foff, fw, fv, fs, vs, o, sa, sb, ro, sc, s);
+  }
+  if (p->slot16)
+    return launch_plan<float, uint16_t, kHvp>(*p, loss, fy, fwt, foff, fw, fv, fs, vs, o, sa, sb, ro, sc, s);
+  return launch_plan<float, int, kHvp>(*p, loss, fy, fwt, foff, fw, fv, fs, vs, o, sa, sb, ro, sc, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+
+// Both return a cudaError_t code; 0 means the kernel was launched on
+// `stream`. `plan` is a host pointer to the slab's SlabPlan; the others are
+// device pointers of contiguous f32 tensors: y, wt, off (lanes, m); w, v,
+// grad/hvp (lanes, d); the sums (lanes,); vshift (lanes,) with stride 1,
+// or one value for every lane with stride 0. rows_out ((2 or 1),
+// lanes, m) may be null; scratch is null when the plan stages the rows.
+int photon_sparse_gevm(const photon::SlabPlan* plan, int loss, const void* y,
+                       const void* wt, const void* off, const void* w,
+                       void* grad, void* sum_wl, void* sum_d, void* rows_out,
+                       void* scratch, void* stream) {
+  return dispatch<false>(plan, loss, y, wt, off, w, nullptr, nullptr, 0, grad,
+                         sum_wl, sum_d, rows_out, scratch, stream);
+}
+
+int photon_sparse_hvp(const photon::SlabPlan* plan, int loss, const void* y,
+                      const void* wt, const void* off, const void* w,
+                      const void* v, const void* vshift, int vshift_stride,
+                      void* hvp, void* sum_c, void* rows_out, void* scratch,
+                      void* stream) {
+  if (vshift_stride != 0 && vshift_stride != 1) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(plan, loss, y, wt, off, w, v, vshift, vshift_stride, hvp,
+                        sum_c, nullptr, rows_out, scratch, stream);
 }
 
 }  // extern "C"

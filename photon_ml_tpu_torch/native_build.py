@@ -29,7 +29,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# compiler report (registers, shared memory, spills) of each build, by stem
+# compiler report (registers, shared memory, spills) of each build, by the
+# library's path
 build_logs: Dict[str, str] = {}
 
 
@@ -47,23 +48,26 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(source_name: str, flags: Sequence[str] = NVCC_FLAGS) -> str:
+def library_path(source_name: str, flags: Sequence[str] = NVCC_FLAGS,
+                 csrc_dir: str = CSRC_DIR) -> str:
     """The library's path; its hash covers the source, every shared header
-    of ``csrc/`` (``*.cuh``) and the flags."""
+    of its directory (``*.cuh``) and the flags."""
     h = hashlib.sha256(repr(tuple(flags)).encode())
-    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    headers = sorted(n for n in os.listdir(csrc_dir) if n.endswith(".cuh"))
     for name in [source_name] + headers:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+        with open(os.path.join(csrc_dir, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     digest = h.hexdigest()
     stem = os.path.splitext(source_name)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
 
 
-def build(source_name: str, flags: Sequence[str] = NVCC_FLAGS) -> str:
-    """Compile ``csrc/<source_name>`` unless its library exists; return the
-    library's path. Raises with the compiler's output if nvcc fails."""
-    out = library_path(source_name, flags)
+def build(source_name: str, flags: Sequence[str] = NVCC_FLAGS,
+          csrc_dir: str = CSRC_DIR) -> str:
+    """Compile ``<csrc_dir>/<source_name>`` (by default the package's
+    ``csrc/``) unless its library exists; return the library's path. Raises
+    with the compiler's output if nvcc fails."""
+    out = library_path(source_name, flags, csrc_dir)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -71,7 +75,7 @@ def build(source_name: str, flags: Sequence[str] = NVCC_FLAGS) -> str:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc_path(), *flags, "-o", tmp, os.path.join(CSRC_DIR, source_name)],
+            [nvcc_path(), *flags, "-o", tmp, os.path.join(csrc_dir, source_name)],
             capture_output=True,
             text=True,
         )
@@ -80,7 +84,7 @@ def build(source_name: str, flags: Sequence[str] = NVCC_FLAGS) -> str:
                 f"nvcc failed on {source_name} (exit {proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
-        build_logs[os.path.splitext(source_name)[0]] = proc.stdout + proc.stderr
+        build_logs[out] = proc.stdout + proc.stderr
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

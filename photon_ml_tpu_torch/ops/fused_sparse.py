@@ -82,10 +82,13 @@ class SparseSlab:
     val: Tensor  # (..., M, K)
     dim: int
     kernel: str = "scatter"
-    # (perm, col_start) of the column-owner transpose, built on first use
-    _columns: Optional[Tuple[Tensor, Tensor]] = dataclasses.field(
+    # the kernels' column tables, built on first use and shared by the
+    # slab's views (they depend on idx and the real slots only)
+    _tables: Optional["ColumnTables"] = dataclasses.field(
         default=None, repr=False, compare=False
     )
+    # per kernel ("gevm", "hvp"): the checked launch description
+    _launch: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_rows(self) -> int:
@@ -142,29 +145,86 @@ class SparseSlab:
         return out.reshape(lead + (self.dim,))
 
     def with_kernel(self, kernel: str) -> "SparseSlab":
-        return SparseSlab(self.idx, self.val, self.dim, kernel, self._columns)
+        return SparseSlab(self.idx, self.val, self.dim, kernel, self._tables)
 
     def astype(self, dtype: torch.dtype) -> "SparseSlab":
-        return SparseSlab(self.idx, self.val.to(dtype), self.dim, self.kernel, self._columns)
+        return SparseSlab(self.idx, self.val.to(dtype), self.dim, self.kernel, self._tables)
 
-    def column_order(self) -> Tuple[Tensor, Tensor]:
-        """Per lane, the non-padding slots sorted by column: ``perm (E, M*K)``
-        int32 (slot indices, each column's slots in flat (m, k) order, padding
-        slots last) and ``col_start (E, D+1)`` int32 (column j owns
-        ``perm[col_start[j]:col_start[j+1]]``). The slab is fixed for a whole
-        solve, so this is built once and kept."""
-        if self._columns is None:
+    def kernel_tables(self) -> "ColumnTables":
+        """The kernels' column tables (see ``ColumnTables``), built once per
+        slab in plain PyTorch on the slab's device and kept: the slab is
+        fixed for a whole solve."""
+        if self._tables is None:
             if self.idx.dim() != 3:
-                raise ValueError(f"column_order needs an (E, M, K) slab, got {tuple(self.idx.shape)}")
-            e = self.idx.shape[0]
-            key = torch.where(self.val != 0, self.idx, self.dim).reshape(e, -1)
-            sorted_key, perm = torch.sort(key, dim=-1, stable=True)
-            bounds = torch.arange(self.dim + 1, device=key.device, dtype=key.dtype)
-            col_start = torch.searchsorted(sorted_key.contiguous(),
-                                           bounds.expand(e, -1).contiguous())
-            self._columns = (perm.to(torch.int32).contiguous(),
-                             col_start.to(torch.int32).contiguous())
-        return self._columns
+                raise ValueError(f"kernel_tables needs an (E, M, K) slab, got {tuple(self.idx.shape)}")
+            self._tables = ColumnTables.build(self.idx, self.val, self.dim)
+        return self._tables
+
+    def _kernel_launch(self, kind: str) -> "_KernelLaunch":
+        """The slab's checked launch description for one kernel, made on
+        first use: the slab's checks run here, once."""
+        launch = self._launch.get(kind)
+        if launch is None:
+            launch = self._launch[kind] = _KernelLaunch.make(self, kind)
+        return launch
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnTables:
+    """Per lane, its populated columns and each column's slots, sized by
+    the non-zeros: entries ``lane_cols[e]:lane_cols[e+1]`` of ``cols`` and
+    ``col_end`` are lane e's populated columns in ascending order; entry c
+    owns ``slots[col_end[c-1]:col_end[c]]`` (from 0 for c = 0), its real
+    slots' lane-local positions ``m * K + k`` in flat (m, k) order, and lane
+    e's slots start at ``lane_slots[e]``. Padding slots (value 0) are listed
+    nowhere. Slots are 16-bit (int16 holding the unsigned bits) where
+    ``M * K <= 65536``, else int32."""
+
+    lane_cols: Tensor  # (E + 1,) int32
+    lane_slots: Tensor  # (E + 1,) int32
+    cols: Tensor  # (C,) int32
+    col_end: Tensor  # (C,) int32
+    slots: Tensor  # (nnz,) int16 or int32
+    slot16: bool
+    max_lane_cols: int  # most populated columns of one lane
+    max_lane_slots: int  # most real slots of one lane
+
+    @staticmethod
+    def build(idx: Tensor, val: Tensor, dim: int) -> "ColumnTables":
+        e, m, k = idx.shape
+        mk = m * k
+        lane = torch.arange(e, device=idx.device, dtype=torch.int64)[:, None]
+        key = torch.where(val.reshape(e, mk) != 0, idx.reshape(e, mk).long(), dim)
+        # one stable sort of (lane, column) keys keeps each column's slots in
+        # flat order; the padding key `dim` sorts last within its lane
+        sorted_key, perm = torch.sort((key + lane * (dim + 1)).reshape(-1), stable=True)
+        real = sorted_key % (dim + 1) != dim
+        pairs, counts = torch.unique_consecutive(sorted_key[real], return_counts=True)
+        if pairs.numel() and int(counts.sum()) >= 2 ** 31:
+            raise ValueError("the slab has 2^31 or more real slots: out of the kernels' range")
+        lane_cols, lane_slots = (torch.zeros(e + 1, dtype=torch.int64, device=idx.device)
+                                 for _ in range(2))
+        lane_cols[1:] = torch.cumsum(torch.bincount(pairs // (dim + 1), minlength=e), 0)
+        lane_slots[1:] = torch.cumsum(torch.bincount(sorted_key[real] // (dim + 1),
+                                                     minlength=e), 0)
+        slots = perm[real] % mk
+        slot16 = mk <= 65536
+        slots = (torch.where(slots >= 32768, slots - 65536, slots).to(torch.int16) if slot16
+                 else slots.to(torch.int32))
+        return ColumnTables(lane_cols.to(torch.int32), lane_slots.to(torch.int32),
+                            (pairs % (dim + 1)).to(torch.int32),
+                            torch.cumsum(counts, 0).to(torch.int32), slots.contiguous(), slot16,
+                            int(torch.diff(lane_cols).max()), int(torch.diff(lane_slots).max()))
+
+    def slot_positions(self) -> Tensor:
+        """``slots`` as int64 positions (the 16-bit form read unsigned)."""
+        s = self.slots.long()
+        return s & 0xFFFF if self.slot16 else s
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in
+                   (self.lane_cols, self.lane_slots, self.cols, self.col_end, self.slots))
 
 
 def build_sparse_slab(x, kernel: str = "scatter", dtype: Optional[torch.dtype] = None) -> SparseSlab:
@@ -230,11 +290,160 @@ def fused_hvp_parts_plain(loss, slab, labels, weights, offsets, w, v, vshift):
     return slab.rmatvec(c), tree_row_sum(c)
 
 
+# launch plan: how a kernel packs lanes into blocks and what it stages
+
+KERNEL_THREADS = 256  # threads per block (csrc/fused_sparse.cu kThreads)
+SLOTS_PER_BLOCK = 1024  # a block takes whole lanes until it holds about this many slots
+SMEM_BUDGET = 64 * 1024  # shared memory a block may stage: 3 or more blocks per SM
+SMEM_LIMIT = 227 * 1024  # what one H100 block can have
+BLOCKS_PER_SM = 8  # resident blocks an SM holds (csrc kMinBlocks)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one kernel runs on an (E, M, K, D) slab: ``lanes_per_block``
+    whole lanes per block of ``threads``, ``row_threads`` threads per row;
+    whether the lanes' data (slab, y/wt/off, row values, column-table
+    entries: ``table_cols`` and ``table_slots`` at most) is ``staged`` in
+    shared memory, and their rows of w and v (``stage_coef``);
+    ``smem_bytes`` in all, laid out as ``layout()`` of csrc/fused_sparse.cu.
+    Row values that are not staged live in a device scratch of
+    ``scratch_floats``."""
+
+    lanes_per_block: int
+    blocks: int
+    threads: int
+    row_threads: int
+    rows_pow2: int
+    table_cols: int
+    table_slots: int
+    staged: bool
+    stage_coef: bool
+    smem_bytes: int
+    scratch_floats: int
+
+
+def _staged(n: int) -> int:
+    """Shared memory for a staged range of n bytes (csrc staged_bytes)."""
+    return _align16(n) + 16
+
+
+def plan_launch(e: int, m: int, k: int, d: int, val_bytes: int, hvp: bool, sms: int = 132,
+                lane_cols: Optional[int] = None, lane_slots: Optional[int] = None) -> LaunchPlan:
+    """Pack lanes into blocks and choose what each block stages while its
+    ``SMEM_BUDGET`` lasts: first the lanes' data (idx/val, y/wt/off, two
+    arrays of row values, and their column-table entries: ``lane_cols``
+    populated columns and ``lane_slots`` real slots a lane at most, by
+    default what the shape allows), then their rows of w (and v). What is
+    not staged is read from device memory (w and v through ``__ldg``).
+
+    A lane never spans two blocks; several lanes share one only while the
+    slab is small, so a block that packs lanes always stages. Where the
+    grid would need more than one wave of ``BLOCKS_PER_SM`` blocks on each
+    of ``sms`` SMs, a block takes more lanes while they stage as much. A row
+    gets as many threads as the block's rows leave room for, at most what K
+    needs and 32."""
+    lane_cols = min(m * k, d) if lane_cols is None else lane_cols
+    lane_slots = m * k if lane_slots is None else lane_slots
+    pw = _pow2_at_least(m)
+
+    def layout(lanes):
+        slots = lanes * m * k
+        used = _align16(8 * (lanes + 1))
+        data = (_align16(8 * lanes * pw) + 3 * _staged(4 * lanes * m)
+                + _staged(4 * slots) + _staged(val_bytes * slots)
+                + 2 * _staged(4 * lanes * lane_cols)
+                + _staged((2 if m * k <= 65536 else 4) * lanes * lane_slots))
+        staged = used + data <= SMEM_BUDGET
+        used += data if staged else 0
+        coef = (2 if hvp else 1) * _staged(4 * lanes * d)
+        stage_coef = used + coef <= SMEM_BUDGET
+        used += coef if stage_coef else 0
+        return staged, stage_coef, used
+
+    lanes = max(1, min(e, -(-SLOTS_PER_BLOCK // (m * k))))
+    staged, stage_coef, used = layout(lanes)
+    one_wave = min(e, -(-e // (sms * BLOCKS_PER_SM)))
+    if one_wave > lanes and layout(one_wave)[:2] == (staged, stage_coef):
+        lanes = one_wave
+        staged, stage_coef, used = layout(lanes)
+    blocks = -(-e // lanes)
+    return LaunchPlan(
+        lanes_per_block=lanes, blocks=blocks, threads=KERNEL_THREADS,
+        row_threads=min(32, _pow2_at_least(k),
+                        1 << max(0, (KERNEL_THREADS // (lanes * m)).bit_length() - 1)),
+        rows_pow2=pw, table_cols=lanes * lane_cols, table_slots=lanes * lane_slots,
+        staged=staged, stage_coef=stage_coef, smem_bytes=used,
+        scratch_floats=0 if staged else blocks * 2 * lanes * pw,
+    )
+
+
+class _SlabPlan(ctypes.Structure):
+    """csrc/fused_sparse.cu's SlabPlan, field for field."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in
+                ("idx", "val", "lane_cols", "lane_slots", "cols", "col_end", "slots")] + [
+        ("lanes", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
+            "m", "k", "d", "val_bf16", "slot16", "lanes_per_block", "row_threads",
+            "rows_pow2", "table_cols", "table_slots", "staged", "stage_coef", "smem_bytes")]
+
+
+@dataclasses.dataclass
+class _KernelLaunch:
+    """A slab's checked launch description for one kernel: its shape, plan
+    and the C struct (which holds raw pointers to the slab and its tables;
+    the slab keeps both alive)."""
+
+    e: int
+    m: int
+    d: int
+    device: torch.device
+    plan: LaunchPlan
+    struct: _SlabPlan
+    ref: object  # ctypes pointer to struct
+
+    @staticmethod
+    def make(slab: "SparseSlab", kind: str) -> "_KernelLaunch":
+        if not slab.idx.is_cuda:
+            raise ValueError("the sparse kernels need a CUDA slab")
+        if slab.idx.dim() != 3:
+            raise ValueError(f"idx: expected (E, M, K), got {tuple(slab.idx.shape)}")
+        e, m, k = slab.idx.shape
+        d = slab.dim
+        if min(e, m, k, d) < 1 or e >= 2 ** 31 or m * k >= 2 ** 31:
+            raise ValueError(f"slab shape (E={e}, M={m}, K={k}, D={d}) out of the kernels' range")
+        dev = slab.idx.device
+        _check("idx", slab.idx, (e, m, k), (torch.int32,), dev)
+        _check("val", slab.val, (e, m, k), VAL_DTYPES, dev)
+        t = slab.kernel_tables()
+        plan = plan_launch(e, m, k, d, slab.val.element_size(), kind == "hvp",
+                           torch.cuda.get_device_properties(dev).multi_processor_count,
+                           t.max_lane_cols, t.max_lane_slots)
+        if plan.lanes_per_block * max(m * k, d) >= 2 ** 31:
+            raise ValueError(f"slab shape (E={e}, M={m}, K={k}) out of the kernels' range")
+        struct = _SlabPlan(
+            slab.idx.data_ptr(), slab.val.data_ptr(), t.lane_cols.data_ptr(),
+            t.lane_slots.data_ptr(), t.cols.data_ptr(), t.col_end.data_ptr(),
+            t.slots.data_ptr(), e, m, k, d, int(slab.val.dtype == torch.bfloat16),
+            int(t.slot16), plan.lanes_per_block, plan.row_threads, plan.rows_pow2,
+            plan.table_cols, plan.table_slots, int(plan.staged), int(plan.stage_coef),
+            plan.smem_bytes)
+        return _KernelLaunch(e, m, d, dev, plan, struct, ctypes.byref(struct))
+
+
 def _configure(lib: ctypes.CDLL) -> None:
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.photon_sparse_gevm.argtypes = [p, p, i, p, p, p, p, p, p, ll, i, i, i, i, p, p, p, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.photon_sparse_gevm.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p]
     lib.photon_sparse_gevm.restype = ctypes.c_int
-    lib.photon_sparse_hvp.argtypes = [p, p, i, p, p, p, p, p, p, p, p, ll, i, i, i, i, p, p, p]
+    lib.photon_sparse_hvp.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, p]
     lib.photon_sparse_hvp.restype = ctypes.c_int
 
 
@@ -253,52 +462,65 @@ def _check(name: str, t: Tensor, shape, dtypes, device) -> None:
         raise ValueError(f"{name} lies on {t.device}, the slab on {device}")
 
 
-def _check_slab(slab: SparseSlab, vectors) -> Tuple[int, int, int, int]:
-    if not slab.idx.is_cuda:
-        raise ValueError("the sparse kernels need a CUDA slab")
-    if slab.idx.dim() != 3:
-        raise ValueError(f"idx: expected (E, M, K), got {tuple(slab.idx.shape)}")
-    e, m, k = slab.idx.shape
-    d = slab.dim
-    if min(e, m, k, d) < 1 or e >= 2 ** 31 or m * k >= 2 ** 31:
-        raise ValueError(f"slab shape (E={e}, M={m}, K={k}, D={d}) out of the kernels' range")
-    dev = slab.idx.device
-    _check("idx", slab.idx, (e, m, k), (torch.int32,), dev)
-    _check("val", slab.val, (e, m, k), VAL_DTYPES, dev)
-    for name, t, shape in vectors:
-        _check(name, t, {"rows": (e, m), "cols": (e, d), "lanes": (e,)}[shape],
-               (torch.float32,), dev)
-    return e, m, k, d
+def _f32_args(launch: _KernelLaunch, named) -> list:
+    """Data pointers of the per-call vectors, each checked: contiguous f32
+    on the slab's device, of shape ``rows`` (E, M), ``cols`` (E, D),
+    ``lanes`` (E,) or ``one`` ()."""
+    shapes = {"rows": (launch.e, launch.m), "cols": (launch.e, launch.d), "lanes": (launch.e,),
+              "one": ()}
+    ptrs = []
+    for name, t, shape in named:
+        shape = shapes[shape]
+        if (t.dtype != torch.float32 or t.shape != shape or not t.is_contiguous()
+                or t.device != launch.device):
+            _check(name, t, shape, (torch.float32,), launch.device)
+        ptrs.append(t.data_ptr())
+    return ptrs
 
 
-def _launch(fn, what: str, args, shape) -> None:
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[a.data_ptr() if isinstance(a, Tensor) else a for a in args], stream)
+def _run(fn, what: str, launch: _KernelLaunch, args, rows_out: Optional[Tensor], nrv: int) -> None:
+    """Allocate the scratch the plan needs and launch on the current stream
+    of the slab's device."""
+    rows_ptr = None
+    if rows_out is not None:
+        _check("row_values", rows_out, (nrv, launch.e, launch.m), (torch.float32,), launch.device)
+        rows_ptr = rows_out.data_ptr()
+    # held until the kernel is queued: freed after that, the caching
+    # allocator hands its block out again only to later work on this stream
+    scratch = None
+    if launch.plan.scratch_floats:
+        scratch = torch.empty(launch.plan.scratch_floats, dtype=torch.float32,
+                              device=launch.device)
+    scratch_ptr = None if scratch is None else scratch.data_ptr()
+    if torch.cuda.current_device() == launch.device.index:
+        err = fn(*args, rows_ptr, scratch_ptr, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(launch.device):
+            err = fn(*args, rows_ptr, scratch_ptr, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_sparse {what} kernel launch failed: cudaError {err} "
-                           f"(E, M, K, D) = {shape}")
+                           f"(E, M, D) = {(launch.e, launch.m, launch.d)}, {launch.plan}")
 
 
 def sparse_gevm_kernel(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor,
-                       weights: Tensor, offsets: Tensor, w: Tensor
-                       ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Launch the GEVM kernel: ``(row_wl (E, M), grad (E, D), row_d (E, M))``.
-    Inputs are contiguous CUDA tensors: the slab ``(E, M, K)`` (int32
-    indices, f32/bf16 values), labels/weights/offsets ``(E, M)`` and w
-    ``(E, D)`` f32. Raises on anything else."""
-    e, m, k, d = _check_slab(slab, (("labels", labels, "rows"), ("weights", weights, "rows"),
-                                    ("offsets", offsets, "rows"), ("w", w, "cols")))
-    perm, col_start = slab.column_order()
-    row_wl = torch.empty((e, m), dtype=torch.float32, device=w.device)
-    row_d = torch.empty_like(row_wl)
-    grad = torch.empty((e, d), dtype=torch.float32, device=w.device)
-    _launch(_library().photon_sparse_gevm, "GEVM",
-            (slab.idx, slab.val, int(slab.val.dtype == torch.bfloat16), labels, weights,
-             offsets, w, perm, col_start, e, m, k, d, loss.kernel_id, row_wl, row_d, grad),
-            (e, m, k, d))
+                       weights: Tensor, offsets: Tensor, w: Tensor,
+                       row_values: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
+    """Launch the GEVM kernel: ``(sum wl (E,), grad (E, D), sum d (E,))``.
+    The slab is a CUDA ``(E, M, K)`` slab (int32 indices, f32/bf16 values);
+    labels/weights/offsets ``(E, M)`` and w ``(E, D)`` are contiguous f32 on
+    its device. Raises on anything else. ``row_values``, a ``(2, E, M)`` f32
+    buffer, receives the row values wl and d (for tests; the main path
+    passes none)."""
+    launch = slab._kernel_launch("gevm")
+    ptrs = _f32_args(launch, (("labels", labels, "rows"), ("weights", weights, "rows"),
+                              ("offsets", offsets, "rows"), ("w", w, "cols")))
+    grad, sum_wl, sum_d = (torch.empty(shape, dtype=torch.float32, device=launch.device)
+                           for shape in ((launch.e, launch.d), launch.e, launch.e))
+    _run(_library().photon_sparse_gevm, "GEVM", launch,
+         [launch.ref, loss.kernel_id, *ptrs, grad.data_ptr(), sum_wl.data_ptr(),
+          sum_d.data_ptr()], row_values, 2)
     sparse_gevm_kernel.launches += 1
-    return row_wl, grad, row_d
+    return sum_wl, grad, sum_d
 
 
 sparse_gevm_kernel.launches = 0
@@ -306,27 +528,31 @@ sparse_gevm_kernel.launches = 0
 
 def sparse_hvp_kernel(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor,
                       weights: Tensor, offsets: Tensor, w: Tensor, v: Tensor,
-                      vshift: Tensor) -> Tuple[Tensor, Tensor]:
-    """Launch the HVP kernel: ``(hvp (E, D), row_c (E, M))``; as the GEVM
-    kernel, plus v ``(E, D)`` and vshift ``(E,)`` f32."""
-    e, m, k, d = _check_slab(slab, (("labels", labels, "rows"), ("weights", weights, "rows"),
-                                    ("offsets", offsets, "rows"), ("w", w, "cols"),
-                                    ("v", v, "cols"), ("vshift", vshift, "lanes")))
-    perm, col_start = slab.column_order()
-    row_c = torch.empty((e, m), dtype=torch.float32, device=w.device)
-    hvp = torch.empty((e, d), dtype=torch.float32, device=w.device)
-    _launch(_library().photon_sparse_hvp, "HVP",
-            (slab.idx, slab.val, int(slab.val.dtype == torch.bfloat16), labels, weights,
-             offsets, w, v, vshift, perm, col_start, e, m, k, d, loss.kernel_id, row_c, hvp),
-            (e, m, k, d))
+                      vshift: Tensor, row_values: Optional[Tensor] = None
+                      ) -> Tuple[Tensor, Tensor]:
+    """Launch the HVP kernel: ``(hvp (E, D), sum c (E,))``; as the GEVM
+    kernel, plus v ``(E, D)`` and vshift, ``(E,)`` or one value ``()`` for
+    every lane, f32. ``row_values``, a ``(1, E, M)`` f32 buffer, receives c."""
+    launch = slab._kernel_launch("hvp")
+    scalar = vshift.dim() == 0
+    ptrs = _f32_args(launch, (("labels", labels, "rows"), ("weights", weights, "rows"),
+                              ("offsets", offsets, "rows"), ("w", w, "cols"),
+                              ("v", v, "cols"), ("vshift", vshift, "one" if scalar else "lanes")))
+    ptrs.append(0 if scalar else 1)  # vshift's stride
+    hvp, sum_c = (torch.empty(shape, dtype=torch.float32, device=launch.device)
+                  for shape in ((launch.e, launch.d), launch.e))
+    _run(_library().photon_sparse_hvp, "HVP", launch,
+         [launch.ref, loss.kernel_id, *ptrs, hvp.data_ptr(), sum_c.data_ptr()], row_values, 1)
     sparse_hvp_kernel.launches += 1
-    return hvp, row_c
+    return hvp, sum_c
 
 
 sparse_hvp_kernel.launches = 0
 
 
 def _f32(t: Tensor, shape) -> Tensor:
+    if t.dtype == torch.float32 and t.shape == shape and t.is_contiguous():
+        return t  # the solvers' case: no tensor op on the launch path
     return torch.broadcast_to(t.to(torch.float32), shape).contiguous()
 
 
@@ -335,16 +561,15 @@ def fused_value_grad_parts(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor
                            ) -> Tuple[Tensor, Tensor, Tensor]:
     """Per lane ``(sum_m wt*l, X^T d, sum_m d)``: ``(E,)``, ``(E, D)``,
     ``(E,)``. ``offsets`` already fold the normalization margin shift. A
-    CUDA slab goes through the GEVM kernel, a CPU slab through the plain
-    version; the row sums run through ``tree_row_sum`` either way."""
+    CUDA slab goes through the GEVM kernel (one launch, row sums inside),
+    a CPU slab through the plain version."""
     if not slab.idx.is_cuda:
         return fused_value_grad_parts_plain(loss, slab, labels, weights, offsets, w)
-    rows = tuple(slab.idx.shape[:-1])
-    row_wl, grad, row_d = sparse_gevm_kernel(
+    rows = slab.idx.shape[:-1]
+    return sparse_gevm_kernel(
         loss, slab, _f32(labels, rows), _f32(weights, rows), _f32(offsets, rows),
-        _f32(w, rows[:-1] + (slab.dim,)),
+        _f32(w, (rows[0], slab.dim)),
     )
-    return tree_row_sum(row_wl), grad, tree_row_sum(row_d)
 
 
 def fused_hvp_parts(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor,
@@ -353,16 +578,16 @@ def fused_hvp_parts(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor,
     """Per lane ``(X^T c, sum_m c)`` with ``c = [wt>0] wt l''(z) (X v +
     vshift)``: ``(E, D)`` and ``(E,)``; vshift is per lane."""
     lanes = tuple(slab.idx.shape[:-2])
-    vshift = torch.broadcast_to(torch.as_tensor(vshift, device=w.device), lanes)
     if not slab.idx.is_cuda:
+        vshift = torch.broadcast_to(torch.as_tensor(vshift, device=w.device), lanes)
         return fused_hvp_parts_plain(loss, slab, labels, weights, offsets, w, v, vshift)
-    rows = tuple(slab.idx.shape[:-1])
-    cols = lanes + (slab.dim,)
-    hvp, row_c = sparse_hvp_kernel(
+    vshift = torch.as_tensor(vshift, dtype=torch.float32, device=w.device)
+    rows = slab.idx.shape[:-1]
+    cols = (rows[0], slab.dim)
+    return sparse_hvp_kernel(
         loss, slab, _f32(labels, rows), _f32(weights, rows), _f32(offsets, rows),
-        _f32(w, cols), _f32(v, cols), _f32(vshift, lanes),
+        _f32(w, cols), _f32(v, cols), vshift if vshift.dim() == 0 else _f32(vshift, lanes),
     )
-    return hvp, tree_row_sum(row_c)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ the same adds in the same order, so it must match bitwise, and the slab
 build is byte-equal with the shape ladder off.
 """
 
+import ctypes
 import warnings
 
 import jax
@@ -175,19 +176,153 @@ def test_build_sparse_slab_is_byte_equal_to_jax(shape, max_nnz):
 
 
 def test_column_order_lists_each_columns_slots_in_flat_order():
+    """The kernels' column tables: per lane, every populated column once,
+    in ascending order, with its real slots in flat (m, k) order; no
+    padding slot listed."""
     x, *_ = _inputs(1, "logistic", e=3, m=11, d=17)
     slab = tfs.build_sparse_slab(torch.from_numpy(x))
-    perm, col_start = slab.column_order()
+    t = slab.kernel_tables()
     e, m, k = slab.idx.shape
-    assert perm.dtype == col_start.dtype == torch.int32
-    assert tuple(perm.shape) == (e, m * k) and tuple(col_start.shape) == (e, 18)
+    assert t.lane_cols.dtype == t.cols.dtype == t.col_end.dtype == torch.int32
+    assert t.slot16 and t.slots.dtype == torch.int16
+    assert tuple(t.lane_cols.shape) == (e + 1,) and t.cols.shape == t.col_end.shape
+    assert slab.kernel_tables() is t  # built once
     idx, val = slab.idx.reshape(e, -1), slab.val.reshape(e, -1)
+    slots, col_end = t.slot_positions(), t.col_end.long()
+    assert int(col_end[-1]) == int((val != 0).sum()) == slots.numel()
     for lane in range(e):
-        assert int(col_start[lane, -1]) == int((val[lane] != 0).sum())
-        for j in range(17):
-            slots = perm[lane, col_start[lane, j]:col_start[lane, j + 1]].long()
-            assert torch.all(idx[lane, slots] == j) and torch.all(val[lane, slots] != 0)
-            assert torch.all(slots[1:] > slots[:-1])  # flat (m, k) order
+        entries = range(int(t.lane_cols[lane]), int(t.lane_cols[lane + 1]))
+        cols = [int(t.cols[c]) for c in entries]
+        assert cols == sorted(set(int(j) for j in idx[lane][val[lane] != 0]))
+        for c in entries:
+            s = slots[(int(col_end[c - 1]) if c else 0):int(col_end[c])]
+            assert torch.all(idx[lane, s] == t.cols[c]) and torch.all(val[lane, s] != 0)
+            assert torch.all(s[1:] > s[:-1])  # flat (m, k) order
+
+
+def _column_pass(slab, rows):
+    """The kernels' transpose over their tables in plain torch: per
+    populated column, val * row value summed over its slots in table order
+    (one add per rank, so the order is the kernel's), unpopulated columns 0."""
+    t = slab.kernel_tables()
+    e, m, k = slab.idx.shape
+    counts = torch.diff(t.col_end.long(), prepend=torch.zeros(1, dtype=torch.long))
+    start = t.col_end.long() - counts
+    lane = torch.repeat_interleave(torch.arange(e), torch.diff(t.lane_cols.long()))
+    q = t.slot_positions()
+    prod = slab.val.reshape(-1)[lane.repeat_interleave(counts) * m * k + q].float() * \
+        rows.reshape(-1)[lane.repeat_interleave(counts) * m + q // k]
+    acc = torch.zeros(t.cols.numel())
+    for r in range(int(counts.max()) if counts.numel() else 0):
+        live = counts > r
+        acc[live] = acc[live] + prod[start[live] + r]
+    out = torch.zeros(e * slab.dim)
+    out[lane * slab.dim + t.cols.long()] = acc
+    return out.reshape(e, slab.dim)
+
+
+@pytest.mark.parametrize("e,m,d,max_nnz,storage", [
+    (4, 19, 33, 6, "f32"), (3, 11, 17, 6, "bf16"), (5, 1, 9, 4, "f32"), (6, 8, 1, 1, "f32"),
+    (2, 9000, 12, 8, "f32")])
+def test_column_pass_over_the_tables_is_bitwise_rmatvec(e, m, d, max_nnz, storage):
+    """The kernels' column order is the plain transpose's flat order: a
+    column pass over the tables equals slab.rmatvec bit for bit. The last
+    case has M * K above 65536 slots: 32-bit slot positions."""
+    rng = np.random.default_rng(e * m + d)
+    x = _dense_stack(rng, e, m, d, max_nnz=max_nnz)
+    slab = tfs.build_sparse_slab(torch.from_numpy(x))
+    if storage == "bf16":
+        slab = slab.astype(torch.bfloat16)
+    assert slab.kernel_tables().slot16 == (m * slab.max_nnz <= 65536)
+    rows = torch.from_numpy(rng.normal(size=(e, m)).astype(np.float32))
+    assert torch.equal(_column_pass(slab, rows), slab.rmatvec(rows))
+
+
+def test_column_tables_scale_with_the_non_zeros_not_d():
+    rng = np.random.default_rng(7)
+    small = _dense_stack(rng, 8, 16, 64, max_nnz=4)
+    wide = np.zeros((8, 16, 4096), np.float32)
+    wide[..., :64] = small  # the same non-zeros in a 64x wider space
+    tables = [tfs.build_sparse_slab(torch.from_numpy(a)).kernel_tables() for a in (small, wide)]
+    assert tables[0].nbytes == tables[1].nbytes
+    nnz = int((small != 0).sum())
+    cols = tables[0].cols.numel()
+    assert tables[0].nbytes == 2 * 4 * (8 + 1) + 8 * cols + 2 * nnz
+    # a dense column index (col_start over D + 1 columns) takes 4 (D + 1) bytes a lane
+    assert tables[1].nbytes < 4 * 8 * (4096 + 1) / 10
+
+
+@pytest.mark.parametrize("kind", ["gevm", "hvp"])
+@pytest.mark.parametrize("shape", [
+    (1024, 64, 16, 2048), (20000, 12, 9, 9), (1000, 1, 16, 2048), (1000, 64, 1, 2048),
+    (1000, 64, 16, 1), (256, 12, 9, 4096), (1024, 64, 16, 4096), (1, 64, 16, 2048),
+    (4, 40000, 4, 64)])
+@pytest.mark.parametrize("val_bytes", [4, 2])
+def test_launch_plan_covers_every_lane_within_shared_memory(shape, kind, val_bytes):
+    e, m, k, d = shape
+    hvp = kind == "hvp"
+    plan = tfs.plan_launch(e, m, k, d, val_bytes, hvp)
+    lanes = plan.lanes_per_block
+    assert lanes >= 1 and plan.blocks * lanes >= e > (plan.blocks - 1) * lanes
+    assert plan.threads % plan.row_threads == 0 and plan.row_threads <= 32
+    # threads per row: a power of two, no more than K needs, and the rows
+    # of a block fill at most its threads
+    tpr = plan.row_threads
+    assert tpr & (tpr - 1) == 0 and (tpr == 1 or tpr < 2 * k)
+    assert tpr == 1 or tpr * lanes * m <= plan.threads < 2 * tpr * lanes * m or tpr in (32, k)
+    assert plan.rows_pow2 >= m > plan.rows_pow2 // 2 or plan.rows_pow2 == m == 1
+    assert plan.smem_bytes <= tfs.SMEM_BUDGET <= tfs.SMEM_LIMIT
+    # by default the tables are staged at what the shape allows
+    assert (plan.table_cols, plan.table_slots) == (lanes * min(m * k, d), lanes * m * k)
+    # the layout of csrc/fused_sparse.cu, region by region
+    a16 = lambda n: (n + 15) // 16 * 16
+    staged = lambda n: a16(n) + 16
+    slots = lanes * m * k
+    want = (a16(8 * (lanes + 1))
+            + plan.staged * (a16(8 * lanes * plan.rows_pow2) + 3 * staged(4 * lanes * m)
+                             + staged(4 * slots) + staged(val_bytes * slots)
+                             + 2 * staged(4 * plan.table_cols)
+                             + staged((2 if m * k <= 65536 else 4) * plan.table_slots))
+            + plan.stage_coef * (2 if hvp else 1) * staged(4 * lanes * d))
+    assert plan.smem_bytes == want
+    assert plan.scratch_floats == (0 if plan.staged
+                                   else plan.blocks * 2 * lanes * plan.rows_pow2)
+    if lanes > 1:
+        assert plan.staged  # a block packs lanes only while their data is small
+    if (m, k, d) == (12, 9, 4096):
+        assert lanes > 1 and not plan.stage_coef  # w (and v) through __ldg
+    if shape == (1024, 64, 16, 2048):
+        assert lanes == 1 and plan.staged and plan.stage_coef
+    if shape == (20000, 12, 9, 9):
+        # more lanes a block than the slots ask for, so that the grid is one
+        # wave of eight blocks on each of 132 SMs; on twice the SMs the slots
+        # rule
+        assert lanes * m * k > tfs.SLOTS_PER_BLOCK and plan.staged and plan.stage_coef
+        assert plan.blocks <= 132 * tfs.BLOCKS_PER_SM
+        twice = tfs.plan_launch(e, m, k, d, val_bytes, hvp, sms=264)
+        assert twice.lanes_per_block == -(-tfs.SLOTS_PER_BLOCK // (m * k)) < lanes
+    if m == 40000:
+        assert not plan.staged and plan.scratch_floats > 0
+
+
+def test_launch_plan_stages_the_tables_a_slab_needs():
+    """Given a slab's own per-lane maxima, the plan stages that much of the
+    column tables, not what the shape allows."""
+    wide = tfs.plan_launch(1024, 64, 16, 2048, 4, True)
+    tight = tfs.plan_launch(1024, 64, 16, 2048, 4, True, lane_cols=330, lane_slots=400)
+    assert (tight.table_cols, tight.table_slots) == (330, 400)
+    assert tight.smem_bytes < wide.smem_bytes
+    x, *_ = _inputs(1, "logistic", e=3, m=11, d=17)
+    t = tfs.build_sparse_slab(torch.from_numpy(x)).kernel_tables()
+    assert t.max_lane_cols == int(torch.diff(t.lane_cols).max())
+    assert t.max_lane_slots == int(torch.diff(t.lane_slots).max()) <= 11 * 6
+
+
+def test_slab_plan_struct_matches_the_c_layout():
+    """ctypes lays out _SlabPlan as C does SlabPlan: seven pointers, a long
+    long and thirteen ints."""
+    assert ctypes.sizeof(tfs._SlabPlan) == 120
+    assert tfs._SlabPlan.lanes.offset == 56 and tfs._SlabPlan.smem_bytes.offset == 112
 
 
 def test_sparse_spec_grammar(monkeypatch):

@@ -126,11 +126,15 @@ def _close(got, want, tol, scale=None):
 @pytest.mark.parametrize("loss_name", LOSSES)
 def test_sparse_kernels_match_plain_on_card(cuda_device, loss_name, storage):
     tol = 1e-5
-    # the full width, a ragged M, K=1, an odd D, a wide D, and the GAME
-    # driver's slab shape (M=12, D=K=9, every slot filled)
+    # the full width, a ragged M, K=1, an odd D, a wide D, the GAME
+    # driver's slab shape (M=12, D=K=9, every slot filled), D=4096 with 10
+    # lanes per block, lanes straddling the packed blocks' edge, and a lane
+    # too large to stage
     for e, m, d, max_nnz, full in ((256, 64, 2048, 16, False), (128, 37, 2048, 16, False),
                                    (64, 64, 2048, 1, False), (64, 64, 65, 9, False),
-                                   (32, 48, 4096, 16, False), (2000, 12, 9, 9, True)):
+                                   (32, 48, 4096, 16, False), (2000, 12, 9, 9, True),
+                                   (25, 12, 4096, 9, False), (100, 7, 300, 5, False),
+                                   (2, 20000, 24, 4, False)):
         slab, y, wt, off, w, v, vshift = _slab_inputs(e + m + d, loss_name, e, m, d, max_nnz,
                                                       cuda_device, full)
         if storage == "bf16":
@@ -158,6 +162,34 @@ def test_sparse_kernels_match_plain_on_card(cuda_device, loss_name, storage):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 64, 2048, 16), (2000, 12, 9, 9), (100, 7, 300, 5),
+                                   (2, 20000, 24, 4)])
+def test_sparse_kernel_sums_are_tree_row_sums_of_their_row_values(cuda_device, shape):
+    """Handed a buffer, the kernels write their row values; each per-lane
+    sum they return is tree_row_sum of those values, bit for bit."""
+    e, m, d, max_nnz = shape
+    slab, y, wt, off, w, v, vshift = _slab_inputs(sum(shape), "poisson", e, m, d, max_nnz,
+                                                  cuda_device)
+    lo = tlosses.poisson
+    rows, c = torch.empty((2, e, m), device=cuda_device), torch.empty((1, e, m), device=cuda_device)
+    sum_wl, grad, sum_d = tsparse.sparse_gevm_kernel(lo, slab, y, wt, off, w, row_values=rows)
+    hvp, sum_c = tsparse.sparse_hvp_kernel(lo, slab, y, wt, off, w, v, vshift, row_values=c)
+    assert torch.equal(sum_wl, tsparse.tree_row_sum(rows[0]))
+    assert torch.equal(sum_d, tsparse.tree_row_sum(rows[1]))
+    assert torch.equal(sum_c, tsparse.tree_row_sum(c[0]))
+    # the main path's call returns the same values without the buffer
+    again = tsparse.fused_value_grad_parts(lo, slab, y, wt, off, w)
+    assert all(torch.equal(a, b) for a, b in zip(again, (sum_wl, grad, sum_d)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        tsparse.fused_hvp_parts(lo, slab, y, wt, off, w, v, vshift), (hvp, sum_c)))
+    # one vshift for every lane (the objective's case) is read with stride 0
+    one = vshift[:1].reshape(())
+    assert all(torch.equal(a, b) for a, b in zip(
+        tsparse.fused_hvp_parts(lo, slab, y, wt, off, w, v, one),
+        tsparse.fused_hvp_parts(lo, slab, y, wt, off, w, v, one.expand(e).contiguous())))
+
+
+@pytest.mark.gpu
 def test_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     slab, y, wt, off, w, v, vshift = _slab_inputs(0, "logistic", 8, 16, 32, 4, cuda_device)
     lo = tlosses.logistic
@@ -171,3 +203,11 @@ def test_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         tsparse.sparse_hvp_kernel(lo, slab, y, wt, off, w, v, vshift.cpu())
     with pytest.raises(ValueError):
         tsparse.sparse_hvp_kernel(lo, slab, y, wt, off, w, v.t().contiguous().t(), vshift[:4])
+    with pytest.raises(ValueError):
+        tsparse.sparse_gevm_kernel(lo, slab, y, wt, off, w.t().contiguous().t())  # not contiguous
+    with pytest.raises(ValueError):
+        tsparse.sparse_gevm_kernel(lo, slab, y, wt, off, w, row_values=torch.empty(
+            (1, 8, 16), device=cuda_device))  # GEVM writes two row values
+    with pytest.raises(ValueError, match="CUDA"):
+        cpu = tsparse.SparseSlab(slab.idx.cpu(), slab.val.cpu(), slab.dim, "pallas")
+        tsparse.sparse_gevm_kernel(lo, cpu, y, wt, off, w)
