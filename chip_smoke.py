@@ -3,20 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout (one nvcc
-per source, all started together), holds each against its plain PyTorch
-version at the main paths' shapes and times it, then drives the port's main
-paths at full width:
+Builds the port's CUDA kernels and its host libraries (the native Avro
+decoder, LIBSVM parser and off-heap index store of ``native/``) from the
+sources in this checkout (one compiler per source, all started together),
+holds each kernel against its plain PyTorch version at the main paths'
+shapes and times it, then drives the port's main paths at full width:
 
   * dense GLM training: ``train_glm_grid`` on a dense N=262144 x D=512 bf16
     batch (the repo's dense configuration, bench.py:58), and
     ``cli.glm_driver.main`` end to end on a generated LIBSVM train/validate
-    pair (the fused value+gradient kernel);
+    pair of 262144 training rows, parsed by the native loader (the fused
+    value+gradient kernel);
   * GAME training: ``RandomEffectCoordinate.update`` with LBFGS and with
     TRON on the sparse-race configuration (E=1024 entities x M=64 rows,
     D=2048, bench.py:2556-2627; the sparse GEVM and HVP kernels), and
     ``cli.game_training_driver.main`` end to end on generated Avro data of
-    bench.py's GAME configuration (bench.py:2338-2350).
+    bench.py's GAME configuration (bench.py:2338-2350), every file read by
+    the native Avro decoder;
+  * GAME ingest: ``read_game_data`` on the validation rows natively and
+    through the Python row loop, byte-equal, rows/s both ways;
+  * GAME scoring: ``cli.game_scoring_driver.main`` on the trained model,
+    device scoring against the host oracle and the training driver's AUC,
+    the scoring gather timed against its bytes bound;
+  * off-heap index maps: ``cli.feature_indexing`` (OFFHEAP, 8 partitions),
+    then training and scoring with ``--offheap-indexmap-dir``;
+  * RANDOM projection: one random-effect update on the card against the
+    same update on the CPU.
 
 Every phase prints on its own lines; any failed check exits non-zero. The
 last lines are the card's name and power limit, one JSON object listing the
@@ -319,11 +331,13 @@ def _write_libsvm(path, n, d, nnz, w_true, rng):
 
 
 def phase_driver(torch, fused_glm, workdir):
-    """Phase 6: glm_driver.main end to end on a generated LIBSVM pair."""
+    """Phase 6: glm_driver.main end to end on a generated LIBSVM pair; the
+    native loader must parse every file."""
     from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.io import libsvm
     from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
 
-    n_train, n_val, d, nnz = 65536, 8192, 511, 32
+    n_train, n_val, d, nnz = N_FULL, 8192, 511, 32
     say(f"== phase 6: glm_driver.main on LIBSVM train {n_train} x {d} (+ intercept), "
         f"validate {n_val}, ~{nnz} non-zeros per row, LBFGS, L2, STANDARDIZATION, 3 lambdas")
     rng = np.random.default_rng(SEED)
@@ -345,12 +359,18 @@ def phase_driver(torch, fused_glm, workdir):
     ]
     torch.cuda.synchronize()
     fused_glm.fused_value_grad_kernel.launches = 0
+    libsvm.parse_counts.update(native_files=0, python_files=0)
     t0 = time.perf_counter()
     driver = glm_driver.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_glm.fused_value_grad_kernel.launches
     check(launches > 0, "glm_driver did not launch the fused kernel")
+    check(libsvm.parse_counts == {"native_files": 2, "python_files": 0},
+          f"LIBSVM files by parser {libsvm.parse_counts}: the native loader must read both")
+    say(f"  LIBSVM files parsed natively: {libsvm.parse_counts['native_files']}, by the "
+        f"Python parser: {libsvm.parse_counts['python_files']}; driver stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in sorted(driver.timer.totals.items())))
     check(driver.device.type == "cuda" and driver.train_batch.labels.is_cuda, "driver ran off the card")
     check(driver.train_batch.dim == d + 1, f"batch width {driver.train_batch.dim} != {d + 1}")
     outputs = sorted(os.listdir(os.path.join(out, "output")))
@@ -764,12 +784,64 @@ def write_game_avro(workdir, num_users, seed):
     return int((~validate).sum()), int(validate.sum())
 
 
+# the README quickstart's GAME flags (without --checkpoint-dir) on the
+# generated data
+GAME_FLAGS = [
+    "--task-type", "LOGISTIC_REGRESSION",
+    "--feature-shard-id-to-feature-section-keys-map", "global:fixedFeatures|per_user:userFeatures",
+    "--updating-sequence", "fixed,per-user",
+    "--fixed-effect-data-configurations", "fixed:global,1",
+    "--random-effect-data-configurations", "per-user:userId,per_user,1,-1,-1,-1,INDEX_MAP",
+    "--fixed-effect-optimization-configurations", "fixed:50,1e-7,0.01,1,LBFGS,L2",
+    "--random-effect-optimization-configurations", "per-user:40,1e-6,0.1,1,LBFGS,L2",
+    "--evaluator-type", "AUC", "--num-iterations", "2",
+]
+GAME_SECTIONS = {"global": ["fixedFeatures"], "per_user": ["userFeatures"]}
+# the GAME driver's preprocess stage before native ingest: 129.66 s (the
+# pure-Python Avro row loop; NVIDIA H100 80GB HBM3, 700 W)
+PREPROCESS_ROW_LOOP_S = 129.66
+
+
+def run_game_training(torch, fused_sparse, argv, spec):
+    """One training-driver run under PHOTON_SPARSE_KERNEL=``spec`` with the
+    kernel and ingest counts set to 0 just before it: (driver, wall,
+    launches, stages, ingest counts). Fails unless the native decoder read
+    every file."""
+    from photon_ml_tpu_torch.cli import game_training_driver
+    from photon_ml_tpu_torch.io import avro_data
+
+    os.environ["PHOTON_SPARSE_KERNEL"] = spec
+    sync(torch)
+    for c in (fused_sparse.sparse_gevm_kernel, fused_sparse.sparse_hvp_kernel):
+        c.launches = 0
+    avro_data.ingest_counts.update(native_files=0, row_loop_files=0, rejected_files=0)
+    t0 = time.perf_counter()
+    try:
+        driver = game_training_driver.main(argv)
+    finally:
+        del os.environ["PHOTON_SPARSE_KERNEL"]
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {"gevm": fused_sparse.sparse_gevm_kernel.launches,
+                "hvp": fused_sparse.sparse_hvp_kernel.launches}
+    counts = dict(avro_data.ingest_counts)
+    check(counts["row_loop_files"] == 0 and counts["rejected_files"] == 0
+          and counts["native_files"] > 0,
+          f"spec {spec}: Avro files by path {counts}: the native decoder must read every file")
+    _, result, _ = driver.results[0]
+    tot = driver.timer.totals
+    stages = {"preprocess": tot["prepare-feature-maps"] + tot["prepare-datasets"],
+              "train": tot["train"] - result.timings["(validation)"],
+              "validate": result.timings["(validation)"], "save": tot["save"]}
+    return driver, wall, launches, stages, counts
+
+
 def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
     """Phase 10: cli.game_training_driver.main end to end (the README
     quickstart's flags without --checkpoint-dir) with
-    PHOTON_SPARSE_KERNEL=pallas, then off; model layout, validation AUC and
-    objective histories checked."""
-    from photon_ml_tpu_torch.cli import game_training_driver
+    PHOTON_SPARSE_KERNEL=pallas, then off; every Avro file read by the
+    native decoder; model layout, validation AUC and objective histories
+    checked. Returns the run's numbers and the pallas run's driver."""
 
     say(f"== phase 10: game_training_driver.main, bench.py's GAME data, {GAME_USERS} users "
         f"(8-16 rows each, d_fixed={GAME_D_FIXED}, d_random={GAME_D_RANDOM}, 15% labels "
@@ -779,39 +851,15 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
     say(f"  Avro written in {time.perf_counter() - t0:.1f} s: {n_train} train rows, "
         f"{n_val} validation rows")
     runs = {}
+    drivers = {}
     for spec in ("pallas", "off"):
         out = os.path.join(workdir, f"out-{spec}")
-        argv = [
-            "--train-input-dirs", os.path.join(workdir, "train"),
-            "--validate-input-dirs", os.path.join(workdir, "validate"),
-            "--output-dir", out, "--task-type", "LOGISTIC_REGRESSION",
-            "--feature-shard-id-to-feature-section-keys-map",
-            "global:fixedFeatures|per_user:userFeatures",
-            "--updating-sequence", "fixed,per-user",
-            "--fixed-effect-data-configurations", "fixed:global,1",
-            "--random-effect-data-configurations", "per-user:userId,per_user,1,-1,-1,-1,INDEX_MAP",
-            "--fixed-effect-optimization-configurations", "fixed:50,1e-7,0.01,1,LBFGS,L2",
-            "--random-effect-optimization-configurations", "per-user:40,1e-6,0.1,1,LBFGS,L2",
-            "--evaluator-type", "AUC", "--num-iterations", "2", "--device", dev,
-        ]
-        os.environ["PHOTON_SPARSE_KERNEL"] = spec
-        sync(torch)
-        for c in (fused_sparse.sparse_gevm_kernel, fused_sparse.sparse_hvp_kernel):
-            c.launches = 0
-        t0 = time.perf_counter()
-        try:
-            driver = game_training_driver.main(argv)
-        finally:
-            del os.environ["PHOTON_SPARSE_KERNEL"]
-        sync(torch)
-        wall = time.perf_counter() - t0
-        launches = {"gevm": fused_sparse.sparse_gevm_kernel.launches,
-                    "hvp": fused_sparse.sparse_hvp_kernel.launches}
+        argv = ["--train-input-dirs", os.path.join(workdir, "train"),
+                "--validate-input-dirs", os.path.join(workdir, "validate"),
+                "--output-dir", out, "--device", dev] + GAME_FLAGS
+        driver, wall, launches, stages, counts = run_game_training(torch, fused_sparse, argv, spec)
+        drivers[spec] = driver
         _, result, metrics = driver.results[0]
-        tot = driver.timer.totals
-        stages = {"preprocess": tot["prepare-feature-maps"] + tot["prepare-datasets"],
-                  "train": tot["train"] - result.timings["(validation)"],
-                  "validate": result.timings["(validation)"], "save": tot["save"]}
         check(driver.device.type == dev, f"GAME driver ran off {dev}")
         layout = {k: sorted(os.listdir(os.path.join(out, "best", k)))
                   for k in ("fixed-effect", "random-effect")}
@@ -823,6 +871,10 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
         check(all(np.isfinite(result.objective_history)), "non-finite objective")
         check(metrics["AUC"] > GAME_AUC_FLOOR, f"validation AUC {metrics['AUC']} <= {GAME_AUC_FLOOR}")
         slab = driver.combo_coords[0]["per-user"].slab
+        tot = driver.timer.totals
+        say("  preprocess by span: " + ", ".join(f"{k} {tot[k]:.2f} s" for k in (
+            "prepare-feature-maps", "read-train-data", "read-validation-data",
+            "build-fixed-effect-batches", "build-random-effect-datasets")))
         say(f"  spec {spec:6s}: validation AUC {metrics['AUC']:.6f}; objective history "
             + " ".join(f"{v:.6f}" for v in result.objective_history)
             + f"; GEVM launches {launches['gevm']}, HVP {launches['hvp']}; entities "
@@ -830,7 +882,10 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
             f"{None if slab is None else tuple(slab.idx.shape)}"
             + ("" if slab is None else f" (column tables {slab.kernel_tables().nbytes} B)")
             + f"; wall {wall:.2f} s; stages "
-            + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
+            + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+            + f" (preprocess {PREPROCESS_ROW_LOOP_S} s through the Python row loop before "
+            f"native ingest); Avro files read natively {counts['native_files']}, by the row "
+            f"loop {counts['row_loop_files']}")
         runs[spec] = (result, launches, stages, wall, metrics["AUC"])
         if spec == "pallas":
             held = hold_driver_slab(torch, fused_sparse, driver.combo_coords[0]["per-user"])
@@ -843,8 +898,286 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
     out = {spec: {"launches": r[1], "stages_s": r[2], "wall_s": r[3], "auc": r[4]}
            for spec, r in runs.items()}
     out["max_abs_err"] = held
-    return out
+    return out, drivers["pallas"]
 
+
+def phase_ingest(workdir, trained):
+    """Phase 11: read_game_data on the validation rows natively and through
+    the Python row loop (PHOTON_ML_TPU_NATIVE=0), every array byte-equal."""
+    from photon_ml_tpu_torch.io import avro_data
+
+    val_dir = os.path.join(workdir, "validate")
+    say("== phase 11: read_game_data on the validation dir, native decoder against the "
+        "Python row loop")
+    args = ([val_dir], trained.shard_index_maps, GAME_SECTIONS, ["userId"])
+    reads = {}
+    for path, env in (("native", "1"), ("row loop", "0")):
+        os.environ["PHOTON_ML_TPU_NATIVE"] = env
+        avro_data.ingest_counts.update(native_files=0, row_loop_files=0, rejected_files=0)
+        try:
+            t0 = time.perf_counter()
+            data = avro_data.read_game_data(*args)
+            secs = time.perf_counter() - t0
+        finally:
+            del os.environ["PHOTON_ML_TPU_NATIVE"]
+        counts = dict(avro_data.ingest_counts)
+        want = {"native": "native_files", "row loop": "row_loop_files"}[path]
+        check(counts[want] == 1 and sum(counts.values()) == 1, f"{path} read went {counts}")
+        reads[path] = (data, secs)
+        say(f"  {path:8s}: {data.num_rows} rows in {secs:.3f} s, "
+            f"{data.num_rows / secs:.0f} rows/s")
+    (a, ta), (b, tb) = reads["native"], reads["row loop"]
+    arrays = [(f, getattr(a, f), getattr(b, f)) for f in ("response", "offset", "weight")]
+    arrays += [(f"ids[{t}]", a.ids[t], b.ids[t]) for t in a.ids]
+    arrays += [(f"{s_}.{f}", getattr(a.shards[s_], f), getattr(b.shards[s_], f))
+               for s_ in a.shards for f in ("indptr", "indices", "values")]
+    for name, x, y in arrays:
+        check(x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes(),
+              f"ingest: {name} differs between the native and the row-loop read")
+    check(a.id_vocabs == b.id_vocabs, "ingest: entity vocabularies differ")
+    say(f"  {len(arrays)} arrays byte-equal; native {tb / ta:.1f}x the row loop's rate")
+    # where a native read's host time goes (cProfile adds per-call cost to
+    # the Python parts, so the shares lean toward them)
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(avro_data.read_game_data, *args)
+    stats = pstats.Stats(prof)
+    total = stats.total_tt
+    name = lambda k: f"{os.path.basename(k[0])}:{k[2]}"
+    cum = sorted(((v[3], name(k)) for k, v in stats.stats.items()
+                  if "photon_ml_tpu_torch" in k[0]), reverse=True)[:8]
+    own = sorted(((v[2], name(k)) for k, v in stats.stats.items()), reverse=True)[:8]
+    say(f"  cProfile of one native read, {total:.3f} s in all; cumulative s by function: "
+        + ", ".join(f"{n} {secs:.3f}" for secs, n in cum)
+        + "; own s by function: " + ", ".join(f"{n} {secs:.3f}" for secs, n in own))
+    return {"rows": a.num_rows, "native_s": ta, "row_loop_s": tb}
+
+
+def score_bytes(*tensors):
+    """Bytes a function must move: each given tensor (inputs read once, the
+    output written once) in its own dtype."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def run_scoring(torch, argv):
+    """One scoring-driver run, the ingest counts set to 0 just before it;
+    fails unless the native decoder read every file."""
+    from photon_ml_tpu_torch.cli import game_scoring_driver
+    from photon_ml_tpu_torch.io import avro_data
+
+    avro_data.ingest_counts.update(native_files=0, row_loop_files=0, rejected_files=0)
+    sync(torch)
+    t0 = time.perf_counter()
+    driver = game_scoring_driver.main(argv)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    counts = dict(avro_data.ingest_counts)
+    check(counts["row_loop_files"] == 0 and counts["rejected_files"] == 0,
+          f"scoring read Avro files through the row loop: {counts}")
+    check(bool(np.isfinite(driver.scores).all()), "non-finite scores")
+    return driver, wall
+
+
+def phase_scoring(torch, workdir, trained, dev="cuda"):
+    """Phase 12: cli.game_scoring_driver.main on phase 10's pallas model:
+    the validation rows on the card and with --host-scoring, the training
+    rows on the card; the scoring gather and the fixed-effect matvec timed
+    against their bytes bound; rows without a model score exactly 0."""
+    from photon_ml_tpu_torch.cli import game_scoring_driver as gsd
+    from photon_ml_tpu_torch.io import avro as avro_io
+    from photon_ml_tpu_torch.io import model_io
+    from photon_ml_tpu_torch.models.game import gather_scores
+
+    model = os.path.join(trained.params.output_dir, "best")
+    train_auc = trained.results[0][2]["AUC"]
+    say(f"== phase 12: game_scoring_driver.main on phase 10's pallas model ({model})")
+    common = ["--game-model-input-dir", model, "--evaluator-type", "AUC", "--device", dev,
+              "--feature-shard-id-to-feature-section-keys-map",
+              "global:fixedFeatures|per_user:userFeatures"]
+    runs = {}
+    for label, data_dir, files, extra in (
+            ("validate, card", "validate", 1, []),
+            ("validate, host", "validate", 1, ["--host-scoring", "true"]),
+            ("train, card", "train", 4, [])):
+        out = os.path.join(workdir, "scores-" + label.replace(", ", "-"))
+        driver, wall = run_scoring(torch, ["--input-dirs", os.path.join(workdir, data_dir),
+                                           "--output-dir", out,
+                                           "--num-output-files-for-scores", str(files)]
+                                   + extra + common)
+        parts = sorted(os.listdir(os.path.join(out, "scores")))
+        check(parts == [f"part-{i:05d}.avro" for i in range(files)], f"{label}: parts {parts}")
+        rows = sum(1 for p_ in parts for _ in avro_io.read_container(
+            os.path.join(out, "scores", p_)))
+        check(rows == driver.data.num_rows == len(driver.scores), f"{label}: {rows} score rows")
+        stages = driver.timer.totals
+        say(f"  {label}: {rows} rows in {len(parts)} part files, AUC {driver.metrics['AUC']:.6f}; "
+            f"wall {wall:.2f} s; stages " + ", ".join(
+                f"{k} {stages[k]:.2f} s" for k in ("prepare-feature-maps", "read-data",
+                                                   "load-model", "score", "save", "evaluate")
+                if k in stages))
+        runs[label] = (driver, wall)
+    card, host = runs["validate, card"][0], runs["validate, host"][0]
+    diff = np.abs(card.scores.astype(np.float64) - host.scores)
+    ok = diff <= 1e-5 + 1e-4 * np.abs(host.scores)
+    check(bool(ok.all()), f"card and host scores differ beyond the elementwise tolerance "
+                          f"(max {diff.max():.3e})")
+    for label in ("validate, card", "validate, host"):
+        auc = runs[label][0].metrics["AUC"]
+        check(abs(auc - train_auc) <= 1e-6,
+              f"{label}: scoring AUC {auc} != the training driver's validation AUC {train_auc}")
+    say(f"  card against host scores: max |diff| {diff.max():.3e} (elementwise tolerance "
+        f"rtol 1e-4, atol 1e-5); scoring AUC = training validation AUC {train_auc:.6f} "
+        "within 1e-6")
+
+    # the device path's two functions on the training rows' own inputs
+    driver = runs["train, card"][0]
+    data = driver.data
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    means = model_io.load_fixed_effect(model, "fixed", driver.shard_index_maps["global"])[0]
+    entity_means = model_io.load_random_effect(model, "per-user",
+                                               driver.shard_index_maps["per_user"])[0]
+    fidx, fvals = gsd.padded_coo(data.shards["global"], dev)
+    ridx, rvals = gsd.padded_coo(data.shards["per_user"], dev)
+    slab, ent_pos, matched = gsd.entity_positions(data.id_vocabs["userId"], entity_means,
+                                                  data.ids["userId"],
+                                                  data.shards["per_user"].dim)
+    slab, ent_pos, w = put(slab), put(ent_pos), put(means)
+    out = gather_scores(slab, ent_pos, ridx, rvals)
+    cold = ent_pos.clone()
+    cold[::7] = -1
+    out_cold = gather_scores(slab, cold, ridx, rvals)
+    sync(torch)
+    check(bool((out_cold[::7] == 0).all()), "rows without a model did not score exactly 0")
+    keep = torch.ones_like(out, dtype=torch.bool)
+    keep[::7] = False
+    check(torch.equal(out_cold[keep], out[keep]), "the other rows' scores moved")
+    fout = gsd.fixed_contrib(w, fidx, fvals)
+    timings = {}
+    for name, fn, tensors, shape in (
+            ("re_gather", lambda: gather_scores(slab, ent_pos, ridx, rvals),
+             (slab, ent_pos, ridx, rvals, out),
+             f"N={data.num_rows} K={ridx.shape[1]} E={slab.shape[0]} D={slab.shape[1]}"),
+            ("fixed_matvec", lambda: gsd.fixed_contrib(w, fidx, fvals),
+             (w, fidx, fvals, fout), f"N={data.num_rows} K={fidx.shape[1]} D={w.shape[0]}")):
+        nbytes = score_bytes(*tensors)
+        t = {"ms": time_ms(torch, fn), "graph_ms": graph_ms(torch, fn), "bytes": nbytes,
+             "bound_ms": nbytes / MEM_RATE * 1e3, "bound_by": "bytes", "shape": shape}
+        timings[name] = t
+        say(f"  {name}: {shape}: events {t['ms']:.4f} ms, graph {t['graph_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.5f} ms ({nbytes} B), share by graph "
+            f"{t['bound_ms'] / t['graph_ms']:.3f}")
+    say(f"  {matched} of {len(data.id_vocabs['userId'])} entities matched; every 7th row "
+        "given no model scores exactly 0 and no other row moved")
+    say(json.dumps({"scoring": {
+        "walls_s": {k: v[1] for k, v in runs.items()},
+        "stages_s": {k: v[0].timer.totals for k, v in runs.items()},
+        "functions": timings}}))
+    return timings
+
+
+def phase_offheap(torch, fused_sparse, workdir, trained, dev="cuda"):
+    """Phase 13: feature_indexing --format OFFHEAP --partition-num 8 on the
+    training rows, then the training driver (spec pallas) and the scoring
+    driver with --offheap-indexmap-dir."""
+    from photon_ml_tpu_torch.cli import feature_indexing
+    from photon_ml_tpu_torch.io.offheap import OffHeapIndexMap
+
+    say("== phase 13: feature_indexing (OFFHEAP, 8 partitions), then training (spec pallas) "
+        "and scoring with --offheap-indexmap-dir")
+    idx = os.path.join(workdir, "index-maps")
+    t0 = time.perf_counter()
+    written = feature_indexing.main([
+        "--data-input-dirs", os.path.join(workdir, "train"), "--output-dir", idx,
+        "--partition-num", "8", "--format", "OFFHEAP",
+        "--feature-shard-id-to-feature-section-keys-map",
+        "global:fixedFeatures|per_user:userFeatures"])
+    say(f"  index maps {[os.path.relpath(p_, workdir) for p_ in written]} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    argv = ["--train-input-dirs", os.path.join(workdir, "train"),
+            "--validate-input-dirs", os.path.join(workdir, "validate"),
+            "--output-dir", os.path.join(workdir, "out-offheap"), "--device", dev,
+            "--offheap-indexmap-dir", idx] + GAME_FLAGS
+    driver, wall, launches, stages, _ = run_game_training(torch, fused_sparse, argv, "pallas")
+    check(all(isinstance(m, OffHeapIndexMap) for m in driver.shard_index_maps.values()),
+          "the driver did not train on the off-heap maps")
+    check(launches["gevm"] > 0, "the off-heap training run launched no GEVM kernel")
+    hist = driver.results[0][1].objective_history
+    want = trained.results[0][1].objective_history
+    for a, b in zip(hist, want):
+        check(abs(a - b) <= 1e-2 * abs(b) + 2e-3, f"off-heap objective history {a} vs {b}")
+    auc = driver.results[0][2]["AUC"]
+    say(f"  training: objective history " + " ".join(f"{v:.6f}" for v in hist)
+        + f" (phase 10 pallas: " + " ".join(f"{v:.6f}" for v in want) + "), within the solver "
+        f"tolerance; validation AUC {auc:.6f}; GEVM launches {launches['gevm']}; wall "
+        f"{wall:.2f} s; stages " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
+    scorer, swall = run_scoring(torch, [
+        "--input-dirs", os.path.join(workdir, "validate"),
+        "--game-model-input-dir", os.path.join(workdir, "out-offheap", "best"),
+        "--output-dir", os.path.join(workdir, "scores-offheap"), "--offheap-indexmap-dir", idx,
+        "--evaluator-type", "AUC", "--device", dev,
+        "--feature-shard-id-to-feature-section-keys-map",
+        "global:fixedFeatures|per_user:userFeatures"])
+    check(abs(scorer.metrics["AUC"] - auc) <= 1e-6,
+          f"off-heap scoring AUC {scorer.metrics['AUC']} != training validation AUC {auc}")
+    say(f"  scoring: AUC {scorer.metrics['AUC']:.6f} (= the training run's within 1e-6); wall "
+        f"{swall:.2f} s")
+    return launches
+
+
+def phase_random_projection(torch, trained, dev="cuda"):
+    """Phase 14: one random-effect update with LBFGS on phase 10's per-user
+    data under a RANDOM=4 projection, on the card and on the CPU; per-lane
+    objectives held at the solver tolerance."""
+    from photon_ml_tpu_torch.algorithm.random_effect import (
+        RandomEffectCoordinate,
+        global_coefficients,
+    )
+    from photon_ml_tpu_torch.cli.game_params import CoordinateOptConfig
+    from photon_ml_tpu_torch.data.game import RandomEffectDataConfig, build_random_effect_dataset
+    from photon_ml_tpu_torch.types import TaskType
+
+    cfg = CoordinateOptConfig.parse("40,1e-6,0.1,1,LBFGS,L2")
+    data = trained.train_data
+    say(f"== phase 14: RANDOM=4 projection: RandomEffectCoordinate.update (LBFGS) on phase "
+        f"10's per-user data ({data.num_rows} rows), card against CPU")
+    resid = np.random.default_rng(SEED + 3).normal(scale=0.5, size=data.num_rows)
+    out = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        ds = build_random_effect_dataset(
+            data, RandomEffectDataConfig("userId", "per_user", projector="RANDOM",
+                                         random_projection_dim=4), device=device)
+        coord = RandomEffectCoordinate(ds, TaskType.LOGISTIC_REGRESSION, cfg.optimizer,
+                                       cfg.optimizer_config(), cfg.regularization_context(),
+                                       sparse_kernel="pallas")
+        check(coord.slab is None, "a RANDOM dataset built a slab")
+        build_s = time.perf_counter() - t0
+        sync(torch)
+        t0 = time.perf_counter()
+        w, res = coord.update(torch.from_numpy(resid.astype(np.float32)).to(device),
+                              coord.initial_coefficients())
+        wg = global_coefficients(ds, w)
+        sync(torch)
+        out[where] = (w.cpu().numpy(), res.value.cpu().numpy(), wg.cpu().numpy(),
+                    time.perf_counter() - t0, build_s, tuple(ds.x.shape))
+    (wc, vc, gc, tc, bc, shape), (wp, vp, gp, tp, bp, _) = out["card"], out["cpu"]
+    check(np.isfinite(wc).all() and np.isfinite(gc).all(), "RANDOM: non-finite coefficients")
+    # as phase 9: per-lane final objectives at the solver tolerance (a lane
+    # stops once its objective settles, so its coefficients agree only to
+    # the stopping test's noise, reported below)
+    bad = np.abs(vc - vp) > 2e-3 + 1e-2 * np.abs(vp)
+    check(not bad.any(), f"RANDOM: {int(bad.sum())} lanes' objectives off the CPU update")
+    coef_off = np.abs(wc - wp) > 2e-3 + 1e-2 * np.abs(wp)
+    lanes_off = int(coef_off.any(axis=1).sum())
+    say(f"  stack {shape}; per-lane objectives card against CPU: max |diff| "
+        f"{np.abs(vc - vp).max():.3e} (solver tolerance rtol 1e-2, atol 2e-3); coefficients: "
+        f"max |diff| {np.abs(wc - wp).max():.3e}, {lanes_off} of {len(wc)} lanes beyond the "
+        f"solver tolerance (objective diff there at most "
+        f"{(np.abs(vc - vp)[coef_off.any(axis=1)].max() if lanes_off else 0.0):.3e}); "
+        f"back-projected (E, D) max |diff| {np.abs(gc - gp).max():.3e}; update wall card "
+        f"{tc:.3f} s, CPU {tp:.3f} s; dataset build card {bc:.2f} s, CPU {bp:.2f} s")
 
 def hold_driver_slab(torch, fused_sparse, coord):
     """Both sparse kernels on the driver's own per-user slab and row vectors
@@ -885,20 +1218,29 @@ def main() -> None:
     say(f"  torch {torch.__version__} (CUDA {torch.version.cuda}) on {name}, "
         f"{torch.cuda.device_count()} device(s); TF32 off for matmul and cuDNN")
 
-    say("== phase 2: build the kernel libraries from csrc/, one nvcc per source, in parallel")
+    say("== phase 2: build the kernel libraries from csrc/ (nvcc) and the host libraries "
+        "from native/ (g++), one compiler per source, in parallel")
     from photon_ml_tpu_torch.ops import fused_sparse
 
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     sources = (fused_glm.SOURCE, fused_sparse.SOURCE)
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        paths = list(pool.map(native_build.build, sources))
-    say(f"  {[os.path.relpath(p_, here) for p_ in paths]} built in {time.perf_counter() - t0:.2f} s")
+    host_sources = (("avro_decoder.cpp", ("-lz",)), ("libsvm_parser.cpp", ()),
+                    ("pmix_store.cpp", ()))
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(host_sources)) as pool:
+        kernel_builds = [pool.submit(native_build.build, src) for src in sources]
+        host_builds = [pool.submit(native_build.build_host, src, libs)
+                       for src, libs in host_sources]
+        paths = [f.result() for f in kernel_builds]
+        host_paths = [f.result() for f in host_builds]
+    say(f"  {[os.path.relpath(p_, here) for p_ in paths + host_paths]} built in "
+        f"{time.perf_counter() - t0:.2f} s")
     for src, path in zip(sources, paths):
         log = native_build.build_logs.get(path, "").splitlines()
         regs = [line.split("Used ")[1].split(" registers")[0] for line in log if "registers" in line]
         spills = sum(1 for line in log if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"))
         say(f"  ptxas {src}: registers per kernel {regs}; kernels with spills or stack: {spills}")
+    check(native_build.native_enabled(), "PHOTON_ML_TPU_NATIVE switches the host libraries off")
 
     max_abs_err = phase_kernel_vs_plain(torch, fused_glm, losses)
     times = phase_times(torch, fused_glm, losses)
@@ -909,7 +1251,11 @@ def main() -> None:
     sparse_times = phase_sparse_times(torch, fused_sparse, losses)
     re_runs = phase_re_solve(torch, fused_sparse, sparse_times["full width"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as workdir:
-        game_runs = phase_game_driver(torch, fused_sparse, workdir)
+        game_runs, trained = phase_game_driver(torch, fused_sparse, workdir)
+        phase_ingest(workdir, trained)
+        phase_scoring(torch, workdir, trained)
+        phase_offheap(torch, fused_sparse, workdir, trained)
+        phase_random_projection(torch, trained)
 
     bf16 = times["bfloat16"]
     kernels = [{

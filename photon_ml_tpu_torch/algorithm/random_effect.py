@@ -81,7 +81,9 @@ class RandomEffectCoordinate:
 
     ``sparse_kernel``: None reads ``PHOTON_SPARSE_KERNEL`` (default off =
     the dense stack); a family name builds the slab once, here, from the
-    dataset's dense stack (on its device) and keeps it for every update.
+    dataset's dense stack (on its device) and keeps it for every update. A
+    RANDOM-projected dataset is dense in every slot, so it always solves on
+    the dense stack and builds no slab.
     """
 
     dataset: RandomEffectDataset
@@ -103,7 +105,7 @@ class RandomEffectCoordinate:
             )
         self.slab: Optional[fused_sparse.SparseSlab] = None
         spec = fused_sparse.resolve_sparse_kernel(self.sparse_kernel)
-        if spec is not None:
+        if spec is not None and self.dataset.projection_matrix is None:
             self.slab = fused_sparse.build_and_select(self.dataset.x, spec, self.solve_label)
 
     @property
@@ -172,8 +174,11 @@ class RandomEffectCoordinate:
 
 def global_coefficients(dataset: RandomEffectDataset, coefficients: Tensor) -> Tensor:
     """Per-entity local coefficients back in the global feature space,
-    (E, D_global), through local_to_global
-    (RandomEffectModelInProjectedSpace.toRandomEffectModel parity)."""
+    (E, D_global) (RandomEffectModelInProjectedSpace.toRandomEffectModel
+    parity): INDEX_MAP/IDENTITY scatter through local_to_global, RANDOM
+    back-projects through the shared matrix (W_global = W_proj @ M)."""
+    if dataset.projection_matrix is not None:
+        return coefficients @ dataset.projection_matrix
     e = coefficients.shape[0]
     out = torch.zeros((e, dataset.global_dim), dtype=coefficients.dtype,
                       device=coefficients.device)

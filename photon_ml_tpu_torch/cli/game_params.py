@@ -1,5 +1,6 @@
-"""GAME training parameters: delimited-string configs and the command-line
-parser (port of the training half of photon_ml_tpu/cli/game_params.py).
+"""GAME driver parameters: delimited-string configs and the command-line
+parsers of the training and scoring drivers (port of
+photon_ml_tpu/cli/game_params.py).
 
 Reference spec: cli/game/training/Params.scala:196-395 and its config
 grammars:
@@ -12,13 +13,14 @@ grammars:
       "name:reId,shardId,numPartitions,activeUB,passiveLB,featureRatio,projector"
   feature shard map: "shard1:sec1,sec2|shard2:sec3"
 
-The parser takes every flag of the JAX driver under the same name, plus
-``--device`` (default ``cuda``). ``validate`` rejects, naming the flag, every
-flag whose code path is not yet ported when it is set away from its default:
-checkpoints, the lambda grid (';'-separated alternatives), factored
+The training parser takes every flag of the JAX driver under the same name,
+plus ``--device`` (default ``cuda``). ``validate`` rejects, naming the flag,
+every flag whose code path is not yet ported when it is set away from its
+default: checkpoints, the lambda grid (';'-separated alternatives), factored
 coordinates, bucketed/streaming random effects, solve compaction, the fused
-cycle, the mesh, the caches, warm starts, the planner, RANDOM projection,
-feature selection, down-sampling and the rest listed in ``_FENCED``.
+cycle, the mesh, the caches, warm starts, the planner, feature selection,
+down-sampling and the rest listed in ``_FENCED``. The scoring parser takes
+every flag of the JAX scoring driver, plus ``--device``.
 """
 
 from __future__ import annotations
@@ -197,8 +199,15 @@ class GameTrainingParams:
     output_dir: str = ""
     updating_sequence: List[str] = dataclasses.field(default_factory=list)
     validate_input_dirs: Optional[List[str]] = None
+    # daily/yyyy/MM/dd input discovery (IOUtils.scala:85-130); range XOR days-ago
+    train_date_range: Optional[str] = None
+    train_date_range_days_ago: Optional[str] = None
+    validate_date_range: Optional[str] = None
+    validate_date_range_days_ago: Optional[str] = None
     feature_shard_sections: Dict[str, List[str]] = dataclasses.field(default_factory=dict)
     feature_shard_intercepts: Dict[str, bool] = dataclasses.field(default_factory=dict)
+    # deprecated NameAndTerm vocabulary dir (io/name_and_term.py)
+    feature_name_and_term_set_path: Optional[str] = None
     num_iterations: int = 1
     fixed_effect_opt_grid: List[Dict[str, CoordinateOptConfig]] = dataclasses.field(
         default_factory=lambda: [{}]
@@ -215,9 +224,19 @@ class GameTrainingParams:
     num_output_files_re_model: int = 1
     delete_output_dir_if_exists: bool = False
     application_name: str = "photon-ml-tpu-game"
+    # feature maps from feature_indexing (JSON files or off-heap stores)
+    offheap_indexmap_dir: Optional[str] = None
     evaluators: List[Tuple[EvaluatorType, Optional[int], Optional[str]]] = dataclasses.field(
         default_factory=list
     )
+    # corrupt Avro shard policy: "raise" fails on the first bad block; "skip"
+    # drops bad blocks (resyncing on the sync marker) up to the budget per
+    # part file; every filesystem read retries io_retries times with
+    # exponential backoff from io_retry_base_delay seconds
+    on_corrupt: str = "raise"
+    corrupt_skip_budget: int = 16
+    io_retries: int = 4
+    io_retry_base_delay: float = 0.05
     # flags of the JAX driver given away from their default whose code paths
     # are not yet ported (filled by the parser; validate refuses them)
     unported_flags: List[str] = dataclasses.field(default_factory=list)
@@ -233,8 +252,6 @@ class GameTrainingParams:
                 if cfg.down_sampling_rate < 1.0:
                     flags.append(f"down-sampling rate {cfg.down_sampling_rate} (coordinate {name!r})")
         for name, cfg in self.random_effect_data_configs.items():
-            if cfg.projector not in ("INDEX_MAP", "IDENTITY"):
-                flags.append(f"{cfg.projector} projection (coordinate {name!r})")
             if cfg.features_to_samples_ratio is not None:
                 flags.append(f"features-to-samples ratio (coordinate {name!r})")
         return [f"{flag} is not yet ported to photon_ml_tpu_torch" for flag in flags]
@@ -253,6 +270,14 @@ class GameTrainingParams:
                 errors.append(f"coordinate {name!r} has no data configuration")
         if self.num_iterations < 1:
             errors.append("--num-iterations must be >= 1")
+        if self.train_date_range and self.train_date_range_days_ago:
+            errors.append("--train-date-range and --train-date-range-days-ago are exclusive")
+        if self.validate_date_range and self.validate_date_range_days_ago:
+            errors.append(
+                "--validate-date-range and --validate-date-range-days-ago are exclusive")
+        errors.extend(_io_errors(self))
+        if self.io_retry_base_delay < 0:
+            errors.append("--io-retry-base-delay must be >= 0")
         if self.device not in ("cuda", "cpu"):
             errors.append(f"--device must be cuda or cpu, got {self.device!r}")
         errors.extend(self._not_yet_ported())
@@ -267,17 +292,22 @@ class GameTrainingParams:
         return merged
 
 
+def _io_errors(params) -> List[str]:
+    """The checks of the resilience flags both drivers take."""
+    errors = []
+    if params.on_corrupt not in ("raise", "skip"):
+        errors.append(f"--on-corrupt must be 'raise' or 'skip', got {params.on_corrupt!r}")
+    if params.corrupt_skip_budget < 0:
+        errors.append("--corrupt-skip-budget must be >= 0")
+    if params.io_retries < 1:
+        errors.append("--io-retries must be >= 1")
+    return errors
+
+
 # flag -> its default; a parsed value other than the default (or an "off"
 # spelling) names the flag in validate's "not yet ported" error
 _FENCED = {
-    "--train-date-range": None,
-    "--train-date-range-days-ago": None,
-    "--validate-date-range": None,
-    "--validate-date-range-days-ago": None,
-    "--feature-name-and-term-set-path": None,
     "--factored-random-effect-optimization-configurations": None,
-    "--offheap-indexmap-dir": None,
-    "--offheap-indexmap-num-partitions": 1,
     "--checkpoint-dir": None,
     "--checkpoint-async": "false",
     "--max-restarts": 0,
@@ -296,10 +326,6 @@ _FENCED = {
     "--adaptive-schedule": None,
     "--plan": None,
     "--vmapped-grid": "false",
-    "--on-corrupt": "raise",
-    "--corrupt-skip-budget": 16,
-    "--io-retries": 4,
-    "--io-retry-base-delay": 0.05,
     "--divergence-guard": "off",
 }
 # values that leave a fenced flag unset, besides its default
@@ -321,8 +347,15 @@ def build_training_parser() -> argparse.ArgumentParser:
     a("--output-dir", required=True)
     a("--updating-sequence", required=True, help="comma-separated coordinate names")
     a("--validate-input-dirs", default=None)
+    a("--train-date-range", default=None, help="yyyyMMdd-yyyyMMdd")
+    a("--train-date-range-days-ago", default=None, help="e.g. 90-1")
+    a("--validate-date-range", default=None)
+    a("--validate-date-range-days-ago", default=None)
     a("--feature-shard-id-to-feature-section-keys-map", dest="shard_sections", default=None)
     a("--feature-shard-id-to-intercept-map", dest="shard_intercepts", default=None)
+    a("--feature-name-and-term-set-path", dest="name_and_term_path", default=None,
+      help="deprecated NameAndTerm vocabulary dir (one text subdir per section); "
+           "replaces the whole-dataset feature scan")
     a("--num-iterations", type=int, default=1)
     a("--fixed-effect-optimization-configurations", dest="fe_opt", default=None)
     a("--random-effect-optimization-configurations", dest="re_opt", default=None)
@@ -333,9 +366,16 @@ def build_training_parser() -> argparse.ArgumentParser:
     a("--num-output-files-for-random-effect-model", dest="num_re_files", type=int, default=1)
     a("--delete-output-dir-if-exists", default="false")
     a("--application-name", default="photon-ml-tpu-game")
+    a("--offheap-indexmap-dir", default=None,
+      help="feature maps written by feature_indexing (JSON or OFFHEAP)")
     a("--evaluator-type", dest="evaluators", default=None)
-    # a Spark partitioning knob, accepted for command compatibility and ignored
+    # Spark partitioning knobs, accepted for command compatibility and ignored
+    # (the store's partition count is in its own meta.json)
     a("--min-partitions-for-validation", type=int, default=1)
+    a("--offheap-indexmap-num-partitions", type=int, default=1)
+    _add_io_flags(a)
+    a("--io-retry-base-delay", type=float, default=0.05,
+      help="base backoff delay in seconds between I/O retries")
     for flag, default in _FENCED.items():
         kind = type(default) if isinstance(default, (int, float)) else None
         a(flag, dest=_dest(flag), default=default, type=kind,
@@ -344,6 +384,16 @@ def build_training_parser() -> argparse.ArgumentParser:
       help="where tensors live and the solve runs (default cuda; cuda without "
            "a card raises)")
     return p
+
+
+def _add_io_flags(a) -> None:
+    a("--on-corrupt", default="raise", choices=["raise", "skip"],
+      help="corrupt Avro block policy: fail fast, or skip bad blocks "
+           "(resyncing on the sync marker) within --corrupt-skip-budget")
+    a("--corrupt-skip-budget", type=int, default=16,
+      help="max corrupt blocks skipped per part file before raising")
+    a("--io-retries", type=int, default=4,
+      help="attempts for every filesystem read (exponential backoff)")
 
 
 def _truthy(v) -> bool:
@@ -365,8 +415,13 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         validate_input_dirs=(
             [d for d in ns.validate_input_dirs.split(",") if d] if ns.validate_input_dirs else None
         ),
+        train_date_range=ns.train_date_range,
+        train_date_range_days_ago=ns.train_date_range_days_ago,
+        validate_date_range=ns.validate_date_range,
+        validate_date_range_days_ago=ns.validate_date_range_days_ago,
         feature_shard_sections=parse_shard_sections(ns.shard_sections),
         feature_shard_intercepts=parse_shard_intercepts(ns.shard_intercepts),
+        feature_name_and_term_set_path=ns.name_and_term_path,
         num_iterations=ns.num_iterations,
         fixed_effect_opt_grid=parse_coordinate_config_grid(ns.fe_opt),
         random_effect_opt_grid=parse_coordinate_config_grid(ns.re_opt),
@@ -377,8 +432,116 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         num_output_files_re_model=ns.num_re_files,
         delete_output_dir_if_exists=_truthy(ns.delete_output_dir_if_exists),
         application_name=ns.application_name,
+        offheap_indexmap_dir=ns.offheap_indexmap_dir,
         evaluators=parse_evaluators(ns.evaluators),
+        on_corrupt=ns.on_corrupt,
+        corrupt_skip_budget=ns.corrupt_skip_budget,
+        io_retries=ns.io_retries,
+        io_retry_base_delay=ns.io_retry_base_delay,
         unported_flags=_unported(ns),
+        device=ns.device,
+    )
+    params.validate()
+    return params
+
+
+@dataclasses.dataclass
+class GameScoringParams:
+    """cli/game/scoring/Params.scala parity."""
+
+    input_dirs: List[str] = dataclasses.field(default_factory=list)
+    game_model_input_dir: str = ""
+    output_dir: str = ""
+    game_model_id: str = ""
+    date_range: Optional[str] = None
+    date_range_days_ago: Optional[str] = None
+    random_effect_id_types: List[str] = dataclasses.field(default_factory=list)
+    feature_shard_sections: Dict[str, List[str]] = dataclasses.field(default_factory=dict)
+    feature_shard_intercepts: Dict[str, bool] = dataclasses.field(default_factory=dict)
+    num_output_files_for_scores: int = 1
+    delete_output_dir_if_exists: bool = False
+    application_name: str = "photon-ml-tpu-game-scoring"
+    offheap_indexmap_dir: Optional[str] = None
+    evaluators: List[Tuple[EvaluatorType, Optional[int], Optional[str]]] = dataclasses.field(
+        default_factory=list
+    )
+    host_scoring: bool = False  # the numpy path, the device path's parity oracle
+    on_corrupt: str = "raise"
+    corrupt_skip_budget: int = 16
+    io_retries: int = 4
+    # where scoring runs: "cuda" (default) or "cpu"
+    device: str = "cuda"
+
+    def validate(self) -> None:
+        errors = []
+        if not self.input_dirs:
+            errors.append("--input-dirs is required")
+        if not self.game_model_input_dir:
+            errors.append("--game-model-input-dir is required")
+        if not self.output_dir:
+            errors.append("--output-dir is required")
+        if self.date_range and self.date_range_days_ago:
+            errors.append("--date-range and --date-range-days-ago are exclusive")
+        errors.extend(_io_errors(self))
+        if self.device not in ("cuda", "cpu"):
+            errors.append(f"--device must be cuda or cpu, got {self.device!r}")
+        if errors:
+            raise ValueError("; ".join(errors))
+
+
+def build_scoring_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="photon-ml-tpu-torch game-scoring", description="GAME scoring driver on the card"
+    )
+    a = p.add_argument
+    a("--input-dirs", required=True)
+    a("--game-model-input-dir", required=True)
+    a("--output-dir", required=True)
+    a("--game-model-id", default="")
+    a("--date-range", default=None, help="yyyyMMdd-yyyyMMdd")
+    a("--date-range-days-ago", default=None, help="e.g. 90-1")
+    a("--random-effect-id-set", dest="re_id_set", default=None)
+    a("--feature-shard-id-to-feature-section-keys-map", dest="shard_sections", default=None)
+    a("--feature-shard-id-to-intercept-map", dest="shard_intercepts", default=None)
+    a("--num-output-files-for-scores", type=int, default=1)
+    a("--delete-output-dir-if-exists", default="false")
+    a("--application-name", default="photon-ml-tpu-game-scoring")
+    a("--offheap-indexmap-dir", default=None)
+    a("--evaluator-type", dest="evaluators", default=None)
+    # Spark partitioning knobs, accepted for command compatibility and ignored
+    a("--offheap-indexmap-num-partitions", type=int, default=1)
+    a("--min-partitions-for-random-effect-model", type=int, default=1)
+    a("--host-scoring", default="false",
+      help="score with numpy on the host (the device path's parity oracle)")
+    _add_io_flags(a)
+    a("--device", dest="device", default="cuda", choices=["cuda", "cpu"],
+      help="where scoring runs (default cuda; cuda without a card raises)")
+    return p
+
+
+def parse_scoring_params(argv: Optional[List[str]] = None) -> GameScoringParams:
+    ns = build_scoring_parser().parse_args(argv)
+    params = GameScoringParams(
+        input_dirs=[d for d in ns.input_dirs.split(",") if d],
+        game_model_input_dir=ns.game_model_input_dir,
+        output_dir=ns.output_dir,
+        game_model_id=ns.game_model_id,
+        date_range=ns.date_range,
+        date_range_days_ago=ns.date_range_days_ago,
+        random_effect_id_types=(
+            [t.strip() for t in ns.re_id_set.split(",") if t.strip()] if ns.re_id_set else []
+        ),
+        feature_shard_sections=parse_shard_sections(ns.shard_sections),
+        feature_shard_intercepts=parse_shard_intercepts(ns.shard_intercepts),
+        num_output_files_for_scores=ns.num_output_files_for_scores,
+        delete_output_dir_if_exists=_truthy(ns.delete_output_dir_if_exists),
+        application_name=ns.application_name,
+        offheap_indexmap_dir=ns.offheap_indexmap_dir,
+        evaluators=parse_evaluators(ns.evaluators),
+        host_scoring=_truthy(ns.host_scoring),
+        on_corrupt=ns.on_corrupt,
+        corrupt_skip_budget=ns.corrupt_skip_budget,
+        io_retries=ns.io_retries,
         device=ns.device,
     )
     params.validate()

@@ -3,7 +3,9 @@ photon_ml_tpu/cli/game_training_driver.py for fixed-effect and plain
 random-effect coordinates).
 
 Reference spec: cli/game/training/Driver.scala:64-537 — prepare feature maps
-(a whole-dataset scan of the Avro inputs), load the GAME data, build the
+(``--offheap-indexmap-dir`` maps from feature_indexing, a NameAndTerm
+vocabulary, or a whole-dataset scan of the Avro inputs), resolve dated
+input dirs, load the GAME data (native Avro decoder), build the
 per-coordinate datasets, build the evaluators, run coordinate descent, save
 the model in the reference's on-disk layout (``best/fixed-effect/<name>/``,
 ``best/random-effect/<name>/``; ``all/0/`` too with ``--model-output-mode
@@ -25,6 +27,7 @@ effects solve over sparse slabs through the CUDA GEVM/HVP kernels.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, List, Optional, Tuple
 
@@ -52,13 +55,18 @@ from photon_ml_tpu_torch.data.game import (
     padded_row_coo,
 )
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch import resilience
 from photon_ml_tpu_torch.evaluation.evaluators import Evaluator, EvaluatorType, evaluator_for
 from photon_ml_tpu_torch.io import avro_data, model_io
 from photon_ml_tpu_torch.io.index_map import IndexMap
+from photon_ml_tpu_torch.io.name_and_term import NameAndTermFeatureSetContainer
+from photon_ml_tpu_torch.io.offheap import load_shard_index_map
+from photon_ml_tpu_torch.models.game import gather_scores
 from photon_ml_tpu_torch.ops import losses as losses_mod
 from photon_ml_tpu_torch.optim.common import OptResult, summarize_result, summarize_stacked_results
 from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
 from photon_ml_tpu_torch.types import ModelOutputMode, TaskType
+from photon_ml_tpu_torch.utils.date_range import DateRange, expand_date_range_paths
 from photon_ml_tpu_torch.utils.io_utils import prepare_output_dir
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
 from photon_ml_tpu_torch.utils.timer import Timer
@@ -87,6 +95,42 @@ def _input_files(dirs: List[str]) -> List[str]:
             files.extend(os.path.join(d, f) for f in sorted(os.listdir(d))
                          if not f.startswith((".", "_")))
     return files
+
+
+def resolve_date_range_dirs(
+    dirs: List[str],
+    date_range: Optional[str],
+    days_ago: Optional[str],
+) -> List[str]:
+    """Expand input dirs into their daily/yyyy/MM/dd subdirs within the
+    requested range (IOUtils.scala:85-130 discovery); no range -> unchanged."""
+    if not date_range and not days_ago:
+        return dirs
+    dr = DateRange.from_string(date_range) if date_range else DateRange.from_days_ago(days_ago)
+    out: List[str] = []
+    for d in dirs:
+        try:
+            out.extend(expand_date_range_paths(d, dr))
+        except FileNotFoundError:
+            pass  # an error only if the union over ALL dirs is empty (IOUtils parity)
+    if not out:
+        raise FileNotFoundError(
+            f"no daily inputs under any of {dirs} within {dr.start}..{dr.end}"
+        )
+    return out
+
+
+def io_resilience_config(on_corrupt: str, corrupt_skip_budget: int, io_retries: int,
+                         io_retry_base_delay: Optional[float] = None):
+    """The process-wide ingest settings from a driver's flags: the flags set
+    the attempts (and the base delay); the rest of the retry policy keeps
+    its environment-tunable defaults (PHOTON_IO_RETRY_*)."""
+    policy = dataclasses.replace(resilience.RetryPolicy.io_default(), max_attempts=io_retries)
+    if io_retry_base_delay is not None:
+        policy = dataclasses.replace(policy, base_delay=io_retry_base_delay)
+    return resilience.ResilienceConfig(on_corrupt=on_corrupt,
+                                       corrupt_skip_budget=corrupt_skip_budget,
+                                       io_policy=policy)
 
 
 def _default_evaluators(task: TaskType):
@@ -130,17 +174,42 @@ class GameTrainingDriver:
         shards |= {cfg.feature_shard_id for cfg in p.random_effect_data_configs.values()}
         return sorted(shards)
 
-    def prepare_feature_maps(self) -> None:
-        """GAMEDriver.prepareFeatureMaps: one index map per feature shard
-        from a whole-dataset scan of the training inputs."""
+    def _train_dirs(self) -> List[str]:
         p = self.params
-        paths = _input_files(p.train_input_dirs)
+        return resolve_date_range_dirs(p.train_input_dirs, p.train_date_range,
+                                       p.train_date_range_days_ago)
+
+    def _validate_dirs(self) -> List[str]:
+        p = self.params
+        return resolve_date_range_dirs(p.validate_input_dirs or [], p.validate_date_range,
+                                       p.validate_date_range_days_ago)
+
+    def prepare_feature_maps(self) -> None:
+        """GAMEDriver.prepareFeatureMaps: one index map per feature shard,
+        from ``--offheap-indexmap-dir`` (:76-82), else a NameAndTerm
+        vocabulary, else a whole-dataset scan of the training inputs
+        (:49-69), in that order."""
+        p = self.params
+        nt_container = None
+        if p.feature_name_and_term_set_path and not p.offheap_indexmap_dir:
+            # every shard's sections, with the "features" default of an
+            # unconfigured shard, so no shard gets an empty vocabulary
+            all_sections = sorted({s for shard in self._shard_ids()
+                                   for s in (p.feature_shard_sections.get(shard) or ["features"])})
+            nt_container = NameAndTermFeatureSetContainer.read_from_text(
+                p.feature_name_and_term_set_path, all_sections)
+        paths = None
         for shard in self._shard_ids():
             sections = p.feature_shard_sections.get(shard) or ["features"]
-            keys = avro_data.collect_feature_keys(paths, sections)
-            self.shard_index_maps[shard] = IndexMap.build(
-                keys, p.feature_shard_intercepts.get(shard, True)
-            )
+            add_intercept = p.feature_shard_intercepts.get(shard, True)
+            if p.offheap_indexmap_dir:
+                self.shard_index_maps[shard] = load_shard_index_map(p.offheap_indexmap_dir, shard)
+            elif nt_container is not None:
+                self.shard_index_maps[shard] = nt_container.index_map(sections, add_intercept)
+            else:
+                paths = paths or _input_files(self._train_dirs())
+                keys = avro_data.collect_feature_keys(paths, sections)
+                self.shard_index_maps[shard] = IndexMap.build(keys, add_intercept)
             self.logger.info(
                 f"feature shard {shard!r}: {len(self.shard_index_maps[shard])} features"
             )
@@ -152,30 +221,36 @@ class GameTrainingDriver:
         return sorted(ids)
 
     def prepare_datasets(self) -> None:
+        """Read the training (and validation) rows, then build each
+        coordinate's tensors on the device; each step is a timer span."""
         p = self.params
-        self.train_data = avro_data.read_game_data(
-            _input_files(p.train_input_dirs), self.shard_index_maps,
-            p.feature_shard_sections, self._id_types(),
-            shard_intercepts=p.feature_shard_intercepts or None,
-        )
-        self.logger.info(f"training rows: {self.train_data.num_rows}")
-        if p.validate_input_dirs:
-            self.validation_data = avro_data.read_game_data(
-                _input_files(p.validate_input_dirs), self.shard_index_maps,
+        with self.timer.measure("read-train-data"):
+            self.train_data = avro_data.read_game_data(
+                _input_files(self._train_dirs()), self.shard_index_maps,
                 p.feature_shard_sections, self._id_types(),
                 shard_intercepts=p.feature_shard_intercepts or None,
-                id_vocabs=self.train_data.id_vocabs,
             )
+        self.logger.info(f"training rows: {self.train_data.num_rows}")
+        if p.validate_input_dirs:
+            with self.timer.measure("read-validation-data"):
+                self.validation_data = avro_data.read_game_data(
+                    _input_files(self._validate_dirs()), self.shard_index_maps,
+                    p.feature_shard_sections, self._id_types(),
+                    shard_intercepts=p.feature_shard_intercepts or None,
+                    id_vocabs=self.train_data.id_vocabs,
+                )
             self.logger.info(f"validation rows: {self.validation_data.num_rows}")
-        for name, spec in p.fixed_effect_data_configs.items():
-            self._check_dense(spec.feature_shard_id)
-            self.fe_batches[name] = build_fixed_effect_batch(
-                self.train_data, spec.feature_shard_id, device=self.device
-            )
-        for name, cfg in p.random_effect_data_configs.items():
-            self.re_datasets[name] = build_random_effect_dataset(
-                self.train_data, cfg, device=self.device
-            )
+        with self.timer.measure("build-fixed-effect-batches"):
+            for name, spec in p.fixed_effect_data_configs.items():
+                self._check_dense(spec.feature_shard_id)
+                self.fe_batches[name] = build_fixed_effect_batch(
+                    self.train_data, spec.feature_shard_id, device=self.device
+                )
+        with self.timer.measure("build-random-effect-datasets"):
+            for name, cfg in p.random_effect_data_configs.items():
+                self.re_datasets[name] = build_random_effect_dataset(
+                    self.train_data, cfg, device=self.device
+                )
 
     def _check_dense(self, shard: str) -> None:
         width = len(self.shard_index_maps[shard])
@@ -258,7 +333,7 @@ class GameTrainingDriver:
                 ).features
             else:
                 cfg = p.random_effect_data_configs[name]
-                cols, vals = padded_row_coo(vdata.shards[cfg.feature_shard_id])
+                cols, vals = padded_row_coo(vdata.shards[cfg.feature_shard_id], pad_col=0)
                 vocab_ids = vdata.ids[cfg.random_effect_id]
                 pos_of_vocab = self._entity_position_of_vocab(name)
                 ent_pos = np.where(vocab_ids >= 0, pos_of_vocab[np.maximum(vocab_ids, 0)], -1)
@@ -273,12 +348,8 @@ class GameTrainingDriver:
                     total = total + fe_feats[name].matvec(w)
                     continue
                 cols, vals, ent_pos = re_info[name]
-                wg = global_coefficients(self.re_datasets[name], w)
-                gathered = wg[torch.clamp_min(ent_pos, 0).long()[:, None],
-                              torch.clamp_min(cols, 0).long()]
-                valid = (ent_pos[:, None] >= 0) & (cols >= 0)
-                total = total + torch.sum(
-                    torch.where(valid, gathered * vals, torch.zeros_like(gathered)), dim=-1)
+                total = total + gather_scores(global_coefficients(self.re_datasets[name], w),
+                                              ent_pos, cols, vals)
             return total + offset
 
         return scorer
@@ -338,6 +409,12 @@ class GameTrainingDriver:
             residual is the total minus this coordinate's own score."""
             if not p.compute_variance or combo_index is None:
                 return None
+            cfg = p.random_effect_data_configs.get(name)
+            if cfg is not None and cfg.projector == "RANDOM":
+                # a diagonal variance does not survive a dense random
+                # back-projection; the reference has the same limitation
+                self.logger.warn(f"[{name}] variances skipped: RANDOM-projected space")
+                return None
             coord = self.combo_coords[combo_index][name]
             return coord.coefficient_variances(coeffs, result.total_scores - coord.score(coeffs))
 
@@ -372,6 +449,14 @@ class GameTrainingDriver:
 
     # ------------------------------------------------------------------
     def run(self) -> None:
+        """The whole run under the flags' ingest resilience settings, so
+        every read (feature scan, dataset load, index maps) behaves alike."""
+        p = self.params
+        with resilience.resilience_scope(io_resilience_config(
+                p.on_corrupt, p.corrupt_skip_budget, p.io_retries, p.io_retry_base_delay)):
+            self._run()
+
+    def _run(self) -> None:
         p = self.params
         prepare_output_dir(p.output_dir, p.delete_output_dir_if_exists)
         self.logger.info(f"device: {self.device}"

@@ -1,6 +1,6 @@
 """GAME data layer: host-side columnar data and entity-major tensors on a
-device (port of photon_ml_tpu/data/game.py for the INDEX_MAP and IDENTITY
-projections).
+device (port of photon_ml_tpu/data/game.py for the INDEX_MAP, IDENTITY and
+RANDOM projections).
 
   * ``GameData``: the columnar dataset in one global row order (responses,
     offsets, weights, dense entity ids per id type, one CSR matrix per
@@ -9,10 +9,11 @@ projections).
     ``(E, M, D_loc)`` tensors (entities are lanes of one solve), plus the
     scoring tensors in global row order. Grouping, the active/passive split
     and the local projection are host-side numpy, identical to the JAX
-    build; the tensors then move to the device.
+    build; the tensors then move to the device. A RANDOM projection makes
+    the local space the k-dimensional image of one shared Gaussian matrix
+    (projectors.py), so its stack is dense in every slot.
 
-The RANDOM projection, Pearson feature selection and the tensor cache are
-not yet ported.
+Pearson feature selection and the tensor cache are not yet ported.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
-from photon_ml_tpu_torch.types import real_dtype
+from photon_ml_tpu_torch.projectors import build_projector
+from photon_ml_tpu_torch.types import ProjectorType, real_dtype
 
 Tensor = torch.Tensor
 
@@ -95,6 +97,9 @@ class RandomEffectDataConfig:
     features_to_samples_ratio: Optional[float] = None  # Pearson selection cap
     projector: str = "INDEX_MAP"  # INDEX_MAP | IDENTITY | RANDOM
     random_projection_dim: Optional[int] = None
+    # whether the shard's last column is an intercept the RANDOM projection
+    # passes through untouched (ProjectionMatrix.scala isKeepingInterceptTerm)
+    random_projection_intercept: bool = True
     seed: int = 7
 
 
@@ -112,6 +117,8 @@ class RandomEffectDataset:
       feat_val    (N, K)
     Projection bookkeeping:
       local_to_global (E, D_loc) int32 — global column per local column (-1 pad)
+      projection_matrix (k, D_global) — the shared RANDOM-projection matrix,
+        None for INDEX_MAP/IDENTITY; it back-projects coefficients
     """
 
     row_index: Tensor
@@ -125,6 +132,7 @@ class RandomEffectDataset:
     local_to_global: Tensor
     num_entities: int
     global_dim: int
+    projection_matrix: Optional[Tensor] = None
 
     TENSOR_FIELDS = ("row_index", "x", "labels", "base_offsets", "weights",
                      "entity_pos", "feat_idx", "feat_val", "local_to_global")
@@ -143,15 +151,16 @@ class RandomEffectDataset:
 
 
 def build_random_effect_dataset(data: GameData, config: RandomEffectDataConfig,
-                                device=None) -> RandomEffectDataset:
+                                device=None, projector=None) -> RandomEffectDataset:
     """Host-side build — group by entity, cap the active set, project to
     each entity's local space, pad — then the tensors move to ``device``
-    (default cuda). Arrays are byte-equal to the JAX build's."""
-    if config.projector not in ("INDEX_MAP", "IDENTITY"):
-        raise ValueError(
-            f"random-effect projector {config.projector} is not yet ported to "
-            "photon_ml_tpu_torch (INDEX_MAP and IDENTITY are)"
-        )
+    (default cuda). Arrays are byte-equal to the JAX build's.
+
+    ``projector`` (a ProjectionMatrixProjector) is consulted only for
+    ``config.projector == "RANDOM"``; omitted, one is built from
+    ``config.random_projection_dim`` and ``config.seed``."""
+    if config.projector not in ("INDEX_MAP", "IDENTITY", "RANDOM"):
+        raise ValueError(f"unknown random-effect projector {config.projector!r}")
     if config.features_to_samples_ratio is not None:
         raise ValueError(
             "random-effect features-to-samples ratio (Pearson feature selection) "
@@ -183,58 +192,13 @@ def build_random_effect_dataset(data: GameData, config: RandomEffectDataConfig,
     over = counts > cap
     scale[over] = counts[over] / cap
 
-    # ---- per-entity local index maps --------------------------------------
-    rows_nnz = np.repeat(np.arange(n), np.diff(feats.indptr))
-    keep = active_mask[rows_nnz]
-    pair_key = ids[rows_nnz[keep]].astype(np.int64) * feats.dim + feats.indices[keep].astype(np.int64)
-    uniq = np.unique(pair_key)
-    pair_e = (uniq // feats.dim).astype(np.int64)
-    pair_f = (uniq % feats.dim).astype(np.int64)
-    if config.projector == "IDENTITY":
-        d_loc = feats.dim
-        local_to_global = np.tile(np.arange(feats.dim, dtype=np.int32), (num_entities_raw, 1))
-        pair_lookup = None
-    else:  # INDEX_MAP: local order = ascending global column per entity
-        o = np.lexsort((pair_f, pair_e))
-        pair_e, pair_f = pair_e[o], pair_f[o]
-        ent_start = np.searchsorted(pair_e, np.arange(num_entities_raw), side="left")
-        local_idx = np.arange(len(pair_e)) - ent_start[pair_e]
-        per_entity_dims = np.bincount(pair_e, minlength=num_entities_raw)
-        d_loc = max(int(per_entity_dims.max()) if len(pair_e) else 1, 1)
-        local_to_global = np.full((num_entities_raw, d_loc), -1, np.int32)
-        local_to_global[pair_e, local_idx] = pair_f.astype(np.int32)
-        pair_lookup = (pair_e * feats.dim + pair_f, local_idx)  # sorted composite keys
-
-    def project_rows(row_sel: np.ndarray):
-        """Rows' features in their entity's local space: (feat_idx (R, K)
-        int32 with -1 masked, feat_val (R, K))."""
-        sub_nnz_counts = np.diff(feats.indptr)[row_sel]
-        k = max(int(sub_nnz_counts.max()) if len(row_sel) and sub_nnz_counts.size else 1, 1)
-        out_idx = np.full((len(row_sel), k), -1, np.int32)
-        out_val = np.zeros((len(row_sel), k), real)
-        starts = feats.indptr[row_sel]
-        ends = feats.indptr[row_sel + 1]
-        lens = (ends - starts).astype(np.int64)
-        flat_rows = np.repeat(np.arange(len(row_sel)), lens)
-        flat_ptr = (np.concatenate([np.arange(s, e) for s, e in zip(starts, ends)])
-                    if len(row_sel) else np.zeros(0, np.int64))
-        cols = feats.indices[flat_ptr].astype(np.int64)
-        vals = feats.values[flat_ptr]
-        slot = np.arange(len(flat_rows)) - np.repeat(
-            np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
-        )
-        if pair_lookup is None:
-            out_idx[flat_rows, slot] = cols.astype(np.int32)
-            out_val[flat_rows, slot] = vals
-            return out_idx, out_val
-        comp = ids[row_sel][flat_rows].astype(np.int64) * feats.dim + cols
-        keys, locs = pair_lookup
-        pos = np.searchsorted(keys, comp)
-        pos_c = np.clip(pos, 0, len(keys) - 1) if len(keys) else np.zeros_like(pos)
-        hit = (keys[pos_c] == comp) if len(keys) else np.zeros(len(comp), bool)
-        out_idx[flat_rows[hit], slot[hit]] = locs[pos_c[hit]].astype(np.int32)
-        out_val[flat_rows[hit], slot[hit]] = vals[hit]
-        return out_idx, out_val
+    projection_matrix = None
+    if config.projector == "RANDOM":
+        d_loc, local_to_global, project_rows, projection_matrix = _random_projection(
+            config, feats, num_entities_raw, projector, real)
+    else:
+        d_loc, local_to_global, project_rows = _local_index_maps(
+            config, ids, feats, n, num_entities_raw, active_mask, real)
 
     # ---- entity-major training tensors ------------------------------------
     entity_order = balanced_entity_order(active_counts, config.num_shards)
@@ -298,7 +262,94 @@ def build_random_effect_dataset(data: GameData, config: RandomEffectDataConfig,
         base_offsets=put(offsets_t), weights=put(weights_t),
         entity_pos=put(entity_pos_all), feat_idx=put(sc_idx), feat_val=put(sc_val),
         local_to_global=put(l2g_tensor), num_entities=e_padded, global_dim=feats.dim,
+        projection_matrix=None if projection_matrix is None else projection_matrix.to(dev),
     )
+
+
+def _random_projection(config, feats, num_entities_raw, projector, real):
+    """The RANDOM local space: every entity shares one dense (k, d) matrix
+    (projector/ProjectionMatrixBroadcast.scala:30-96), applied on the host
+    to the CSR rows; no local column maps to a global one."""
+    if projector is None:
+        projector = build_projector(
+            ProjectorType.RANDOM, feats.dim, config.random_projection_dim,
+            keep_intercept=config.random_projection_intercept, seed=config.seed,
+        )
+    d_loc = projector.projected_dim
+    local_to_global = np.full((num_entities_raw, d_loc), -1, np.int32)
+
+    def project_rows(row_sel: np.ndarray):
+        starts = feats.indptr[row_sel]
+        ends = feats.indptr[row_sel + 1]
+        lens = (ends - starts).astype(np.int64)
+        flat_ptr = (np.concatenate([np.arange(s, e) for s, e in zip(starts, ends)])
+                    if len(row_sel) else np.zeros(0, np.int64))
+        row_splits = np.concatenate([[0], np.cumsum(lens)])
+        dense = projector.project_sparse_features(
+            feats.indices[flat_ptr].astype(np.int64), feats.values[flat_ptr], row_splits)
+        out_idx = np.tile(np.arange(d_loc, dtype=np.int32), (len(row_sel), 1))
+        return out_idx, dense.astype(real)
+
+    return d_loc, local_to_global, project_rows, projector.matrix
+
+
+def _local_index_maps(config, ids, feats, n, num_entities_raw, active_mask, real):
+    """The INDEX_MAP local space (each entity's features seen in its active
+    rows, in ascending global order) or the IDENTITY one (every column):
+    (D_loc, local_to_global by raw entity, project_rows)."""
+    rows_nnz = np.repeat(np.arange(n), np.diff(feats.indptr))
+    keep = active_mask[rows_nnz]
+    pair_key = ids[rows_nnz[keep]].astype(np.int64) * feats.dim + feats.indices[keep].astype(np.int64)
+    uniq = np.unique(pair_key)
+    pair_e = (uniq // feats.dim).astype(np.int64)
+    pair_f = (uniq % feats.dim).astype(np.int64)
+    if config.projector == "IDENTITY":
+        d_loc = feats.dim
+        local_to_global = np.tile(np.arange(feats.dim, dtype=np.int32), (num_entities_raw, 1))
+        pair_lookup = None
+    else:  # INDEX_MAP: local order = ascending global column per entity
+        o = np.lexsort((pair_f, pair_e))
+        pair_e, pair_f = pair_e[o], pair_f[o]
+        ent_start = np.searchsorted(pair_e, np.arange(num_entities_raw), side="left")
+        local_idx = np.arange(len(pair_e)) - ent_start[pair_e]
+        per_entity_dims = np.bincount(pair_e, minlength=num_entities_raw)
+        d_loc = max(int(per_entity_dims.max()) if len(pair_e) else 1, 1)
+        local_to_global = np.full((num_entities_raw, d_loc), -1, np.int32)
+        local_to_global[pair_e, local_idx] = pair_f.astype(np.int32)
+        pair_lookup = (pair_e * feats.dim + pair_f, local_idx)  # sorted composite keys
+
+    def project_rows(row_sel: np.ndarray):
+        """Rows' features in their entity's local space: (feat_idx (R, K)
+        int32 with -1 masked, feat_val (R, K))."""
+        sub_nnz_counts = np.diff(feats.indptr)[row_sel]
+        k = max(int(sub_nnz_counts.max()) if len(row_sel) and sub_nnz_counts.size else 1, 1)
+        out_idx = np.full((len(row_sel), k), -1, np.int32)
+        out_val = np.zeros((len(row_sel), k), real)
+        starts = feats.indptr[row_sel]
+        ends = feats.indptr[row_sel + 1]
+        lens = (ends - starts).astype(np.int64)
+        flat_rows = np.repeat(np.arange(len(row_sel)), lens)
+        flat_ptr = (np.concatenate([np.arange(s, e) for s, e in zip(starts, ends)])
+                    if len(row_sel) else np.zeros(0, np.int64))
+        cols = feats.indices[flat_ptr].astype(np.int64)
+        vals = feats.values[flat_ptr]
+        slot = np.arange(len(flat_rows)) - np.repeat(
+            np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
+        )
+        if pair_lookup is None:
+            out_idx[flat_rows, slot] = cols.astype(np.int32)
+            out_val[flat_rows, slot] = vals
+            return out_idx, out_val
+        comp = ids[row_sel][flat_rows].astype(np.int64) * feats.dim + cols
+        keys, locs = pair_lookup
+        pos = np.searchsorted(keys, comp)
+        pos_c = np.clip(pos, 0, len(keys) - 1) if len(keys) else np.zeros_like(pos)
+        hit = (keys[pos_c] == comp) if len(keys) else np.zeros(len(comp), bool)
+        out_idx[flat_rows[hit], slot[hit]] = locs[pos_c[hit]].astype(np.int32)
+        out_val[flat_rows[hit], slot[hit]] = vals[hit]
+        return out_idx, out_val
+
+    return d_loc, local_to_global, project_rows
 
 
 def padded_row_coo(feats: HostFeatures, pad_col: int = -1):

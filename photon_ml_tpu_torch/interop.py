@@ -66,11 +66,10 @@ def from_jax_numpy(obj, device=None):
             float(obj.elastic_net_alpha),
         )
     if kind == "RandomEffectDataset":
-        if obj.projection_matrix is not None:
-            raise ValueError("RANDOM-projected datasets are not yet ported to photon_ml_tpu_torch")
         return RandomEffectDataset(
             **{f: _tensor(getattr(obj, f), device) for f in RandomEffectDataset.TENSOR_FIELDS},
             num_entities=int(obj.num_entities), global_dim=int(obj.global_dim),
+            projection_matrix=_tensor(obj.projection_matrix, device),
         )
     if kind == "SparseSlab":
         return SparseSlab(_tensor(obj.idx, device), _tensor(obj.val, device), int(obj.dim),
@@ -119,7 +118,8 @@ def to_numpy(obj):
                 "elastic_net_alpha": obj.elastic_net_alpha}
     if isinstance(obj, RandomEffectDataset):
         out = {f: _array(getattr(obj, f)) for f in RandomEffectDataset.TENSOR_FIELDS}
-        return {**out, "num_entities": obj.num_entities, "global_dim": obj.global_dim}
+        return {**out, "num_entities": obj.num_entities, "global_dim": obj.global_dim,
+                "projection_matrix": _array(obj.projection_matrix)}
     if isinstance(obj, SparseSlab):
         return {"idx": _array(obj.idx), "val": _array(obj.val), "dim": obj.dim,
                 "kernel": obj.kernel}

@@ -1,6 +1,6 @@
 """Minimal pure-Python Avro: binary encoding + object container files (a
-copy of photon_ml_tpu/io/avro.py without the retry and corrupt-block-skip
-machinery, which is not yet ported: a corrupt block raises).
+copy of photon_ml_tpu/io/avro.py: per-block retries and the corrupt-block
+skip with its budget included).
 
 The reference reads/writes all data and models as Avro on HDFS
 (avro/AvroUtils.scala:43-270, AvroIOUtils.scala). This framework keeps the
@@ -21,15 +21,20 @@ from __future__ import annotations
 
 import io as _io
 import json
+import logging
 import os
 import struct
 import zlib
-from typing import Any, BinaryIO, Dict, Iterable, Iterator, List, Union
+from typing import Any, BinaryIO, Dict, Iterable, Iterator, List, Optional, Union
+
+from photon_ml_tpu_torch import resilience
 
 MAGIC = b"Obj\x01"
 DEFAULT_SYNC = b"\x50\x48\x4f\x54\x4f\x4e\x2d\x54\x50\x55\x2d\x53\x59\x4e\x43\x21"  # 16B
 
 Schema = Union[str, dict, list]
+
+logger = logging.getLogger(__name__)
 
 class CorruptBlockError(ValueError):
     """A container block failed to decode. Carries the file path, block
@@ -302,24 +307,81 @@ def write_container(
         flush()
 
 
-def read_container(path: str) -> Iterator[Any]:
-    """Iterate the records of one container file. A block that does not
-    decode raises :class:`CorruptBlockError`."""
-    with open(path, "rb") as f:
-        if f.read(4) != MAGIC:
-            raise ValueError(f"{path}: not an avro container file")
-        meta: Dict[str, bytes] = {}
-        while True:
-            count = read_long(f)
-            if count == 0:
-                break
-            if count < 0:
-                read_long(f)
-                count = -count
-            for _ in range(count):
-                k = read_string(f)
-                meta[k] = read_bytes(f)
-        sync = f.read(16)
+def _resync(f: BinaryIO, sync: bytes, start: int) -> Optional[int]:
+    """Scan forward from ``start`` for the next 16-byte sync marker; return
+    the offset just past it (the next block start), or None at EOF. Reads in
+    chunks with a 15-byte overlap so a marker straddling a chunk boundary is
+    still found."""
+    chunk_size = 1 << 16
+    f.seek(start)
+    carry = b""
+    base = start
+    while True:
+        chunk = f.read(chunk_size)
+        if not chunk:
+            return None
+        buf = carry + chunk
+        hit = buf.find(sync)
+        if hit >= 0:
+            return base - len(carry) + hit + len(sync)
+        carry = buf[-(len(sync) - 1):]
+        base += len(chunk)
+
+
+def read_container(
+    path: str,
+    on_corrupt: Optional[str] = None,
+    skip_budget: Optional[int] = None,
+) -> Iterator[Any]:
+    """Iterate records of one container file.
+
+    Transient read failures (OSError) are retried per block with the active
+    :class:`~photon_ml_tpu_torch.resilience.RetryPolicy` — the file offset is
+    remembered before each block so a retry re-reads exactly that block.
+
+    ``on_corrupt="skip"`` drops undecodable blocks (resynchronizing on the
+    sync marker) up to ``skip_budget`` blocks before raising; ``"raise"``
+    (default) surfaces the first :class:`CorruptBlockError`. Both default to
+    the process-wide resilience config.
+    """
+    cfg = resilience.current_config()
+    if on_corrupt is None:
+        on_corrupt = cfg.on_corrupt
+    if on_corrupt not in resilience.ON_CORRUPT_MODES:
+        raise ValueError(
+            f"on_corrupt must be one of {resilience.ON_CORRUPT_MODES}, "
+            f"got {on_corrupt!r}"
+        )
+    if skip_budget is None:
+        skip_budget = cfg.corrupt_skip_budget
+    policy = cfg.io_policy
+
+    with resilience.call_with_retry(
+        lambda: open(path, "rb"), policy, describe=f"open {path}"
+    ) as f:
+
+        def read_header():
+            """Magic + metadata map + sync marker; seeks to 0 first so the
+            enclosing retry (transient read errors mid-header) is idempotent."""
+            f.seek(0)
+            if f.read(4) != MAGIC:
+                raise ValueError(f"{path}: not an avro container file")
+            meta: Dict[str, bytes] = {}
+            while True:
+                count = read_long(f)
+                if count == 0:
+                    break
+                if count < 0:
+                    read_long(f)
+                    count = -count
+                for _ in range(count):
+                    k = read_string(f)
+                    meta[k] = read_bytes(f)
+            return meta, f.read(16)
+
+        meta, sync = resilience.call_with_retry(
+            read_header, policy, describe=f"read {path} header"
+        )
         schema = json.loads(meta["avro.schema"].decode())
         codec = meta.get("avro.codec", b"null").decode()
         if codec not in ("deflate", "null"):
@@ -327,13 +389,19 @@ def read_container(path: str) -> Iterator[Any]:
         names: Dict[str, dict] = {}
         _register(schema, names)
 
-        index = 0
-        while True:
-            offset = f.tell()
+        block_index = 0
+        skipped = 0
+
+        def read_block(offset: int, index: int) -> Optional[List[Any]]:
+            """One complete block -> record list; None on clean EOF. Seeks
+            back to ``offset`` first so the enclosing retry is idempotent;
+            decode failures become CorruptBlockError (never retried —
+            re-reading corrupt bytes cannot help)."""
+            f.seek(offset)
             try:
                 count = read_long(f)
             except EOFError:
-                return  # clean end of the container
+                return None  # clean end of container
             try:
                 payload = read_bytes(f)
                 if codec == "deflate":
@@ -341,22 +409,56 @@ def read_container(path: str) -> Iterator[Any]:
                 block = _io.BytesIO(payload)
                 records = [read_datum(block, schema, names) for _ in range(count)]
             except (EOFError, struct.error) as e:
-                raise CorruptBlockError(path, index, offset,
-                                        f"unexpected end of avro data ({e})") from e
+                raise CorruptBlockError(
+                    path, index, offset, f"unexpected end of avro data ({e})"
+                ) from e
             except zlib.error as e:
-                raise CorruptBlockError(path, index, offset,
-                                        f"deflate payload corrupt ({e})") from e
+                raise CorruptBlockError(
+                    path, index, offset, f"deflate payload corrupt ({e})"
+                ) from e
             except (ValueError, KeyError, IndexError, TypeError) as e:
-                raise CorruptBlockError(path, index, offset,
-                                        f"datum decode failed ({e})") from e
+                raise CorruptBlockError(
+                    path, index, offset, f"datum decode failed ({e})"
+                ) from e
             if f.read(16) != sync:
                 raise CorruptBlockError(path, index, offset, "sync marker mismatch")
+            return records
+
+        while True:
+            offset = f.tell()
+            try:
+                records = resilience.call_with_retry(
+                    lambda: read_block(offset, block_index),
+                    policy,
+                    describe=f"read {path} block {block_index}",
+                    on_retry=lambda a, e, d: logger.warning(
+                        "retrying %s block %d (attempt %d): %s", path, block_index, a + 2, e
+                    ),
+                )
+            except CorruptBlockError as err:
+                if on_corrupt != "skip" or skipped >= skip_budget:
+                    raise
+                skipped += 1
+                logger.warning(
+                    "skipping corrupt block (%d/%d of skip budget): %s",
+                    skipped, skip_budget, err,
+                )
+                next_off = _resync(f, sync, offset + 1)
+                if next_off is None:
+                    return  # no later sync marker: rest of the file is gone
+                f.seek(next_off)
+                block_index += 1
+                continue
+            if records is None:
+                return
             yield from records
-            index += 1
+            block_index += 1
 
 
 def list_part_files(path: str) -> list:
-    """The ``*.avro`` part files of a directory, sorted (or the file)."""
+    """The ``*.avro`` part files of a directory, sorted (or the file): one
+    definition shared by read_directory and the native path
+    (io/avro_data._native_columns), so the two read the same files."""
     if os.path.isfile(path):
         return [path]
     return [
@@ -366,7 +468,12 @@ def list_part_files(path: str) -> list:
     ]
 
 
-def read_directory(path: str) -> Iterator[Any]:
-    """Read all part files of an avro output directory (part-*.avro)."""
+def read_directory(
+    path: str,
+    on_corrupt: Optional[str] = None,
+    skip_budget: Optional[int] = None,
+) -> Iterator[Any]:
+    """Read all part files of an avro output directory (part-*.avro).
+    ``on_corrupt``/``skip_budget`` apply per part file (read_container)."""
     for f in list_part_files(path):
-        yield from read_container(f)
+        yield from read_container(f, on_corrupt=on_corrupt, skip_budget=skip_budget)

@@ -1,17 +1,21 @@
-"""Feature index maps: feature name <-> dense column index (port of the
-in-memory part of photon_ml_tpu/io/index_map.py).
+"""Feature index maps: feature name <-> dense column index (port of
+photon_ml_tpu/io/index_map.py).
 
 Reference spec: util/IndexMap.scala:25-49 (two-way map, feature key
 "name\\x01term"). Built indices equal the JAX package's (the same
-crc32-partitioned, sorted order). The partitioned off-heap store is not yet
-ported.
+crc32-partitioned, sorted order); the JSON file of ``save``/``load`` is the
+JAX package's too. The partitioned off-heap store is io/offheap.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import zlib
 from typing import Dict, Iterable, List, Optional
+
+from photon_ml_tpu_torch import resilience
 
 DELIMITER = "\x01"  # reference feature key separator (Utils.scala getFeatureKey)
 INTERCEPT_KEY = "(INTERCEPT)"  # reference constant GLMSuite.INTERCEPT_NAME_TERM
@@ -23,8 +27,9 @@ def feature_key(name: str, term: str = "") -> str:
 
 def partition_keys(feature_keys: Iterable[str], num_partitions: int) -> List[List[str]]:
     """Canonical index-assignment order: dedup, drop the intercept key,
-    crc32-hash-partition, sort within each partition (FeatureIndexingJob
-    hash-partition parity)."""
+    crc32-hash-partition, sort within each partition. Both index layouts
+    (IndexMap.build and the off-heap store) take their order from here, so
+    they always agree (FeatureIndexingJob hash-partition parity)."""
     keys = set(feature_keys)
     keys.discard(INTERCEPT_KEY)
     parts: List[List[str]] = [[] for _ in range(num_partitions)]
@@ -78,3 +83,21 @@ class IndexMap:
         if add_intercept:
             ordered.append(INTERCEPT_KEY)
         return IndexMap({k: i for i, k in enumerate(ordered)}, ordered)
+
+    def save(self, path: str) -> None:
+        """The names in index order, as one JSON list."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.index_to_name, f)
+
+    @staticmethod
+    def load(path: str) -> "IndexMap":
+        """Read a ``save``d map, retrying under the active I/O policy."""
+        def read() -> list:
+            with open(path) as f:
+                return json.load(f)
+
+        names = resilience.call_with_retry(
+            read, resilience.current_config().io_policy, describe=f"load {path}"
+        )
+        return IndexMap({k: i for i, k in enumerate(names)}, names)

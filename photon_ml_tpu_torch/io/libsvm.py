@@ -2,20 +2,25 @@
 photon_ml_tpu/io/libsvm.py).
 
 Reference spec: io/LibSVMInputDataFormat.scala:31 and GLMSuite's intercept
-handling (the intercept is appended as the last column). Parsing is the
-pure-Python parser, whose semantics equal the JAX package's native loader
-(``native/libsvm_parser.cpp``); loading that library from the port waits for
-a later slice. Batches are padded to a multiple of 8 rows with weight 0.
+handling (the intercept is appended as the last column). Files parse
+through the native C++ loader (``native/libsvm_parser.cpp``, shared with the
+JAX package and built by ``native_build.build_host``); the pure-Python
+parser of the same semantics runs when ``PHOTON_ML_TPU_NATIVE=0`` asks for
+it or when the loader flags a malformed token (the Python parser then raises
+the real error). ``parse_counts`` counts the files each parser read. Batches
+are padded to a multiple of 8 rows with weight 0.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import native_build
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.ops.features import DenseFeatures
 from photon_ml_tpu_torch.ops.objective import GLMBatch
@@ -43,10 +48,70 @@ class HostDataset:
         return len(self.labels)
 
 
-def read_libsvm(path: str, dim: Optional[int] = None, add_intercept: bool = True,
-                zero_based: bool = False) -> HostDataset:
-    """Parse a LIBSVM file. Labels in {-1, 1} are mapped to {0, 1}."""
-    real = _np_real()
+# files parsed since import, by the native loader and by the Python parser
+parse_counts = {"native_files": 0, "python_files": 0}
+
+
+def _load_lsv_native():
+    """The parser library, built on first use; None when
+    ``PHOTON_ML_TPU_NATIVE=0`` asks for the Python parser."""
+    if not native_build.native_enabled():
+        return None
+
+    def configure(lib):
+        lib.lsv_parse.restype = ctypes.c_void_p
+        lib.lsv_parse.argtypes = [ctypes.c_char_p, ctypes.c_int]
+        for fn in (lib.lsv_rows, lib.lsv_nnz, lib.lsv_max_index):
+            fn.restype = ctypes.c_long
+            fn.argtypes = [ctypes.c_void_p]
+        lib.lsv_ok.restype = ctypes.c_int
+        lib.lsv_ok.argtypes = [ctypes.c_void_p]
+        lib.lsv_fill.restype = None
+        lib.lsv_fill.argtypes = [
+            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        lib.lsv_free.restype = None
+        lib.lsv_free.argtypes = [ctypes.c_void_p]
+
+    return native_build.load_host("libsvm_parser.cpp", configure)
+
+
+def _parse_libsvm_native(path: str, zero_based: bool):
+    """(labels f64, indptr i64, indices i32, values f64, max index), or None
+    when native parsing is switched off, the file cannot be opened or a
+    token is malformed (the Python parser then raises the real error)."""
+    lib = _load_lsv_native()
+    if lib is None:
+        return None
+    h = lib.lsv_parse(path.encode(), 1 if zero_based else 0)
+    if not h:
+        return None
+    try:
+        if not lib.lsv_ok(h):
+            return None
+        n, nnz = lib.lsv_rows(h), lib.lsv_nnz(h)
+        labels = np.empty(n, np.float64)
+        indptr = np.empty(n + 1, np.int64)
+        indices = np.empty(max(nnz, 1), np.int32)
+        values = np.empty(max(nnz, 1), np.float64)
+        lib.lsv_fill(
+            h,
+            labels.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+            indices.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            values.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        )
+        return labels, indptr, indices[:nnz], values[:nnz], int(lib.lsv_max_index(h))
+    finally:
+        lib.lsv_free(h)
+
+
+def _parse_libsvm_python(path: str, zero_based: bool):
+    """The same five arrays from the pure-Python parser."""
     labels: List[float] = []
     indptr = [0]
     indices: List[int] = []
@@ -66,10 +131,23 @@ def read_libsvm(path: str, dim: Optional[int] = None, add_intercept: bool = True
                 values.append(float(v_s))
                 max_idx = max(max_idx, i)
             indptr.append(len(indices))
-    y = np.asarray(labels, real)
-    ptr = np.asarray(indptr, np.int64)
-    ind = np.asarray(indices, np.int32)
-    val = np.asarray(values, np.float64).astype(real)
+    return (np.asarray(labels, np.float64), np.asarray(indptr, np.int64),
+            np.asarray(indices, np.int32), np.asarray(values, np.float64), max_idx)
+
+
+def read_libsvm(path: str, dim: Optional[int] = None, add_intercept: bool = True,
+                zero_based: bool = False) -> HostDataset:
+    """Parse a LIBSVM file. Labels in {-1, 1} are mapped to {0, 1}."""
+    real = _np_real()
+    parsed = _parse_libsvm_native(path, zero_based)
+    if parsed is not None:
+        parse_counts["native_files"] += 1
+    else:
+        parse_counts["python_files"] += 1
+        parsed = _parse_libsvm_python(path, zero_based)
+    labels, ptr, ind, values, max_idx = parsed
+    y = labels.astype(real)
+    val = values.astype(real)
 
     if set(np.unique(y).tolist()) <= {-1.0, 1.0}:
         y = (y > 0).astype(real)

@@ -194,6 +194,17 @@ def load_random_effect(
     return out, task, re_id, shard
 
 
+def is_factored_random_effect(input_dir: str, name: str) -> bool:
+    """Whether ``random-effect/<name>`` holds a factored model (its id-info
+    says so on a third line)."""
+    info = os.path.join(input_dir, RANDOM_EFFECT, name, ID_INFO)
+    if not os.path.isfile(info):
+        return False
+    with open(info) as f:
+        lines = f.read().splitlines()
+    return len(lines) > 2 and lines[2] == "factored"
+
+
 def list_game_model(input_dir: str) -> Dict[str, List[str]]:
     """Enumerate coordinate names present in a saved GAME model dir."""
     out = {FIXED_EFFECT: [], RANDOM_EFFECT: []}

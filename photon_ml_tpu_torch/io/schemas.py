@@ -1,10 +1,11 @@
 """Avro schemas matching the reference's wire formats (the part of
-photon_ml_tpu/io/schemas.py that training data and saved models use).
+photon_ml_tpu/io/schemas.py that training data, saved models and scores
+use).
 
 Field names/structure mirror photon-avro-schemas/src/main/avro/*.avsc so
 data and models interchange byte-compatibly with the reference pipeline
 and the JAX package (TrainingExampleAvro, FeatureAvro, NameTermValueAvro,
-BayesianLinearModelAvro).
+BayesianLinearModelAvro, ScoringResultAvro).
 """
 
 NAME_TERM_VALUE = {
@@ -65,6 +66,24 @@ BAYESIAN_LINEAR_MODEL = {
 }
 
 # reference model class names, for modelClass/lossFunction round-trips
+SCORING_RESULT = {
+    "name": "ScoringResultAvro",
+    "namespace": "com.linkedin.photon.avro.generated",
+    "type": "record",
+    "fields": [
+        {"name": "uid", "type": ["null", "string"], "default": None},
+        {"name": "label", "type": ["null", "double"], "default": None},
+        {"name": "modelId", "type": "string"},
+        {"name": "predictionScore", "type": "double"},
+        {"name": "weight", "type": ["null", "double"], "default": None},
+        {
+            "name": "metadataMap",
+            "type": ["null", {"type": "map", "values": "string"}],
+            "default": None,
+        },
+    ],
+}
+
 MODEL_CLASS_BY_TASK = {
     "LOGISTIC_REGRESSION": "com.linkedin.photon.ml.supervised.classification.LogisticRegressionModel",
     "LINEAR_REGRESSION": "com.linkedin.photon.ml.supervised.regression.LinearRegressionModel",

@@ -20,6 +20,17 @@ from photon_ml_tpu_torch.types import TaskType
 Tensor = torch.Tensor
 
 
+def gather_scores(coefficients: Tensor, entity_pos: Tensor, feat_idx: Tensor,
+                  feat_val: Tensor) -> Tensor:
+    """score_n = sum_k val_nk * coefficients[entity_pos_n, idx_nk] over
+    padded-COO rows whose pad slots carry index 0 and value 0; a row with
+    entity_pos -1 (no model) scores 0 (RandomEffectModel.scala:129-158).
+    The scoring driver's and the training driver's validation gather."""
+    gathered = coefficients[torch.clamp_min(entity_pos, 0)[:, None], feat_idx]
+    valid = entity_pos[:, None] >= 0
+    return torch.sum(torch.where(valid, gathered * feat_val, torch.zeros_like(gathered)), dim=-1)
+
+
 @dataclasses.dataclass
 class FixedEffectModel:
     """Global coefficients for one feature shard."""

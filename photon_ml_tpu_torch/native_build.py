@@ -1,10 +1,21 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's native sources and load them with ctypes.
 
-Each source under ``csrc/`` is compiled on first use into a shared library
-with a plain C interface, ``_build/lib<stem>-<hash>.so`` inside the package
-(the hash covers the source, the shared headers and the flags, so an edited
-source never loads a stale library). Nothing is prebuilt: the library is made from the sources in
-the checkout on the machine that has the card.
+Two kinds of source, one build directory:
+
+  * the CUDA kernels under ``csrc/``, compiled on first use with nvcc
+    (``build`` / ``load``);
+  * the host runtime pieces under the repository's ``native/`` (the Avro
+    decoder, the LIBSVM parser, the off-heap index store), plain C++
+    shared with the JAX package and compiled on first use with g++
+    (``build_host`` / ``load_host``).
+
+Each becomes ``_build/lib<stem>-<hash>.so`` inside the package (the hash
+covers the source, the shared headers and the flags, so an edited source
+never loads a stale library). Nothing is prebuilt: a library is made from
+the sources in the checkout on the machine that runs it. A failed build
+raises with the compiler's output. ``PHOTON_ML_TPU_NATIVE=0`` is the one way
+to ask for the pure-Python host paths instead (``native_enabled``); the
+host libraries are never skipped quietly.
 """
 
 from __future__ import annotations
@@ -21,6 +32,10 @@ from typing import Callable, Dict, Sequence
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+# the framework-free C++ sources shared with the JAX package
+NATIVE_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "native")
+NATIVE_ENV = "PHOTON_ML_TPU_NATIVE"
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -32,6 +47,12 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # compiler report (registers, shared memory, spills) of each build, by the
 # library's path
 build_logs: Dict[str, str] = {}
+
+
+def native_enabled() -> bool:
+    """False when ``PHOTON_ML_TPU_NATIVE`` asks for the pure-Python host
+    paths (0, false, no)."""
+    return os.environ.get(NATIVE_ENV, "1").strip().lower() not in ("0", "false", "no")
 
 
 def nvcc_path() -> str:
@@ -62,6 +83,28 @@ def library_path(source_name: str, flags: Sequence[str] = NVCC_FLAGS,
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
 
 
+def _compile(command: Sequence[str], out: str, what: str) -> str:
+    """Run ``command`` (its output file given as ``{out}``) into a temporary
+    file beside ``out``, then rename it into place: processes building
+    one library at once (test workers) never load a half-written file."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    try:
+        proc = subprocess.run([tmp if a == "{out}" else a for a in command],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{what} (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        build_logs[out] = proc.stdout + proc.stderr
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
 def build(source_name: str, flags: Sequence[str] = NVCC_FLAGS,
           csrc_dir: str = CSRC_DIR) -> str:
     """Compile ``<csrc_dir>/<source_name>`` (by default the package's
@@ -70,26 +113,40 @@ def build(source_name: str, flags: Sequence[str] = NVCC_FLAGS,
     out = library_path(source_name, flags, csrc_dir)
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc_path(), *flags, "-o", tmp, os.path.join(csrc_dir, source_name)],
-            capture_output=True,
-            text=True,
+    return _compile([nvcc_path(), *flags, "-o", "{out}", os.path.join(csrc_dir, source_name)],
+                    out, f"nvcc failed on {source_name}")
+
+
+def gxx_path() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found is None:
+        raise RuntimeError(
+            "g++ not found (PATH, $CXX): the host libraries of photon_ml_tpu_torch "
+            "(native/*.cpp) are built from source; set PHOTON_ML_TPU_NATIVE=0 to "
+            "use the pure-Python paths instead"
         )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {source_name} (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        build_logs[out] = proc.stdout + proc.stderr
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return found
+
+
+def host_library_path(source_name: str, libs: Sequence[str] = ()) -> str:
+    """The host library's path; its hash covers the source and the flags."""
+    h = hashlib.sha256(repr((HOST_FLAGS, tuple(libs))).encode())
+    with open(os.path.join(NATIVE_DIR, source_name), "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(source_name)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-host-{h.hexdigest()[:16]}.so")
+
+
+def build_host(source_name: str, libs: Sequence[str] = ()) -> str:
+    """Compile ``native/<source_name>`` with g++ unless its library exists;
+    return the library's path. ``libs`` (``-lz``) follow the source, or GNU
+    ld drops them. Raises with the compiler's output if g++ fails."""
+    out = host_library_path(source_name, libs)
+    if os.path.exists(out):
+        return out
+    return _compile([gxx_path(), *HOST_FLAGS, "-o", "{out}",
+                     os.path.join(NATIVE_DIR, source_name), *libs],
+                    out, f"g++ failed on native/{source_name}")
 
 
 def load(source_name: str, configure: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
@@ -101,4 +158,17 @@ def load(source_name: str, configure: Callable[[ctypes.CDLL], None]) -> ctypes.C
             lib = ctypes.CDLL(build(source_name))
             configure(lib)
             _loaded[source_name] = lib
+        return lib
+
+
+def load_host(source_name: str, configure: Callable[[ctypes.CDLL], None],
+              libs: Sequence[str] = ()) -> ctypes.CDLL:
+    """``load`` for a host source of ``native/`` (built by ``build_host``)."""
+    key = "native/" + source_name
+    with _lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(build_host(source_name, libs))
+            configure(lib)
+            _loaded[key] = lib
         return lib

@@ -54,6 +54,14 @@ class ModelOutputMode(enum.Enum):
     NONE = "NONE"
 
 
+class ProjectorType(enum.Enum):
+    """projector/ProjectorType.scala:22-30 parity."""
+
+    RANDOM = "RANDOM"
+    INDEX_MAP = "INDEX_MAP"
+    IDENTITY = "IDENTITY"
+
+
 class ConvergenceReason(enum.IntEnum):
     """Why an optimizer stopped (AbstractOptimizer.scala:47-61 parity).
 

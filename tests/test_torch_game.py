@@ -86,12 +86,16 @@ def test_random_effect_dataset_is_byte_equal(glmix, name):
 
 
 def test_random_effect_dataset_refuses_unported_projections(glmix):
+    """Pearson feature selection is still refused; the RANDOM projection is
+    ported (held against the JAX build in tests/test_torch_projectors.py)."""
     _, tdata = glmix
-    for extra in (dict(projector="RANDOM", random_projection_dim=2),
-                  dict(features_to_samples_ratio=0.5)):
-        cfg = tgame.RandomEffectDataConfig("userId", "per_user", **extra)
-        with pytest.raises(ValueError, match="not yet ported"):
-            tgame.build_random_effect_dataset(tdata, cfg, device="cpu")
+    cfg = tgame.RandomEffectDataConfig("userId", "per_user", features_to_samples_ratio=0.5)
+    with pytest.raises(ValueError, match="not yet ported"):
+        tgame.build_random_effect_dataset(tdata, cfg, device="cpu")
+    cfg = tgame.RandomEffectDataConfig("userId", "per_user", projector="RANDOM",
+                                       random_projection_dim=2)
+    ds = tgame.build_random_effect_dataset(tdata, cfg, device="cpu")
+    assert ds.projection_matrix is not None and ds.local_dim == 3
 
 
 @pytest.mark.parametrize("spec", ["off", "pallas", "scatter"])

@@ -128,6 +128,9 @@ def test_port_driver_saves_variances_and_all_models(game_avro_dirs, tmp_path):  
 
 FENCED = [
     ["--checkpoint-dir", "ckpt"],
+    ["--checkpoint-async", "true"],
+    ["--max-restarts", "2"],
+    ["--store-dtype", "bf16"],
     ["--distributed", "true"],
     ["--fused-cycle", "true"],
     ["--bucketed-random-effects", "true"],
@@ -140,11 +143,9 @@ FENCED = [
     ["--shape-canonicalization", "on"],
     ["--adaptive-schedule", "on"],
     ["--plan", "auto"],
-    ["--offheap-indexmap-dir", "maps"],
     ["--vmapped-grid", "true"],
     ["--export-serve-store", "store"],
     ["--divergence-guard", "rollback"],
-    ["--train-date-range", "20200101-20200102"],
     ["--factored-random-effect-optimization-configurations",
      "per-user:10,1e-5,1,1,LBFGS,L2:10,1e-5,1,1,LBFGS,L2:2,2"],
 ]
@@ -162,8 +163,6 @@ def test_every_unported_flag_raises_naming_it(tmp_path, extra):
       "fixed:50,1e-7,0.01,1,LBFGS,L2;fixed:50,1e-7,1,1,LBFGS,L2"), "lambda grids"),
     (("--fixed-effect-optimization-configurations", "fixed:50,1e-7,0.01,0.5,LBFGS,L2"),
      "down-sampling"),
-    (("--random-effect-data-configurations", "per-user:userId,per_user,1,-1,-1,-1,RANDOM=2"),
-     "RANDOM projection"),
     (("--random-effect-data-configurations", "per-user:userId,per_user,1,-1,-1,0.5,INDEX_MAP"),
      "features-to-samples ratio"),
 ])

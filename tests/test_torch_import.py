@@ -40,12 +40,17 @@ def test_importing_every_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 51  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 60  # every module was imported
     for mod in ("photon_ml_tpu_torch.ops.fused_sparse", "photon_ml_tpu_torch.optim.tron",
                 "photon_ml_tpu_torch.data.game", "photon_ml_tpu_torch.algorithm.random_effect",
                 "photon_ml_tpu_torch.algorithm.coordinate_descent",
                 "photon_ml_tpu_torch.io.avro_data", "photon_ml_tpu_torch.io.model_io",
-                "photon_ml_tpu_torch.cli.game_training_driver"):
+                "photon_ml_tpu_torch.cli.game_training_driver",
+                "photon_ml_tpu_torch.io.avro_native", "photon_ml_tpu_torch.io.offheap",
+                "photon_ml_tpu_torch.io.name_and_term", "photon_ml_tpu_torch.projectors",
+                "photon_ml_tpu_torch.resilience", "photon_ml_tpu_torch.resilience.retry",
+                "photon_ml_tpu_torch.utils.date_range", "photon_ml_tpu_torch.cli.feature_indexing",
+                "photon_ml_tpu_torch.cli.game_scoring_driver"):
         assert mod in _modules()
 
 
@@ -107,6 +112,19 @@ def test_game_driver_on_cuda_without_a_card_raises(tmp_path):
             "--train-input-dirs", str(tmp_path), "--output-dir", str(tmp_path / "out"),
             "--task-type", "LOGISTIC_REGRESSION", "--updating-sequence", "fixed",
             "--fixed-effect-data-configurations", "fixed:global,1",
+        ])
+    assert not (tmp_path / "out").exists()
+
+
+def test_scoring_driver_on_cuda_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the no-card refusal cannot be exercised")
+    from photon_ml_tpu_torch.cli import game_scoring_driver
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        game_scoring_driver.main([
+            "--input-dirs", str(tmp_path), "--game-model-input-dir", str(tmp_path),
+            "--output-dir", str(tmp_path / "out"),
         ])
     assert not (tmp_path / "out").exists()
 

@@ -211,3 +211,55 @@ def test_sparse_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="CUDA"):
         cpu = tsparse.SparseSlab(slab.idx.cpu(), slab.val.cpu(), slab.dim, "pallas")
         tsparse.sparse_gevm_kernel(lo, cpu, y, wt, off, w)
+
+
+@pytest.mark.gpu
+def test_scoring_driver_on_the_card_equals_its_host_oracle(cuda_device, tmp_path):
+    """The GAME scoring driver's device path (the fixed-effect matvec and
+    the per-entity gather on the card) against its numpy host path, on a
+    model the training driver fits on the card."""
+    from photon_ml_tpu_torch.cli import game_scoring_driver, game_training_driver
+    from photon_ml_tpu_torch.io import avro as avro_io
+    from photon_ml_tpu_torch.io import schemas
+
+    rng = np.random.default_rng(17)
+    schema = {"name": "G", "namespace": "t", "type": "record", "fields": [
+        {"name": "label", "type": "double"},
+        {"name": "fixedFeatures", "type": {"type": "array", "items": schemas.FEATURE}},
+        {"name": "userFeatures", "type": {"type": "array",
+                                          "items": "com.linkedin.photon.avro.generated.FeatureAvro"}},
+        {"name": "metadataMap", "type": ["null", {"type": "map", "values": "string"}],
+         "default": None}]}
+
+    def records(n, users):
+        for _ in range(n):
+            yield {"label": float(rng.random() < 0.5),
+                   "fixedFeatures": [{"name": f"f{j}", "term": "", "value": float(rng.normal())}
+                                     for j in range(4)],
+                   "userFeatures": [{"name": f"u{j}", "term": "", "value": float(rng.normal())}
+                                    for j in range(3)],
+                   "metadataMap": {"userId": f"user{rng.integers(0, users)}"}}
+
+    for name, n, users in (("train", 600, 30), ("score", 300, 40)):  # 10 cold users
+        avro_io.write_container(str(tmp_path / name / "part-0.avro"), records(n, users), schema)
+    sections = ["--feature-shard-id-to-feature-section-keys-map",
+                "global:fixedFeatures|per_user:userFeatures"]
+    game_training_driver.main([
+        "--train-input-dirs", str(tmp_path / "train"), "--output-dir", str(tmp_path / "model"),
+        "--task-type", "LOGISTIC_REGRESSION", "--updating-sequence", "fixed,per-user",
+        "--fixed-effect-data-configurations", "fixed:global,1",
+        "--random-effect-data-configurations", "per-user:userId,per_user,1,-1,-1,-1,INDEX_MAP",
+        "--fixed-effect-optimization-configurations", "fixed:30,1e-7,0.01,1,LBFGS,L2",
+        "--random-effect-optimization-configurations", "per-user:30,1e-6,0.1,1,LBFGS,L2",
+    ] + sections)
+    scores = {}
+    for host in ("false", "true"):
+        d = game_scoring_driver.main([
+            "--input-dirs", str(tmp_path / "score"),
+            "--game-model-input-dir", str(tmp_path / "model" / "best"),
+            "--output-dir", str(tmp_path / f"scores-{host}"), "--host-scoring", host,
+            "--evaluator-type", "AUC"] + sections)
+        assert d.device.type == "cuda"
+        scores[host] = d.scores
+    assert np.all(np.isfinite(scores["false"]))
+    np.testing.assert_allclose(scores["false"], scores["true"], rtol=1e-4, atol=1e-5)
