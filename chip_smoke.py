@@ -28,11 +28,20 @@ shapes and times it, then drives the port's main paths at full width:
   * off-heap index maps: ``cli.feature_indexing`` (OFFHEAP, 8 partitions),
     then training and scoring with ``--offheap-indexmap-dir``;
   * RANDOM projection: one random-effect update on the card against the
-    same update on the CPU.
+    same update on the CPU;
+  * checkpoints and preemption: the GAME driver with ``--checkpoint-dir``,
+    stopped (a subprocess exiting 75) and resumed, async, and restarted
+    in-process, every model byte-equal to the uninterrupted run's;
+  * sparse fixed effects: ``cli.glm_driver.main`` on bench.py:59's
+    sparse-wide data (N=131072, D=2^20) and the GAME driver with a 2^17-wide
+    fixed shard, twice on the card (byte-equal) and once on the CPU, with the
+    wide matvec and transposes timed against their bytes bound.
 
+Deterministic algorithms are on from the start (``device.enable_determinism``).
 Every phase prints on its own lines; any failed check exits non-zero. The
-last lines are the card's name and power limit, one JSON object listing the
-kernels, and ``{"ok": true, "device": {...}}``.
+last lines are a JSON object of the sparse and checkpoint phases' numbers,
+the card's name and power limit, one JSON object listing the kernels, and
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA card is available or the
 package is not beside this script. Imports nothing of JAX.
@@ -45,10 +54,12 @@ import dataclasses
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 
@@ -735,21 +746,68 @@ def phase_re_solve(torch, fused_sparse, times, dev="cuda"):
     return out
 
 
-def write_game_avro(workdir, num_users, seed):
-    """bench.py's GAME data as TrainingExampleAvro with two feature sections,
-    each user's rows split 80/20 into train/ and validate/."""
+def _avro_long(n: int) -> bytes:
+    """Avro's zigzag varint of ``n``."""
+    n = (n << 1) ^ (n >> 63)
+    out = bytearray()
+    while n > 0x7F:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _avro_str(text: str) -> bytes:
+    raw = text.encode()
+    return _avro_long(len(raw)) + raw
+
+
+def _write_avro(path, encoded, schema, block=4096):
+    """The container avro.write_container writes (deflate, blocks of
+    ``block`` records), from records already encoded, deflated at level 1
+    (level 6 took most of the time)."""
     from photon_ml_tpu_torch.io import avro as avro_io
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    meta = {"avro.schema": json.dumps(schema).encode(), "avro.codec": b"deflate"}
+    with open(path, "wb") as f:
+        f.write(avro_io.MAGIC + _avro_long(len(meta)))
+        for k, v in meta.items():
+            f.write(_avro_str(k) + _avro_long(len(v)) + v)
+        f.write(_avro_long(0) + avro_io.DEFAULT_SYNC)
+        for i in range(0, len(encoded), block):
+            chunk = encoded[i:i + block]
+            payload = zlib.compress(b"".join(chunk), 1)[2:-4]  # raw deflate
+            f.write(_avro_long(len(chunk)) + _avro_long(len(payload)) + payload
+                    + avro_io.DEFAULT_SYNC)
+
+
+def write_game_avro(workdir, num_users, seed, wide=None):
+    """bench.py's GAME data as TrainingExampleAvro with two feature sections,
+    each user's rows split 80/20 into train/ and validate/. ``wide=(names,
+    per_row)`` widens the fixed section: each row carries ``per_row`` of
+    ``names`` feature names instead of the dense d_fixed."""
     from photon_ml_tpu_torch.io import schemas
 
     rng = np.random.default_rng(seed)
     rows_per_user = rng.integers(8, 16, size=num_users)
     n = int(rows_per_user.sum())
     user = rng.permutation(np.repeat(np.arange(num_users), rows_per_user))
-    x_f = rng.normal(size=(n, GAME_D_FIXED)).astype(np.float32)
+    d_fixed = GAME_D_FIXED if wide is None else wide[1]
+    x_f = rng.normal(size=(n, d_fixed)).astype(np.float32)
     x_r = rng.normal(size=(n, GAME_D_RANDOM)).astype(np.float32)
-    w_f = rng.normal(size=GAME_D_FIXED).astype(np.float32)
+    if wide is None:
+        cols = np.broadcast_to(np.arange(GAME_D_FIXED), (n, GAME_D_FIXED))
+        w_f = rng.normal(size=GAME_D_FIXED).astype(np.float32)
+    else:
+        # distinct names a row: a random start and stride, stride * per_row < names
+        start = rng.integers(0, wide[0], size=n)[:, None]
+        stride = rng.integers(1, wide[0] // wide[1], size=n)[:, None]
+        cols = (start + stride * np.arange(wide[1])) % wide[0]
+        w_f = rng.normal(size=wide[0]).astype(np.float32)
     w_u = (rng.normal(size=(num_users, GAME_D_RANDOM)) * 1.5).astype(np.float32)
-    margin = x_f @ w_f + np.sum(x_r * w_u[user], axis=1)
+    fixed_margin = x_f @ w_f if wide is None else np.sum(x_f * w_f[cols], axis=1)
+    margin = fixed_margin + np.sum(x_r * w_u[user], axis=1)
     y = (1.0 / (1.0 + np.exp(-margin)) > rng.random(n)).astype(np.float32)
     flip = rng.random(n) < 0.15
     y[flip] = 1.0 - y[flip]
@@ -770,17 +828,26 @@ def write_game_avro(workdir, num_users, seed):
         ],
     }
 
+    # each record encoded by hand, as avro.write_datum would encode it (the
+    # generic encoder took a minute for phase 10's rows on the card's host)
+    pack = struct.Struct("<d").pack
+    fixed_keys = [_avro_str(f"f{j}") + b"\x00" for j in range(wide[0] if wide else d_fixed)]
+    user_keys = [_avro_str(f"u{j}") + b"\x00" for j in range(GAME_D_RANDOM)]
+    user_ids = _avro_str("userId")
+
+    def features(keys, cols_r, x_r_):  # one block of named features, the empty term
+        return (_avro_long(len(x_r_)) + b"".join(keys[c] + pack(v) for c, v in zip(cols_r, x_r_))
+                + b"\x00")
+
     def records(sel):
-        for r in np.nonzero(sel)[0]:
-            yield {"uid": str(r), "label": float(y[r]),
-                   "fixedFeatures": [{"name": f"f{j}", "term": "", "value": float(v)}
-                                     for j, v in enumerate(x_f[r])],
-                   "userFeatures": [{"name": f"u{j}", "term": "", "value": float(v)}
-                                    for j, v in enumerate(x_r[r])],
-                   "metadataMap": {"userId": f"user{user[r]}"}}
+        rows = np.nonzero(sel)[0]
+        xf, xr, cf = x_f[rows].tolist(), x_r[rows].tolist(), cols[rows].tolist()
+        return [b"\x02" + _avro_str(str(r)) + pack(float(y[r])) + features(fixed_keys, cf[i], xf[i])
+                + features(user_keys, range(GAME_D_RANDOM), xr[i]) + b"\x02\x02" + user_ids
+                + _avro_str(f"user{user[r]}") + b"\x00" for i, r in enumerate(rows)]
 
     for name, sel in (("train", ~validate), ("validate", validate)):
-        avro_io.write_container(os.path.join(workdir, name, "part-00000.avro"), records(sel), schema)
+        _write_avro(os.path.join(workdir, name, "part-00000.avro"), records(sel), schema)
     return int((~validate).sum()), int(validate.sum())
 
 
@@ -1200,11 +1267,444 @@ def hold_driver_slab(torch, fused_sparse, coord):
                        coord.gathered_offsets(resid), w, v, vshift, label)
 
 
+# --- sparse fixed effects, determinism, checkpoints -------------------------
+
+# the repo's sparse-wide configuration (bench.py:59): N rows, D features,
+# NNZ non-zeros per row
+SPARSE_N, SPARSE_D, SPARSE_NNZ = 131072, 1 << 20, 64
+# one lambda, solved by TRON so the card and CPU solutions can be held
+# coefficient by coefficient: in f32 LBFGS stops when the objective's change
+# rounds to nothing, which pins the objective, not every coefficient (the
+# first run of this phase with LBFGS on an NVIDIA H100 put 1 of 1048577
+# coefficients 0.00337 from the CPU run's, the objectives 3.7e-7 apart;
+# PERF.md), while TRON's stop follows the gradient
+SPARSE_GLM_FLAGS = ["--task", "LOGISTIC_REGRESSION", "--input-file-format", "LIBSVM",
+                    "--feature-dimension", str(SPARSE_D), "--regularization-weights", "1",
+                    "--optimizer", "TRON", "--regularization-type", "L2",
+                    "--num-iterations", "100", "--convergence-tolerance", "1e-7"]
+# phase 16's fixed section: FIXED_WIDE_PER_ROW of FIXED_WIDE_NAMES names a
+# row, over phase 10's GAME_USERS users
+FIXED_WIDE_NAMES, FIXED_WIDE_PER_ROW = 1 << 17, 32
+# the quickstart's fixed effect (LBFGS, L2 lambda 0.01) with its iteration
+# cap raised from 50 until the card and the CPU both converge: 131073
+# columns at lambda 0.01 are nearly separable, and after 50 iterations the
+# two trajectories had not converged and stood 3% apart (PERF.md)
+FIXED_WIDE_ITERS = 1000
+WIDE_GAME_FLAGS = [f if f != "fixed:50,1e-7,0.01,1,LBFGS,L2"
+                   else f"fixed:{FIXED_WIDE_ITERS},1e-7,0.01,1,LBFGS,L2" for f in GAME_FLAGS]
+# the transpose layouts are also timed at these widths, N=SPARSE_N, the
+# rule's measurement below the 2^20 of bench.py:59
+LAYOUT_WIDTHS = (4097, 1 << 13, 1 << 15)
+SOLVER_RTOL, SOLVER_ATOL = 1e-2, 2e-3  # tests/tolerances.py, f32 "solver"
+
+
+def tree_bytes(root):
+    """{relative path: bytes} of every file under ``root``."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def held(name, got, want):
+    """Fail unless ``got`` is within the solver tolerance of ``want``;
+    returns the largest absolute difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"{name}: shapes {got.shape} vs {want.shape}")
+    bad = np.abs(got - want) > SOLVER_ATOL + SOLVER_RTOL * np.abs(want)
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    check(not bad.any(), f"{name}: {int(bad.sum())} of {got.size} values outside the solver "
+                         f"tolerance (max |diff| {err:.3g})")
+    return err
+
+
+def timed_pair(torch, fn):
+    """(events ms, graph ms) of ``fn``, as every kernel is timed."""
+    return time_ms(torch, fn), graph_ms(torch, fn)
+
+
+def transposes_agree(torch, label, a, b, abs_sum):
+    """Fail unless two sums of the same terms in different orders agree
+    within 1e-5 of each output's sum of absolute terms (``abs_sum``): f32
+    reordering error grows with that sum, not with the result, and the
+    intercept column sums every row."""
+    err = (a - b).abs()
+    worst = float((err / (abs_sum + 1e-30)).max())
+    check(bool((err <= 1e-5 * abs_sum).all()), f"{label}: the sums differ by up to {worst:.3g} "
+                                                "of their absolute terms")
+    return float(err.max()), worst
+
+
+def transpose_times(torch, label, fn, abs_sum, nbytes):
+    """``fn`` timed with deterministic algorithms off, on, on, off (in that
+    order, one card): the two modes' results agree (``transposes_agree``)
+    and the deterministic one repeats bit for bit."""
+    out = {}
+    results = {}
+    for mode in (False, True, True, False):
+        torch.use_deterministic_algorithms(mode)
+        results.setdefault(mode, []).append(fn())
+        out.setdefault(mode, []).append(timed_pair(torch, fn))
+    torch.use_deterministic_algorithms(True)
+    a, b = results[True]
+    check(torch.equal(a, b), f"{label}: the deterministic transpose differs between calls")
+    err, rel = transposes_agree(torch, f"{label}, atomics against deterministic",
+                                results[False][0], a, abs_sum)
+    bound = nbytes / MEM_RATE * 1e3
+    rows = {}
+    for mode, name in ((False, "atomics"), (True, "deterministic")):
+        ev = statistics.median(t[0] for t in out[mode])
+        gr = statistics.median(t[1] for t in out[mode])
+        rows[name] = {"ms": ev, "graph_ms": gr, "ms_runs": [t[0] for t in out[mode]],
+                      "graph_ms_runs": [t[1] for t in out[mode]]}
+        say(f"    {label}, {name}: {ev:.5f} ms by events, {gr:.5f} ms by graph "
+            f"(runs {' / '.join(f'{t[0]:.5f}|{t[1]:.5f}' for t in out[mode])}); bound "
+            f"{bound:.5f} ms = {nbytes} B / {MEM_RATE / 1e12:.2f} TB/s, share by graph "
+            f"{bound / gr:.3f}")
+    return {"bound_ms": bound, "bytes": nbytes, "max_abs_err": err,
+            "max_err_of_abs_terms": rel, **rows}
+
+
+def layout_times(torch, dev, n, k, widths, g):
+    """The transpose-layout rule's measurement below the full width: for each
+    width in ``widths``, an f32 batch of ``n`` rows of ``k`` uniform random
+    columns; the scatter layout's rmatvec (a deterministic index_add_) and
+    the sorted view's (a segment sum) by events and by graph, the build of
+    the view (one stable sort on the card) on the host's clock, and the
+    calls after which the view has paid for its build."""
+    from photon_ml_tpu_torch.ops.features import SparseFeatures
+
+    dvec = torch.randn((n,), device=dev, generator=g)
+    out = {}
+    for d in widths:
+        idx = torch.randint(0, d, (n, k), device=dev, generator=g, dtype=torch.int32)
+        scatter = SparseFeatures(idx, torch.randn((n, k), device=dev, generator=g), d)
+        sync(torch)
+        t0 = time.perf_counter()
+        sorted_ = scatter.with_transpose()
+        sync(torch)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        abs_sum = SparseFeatures(idx, scatter.values.abs(), d).rmatvec(dvec.abs())
+        transposes_agree(torch, f"the two transpose layouts at D={d}", scatter.rmatvec(dvec),
+                         sorted_.rmatvec(dvec), abs_sum)
+        bound = (8 * n * k + 4 * n + 4 * d) / MEM_RATE * 1e3
+        row = {"build_ms": build_ms, "bound_ms": bound}
+        for label, fn in (("scatter", lambda: scatter.rmatvec(dvec)),
+                          ("sorted", lambda: sorted_.rmatvec(dvec))):
+            row[label] = dict(zip(("ms", "graph_ms"), timed_pair(torch, fn)))
+        gain = row["scatter"]["graph_ms"] - row["sorted"]["graph_ms"]
+        row["break_even_calls"] = build_ms / gain if gain > 0 else None
+        out[str(d)] = row
+        say(f"    layout rule at D={d} (N={n} K={k}): rmatvec scatter "
+            f"{row['scatter']['ms']:.5f} ms by events, {row['scatter']['graph_ms']:.5f} by graph; "
+            f"sorted {row['sorted']['ms']:.5f} / {row['sorted']['graph_ms']:.5f} ms; bound "
+            f"{bound:.5f} ms; view built in {build_ms:.1f} ms (host clock), paid back after "
+            + (f"{row['break_even_calls']:.1f} calls" if gain > 0 else "no number of calls"))
+    return out
+
+
+def run_glm(torch, argv):
+    """One GLM-driver run, the parse counts set to 0 just before it; fails
+    unless the native loader read the file."""
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.io import libsvm
+
+    libsvm.parse_counts.update(native_files=0, python_files=0)
+    sync(torch)
+    t0 = time.perf_counter()
+    driver = glm_driver.main(argv)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    check(libsvm.parse_counts == {"native_files": 1, "python_files": 0},
+          f"LIBSVM files by parser {libsvm.parse_counts}: the native loader must read it")
+    return driver, wall
+
+
+def phase_sparse_glm(torch, fused_sparse, losses, workdir, dev="cuda"):
+    """Phase 15: cli.glm_driver.main on bench.py's sparse-wide configuration
+    (D > 4096: padded-COO SparseFeatures) twice on ``dev`` and once on the
+    CPU; model bytes equal between the card runs, coefficients and
+    objectives held card against CPU; matvec and both transpose layouts
+    timed against their bytes bound; the plain slab transpose and the wide
+    transpose timed with deterministic algorithms off and on."""
+    from photon_ml_tpu_torch.ops.features import SparseFeatures
+
+    say(f"== phase 15: glm_driver.main on LIBSVM N={SPARSE_N} x D={SPARSE_D} (+ intercept), "
+        f"{SPARSE_NNZ} non-zeros per row (bench.py:59), TRON, L2 lambda 1, no normalization; "
+        f"twice on {dev}, once on the CPU")
+    rng = np.random.default_rng(SEED + 15)
+    w_true = (rng.normal(size=SPARSE_D) * 0.5).astype(np.float32)
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(workdir, "train"))
+    _write_libsvm(os.path.join(workdir, "train", "part-00000.txt"), SPARSE_N, SPARSE_D,
+                  SPARSE_NNZ, w_true, rng)
+    say(f"  data written in {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for label, device in (("card", dev), ("card again", dev), ("cpu", "cpu")):
+        out = os.path.join(workdir, label.replace(" ", "-"))
+        argv = ["--training-data-directory", os.path.join(workdir, "train"),
+                "--output-directory", out, "--device", device] + SPARSE_GLM_FLAGS
+        driver, wall = run_glm(torch, argv)
+        feats = driver.train_batch.features
+        check(isinstance(feats, SparseFeatures), f"{label}: the batch is not sparse")
+        res = driver.trained.results[0]
+        runs[label] = (driver, out)
+        say(f"  {label}: wall {wall:.2f} s; stages "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in sorted(driver.timer.totals.items()))
+            + f"; batch {tuple(feats.indices.shape)} of width {feats.dim}, transpose layout "
+            f"{'sorted' if feats.t_idx is not None else 'scatter'}; {int(res.iterations)} "
+            f"iterations, stop reason {int(res.reason)}, objective {float(res.value):.6f}")
+    (card, card_out), (again, again_out), (cpu, _) = (runs[k] for k in ("card", "card again", "cpu"))
+    check(tree_bytes(os.path.join(card_out, "output")) == tree_bytes(os.path.join(again_out, "output")),
+          "two card runs of the sparse GLM wrote different model bytes")
+    w_card = card.models[0][1].coefficients.means.cpu().numpy()
+    w_cpu = cpu.models[0][1].coefficients.means.cpu().numpy()
+    check(bool(np.isfinite(w_card).all()), "non-finite coefficients")
+    obj_err = held("sparse GLM objective, card vs CPU", float(card.trained.results[0].value),
+                   float(cpu.trained.results[0].value))
+    coef_err = held("sparse GLM coefficients, card vs CPU", w_card, w_cpu)
+    say(f"  two card runs wrote byte-equal models; card vs CPU: objective |diff| {obj_err:.3g}, "
+        f"coefficients max |diff| {coef_err:.3g} (within the solver tolerance)")
+
+    feats = card.train_batch.features
+    n, k = feats.indices.shape
+    d = feats.dim
+    g = torch.Generator(device=dev).manual_seed(SEED + 151)
+    dvec = torch.randn((n,), device=dev, generator=g)
+    wvec = torch.randn((d,), device=dev, generator=g)
+    scatter = SparseFeatures(feats.indices, feats.values, d)
+    t0 = time.perf_counter()
+    sorted_ = scatter.with_transpose()
+    sync(torch)
+    build_s = time.perf_counter() - t0
+    x_bytes = 8 * n * k  # int32 indices and f32 values, read once
+    times = {}
+    say(f"  wide ops at N={n} K={k} D={d} f32 (deterministic algorithms on); sorted "
+        f"transpose built in {build_s * 1e3:.1f} ms (host clock)")
+    for label, fn, nbytes in (
+            ("matvec", lambda: scatter.matvec(wvec), x_bytes + 4 * d + 4 * n),
+            ("rmatvec scatter", lambda: scatter.rmatvec(dvec), x_bytes + 4 * n + 4 * d),
+            ("rmatvec sorted", lambda: sorted_.rmatvec(dvec), x_bytes + 4 * n + 4 * d)):
+        ev, gr = timed_pair(torch, fn)
+        bound = nbytes / MEM_RATE * 1e3
+        times[label] = {"ms": ev, "graph_ms": gr, "bound_ms": bound, "bytes": nbytes,
+                        "bound_by": "bytes"}
+        say(f"    {label}: {ev:.5f} ms by events, {gr:.5f} ms by graph; bound {bound:.5f} ms "
+            f"= {nbytes} B / {MEM_RATE / 1e12:.2f} TB/s ({CARD}); share by graph {bound / gr:.3f}")
+    abs_sum = SparseFeatures(feats.indices, feats.values.abs(), d).rmatvec(dvec.abs())
+    err, rel = transposes_agree(torch, "the two transpose layouts", scatter.rmatvec(dvec),
+                                sorted_.rmatvec(dvec), abs_sum)
+    say(f"    the two layouts agree within {err:.3g} ({rel:.3g} of a column's absolute terms)")
+    times["layout rule"] = layout_times(torch, dev, n, k, LAYOUT_WIDTHS, g)
+    times["rmatvec scatter, modes"] = transpose_times(
+        torch, "rmatvec scatter (index_add_)", lambda: scatter.rmatvec(dvec), abs_sum,
+        x_bytes + 4 * n + 4 * d)
+    slab, *_ = sparse_inputs(torch, fused_sparse, losses.logistic, E_RE, M_RE, D_RE, 16, SEED,
+                             dev=dev)
+    slab = slab.with_kernel("scatter")
+    e, m, ks = slab.idx.shape
+    drow = torch.randn((e, m), device=dev, generator=g)
+    say(f"  the plain slab transpose (SparseSlab.rmatvec, one flat index_add_) at full width "
+        f"E={e} M={m} K={ks} D={slab.dim}")
+    slab_abs = fused_sparse.SparseSlab(slab.idx, slab.val.abs(), slab.dim).rmatvec(drow.abs())
+    times["slab rmatvec, modes"] = transpose_times(
+        torch, "slab rmatvec", lambda: slab.rmatvec(drow), slab_abs,
+        8 * e * m * ks + 4 * e * m + 4 * e * slab.dim)
+    return {"times": times, "objective_abs_err": obj_err, "coefficient_abs_err": coef_err}
+
+
+def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
+    """Phase 16: the GAME driver (spec pallas) on phase 10's generator with
+    the fixed section widened to FIXED_WIDE_NAMES names, FIXED_WIDE_PER_ROW a
+    row, and the quickstart's fixed effect run to convergence: the fixed
+    effect takes the sparse layout, the GEVM kernel launches, every fixed
+    solve converges, two card runs write byte-equal models, and the
+    objective history holds against the same command on the CPU. The first
+    fixed solve then runs again on each side's batch at the quickstart's own
+    cap of 50, a witness of how far two unconverged trajectories part
+    (printed, not held)."""
+    from photon_ml_tpu_torch.algorithm.fixed_effect import FixedEffectCoordinate
+    from photon_ml_tpu_torch.ops.features import SparseFeatures
+    from photon_ml_tpu_torch.types import ConvergenceReason
+
+    say(f"== phase 16: game_training_driver.main, phase 10's data with the fixed section "
+        f"widened to {FIXED_WIDE_PER_ROW} of {FIXED_WIDE_NAMES} names a row ({GAME_USERS} "
+        f"users), the quickstart's flags with the fixed effect's cap raised to "
+        f"{FIXED_WIDE_ITERS} LBFGS iterations (L2 lambda 0.01), spec pallas; twice on {dev}, "
+        "once on the CPU; then the first fixed solve at the quickstart's cap of 50 on each")
+    t0 = time.perf_counter()
+    n_train, n_val = write_game_avro(workdir, GAME_USERS, SEED + 16,
+                                     wide=(FIXED_WIDE_NAMES, FIXED_WIDE_PER_ROW))
+    say(f"  Avro written in {time.perf_counter() - t0:.1f} s: {n_train} train rows, "
+        f"{n_val} validation rows")
+    solves, first = [], {}
+    update = FixedEffectCoordinate.update
+
+    def recorded(self, residual_offsets, *args, **kwargs):
+        if not solves:
+            first["solve"] = (self, residual_offsets)
+        coef, res = update(self, residual_offsets, *args, **kwargs)
+        solves.append((int(res.iterations), ConvergenceReason(int(res.reason)).name))
+        return coef, res
+
+    runs = {}
+    FixedEffectCoordinate.update = recorded
+    try:
+        for label, device in (("card", dev), ("card again", dev), ("cpu", "cpu")):
+            out = os.path.join(workdir, "out-" + label.replace(" ", "-"))
+            argv = ["--train-input-dirs", os.path.join(workdir, "train"),
+                    "--validate-input-dirs", os.path.join(workdir, "validate"),
+                    "--output-dir", out, "--device", device] + WIDE_GAME_FLAGS
+            solves.clear()
+            driver, wall, launches, stages, _ = run_game_training(torch, fused_sparse, argv,
+                                                                  "pallas")
+            width = len(driver.shard_index_maps["global"])
+            feats = driver.fe_batches["fixed"].features
+            check(width > 4096 and isinstance(feats, SparseFeatures),
+                  f"{label}: the {width}-wide fixed shard did not take the sparse layout")
+            _, result, metrics = driver.results[0]
+            check(all(np.isfinite(result.objective_history)), f"{label}: non-finite objective")
+            check(len(solves) == 2 and all(r != "MAX_ITERATIONS" for _, r in solves),
+                  f"{label}: a fixed-effect solve did not converge within {FIXED_WIDE_ITERS} "
+                  f"iterations: {solves}")
+            if device != "cpu":
+                check(launches["gevm"] > 0, f"{label}: the GEVM kernel did not launch")
+            runs[label] = (result, out, launches, wall, list(solves), first.pop("solve"))
+            say(f"  {label}: fixed shard width {width} (sparse layout, transpose "
+                f"{'sorted' if feats.t_idx is not None else 'scatter'}); fixed solves "
+                f"(iterations, stop) {solves}; AUC {metrics['AUC']:.6f}; objective history "
+                + " ".join(f"{v:.6f}" for v in result.objective_history)
+                + f"; GEVM launches {launches['gevm']}; wall {wall:.2f} s; stages "
+                + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
+    finally:
+        FixedEffectCoordinate.update = update
+    check(tree_bytes(os.path.join(runs["card"][1], "best"))
+          == tree_bytes(os.path.join(runs["card again"][1], "best")),
+          "two card runs of the wide GAME driver wrote different model bytes")
+    err = held("wide GAME objective history, card vs CPU", runs["card"][0].objective_history,
+               runs["cpu"][0].objective_history)
+    say(f"  two card runs wrote byte-equal models; objective histories card vs CPU within "
+        f"{err:.3g} (solver tolerance)")
+    # the quickstart's own cap, a witness and not held: neither side's first
+    # fixed solve converges in 50 iterations, and the two trajectories part
+    capped = {}
+    for label in ("card", "cpu"):
+        coord, offsets = runs[label][5]
+        problem = dataclasses.replace(coord.problem, optimizer_config=dataclasses.replace(
+            coord.problem.optimizer_config, max_iterations=50))
+        _, res = FixedEffectCoordinate(coord.batch, problem, coord.norm).update(
+            offsets, coord.initial_coefficients())
+        capped[label] = float(res.value)
+    say(f"  the first fixed solve at the quickstart's cap of 50 (not converged): card "
+        f"{capped['card']:.6f}, CPU {capped['cpu']:.6f}, |diff| "
+        f"{abs(capped['card'] - capped['cpu']):.6f}; run to convergence above: card "
+        f"{runs['card'][0].objective_history[0]:.6f}, CPU "
+        f"{runs['cpu'][0].objective_history[0]:.6f}")
+    return {"launches": runs["card"][2], "wall_s": runs["card"][3], "objective_abs_err": err,
+            "fixed_solves": {k: runs[k][4] for k in runs}, "first_solve_cap_50": capped,
+            "objective_history": {k: runs[k][0].objective_history for k in runs}}
+
+
+def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
+    """Phase 17: phase 10's command with --checkpoint-dir under spec pallas
+    and spec scatter: an uninterrupted run (the checkpoint's bytes and save
+    time per step), a subprocess stopped by PHOTON_PREEMPT_AT (exit 75) and
+    resumed, --checkpoint-async true, and --max-restarts 1 with an injected
+    preemption; every run's model bytes equal the uninterrupted run's."""
+    from photon_ml_tpu_torch import checkpoint
+    from photon_ml_tpu_torch.resilience import preemption
+
+    say("== phase 17: checkpoints and preemption: phase 10's command with --checkpoint-dir, "
+        "spec pallas then scatter")
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = ["--train-input-dirs", os.path.join(workdir, "train"),
+            "--validate-input-dirs", os.path.join(workdir, "validate"),
+            "--device", dev, "--delete-output-dir-if-exists", "true"] + GAME_FLAGS
+    out = {}
+    for spec in ("pallas", "scatter"):
+        tag = lambda name: os.path.join(workdir, f"ck17-{spec}-{name}")
+        saves = []
+        inner_save = checkpoint.CoordinateDescentCheckpointer.save
+
+        def timed_save(self, state, _inner=inner_save):
+            t0 = time.perf_counter()
+            path = _inner(self, state)
+            saves.append((state.step, time.perf_counter() - t0,
+                          sum(len(b) for b in tree_bytes(path).values())))
+            return path
+
+        checkpoint.CoordinateDescentCheckpointer.save = timed_save
+        try:
+            preemption.reset()
+            clean, wall, launches, _, _ = run_game_training(
+                torch, fused_sparse,
+                base + ["--output-dir", tag("out"), "--checkpoint-dir", tag("ck")], spec)
+        finally:
+            checkpoint.CoordinateDescentCheckpointer.save = inner_save
+        want = tree_bytes(os.path.join(tag("out"), "best"))
+        steps = sorted(os.listdir(os.path.join(tag("ck"), "combo-0")))
+        say(f"  spec {spec}: uninterrupted run {wall:.2f} s, GEVM launches {launches['gevm']}; "
+            f"checkpoint per step: " + ", ".join(f"step {st} {b} B in {secs * 1e3:.1f} ms"
+                                                 for st, secs, b in saves)
+            + f"; kept {steps}")
+        check(len(saves) == 4 and steps == ["step-3", "step-4"],
+              f"spec {spec}: checkpoint saves {saves}, kept {steps}")
+
+        env = dict(os.environ, PHOTON_SPARSE_KERNEL=spec, PHOTON_PREEMPT_AT="cycle:2")
+        argv = base + ["--output-dir", tag("sub"), "--checkpoint-dir", tag("ck-sub")]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.game_training_driver",
+                               *argv], cwd=here, env=env, capture_output=True, text=True,
+                              timeout=600)
+        sub_s = time.perf_counter() - t0
+        check(proc.returncode == 75, f"spec {spec}: the preempted subprocess exited "
+                                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+        kept = sorted(os.listdir(os.path.join(tag("ck-sub"), "combo-0")))
+        check(kept[-1] == "step-2", f"spec {spec}: the preempted run kept {kept}")
+        preemption.reset()
+        resumed, wall_r, launches_r, _, _ = run_game_training(torch, fused_sparse, argv, spec)
+        check(tree_bytes(os.path.join(tag("sub"), "best")) == want,
+              f"spec {spec}: the resumed run's model bytes differ from the uninterrupted run's")
+        check(resumed.results[0][1].objective_history == clean.results[0][1].objective_history,
+              f"spec {spec}: the resumed objective history differs")
+        say(f"  spec {spec}: subprocess stopped at step 2 exited 75 after {sub_s:.2f} s (kept "
+            f"{kept}); resumed in {wall_r:.2f} s (GEVM launches {launches_r['gevm']}): model "
+            "bytes and objective history equal to the uninterrupted run's")
+
+        preemption.reset()
+        _, wall_a, _, _, _ = run_game_training(
+            torch, fused_sparse, base + ["--output-dir", tag("async"), "--checkpoint-dir",
+                                         tag("ck-async"), "--checkpoint-async", "true"], spec)
+        check(tree_bytes(os.path.join(tag("async"), "best")) == want,
+              f"spec {spec}: the async run's model bytes differ")
+        preemption.reset()
+        os.environ["PHOTON_PREEMPT_AT"] = "cycle:3"
+        try:
+            restarted, wall_m, _, _, _ = run_game_training(
+                torch, fused_sparse, base + ["--output-dir", tag("restart"), "--checkpoint-dir",
+                                             tag("ck-restart"), "--max-restarts", "1"], spec)
+        finally:
+            del os.environ["PHOTON_PREEMPT_AT"]
+            preemption.reset()
+        check(tree_bytes(os.path.join(tag("restart"), "best")) == want,
+              f"spec {spec}: the restarted run's model bytes differ")
+        say(f"  spec {spec}: --checkpoint-async true {wall_a:.2f} s and --max-restarts 1 with a "
+            f"preemption at step 3 {wall_m:.2f} s: model bytes equal to the uninterrupted run's")
+        out[spec] = {"saves": saves, "wall_s": wall, "subprocess_s": sub_s, "resume_s": wall_r,
+                     "async_s": wall_a, "restart_s": wall_m}
+    return out
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
+    from photon_ml_tpu_torch.device import enable_determinism
+
+    enable_determinism()  # before any CUDA work: cuBLAS reads its workspace setting once
     from photon_ml_tpu_torch import native_build
     from photon_ml_tpu_torch.ops import fused_glm, losses
 
@@ -1217,6 +1717,11 @@ def main() -> None:
     say(f"  nvidia-smi: {card}")
     say(f"  torch {torch.__version__} (CUDA {torch.version.cuda}) on {name}, "
         f"{torch.cuda.device_count()} device(s); TF32 off for matmul and cuDNN")
+    check(torch.are_deterministic_algorithms_enabled()
+          and not torch.is_deterministic_algorithms_warn_only_enabled(),
+          "deterministic algorithms are not on")
+    say(f"  deterministic algorithms: on (warn_only off), CUBLAS_WORKSPACE_CONFIG="
+        f"{os.environ['CUBLAS_WORKSPACE_CONFIG']}")
 
     say("== phase 2: build the kernel libraries from csrc/ (nvcc) and the host libraries "
         "from native/ (g++), one compiler per source, in parallel")
@@ -1256,6 +1761,11 @@ def main() -> None:
         phase_scoring(torch, workdir, trained)
         phase_offheap(torch, fused_sparse, workdir, trained)
         phase_random_projection(torch, trained)
+        checkpoints = phase_checkpoints(torch, fused_sparse, workdir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as workdir:
+        sparse_glm = phase_sparse_glm(torch, fused_sparse, losses, workdir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as workdir:
+        wide = phase_game_wide(torch, fused_sparse, workdir)
 
     bf16 = times["bfloat16"]
     kernels = [{
@@ -1294,6 +1804,7 @@ def main() -> None:
             "launches_re_lbfgs": re_runs["LBFGS"]["launches"][key],
             "launches_re_tron": re_runs["TRON"]["launches"][key],
             "launches_game_driver": game_runs["pallas"]["launches"][key],
+            "launches_game_wide_fixed": wide["launches"][key],
             "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key]),
             "ms": t["ms"],
             "graph_ms": t["graph_ms"],
@@ -1308,6 +1819,8 @@ def main() -> None:
             "design_bytes_ms": t["design_bytes_ms"],
             "shapes": {label: sparse_times[label][key] for label in sparse_times},
         })
+    say(json.dumps({"sparse_fixed_effect": sparse_glm, "game_wide_fixed": wide,
+                    "checkpoints": checkpoints}))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

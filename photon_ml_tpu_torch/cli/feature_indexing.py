@@ -28,6 +28,7 @@ import os
 from typing import List, Optional
 
 from photon_ml_tpu_torch.cli.game_params import parse_shard_intercepts, parse_shard_sections
+from photon_ml_tpu_torch.device import enable_determinism
 from photon_ml_tpu_torch.io import avro_data
 from photon_ml_tpu_torch.io.index_map import IndexMap
 from photon_ml_tpu_torch.io.offheap import build_offheap_store
@@ -52,6 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> List[str]:
+    enable_determinism()
     ns = build_parser().parse_args(argv)
     paths = []
     for d in ns.data_input_dirs.split(","):

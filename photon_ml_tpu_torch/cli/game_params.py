@@ -16,7 +16,7 @@ grammars:
 The training parser takes every flag of the JAX driver under the same name,
 plus ``--device`` (default ``cuda``). ``validate`` rejects, naming the flag,
 every flag whose code path is not yet ported when it is set away from its
-default: checkpoints, the lambda grid (';'-separated alternatives), factored
+default: the lambda grid (';'-separated alternatives), factored
 coordinates, bucketed/streaming random effects, solve compaction, the fused
 cycle, the mesh, the caches, warm starts, the planner, feature selection,
 down-sampling and the rest listed in ``_FENCED``. The scoring parser takes
@@ -237,6 +237,15 @@ class GameTrainingParams:
     corrupt_skip_budget: int = 16
     io_retries: int = 4
     io_retry_base_delay: float = 0.05
+    # step checkpoints (checkpoint.py), resumed automatically; commits on a
+    # background thread with checkpoint_async
+    checkpoint_dir: Optional[str] = None
+    checkpoint_async: bool = False
+    # on a cooperative preemption, relaunch in-process from the latest
+    # checkpoint up to this many times before exiting with code 75
+    max_restarts: int = 0
+    # non-finite gate on coordinate updates: off | rollback | skip_cycle
+    divergence_guard: str = "off"
     # flags of the JAX driver given away from their default whose code paths
     # are not yet ported (filled by the parser; validate refuses them)
     unported_flags: List[str] = dataclasses.field(default_factory=list)
@@ -278,6 +287,15 @@ class GameTrainingParams:
         errors.extend(_io_errors(self))
         if self.io_retry_base_delay < 0:
             errors.append("--io-retry-base-delay must be >= 0")
+        if self.divergence_guard not in ("off", "rollback", "skip_cycle"):
+            errors.append(
+                "--divergence-guard must be 'off', 'rollback', or "
+                f"'skip_cycle', got {self.divergence_guard!r}"
+            )
+        if self.max_restarts < 0:
+            errors.append("--max-restarts must be >= 0")
+        if self.checkpoint_async and not self.checkpoint_dir:
+            errors.append("--checkpoint-async needs --checkpoint-dir")
         if self.device not in ("cuda", "cpu"):
             errors.append(f"--device must be cuda or cpu, got {self.device!r}")
         errors.extend(self._not_yet_ported())
@@ -308,9 +326,6 @@ def _io_errors(params) -> List[str]:
 # spelling) names the flag in validate's "not yet ported" error
 _FENCED = {
     "--factored-random-effect-optimization-configurations": None,
-    "--checkpoint-dir": None,
-    "--checkpoint-async": "false",
-    "--max-restarts": 0,
     "--distributed": "false",
     "--fused-cycle": "false",
     "--bucketed-random-effects": "false",
@@ -326,7 +341,6 @@ _FENCED = {
     "--adaptive-schedule": None,
     "--plan": None,
     "--vmapped-grid": "false",
-    "--divergence-guard": "off",
 }
 # values that leave a fenced flag unset, besides its default
 _UNSET = ("", "none", "off", "false", "0", "no")
@@ -376,6 +390,19 @@ def build_training_parser() -> argparse.ArgumentParser:
     _add_io_flags(a)
     a("--io-retry-base-delay", type=float, default=0.05,
       help="base backoff delay in seconds between I/O retries")
+    a("--checkpoint-dir", default=None,
+      help="step checkpoints after every coordinate update; a rerun resumes "
+           "from the latest intact step")
+    a("--checkpoint-async", default="false",
+      help="commit checkpoints on a background thread through the same "
+           "retry/atomic-rename path")
+    a("--max-restarts", type=int, default=0,
+      help="on a cooperative preemption (SIGTERM/SIGINT or PHOTON_PREEMPT_AT), "
+           "relaunch in-process from the latest checkpoint up to N times before "
+           "exiting with the preemption exit code (75)")
+    a("--divergence-guard", default="off", choices=["off", "rollback", "skip_cycle"],
+      help="non-finite gate on coordinate updates: rollback restores the last "
+           "good state, skip_cycle also abandons the iteration")
     for flag, default in _FENCED.items():
         kind = type(default) if isinstance(default, (int, float)) else None
         a(flag, dest=_dest(flag), default=default, type=kind,
@@ -438,6 +465,10 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         corrupt_skip_budget=ns.corrupt_skip_budget,
         io_retries=ns.io_retries,
         io_retry_base_delay=ns.io_retry_base_delay,
+        checkpoint_dir=ns.checkpoint_dir,
+        checkpoint_async=_truthy(ns.checkpoint_async),
+        max_restarts=ns.max_restarts,
+        divergence_guard=ns.divergence_guard,
         unported_flags=_unported(ns),
         device=ns.device,
     )

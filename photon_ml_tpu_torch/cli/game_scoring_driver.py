@@ -23,6 +23,7 @@ path's parity oracle. Factored random-effect models are not yet ported.
 from __future__ import annotations
 
 import os
+import sys
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -36,13 +37,14 @@ from photon_ml_tpu_torch.cli.game_training_driver import (
     resolve_date_range_dirs,
 )
 from photon_ml_tpu_torch.data.game import padded_row_coo
-from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.device import enable_determinism, resolve_device
 from photon_ml_tpu_torch.evaluation.evaluators import evaluator_for
 from photon_ml_tpu_torch.io import avro as avro_io
 from photon_ml_tpu_torch.io import avro_data, model_io, schemas
 from photon_ml_tpu_torch.io.index_map import IndexMap
 from photon_ml_tpu_torch.io.offheap import load_shard_index_map
 from photon_ml_tpu_torch.models.game import gather_scores
+from photon_ml_tpu_torch.resilience import preemption
 from photon_ml_tpu_torch.utils.io_utils import prepare_output_dir
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
 from photon_ml_tpu_torch.utils.timer import Timer
@@ -291,8 +293,17 @@ class GameScoringDriver:
 
 
 def main(argv: Optional[List[str]] = None) -> GameScoringDriver:
+    enable_determinism()
     driver = GameScoringDriver(parse_scoring_params(argv))
-    driver.run()
+    # scoring restarts from scratch (no descent state): a cooperative
+    # preemption here is a clean exit with the preemption code
+    with preemption.signal_scope():
+        try:
+            driver.run()
+        except preemption.Preempted as e:
+            print(f"photon-ml-tpu-torch game-scoring: preempted ({e}); exiting "
+                  f"{preemption.PREEMPT_EXIT_CODE}", file=sys.stderr)
+            raise SystemExit(preemption.PREEMPT_EXIT_CODE) from e
     return driver
 
 

@@ -10,8 +10,14 @@ per-coordinate datasets, build the evaluators, run coordinate descent, save
 the model in the reference's on-disk layout (``best/fixed-effect/<name>/``,
 ``best/random-effect/<name>/``; ``all/0/`` too with ``--model-output-mode
 ALL``). Same flag names and log lines as the JAX driver; tensors live on
-``--device`` (default cuda). With ``PHOTON_SPARSE_KERNEL=pallas`` the random
-effects solve over sparse slabs through the CUDA GEVM/HVP kernels.
+``--device`` (default cuda). A fixed-effect shard wider than
+``DENSE_DIM_THRESHOLD`` features trains on padded-COO ``SparseFeatures``.
+With ``PHOTON_SPARSE_KERNEL=pallas`` the random effects solve over sparse
+slabs through the CUDA GEVM/HVP kernels. ``--checkpoint-dir`` saves the
+descent after every coordinate update and resumes from it; a preemption
+(SIGTERM/SIGINT, ``PHOTON_PREEMPT_AT``) drains to the next update boundary,
+then relaunches in-process (``--max-restarts``) or exits with code 75. The
+run leaves ``retrain.json`` at the output root, as the JAX driver does.
 
     python -m photon_ml_tpu_torch.cli.game_training_driver \\
       --train-input-dirs data/train --validate-input-dirs data/val \\
@@ -22,13 +28,17 @@ effects solve over sparse slabs through the CUDA GEVM/HVP kernels.
       --random-effect-data-configurations "per-user:userId,per_user,1,-1,-1,-1,INDEX_MAP" \\
       --fixed-effect-optimization-configurations "fixed:50,1e-7,0.01,1,LBFGS,L2" \\
       --random-effect-optimization-configurations "per-user:40,1e-6,0.1,1,LBFGS,L2" \\
-      --evaluator-type AUC --num-iterations 2
+      --evaluator-type AUC --num-iterations 2 --checkpoint-dir out/ckpt
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import logging
 import os
+import sys
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -43,6 +53,8 @@ from photon_ml_tpu_torch.algorithm.random_effect import (
     RandomEffectCoordinate,
     global_coefficients,
 )
+from photon_ml_tpu_torch.checkpoint import CoordinateDescentCheckpointer, fingerprint
+from photon_ml_tpu_torch.checkpoint_async import maybe_async
 from photon_ml_tpu_torch.cli.game_params import (
     CoordinateOptConfig,
     GameTrainingParams,
@@ -54,8 +66,16 @@ from photon_ml_tpu_torch.data.game import (
     build_random_effect_dataset,
     padded_row_coo,
 )
-from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.device import enable_determinism, resolve_device
 from photon_ml_tpu_torch import resilience
+from photon_ml_tpu_torch.resilience import preemption
+from photon_ml_tpu_torch.resilience.guards import DivergenceGuard
+from photon_ml_tpu_torch.retrain.manifest import (
+    CoordinateRecord,
+    RetrainManifest,
+    file_stat_token,
+    index_map_digest,
+)
 from photon_ml_tpu_torch.evaluation.evaluators import Evaluator, EvaluatorType, evaluator_for
 from photon_ml_tpu_torch.io import avro_data, model_io
 from photon_ml_tpu_torch.io.index_map import IndexMap
@@ -166,6 +186,9 @@ class GameTrainingDriver:
                                  Dict[str, float]]] = []
         self.combo_coords: List[Dict[str, object]] = []
         self.best_index: int = 0
+        # identity of the inputs for retrain.json, taken before ingest
+        self._train_file_stats: Optional[list] = None
+        self._eval_identity_cache: Optional[Dict[str, object]] = None
 
     # ------------------------------------------------------------------
     def _shard_ids(self) -> List[str]:
@@ -242,9 +265,9 @@ class GameTrainingDriver:
             self.logger.info(f"validation rows: {self.validation_data.num_rows}")
         with self.timer.measure("build-fixed-effect-batches"):
             for name, spec in p.fixed_effect_data_configs.items():
-                self._check_dense(spec.feature_shard_id)
                 self.fe_batches[name] = build_fixed_effect_batch(
-                    self.train_data, spec.feature_shard_id, device=self.device
+                    self.train_data, spec.feature_shard_id,
+                    dense=self._dense(spec.feature_shard_id), device=self.device,
                 )
         with self.timer.measure("build-random-effect-datasets"):
             for name, cfg in p.random_effect_data_configs.items():
@@ -252,13 +275,9 @@ class GameTrainingDriver:
                     self.train_data, cfg, device=self.device
                 )
 
-    def _check_dense(self, shard: str) -> None:
-        width = len(self.shard_index_maps[shard])
-        if width > DENSE_DIM_THRESHOLD:
-            raise ValueError(
-                f"fixed-effect shard {shard!r} has {width} features: the sparse "
-                f"layout (D > {DENSE_DIM_THRESHOLD}) is not yet ported to photon_ml_tpu_torch"
-            )
+    def _dense(self, shard: str) -> bool:
+        """A fixed-effect shard's layout: dense up to the threshold."""
+        return len(self.shard_index_maps[shard]) <= DENSE_DIM_THRESHOLD
 
     def _build_coordinates(self, opt_configs: Dict[str, CoordinateOptConfig]) -> Dict[str, object]:
         """Coordinates in updating-sequence order
@@ -329,7 +348,8 @@ class GameTrainingDriver:
             if name in p.fixed_effect_data_configs:
                 spec = p.fixed_effect_data_configs[name]
                 fe_feats[name] = build_fixed_effect_batch(
-                    vdata, spec.feature_shard_id, device=self.device
+                    vdata, spec.feature_shard_id, dense=self._dense(spec.feature_shard_id),
+                    device=self.device,
                 ).features
             else:
                 cfg = p.random_effect_data_configs[name]
@@ -368,6 +388,27 @@ class GameTrainingDriver:
         return out
 
     # ------------------------------------------------------------------
+    def _make_checkpointer(self, combo_index: int, opt_configs):
+        """The combo's checkpointer (async under --checkpoint-async), with
+        the JAX driver's fingerprint parts; None without --checkpoint-dir."""
+        p = self.params
+        if not p.checkpoint_dir:
+            return None
+        return maybe_async(
+            CoordinateDescentCheckpointer(
+                os.path.join(p.checkpoint_dir, f"combo-{combo_index}"),
+                # num_iterations left out: extending a finished run with
+                # more iterations is the resume case
+                run_fingerprint=fingerprint({
+                    "coordinates": p.updating_sequence,
+                    "num_rows": self.train_data.num_rows,
+                    "combo": combo_index,
+                    "configs": {k: str(v) for k, v in opt_configs.items()},
+                }),
+            ),
+            p.checkpoint_async,
+        )
+
     def train(self) -> None:
         p = self.params
         opt_configs = p.opt_configs()
@@ -377,15 +418,26 @@ class GameTrainingDriver:
             scorer = self._validation_scorer(coords)
             evaluators = self._validation_evaluators()
         self.combo_coords.append(coords)
-        cd = CoordinateDescent(coords, self._training_loss_fn(), scorer, evaluators)
-        with self.timer.measure("combo-0"):
-            result = cd.run(p.num_iterations, self.train_data.num_rows)
+        guard = None if p.divergence_guard == "off" else DivergenceGuard(mode=p.divergence_guard)
+        cd = CoordinateDescent(coords, self._training_loss_fn(), scorer, evaluators,
+                               divergence_guard=guard)
+        checkpointer = self._make_checkpointer(0, opt_configs)
+        try:
+            with self.timer.measure("combo-0"):
+                result = cd.run(p.num_iterations, self.train_data.num_rows, checkpointer)
+        finally:
+            # async fence: every commit durable, and a background failure
+            # surfaced, before the models are saved
+            if checkpointer is not None and hasattr(checkpointer, "close"):
+                checkpointer.close()
         metrics = result.validation_history[-1] if result.validation_history else {}
         self.results.append((opt_configs, result, metrics))
         self.logger.info(
             f"combo 0: objective={result.objective_history[-1]:.6g} "
             + " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
         )
+        for event in result.guard_events:
+            self.logger.warn(f"combo 0 divergence guard: {event}")
         for cname, tracker in result.trackers.items():
             summary = _summarize_tracker(tracker)
             if summary:
@@ -448,21 +500,30 @@ class GameTrainingDriver:
             )
 
     # ------------------------------------------------------------------
-    def run(self) -> None:
+    def run(self, restart: bool = False) -> None:
         """The whole run under the flags' ingest resilience settings, so
-        every read (feature scan, dataset load, index maps) behaves alike."""
+        every read (feature scan, dataset load, index maps) behaves alike.
+        ``restart=True`` (an in-process relaunch after a preemption) keeps
+        the output dir the interrupted attempt wrote into."""
         p = self.params
         with resilience.resilience_scope(io_resilience_config(
                 p.on_corrupt, p.corrupt_skip_budget, p.io_retries, p.io_retry_base_delay)):
-            self._run()
+            self._run(restart)
 
-    def _run(self) -> None:
+    def _run(self, restart: bool = False) -> None:
         p = self.params
-        prepare_output_dir(p.output_dir, p.delete_output_dir_if_exists)
+        if restart:
+            os.makedirs(p.output_dir, exist_ok=True)
+        else:
+            prepare_output_dir(p.output_dir, p.delete_output_dir_if_exists)
         self.logger.info(f"device: {self.device}"
                          + (f" ({torch.cuda.get_device_name(self.device)})"
                             if self.device.type == "cuda" else ""))
         try:
+            # stat tokens before ingest: a file overwritten mid-run is
+            # recorded with the identity this run read
+            self._train_file_stats = file_stat_token(_input_files(self._train_dirs()))
+            self._eval_identity()
             with self.timer.measure("prepare-feature-maps"):
                 self.prepare_feature_maps()
             with self.timer.measure("prepare-datasets"):
@@ -480,16 +541,105 @@ class GameTrainingDriver:
                         for i, (_, result, _) in enumerate(self.results):
                             self.save_models(os.path.join(p.output_dir, ALL_MODELS_DIR, str(i)),
                                              result, i)
+                    self._write_retrain_manifest(best_dir)
             self.logger.info(self.timer.summary())
         finally:
             if self._own_logger:
                 self.logger.close()
 
+    # --- retrain.json (photon_ml_tpu/retrain) ---------------------------
+    def _ingest_inputs(self) -> Dict[str, object]:
+        """What determines the decoded columns and feature space given the
+        input files, known before the feature maps are built."""
+        p = self.params
+        return {
+            "sections": {k: list(v) for k, v in sorted((p.feature_shard_sections or {}).items())},
+            "intercepts": {k: bool(v) for k, v in sorted(
+                (p.feature_shard_intercepts or {}).items())},
+            "id_types": self._id_types(),
+            "ladder": None,  # the shape ladder is not yet ported
+            "offheap_indexmap_dir": p.offheap_indexmap_dir,
+            "name_and_term": p.feature_name_and_term_set_path,
+        }
+
+    def _ingest_digest(self) -> str:
+        """SHA-256 of the whole ingest config, each shard's index map
+        included: the feature-space identity."""
+        p = self.params
+        config = {
+            "sections": p.feature_shard_sections,
+            "intercepts": p.feature_shard_intercepts,
+            "id_types": self._id_types(),
+            "ladder": None,
+            "index_maps": {shard: index_map_digest(imap)
+                           for shard, imap in sorted(self.shard_index_maps.items())},
+        }
+        return hashlib.sha256(json.dumps(config, sort_keys=True, default=str).encode()).hexdigest()
+
+    def _eval_identity(self) -> Dict[str, object]:
+        """Validation file stats and evaluator specs, taken once, before the
+        validation files are read."""
+        if self._eval_identity_cache is None:
+            p = self.params
+            val_files = _input_files(self._validate_dirs()) if p.validate_input_dirs else []
+            self._eval_identity_cache = {
+                "validate_files": file_stat_token(val_files),
+                "evaluators": [[etype.value, k, id_name]
+                               for etype, k, id_name in (p.evaluators or [])],
+            }
+        return self._eval_identity_cache
+
+    def _write_retrain_manifest(self, best_dir: str) -> None:
+        """Leave this run's ``retrain.json`` for the next run's planner."""
+        p = self.params
+        selected = self.results[self.best_index][0]
+        coords = {
+            name: CoordinateRecord(
+                kind="fixed" if name in p.fixed_effect_data_configs else "random",
+                opt_config=str(selected.get(name, CoordinateOptConfig())),
+            )
+            for name in p.updating_sequence
+        }
+        manifest = RetrainManifest(
+            output_dir=os.path.abspath(p.output_dir),
+            model_dir=os.path.abspath(best_dir),
+            task=p.task_type.value,
+            file_stats=self._train_file_stats,
+            ingest_inputs=self._ingest_inputs(),
+            ingest_digest=self._ingest_digest(),
+            updating_sequence=list(p.updating_sequence),
+            coordinates=coords,
+            eval_identity=self._eval_identity(),
+        )
+        self.logger.info(f"retrain manifest written: {manifest.save(p.output_dir)}")
+
 
 def main(argv: Optional[List[str]] = None) -> GameTrainingDriver:
-    driver = GameTrainingDriver(parse_training_params(argv))
-    driver.run()
-    return driver
+    enable_determinism()
+    params = parse_training_params(argv)
+
+    def run_once(attempt: int) -> GameTrainingDriver:
+        driver = GameTrainingDriver(params)
+        driver.run(restart=attempt > 0)
+        return driver
+
+    def on_restart(attempt: int, e: preemption.Preempted) -> None:
+        logging.getLogger(__name__).warning(
+            "preempted (%s); relaunching from the latest checkpoint (restart %d/%d)",
+            e, attempt, params.max_restarts)
+
+    # SIGTERM/SIGINT become cooperative preemption requests for the whole
+    # run: descent drains to the next update boundary, writes an emergency
+    # checkpoint, then relaunches (--max-restarts) or exits with code 75
+    with preemption.signal_scope():
+        try:
+            return preemption.run_with_restarts(run_once, params.max_restarts,
+                                                on_restart=on_restart)
+        except preemption.Preempted as e:
+            print(f"photon-ml-tpu-torch: preempted ({e}); emergency checkpoint "
+                  f"{e.checkpoint_path or '(no --checkpoint-dir)'}; exiting "
+                  f"{preemption.PREEMPT_EXIT_CODE}", file=sys.stderr)
+            raise SystemExit(preemption.PREEMPT_EXIT_CODE) from e
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """GLM training driver: preprocess -> train -> validate (port of
-photon_ml_tpu/cli/glm_driver.py for LIBSVM input and the dense layout).
+photon_ml_tpu/cli/glm_driver.py for LIBSVM input).
 
 Reference spec: Driver.scala:69-598 — stages INIT -> PREPROCESSED -> TRAINED
 -> VALIDATED (DriverStage.scala): preprocess loads, validates and summarizes
@@ -7,8 +7,9 @@ data, train runs the warm-started lambda grid, validate computes metric maps
 and selects the best lambda, and models are written in text form
 (``output/`` per lambda, ``best/`` for the selection). Same flag names, log
 lines and output layout as the JAX driver; tensors live on ``--device``
-(default cuda), and on the card the dense value+gradient pass is the fused
-CUDA kernel.
+(default cuda). Batches up to ``DENSE_DIM_THRESHOLD`` features are dense,
+and on the card their value+gradient pass is the fused CUDA kernel; wider
+batches are padded-COO ``SparseFeatures``.
 
     python -m photon_ml_tpu_torch.cli.glm_driver \\
       --training-data-directory data/train --validating-data-directory data/val \\
@@ -28,7 +29,7 @@ import torch
 
 from photon_ml_tpu_torch.cli.glm_params import GLMParams, parse_from_command_line
 from photon_ml_tpu_torch.data.validators import sanity_check_data
-from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.device import enable_determinism, resolve_device
 from photon_ml_tpu_torch.evaluation import metrics as metrics_mod
 from photon_ml_tpu_torch.io.index_map import IndexMap
 from photon_ml_tpu_torch.io.libsvm import HostDataset, read_libsvm, to_batch
@@ -46,8 +47,7 @@ from photon_ml_tpu_torch.utils.io_utils import prepare_output_dir, write_models_
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
 from photon_ml_tpu_torch.utils.timer import Timer
 
-# Above this width the JAX driver keeps batches sparse; that layout is not
-# yet ported, so wider inputs are rejected
+# above this width batches stay sparse, as in the JAX driver
 DENSE_DIM_THRESHOLD = 4096
 LEARNED_MODELS_TEXT = "output"  # Driver.LEARNED_MODELS_TEXT parity
 
@@ -141,14 +141,11 @@ class Driver:
             ds = _concat_datasets(ds, more)
         self.train_ds = ds
         self.index_map = IndexMap.for_libsvm(ds.dim - int(p.add_intercept), p.add_intercept)
-        if ds.dim > DENSE_DIM_THRESHOLD:
-            raise ValueError(
-                f"{ds.dim} features: the sparse layout (D > {DENSE_DIM_THRESHOLD}) "
-                "is not yet ported to photon_ml_tpu_torch"
-            )
-        self.train_batch = to_batch(ds, dense=True, device=self.device)
+        dense = ds.dim <= DENSE_DIM_THRESHOLD
+        self.train_batch = to_batch(ds, dense=dense, device=self.device)
         self.logger.info(
-            f"training data: {ds.num_rows} rows x {ds.dim} features (dense layout)"
+            f"training data: {ds.num_rows} rows x {ds.dim} features "
+            f"({'dense' if dense else 'sparse'} layout)"
         )
         sanity_check_data(self.train_batch, p.task_type, p.data_validation_type)
 
@@ -169,7 +166,7 @@ class Driver:
                 dim=ds.dim - int(p.add_intercept),
                 add_intercept=p.add_intercept,
             )
-            self.validation_batch = to_batch(vds, dense=True, device=self.device)
+            self.validation_batch = to_batch(vds, dense=dense, device=self.device)
             sanity_check_data(self.validation_batch, p.task_type, p.data_validation_type)
         self._advance(DriverStage.PREPROCESSED)
 
@@ -296,6 +293,7 @@ def _concat_datasets(a: HostDataset, b: HostDataset) -> HostDataset:
 
 
 def main(argv: Optional[List[str]] = None) -> Driver:
+    enable_determinism()
     driver = Driver(parse_from_command_line(argv))
     driver.run()
     return driver

@@ -367,9 +367,10 @@ def padded_row_coo(feats: HostFeatures, pad_col: int = -1):
     return cols, vals
 
 
-def build_fixed_effect_batch(data: GameData, feature_shard_id: str, device=None):
-    """One dense GLMBatch over all rows of a shard on ``device``
-    (data/FixedEffectDataSet.scala:31-105 analogue)."""
+def build_fixed_effect_batch(data: GameData, feature_shard_id: str, dense: bool = True,
+                             device=None):
+    """One GLMBatch over all rows of a shard on ``device``, dense or
+    padded-COO (data/FixedEffectDataSet.scala:31-105 analogue)."""
     from photon_ml_tpu_torch.io.libsvm import HostDataset, to_batch
 
     feats = data.shards[feature_shard_id]
@@ -377,4 +378,4 @@ def build_fixed_effect_batch(data: GameData, feature_shard_id: str, device=None)
         labels=data.response, indptr=feats.indptr, indices=feats.indices,
         values=feats.values, dim=feats.dim, offsets=data.offset, weights=data.weight,
     )
-    return to_batch(ds, dense=True, pad_rows_to=1, device=device)
+    return to_batch(ds, dense=dense, pad_rows_to=1, device=device)

@@ -13,7 +13,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.ops.features import DenseFeatures
+from photon_ml_tpu_torch.ops.features import DenseFeatures, SparseFeatures
 from photon_ml_tpu_torch.ops.objective import GLMBatch
 from photon_ml_tpu_torch.types import DataValidationType, TaskType
 
@@ -31,7 +31,8 @@ def finite_offsets(batch: GLMBatch) -> bool:
 
 
 def finite_features(batch: GLMBatch) -> bool:
-    return _finite(batch.features.matrix)
+    feats = batch.features
+    return _finite(feats.matrix if isinstance(feats, DenseFeatures) else feats.values)
 
 
 def binary_labels(batch: GLMBatch) -> bool:
@@ -58,8 +59,13 @@ def _subsample(batch: GLMBatch, fraction: float, seed: int = 42) -> GLMBatch:
         idx = np.array([0])
     rows = torch.from_numpy(idx).to(batch.device)
     take = lambda a: a[rows]
-    return GLMBatch(DenseFeatures(take(batch.features.matrix)), take(batch.labels),
-                    take(batch.offsets), take(batch.weights))
+    feats = batch.features
+    if isinstance(feats, DenseFeatures):
+        feats = DenseFeatures(take(feats.matrix))
+    else:
+        # the transpose layout covers every row; a row sample drops it
+        feats = SparseFeatures(take(feats.indices), take(feats.values), feats.dim)
+    return GLMBatch(feats, take(batch.labels), take(batch.offsets), take(batch.weights))
 
 
 def sanity_check_data(batch: GLMBatch, task: TaskType,

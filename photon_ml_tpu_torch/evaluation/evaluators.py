@@ -3,8 +3,12 @@
 Reference spec: evaluation/Evaluator.scala:24-75 (evaluate + betterThan),
 the AUC / RMSE / loss evaluators, PrecisionAtKEvaluator.scala:35-85 and
 EvaluatorType.scala. AUC is the exact weighted Mann-Whitney statistic
-through one sort + cumsum + searchsorted (ties get 0.5 credit). Rows with
-weight 0 are padding and drop out of every metric.
+through one sort + running sum + searchsorted (ties get 0.5 credit). Rows
+with weight 0 are padding and drop out of every metric.
+
+Running sums go through ``running_sum``, not ``torch.cumsum``: a floating
+cumsum on a CUDA tensor has no deterministic algorithm and raises under
+``torch.use_deterministic_algorithms`` (device.enable_determinism).
 """
 
 from __future__ import annotations
@@ -18,6 +22,19 @@ import torch
 from photon_ml_tpu_torch.ops import losses as losses_mod
 
 Tensor = torch.Tensor
+
+
+def running_sum(x: Tensor) -> Tensor:
+    """Inclusive prefix sum along the first axis by doubling steps
+    (Hillis-Steele): after the step of width s, element i holds the sum of
+    x[i-2s+1..i]. Each step is one elementwise add, so the association is
+    fixed and the result is the same bits on every device and run."""
+    out = x
+    shift = 1
+    while shift < out.shape[0]:
+        out = torch.cat([out[:shift], out[shift:] + out[:-shift]])
+        shift *= 2
+    return out
 
 
 class EvaluatorType(enum.Enum):
@@ -39,7 +56,7 @@ def area_under_roc_curve(scores: Tensor, labels: Tensor,
     neg_w = weights * (1.0 - labels)
     order = torch.argsort(scores)
     s_sorted = scores[order]
-    cum_neg = torch.cumsum(neg_w[order], 0)
+    cum_neg = running_sum(neg_w[order])
     lo = torch.searchsorted(s_sorted, scores, side="left")
     hi = torch.searchsorted(s_sorted, scores, side="right")
     zero = torch.zeros_like(scores)

@@ -15,7 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
-from photon_ml_tpu_torch.evaluation.evaluators import area_under_roc_curve
+from photon_ml_tpu_torch.evaluation.evaluators import area_under_roc_curve, running_sum
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.objective import GLMBatch
@@ -42,7 +42,7 @@ def _roc_pr_curves(scores: Tensor, labels: Tensor, weights: Optional[Tensor]):
     order = torch.argsort(-scores, stable=True)
     lab = labels[order]
     w = torch.ones_like(lab) if weights is None else weights[order]
-    return torch.cumsum(w * lab, 0), torch.cumsum(w * (1.0 - lab), 0)
+    return running_sum(w * lab), running_sum(w * (1.0 - lab))
 
 
 def area_under_pr(scores: Tensor, labels: Tensor, weights: Optional[Tensor] = None) -> Tensor:

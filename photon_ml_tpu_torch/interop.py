@@ -11,7 +11,8 @@ attribute, so this module imports neither jax nor the JAX package.
 Covered: arrays (per-entity coefficient matrices among them),
 ``Coefficients``, ``GeneralizedLinearModel``, ``NormalizationContext``,
 ``OptimizerConfig`` (LBFGS's and TRON's fields), ``RegularizationContext``,
-``RandomEffectDataset``, ``SparseSlab``, ``FixedEffectModel``,
+``RandomEffectDataset``, ``SparseSlab``, ``SparseFeatures`` (its sorted
+transpose included), ``FixedEffectModel``,
 ``RandomEffectModel`` and ``GameModel``.
 """
 
@@ -26,6 +27,7 @@ from photon_ml_tpu_torch.data.game import RandomEffectDataset
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
+from photon_ml_tpu_torch.ops.features import SparseFeatures
 from photon_ml_tpu_torch.ops.fused_sparse import SparseSlab
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
@@ -40,6 +42,9 @@ def _tensor(a, device):
     if arr.dtype.name == "bfloat16":  # numpy has no bf16 of its own: via f32, exactly
         return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
     return torch.from_numpy(arr).to(device)
+
+
+_SPARSE_TRANSPOSE = ("t_idx", "t_row", "t_val")
 
 
 def from_jax_numpy(obj, device=None):
@@ -74,6 +79,10 @@ def from_jax_numpy(obj, device=None):
     if kind == "SparseSlab":
         return SparseSlab(_tensor(obj.idx, device), _tensor(obj.val, device), int(obj.dim),
                           str(obj.kernel))
+    if kind == "SparseFeatures":
+        return SparseFeatures(*(_tensor(getattr(obj, f), device) for f in ("indices", "values")),
+                              int(obj.dim), **{f: _tensor(getattr(obj, f), device)
+                                               for f in _SPARSE_TRANSPOSE})
     if kind == "FixedEffectModel":
         return FixedEffectModel(_tensor(obj.coefficients, device), obj.feature_shard_id,
                                 TaskType(obj.task.value))
@@ -123,6 +132,9 @@ def to_numpy(obj):
     if isinstance(obj, SparseSlab):
         return {"idx": _array(obj.idx), "val": _array(obj.val), "dim": obj.dim,
                 "kernel": obj.kernel}
+    if isinstance(obj, SparseFeatures):
+        return {"indices": _array(obj.indices), "values": _array(obj.values), "dim": obj.dim,
+                **{f: _array(getattr(obj, f)) for f in _SPARSE_TRANSPOSE}}
     if isinstance(obj, FixedEffectModel):
         return {"coefficients": _array(obj.coefficients),
                 "feature_shard_id": obj.feature_shard_id, "task": obj.task.value}

@@ -8,7 +8,9 @@ JAX package and built by ``native_build.build_host``); the pure-Python
 parser of the same semantics runs when ``PHOTON_ML_TPU_NATIVE=0`` asks for
 it or when the loader flags a malformed token (the Python parser then raises
 the real error). ``parse_counts`` counts the files each parser read. Batches
-are padded to a multiple of 8 rows with weight 0.
+are padded to a multiple of 8 rows with weight 0, dense ``(N, D)`` or, with
+``dense=False``, padded-COO ``SparseFeatures`` (the transpose layout by
+``ops.features.auto_transpose``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from photon_ml_tpu_torch import native_build
 from photon_ml_tpu_torch.device import resolve_device
-from photon_ml_tpu_torch.ops.features import DenseFeatures
+from photon_ml_tpu_torch.ops.features import DenseFeatures, SparseFeatures, auto_transpose
 from photon_ml_tpu_torch.ops.objective import GLMBatch
 from photon_ml_tpu_torch.types import real_dtype
 
@@ -168,12 +170,8 @@ def _round_up(n: int, multiple: int) -> int:
 
 def to_batch(ds: HostDataset, dense: bool = True, pad_rows_to: int = 8,
              device=None) -> GLMBatch:
-    """Convert a HostDataset to a padded dense GLMBatch on ``device``
-    (default cuda). Padding rows get weight 0."""
-    if not dense:
-        raise ValueError(
-            "the sparse feature layout (D > 4096) is not yet ported to photon_ml_tpu_torch"
-        )
+    """Convert a HostDataset to a padded GLMBatch on ``device`` (default
+    cuda), dense or padded-COO. Padding rows get weight 0."""
     dev = resolve_device(device)
     real = _np_real()
     n, d = ds.num_rows, ds.dim
@@ -187,7 +185,17 @@ def to_batch(ds: HostDataset, dense: bool = True, pad_rows_to: int = 8,
         off[:n] = ds.offsets
     row_nnz = np.diff(ds.indptr)
     rows = np.repeat(np.arange(n, dtype=np.int64), row_nnz)
-    x = np.zeros((n_pad, d), real)
-    x[rows, ds.indices] = ds.values
     put = lambda a: torch.from_numpy(a).to(dev)
-    return GLMBatch(DenseFeatures(put(x)), put(labels), put(off), put(w))
+    if dense:
+        x = np.zeros((n_pad, d), real)
+        x[rows, ds.indices] = ds.values
+        feats = DenseFeatures(put(x))
+    else:
+        slots = np.arange(len(ds.indices), dtype=np.int64) - np.repeat(ds.indptr[:-1], row_nnz)
+        k = int(row_nnz.max()) if n else 1
+        idx = np.zeros((n_pad, k), np.int32)
+        val = np.zeros((n_pad, k), real)
+        idx[rows, slots] = ds.indices
+        val[rows, slots] = ds.values
+        feats = auto_transpose(SparseFeatures(put(idx), put(val), d))
+    return GLMBatch(feats, put(labels), put(off), put(w))

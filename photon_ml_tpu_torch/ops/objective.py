@@ -8,8 +8,8 @@ Raw data is never normalized in memory. Padding rows carry weight 0 and
 contribute an exact 0 to every sum (hard mask, so inf/nan garbage in a
 padding row's loss is zeroed too).
 
-A batch is one problem, ``(N,)`` rows of a dense ``(N, D)`` matrix with
-``(D,)`` coefficients, or a stack of lanes (the random effect's entities):
+A batch is one problem, ``(N,)`` rows of a dense ``(N, D)`` matrix or of
+padded-COO ``SparseFeatures`` with ``(D,)`` coefficients, or a stack of lanes (the random effect's entities):
 ``(E, M)`` rows of a dense ``(E, M, D)`` stack or a ``SparseSlab``, with
 ``(E, D)`` coefficients; values then come back per lane, ``(E,)``. Rows of a
 slab are summed through the fixed-association ``tree_row_sum``.
@@ -36,7 +36,7 @@ class GLMBatch:
     """Struct-of-arrays batch (data/LabeledPoint.scala:28-62: label,
     features, offset, weight)."""
 
-    features: object  # DenseFeatures or SparseSlab
+    features: object  # DenseFeatures, SparseFeatures or SparseSlab
     labels: Tensor  # (N,) or (E, M)
     offsets: Tensor  # like labels
     weights: Tensor  # like labels — 0 marks padding rows
@@ -189,7 +189,8 @@ class GLMObjective:
     def hessian_diagonal(self, w, batch: GLMBatch, norm: NormalizationContext,
                          l2_weight=0.0) -> Tensor:
         """diag(H) = factor^2 * [(X^2)^T d2 - 2 shift (X^T d2) + shift^2 sum(d2)]
-        + l2 (TwiceDiffFunction.scala:151-162 behavior). Dense batches."""
+        + l2 (TwiceDiffFunction.scala:151-162 behavior), expanded so a sparse
+        batch never densifies."""
         w_eff = norm.effective_coefficients(w)
         z = batch.features.matvec(w_eff) + norm.margin_shift(w_eff) + batch.offsets
         d2 = _wmul(batch.weights, self.loss.d2(z, batch.labels))

@@ -1,12 +1,22 @@
-"""Ingest resilience: the process-wide corrupt-shard and retry settings
-(port of the configuration part of photon_ml_tpu/resilience/__init__.py).
+"""Resilience: fault injection, retry/backoff I/O, divergence guards and
+cooperative preemption (port of photon_ml_tpu/resilience/__init__.py).
+
+  * :mod:`faults` — deterministic fault injection at the named sites of
+    :mod:`sites`, driven by :func:`fault_scope` or ``PHOTON_FAULTS``;
+  * :mod:`retry` — backoff + jitter + deadline retry policies for Avro
+    reads, index-map loads and checkpoint commits;
+  * :mod:`guards` — non-finite detection in coordinate descent with
+    last-good-state rollback;
+  * :mod:`preemption` — SIGTERM/SIGINT (or ``PHOTON_PREEMPT_AT`` / a
+    ``preempt.signal`` fault) set a flag coordinate descent polls between
+    updates; it writes an emergency checkpoint and unwinds with
+    :class:`Preempted`.
 
 :class:`ResilienceConfig` is consulted by the ingest layer (``io/avro.py``
 block reads, the native whole-file reads of ``io/avro_data.py``, index-map
-and off-heap store loads). The CLI drivers install it from their
-``--on-corrupt`` / ``--corrupt-skip-budget`` / ``--io-retries`` flags with
-:func:`resilience_scope`. Fault injection, divergence guards and preemption
-are not yet ported.
+and off-heap store loads) and by checkpoint commits. The CLI drivers install
+it from their ``--on-corrupt`` / ``--corrupt-skip-budget`` / ``--io-retries``
+flags with :func:`resilience_scope`.
 """
 
 from __future__ import annotations
@@ -15,9 +25,37 @@ import contextlib
 import dataclasses
 from typing import Iterator, Optional
 
+from photon_ml_tpu_torch.resilience import faults, guards, preemption, retry, sites
+from photon_ml_tpu_torch.resilience.faults import (
+    FaultPlan,
+    FaultSpec,
+    InjectedFatalError,
+    InjectedIOError,
+    fault_scope,
+)
+from photon_ml_tpu_torch.resilience.guards import DivergenceGuard, GuardEvent, tree_all_finite
+from photon_ml_tpu_torch.resilience.preemption import PREEMPT_EXIT_CODE, Preempted
 from photon_ml_tpu_torch.resilience.retry import RetryError, RetryPolicy, call_with_retry
+from photon_ml_tpu_torch.resilience.sites import FAULT_SITES, PREEMPT_SITES
 
 __all__ = [
+    "faults",
+    "guards",
+    "preemption",
+    "retry",
+    "sites",
+    "FAULT_SITES",
+    "PREEMPT_SITES",
+    "PREEMPT_EXIT_CODE",
+    "Preempted",
+    "FaultPlan",
+    "FaultSpec",
+    "InjectedIOError",
+    "InjectedFatalError",
+    "fault_scope",
+    "DivergenceGuard",
+    "GuardEvent",
+    "tree_all_finite",
     "ON_CORRUPT_MODES",
     "ResilienceConfig",
     "RetryError",

@@ -127,9 +127,6 @@ def test_port_driver_saves_variances_and_all_models(game_avro_dirs, tmp_path):  
 
 
 FENCED = [
-    ["--checkpoint-dir", "ckpt"],
-    ["--checkpoint-async", "true"],
-    ["--max-restarts", "2"],
     ["--store-dtype", "bf16"],
     ["--distributed", "true"],
     ["--fused-cycle", "true"],
@@ -145,7 +142,6 @@ FENCED = [
     ["--plan", "auto"],
     ["--vmapped-grid", "true"],
     ["--export-serve-store", "store"],
-    ["--divergence-guard", "rollback"],
     ["--factored-random-effect-optimization-configurations",
      "per-user:10,1e-5,1,1,LBFGS,L2:10,1e-5,1,1,LBFGS,L2:2,2"],
 ]

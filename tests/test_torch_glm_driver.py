@@ -13,6 +13,7 @@ import pytest
 from photon_ml_tpu.cli import glm_driver as jdriver
 from photon_ml_tpu.utils.io_utils import read_models_from_text as jread
 from photon_ml_tpu_torch.cli import glm_driver as tdriver
+from photon_ml_tpu_torch.ops.features import SparseFeatures
 from photon_ml_tpu_torch.utils.io_utils import read_models_from_text as tread
 from tolerances import assert_allclose
 
@@ -123,8 +124,43 @@ def test_avro_input_and_sparse_width_raise(tmp_path):
     _write_libsvm(tmp_path / "train" / "a.txt", 16, 0, "LOGISTIC_REGRESSION")
     _write_libsvm(tmp_path / "validate" / "a.txt", 16, 0, "LOGISTIC_REGRESSION")
     wide = [a if a != str(D) else "5000" for a in argv]
-    with pytest.raises(ValueError, match="sparse layout .* not yet ported"):
-        tdriver.main(wide)
+    driver = tdriver.main(wide)  # the sparse layout is ported: no refusal
+    assert isinstance(driver.train_batch.features, SparseFeatures)
+    assert driver.train_batch.dim == 5001
+
+
+def _write_wide_libsvm(path, n, seed, dim, nnz):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=dim).astype(np.float32)
+    with open(path, "w") as f:
+        for _ in range(n):
+            cols = np.sort(rng.choice(dim, size=nnz, replace=False))
+            vals = rng.normal(size=nnz).astype(np.float32)
+            label = 1 if rng.random() < 1 / (1 + np.exp(-(vals * w[cols]).sum())) else -1
+            f.write(f"{label} " + " ".join(f"{c + 1}:{v:.5f}" for c, v in zip(cols, vals)) + "\n")
+
+
+@pytest.mark.parametrize("optimizer", ["LBFGS", "TRON"])
+def test_sparse_width_driver_matches_jax_driver(tmp_path, optimizer):
+    """D=5000 > DENSE_DIM_THRESHOLD: both drivers take the padded-COO layout."""
+    for name, n, seed in (("train", 400, 11), ("validate", 160, 12)):
+        (tmp_path / name).mkdir()
+        _write_wide_libsvm(tmp_path / name / "part-0.txt", n, seed, 5000, 12)
+    argv = [a if a != str(D) else "5000"
+            for a in _argv(tmp_path, "LOGISTIC_REGRESSION", "{out}", "--optimizer", optimizer)]
+    jd = jdriver.main([a.replace("{out}", "jax") for a in argv])
+    td = tdriver.main([a.replace("{out}", "torch") for a in argv] + ["--device", "cpu"])
+    assert type(td.train_batch.features).__name__ == type(jd.train_batch.features).__name__
+    assert isinstance(td.train_batch.features, SparseFeatures)
+    assert td.best_reg_weight == jd.best_reg_weight
+    for lam, jm in jd.validation_metrics.items():
+        keys = sorted(jm)
+        assert_allclose([td.validation_metrics[lam][k] for k in keys], [jm[k] for k in keys],
+                        kind="solver", dtype=np.float32, err_msg=f"lambda={lam}")
+    for (lam, tm), (jlam, jm) in zip(td.models, jd.models):
+        assert lam == jlam
+        assert_allclose(tm.coefficients.means.numpy(), np.asarray(jm.coefficients.means),
+                        kind="solver", err_msg=f"lambda={lam}")
 
 
 @pytest.mark.parametrize("extra,message", [
