@@ -32,6 +32,13 @@ shapes and times it, then drives the port's main paths at full width:
   * checkpoints and preemption: the GAME driver with ``--checkpoint-dir``,
     stopped (a subprocess exiting 75) and resumed, async, and restarted
     in-process, every model byte-equal to the uninterrupted run's;
+  * the GLM driver's whole surface on the dense GLM data (phase 18, run
+    right after phase 6): the README's GLM quickstart as written
+    (``--diagnostic-mode VALIDATE``), LBFGS and OWL-QN in a box,
+    ``--diagnostic-mode ALL`` with TRON and box constraints twice on the
+    card (byte-equal) and once on the CPU (held at the solver tolerance),
+    and TrainingExampleAvro input with selected features, summaries and an
+    off-heap index;
   * sparse fixed effects: ``cli.glm_driver.main`` on bench.py:59's
     sparse-wide data (N=131072, D=2^20) and the GAME driver with a 2^17-wide
     fixed shard, twice on the card (byte-equal) and once on the CPU, with the
@@ -39,9 +46,9 @@ shapes and times it, then drives the port's main paths at full width:
 
 Deterministic algorithms are on from the start (``device.enable_determinism``).
 Every phase prints on its own lines; any failed check exits non-zero. The
-last lines are a JSON object of the sparse and checkpoint phases' numbers,
-the card's name and power limit, one JSON object listing the kernels, and
-``{"ok": true, "device": {...}}``.
+last lines are a JSON object of the sparse, checkpoint and GLM-diagnostics
+phases' numbers, the card's name and power limit, one JSON object listing
+the kernels, and ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA card is available or the
 package is not beside this script. Imports nothing of JAX.
@@ -67,6 +74,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 SEED = 20260729
 N_FULL, D_FULL = 262144, 512
+GLM_DRIVER_D = 511  # the GLM driver's LIBSVM features (+ the intercept: D_FULL)
 LAMBDAS = (10.0, 1.0, 0.1)
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the name torch
 # reports: memory bytes/s and fp32 CUDA-core flop/s
@@ -348,7 +356,7 @@ def phase_driver(torch, fused_glm, workdir):
     from photon_ml_tpu_torch.io import libsvm
     from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
 
-    n_train, n_val, d, nnz = N_FULL, 8192, 511, 32
+    n_train, n_val, d, nnz = N_FULL, 8192, GLM_DRIVER_D, 32
     say(f"== phase 6: glm_driver.main on LIBSVM train {n_train} x {d} (+ intercept), "
         f"validate {n_val}, ~{nnz} non-zeros per row, LBFGS, L2, STANDARDIZATION, 3 lambdas")
     rng = np.random.default_rng(SEED)
@@ -406,6 +414,478 @@ def phase_driver(torch, fused_glm, workdir):
         say(f"  lambda={lam:g}: driver objective {fv:.6f}  plain-objective solve {pv:.6f}")
         check(abs(fv - pv) <= 1e-2 * abs(pv) + 2e-3, f"lambda={lam}: driver objective off the plain solve")
     return launches
+
+
+# --- the GLM driver's whole surface: diagnostics, box constraints, Avro ----
+
+# the README's GLM quickstart (README.md:37-45), flags verbatim
+README_GLM_FLAGS = ["--task", "LOGISTIC_REGRESSION", "--input-file-format", "LIBSVM",
+                    "--regularization-weights", "0.1,1,10", "--optimizer", "LBFGS",
+                    "--regularization-type", "L2", "--normalization-type", "STANDARDIZATION",
+                    "--diagnostic-mode", "VALIDATE"]
+BOX_BOUND = 0.1
+GLM_BOX = f'[{{"name":"*","term":"*","lowerBound":-{BOX_BOUND},"upperBound":{BOX_BOUND}}}]'
+DIAG_FLAGS = ["--task", "LOGISTIC_REGRESSION", "--input-file-format", "LIBSVM",
+              "--regularization-weights", "0.1,1,10", "--optimizer", "TRON",
+              "--regularization-type", "L2", "--normalization-type", "STANDARDIZATION",
+              "--diagnostic-mode", "ALL", "--coefficient-box-constraints", GLM_BOX]
+BOOTSTRAP_SAMPLES = 10
+# the section titles the JAX driver writes (photon_ml_tpu/cli/glm_driver.py
+# diagnose): per chapter, in order; the CPU tests hold the port's HTML to the
+# JAX driver's, here the card's HTML is held to these
+VALIDATE_SECTIONS = ["Summary", "Feature importance (EXPECTED_MAGNITUDE)",
+                     "Prediction / error independence", "Hosmer-Lemeshow calibration"]
+
+
+def _sections(path):
+    """The chapter and section titles of a model-diagnostic.html, numbers cut."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    return [re.sub(r"^[\d.]+ ", "", h) for h in re.findall(r"<h[23][^>]*>([^<]*)</h[23]>", text)]
+
+
+def _stripped_records(path):
+    """An Avro file's records as JSON, the report timestamps blanked."""
+    import re
+
+    from photon_ml_tpu_torch.io.avro import read_container
+
+    return [re.sub(r'"timestamp": "[^"]*"', '"timestamp": ""', json.dumps(r, sort_keys=True))
+            for r in read_container(path)]
+
+
+def run_glm_stages(torch, fused_glm, argv):
+    """One glm_driver.main run with the fused kernel's launches counted per
+    stage: the lambda grid (the driver's train_glm_grid), the fitting
+    diagnostic's prefix grids, and the bootstrap (which solves with the
+    plain objective, as the JAX package's does). The counts are set to 0
+    just before the run. Returns (driver, wall, launches by stage, what
+    each counted stage returned and each (model, batch, report) of the
+    independence and Hosmer-Lemeshow diagnostics, the bootstrap's device
+    resample counts)."""
+    from photon_ml_tpu_torch import bootstrap
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.diagnostics import (bootstrap_diagnostic, fitting,
+                                                 hosmer_lemeshow, independence)
+
+    kernel = fused_glm.fused_value_grad_kernel
+    stages = {"grid": 0, "fitting": 0, "bootstrap": 0}
+    returned, drawn = {"independence": [], "hosmer-lemeshow": []}, []
+
+    def counted(stage, fn):
+        def run(*a, **k):
+            before = kernel.launches
+            try:
+                returned[stage] = fn(*a, **k)
+                return returned[stage]
+            finally:
+                stages[stage] += kernel.launches - before
+        return run
+
+    def recorded(*a, **k):
+        drawn.append(draw(*a, **k))
+        return drawn[-1]
+
+    def per_model(name, fn):
+        def run(model, batch):
+            returned[name].append((model, batch, fn(model, batch)))
+            return returned[name][-1][2]
+        return run
+
+    grid, fit, boot, draw, ind, hl = (
+        glm_driver.train_glm_grid, fitting.diagnose, bootstrap_diagnostic.diagnose,
+        bootstrap.bootstrap_weights, independence.diagnose, hosmer_lemeshow.diagnose)
+    glm_driver.train_glm_grid = counted("grid", grid)
+    glm_driver.fitting.diagnose = counted("fitting", fit)
+    glm_driver.bootstrap_diagnostic.diagnose = counted("bootstrap", boot)
+    bootstrap.bootstrap_weights = recorded
+    independence.diagnose = per_model("independence", ind)
+    hosmer_lemeshow.diagnose = per_model("hosmer-lemeshow", hl)
+    try:
+        sync(torch)
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        driver = glm_driver.main(argv)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        total = kernel.launches
+    finally:
+        glm_driver.train_glm_grid, fitting.diagnose = grid, fit
+        bootstrap_diagnostic.diagnose, bootstrap.bootstrap_weights = boot, draw
+        independence.diagnose, hosmer_lemeshow.diagnose = ind, hl
+    check(sum(stages.values()) == total, f"launches by stage {stages} != {total}")
+    return driver, wall, dict(stages, total=total), returned, drawn
+
+
+def _check_diagnosed(driver, out, label, mode, dev):
+    """The output layout, the HTML's sections and the diagnostics/ files."""
+    from photon_ml_tpu_torch.cli.glm_driver import DriverStage
+
+    check(driver.stage == DriverStage.DIAGNOSED, f"{label}: stage {driver.stage.name}")
+    check(driver.device.type == dev and driver.train_batch.labels.device.type == dev,
+          f"{label}: the driver ran off the {dev} device")
+    check(sorted(os.listdir(out)) == ["best", "diagnostics", "model-diagnostic.html", "output",
+                                      "photon-ml-tpu.log"], f"{label}: layout {os.listdir(out)}")
+    check(len(os.listdir(os.path.join(out, "output"))) == 3, f"{label}: output/")
+    check(sorted(os.listdir(os.path.join(out, "diagnostics")))
+          == ["evaluation-results.avro", "feature-summaries.avro"], f"{label}: diagnostics/")
+    got = _sections(os.path.join(out, "model-diagnostic.html"))
+    per_model = VALIDATE_SECTIONS + (["Fitting analysis (learning curves)"] if mode == "ALL" else [])
+    want = ["System", "Parameters", "Feature summary"]
+    for i, lam in enumerate(driver.trained.weights):
+        want += [f"Model (lambda = {lam:g})"] + per_model
+        if mode == "ALL" and i == 0:
+            want.append("Bootstrap analysis")
+    check(got == want, f"{label}: HTML sections {got} != {want}")
+    records = _stripped_records(os.path.join(out, "diagnostics", "evaluation-results.avro"))
+    check(len(records) == 3, f"{label}: {len(records)} evaluation records")
+    return got
+
+
+def _check_box(driver, label):
+    """Every coefficient of every solve in [-BOX_BOUND, BOX_BOUND] (the
+    solve's space, where the box binds). Returns per solve the count of
+    coefficients on the bound."""
+    import torch
+
+    on_bound = []
+    for lam, model in zip(driver.trained.weights, driver.trained.models):
+        w = model.coefficients.means
+        check(bool(torch.all(w.abs() <= BOX_BOUND)), f"{label} lambda={lam}: a coefficient outside the box")
+        on_bound.append(int(torch.sum(w.abs() == BOX_BOUND)))
+    return on_bound
+
+
+def _plain_counts(returned, label):
+    """Holds each model's Kendall pair counts and Hosmer-Lemeshow bin counts,
+    as the run's diagnostics counted them on its device, exactly against
+    numpy's count over the same predictions (the same subsample, f32
+    differences, the same bin index). Returns, per model, the Kendall
+    (concordant, discordant, ties in a, ties in b) and the HL (positive,
+    negative) counts per bin."""
+    from photon_ml_tpu_torch.diagnostics import independence
+
+    kendall, bins = [], []
+    for model, batch, report in returned["independence"]:
+        pred = model.compute_mean_functions(batch).detach().cpu().numpy()
+        present = batch.weights.detach().cpu().numpy() > 0.0
+        pred, labels = pred[present], batch.labels.detach().cpu().numpy()[present]
+        a, b = pred.astype(np.float64), (labels - pred).astype(np.float64)
+        m = max(int(np.sqrt(len(a))), min(len(a), 2048))
+        if len(a) > m:
+            idx = np.random.default_rng(0).choice(len(a), size=m, replace=False)
+            a, b = a[idx], b[idx]
+        a, b = a.astype(np.float32), b.astype(np.float32)
+        upper = np.triu_indices(len(a), 1)
+        sa = np.sign(a[:, None] - a[None, :])[upper]
+        sb = np.sign(b[:, None] - b[None, :])[upper]
+        want = (int(np.sum(sa * sb > 0)), int(np.sum(sa * sb < 0)), int(np.sum(sa == 0)),
+                int(np.sum((sa != 0) & (sb == 0))))
+        # the report from numpy's counts, ties included, field for field
+        check(report.kendall_tau == independence.analyze_counts(*want, len(a)),
+              f"{label}: Kendall report {report.kendall_tau} != the one of numpy's counts {want}")
+        kendall.append(want)
+    for model, batch, report in returned["hosmer-lemeshow"]:
+        nb = len(report.histogram)
+        p = np.clip(model.compute_mean_functions(batch).detach().cpu().numpy(), 0.0, 1.0)
+        present = batch.weights.detach().cpu().numpy() > 0.0
+        y = batch.labels.detach().cpu().numpy()[present]
+        idx = np.minimum((p[present] * np.float32(nb)).astype(np.int32), nb - 1)
+        want = (np.bincount(idx, weights=y, minlength=nb).astype(np.int64).tolist(),
+                np.bincount(idx, weights=1.0 - y, minlength=nb).astype(np.int64).tolist())
+        got = ([h.observed_pos for h in report.histogram], [h.observed_neg for h in report.histogram])
+        check(got == want, f"{label}: Hosmer-Lemeshow bin counts {got} != numpy's {want}")
+        bins.append(want)
+    check(len(kendall) == len(bins) == 3, f"{label}: {len(kendall)} Kendall and {len(bins)} HL reports")
+    return kendall, bins
+
+
+def _diagnostics_held(card, cpu, card_dir, cpu_dir):
+    """(b) on the card against (b) on the CPU: per-lambda objectives and
+    coefficients, every record of diagnostics/ (the evaluation contexts
+    equal, their metrics and curve areas, the feature summaries), the
+    fitting curves (the same prefixes) and the bootstrap's summaries, at
+    the solver tolerance. Returns the largest |diff| of each."""
+    import re
+
+    from photon_ml_tpu_torch.io.avro import read_container
+
+    (cd, _, _, cret, _), (pd, _, _, pret, _) = card, cpu
+    errs = {}
+    objective = lambda d: [float(r.value) for r in d.trained.results]
+    errs["objectives"] = held("(b) objectives, card vs CPU", objective(cd), objective(pd))
+    errs["coefficients"] = max(
+        held(f"(b) lambda={lam:g} coefficients, card vs CPU", a.means_as_numpy(), b.means_as_numpy())
+        for (lam, a), (_, b) in zip(cd.models, pd.models))
+    def area(points):
+        xy = np.asarray([[q["x"], q["y"]] for q in points], np.float64)
+        return float(np.sum(np.diff(xy[:, 0]) * (xy[1:, 1] + xy[:-1, 1]) / 2.0))
+
+    def context(rec, root):
+        ctx = json.loads(re.sub(r'"timestamp": "[^"]*"', '"timestamp": ""',
+                                json.dumps(rec["evaluationContext"]).replace(root, "")))
+        ctx["modelTrainingContext"].pop("convergenceReason")
+        return ctx
+
+    paths = [os.path.join(d, "diagnostics", "evaluation-results.avro") for d in (card_dir, cpu_dir)]
+    card_recs, cpu_recs = (list(read_container(p_)) for p_ in paths)
+    check(len(card_recs) == len(cpu_recs) == 3, "(b): evaluation records card vs CPU")
+    metric_err = curve_err = 0.0
+    for a, b in zip(card_recs, cpu_recs):
+        check(context(a, card_dir) == context(b, cpu_dir), "(b): evaluation contexts card vs CPU")
+        check(sorted(a["scalarMetrics"]) == sorted(b["scalarMetrics"]), "(b): metric names")
+        keys = sorted(b["scalarMetrics"])
+        metric_err = max(metric_err, held("(b) evaluation metrics, card vs CPU",
+                                          [a["scalarMetrics"][k] for k in keys],
+                                          [b["scalarMetrics"][k] for k in keys]))
+        check(sorted(a["curves"]) == sorted(b["curves"]), "(b): curve names")
+        curve_err = max(curve_err, held("(b) curve areas, card vs CPU",
+                                        [area(a["curves"][k]["points"]) for k in sorted(b["curves"])],
+                                        [area(b["curves"][k]["points"]) for k in sorted(b["curves"])]))
+    errs["evaluation_metrics"], errs["curve_areas"] = metric_err, curve_err
+    paths = [os.path.join(d, "diagnostics", "feature-summaries.avro") for d in (card_dir, cpu_dir)]
+    card_recs, cpu_recs = (list(read_container(p_)) for p_ in paths)
+    check([(r["featureName"], r["featureTerm"]) for r in card_recs]
+          == [(r["featureName"], r["featureTerm"]) for r in cpu_recs], "(b): feature summary names")
+    metrics = lambda recs: [r["metrics"][k] for r in recs for k in sorted(r["metrics"])]
+    errs["feature_summaries"] = held("(b) feature summaries, card vs CPU",
+                                     metrics(card_recs), metrics(cpu_recs))
+    fit_err = 0.0
+    check(sorted(cret["fitting"]) == sorted(pret["fitting"]), "(b): fitting lambdas")
+    for lam, rep in pret["fitting"].items():
+        got = cret["fitting"][lam].metrics
+        check(sorted(got) == sorted(rep.metrics), f"(b) lambda={lam:g}: fitting metrics")
+        for name, (portions, train, test) in rep.metrics.items():
+            check(got[name][0] == portions, f"(b) lambda={lam:g}: fitting prefixes card vs CPU")
+            fit_err = max(fit_err, held(f"(b) lambda={lam:g} {name} curves, card vs CPU",
+                                        got[name][1] + got[name][2], train + test))
+    errs["fitting_curves"] = fit_err
+    cb, pb = cret["bootstrap"], pret["bootstrap"]
+    dist = lambda r: [v for k in sorted(r.metric_distributions) for v in r.metric_distributions[k]]
+    check(sorted(cb.metric_distributions) == sorted(pb.metric_distributions), "(b): bootstrap metrics")
+    errs["bootstrap_metrics"] = held("(b) bootstrap metric distributions, card vs CPU", dist(cb), dist(pb))
+    bagged = lambda r: [r.bagged_model_metrics[k] for k in sorted(pb.bagged_model_metrics)]
+    errs["bootstrap_bagged"] = held("(b) bagged-model metrics, card vs CPU", bagged(cb), bagged(pb))
+    # the 20 features of largest |mean coefficient|: the box pins many at
+    # exactly 0.1, so which of those tie-break into the 20 may differ;
+    # every feature in both lists is held
+    both = sorted(set(cb.important_feature_distributions) & set(pb.important_feature_distributions))
+    summary = lambda r: [v for k in both for v in vars(r.important_feature_distributions[k]).values()]
+    errs["bootstrap_coefficients"] = held("(b) bootstrap coefficient summaries, card vs CPU",
+                                          summary(cb), summary(pb))
+    return errs
+
+
+def write_glm_avro(ds, path, names):
+    """A HostDataset as TrainingExampleAvro rows (the ``features`` section),
+    each record encoded by hand as avro.write_datum would encode it."""
+    from photon_ml_tpu_torch.io import schemas
+
+    pack = struct.Struct("<d").pack
+    keys = [_avro_str(n) + b"\x00" for n in names]  # the name, the empty term
+    vals = ds.values.tolist()
+    idx = ds.indices.tolist()
+    ptr = ds.indptr.tolist()
+    labels = ds.labels.tolist()
+    encoded = []
+    for r in range(ds.num_rows):
+        lo, hi = ptr[r], ptr[r + 1]
+        feats = _avro_long(hi - lo) + b"".join(keys[idx[k]] + pack(vals[k]) for k in range(lo, hi))
+        encoded.append(b"\x02" + _avro_str(str(r)) + pack(labels[r]) + feats + b"\x00"
+                       + b"\x00\x00\x00")
+    _write_avro(path, encoded, schemas.TRAINING_EXAMPLE)
+
+
+def phase_glm_diagnostics(torch, fused_glm, workdir, dev="cuda"):
+    """Phase 18 (run right after phase 6, on its LIBSVM pair: 262144 x 511
+    + intercept, 8192 validation rows): (a) the README's GLM quickstart,
+    flags verbatim (--diagnostic-mode VALIDATE), then its solver flags with
+    box constraints of +-0.1 on every coefficient under LBFGS (L2) and
+    OWL-QN (L1); (b) --diagnostic-mode ALL, TRON and the box, twice on the
+    card (the second run's bytes equal the first's, timestamps apart) and
+    once on the CPU (objectives, coefficients, diagnostics records, fitting
+    curves and bootstrap summaries held at the solver tolerance); in every
+    diagnosed run each model's Kendall pair counts and Hosmer-Lemeshow bin
+    counts equal numpy's over the same predictions; (c) the same rows as
+    TrainingExampleAvro through --input-file-format AVRO with a
+    --selected-features-file naming half the features and
+    --summarization-output-dir, then with --offheap-indexmap-dir on an
+    OFFHEAP index that cli.feature_indexing built from them."""
+    from photon_ml_tpu_torch.cli import feature_indexing
+    from photon_ml_tpu_torch.diagnostics import fitting
+    from photon_ml_tpu_torch.io import avro_data
+    from photon_ml_tpu_torch.io.libsvm import read_libsvm
+    from photon_ml_tpu_torch.io.offheap import OffHeapIndexMap
+    from photon_ml_tpu_torch.utils import prng
+
+    say("== phase 18: the GLM driver's diagnostics, box constraints and Avro input on phase 6's "
+        "data: (a) the README quickstart (VALIDATE), then LBFGS and OWL-QN in a box, (b) ALL + "
+        "TRON + box, twice on the card and once on the CPU, (c) Avro with selected features and "
+        "summaries, then an off-heap index")
+    if dev == "cuda":
+        say(f"  nvidia-smi: {card_line()}")
+    io = lambda out, device=dev: [
+        "--training-data-directory", os.path.join(workdir, "train"),
+        "--validating-data-directory", os.path.join(workdir, "validate"),
+        "--output-directory", os.path.join(workdir, out), "--device", device]
+    out = {}
+
+    # (a) the README quickstart
+    driver, wall, launches, returned, _ = run_glm_stages(torch, fused_glm, io("readme") + README_GLM_FLAGS)
+    check(launches["grid"] > 0, "(a): the lambda grid launched no fused kernel")
+    _check_diagnosed(driver, os.path.join(workdir, "readme"), "(a)", "VALIDATE", dev)
+    _plain_counts(returned, "(a)")
+    spans = {k: v for k, v in driver.timer.totals.items()}
+    say(f"  (a) README quickstart: wall {wall:.2f} s; fused launches {launches}; Kendall and HL "
+        f"counts of the 3 models = numpy's; stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(spans.items())))
+    out["readme"] = {"wall_s": wall, "launches": launches, "spans_s": spans}
+    # its solver flags in the box: LBFGS with L2, OWL-QN with L1. The box
+    # shows in the objective: above the free solve's at every lambda (the
+    # quickstart's for L2; a free L1 run for OWL-QN). A line search that
+    # backs off a clipped trial point can leave LBFGS's coefficients an ulp
+    # inside the bound, as in the JAX package, so binding is not counted
+    free_l1, _, launches, _, _ = run_glm_stages(
+        torch, fused_glm, io("owlqn-free") + [f if f != "L2" else "L1" for f in README_GLM_FLAGS[:-2]])
+    out["owlqn-free"] = {"launches": launches}
+    bounded = README_GLM_FLAGS[:-2] + ["--coefficient-box-constraints", GLM_BOX]
+    for tag, flags, free in (("lbfgs-box", bounded, driver),
+                             ("owlqn-box", [f if f != "L2" else "L1" for f in bounded], free_l1)):
+        boxed, wall, launches, _, _ = run_glm_stages(torch, fused_glm, io(tag) + flags)
+        check(launches["grid"] > 0, f"(a) {tag}: the lambda grid launched no fused kernel")
+        check(boxed.device.type == dev, f"(a) {tag}: the driver ran off the {dev} device")
+        on_bound = _check_box(boxed, f"(a) {tag}")
+        values = [float(r.value) for r in boxed.trained.results]
+        unboxed = [float(r.value) for r in free.trained.results]
+        check(boxed.trained.weights == free.trained.weights
+              and all(v > f for v, f in zip(values, unboxed)),
+              f"(a) {tag}: objectives {values} not above the free solves' {unboxed}")
+        zeros = [int((m.coefficients.means == 0).sum()) for m in boxed.trained.models]
+        say(f"  (a) {tag}: wall {wall:.2f} s; fused launches {launches}; every coefficient of the "
+            f"3 solves in [-{BOX_BOUND}, {BOX_BOUND}], on the bound {on_bound}; iterations "
+            f"{[int(r.iterations) for r in boxed.trained.results]}; objectives "
+            + " ".join(f"{v:.6g}" for v in values) + " (free " + " ".join(f"{v:.6g}" for v in unboxed)
+            + f"); zero coefficients {zeros}")
+        out[tag] = {"wall_s": wall, "launches": launches}
+
+    # (b) ALL + TRON + box, twice on the card, once on the CPU
+    runs = []
+    for tag in ("all", "all-again"):
+        runs.append(run_glm_stages(torch, fused_glm, io(tag) + DIAG_FLAGS)
+                    + (os.path.join(workdir, tag),))
+    driver, wall, launches, returned, drawn, path = runs[0]
+    check(launches["grid"] > 0 and launches["fitting"] > 0,
+          f"(b): fused launches by stage {launches}: the grid and the fitting prefixes must launch")
+    check(launches["bootstrap"] == 0, "(b): the bootstrap launched the fused kernel")
+    _check_diagnosed(driver, path, "(b)", "ALL", dev)
+    check(all(_check_box(driver, "(b)")), "(b): the box binds nothing in a solve")
+    card_counts = _plain_counts(returned, "(b)")
+    n = driver.train_batch.num_rows
+    check(len(drawn) == 1 and drawn[0].device.type == dev and torch.equal(
+        drawn[0].cpu(), torch.from_numpy(prng.bootstrap_counts(0, BOOTSTRAP_SAMPLES, n))),
+        "(b): the bootstrap's counts on the card are not the host draw")
+    tags = fitting.partition_tags(0, n)
+    present = driver.train_batch.weights.cpu().numpy() > 0
+    want_portions = [100.0 * float(np.sum((tags <= t) & present)) / float(present.sum())
+                     for t in range(fitting.NUM_TRAINING_PARTITIONS - 1)]
+    curves = [c for report in returned["fitting"].values() for c in report.metrics.values()]
+    check(curves and all(portions == want_portions for portions, _, _ in curves),
+          "(b): the fitting prefixes are not the host tags'")
+    _, wall2, launches2, _, _, path2 = runs[1]
+    check(launches2 == launches, f"(b): launches differ between runs {launches} {launches2}")
+    for sub in ("output", "best"):
+        check(tree_bytes(os.path.join(path, sub)) == tree_bytes(os.path.join(path2, sub)),
+              f"(b): two card runs wrote different {sub}/ bytes")
+    with open(os.path.join(path, "model-diagnostic.html"), "rb") as a, \
+            open(os.path.join(path2, "model-diagnostic.html"), "rb") as b:
+        html = a.read()
+        check(html == b.read(), "(b): two card runs wrote different model-diagnostic.html bytes")
+    for name in ("evaluation-results.avro", "feature-summaries.avro"):
+        one = [r.replace("/all/", "/X/") for r in _stripped_records(os.path.join(path, "diagnostics", name))]
+        two = [r.replace("/all-again/", "/X/") for r in _stripped_records(os.path.join(path2, "diagnostics", name))]
+        check(one == two, f"(b): two card runs wrote different {name} records")
+    spans = {k: v for k, v in driver.timer.totals.items()}
+    say(f"  (b) ALL + TRON + box: walls {wall:.2f} and {wall2:.2f} s; fused launches {launches}; "
+        f"every coefficient of the 3 solves in [-{BOX_BOUND}, {BOX_BOUND}]; bootstrap counts and "
+        f"fitting prefixes = the host draw; the second run's output/, best/, HTML ({len(html)} B) "
+        f"and records equal the first's; stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(spans.items())))
+    out["all"] = {"wall_s": [wall, wall2], "launches": launches, "spans_s": spans}
+    cpu = run_glm_stages(torch, fused_glm, io("all-cpu", "cpu") + DIAG_FLAGS)
+    cpu_path = os.path.join(workdir, "all-cpu")
+    check(cpu[2]["total"] == 0, f"(b) CPU: fused launches {cpu[2]}")
+    _check_diagnosed(cpu[0], cpu_path, "(b) CPU", "ALL", "cpu")
+    check(all(_check_box(cpu[0], "(b) CPU")), "(b) CPU: the box binds nothing in a solve")
+    cpu_counts = _plain_counts(cpu[3], "(b) CPU")
+    errs = _diagnostics_held(runs[0][:5], cpu, path, cpu_path)
+    moved = [int(np.abs(np.subtract(a, b)).sum()) for i in range(2)
+             for a, b in zip(card_counts[i], cpu_counts[i])]
+    say(f"  (b) on the CPU: wall {cpu[1]:.2f} s; card vs CPU within the solver tolerance, largest "
+        f"|diff| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; Kendall counts moved by {moved[:3]} pairs and HL bin counts by {moved[3:]} rows "
+        f"per model (each run's counts = numpy's on its own predictions)")
+    out["all"].update(cpu_wall_s=cpu[1], cpu_abs_err=errs)
+
+    # (c) Avro input: selected features and summaries, then an off-heap index
+    names = [f"f{j}" for j in range(GLM_DRIVER_D)]
+    t0 = time.perf_counter()
+    for split in ("train", "validate"):
+        ds = read_libsvm(os.path.join(workdir, split, "part-00000.txt"), dim=len(names),
+                         add_intercept=False)
+        write_glm_avro(ds, os.path.join(workdir, f"avro-{split}", "part-00000.avro"), names)
+    selected = os.path.join(workdir, "selected-features.txt")
+    with open(selected, "w") as f:
+        f.write("\n".join(names[::2]) + "\n")
+    say(f"  (c) TrainingExampleAvro copy written in {time.perf_counter() - t0:.2f} s")
+    avro_io = lambda tag: ["--training-data-directory", os.path.join(workdir, "avro-train"),
+                           "--validating-data-directory", os.path.join(workdir, "avro-validate"),
+                           "--output-directory", os.path.join(workdir, tag), "--device", dev]
+    flags = [f if f != "LIBSVM" else "AVRO" for f in README_GLM_FLAGS[:-2]]
+    avro_data.ingest_counts.update(native_files=0, row_loop_files=0, rejected_files=0)
+    driver, wall, launches, _, _ = run_glm_stages(torch, fused_glm, avro_io("avro") + flags + [
+        "--selected-features-file", selected,
+        "--summarization-output-dir", os.path.join(workdir, "summary")])
+    counts = dict(avro_data.ingest_counts)
+    check(counts["row_loop_files"] == 0 and counts["native_files"] > 0,
+          f"(c): Avro files by path {counts}: the native decoder must read every file")
+    check(launches["grid"] > 0, "(c): the Avro run launched no fused kernel")
+    check(len(driver.index_map) == len(names[::2]) + 1, f"(c): {len(driver.index_map)} features")
+    summary = _stripped_records(os.path.join(workdir, "summary", "part-00000.avro"))
+    check(len(summary) == len(names[::2]) + 1, f"(c): {len(summary)} summary records")
+    say(f"  (c) Avro + selected features: {len(driver.index_map)} features, wall {wall:.2f} s, "
+        f"fused launches {launches}, {len(summary)} summary records, Avro files read natively "
+        f"{counts['native_files']}")
+    out["avro"] = {"wall_s": wall, "launches": launches}
+    idx = os.path.join(workdir, "glm-index")
+    feature_indexing.main(["--data-input-dirs", os.path.join(workdir, "avro-train"),
+                           "--output-dir", idx, "--partition-num", "8", "--format", "OFFHEAP",
+                           "--feature-shard-id-to-feature-section-keys-map", "global:features"])
+    full, wall_f, launches_f, _, _ = run_glm_stages(torch, fused_glm, avro_io("avro-full") + flags)
+    off, wall_o, launches_o, _, _ = run_glm_stages(torch, fused_glm, avro_io("avro-offheap") + flags + [
+        "--offheap-indexmap-dir", os.path.join(idx, "global")])
+    check(isinstance(off.index_map, OffHeapIndexMap), "(c): the run did not use the off-heap map")
+    check(len(off.index_map) == len(full.index_map) == len(names) + 1, "(c): off-heap map width")
+    check(launches_o["grid"] > 0, "(c): the off-heap run launched no fused kernel")
+    worst = 0.0
+    for (lam, a), (_, b) in zip(full.models, off.models):
+        wa, wb = a.means_as_numpy(), b.means_as_numpy()
+        for j in range(len(full.index_map)):
+            key = full.index_map.get_feature_name(j)
+            d = abs(float(wa[j]) - float(wb[off.index_map.get_index(key)]))
+            worst = max(worst, d / (1e-2 * abs(float(wa[j])) + 2e-3))
+    check(worst <= 1.0, f"(c): off-heap and in-memory models apart by {worst:.3f} of the solver tolerance")
+    say(f"  (c) --offheap-indexmap-dir (8 partitions): wall {wall_o:.2f} s (in-memory map "
+        f"{wall_f:.2f} s); fused launches {launches_o}; models equal by feature name within the "
+        f"solver tolerance (worst {worst:.3f} of it)")
+    out["offheap"] = {"wall_s": wall_o, "launches": launches_o, "in_memory_wall_s": wall_f,
+                      "in_memory_launches": launches_f}
+    out["launches_total"] = sum(launches["total"] for launches in (
+        out["readme"]["launches"], out["owlqn-free"]["launches"], out["lbfgs-box"]["launches"],
+        out["owlqn-box"]["launches"],
+        out["all"]["launches"], launches2, out["avro"]["launches"], launches_f, launches_o))
+    return out
 
 
 # --- GAME training: the sparse-slab GEVM and HVP kernels -------------------
@@ -1752,6 +2232,7 @@ def main() -> None:
     grid_launches = phase_train_grid(torch, fused_glm, times["bfloat16"]["graph_ms"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         driver_launches = phase_driver(torch, fused_glm, workdir)
+        glm_diag = phase_glm_diagnostics(torch, fused_glm, workdir)
     sparse_err = phase_sparse_vs_plain(torch, fused_sparse, losses)
     sparse_times = phase_sparse_times(torch, fused_sparse, losses)
     re_runs = phase_re_solve(torch, fused_sparse, sparse_times["full width"])
@@ -1776,6 +2257,9 @@ def main() -> None:
         "also_replaces": ["photon_ml_tpu/ops/fused_glm.py:350"],
         "launches": driver_launches,
         "launches_train_glm_grid": grid_launches,
+        "launches_glm_diagnostics": glm_diag["launches_total"],
+        "launches_glm_diagnostics_by_run": {k: v["launches"] for k, v in glm_diag.items()
+                                            if isinstance(v, dict)},
         "max_abs_err": max_abs_err,
         "ms": bf16["ms"],
         "graph_ms": bf16["graph_ms"],
@@ -1820,7 +2304,7 @@ def main() -> None:
             "shapes": {label: sparse_times[label][key] for label in sparse_times},
         })
     say(json.dumps({"sparse_fixed_effect": sparse_glm, "game_wide_fixed": wide,
-                    "checkpoints": checkpoints}))
+                    "checkpoints": checkpoints, "glm_diagnostics": glm_diag}))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

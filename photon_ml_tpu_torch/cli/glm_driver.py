@@ -1,25 +1,30 @@
-"""GLM training driver: preprocess -> train -> validate (port of
-photon_ml_tpu/cli/glm_driver.py for LIBSVM input).
+"""GLM training driver: preprocess -> train -> validate -> diagnose (port of
+photon_ml_tpu/cli/glm_driver.py).
 
 Reference spec: Driver.scala:69-598 — stages INIT -> PREPROCESSED -> TRAINED
--> VALIDATED (DriverStage.scala): preprocess loads, validates and summarizes
-data, train runs the warm-started lambda grid, validate computes metric maps
-and selects the best lambda, and models are written in text form
-(``output/`` per lambda, ``best/`` for the selection). Same flag names, log
-lines and output layout as the JAX driver; tensors live on ``--device``
-(default cuda). Batches up to ``DENSE_DIM_THRESHOLD`` features are dense,
-and on the card their value+gradient pass is the fused CUDA kernel; wider
-batches are padded-COO ``SparseFeatures``.
+-> VALIDATED -> DIAGNOSED (DriverStage.scala): preprocess loads, validates
+and summarizes data (Avro through the native decoder, or LIBSVM; selected
+features, off-heap index maps, ``--summarization-output-dir``), train runs
+the warm-started lambda grid (box constraints from
+``--coefficient-box-constraints``), validate computes metric maps and
+selects the best lambda, diagnose (``--diagnostic-mode``) writes
+``model-diagnostic.html`` and the ``diagnostics/`` Avro records. Models are
+written in text form (``output/`` per lambda, ``best/`` for the selection).
+Same flag names, log lines and output layout as the JAX driver; tensors
+live on ``--device`` (default cuda). Batches up to ``DENSE_DIM_THRESHOLD``
+features are dense, and on the card their value+gradient pass is the fused
+CUDA kernel; wider batches are padded-COO ``SparseFeatures``.
 
     python -m photon_ml_tpu_torch.cli.glm_driver \\
       --training-data-directory data/train --validating-data-directory data/val \\
       --output-directory out --task LOGISTIC_REGRESSION \\
-      --input-file-format LIBSVM --regularization-weights 0.1,1,10 \\
-      --normalization-type STANDARDIZATION
+      --regularization-weights 0.1,1,10 --normalization-type STANDARDIZATION \\
+      --diagnostic-mode VALIDATE
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import os
 from typing import Dict, List, Optional, Tuple
@@ -27,12 +32,34 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.cli.glm_params import GLMParams, parse_from_command_line
+from photon_ml_tpu_torch.cli.glm_params import (
+    FieldNamesType,
+    GLMParams,
+    InputFormatType,
+    parse_from_command_line,
+)
 from photon_ml_tpu_torch.data.validators import sanity_check_data
 from photon_ml_tpu_torch.device import enable_determinism, resolve_device
+from photon_ml_tpu_torch.diagnostics import (
+    avro_reports,
+    bootstrap_diagnostic,
+    feature_importance,
+    fitting,
+    hosmer_lemeshow,
+    independence,
+    render_html,
+)
+from photon_ml_tpu_torch.diagnostics.reports import (
+    ModelDiagnosticReport,
+    SystemReport,
+    assemble_document,
+)
 from photon_ml_tpu_torch.evaluation import metrics as metrics_mod
-from photon_ml_tpu_torch.io.index_map import IndexMap
+from photon_ml_tpu_torch.io import avro as avro_io
+from photon_ml_tpu_torch.io import avro_data
+from photon_ml_tpu_torch.io.index_map import DELIMITER, IndexMap
 from photon_ml_tpu_torch.io.libsvm import HostDataset, read_libsvm, to_batch
+from photon_ml_tpu_torch.io.offheap import load_index_map
 from photon_ml_tpu_torch.model_selection import select_best_model, selection_metric_for
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
@@ -40,16 +67,27 @@ from photon_ml_tpu_torch.ops.objective import GLMBatch
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.ops.stats import BasicStatisticalSummary, summarize
 from photon_ml_tpu_torch.optim.common import OptimizerConfig, summarize_result
+from photon_ml_tpu_torch.optim.constraints import BoxConstraints, parse_constraint_string
 from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
 from photon_ml_tpu_torch.training import TrainedModelList, train_glm_grid
-from photon_ml_tpu_torch.types import NormalizationType, RegularizationType
-from photon_ml_tpu_torch.utils.io_utils import prepare_output_dir, write_models_in_text
+from photon_ml_tpu_torch.types import (
+    ConvergenceReason,
+    NormalizationType,
+    RegularizationType,
+    TaskType,
+)
+from photon_ml_tpu_torch.utils.io_utils import (
+    prepare_output_dir,
+    write_basic_statistics,
+    write_models_in_text,
+)
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
 from photon_ml_tpu_torch.utils.timer import Timer
 
 # above this width batches stay sparse, as in the JAX driver
 DENSE_DIM_THRESHOLD = 4096
 LEARNED_MODELS_TEXT = "output"  # Driver.LEARNED_MODELS_TEXT parity
+REPORT_FILE = "model-diagnostic.html"
 
 
 class DriverStage(enum.IntEnum):
@@ -57,6 +95,7 @@ class DriverStage(enum.IntEnum):
     PREPROCESSED = 1
     TRAINED = 2
     VALIDATED = 3
+    DIAGNOSED = 4
 
 
 class Driver:
@@ -114,6 +153,9 @@ class Driver:
             if p.validating_data_dir:
                 with self.timer.measure("validate"):
                     self.validate()
+            if p.diagnostic_mode.runs_train or p.diagnostic_mode.runs_validate:
+                with self.timer.measure("diagnose"):
+                    self.diagnose()
             self.logger.info(self.timer.summary())
         finally:
             if self._own_logger:
@@ -129,18 +171,75 @@ class Driver:
             if not f.startswith((".", "_"))
         ]
 
+    def _selected_features(self) -> Optional[set]:
+        """Whitelist of feature keys (GLMSuite.scala:141-180 parity: a file
+        of name/term entries; text lines 'name<TAB>term' or 'name', or Avro
+        records with ``name`` and ``term``)."""
+        path = self.params.selected_features_file
+        if not path:
+            return None
+        keys = set()
+        if path.endswith(".avro"):
+            for rec in avro_io.read_container(path):
+                keys.add(f"{rec['name']}{DELIMITER}{rec.get('term') or ''}")
+        else:
+            with open(path) as f:
+                for line in f:
+                    line = line.rstrip("\n")
+                    if not line:
+                        continue
+                    if DELIMITER in line:
+                        keys.add(line)
+                    elif "\t" in line:
+                        name, term = line.split("\t", 1)
+                        keys.add(f"{name}{DELIMITER}{term}")
+                    else:
+                        keys.add(f"{line}{DELIMITER}")
+        return keys
+
+    def _read_avro(self, directory: str) -> HostDataset:
+        label_field = (
+            "response"
+            if self.params.field_names_type == FieldNamesType.RESPONSE_PREDICTION
+            else "label"
+        )
+        return avro_data.read_training_examples(
+            self._input_paths(directory),
+            self.index_map,
+            add_intercept=self.params.add_intercept,
+            label_field=label_field,
+        )
+
+    def _build_index_map(self):
+        p = self.params
+        if p.offheap_indexmap_dir:
+            return load_index_map(p.offheap_indexmap_dir)
+        keys = avro_data.collect_feature_keys(self._input_paths(p.training_data_dir))
+        selected = self._selected_features()
+        if selected is not None:
+            keys = [k for k in keys if k in selected]
+        return IndexMap.build(
+            keys,
+            add_intercept=p.add_intercept,
+            num_partitions=max(p.offheap_indexmap_num_partitions, 1),
+        )
+
     def preprocess(self) -> None:
         self._assert_stage(DriverStage.INIT)
         p = self.params
-        paths = self._input_paths(p.training_data_dir)
-        dim = p.feature_dimension if p.feature_dimension > 0 else None
-        ds = read_libsvm(paths[0], dim=dim, add_intercept=p.add_intercept)
-        for extra in paths[1:]:
-            more = read_libsvm(extra, dim=ds.dim - int(p.add_intercept),
-                               add_intercept=p.add_intercept)
-            ds = _concat_datasets(ds, more)
+        if p.input_file_format == InputFormatType.LIBSVM:
+            paths = self._input_paths(p.training_data_dir)
+            dim = p.feature_dimension if p.feature_dimension > 0 else None
+            ds = read_libsvm(paths[0], dim=dim, add_intercept=p.add_intercept)
+            for extra in paths[1:]:
+                more = read_libsvm(extra, dim=ds.dim - int(p.add_intercept),
+                                   add_intercept=p.add_intercept)
+                ds = _concat_datasets(ds, more)
+            self.index_map = IndexMap.for_libsvm(ds.dim - int(p.add_intercept), p.add_intercept)
+        else:
+            self.index_map = self._build_index_map()
+            ds = self._read_avro(p.training_data_dir)
         self.train_ds = ds
-        self.index_map = IndexMap.for_libsvm(ds.dim - int(p.add_intercept), p.add_intercept)
         dense = ds.dim <= DENSE_DIM_THRESHOLD
         self.train_batch = to_batch(ds, dense=dense, device=self.device)
         self.logger.info(
@@ -149,8 +248,18 @@ class Driver:
         )
         sanity_check_data(self.train_batch, p.task_type, p.data_validation_type)
 
-        if p.normalization_type != NormalizationType.NONE:
+        needs_summary = (
+            p.normalization_type != NormalizationType.NONE
+            or p.summarization_output_dir is not None
+            or p.diagnostic_mode.runs_train
+            or p.diagnostic_mode.runs_validate
+        )
+        if needs_summary:
             self.summary = summarize(self.train_batch)
+            if p.summarization_output_dir:
+                write_basic_statistics(self.summary, p.summarization_output_dir, self.index_map)
+
+        if p.normalization_type != NormalizationType.NONE:
             intercept = self.index_map.intercept_index
             self.norm = NormalizationContext.build(
                 p.normalization_type,
@@ -161,11 +270,14 @@ class Driver:
             )
 
         if p.validating_data_dir:
-            vds = read_libsvm(
-                self._input_paths(p.validating_data_dir)[0],
-                dim=ds.dim - int(p.add_intercept),
-                add_intercept=p.add_intercept,
-            )
+            if p.input_file_format == InputFormatType.LIBSVM:
+                vds = read_libsvm(
+                    self._input_paths(p.validating_data_dir)[0],
+                    dim=ds.dim - int(p.add_intercept),
+                    add_intercept=p.add_intercept,
+                )
+            else:
+                vds = self._read_avro(p.validating_data_dir)
             self.validation_batch = to_batch(vds, dense=dense, device=self.device)
             sanity_check_data(self.validation_batch, p.task_type, p.data_validation_type)
         self._advance(DriverStage.PREPROCESSED)
@@ -182,6 +294,17 @@ class Driver:
                 1.0, p.elastic_net_alpha if p.elastic_net_alpha is not None else 0.5
             )
         return RegularizationContext.l2(1.0)
+
+    def _constraints(self) -> Optional[BoxConstraints]:
+        p = self.params
+        if not p.coefficient_box_constraints:
+            return None
+        cmap = parse_constraint_string(
+            p.coefficient_box_constraints, self.index_map.name_to_index
+        )
+        if not cmap:
+            return None
+        return BoxConstraints.from_map(len(self.index_map), cmap, device=self.device)
 
     def _to_raw_space(self, model: GeneralizedLinearModel) -> GeneralizedLinearModel:
         if self.norm.is_identity:
@@ -203,6 +326,7 @@ class Driver:
             ),
             regularization=self._regularization_context(),
             compute_variance=p.compute_variance,
+            constraints=self._constraints(),
             track_coefficients=p.validate_per_iteration,
         )
         self.trained = train_glm_grid(
@@ -267,6 +391,139 @@ class Driver:
                     f"lambda={lam:g} iteration {it}/{iters} {sel_metric}: {m[sel_metric]:.6g}"
                 )
             self.per_iteration_metrics[lam] = per_iter
+
+    # -- stage: diagnose -----------------------------------------------------
+    def diagnose(self) -> None:
+        """The diagnostic report (Driver.scala:484-511, writer :577-597):
+        fitting curves (TRAIN), feature importance, prediction/error
+        independence and Hosmer-Lemeshow per model (VALIDATE), the bootstrap
+        at the best lambda (TRAIN, with validation data), one
+        EvaluationResultAvro per model and the feature summaries. Each
+        diagnostic is a timer span ``diagnose/<name>``."""
+        p = self.params
+        span = lambda name: self.timer.measure(f"diagnose/{name}")
+        feature_names = [
+            (self.index_map.get_feature_name(j) or str(j)).replace(DELIMITER, ":")
+            for j in range(len(self.index_map))
+        ]
+        model_reports: List[ModelDiagnosticReport] = []
+        # diagnostics never read coefficient histories: no per-iteration
+        # snapshots through the prefix and bootstrap solves
+        diag_problem = dataclasses.replace(self.problem, track_coefficients=False)
+
+        fitting_reports = {}
+        if p.diagnostic_mode.runs_train:
+            with span("fitting"):
+                fitting_reports = fitting.diagnose(
+                    diag_problem, self.train_batch, self.norm, p.regularization_weights
+                )
+
+        results_by_lam = dict(zip(self.trained.weights, self.trained.results))
+        host = lambda t: t.detach().cpu().numpy()
+        eval_records = []
+        on_validation = p.diagnostic_mode.runs_validate and self.validation_batch is not None
+        for lam, model in self.models:
+            sections = []
+            if on_validation:
+                metrics = self.validation_metrics.get(lam)
+                if metrics is None:
+                    metrics = metrics_mod.evaluate(model, self.validation_batch)
+                with span("feature importance"):
+                    sections.append(feature_importance.to_section(
+                        feature_importance.diagnose(model, self.summary,
+                                                    feature_names=feature_names)))
+                with span("independence"):
+                    sections.append(independence.to_section(
+                        independence.diagnose(model, self.validation_batch)))
+                if p.task_type == TaskType.LOGISTIC_REGRESSION:
+                    with span("hosmer-lemeshow"):
+                        sections.append(hosmer_lemeshow.to_section(
+                            hosmer_lemeshow.diagnose(model, self.validation_batch)))
+            else:
+                metrics = metrics_mod.evaluate(model, self.train_batch)
+            if p.diagnostic_mode.runs_train and lam in fitting_reports:
+                sections.append(fitting.to_section({lam: fitting_reports[lam]}))
+            model_reports.append(ModelDiagnosticReport(model, lam, metrics, sections))
+
+            # one EvaluationResultAvro per model, on the batch `metrics` came from
+            with span("evaluation records"):
+                res = results_by_lam.get(lam)
+                reg = self._regularization_context().with_weight(lam)
+                eval_batch = self.validation_batch if on_validation else self.train_batch
+                with_curves = p.task_type in (
+                    TaskType.LOGISTIC_REGRESSION,
+                    TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM,
+                )
+                eval_records.append(avro_reports.evaluation_result(
+                    model_id=f"{p.job_name}-lambda-{lam:g}",
+                    model_path=os.path.join(p.output_dir, LEARNED_MODELS_TEXT),
+                    data_path=p.validating_data_dir if on_validation else p.training_data_dir,
+                    train_ctx=avro_reports.training_context(
+                        p.task_type,
+                        reg.l1_weight,
+                        reg.l2_weight,
+                        p.normalization_type != NormalizationType.NONE,
+                        p.optimizer_type.value,
+                        p.tolerance,
+                        p.max_num_iterations,
+                        ConvergenceReason(int(res.reason)) if res is not None else None,
+                        p.training_data_dir,
+                    ),
+                    scalar_metrics=metrics,
+                    # score only when the curves will consume it
+                    scores=host(model.compute_mean_functions(eval_batch)) if with_curves else None,
+                    labels=host(eval_batch.labels),
+                    weights=host(eval_batch.weights),
+                    with_curves=with_curves,
+                ))
+
+        if p.diagnostic_mode.runs_train and self.validation_batch is not None:
+            # dataset-level bootstrap at the best (or first) lambda
+            lam0 = self.best_reg_weight if self.best_reg_weight is not None else self.models[0][0]
+            boot_problem = dataclasses.replace(
+                diag_problem, regularization=self.problem.regularization.with_weight(lam0)
+            )
+            with span("bootstrap"):
+                boot = bootstrap_diagnostic.diagnose(
+                    boot_problem, self.train_batch, self.norm, self.validation_batch,
+                    feature_names=feature_names,
+                )
+            model_reports[0].sections.append(bootstrap_diagnostic.to_section(boot))
+
+        with span("report"):
+            doc = assemble_document(
+                f"{p.job_name} model diagnostics",
+                SystemReport(
+                    {
+                        "task": p.task_type.value,
+                        "optimizer": p.optimizer_type.value,
+                        "regularization": p.regularization_type.value,
+                        "lambdas": p.regularization_weights,
+                        "normalization": p.normalization_type.value,
+                        "training data": p.training_data_dir,
+                        "validating data": p.validating_data_dir or "(none)",
+                    },
+                    self.summary,
+                    feature_names,
+                ),
+                model_reports,
+            )
+            with open(os.path.join(p.output_dir, REPORT_FILE), "w") as f:
+                f.write(render_html(doc))
+            self.logger.info(f"wrote {REPORT_FILE}")
+
+            diag_dir = os.path.join(p.output_dir, "diagnostics")
+            avro_reports.write_evaluation_results(diag_dir, eval_records)
+            avro_reports.write_feature_summaries(
+                diag_dir, avro_reports.feature_summaries(feature_names, self.summary)
+            )
+        self.logger.info(
+            f"wrote {len(eval_records)} EvaluationResultAvro + feature summaries "
+            f"to {diag_dir}"
+        )
+        if self.stage == DriverStage.TRAINED:
+            self._advance(DriverStage.VALIDATED)  # keep ordering monotone
+        self._advance(DriverStage.DIAGNOSED)
 
 
 def _concat_datasets(a: HostDataset, b: HostDataset) -> HostDataset:

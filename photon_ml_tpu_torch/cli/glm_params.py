@@ -2,9 +2,11 @@
 photon_ml_tpu/cli/glm_params.py).
 
 Reference spec: Params.scala:42-205 and OptionNames.scala:24-59. Flag names
-are the JAX driver's, plus ``--device`` (default ``cuda``). Flags whose code
-paths are not yet ported are parsed and then rejected by ``validate`` with a
-ValueError that names the flag.
+are the JAX driver's, plus ``--device`` (default ``cuda``). The out-of-core
+flags (``--streaming-chunk-rows``, ``--tensor-cache``,
+``--persistent-cache``, ``--shape-canonicalization``) are not yet ported:
+they are parsed and then rejected by ``validate`` with a ValueError that
+names the flag.
 """
 
 from __future__ import annotations
@@ -80,17 +82,9 @@ class GLMParams:
 
     def _not_yet_ported(self) -> List[str]:
         checks = [
-            (self.input_file_format != InputFormatType.LIBSVM,
-             f"--input-file-format {self.input_file_format}"),
             (self.streaming_chunk_rows > 0, "--streaming-chunk-rows"),
             (self.tensor_cache_dir is not None, "--tensor-cache"),
             (self.persistent_cache_dir is not None, "--persistent-cache"),
-            (self.diagnostic_mode != DiagnosticMode.NONE,
-             f"--diagnostic-mode {self.diagnostic_mode.value}"),
-            (self.coefficient_box_constraints is not None, "--coefficient-box-constraints"),
-            (self.summarization_output_dir is not None, "--summarization-output-dir"),
-            (self.selected_features_file is not None, "--selected-features-file"),
-            (self.offheap_indexmap_dir is not None, "--offheap-indexmap-dir"),
             (self.shape_canonicalization != "off", "--shape-canonicalization"),
         ]
         return [f"{flag} is not yet ported to photon_ml_tpu_torch" for bad, flag in checks if bad]
@@ -123,6 +117,11 @@ class GLMParams:
                 errors.append(f"negative regularization weight {w}")
         if self.validate_per_iteration and self.validating_data_dir is None:
             errors.append("--validate-per-iteration requires --validating-data-directory")
+        if self.diagnostic_mode.runs_validate and self.validating_data_dir is None:
+            errors.append(
+                f"diagnostic mode {self.diagnostic_mode.value} requires "
+                "--validating-data-directory"
+            )
         if self.device not in ("cuda", "cpu"):
             errors.append(f"--device must be cuda or cpu, got {self.device!r}")
         errors.extend(self._not_yet_ported())

@@ -53,3 +53,9 @@ class GeneralizedLinearModel:
 
     def means_as_numpy(self):
         return self.coefficients.means.detach().cpu().numpy()
+
+    def summary(self) -> str:
+        m = self.means_as_numpy()
+        return (f"{self.task.value}: dim={m.shape[-1]} "
+                f"|w|_2={float(torch.linalg.vector_norm(self.coefficients.means)):.4g} "
+                f"nnz={int((m != 0).sum())}")

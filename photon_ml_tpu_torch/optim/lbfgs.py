@@ -10,7 +10,12 @@ is a Python loop over device tensors with the same arithmetic:
     two-loop recursion;
   * a backtracking Armijo line search on the step actually taken;
   * L1 handled orthant-wise (pseudo-gradient + orthant projection), enabled
-    by ``l1_weight > 0``.
+    by ``l1_weight > 0``;
+  * box constraints (``bounds``, a ``(lower, upper)`` pair of ``(D,)``
+    tensors shared by every lane): ``w0`` is clipped, bound-blocked
+    components of the pseudo-gradient are zeroed, and each trial point is
+    clipped after the orthant projection (LBFGS.scala:94-97 via
+    OptimizationUtils.projectCoefficientsToHypercube).
 
 Every state tensor carries a leading lane axis ``L``: a lane is one problem,
 and lanes that have converged are masked no-ops while the others advance.
@@ -30,6 +35,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from photon_ml_tpu_torch.optim.common import OptimizerConfig, OptResult
+from photon_ml_tpu_torch.optim.constraints import Bounds, as_bounds
 from photon_ml_tpu_torch.types import ConvergenceReason
 
 Tensor = torch.Tensor
@@ -109,12 +115,22 @@ class LBFGSState:
     pg0_norm: Tensor  # (L,)
 
 
-def _problem_fns(l1: Tensor):
+
+
+def _problem_fns(l1: Tensor, bounds: Bounds):
     def F_of(w, f):
         return f + l1[:, 0] * torch.sum(torch.abs(w), -1)
 
     def reduced_pg(w, g):
-        return _pseudo_gradient(w, g, l1)
+        """(Pseudo-)gradient with bound-blocked components zeroed: at an
+        active bound whose descent direction (-pg) points outward the
+        coordinate cannot move, so it steers neither the direction nor the
+        convergence test."""
+        pg = _pseudo_gradient(w, g, l1)
+        if bounds is not None:
+            blocked = ((w >= bounds[1]) & (pg < 0.0)) | ((w <= bounds[0]) & (pg > 0.0))
+            pg = torch.where(blocked, torch.zeros_like(pg), pg)
+        return pg
 
     return F_of, reduced_pg
 
@@ -125,13 +141,17 @@ def _lane_l1(l1_weight, lanes: int, like: Tensor) -> Tensor:
 
 
 def lbfgs_init_(value_and_grad_fn: LaneFn, w0: Tensor, config: OptimizerConfig,
-                l1_weight=0.0, track_coefficients: bool = False) -> LBFGSState:
+                l1_weight=0.0, bounds: Bounds = None,
+                track_coefficients: bool = False) -> LBFGSState:
     """Fresh solve state at ``w0`` (L, D) — one objective evaluation."""
     m, max_iter = config.num_corrections, config.max_iterations
     lanes, dim = w0.shape
     opts = dict(dtype=w0.dtype, device=w0.device)
     l1 = _lane_l1(l1_weight, lanes, w0)
-    F_of, reduced_pg = _problem_fns(l1)
+    bounds = as_bounds(bounds, w0)
+    F_of, reduced_pg = _problem_fns(l1, bounds)
+    if bounds is not None:
+        w0 = torch.clamp(w0, bounds[0], bounds[1])
 
     f0, g0 = value_and_grad_fn(w0)
     F0 = F_of(w0, f0)
@@ -172,7 +192,7 @@ def _where(mask: Tensor, new: Tensor, old: Tensor) -> Tensor:
 
 
 def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
-                   config: OptimizerConfig, l1_weight=0.0,
+                   config: OptimizerConfig, l1_weight=0.0, bounds: Bounds = None,
                    iteration_limit: Optional[int] = None) -> LBFGSState:
     """Iterate every lane until it converges or reaches the absolute
     ``iteration_limit`` (None = config.max_iterations)."""
@@ -181,7 +201,8 @@ def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
     s = state
     lanes = s.w.shape[0]
     l1 = _lane_l1(l1_weight, lanes, s.w)
-    F_of, reduced_pg = _problem_fns(l1)
+    bounds = as_bounds(bounds, s.w)
+    F_of, reduced_pg = _problem_fns(l1, bounds)
     use_l1 = l1 > 0.0
     lane_idx = torch.arange(lanes, device=s.w.device)
     zero_w = torch.zeros_like(s.w)
@@ -190,7 +211,12 @@ def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
 
     def orthant_project(w_trial, xi):
         projected = torch.where(w_trial * xi > 0.0, w_trial, zero_w)
-        return torch.where(use_l1, projected, w_trial)
+        w_trial = torch.where(use_l1, projected, w_trial)
+        # then the box, as the JAX package: with L1 and a box that excludes
+        # 0 the clip can move an orthant-zeroed coordinate onto a bound
+        if bounds is not None:
+            w_trial = torch.clamp(w_trial, bounds[0], bounds[1])
+        return w_trial
 
     while True:
         active = (s.reason == 0) & (s.iteration < limit)
@@ -218,7 +244,7 @@ def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
             f_t, g_t = value_and_grad_fn(w_t)
             F_t = F_of(w_t, f_t)
             # Armijo on the step actually taken (pg . (w_t - w)): right when
-            # the orthant projection removes part of the direction
+            # the orthant or box projection removes part of the direction
             ok_t = F_t <= s.F + _C1 * torch.sum(pg * (w_t - s.w), -1)
             w_n = _where(searching, w_t, w_n)
             f_n = _where(searching, f_t, f_n)
@@ -316,18 +342,20 @@ def lbfgs_result(state: LBFGSState) -> OptResult:
 
 
 def lbfgs_minimize_lanes(value_and_grad_fn: LaneFn, w0: Tensor,
-                         config: OptimizerConfig, l1_weight=0.0,
+                         config: OptimizerConfig, l1_weight=0.0, bounds: Bounds = None,
                          track_coefficients: bool = False) -> OptResult:
-    """Minimize f_l(w_l) + l1_l * ||w_l||_1 for every lane l of ``w0`` (L, D)."""
-    state = lbfgs_init_(value_and_grad_fn, w0, config, l1_weight, track_coefficients)
-    final = lbfgs_advance_(value_and_grad_fn, state, config, l1_weight,
+    """Minimize f_l(w_l) + l1_l * ||w_l||_1 for every lane l of ``w0`` (L, D),
+    within ``bounds`` when given."""
+    state = lbfgs_init_(value_and_grad_fn, w0, config, l1_weight, bounds, track_coefficients)
+    final = lbfgs_advance_(value_and_grad_fn, state, config, l1_weight, bounds,
                            iteration_limit=config.max_iterations)
     return lbfgs_result(final)
 
 
 def lbfgs_minimize(value_and_grad_fn: Callable[[Tensor], Tuple[Tensor, Tensor]],
                    w0: Tensor, config: OptimizerConfig = OptimizerConfig.lbfgs_default(),
-                   l1_weight: float = 0.0, track_coefficients: bool = False) -> OptResult:
+                   l1_weight: float = 0.0, bounds: Bounds = None,
+                   track_coefficients: bool = False) -> OptResult:
     """One problem: ``value_and_grad_fn`` maps (D,) -> ((), (D,)); solved as a
     single lane, and the result is returned without the lane axis."""
 
@@ -335,5 +363,5 @@ def lbfgs_minimize(value_and_grad_fn: Callable[[Tensor], Tuple[Tensor, Tensor]],
         v, g = value_and_grad_fn(w[0])
         return v.reshape(1), g.reshape(1, -1)
 
-    res = lbfgs_minimize_lanes(lane_fn, w0[None], config, l1_weight, track_coefficients)
+    res = lbfgs_minimize_lanes(lane_fn, w0[None], config, l1_weight, bounds, track_coefficients)
     return OptResult(*(None if f is None else f[0] for f in res))

@@ -11,7 +11,7 @@ and refuses L1/elastic net (Params.scala:177-180). Variances are
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -21,6 +21,7 @@ from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.objective import GLMBatch, GLMObjective
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.optim.common import OptimizerConfig, OptResult
+from photon_ml_tpu_torch.optim.constraints import BoxConstraints
 from photon_ml_tpu_torch.optim.lbfgs import lbfgs_minimize_lanes
 from photon_ml_tpu_torch.optim.tron import tron_minimize_lanes
 from photon_ml_tpu_torch.types import OptimizerType, RegularizationType, TaskType, real_dtype
@@ -60,6 +61,9 @@ class GLMOptimizationProblem:
         default_factory=RegularizationContext.none
     )
     compute_variance: bool = False
+    # box constraints on coefficients (OptimizationUtils.projectCoefficientsToHypercube);
+    # densified (lower, upper) tensors — see optim/constraints.py
+    constraints: Optional[BoxConstraints] = None
     # rows per tile of the fused value+grad kernel, set by
     # ops.fused_glm.select_fused_block_rows; None = the plain two-pass path
     fused_block_rows: Optional[int] = None
@@ -101,38 +105,57 @@ class GLMOptimizationProblem:
         ``reg_weight`` overrides the context's total weight (the
         updateObjective analogue for lambda sweeps).
         """
-        obj = self.objective
-        l1, l2 = _split_reg_weight(self.regularization, reg_weight)
         w0 = (
             init_coefficients
             if init_coefficients is not None
             else torch.zeros((batch.dim,), dtype=real_dtype(), device=batch.device)
         )
-
-        def lane_vg(w_lanes):
-            vals, grads = zip(*(obj.value_and_grad(w, batch, norm, l2) for w in w_lanes))
-            return torch.stack(vals), torch.stack(grads)
-
-        if self.optimizer == OptimizerType.TRON:
-            def lane_hvp(w_lanes, v_lanes):
-                return torch.stack([obj.hessian_vector(w, v, batch, norm, l2)
-                                    for w, v in zip(w_lanes, v_lanes)])
-
-            res = tron_minimize_lanes(
-                lane_vg, lane_hvp, w0[None], self.optimizer_config,
-                track_coefficients=self.track_coefficients,
-            )
-        else:
-            res = lbfgs_minimize_lanes(
-                lane_vg, w0[None], self.optimizer_config, l1_weight=l1,
-                track_coefficients=self.track_coefficients,
-            )
+        res = self.run_lanes([batch], norm, w0[None], reg_weight)
         result = OptResult(*(None if f is None else f[0] for f in res))
         w = result.coefficients
         variances = None
         if self.compute_variance:
-            variances = variances_from_hessian_diag(obj.hessian_diagonal(w, batch, norm, l2))
+            _, l2 = _split_reg_weight(self.regularization, reg_weight)
+            variances = variances_from_hessian_diag(
+                self.objective.hessian_diagonal(w, batch, norm, l2))
         return GeneralizedLinearModel(Coefficients(w, variances), self.task), result
+
+    def run_lanes(
+        self,
+        batches: Sequence[GLMBatch],
+        norm: NormalizationContext,
+        w0: Tensor,
+        reg_weight: Optional[float] = None,
+    ) -> OptResult:
+        """Solve one problem per batch as the lanes of one solve: lane ``l``
+        minimizes this problem on ``batches[l]`` from ``w0[l]`` and stops on
+        its own test. Returns the lane-stacked result."""
+        obj = self.objective
+        l1, l2 = _split_reg_weight(self.regularization, reg_weight)
+        bounds = (
+            (self.constraints.lower, self.constraints.upper)
+            if self.constraints is not None
+            else None
+        )
+
+        def lane_vg(w_lanes):
+            vals, grads = zip(*(obj.value_and_grad(w, b, norm, l2)
+                                for w, b in zip(w_lanes, batches)))
+            return torch.stack(vals), torch.stack(grads)
+
+        if self.optimizer == OptimizerType.TRON:
+            def lane_hvp(w_lanes, v_lanes):
+                return torch.stack([obj.hessian_vector(w, v, b, norm, l2)
+                                    for w, v, b in zip(w_lanes, v_lanes, batches)])
+
+            return tron_minimize_lanes(
+                lane_vg, lane_hvp, w0, self.optimizer_config, bounds=bounds,
+                track_coefficients=self.track_coefficients,
+            )
+        return lbfgs_minimize_lanes(
+            lane_vg, w0, self.optimizer_config, l1_weight=l1, bounds=bounds,
+            track_coefficients=self.track_coefficients,
+        )
 
     def regularization_term_value(self, w: Tensor, reg_weight: Optional[float] = None) -> Tensor:
         """lambda_1 * ||w||_1 + lambda_2/2 * ||w||^2 (GLOP.scala:235-278)."""

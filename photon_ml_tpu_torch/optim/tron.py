@@ -18,7 +18,10 @@ test convergence on the host once per outer iteration and once per CG step.
 
 ``value_and_grad_fn`` maps ``(L, D)`` coefficients to ``((L,), (L, D))``
 and ``hvp_fn(w, v)`` maps two ``(L, D)`` tensors to ``(L, D)``, with L2
-already folded in. Box constraints (``bounds``) are not yet ported.
+already folded in. Box constraints (``bounds``, a ``(lower, upper)`` pair
+of ``(D,)`` tensors shared by every lane) clip ``w0`` and each trial point
+before it is evaluated, and zero the bound-blocked gradient components the
+CG subproblem and the convergence test see, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from photon_ml_tpu_torch.optim.common import OptimizerConfig, OptResult
+from photon_ml_tpu_torch.optim.constraints import Bounds, as_bounds
 from photon_ml_tpu_torch.types import ConvergenceReason
 
 Tensor = torch.Tensor
@@ -42,11 +46,15 @@ _SIGMA1, _SIGMA2, _SIGMA3 = 0.25, 0.5, 4.0
 _CG_TOL = 0.1  # inner CG solves to ||r|| <= 0.1 * ||g||
 
 
-def _refuse_bounds(bounds) -> None:
-    if bounds is not None:
-        raise ValueError(
-            "TRON box constraints (bounds) are not yet ported to photon_ml_tpu_torch"
-        )
+
+
+def _reduced_grad(w: Tensor, g: Tensor, bounds: Bounds) -> Tensor:
+    """Gradient with bound-blocked components zeroed (a coordinate at an
+    active bound whose descent direction points outward cannot move)."""
+    if bounds is None:
+        return g
+    blocked = ((w >= bounds[1]) & (g < 0.0)) | ((w <= bounds[0]) & (g > 0.0))
+    return torch.where(blocked, torch.zeros_like(g), g)
 
 
 def _dot(a: Tensor, b: Tensor) -> Tensor:
@@ -123,14 +131,16 @@ class TRONState:
 
 
 def tron_init_(value_and_grad_fn: LaneFn, w0: Tensor, config: OptimizerConfig,
-               bounds=None, track_coefficients: bool = False) -> TRONState:
+               bounds: Bounds = None, track_coefficients: bool = False) -> TRONState:
     """Fresh solve state at ``w0`` (L, D) — one objective evaluation."""
-    _refuse_bounds(bounds)
     lanes, dim = w0.shape
     opts = dict(dtype=w0.dtype, device=w0.device)
     long = dict(dtype=torch.int64, device=w0.device)
+    bounds = as_bounds(bounds, w0)
+    if bounds is not None:
+        w0 = torch.clamp(w0, bounds[0], bounds[1])
     f0, g0 = value_and_grad_fn(w0)
-    g0_norm = _norm(g0)
+    g0_norm = _norm(_reduced_grad(w0, g0, bounds))
     hist = torch.full((lanes, config.max_iterations + 1), float("nan"), **opts)
     value_history = hist.clone()
     value_history[:, 0] = f0
@@ -155,11 +165,11 @@ def tron_init_(value_and_grad_fn: LaneFn, w0: Tensor, config: OptimizerConfig,
 
 
 def tron_advance_(value_and_grad_fn: LaneFn, hvp_fn: LaneHvp, state: TRONState,
-                  config: OptimizerConfig, bounds=None,
+                  config: OptimizerConfig, bounds: Bounds = None,
                   iteration_limit: Optional[int] = None) -> TRONState:
     """Iterate every lane until it converges or reaches the absolute
     ``iteration_limit`` (None = config.max_iterations)."""
-    _refuse_bounds(bounds)
+    bounds = as_bounds(bounds, state.w)
     max_iter, tol = config.max_iterations, config.tolerance
     limit = max_iter if iteration_limit is None else iteration_limit
     s = state
@@ -170,13 +180,22 @@ def tron_advance_(value_and_grad_fn: LaneFn, hvp_fn: LaneHvp, state: TRONState,
         active = (s.reason == 0) & (s.iteration < limit)
         if not bool(active.any()):
             return s
-        step, r = _truncated_cg(lambda v: hvp_fn(s.w, v), s.g, s.delta,
-                                config.max_cg_iterations, active)
+        step, r = _truncated_cg(lambda v: hvp_fn(s.w, v), _reduced_grad(s.w, s.g, bounds),
+                                s.delta, config.max_cg_iterations, active)
         w_trial = s.w + step
-        snorm = _norm(step)
-        gs = _dot(s.g, step)
-        # r = -g - H s  =>  -0.5 (g.s - s.r) = -(g.s + 0.5 s.H.s)
-        prered = -0.5 * (gs - _dot(step, r))
+        if bounds is not None:
+            # clip before evaluating, and measure the quadratic model and
+            # the radius update on the step actually taken (the clipped one)
+            w_trial = torch.clamp(w_trial, bounds[0], bounds[1])
+            step = w_trial - s.w
+            snorm = _norm(step)
+            gs = _dot(s.g, step)
+            prered = -(gs + 0.5 * _dot(step, hvp_fn(s.w, step)))
+        else:
+            snorm = _norm(step)
+            gs = _dot(s.g, step)
+            # r = -g - H s  =>  -0.5 (g.s - s.r) = -(g.s + 0.5 s.H.s)
+            prered = -0.5 * (gs - _dot(step, r))
         f_new, g_new = value_and_grad_fn(w_trial)
         actred = s.f - f_new
 
@@ -221,7 +240,7 @@ def tron_advance_(value_and_grad_fn: LaneFn, hvp_fn: LaneHvp, state: TRONState,
                         torch.maximum(_SIGMA1 * s.delta, eps)),
         )
 
-        g_norm = _norm(g_out)
+        g_norm = _norm(_reduced_grad(w_out, g_out, bounds))
         it = s.iteration + 1
         grad_ok = g_norm <= tol * torch.clamp_min(s.g0_norm, _EPS)
         func_ok = accept & (torch.abs(actred) <= tol * torch.clamp_min(torch.abs(s.f0), _EPS))
@@ -265,12 +284,14 @@ def tron_advance_(value_and_grad_fn: LaneFn, hvp_fn: LaneHvp, state: TRONState,
         )
 
 
-def tron_result(state: TRONState) -> OptResult:
-    """OptResult view of a (possibly paused) lane-batched state."""
+def tron_result(state: TRONState, bounds: Bounds = None) -> OptResult:
+    """OptResult view of a (possibly paused) lane-batched state; the final
+    gradient norm is the reduced gradient's under ``bounds``."""
+    bounds = as_bounds(bounds, state.w)
     return OptResult(
         coefficients=state.w,
         value=state.f,
-        grad_norm=_norm(state.g),
+        grad_norm=_norm(_reduced_grad(state.w, state.g, bounds)),
         iterations=state.iteration,
         reason=state.reason,
         value_history=state.value_history,
@@ -280,19 +301,20 @@ def tron_result(state: TRONState) -> OptResult:
 
 
 def tron_minimize_lanes(value_and_grad_fn: LaneFn, hvp_fn: LaneHvp, w0: Tensor,
-                        config: OptimizerConfig, bounds=None,
+                        config: OptimizerConfig, bounds: Bounds = None,
                         track_coefficients: bool = False) -> OptResult:
-    """Minimize f_l(w_l) for every lane l of ``w0`` (L, D)."""
+    """Minimize f_l(w_l) for every lane l of ``w0`` (L, D), within ``bounds``
+    when given."""
     state = tron_init_(value_and_grad_fn, w0, config, bounds, track_coefficients)
     final = tron_advance_(value_and_grad_fn, hvp_fn, state, config, bounds,
                           iteration_limit=config.max_iterations)
-    return tron_result(final)
+    return tron_result(final, bounds)
 
 
 def tron_minimize_(value_and_grad_fn: Callable[[Tensor], Tuple[Tensor, Tensor]],
                    hvp_fn: Callable[[Tensor, Tensor], Tensor], w0: Tensor,
                    config: OptimizerConfig = OptimizerConfig.tron_default(),
-                   bounds=None, track_coefficients: bool = False) -> OptResult:
+                   bounds: Bounds = None, track_coefficients: bool = False) -> OptResult:
     """One problem: ``value_and_grad_fn`` maps (D,) -> ((), (D,)) and
     ``hvp_fn(w, v)`` (D,) x (D,) -> (D,); solved as a single lane, and the
     result is returned without the lane axis."""

@@ -32,6 +32,9 @@ class TrainedModelList:
     models: List[GeneralizedLinearModel]
     results: List[OptResult]
 
+    def as_map(self) -> Dict[float, GeneralizedLinearModel]:
+        return dict(zip(self.weights, self.models))
+
 
 def train_glm_grid(
     problem: GLMOptimizationProblem,

@@ -1,9 +1,9 @@
-"""Output-directory management and text model writers (port of
-photon_ml_tpu/utils/io_utils.py; the Avro statistics writer is not yet
-ported).
+"""Output-directory management, text model writers and the feature
+statistics writer (port of photon_ml_tpu/utils/io_utils.py).
 
 Reference spec: util/IOUtils.scala — writeModelsInText (:207-260, one line per
-coefficient ``name\\tterm\\tvalue\\tregWeight`` sorted descending by value).
+coefficient ``name\\tterm\\tvalue\\tregWeight`` sorted descending by value),
+writeBasicStatistics (:262-322, FeatureSummarizationResultAvro records).
 The on-disk layout is the JAX package's, so either package reads the other's
 models.
 """
@@ -16,7 +16,9 @@ from typing import Dict, Iterable, Tuple
 
 import numpy as np
 
+from photon_ml_tpu_torch.io.avro import write_container
 from photon_ml_tpu_torch.io.index_map import DELIMITER, IndexMap
+from photon_ml_tpu_torch.io.schemas import FEATURE_SUMMARIZATION_RESULT
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 
 
@@ -76,3 +78,33 @@ def read_models_from_text(model_dir: str) -> Dict[float, Dict[Tuple[str, str], f
                 name, term, value, lam = line.rstrip("\n").split("\t")
                 out.setdefault(float(lam), {})[(name, term)] = float(value)
     return out
+
+
+def write_basic_statistics(summary, output_dir: str, index_map: IndexMap) -> None:
+    """FeatureSummarizationResultAvro records, one per feature, with metrics
+    {max, min, mean, normL1, normL2, numNonzeros, variance}, in
+    ``<output_dir>/part-00000.avro`` (IOUtils.writeBasicStatistics parity)."""
+    os.makedirs(output_dir, exist_ok=True)
+    arrays = {
+        "max": summary.max,
+        "min": summary.min,
+        "mean": summary.mean,
+        "normL1": summary.norm_l1,
+        "normL2": summary.norm_l2,
+        "numNonzeros": summary.num_nonzeros,
+        "variance": summary.variance,
+    }
+    arrays = {k: v.detach().cpu().numpy() for k, v in arrays.items()}
+    records = []
+    for idx in range(len(arrays["mean"])):
+        key = index_map.get_feature_name(idx)
+        if key is None:
+            continue
+        name, term = _split_feature_key(key)
+        records.append({
+            "featureName": name,
+            "featureTerm": term,
+            "metrics": {k: float(v[idx]) for k, v in arrays.items()},
+        })
+    write_container(os.path.join(output_dir, "part-00000.avro"), records,
+                    FEATURE_SUMMARIZATION_RESULT)

@@ -147,6 +147,3 @@ def test_tron_refuses_what_the_jax_package_refuses():
         with pytest.raises(ValueError, match="L1/ELASTIC_NET"):
             GLMOptimizationProblem(TaskType.LOGISTIC_REGRESSION, OptimizerType.TRON,
                                    regularization=reg)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tron.tron_init_(lambda w: (w.sum(-1), w), torch.zeros((1, 2)),
-                        OptimizerConfig.tron_default(), bounds=(torch.zeros(2), torch.ones(2)))
