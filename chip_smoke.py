@@ -29,9 +29,19 @@ shapes and times it, then drives the port's main paths at full width:
     then training and scoring with ``--offheap-indexmap-dir``;
   * RANDOM projection: one random-effect update on the card against the
     same update on the CPU;
-  * checkpoints and preemption: the GAME driver with ``--checkpoint-dir``,
-    stopped (a subprocess exiting 75) and resumed, async, and restarted
-    in-process, every model byte-equal to the uninterrupted run's;
+  * checkpoints and preemption: the GAME driver with ``--checkpoint-dir``
+    on phase 10's data, stopped (a subprocess exiting 75)
+    and resumed, async, and restarted in-process, every model byte-equal to
+    the uninterrupted run's;
+  * the GAME driver's grid, sampling and factored surface (phase 19):
+    bench.py:2411's lambda grid with ``--model-output-mode ALL``, per combo
+    and with ``--vmapped-grid true`` (byte-equal models); down-sampling and
+    Pearson selection, card against CPU, the sampled weights bit-equal to
+    the host's threefry draws; bench.py:2476's full GAME model (fixed,
+    per-user, per-item and a factored per-artist coordinate) twice on the
+    card (byte-equal models and checkpoints) and once on the CPU, then
+    scored latent-natively against the host oracle, the factored
+    contribution timed against its bytes bound;
   * the GLM driver's whole surface on the dense GLM data (phase 18, run
     right after phase 6): the README's GLM quickstart as written
     (``--diagnostic-mode VALIDATE``), LBFGS and OWL-QN in a box,
@@ -40,15 +50,18 @@ shapes and times it, then drives the port's main paths at full width:
     and TrainingExampleAvro input with selected features, summaries and an
     off-heap index;
   * sparse fixed effects: ``cli.glm_driver.main`` on bench.py:59's
-    sparse-wide data (N=131072, D=2^20) and the GAME driver with a 2^17-wide
-    fixed shard, twice on the card (byte-equal) and once on the CPU, with the
-    wide matvec and transposes timed against their bytes bound.
+    sparse-wide data (N=131072, D=2^20), twice on the card (byte-equal) and
+    once on the CPU, and the GAME driver with a 2^17-wide fixed shard, twice
+    on the card (byte-equal) and, at 4000 users, once on the card and once
+    on the CPU, with the wide matvec and transposes timed against their
+    bytes bound.
 
 Deterministic algorithms are on from the start (``device.enable_determinism``).
-Every phase prints on its own lines; any failed check exits non-zero. The
-last lines are a JSON object of the sparse, checkpoint and GLM-diagnostics
-phases' numbers, the card's name and power limit, one JSON object listing
-the kernels, and ``{"ok": true, "device": {...}}``.
+Every phase prints on its own lines and its wall; any failed check exits
+non-zero. The last lines are a JSON object of the sparse, checkpoint,
+GLM-diagnostics and phase 19 numbers and every phase's wall, the card's
+name and power limit, one JSON object listing the kernels, and
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA card is available or the
 package is not beside this script. Imports nothing of JAX.
@@ -80,11 +93,14 @@ LAMBDAS = (10.0, 1.0, 0.1)
 # reports: memory bytes/s and fp32 CUDA-core flop/s
 CARD = "H100 80GB HBM3"
 MEM_RATE, FP32_RATE = 3.35e12, 67e12
-# kernel-vs-plain shapes: the main path's (N, D), a ragged N, an odd D, and
-# wider D that take the 4-, 8- and 16-column instantiations of stage 1
+# kernel-vs-plain shapes: the main path's (N, D), a ragged N, an odd D,
+# wider D that take the 4-, 8- and 16-column instantiations of stage 1, and
+# the GAME drivers' dense fixed effects (32 features and the intercept) at
+# phase 10's training rows and at the full GAME model's (phase 19c)
 CHECK_SHAPES = ((N_FULL, D_FULL), (N_FULL - 37, D_FULL), (65536, D_FULL),
                 (N_FULL, 65), (N_FULL - 37, 65), (65536, 65),
-                (32768, 1000), (32768, 2048), (32771, 4096))
+                (32768, 1000), (32768, 2048), (32771, 4096),
+                (192667, 33), (96113, 33))
 # how every kernel's time is read (both methods, for every kernel)
 MS_METHOD = ("ms: median of 30 per-launch CUDA-event readings (host launch time between "
              "calls included); graph_ms: median of 30 CUDA-graph replays of 20 launches, "
@@ -201,6 +217,30 @@ def sum_abs_d(torch, loss, x, y, wt, off, w):
     return float(d.abs().sum())
 
 
+def hold_fused(torch, fused_glm, args, tol, label):
+    """The fused kernel against its plain version on ``args`` (loss, x, y,
+    weights, offsets, w): value and gradient relative error and the sum-d
+    error over |sum d| + sum |d| within ``tol``, two kernel runs bitwise
+    equal. Returns max |kernel - plain| over the three outputs."""
+    got = fused_glm.fused_value_grad_kernel(*args)
+    again = fused_glm.fused_value_grad_kernel(*args)
+    want = fused_glm.fused_value_grad_parts_plain(*args)
+    torch.cuda.synchronize()
+    check(all(torch.isfinite(t).all() for t in got), f"non-finite kernel output: {label}")
+    val_err = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+    grad_err = (torch.linalg.vector_norm(got[1] - want[1])
+                / torch.linalg.vector_norm(want[1])).item()
+    sd_err = abs(got[2].item() - want[2].item()) / (
+        abs(want[2].item()) + sum_abs_d(torch, *args))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    say(f"  {label}: value rel err {val_err:.3e}  |dgrad|/|grad| {grad_err:.3e}  "
+        f"sum-d err {sd_err:.3e}  bitwise repeat {same}")
+    check(val_err <= tol and grad_err <= tol and sd_err <= tol,
+          f"kernel disagrees with plain beyond {tol}: {label}")
+    check(same, f"two kernel runs differ: {label}")
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
 def phase_kernel_vs_plain(torch, fused_glm, losses):
     """Phase 3: kernel against plain at the main path's shapes, f32 and bf16,
     all four losses, ragged N, an odd D and wide D; all three outputs held
@@ -212,24 +252,8 @@ def phase_kernel_vs_plain(torch, fused_glm, losses):
         for n, d in CHECK_SHAPES:
             for loss in (losses.logistic, losses.squared, losses.poisson, losses.smoothed_hinge):
                 args = (loss,) + make_inputs(torch, loss, n, d, dtype, SEED + n + d)
-                got = fused_glm.fused_value_grad_kernel(*args)
-                again = fused_glm.fused_value_grad_kernel(*args)
-                want = fused_glm.fused_value_grad_parts_plain(*args)
-                torch.cuda.synchronize()
-                check(all(torch.isfinite(t).all() for t in got), f"non-finite kernel output {loss.name} {n}x{d}")
-                val_err = abs(got[0].item() - want[0].item()) / abs(want[0].item())
-                grad_err = (torch.linalg.vector_norm(got[1] - want[1])
-                            / torch.linalg.vector_norm(want[1])).item()
-                sd_err = abs(got[2].item() - want[2].item()) / (
-                    abs(want[2].item()) + sum_abs_d(torch, *args))
-                same = all(torch.equal(a, b) for a, b in zip(got, again))
-                max_abs_err = max(max_abs_err, *(float((a - b).abs().max()) for a, b in zip(got, want)))
-                say(f"  {str(dtype)[6:]:8s} N={n:6d} D={d:4d} {loss.name:14s} "
-                    f"value rel err {val_err:.3e}  |dgrad|/|grad| {grad_err:.3e}  "
-                    f"sum-d err {sd_err:.3e}  bitwise repeat {same}")
-                check(val_err <= tol and grad_err <= tol and sd_err <= tol,
-                      f"kernel disagrees with plain beyond {tol}: {dtype} {loss.name} N={n} D={d}")
-                check(same, f"two kernel runs differ: {dtype} {loss.name} N={n} D={d}")
+                label = f"{str(dtype)[6:]:8s} N={n:6d} D={d:4d} {loss.name:14s}"
+                max_abs_err = max(max_abs_err, hold_fused(torch, fused_glm, args, tol, label))
                 cases += 1
     say(f"  {cases} cases within tolerance (value and gradient relative error, and sum-d error "
         f"over |sum d| + sum |d|, <= 1e-5 f32, <= 1e-3 bf16); max |kernel - plain| over all "
@@ -1352,14 +1376,16 @@ PREPROCESS_ROW_LOOP_S = 129.66
 def run_game_training(torch, fused_sparse, argv, spec):
     """One training-driver run under PHOTON_SPARSE_KERNEL=``spec`` with the
     kernel and ingest counts set to 0 just before it: (driver, wall,
-    launches, stages, ingest counts). Fails unless the native decoder read
-    every file."""
+    launches of the three kernels, stages, ingest counts). Fails unless the
+    native decoder read every file."""
     from photon_ml_tpu_torch.cli import game_training_driver
     from photon_ml_tpu_torch.io import avro_data
+    from photon_ml_tpu_torch.ops import fused_glm
 
     os.environ["PHOTON_SPARSE_KERNEL"] = spec
     sync(torch)
-    for c in (fused_sparse.sparse_gevm_kernel, fused_sparse.sparse_hvp_kernel):
+    for c in (fused_sparse.sparse_gevm_kernel, fused_sparse.sparse_hvp_kernel,
+              fused_glm.fused_value_grad_kernel):
         c.launches = 0
     avro_data.ingest_counts.update(native_files=0, row_loop_files=0, rejected_files=0)
     t0 = time.perf_counter()
@@ -1370,16 +1396,17 @@ def run_game_training(torch, fused_sparse, argv, spec):
     sync(torch)
     wall = time.perf_counter() - t0
     launches = {"gevm": fused_sparse.sparse_gevm_kernel.launches,
-                "hvp": fused_sparse.sparse_hvp_kernel.launches}
+                "hvp": fused_sparse.sparse_hvp_kernel.launches,
+                "fused_glm": fused_glm.fused_value_grad_kernel.launches}
     counts = dict(avro_data.ingest_counts)
     check(counts["row_loop_files"] == 0 and counts["rejected_files"] == 0
           and counts["native_files"] > 0,
           f"spec {spec}: Avro files by path {counts}: the native decoder must read every file")
-    _, result, _ = driver.results[0]
     tot = driver.timer.totals
+    # the grid path's validation runs inside its "(grid)" span
+    validate = sum(r.timings.get("(validation)", 0.0) for _, r, _ in driver.results)
     stages = {"preprocess": tot["prepare-feature-maps"] + tot["prepare-datasets"],
-              "train": tot["train"] - result.timings["(validation)"],
-              "validate": result.timings["(validation)"], "save": tot["save"]}
+              "train": tot["train"] - validate, "validate": validate, "save": tot["save"]}
     return driver, wall, launches, stages, counts
 
 
@@ -1388,7 +1415,10 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
     quickstart's flags without --checkpoint-dir) with
     PHOTON_SPARSE_KERNEL=pallas, then off; every Avro file read by the
     native decoder; model layout, validation AUC and objective histories
-    checked. Returns the run's numbers and the pallas run's driver."""
+    checked; the sparse kernels on the driver's slab and the fused kernel on
+    its fixed batch held against their plain versions. Returns the run's
+    numbers and the pallas run's driver."""
+    from photon_ml_tpu_torch.ops import fused_glm
 
     say(f"== phase 10: game_training_driver.main, bench.py's GAME data, {GAME_USERS} users "
         f"(8-16 rows each, d_fixed={GAME_D_FIXED}, d_random={GAME_D_RANDOM}, 15% labels "
@@ -1424,7 +1454,8 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
             "build-fixed-effect-batches", "build-random-effect-datasets")))
         say(f"  spec {spec:6s}: validation AUC {metrics['AUC']:.6f}; objective history "
             + " ".join(f"{v:.6f}" for v in result.objective_history)
-            + f"; GEVM launches {launches['gevm']}, HVP {launches['hvp']}; entities "
+            + f"; GEVM launches {launches['gevm']}, HVP {launches['hvp']}, fused dense "
+            f"{launches['fused_glm']}; entities "
             f"{driver.re_datasets['per-user'].num_entities}, slab "
             f"{None if slab is None else tuple(slab.idx.shape)}"
             + ("" if slab is None else f" (column tables {slab.kernel_tables().nbytes} B)")
@@ -1436,15 +1467,21 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
         runs[spec] = (result, launches, stages, wall, metrics["AUC"])
         if spec == "pallas":
             held = hold_driver_slab(torch, fused_sparse, driver.combo_coords[0]["per-user"])
+    fixed_err = hold_driver_fixed(torch, fused_glm, drivers["pallas"].combo_coords[0]["fixed"],
+                                  "phase 10")
     (res_k, launches_k, *_), (res_p, launches_p, *_) = runs["pallas"], runs["off"]
     check(launches_k["gevm"] > 0, "the pallas driver run launched no GEVM kernel")
-    check(launches_p == {"gevm": 0, "hvp": 0}, "the off driver run launched a sparse kernel")
+    check(launches_p["gevm"] == launches_p["hvp"] == 0,
+          "the off driver run launched a sparse kernel")
+    check(launches_k["fused_glm"] > 0 and launches_p["fused_glm"] > 0,
+          "a GAME driver run's dense fixed effect did not launch the fused kernel")
     for a, b in zip(res_k.objective_history, res_p.objective_history):
         check(abs(a - b) <= 1e-2 * abs(b) + 2e-3, f"objective histories differ: {a} vs {b}")
     say("  objective histories of the pallas and off runs agree within the solver tolerance")
     out = {spec: {"launches": r[1], "stages_s": r[2], "wall_s": r[3], "auc": r[4]}
            for spec, r in runs.items()}
     out["max_abs_err"] = held
+    out["fixed_max_abs_err"] = fixed_err
     return out, drivers["pallas"]
 
 
@@ -1726,6 +1763,86 @@ def phase_random_projection(torch, trained, dev="cuda"):
         f"back-projected (E, D) max |diff| {np.abs(gc - gp).max():.3e}; update wall card "
         f"{tc:.3f} s, CPU {tp:.3f} s; dataset build card {bc:.2f} s, CPU {bp:.2f} s")
 
+def hold_driver_fixed(torch, fused_glm, coord, label):
+    """The fused kernel on a GAME driver's own dense fixed-effect batch as
+    the coordinate's update hands it to the objective: the base offsets plus
+    a random residual, the weights after the coordinate's down-sampling (its
+    rate, the driver's key), at random coefficients; held against the plain
+    version at phase 3's tolerance."""
+    from photon_ml_tpu_torch.algorithm.fixed_effect import DOWN_SAMPLING_SEED
+    from photon_ml_tpu_torch.data.sampler import maybe_down_sample
+    from photon_ml_tpu_torch.ops import losses
+    from photon_ml_tpu_torch.ops.objective import GLMBatch
+
+    b, task = coord.batch, coord.problem.task
+    x = b.features.matrix
+    n, d = x.shape
+    g = torch.Generator(device=x.device).manual_seed(SEED + 31)
+    resid = 0.5 * torch.randn((n,), device=x.device, generator=g)
+    batch = maybe_down_sample(GLMBatch(b.features, b.labels, b.offsets + resid, b.weights),
+                              task, coord.down_sampling_rate, DOWN_SAMPLING_SEED)
+    w = 0.3 * torch.randn((d,), device=x.device, generator=g)
+    zero = int((batch.weights == 0).sum())
+    return hold_fused(torch, fused_glm,
+                      (losses.for_task(task), x, batch.labels, batch.weights, batch.offsets, w),
+                      1e-5 if x.dtype == torch.float32 else 1e-3,
+                      f"{label}: the driver's fixed batch N={n} D={d} {str(x.dtype)[6:]}, "
+                      f"{zero} rows at weight 0")
+
+
+def coordinate_scores(driver, result):
+    """Each coordinate's training scores at the run's final parameters, and
+    the total, on the host in float64."""
+    coords = driver.combo_coords[0]
+    out = {name: coords[name].score(result.coefficients[name]) for name in coords}
+    out["(total)"] = result.total_scores
+    return {k: v.double().cpu().numpy() for k, v in out.items()}
+
+
+def scores_held(label, card, cpu):
+    """Every coordinate's training scores and the total, card (driver,
+    result) against CPU. The fixed effect's are held row by row at the
+    solver tolerance. A per-entity coordinate solves each entity as an f32
+    LBFGS lane that stops when its objective's change falls below the
+    tolerance; card and CPU sum in different orders, so 2-14% of the lanes
+    stop an iteration apart and a few hundred rows' scores part by up to
+    0.2 while the lanes' objectives agree within 1e-4 relative (PERF.md,
+    PR 8). Those coordinates and the total are held by the norm of the
+    difference over the CPU's norm, within the solver's relative tolerance;
+    the rows outside the elementwise tolerance and the lanes whose last
+    solve stopped apart are printed. Returns the numbers per coordinate."""
+    from photon_ml_tpu_torch.algorithm.fixed_effect import FixedEffectCoordinate
+
+    (card_driver, card_res), (cpu_driver, cpu_res) = card, cpu
+    sc, sp = coordinate_scores(card_driver, card_res), coordinate_scores(cpu_driver, cpu_res)
+    check(sorted(sc) == sorted(sp), f"{label}: coordinates {sorted(sc)} vs {sorted(sp)}")
+    coords = card_driver.combo_coords[0]
+    out = {}
+    for name in sc:
+        a, b = sc[name], sp[name]
+        diff = np.abs(a - b)
+        outside = int((diff > SOLVER_ATOL + SOLVER_RTOL * np.abs(b)).sum())
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        apart = None
+        if name in coords and card_res.trackers[name].iterations.ndim == 1:
+            apart = int((card_res.trackers[name].iterations.cpu()
+                         != cpu_res.trackers[name].iterations.cpu()).sum())
+        if isinstance(coords.get(name), FixedEffectCoordinate):
+            held(f"{label}: {name} scores, card vs CPU", a, b)
+            how = "elementwise"
+        else:
+            check(rel <= SOLVER_RTOL, f"{label}: {name} scores, card vs CPU: |diff| / |cpu| "
+                                      f"{rel:.3g} > {SOLVER_RTOL}")
+            how = "in norm"
+        say(f"  {label} {name} scores card vs CPU, held {how}: max |diff| {diff.max():.4g}, "
+            f"|diff| / |cpu| {rel:.3g}, rows outside the elementwise tolerance {outside} of "
+            f"{a.size}" + ("" if apart is None else
+                           f", lanes whose last solve stopped apart {apart}"))
+        out[name] = {"max_abs_diff": float(diff.max()), "rel_norm": rel,
+                     "rows_outside_elementwise": outside, "lanes_stopped_apart": apart}
+    return out
+
+
 def hold_driver_slab(torch, fused_sparse, coord):
     """Both sparse kernels on the driver's own per-user slab and row vectors
     (labels, weights, base offsets plus a random residual gathered as the
@@ -1765,6 +1882,9 @@ SPARSE_GLM_FLAGS = ["--task", "LOGISTIC_REGRESSION", "--input-file-format", "LIB
 # phase 16's fixed section: FIXED_WIDE_PER_ROW of FIXED_WIDE_NAMES names a
 # row, over phase 10's GAME_USERS users
 FIXED_WIDE_NAMES, FIXED_WIDE_PER_ROW = 1 << 17, 32
+# phase 16's card-against-CPU pair runs at this depth (users), the same
+# generator and widths: the CPU run at GAME_USERS took 65 s of the call
+WIDE_CPU_USERS = 4000
 # the quickstart's fixed effect (LBFGS, L2 lambda 0.01) with its iteration
 # cap raised from 50 until the card and the CPU both converge: 131073
 # columns at lambda 0.01 are nearly separable, and after 50 iterations the
@@ -2000,11 +2120,12 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     the fixed section widened to FIXED_WIDE_NAMES names, FIXED_WIDE_PER_ROW a
     row, and the quickstart's fixed effect run to convergence: the fixed
     effect takes the sparse layout, the GEVM kernel launches, every fixed
-    solve converges, two card runs write byte-equal models, and the
-    objective history holds against the same command on the CPU. The first
-    fixed solve then runs again on each side's batch at the quickstart's own
-    cap of 50, a witness of how far two unconverged trajectories part
-    (printed, not held)."""
+    solve converges, two card runs at GAME_USERS users write byte-equal
+    models, and at WIDE_CPU_USERS users the objective history on the card
+    holds against the same command on the CPU. The first fixed solve of that
+    pair then runs again on each side's batch at the quickstart's own cap of
+    50, a witness of how far two unconverged trajectories part (printed, not
+    held)."""
     from photon_ml_tpu_torch.algorithm.fixed_effect import FixedEffectCoordinate
     from photon_ml_tpu_torch.ops.features import SparseFeatures
     from photon_ml_tpu_torch.types import ConvergenceReason
@@ -2012,13 +2133,17 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     say(f"== phase 16: game_training_driver.main, phase 10's data with the fixed section "
         f"widened to {FIXED_WIDE_PER_ROW} of {FIXED_WIDE_NAMES} names a row ({GAME_USERS} "
         f"users), the quickstart's flags with the fixed effect's cap raised to "
-        f"{FIXED_WIDE_ITERS} LBFGS iterations (L2 lambda 0.01), spec pallas; twice on {dev}, "
-        "once on the CPU; then the first fixed solve at the quickstart's cap of 50 on each")
-    t0 = time.perf_counter()
-    n_train, n_val = write_game_avro(workdir, GAME_USERS, SEED + 16,
-                                     wide=(FIXED_WIDE_NAMES, FIXED_WIDE_PER_ROW))
-    say(f"  Avro written in {time.perf_counter() - t0:.1f} s: {n_train} train rows, "
-        f"{n_val} validation rows")
+        f"{FIXED_WIDE_ITERS} LBFGS iterations (L2 lambda 0.01), spec pallas; twice on {dev}; "
+        f"then at {WIDE_CPU_USERS} users once on {dev} and once on the CPU, and the first "
+        "fixed solve of that pair at the quickstart's cap of 50 on each")
+    small = os.path.join(workdir, "small")
+    for users, where, seed in ((GAME_USERS, workdir, SEED + 16),
+                               (WIDE_CPU_USERS, small, SEED + 17)):
+        t0 = time.perf_counter()
+        n_train, n_val = write_game_avro(where, users, seed,
+                                         wide=(FIXED_WIDE_NAMES, FIXED_WIDE_PER_ROW))
+        say(f"  Avro written in {time.perf_counter() - t0:.1f} s: {users} users, {n_train} "
+            f"train rows, {n_val} validation rows")
     solves, first = [], {}
     update = FixedEffectCoordinate.update
 
@@ -2032,10 +2157,11 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     runs = {}
     FixedEffectCoordinate.update = recorded
     try:
-        for label, device in (("card", dev), ("card again", dev), ("cpu", "cpu")):
+        for label, device, data in (("card", dev, workdir), ("card again", dev, workdir),
+                                    ("card small", dev, small), ("cpu small", "cpu", small)):
             out = os.path.join(workdir, "out-" + label.replace(" ", "-"))
-            argv = ["--train-input-dirs", os.path.join(workdir, "train"),
-                    "--validate-input-dirs", os.path.join(workdir, "validate"),
+            argv = ["--train-input-dirs", os.path.join(data, "train"),
+                    "--validate-input-dirs", os.path.join(data, "validate"),
                     "--output-dir", out, "--device", device] + WIDE_GAME_FLAGS
             solves.clear()
             driver, wall, launches, stages, _ = run_game_training(torch, fused_sparse, argv,
@@ -2063,41 +2189,41 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     check(tree_bytes(os.path.join(runs["card"][1], "best"))
           == tree_bytes(os.path.join(runs["card again"][1], "best")),
           "two card runs of the wide GAME driver wrote different model bytes")
-    err = held("wide GAME objective history, card vs CPU", runs["card"][0].objective_history,
-               runs["cpu"][0].objective_history)
-    say(f"  two card runs wrote byte-equal models; objective histories card vs CPU within "
-        f"{err:.3g} (solver tolerance)")
+    err = held("wide GAME objective history, card vs CPU", runs["card small"][0].objective_history,
+               runs["cpu small"][0].objective_history)
+    say(f"  two card runs wrote byte-equal models; at {WIDE_CPU_USERS} users objective histories "
+        f"card vs CPU within {err:.3g} (solver tolerance)")
     # the quickstart's own cap, a witness and not held: neither side's first
     # fixed solve converges in 50 iterations, and the two trajectories part
     capped = {}
-    for label in ("card", "cpu"):
+    for label in ("card small", "cpu small"):
         coord, offsets = runs[label][5]
         problem = dataclasses.replace(coord.problem, optimizer_config=dataclasses.replace(
             coord.problem.optimizer_config, max_iterations=50))
         _, res = FixedEffectCoordinate(coord.batch, problem, coord.norm).update(
             offsets, coord.initial_coefficients())
         capped[label] = float(res.value)
+    c, u = capped["card small"], capped["cpu small"]
     say(f"  the first fixed solve at the quickstart's cap of 50 (not converged): card "
-        f"{capped['card']:.6f}, CPU {capped['cpu']:.6f}, |diff| "
-        f"{abs(capped['card'] - capped['cpu']):.6f}; run to convergence above: card "
-        f"{runs['card'][0].objective_history[0]:.6f}, CPU "
-        f"{runs['cpu'][0].objective_history[0]:.6f}")
+        f"{c:.6f}, CPU {u:.6f}, |diff| {abs(c - u):.6f}; run to convergence above: card "
+        f"{runs['card small'][0].objective_history[0]:.6f}, CPU "
+        f"{runs['cpu small'][0].objective_history[0]:.6f}")
     return {"launches": runs["card"][2], "wall_s": runs["card"][3], "objective_abs_err": err,
             "fixed_solves": {k: runs[k][4] for k in runs}, "first_solve_cap_50": capped,
             "objective_history": {k: runs[k][0].objective_history for k in runs}}
 
 
 def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
-    """Phase 17: phase 10's command with --checkpoint-dir under spec pallas
-    and spec scatter: an uninterrupted run (the checkpoint's bytes and save
-    time per step), a subprocess stopped by PHOTON_PREEMPT_AT (exit 75) and
-    resumed, --checkpoint-async true, and --max-restarts 1 with an injected
+    """Phase 17: phase 10's command with --checkpoint-dir on phase 10's data
+    under spec pallas and spec scatter: an uninterrupted run (the checkpoint's bytes and save time per step), a
+    subprocess stopped by PHOTON_PREEMPT_AT (exit 75) and resumed,
+    --checkpoint-async true, and --max-restarts 1 with an injected
     preemption; every run's model bytes equal the uninterrupted run's."""
     from photon_ml_tpu_torch import checkpoint
     from photon_ml_tpu_torch.resilience import preemption
 
-    say("== phase 17: checkpoints and preemption: phase 10's command with --checkpoint-dir, "
-        "spec pallas then scatter")
+    say("== phase 17: checkpoints and preemption: phase 10's command with --checkpoint-dir on "
+        f"phase 10's data ({GAME_USERS} users), spec pallas then scatter")
     here = os.path.dirname(os.path.abspath(__file__))
     base = ["--train-input-dirs", os.path.join(workdir, "train"),
             "--validate-input-dirs", os.path.join(workdir, "validate"),
@@ -2177,6 +2303,387 @@ def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
     return out
 
 
+# the lambda grid of bench.py:2411-2438 on phase 10's data: the fixed
+# effect at four lambdas, the random effect at 0.1, bench.py's solver caps
+GRID_LAMBDAS = ("0.01", "0.1", "1", "10")
+GRID_FLAGS = [
+    "--task-type", "LOGISTIC_REGRESSION",
+    "--feature-shard-id-to-feature-section-keys-map", "global:fixedFeatures|per_user:userFeatures",
+    "--updating-sequence", "fixed,per-user",
+    "--fixed-effect-data-configurations", "fixed:global,1",
+    "--random-effect-data-configurations", "per-user:userId,per_user,1,-1,-1,-1,INDEX_MAP",
+    "--fixed-effect-optimization-configurations",
+    ";".join(f"fixed:30,1e-7,{lam},1,LBFGS,L2" for lam in GRID_LAMBDAS),
+    "--random-effect-optimization-configurations", "per-user:20,1e-6,0.1,1,LBFGS,L2",
+    "--evaluator-type", "AUC", "--num-iterations", "2", "--model-output-mode", "ALL",
+]
+# phase 10's command with the fixed effect down-sampled at 0.5 and the
+# per-user features chosen by Pearson at a features-to-samples ratio of 0.5
+SAMPLING_RATE, PEARSON_RATIO = 0.5, 0.5
+SAMPLED_FLAGS = [
+    {"fixed:50,1e-7,0.01,1,LBFGS,L2": f"fixed:50,1e-7,0.01,{SAMPLING_RATE},LBFGS,L2",
+     "per-user:userId,per_user,1,-1,-1,-1,INDEX_MAP":
+         f"per-user:userId,per_user,1,-1,-1,{PEARSON_RATIO},INDEX_MAP"}.get(f, f)
+    for f in GAME_FLAGS]
+# the full GAME model of bench.py:2476-2506 (BASELINE config 5): its data
+# (tests/game_test_utils.make_full_game_data, seed 23, 15% labels flipped)
+# and tests/game_test_utils.make_full_game_coords' solvers
+FULL_USERS, FULL_ITEMS, FULL_ARTISTS = 10000, 2000, 200
+FULL_D = {"fixed": 32, "user": 8, "item": 8, "artist": 16}
+FULL_SEED, FULL_LATENT = 23, 4
+FULL_ITERATIONS = 3  # bench.py:2512
+FULL_SECTIONS = {"global": "fixedFeatures", "per_user": "userFeatures",
+                 "per_item": "itemFeatures", "per_artist": "artistFeatures"}
+FULL_GAME_FLAGS = [
+    "--task-type", "LOGISTIC_REGRESSION",
+    "--feature-shard-id-to-feature-section-keys-map",
+    "|".join(f"{shard}:{sec}" for shard, sec in FULL_SECTIONS.items()),
+    "--updating-sequence", "fixed,per-user,per-item,per-artist",
+    "--fixed-effect-data-configurations", "fixed:global,1",
+    "--random-effect-data-configurations",
+    "per-user:userId,per_user,1,-1,-1,-1,INDEX_MAP|per-item:itemId,per_item,1,-1,-1,-1,INDEX_MAP"
+    "|per-artist:artistId,per_artist,1,-1,-1,-1,IDENTITY",
+    "--fixed-effect-optimization-configurations", "fixed:30,1e-7,0.01,1,LBFGS,L2",
+    "--random-effect-optimization-configurations",
+    "per-user:20,1e-6,0.1,1,LBFGS,L2|per-item:20,1e-6,0.1,1,LBFGS,L2",
+    "--factored-random-effect-optimization-configurations",
+    f"per-artist:10,1e-6,0,1,LBFGS,NONE:10,1e-6,0,1,LBFGS,NONE:1,{FULL_LATENT}",
+    "--evaluator-type", "AUC", "--num-iterations", str(FULL_ITERATIONS),
+]
+
+
+def full_game_arrays(num_users, num_items, num_artists, seed):
+    """tests/game_test_utils.make_full_game_data's draws for
+    rows_per_user_range (8, 16) and FULL_D, then bench.py's label flips:
+    (labels, features by section, user, item and artist of each row,
+    rows per user)."""
+    rng = np.random.default_rng(seed)
+    rows_per_user = rng.integers(8, 16, size=num_users)
+    n = int(rows_per_user.sum())
+    user = np.repeat(np.arange(num_users, dtype=np.int32), rows_per_user)[rng.permutation(n)]
+    item = rng.integers(0, num_items, size=n).astype(np.int32)
+    artist_of_item = rng.integers(0, num_artists, size=num_items).astype(np.int32)
+    artist = artist_of_item[item]
+    x = {k: rng.normal(size=(n, d)).astype(np.float32) for k, d in FULL_D.items()}
+    w_fixed = rng.normal(size=FULL_D["fixed"]).astype(np.float32)
+    w_users = (rng.normal(size=(num_users, FULL_D["user"])) * 1.2).astype(np.float32)
+    w_items = (rng.normal(size=(num_items, FULL_D["item"])) * 1.2).astype(np.float32)
+    w_artists = (rng.normal(size=(num_artists, 2)) @ rng.normal(size=(2, FULL_D["artist"]))
+                 ).astype(np.float32)
+    margin = (x["fixed"] @ w_fixed + np.sum(x["user"] * w_users[user], axis=1)
+              + np.sum(x["item"] * w_items[item], axis=1)
+              + np.sum(x["artist"] * w_artists[artist], axis=1))
+    y = (1.0 / (1.0 + np.exp(-margin)) > rng.random(n)).astype(np.float32)
+    flip = rng.random(n) < 0.15
+    y[flip] = 1.0 - y[flip]
+    return y, x, user, item, artist, rows_per_user
+
+
+def write_full_game_avro(workdir, num_users, num_items, num_artists, seed):
+    """The full GAME data as Avro with four feature sections and the three
+    ids in metadataMap, each user's rows split 80/20 into train/ and
+    validate/ as write_game_avro splits them."""
+    from photon_ml_tpu_torch.io import schemas
+
+    y, x, user, item, artist, rows_per_user = full_game_arrays(num_users, num_items,
+                                                               num_artists, seed)
+    n = len(y)
+    rank = np.zeros(n, np.int64)
+    order = np.argsort(user, kind="stable")
+    rank[order] = np.arange(n) - np.searchsorted(user[order], user[order])
+    validate = rank >= np.ceil(0.8 * rows_per_user[user])
+    feature = "com.linkedin.photon.avro.generated.FeatureAvro"
+    fields = [{"name": "uid", "type": ["null", "string"], "default": None},
+              {"name": "label", "type": "double"}]
+    for i, sec in enumerate(FULL_SECTIONS.values()):
+        fields.append({"name": sec, "type": {"type": "array",
+                                             "items": schemas.FEATURE if i == 0 else feature}})
+    fields.append({"name": "metadataMap", "type": ["null", {"type": "map", "values": "string"}],
+                   "default": None})
+    schema = {"name": "FullGameExampleAvro", "namespace": "smoke", "type": "record",
+              "fields": fields}
+    pack = struct.Struct("<d").pack
+    keys = {k: [_avro_str(f"{k[0]}{j}") + b"\x00" for j in range(d)] for k, d in FULL_D.items()}
+    id_keys = [_avro_str(k) for k in ("userId", "itemId", "artistId")]
+
+    def section(k, row):  # one block of named features, the empty term
+        return (_avro_long(len(row)) + b"".join(kk + pack(v) for kk, v in zip(keys[k], row))
+                + b"\x00")
+
+    def records(sel):
+        rows = np.nonzero(sel)[0]
+        xs = {k: v[rows].tolist() for k, v in x.items()}
+        return [b"\x02" + _avro_str(str(r)) + pack(float(y[r]))
+                + b"".join(section(k, xs[k][i]) for k in FULL_D)
+                + b"\x02\x06" + id_keys[0] + _avro_str(f"u{user[r]}") + id_keys[1]
+                + _avro_str(f"i{item[r]}") + id_keys[2] + _avro_str(f"a{artist[r]}") + b"\x00"
+                for i, r in enumerate(rows)]
+
+    for name, sel in (("train", ~validate), ("validate", validate)):
+        _write_avro(os.path.join(workdir, name, "part-00000.avro"), records(sel), schema)
+    return int((~validate).sum()), int(validate.sum())
+
+
+def _run_line(label, driver, wall, launches, stages):
+    results = driver.results
+    return (f"  {label}: wall {wall:.2f} s; launches fused dense {launches['fused_glm']}, GEVM "
+            f"{launches['gevm']}, HVP {launches['hvp']}; stages "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+            + "; " + "; ".join(f"combo {i} objective {r.objective_history[-1]:.6f} AUC "
+                               f"{m.get('AUC', float('nan')):.6f}"
+                               for i, (_, r, m) in enumerate(results))
+            + f"; best {driver.best_index}")
+
+
+def phase_game_grid(torch, fused_sparse, workdir, dev="cuda"):
+    """Phase 19 (a) and (b), on phase 10's data. (a) bench.py:2411-2438's
+    lambda grid through the training driver (spec pallas) with
+    --model-output-mode ALL, per combo and then with --vmapped-grid true:
+    every model file of best/ and all/<i>/ byte-equal, the same best combo.
+    (b) phase 10's command with the fixed effect down-sampled and Pearson
+    selection on the per-user features, on the card and on the CPU: the
+    objective histories within the solver tolerance, the card's sampled
+    weights bit-equal to the weights utils/prng's draws give on the host,
+    every coordinate's scores held card against CPU (``scores_held``), and
+    the fused kernel held against its plain version on the card run's
+    down-sampled fixed batch."""
+    from photon_ml_tpu_torch.algorithm.fixed_effect import DOWN_SAMPLING_SEED
+    from photon_ml_tpu_torch.data import sampler
+    from photon_ml_tpu_torch.ops import fused_glm
+    from photon_ml_tpu_torch.utils import prng
+
+    say("== phase 19 (a): game_training_driver.main with bench.py:2411's lambda grid on phase "
+        f"10's data ({GAME_USERS} users): fixed lambda {', '.join(GRID_LAMBDAS)}, random "
+        "lambda 0.1, 2 iterations, --model-output-mode ALL, spec pallas; per combo, then "
+        "--vmapped-grid true")
+    base = ["--train-input-dirs", os.path.join(workdir, "train"),
+            "--validate-input-dirs", os.path.join(workdir, "validate"), "--device", dev]
+    grid = {}
+    for label, extra in (("per-combo", []), ("vmapped-grid", ["--vmapped-grid", "true"])):
+        out = os.path.join(workdir, f"grid-{label}")
+        driver, wall, launches, stages, _ = run_game_training(
+            torch, fused_sparse, base + ["--output-dir", out] + GRID_FLAGS + extra, "pallas")
+        check(len(driver.results) == len(GRID_LAMBDAS), f"{label}: {len(driver.results)} combos")
+        for _, r, m in driver.results:
+            check(all(np.isfinite(r.objective_history)), f"{label}: non-finite objective")
+            check(m["AUC"] > GAME_AUC_FLOOR, f"{label}: validation AUC {m['AUC']}")
+        grid_path = all("(grid)" in r.timings for _, r, _ in driver.results)
+        check(grid_path == (label == "vmapped-grid"), f"{label}: trained through the wrong path")
+        check(launches["gevm"] > 0 and launches["fused_glm"] > 0,
+              f"{label}: a kernel of the path did not launch: {launches}")
+        say(_run_line(label, driver, wall, launches, stages))
+        grid[label] = (driver, out, wall, launches, stages)
+    (pc, pc_out, *_), (vg, vg_out, *_) = grid["per-combo"], grid["vmapped-grid"]
+    check(pc.best_index == vg.best_index, f"best combo {pc.best_index} vs {vg.best_index}")
+    files = 0
+    for sub in ["best"] + [os.path.join("all", str(i)) for i in range(len(GRID_LAMBDAS))]:
+        a, b = tree_bytes(os.path.join(pc_out, sub)), tree_bytes(os.path.join(vg_out, sub))
+        check(bool(a) and a == b, f"{sub}: the per-combo and --vmapped-grid models differ")
+        files += len(a)
+    check(all(x[1].objective_history == y[1].objective_history
+              for x, y in zip(pc.results, vg.results)), "objective histories differ")
+    say(f"  per-combo and --vmapped-grid: {files} model files of best/ and all/0-3/ byte-equal, "
+        f"best combo {pc.best_index} (lambda {GRID_LAMBDAS[pc.best_index]}) in both, objective "
+        "histories equal")
+
+    say(f"== phase 19 (b): phase 10's command with the fixed effect down-sampled at "
+        f"{SAMPLING_RATE} and Pearson selection on the per-user features at ratio "
+        f"{PEARSON_RATIO}, spec pallas; on {dev}, then the same command on the CPU")
+    sampled = {}
+    for label, device in (("card", dev), ("cpu", "cpu")):
+        out = os.path.join(workdir, f"sampled-{label}")
+        argv = base[:-1] + [device, "--output-dir", out] + SAMPLED_FLAGS
+        driver, wall, launches, stages, _ = run_game_training(torch, fused_sparse, argv, "pallas")
+        _, result, metrics = driver.results[0]
+        check(all(np.isfinite(result.objective_history)), f"{label}: non-finite objective")
+        fixed = driver.combo_coords[0]["fixed"]
+        weights = sampler.maybe_down_sample(fixed.batch, driver.params.task_type,
+                                            fixed.down_sampling_rate, DOWN_SAMPLING_SEED).weights
+        ds = driver.re_datasets["per-user"]
+        sampled[label] = (driver, result, weights.cpu().numpy(), ds)
+        if device != "cpu":
+            check(launches["gevm"] > 0 and launches["fused_glm"] > 0,
+                  f"{label}: a kernel of the path did not launch: {launches}")
+        say(_run_line(label, driver, wall, launches, stages)
+            + f"; per-user local dims {ds.local_dim} of {ds.global_dim}")
+    card, cpu = sampled["card"], sampled["cpu"]
+    data = card[0].train_data
+    # the sampled weights on the host: threefry draws of utils/prng, then
+    # the binary sampler's rule in float32
+    u = prng.uniform(prng.prng_key(DOWN_SAMPLING_SEED), (data.num_rows,))
+    pos = data.response > 0.5
+    keep = pos | (u < np.float32(SAMPLING_RATE))
+    scale = np.where(pos, np.float32(1.0), np.float32(1.0 / SAMPLING_RATE)).astype(np.float32)
+    want = np.where(keep, data.weight.astype(np.float32) * scale, np.float32(0.0))
+    check(card[2].tobytes() == want.tobytes() == cpu[2].tobytes(),
+          "the sampled weights on the card, on the CPU and from the host draws differ")
+    for field in ("local_to_global", "x"):
+        check(getattr(card[3], field).cpu().numpy().tobytes()
+              == getattr(cpu[3], field).cpu().numpy().tobytes(),
+              f"the Pearson-selected per-user dataset's {field} differs card vs CPU")
+    check(card[3].local_dim < card[3].global_dim, "Pearson selection kept every feature")
+    err = held("sampled GAME objective history, card vs CPU", card[1].objective_history,
+               cpu[1].objective_history)
+    score_err = scores_held("19 (b)", card[:2], cpu[:2])
+    say(f"  sampled weights bit-equal on card, CPU and host ({int(keep.sum())} of "
+        f"{data.num_rows} rows kept); Pearson datasets byte-equal; card vs CPU objective "
+        f"histories within {err:.3g} (solver tolerance), scores held as above")
+    fixed_err = hold_driver_fixed(torch, fused_glm, card[0].combo_coords[0]["fixed"],
+                                  "phase 19 (b)") if dev != "cpu" else 0.0
+    return {label: {"wall_s": v[2], "launches": v[3], "stages_s": v[4],
+                    "best_index": v[0].best_index}
+            for label, v in grid.items()} | {"sampled_objective_abs_err": err,
+                                             "sampled_scores_card_vs_cpu": score_err,
+                                             "fixed_max_abs_err": fixed_err}
+
+
+def phase_full_game(torch, fused_sparse, workdir, dev="cuda"):
+    """Phase 19 (c): the full GAME model of bench.py:2476-2506 through the
+    training driver (spec pallas, --checkpoint-dir) twice on the card
+    (models and checkpoints byte-equal) and once on the CPU (objective
+    histories and the per-artist coefficients V M elementwise within the
+    solver tolerance, every coordinate's scores by ``scores_held``; the
+    fused kernel held on the fixed batch); then the scoring driver on the
+    validation rows, device against the host oracle at the elementwise
+    tolerance and its AUC against the training driver's, and the factored
+    scoring contribution timed against its bytes bound."""
+    from photon_ml_tpu_torch.cli import game_scoring_driver as gsd
+    from photon_ml_tpu_torch.io import model_io
+    from photon_ml_tpu_torch.models.game import gather_scores
+    from photon_ml_tpu_torch.ops import fused_glm
+
+    say(f"== phase 19 (c): game_training_driver.main on bench.py:2476's full GAME model: "
+        f"{FULL_USERS} users, {FULL_ITEMS} items, {FULL_ARTISTS} artists, 8-16 rows a user, "
+        f"widths {FULL_D}, 15% labels flipped; fixed + per-user + per-item + factored "
+        f"per-artist (latent {FULL_LATENT}, 1 inner iteration, 10 solver iterations), "
+        f"{FULL_ITERATIONS} iterations, spec pallas; twice on {dev} with --checkpoint-dir, once on the CPU")
+    t0 = time.perf_counter()
+    n_train, n_val = write_full_game_avro(workdir, FULL_USERS, FULL_ITEMS, FULL_ARTISTS,
+                                          FULL_SEED)
+    say(f"  Avro written in {time.perf_counter() - t0:.1f} s: {n_train} train rows, "
+        f"{n_val} validation rows")
+    base = ["--train-input-dirs", os.path.join(workdir, "train"),
+            "--validate-input-dirs", os.path.join(workdir, "validate")] + FULL_GAME_FLAGS
+    runs = {}
+    for label, device, ck in (("card", dev, True), ("card again", dev, True),
+                              ("cpu", "cpu", False)):
+        tag = label.replace(" ", "-")
+        argv = base + ["--device", device, "--output-dir", os.path.join(workdir, f"out-{tag}")]
+        if ck:
+            argv += ["--checkpoint-dir", os.path.join(workdir, f"ck-{tag}")]
+        driver, wall, launches, stages, _ = run_game_training(torch, fused_sparse, argv, "pallas")
+        _, result, metrics = driver.results[0]
+        check(all(np.isfinite(result.objective_history)), f"{label}: non-finite objective")
+        check(metrics["AUC"] > GAME_AUC_FLOOR, f"{label}: validation AUC {metrics['AUC']}")
+        if device != "cpu":
+            check(launches["gevm"] > 0 and launches["fused_glm"] > 0,
+                  f"{label}: a kernel of the path did not launch: {launches}")
+        state = result.coefficients["per-artist"]
+        say(_run_line(label, driver, wall, launches, stages)
+            + f"; objective history " + " ".join(f"{v:.6f}" for v in result.objective_history)
+            + f"; latent factors {tuple(state.v.shape)}, matrix {tuple(state.matrix.shape)}")
+        runs[label] = (driver, wall, launches, stages)
+    out = lambda label: os.path.join(workdir, "out-" + label.replace(" ", "-"))
+    best = tree_bytes(os.path.join(out("card"), "best"))
+    check(best == tree_bytes(os.path.join(out("card again"), "best")),
+          "two card runs of the full GAME model wrote different model bytes")
+    check(model_io.is_factored_random_effect(os.path.join(out("card"), "best"), "per-artist")
+          and any(k.startswith("random-effect/per-artist/latent-matrix/") for k in best),
+          "the factored coordinate's latent layout is missing")
+    steps = {}
+    for label in ("card", "card again"):
+        root = os.path.join(workdir, "ck-" + label.replace(" ", "-"), "combo-0")
+        steps[label] = {}
+        for step in sorted(os.listdir(root)):
+            with np.load(os.path.join(root, step, "arrays.npz")) as npz:
+                arrays = {k: npz[k].tobytes() for k in npz.files}
+            with open(os.path.join(root, step, "meta.json")) as f:
+                steps[label][step] = (arrays, json.load(f))
+    check(steps["card"] == steps["card again"] and len(steps["card"]) == 2,
+          f"the two card runs' checkpoints differ (steps {sorted(steps['card'])})")
+    last = f"step-{4 * FULL_ITERATIONS}"
+    check(last in steps["card"], f"the card run kept steps {sorted(steps['card'])}")
+    treedef = steps["card"][last][1]["structure"]["params"]["treedef"]
+    check("'per-artist': CustomNode(FactoredState[None], [*, *])" in treedef,
+          f"checkpoint structure {treedef}")
+    (card_driver, *_), (cpu_driver, *_) = runs["card"], runs["cpu"]
+    card_res, cpu_res = card_driver.results[0][1], cpu_driver.results[0][1]
+    err = held("full GAME objective history, card vs CPU", card_res.objective_history,
+               cpu_res.objective_history)
+    score_err = scores_held("19 (c)", (card_driver, card_res), (cpu_driver, cpu_res))
+    vm = lambda st: (st.v.double() @ st.matrix.double()).cpu().numpy()
+    vm_err = held("full GAME per-artist V M, card vs CPU", vm(card_res.coefficients["per-artist"]),
+                  vm(cpu_res.coefficients["per-artist"]))
+    say(f"  two card runs wrote byte-equal models ({len(best)} files) and checkpoints (steps "
+        f"{sorted(steps['card'])}, arrays and meta; params {treedef}); card vs CPU within the "
+        f"solver tolerance: objective histories {err:.3g}, per-artist V M elementwise "
+        f"{vm_err:.3g}; scores held as above")
+    fixed_err = hold_driver_fixed(torch, fused_glm, card_driver.combo_coords[0]["fixed"],
+                                  "phase 19 (c)") if dev != "cpu" else 0.0
+
+    model = os.path.join(out("card"), "best")
+    train_auc = runs["card"][0].results[0][2]["AUC"]
+    common = ["--input-dirs", os.path.join(workdir, "validate"), "--game-model-input-dir", model,
+              "--evaluator-type", "AUC", "--device", dev,
+              "--feature-shard-id-to-feature-section-keys-map",
+              "|".join(f"{shard}:{sec}" for shard, sec in FULL_SECTIONS.items())]
+    scoring = {}
+    for label, extra in (("card", []), ("host", ["--host-scoring", "true"])):
+        driver, wall = run_scoring(torch, common + extra + [
+            "--output-dir", os.path.join(workdir, f"scores-{label}")])
+        scoring[label] = (driver, wall)
+        check(abs(driver.metrics["AUC"] - train_auc) <= 1e-5,
+              f"scoring {label}: AUC {driver.metrics['AUC']} against the training driver's "
+              f"{train_auc}")
+        say(f"  scoring {label}: {driver.data.num_rows} rows, AUC {driver.metrics['AUC']:.6f}, "
+            f"wall {wall:.2f} s")
+    with open(os.path.join(workdir, "scores-card", "photon-ml-tpu-scoring.log")) as f:
+        check("entities matched (device, latent-native)" in f.read(),
+              "the card scoring did not take the factored model's latent path")
+    card, host = scoring["card"][0], scoring["host"][0]
+    diff = np.abs(card.scores.astype(np.float64) - host.scores)
+    check(bool((diff <= 1e-5 + 1e-4 * np.abs(host.scores)).all()),
+          f"card and host scores differ beyond the elementwise tolerance (max {diff.max():.3e})")
+    say(f"  card against host scores: max |diff| {diff.max():.3e} (elementwise tolerance); "
+        f"scoring AUC = training validation AUC {train_auc:.6f} within 1e-5")
+
+    # the factored contribution on the training rows' own inputs
+    trained = runs["card"][0]
+    data = trained.train_data
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    factors, matrix, _, _ = model_io.load_factored_random_effect(model, "per-artist")
+    matrix = put(model_io.aligned_latent_matrix(model, "per-artist",
+                                                trained.shard_index_maps["per_artist"], matrix))
+    latent, ent_pos, matched = gsd.entity_positions(data.id_vocabs["artistId"], factors,
+                                                    data.ids["artistId"], FULL_LATENT)
+    latent, ent_pos = put(latent), put(ent_pos)
+    idx, vals = gsd.padded_coo(data.shards["per_artist"], dev)
+    fn = lambda: gsd.factored_contrib(latent, matrix, ent_pos, idx, vals)
+    contrib = fn()
+    flat = gather_scores(latent @ matrix, ent_pos, idx, vals)
+    sync(torch)
+    fdiff = float(torch.max(torch.abs(contrib - flat)))
+    check(bool(torch.allclose(contrib, flat, rtol=1e-4, atol=1e-5)),
+          f"the latent contribution and the V M gather differ (max {fdiff:.3e})")
+    nbytes = score_bytes(latent, matrix, ent_pos, idx, vals, contrib)
+    shape = (f"N={data.num_rows} K={idx.shape[1]} E={latent.shape[0]} k={FULL_LATENT} "
+             f"D={matrix.shape[1]}")
+    t = {"ms": time_ms(torch, fn), "graph_ms": graph_ms(torch, fn), "bytes": nbytes,
+         "bound_ms": nbytes / MEM_RATE * 1e3, "bound_by": "bytes", "shape": shape,
+         "max_abs_err_vs_flat": fdiff}
+    say(f"  factored_contrib: {shape}: events {t['ms']:.4f} ms, graph {t['graph_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.5f} ms ({nbytes} B), share by graph "
+        f"{t['bound_ms'] / t['graph_ms']:.3f}; {matched} artists matched; against the V M "
+        f"gather within {fdiff:.3e}")
+    return {"walls_s": {k: v[1] for k, v in runs.items()},
+            "launches": {k: v[2] for k, v in runs.items()},
+            "stages_s": {k: v[3] for k, v in runs.items()},
+            "objective_abs_err": err, "scores_card_vs_cpu": score_err,
+            "vm_abs_err_card_vs_cpu": vm_err, "fixed_max_abs_err": fixed_err,
+            "scoring_walls_s": {k: v[1] for k, v in scoring.items()},
+            "score_abs_err": float(diff.max()), "factored_contrib": t}
+
+
 def main() -> None:
     import torch
 
@@ -2188,6 +2695,7 @@ def main() -> None:
     from photon_ml_tpu_torch import native_build
     from photon_ml_tpu_torch.ops import fused_glm, losses
 
+    start = time.perf_counter()
     say("== phase 1: device")
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -2227,26 +2735,41 @@ def main() -> None:
         say(f"  ptxas {src}: registers per kernel {regs}; kernels with spills or stack: {spills}")
     check(native_build.native_enabled(), "PHOTON_ML_TPU_NATIVE switches the host libraries off")
 
-    max_abs_err = phase_kernel_vs_plain(torch, fused_glm, losses)
-    times = phase_times(torch, fused_glm, losses)
-    grid_launches = phase_train_grid(torch, fused_glm, times["bfloat16"]["graph_ms"])
+    walls = {}
+
+    def timed(label, fn, *args):
+        """Run one phase and print its wall."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[label] = time.perf_counter() - t0
+        say(f"  -- phase {label} wall {walls[label]:.1f} s (the call so far "
+            f"{time.perf_counter() - start:.1f} s)")
+        return out
+
+    max_abs_err = timed("3", phase_kernel_vs_plain, torch, fused_glm, losses)
+    times = timed("4", phase_times, torch, fused_glm, losses)
+    grid_launches = timed("5", phase_train_grid, torch, fused_glm, times["bfloat16"]["graph_ms"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        driver_launches = phase_driver(torch, fused_glm, workdir)
-        glm_diag = phase_glm_diagnostics(torch, fused_glm, workdir)
-    sparse_err = phase_sparse_vs_plain(torch, fused_sparse, losses)
-    sparse_times = phase_sparse_times(torch, fused_sparse, losses)
-    re_runs = phase_re_solve(torch, fused_sparse, sparse_times["full width"])
+        driver_launches = timed("6", phase_driver, torch, fused_glm, workdir)
+        glm_diag = timed("18", phase_glm_diagnostics, torch, fused_glm, workdir)
+    sparse_err = timed("7", phase_sparse_vs_plain, torch, fused_sparse, losses)
+    sparse_times = timed("8", phase_sparse_times, torch, fused_sparse, losses)
+    re_runs = timed("9", phase_re_solve, torch, fused_sparse, sparse_times["full width"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as workdir:
-        game_runs, trained = phase_game_driver(torch, fused_sparse, workdir)
-        phase_ingest(workdir, trained)
-        phase_scoring(torch, workdir, trained)
-        phase_offheap(torch, fused_sparse, workdir, trained)
-        phase_random_projection(torch, trained)
-        checkpoints = phase_checkpoints(torch, fused_sparse, workdir)
+        game_runs, trained = timed("10", phase_game_driver, torch, fused_sparse, workdir)
+        timed("11", phase_ingest, workdir, trained)
+        timed("12", phase_scoring, torch, workdir, trained)
+        timed("13", phase_offheap, torch, fused_sparse, workdir, trained)
+        timed("14", phase_random_projection, torch, trained)
+        checkpoints = timed("17", phase_checkpoints, torch, fused_sparse, workdir)
+        game_grid = timed("19ab", phase_game_grid, torch, fused_sparse, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as workdir:
-        sparse_glm = phase_sparse_glm(torch, fused_sparse, losses, workdir)
+        sparse_glm = timed("15", phase_sparse_glm, torch, fused_sparse, losses, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as workdir:
-        wide = phase_game_wide(torch, fused_sparse, workdir)
+        wide = timed("16", phase_game_wide, torch, fused_sparse, workdir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_full_") as workdir:
+        full_game = timed("19c", phase_full_game, torch, fused_sparse, workdir)
+    say(f"  -- the whole call {time.perf_counter() - start:.1f} s")
 
     bf16 = times["bfloat16"]
     kernels = [{
@@ -2260,7 +2783,12 @@ def main() -> None:
         "launches_glm_diagnostics": glm_diag["launches_total"],
         "launches_glm_diagnostics_by_run": {k: v["launches"] for k, v in glm_diag.items()
                                             if isinstance(v, dict)},
-        "max_abs_err": max_abs_err,
+        "launches_game_driver": game_runs["pallas"]["launches"]["fused_glm"],
+        "launches_game_grid": {k: game_grid[k]["launches"]["fused_glm"]
+                               for k in ("per-combo", "vmapped-grid")},
+        "launches_full_game": {k: v["fused_glm"] for k, v in full_game["launches"].items()},
+        "max_abs_err": max(max_abs_err, game_runs["fixed_max_abs_err"],
+                           game_grid["fixed_max_abs_err"], full_game["fixed_max_abs_err"]),
         "ms": bf16["ms"],
         "graph_ms": bf16["graph_ms"],
         "ms_method": MS_METHOD,
@@ -2289,6 +2817,9 @@ def main() -> None:
             "launches_re_tron": re_runs["TRON"]["launches"][key],
             "launches_game_driver": game_runs["pallas"]["launches"][key],
             "launches_game_wide_fixed": wide["launches"][key],
+            "launches_game_grid": {k: game_grid[k]["launches"][key]
+                                   for k in ("per-combo", "vmapped-grid")},
+            "launches_full_game": {k: v[key] for k, v in full_game["launches"].items()},
             "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key]),
             "ms": t["ms"],
             "graph_ms": t["graph_ms"],
@@ -2304,7 +2835,9 @@ def main() -> None:
             "shapes": {label: sparse_times[label][key] for label in sparse_times},
         })
     say(json.dumps({"sparse_fixed_effect": sparse_glm, "game_wide_fixed": wide,
-                    "checkpoints": checkpoints, "glm_diagnostics": glm_diag}))
+                    "checkpoints": checkpoints, "glm_diagnostics": glm_diag,
+                    "game_grid": game_grid, "full_game": full_game, "phase_walls_s": walls,
+                    "card": card}))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,15 +12,20 @@ With a checkpointer the state is saved after every update and a restart
 resumes from the last complete step; preemption is polled at every update
 boundary (site ``"cycle"``), where the finished steps are made durable
 before :class:`~photon_ml_tpu_torch.resilience.preemption.Preempted`
-unwinds; a divergence guard gates every update. The fused cycle and the
-lambda grid are not yet ported.
+unwinds; a divergence guard gates every update.
+
+``run_grid`` trains a lambda grid on coordinates built once: combo ``g``
+runs the same cycle with every coordinate's total regularization weight
+overridden (``reg_weight``), from the same seeded state; it checkpoints per
+cycle in the JAX grid's lane layout. The fused cycle is not yet ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,25 +79,29 @@ class CoordinateDescent:
         self.validation_evaluators = validation_evaluators or {}
         self.divergence_guard = divergence_guard
 
-    def _objective(self, total: Tensor, params: Dict[str, Tensor]) -> Tensor:
+    def _objective(self, total: Tensor, params: Dict[str, Tensor],
+                   lam: Optional[Dict[str, float]] = None) -> Tensor:
         return self.training_loss(total) + sum(
-            self.coordinates[n].regularization_term(params[n]) for n in self.coordinates
+            self.coordinates[n].regularization_term(params[n]) if lam is None
+            else self.coordinates[n].regularization_term(params[n], lam[n])
+            for n in self.coordinates
         )
 
-    def run(self, num_iterations: int, num_rows: int, checkpointer=None,
-            initial_params: Optional[Dict[str, Tensor]] = None) -> CoordinateDescentResult:
-        """``checkpointer`` (``checkpoint.CoordinateDescentCheckpointer`` or
-        its async wrapper) saves after every update and resumes from the
-        last complete step, which takes precedence over ``initial_params``.
-        ``initial_params`` warm-starts named coordinates; they contribute
-        their scores from step zero."""
+    def _validation_metrics(self, params) -> Dict[str, Tensor]:
+        v_scores = self.validation_scorer(params)
+        return {key: ev.evaluate(v_scores, **kw)
+                for key, (ev, kw) in self.validation_evaluators.items()}
+
+    def _seeded_state(self, num_rows: int, initial_params=None):
+        """(params, scores, total) at step zero: ``initial_params`` warm-starts
+        named coordinates, which contribute their scores from the start."""
         names = list(self.coordinates)
-        device = next(iter(self.coordinates.values())).initial_coefficients().device
         params = {
             n: (initial_params[n] if initial_params is not None and n in initial_params
                 else self.coordinates[n].initial_coefficients())
             for n in names
         }
+        device = next(iter(self.coordinates.values())).initial_coefficients().device
         zeros = lambda: torch.zeros((num_rows,), dtype=real_dtype(), device=device)
         scores = {n: zeros() for n in names}
         if initial_params is not None:
@@ -102,12 +111,152 @@ class CoordinateDescent:
         total = zeros()
         for n in names:
             total = total + scores[n]
+        return params, scores, total
 
-        # device scalars until a save or the end of the run
-        objective_dev: List[Tensor] = []
-        validation_dev: List[Dict[str, Tensor]] = []
-        objective_history: List[float] = []
-        validation_history: List[Dict[str, float]] = []
+    def _step(self, name: str, step: int, params: Dict[str, Tensor],
+              scores: Dict[str, Tensor], total: Tensor, history: "_History",
+              timings: Dict[str, float], trackers: Dict[str, object],
+              lam: Optional[Dict[str, float]] = None,
+              skip: bool = False) -> Tuple[Tensor, bool]:
+        """One update of coordinate ``name``, in place on ``params`` and
+        ``scores``: solve on the other coordinates' scores (at ``lam[name]``
+        when given), re-score, gate through the divergence guard, then record
+        the objective and the validation metrics. ``skip`` records them on
+        the unchanged state. Returns (total scores, whether the guard kept
+        the update)."""
+        ok = True
+        if not skip:
+            coord = self.coordinates[name]
+            partial = total - scores[name]  # the other coordinates' scores
+            t0 = time.perf_counter()
+            kw = {} if lam is None else {"reg_weight": lam[name]}
+            new_params, trackers[name] = coord.update(partial, params[name], **kw)
+            # chaos hook: a kind="nan" fault here corrupts the update
+            # exactly like a diverged solve
+            new_params = faults.corrupt("optim.step", new_params, coordinate=name, step=step)
+            new_score = coord.score(new_params)
+            guard = self.divergence_guard
+            if guard is not None:
+                new_params, new_score, ok = guard.filter_update(
+                    name, step, new_params, new_score, params[name], scores[name])
+            timings[name] += time.perf_counter() - t0
+            params[name] = new_params
+            scores[name] = new_score
+            total = partial + new_score
+        history.objective_dev.append(self._objective(total, params, lam))
+        if self.validation_scorer is not None:
+            t0 = time.perf_counter()
+            history.validation_dev.append(self._validation_metrics(params))
+            timings["(validation)"] += time.perf_counter() - t0
+        return total, ok
+
+    def run_grid(self, reg_weights: Dict[str, Sequence[float]], num_iterations: int,
+                 num_rows: int, init_params: Optional[Dict[str, Tensor]] = None,
+                 checkpointers: Optional[List[Optional[object]]] = None,
+                 ) -> List[CoordinateDescentResult]:
+        """Train a lambda grid on these coordinates, built once (the
+        reference re-runs its driver per combo, Driver.scala:330-337).
+
+        ``reg_weights`` maps every coordinate to its G total regularization
+        weights: combo ``g`` updates coordinate ``n`` at
+        ``reg_weights[n][g]``, which every coordinate must accept as
+        ``reg_weight`` in ``update`` and ``regularization_term``. Combos run
+        one after another, each from the same seeded state
+        (``init_params`` warm-starts every combo). A combo's updates are
+        ``run``'s (``_step``), so at equal weights it gives ``run``'s bits.
+        The grid takes no divergence guard.
+
+        ``checkpointers`` (one per combo, or None) save each combo at every
+        iteration boundary, with the JAX grid's leading lane axis ``(1, ...)``
+        on every leaf; a restart resumes the combo from its last complete
+        iteration. Iteration boundaries are the preemption drain points
+        (site ``"cycle"``). Each result's ``timings`` is ``{"(grid)": s}``.
+        """
+        names = list(self.coordinates)
+        if self.divergence_guard is not None:
+            raise ValueError("run_grid takes no divergence guard: run each combo with run()")
+        for name in names:
+            coord = self.coordinates[name]
+            for method in (coord.update, coord.regularization_term):
+                if "reg_weight" not in inspect.signature(method).parameters:
+                    raise ValueError(
+                        f"coordinate {name!r} ({type(coord).__name__}).{method.__name__} "
+                        "does not accept a reg_weight: the lambda grid needs plain "
+                        "fixed/random-effect coordinates"
+                    )
+        if set(reg_weights) != set(names):
+            raise ValueError(f"reg_weights keys {sorted(reg_weights)} != coordinates "
+                             f"{sorted(names)}")
+        lam = {n: [float(x) for x in reg_weights[n]] for n in names}
+        sizes = {n: len(lam[n]) for n in names}
+        g = sizes[names[0]]
+        if any(size != g for size in sizes.values()):
+            raise ValueError(f"all reg-weight vectors must have one length, got {sizes}")
+        if checkpointers is not None and len(checkpointers) != g:
+            raise ValueError(f"checkpointers must match the grid ({g} combos), "
+                             f"got {len(checkpointers)}")
+        params0, scores0, total0 = self._seeded_state(num_rows, init_params)
+        lanes = lambda tree: {n: t.unsqueeze(0) for n, t in tree.items()}
+        n_coords = len(names)
+        out = []
+        for i in range(g):
+            lam_i = {n: lam[n][i] for n in names}
+            ck = checkpointers[i] if checkpointers is not None else None
+            params, scores, total = dict(params0), dict(scores0), total0
+            history = _History()
+            start_iter = 0
+            if ck is not None:
+                restored = ck.restore(lanes(params0), lanes(scores0), total0.unsqueeze(0))
+                if restored is not None:
+                    # grid steps land only at iteration boundaries
+                    start_iter = restored.step // n_coords
+                    params = {n: t[0] for n, t in restored.params.items()}
+                    scores = {n: t[0] for n, t in restored.scores.items()}
+                    total = restored.total_scores[0]
+                    history = _History(restored.objective_history,
+                                       restored.validation_history)
+            timings = {n: 0.0 for n in names}
+            timings["(validation)"] = 0.0
+            t0 = time.perf_counter()
+            for it in range(start_iter, num_iterations):
+                for k, name in enumerate(names):
+                    total, _ = self._step(name, it * n_coords + k + 1, params, scores, total,
+                                          history, timings, {}, lam_i)
+                step = (it + 1) * n_coords
+                if ck is not None:
+                    history.drain()
+                    ck.save(CheckpointState(
+                        step=step, params=lanes(params), scores=lanes(scores),
+                        total_scores=total.unsqueeze(0), objective_history=history.objective,
+                        validation_history=history.validation,
+                    ))
+                if it < num_iterations - 1 and preemption.check("cycle", step=step, combo=i):
+                    if ck is not None:
+                        ck.wait()  # an async commit is durable before exit
+                    raise preemption.Preempted(
+                        f"preempted at grid iteration boundary (combo {i}, step {step}): "
+                        f"{preemption.reason()}", site="cycle",
+                    )
+            history.drain()
+            out.append(CoordinateDescentResult(
+                coefficients=params,
+                total_scores=total,
+                objective_history=history.objective,
+                validation_history=history.validation,
+                timings={"(grid)": time.perf_counter() - t0},
+            ))
+        return out
+
+    def run(self, num_iterations: int, num_rows: int, checkpointer=None,
+            initial_params: Optional[Dict[str, Tensor]] = None) -> CoordinateDescentResult:
+        """``checkpointer`` (``checkpoint.CoordinateDescentCheckpointer`` or
+        its async wrapper) saves after every update and resumes from the
+        last complete step, which takes precedence over ``initial_params``.
+        ``initial_params`` warm-starts named coordinates; they contribute
+        their scores from step zero."""
+        names = list(self.coordinates)
+        params, scores, total = self._seeded_state(num_rows, initial_params)
+        history = _History()
         timings = {n: 0.0 for n in names}
         timings["(validation)"] = 0.0
         trackers: Dict[str, object] = {}
@@ -118,22 +267,7 @@ class CoordinateDescent:
             if restored is not None:
                 start_step = restored.step
                 params, scores, total = restored.params, restored.scores, restored.total_scores
-                objective_history = restored.objective_history
-                validation_history = restored.validation_history
-
-        def drain() -> None:
-            objective_history.extend(float(v) for v in objective_dev)
-            validation_history.extend({k: float(v) for k, v in m.items()}
-                                      for m in validation_dev)
-            objective_dev.clear()
-            validation_dev.clear()
-
-        def save(step: int) -> str:
-            drain()
-            return checkpointer.save(CheckpointState(
-                step=step, params=params, scores=scores, total_scores=total,
-                objective_history=objective_history, validation_history=validation_history,
-            ))
+                history = _History(restored.objective_history, restored.validation_history)
 
         guard = self.divergence_guard
         guard_events_start = len(guard.events) if guard is not None else 0
@@ -144,38 +278,20 @@ class CoordinateDescent:
                 step += 1
                 if step <= start_step:
                     continue  # completed before the restart
-                coord = self.coordinates[name]
-                if not skip_rest_of_cycle:
-                    partial = total - scores[name]  # the other coordinates' scores
-                    t0 = time.perf_counter()
-                    new_params, trackers[name] = coord.update(partial, params[name])
-                    # chaos hook: a kind="nan" fault here corrupts the update
-                    # exactly like a diverged solve
-                    new_params = faults.corrupt("optim.step", new_params,
-                                                coordinate=name, step=step)
-                    new_score = coord.score(new_params)
-                    if guard is not None:
-                        new_params, new_score, ok = guard.filter_update(
-                            name, step, new_params, new_score, params[name], scores[name])
-                        if not ok and guard.mode == "skip_cycle":
-                            skip_rest_of_cycle = True
-                    timings[name] += time.perf_counter() - t0
-                    params[name] = new_params
-                    scores[name] = new_score
-                    total = partial + new_score
-                # else the guard abandoned this cycle: the state is unchanged,
-                # but histories and checkpoints stay one entry per update
-                objective_dev.append(self._objective(total, params))
-                if self.validation_scorer is not None:
-                    t0 = time.perf_counter()
-                    v_scores = self.validation_scorer(params)
-                    validation_dev.append({
-                        key: ev.evaluate(v_scores, **kw)
-                        for key, (ev, kw) in self.validation_evaluators.items()
-                    })
-                    timings["(validation)"] += time.perf_counter() - t0
-
-                path = save(step) if checkpointer is not None else None
+                # a skipped update leaves the state unchanged, but histories
+                # and checkpoints stay one entry per update
+                total, ok = self._step(name, step, params, scores, total, history,
+                                       timings, trackers, skip=skip_rest_of_cycle)
+                if not ok and guard.mode == "skip_cycle":
+                    skip_rest_of_cycle = True
+                path = None
+                if checkpointer is not None:
+                    history.drain()
+                    path = checkpointer.save(CheckpointState(
+                        step=step, params=params, scores=scores, total_scores=total,
+                        objective_history=history.objective,
+                        validation_history=history.validation,
+                    ))
                 # every update boundary is a safe drain point: the finished
                 # step is saved, so make it durable and unwind (the last
                 # update just ends)
@@ -187,13 +303,31 @@ class CoordinateDescent:
                         f"preempted at update boundary (step {step}): {preemption.reason()}",
                         site="cycle", checkpoint_path=path,
                     )
-        drain()
+        history.drain()
         return CoordinateDescentResult(
             coefficients=params,
             total_scores=total,
-            objective_history=objective_history,
-            validation_history=validation_history,
+            objective_history=history.objective,
+            validation_history=history.validation,
             timings=timings,
             trackers=trackers,
             guard_events=list(guard.events[guard_events_start:]) if guard is not None else [],
         )
+
+
+@dataclasses.dataclass
+class _History:
+    """Objective and validation histories: device scalars wait in the
+    ``*_dev`` lists until a save or the end of the run drains them."""
+
+    objective: List[float] = dataclasses.field(default_factory=list)
+    validation: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    objective_dev: List[Tensor] = dataclasses.field(default_factory=list)
+    validation_dev: List[Dict[str, Tensor]] = dataclasses.field(default_factory=list)
+
+    def drain(self) -> None:
+        self.objective.extend(float(v) for v in self.objective_dev)
+        self.validation.extend({k: float(v) for k, v in m.items()}
+                               for m in self.validation_dev)
+        self.objective_dev.clear()
+        self.validation_dev.clear()

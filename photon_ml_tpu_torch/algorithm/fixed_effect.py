@@ -2,10 +2,9 @@
 photon_ml_tpu/algorithm/fixed_effect.py).
 
 Reference spec: algorithm/FixedEffectCoordinate.scala:33-176 — update =
-solve on the full data with residual offsets; score = the dense product
-with the model. The solve takes the plain dense objective, as the JAX GAME
-fixed effect does (it never sets ``fused_block_rows``). Down-sampling is not
-yet ported.
+(down-sample, then) solve on the full data with residual offsets; score =
+the dense product with the model. Down-sampling zeroes the weights of the
+dropped rows (``data/sampler.py``) with the same seeded draws every update.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from photon_ml_tpu_torch.data.sampler import maybe_down_sample
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.objective import GLMBatch
 from photon_ml_tpu_torch.optim.common import OptResult
@@ -22,6 +22,10 @@ from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem, variances_
 from photon_ml_tpu_torch.types import real_dtype
 
 Tensor = torch.Tensor
+
+# The down-sampler's key: every update redraws PRNGKey(7), as the JAX
+# package's FixedEffectCoordinate does.
+DOWN_SAMPLING_SEED = 7
 
 
 @dataclasses.dataclass
@@ -31,6 +35,7 @@ class FixedEffectCoordinate:
     batch: GLMBatch
     problem: GLMOptimizationProblem
     norm: NormalizationContext = dataclasses.field(default_factory=NormalizationContext.identity)
+    down_sampling_rate: Optional[float] = None
 
     @property
     def dim(self) -> int:
@@ -46,11 +51,12 @@ class FixedEffectCoordinate:
     def update(self, residual_offsets: Tensor, init_coefficients: Tensor,
                reg_weight: Optional[float] = None) -> Tuple[Tensor, OptResult]:
         """Solve on residuals: offsets = base + the other coordinates'
-        scores (Coordinate.scala:43-49)."""
-        model, result = self.problem.run(
-            self._residual_batch(residual_offsets), self.norm, init_coefficients,
-            reg_weight=reg_weight,
-        )
+        scores (Coordinate.scala:43-49); ``reg_weight`` overrides the
+        problem's total regularization weight (the lambda grid)."""
+        batch = maybe_down_sample(self._residual_batch(residual_offsets), self.problem.task,
+                                  self.down_sampling_rate, DOWN_SAMPLING_SEED)
+        model, result = self.problem.run(batch, self.norm, init_coefficients,
+                                         reg_weight=reg_weight)
         return model.coefficients.means, result
 
     def score(self, coefficients: Tensor) -> Tensor:

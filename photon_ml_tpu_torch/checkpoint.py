@@ -69,7 +69,9 @@ def _not_ported(what: str) -> NotImplementedError:
 def _flatten(value: Any) -> Tuple[List[Any], str]:
     """(leaves, structure) of a tensor or dicts/lists/tuples of tensors, in
     a JAX pytree's leaf order (dict keys sorted) and spelling
-    (``PyTreeDef({'fixed': *, 'per-user': *})``)."""
+    (``PyTreeDef({'fixed': *, 'per-user': *})``). An object with
+    ``tree_flatten`` (``FactoredState``) is a custom node, spelled as JAX
+    spells a registered class: ``CustomNode(FactoredState[None], [*, *])``."""
     leaves: List[Any] = []
 
     def walk(v: Any) -> str:
@@ -79,6 +81,10 @@ def _flatten(value: Any) -> Tuple[List[Any], str]:
             return "(" + ", ".join(walk(x) for x in v) + ("," if len(v) == 1 else "") + ")"
         if isinstance(v, list):
             return "[" + ", ".join(walk(x) for x in v) + "]"
+        if hasattr(v, "tree_flatten"):
+            children, aux = v.tree_flatten()
+            return (f"CustomNode({type(v).__name__}[{aux}], ["
+                    + ", ".join(walk(x) for x in children) + "])")
         if hasattr(v, "__checkpoint_ref__"):
             raise _not_ported("a by-reference checkpoint leaf (spilled streaming state)")
         leaves.append(v)
@@ -96,6 +102,9 @@ def _unflatten(template: Any, leaves: List[Any]) -> Any:
             return {k: build(v[k]) for k in sorted(v)}
         if isinstance(v, (tuple, list)):
             return type(v)(build(x) for x in v)
+        if hasattr(v, "tree_flatten"):
+            children, aux = v.tree_flatten()
+            return type(v).tree_unflatten(aux, [build(x) for x in children])
         return next(it)
 
     return build(template)

@@ -12,21 +12,23 @@ grammars:
   random-effect data config (RandomEffectDataConfiguration.scala:60-124):
       "name:reId,shardId,numPartitions,activeUB,passiveLB,featureRatio,projector"
   feature shard map: "shard1:sec1,sec2|shard2:sec3"
+  factored config (MFOptimizationConfiguration.scala): REcfg:latentCfg:mfIters,latentDim
 
 The training parser takes every flag of the JAX driver under the same name,
-plus ``--device`` (default ``cuda``). ``validate`` rejects, naming the flag,
-every flag whose code path is not yet ported when it is set away from its
-default: the lambda grid (';'-separated alternatives), factored
-coordinates, bucketed/streaming random effects, solve compaction, the fused
-cycle, the mesh, the caches, warm starts, the planner, feature selection,
-down-sampling and the rest listed in ``_FENCED``. The scoring parser takes
-every flag of the JAX scoring driver, plus ``--device``.
+plus ``--device`` (default ``cuda``). Grid alternatives are ';'-separated
+(``config_grid`` is their Cartesian product). ``validate`` rejects, naming
+the flag, every flag whose code path is not yet ported when it is set away
+from its default: bucketed/streaming random effects, solve compaction, the
+fused cycle, the mesh, the caches, warm starts, the planner and the rest
+listed in ``_FENCED``. The scoring parser takes every flag of the JAX
+scoring driver, plus ``--device``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 from photon_ml_tpu_torch.data.game import RandomEffectDataConfig
@@ -154,6 +156,35 @@ def parse_random_effect_data_configs(s: Optional[str]) -> Dict[str, RandomEffect
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class FactoredSpec:
+    """Factored random effect: RE config + latent config + (mfIters, latentDim)
+    (FactoredRandomEffectOptimizationProblem parity)."""
+
+    random_effect: CoordinateOptConfig
+    latent_factor: CoordinateOptConfig
+    mf_num_iterations: int
+    latent_dim: int
+
+
+def parse_factored_config_map(s: Optional[str]) -> Dict[str, FactoredSpec]:
+    """"name:REcfg:latentCfg:mfIters,latentDim|..." (three config strings a
+    coordinate, ':'-separated)."""
+    out: Dict[str, FactoredSpec] = {}
+    for chunk in _chunks(s):
+        name, re_cfg, latent_cfg, mf_cfg = chunk.split(":", 3)
+        mf_parts = [p.strip() for p in mf_cfg.split(",")]
+        if len(mf_parts) != 2:
+            raise ValueError(f"Parsing {mf_cfg!r} failed: expected mfIters,latentDim")
+        out[name.strip()] = FactoredSpec(
+            CoordinateOptConfig.parse(re_cfg),
+            CoordinateOptConfig.parse(latent_cfg),
+            int(mf_parts[0]),
+            int(mf_parts[1]),
+        )
+    return out
+
+
 def parse_shard_sections(s: Optional[str]) -> Dict[str, List[str]]:
     """"shard1:sec1,sec2|shard2:sec3" -> shard -> section field list."""
     out: Dict[str, List[str]] = {}
@@ -219,6 +250,7 @@ class GameTrainingParams:
     random_effect_data_configs: Dict[str, RandomEffectDataConfig] = dataclasses.field(
         default_factory=dict
     )
+    factored_configs: Dict[str, FactoredSpec] = dataclasses.field(default_factory=dict)
     compute_variance: bool = False
     model_output_mode: ModelOutputMode = ModelOutputMode.BEST
     num_output_files_re_model: int = 1
@@ -246,34 +278,33 @@ class GameTrainingParams:
     max_restarts: int = 0
     # non-finite gate on coordinate updates: off | rollback | skip_cycle
     divergence_guard: str = "off"
+    # "false" | "true" | "auto": a lambda-only grid trains through
+    # CoordinateDescent.run_grid on coordinates built once; anything else
+    # falls back (logged) to the per-combo rebuild
+    vmapped_grid: str = "false"
     # flags of the JAX driver given away from their default whose code paths
     # are not yet ported (filled by the parser; validate refuses them)
     unported_flags: List[str] = dataclasses.field(default_factory=list)
     # where tensors live: "cuda" (default) or "cpu"
     device: str = "cuda"
 
-    def _not_yet_ported(self) -> List[str]:
-        flags = list(self.unported_flags)
-        if len(self.fixed_effect_opt_grid) > 1 or len(self.random_effect_opt_grid) > 1:
-            flags.append("lambda grids (';'-separated optimization configurations)")
-        for combo in (self.fixed_effect_opt_grid + self.random_effect_opt_grid):
-            for name, cfg in combo.items():
-                if cfg.down_sampling_rate < 1.0:
-                    flags.append(f"down-sampling rate {cfg.down_sampling_rate} (coordinate {name!r})")
-        for name, cfg in self.random_effect_data_configs.items():
-            if cfg.features_to_samples_ratio is not None:
-                flags.append(f"features-to-samples ratio (coordinate {name!r})")
-        return [f"{flag} is not yet ported to photon_ml_tpu_torch" for flag in flags]
-
     def validate(self) -> None:
         errors = []
+        # bools are accepted from programmatic construction
+        if isinstance(self.vmapped_grid, bool):
+            self.vmapped_grid = "true" if self.vmapped_grid else "false"
+        if self.vmapped_grid not in ("false", "true", "auto"):
+            errors.append(
+                f"vmapped_grid must be 'false', 'true', or 'auto', got {self.vmapped_grid!r}"
+            )
         if not self.train_input_dirs:
             errors.append("--train-input-dirs is required")
         if not self.output_dir:
             errors.append("--output-dir is required")
         if not self.updating_sequence:
             errors.append("--updating-sequence is required")
-        known = set(self.fixed_effect_data_configs) | set(self.random_effect_data_configs)
+        known = (set(self.fixed_effect_data_configs) | set(self.random_effect_data_configs)
+                 | set(self.factored_configs))
         for name in self.updating_sequence:
             if name not in known:
                 errors.append(f"coordinate {name!r} has no data configuration")
@@ -298,16 +329,20 @@ class GameTrainingParams:
             errors.append("--checkpoint-async needs --checkpoint-dir")
         if self.device not in ("cuda", "cpu"):
             errors.append(f"--device must be cuda or cpu, got {self.device!r}")
-        errors.extend(self._not_yet_ported())
+        errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
+                      for flag in self.unported_flags)
         if errors:
             raise ValueError("; ".join(errors))
 
-    def opt_configs(self) -> Dict[str, CoordinateOptConfig]:
-        """The run's one combination of coordinate configurations (the
-        grid of more than one is not yet ported)."""
-        merged = dict(self.fixed_effect_opt_grid[0])
-        merged.update(self.random_effect_opt_grid[0])
-        return merged
+    def config_grid(self) -> List[Dict[str, CoordinateOptConfig]]:
+        """Cartesian product over the fixed/random grids, merged per combo
+        (cli/game/training/Driver.scala:330-337 grid semantics)."""
+        combos = []
+        for fe, re in itertools.product(self.fixed_effect_opt_grid, self.random_effect_opt_grid):
+            merged = dict(fe)
+            merged.update(re)
+            combos.append(merged)
+        return combos
 
 
 def _io_errors(params) -> List[str]:
@@ -325,7 +360,6 @@ def _io_errors(params) -> List[str]:
 # flag -> its default; a parsed value other than the default (or an "off"
 # spelling) names the flag in validate's "not yet ported" error
 _FENCED = {
-    "--factored-random-effect-optimization-configurations": None,
     "--distributed": "false",
     "--fused-cycle": "false",
     "--bucketed-random-effects": "false",
@@ -340,7 +374,6 @@ _FENCED = {
     "--solve-compaction": None,
     "--adaptive-schedule": None,
     "--plan": None,
-    "--vmapped-grid": "false",
 }
 # values that leave a fenced flag unset, besides its default
 _UNSET = ("", "none", "off", "false", "0", "no")
@@ -375,6 +408,7 @@ def build_training_parser() -> argparse.ArgumentParser:
     a("--random-effect-optimization-configurations", dest="re_opt", default=None)
     a("--fixed-effect-data-configurations", dest="fe_data", default=None)
     a("--random-effect-data-configurations", dest="re_data", default=None)
+    a("--factored-random-effect-optimization-configurations", dest="factored_opt", default=None)
     a("--compute-variance", default="false")
     a("--model-output-mode", default="BEST", choices=[m.value for m in ModelOutputMode])
     a("--num-output-files-for-random-effect-model", dest="num_re_files", type=int, default=1)
@@ -403,6 +437,10 @@ def build_training_parser() -> argparse.ArgumentParser:
     a("--divergence-guard", default="off", choices=["off", "rollback", "skip_cycle"],
       help="non-finite gate on coordinate updates: rollback restores the last "
            "good state, skip_cycle also abandons the iteration")
+    a("--vmapped-grid", default="false",
+      help="train a lambda-only grid through CoordinateDescent.run_grid on "
+           "coordinates built once (true|auto); other grids fall back, logged, "
+           "to the per-combo rebuild")
     for flag, default in _FENCED.items():
         kind = type(default) if isinstance(default, (int, float)) else None
         a(flag, dest=_dest(flag), default=default, type=kind,
@@ -454,6 +492,7 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         random_effect_opt_grid=parse_coordinate_config_grid(ns.re_opt),
         fixed_effect_data_configs=parse_fixed_effect_data_configs(ns.fe_data),
         random_effect_data_configs=parse_random_effect_data_configs(ns.re_data),
+        factored_configs=parse_factored_config_map(ns.factored_opt),
         compute_variance=_truthy(ns.compute_variance),
         model_output_mode=ModelOutputMode(ns.model_output_mode),
         num_output_files_re_model=ns.num_re_files,
@@ -469,6 +508,8 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         checkpoint_async=_truthy(ns.checkpoint_async),
         max_restarts=ns.max_restarts,
         divergence_guard=ns.divergence_guard,
+        vmapped_grid=("auto" if str(ns.vmapped_grid).lower() == "auto"
+                      else "true" if _truthy(ns.vmapped_grid) else "false"),
         unported_flags=_unported(ns),
         device=ns.device,
     )

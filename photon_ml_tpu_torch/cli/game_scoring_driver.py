@@ -11,8 +11,11 @@ Scoring runs on ``--device`` (default cuda): a fixed effect is one
 padded-COO matvec; a random effect stacks the per-entity models into an
 ``(E, D)`` slab and gathers each row's coefficients by entity position
 (rows whose entity has no model score 0, RandomEffectModel.scala:129-158).
-``--host-scoring true`` scores with numpy on the host instead, the device
-path's parity oracle. Factored random-effect models are not yet ported.
+A factored random effect scores from its latent structure (the (E, k)
+factors and the (k, D) matrix, realigned by feature name to this run's
+index map), never flattened to (E, D). ``--host-scoring true`` scores with
+numpy on the host instead, from the flattened coefficients every model
+keeps: the device path's parity oracle.
 
     python -m photon_ml_tpu_torch.cli.game_scoring_driver \\
       --input-dirs data/val --game-model-input-dir out/best --output-dir scores \\
@@ -62,6 +65,16 @@ def padded_coo(feats, device):
 def fixed_contrib(w: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """score_n = sum_k vals_nk * w[idx_nk]."""
     return torch.sum(w[idx] * vals, dim=-1)
+
+
+def factored_contrib(latent: torch.Tensor, matrix: torch.Tensor, ent_pos: torch.Tensor,
+                     idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """score_n = (sum_k vals_nk * M[:, idx_nk]) . latent[ent_pos_n]; a row
+    with ent_pos -1 scores 0 (FactoredRandomEffectCoordinate.score over a
+    saved model)."""
+    xp = torch.sum(matrix.T[idx] * vals[:, :, None], dim=1)  # (N, k)
+    contrib = torch.sum(xp * latent[torch.clamp_min(ent_pos, 0)], dim=-1)
+    return torch.where(ent_pos >= 0, contrib, torch.zeros_like(contrib))
 
 
 def entity_positions(vocab, by_raw_id, ids, fallback_width):
@@ -118,11 +131,6 @@ class GameScoringDriver:
                 shard = f.read().strip()
             fixed.append((name, shard))
         for name in layout[model_io.RANDOM_EFFECT]:
-            if model_io.is_factored_random_effect(self.params.game_model_input_dir, name):
-                raise ValueError(
-                    f"random effect {name!r} is a factored model: factored random effects "
-                    "are not yet ported to photon_ml_tpu_torch"
-                )
             base = os.path.join(self.params.game_model_input_dir, model_io.RANDOM_EFFECT, name)
             with open(os.path.join(base, model_io.ID_INFO)) as f:
                 lines = f.read().splitlines()
@@ -199,11 +207,27 @@ class GameScoringDriver:
             total = total + fixed_contrib(put(means), idx, vals)
             self.logger.info(f"fixed effect {name!r} applied (device)")
         for name, re_id, shard in random:
+            vocab = data.id_vocabs[re_id]
+            idx, vals = padded_coo(data.shards[shard], self.device)
+            if model_io.is_factored_random_effect(p.game_model_input_dir, name):
+                # latent-native: the matrix columns are positions in the
+                # training feature space, realigned by name to this run's map
+                with self.timer.measure("load-model"):
+                    factors, matrix, _, _ = model_io.load_factored_random_effect(
+                        p.game_model_input_dir, name)
+                    matrix = model_io.aligned_latent_matrix(
+                        p.game_model_input_dir, name, self.shard_index_maps[shard], matrix,
+                        warn=self.logger.warn)
+                latent, ent_pos, matched = entity_positions(
+                    vocab, factors, data.ids[re_id], matrix.shape[0])
+                total = total + factored_contrib(put(latent), put(matrix), put(ent_pos),
+                                                 idx, vals)
+                self.logger.info(f"factored random effect {name!r}: {matched}/{len(vocab)} "
+                                 "entities matched (device, latent-native)")
+                continue
             with self.timer.measure("load-model"):
                 entity_means, _, _, _ = model_io.load_random_effect(
                     p.game_model_input_dir, name, self.shard_index_maps[shard])
-            vocab = data.id_vocabs[re_id]
-            idx, vals = padded_coo(data.shards[shard], self.device)
             slab, ent_pos, matched = entity_positions(
                 vocab, entity_means, data.ids[re_id], data.shards[shard].dim)
             total = total + gather_scores(put(slab), put(ent_pos), idx, vals)

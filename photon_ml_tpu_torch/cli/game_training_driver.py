@@ -1,23 +1,32 @@
 """GAME (GLMix) training driver on the card (port of
-photon_ml_tpu/cli/game_training_driver.py for fixed-effect and plain
-random-effect coordinates).
+photon_ml_tpu/cli/game_training_driver.py for fixed-effect, random-effect
+and factored random-effect coordinates).
 
 Reference spec: cli/game/training/Driver.scala:64-537 — prepare feature maps
 (``--offheap-indexmap-dir`` maps from feature_indexing, a NameAndTerm
 vocabulary, or a whole-dataset scan of the Avro inputs), resolve dated
 input dirs, load the GAME data (native Avro decoder), build the
-per-coordinate datasets, build the evaluators, run coordinate descent, save
-the model in the reference's on-disk layout (``best/fixed-effect/<name>/``,
-``best/random-effect/<name>/``; ``all/0/`` too with ``--model-output-mode
-ALL``). Same flag names and log lines as the JAX driver; tensors live on
-``--device`` (default cuda). A fixed-effect shard wider than
-``DENSE_DIM_THRESHOLD`` features trains on padded-COO ``SparseFeatures``.
-With ``PHOTON_SPARSE_KERNEL=pallas`` the random effects solve over sparse
-slabs through the CUDA GEVM/HVP kernels. ``--checkpoint-dir`` saves the
-descent after every coordinate update and resumes from it; a preemption
-(SIGTERM/SIGINT, ``PHOTON_PREEMPT_AT``) drains to the next update boundary,
-then relaunches in-process (``--max-restarts``) or exits with code 75. The
-run leaves ``retrain.json`` at the output root, as the JAX driver does.
+per-coordinate datasets, build the evaluators, train every combination of
+the ';'-separated optimization grids by coordinate descent, pick the best by
+the first evaluator, save the model in the reference's on-disk layout
+(``best/fixed-effect/<name>/``, ``best/random-effect/<name>/``; every combo
+under ``all/<i>/`` with ``--model-output-mode ALL``). Same flag names and log
+lines as the JAX driver; tensors live on ``--device`` (default cuda).
+
+A dense fixed effect solves through the fused CUDA value+gradient kernel on
+the card; a fixed-effect shard wider than ``DENSE_DIM_THRESHOLD`` features
+trains on padded-COO ``SparseFeatures``; a down-sampling rate below 1
+zeroes the weights of the rows it drops. With ``PHOTON_SPARSE_KERNEL=pallas``
+the random effects solve over sparse slabs through the CUDA GEVM/HVP
+kernels. A factored coordinate (``--factored-random-effect-optimization-
+configurations``) factors its IDENTITY dataset and is saved both flattened
+and as latent factors. ``--vmapped-grid true|auto`` trains a lambda-only
+grid through ``CoordinateDescent.run_grid`` on coordinates built once.
+``--checkpoint-dir`` saves the descent after every coordinate update (every
+iteration on the grid path) and resumes from it; a preemption (SIGTERM/
+SIGINT, ``PHOTON_PREEMPT_AT``) drains to the next boundary, then relaunches
+in-process (``--max-restarts``) or exits with code 75. The run leaves
+``retrain.json`` at the output root, as the JAX driver does.
 
     python -m photon_ml_tpu_torch.cli.game_training_driver \\
       --train-input-dirs data/train --validate-input-dirs data/val \\
@@ -47,6 +56,11 @@ import torch
 from photon_ml_tpu_torch.algorithm.coordinate_descent import (
     CoordinateDescent,
     CoordinateDescentResult,
+)
+from photon_ml_tpu_torch.algorithm.factored_random_effect import (
+    FactoredRandomEffectCoordinate,
+    FactoredState,
+    MFOptimizationConfig,
 )
 from photon_ml_tpu_torch.algorithm.fixed_effect import FixedEffectCoordinate
 from photon_ml_tpu_torch.algorithm.random_effect import (
@@ -83,6 +97,8 @@ from photon_ml_tpu_torch.io.name_and_term import NameAndTermFeatureSetContainer
 from photon_ml_tpu_torch.io.offheap import load_shard_index_map
 from photon_ml_tpu_torch.models.game import gather_scores
 from photon_ml_tpu_torch.ops import losses as losses_mod
+from photon_ml_tpu_torch.ops.features import DenseFeatures
+from photon_ml_tpu_torch.ops.fused_glm import select_fused_block_rows
 from photon_ml_tpu_torch.optim.common import OptResult, summarize_result, summarize_stacked_results
 from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
 from photon_ml_tpu_torch.types import ModelOutputMode, TaskType
@@ -271,6 +287,9 @@ class GameTrainingDriver:
                 )
         with self.timer.measure("build-random-effect-datasets"):
             for name, cfg in p.random_effect_data_configs.items():
+                if name in p.factored_configs and cfg.projector != "IDENTITY":
+                    # the factored coordinate factors the unprojected dataset
+                    cfg = dataclasses.replace(cfg, projector="IDENTITY")
                 self.re_datasets[name] = build_random_effect_dataset(
                     self.train_data, cfg, device=self.device
                 )
@@ -287,14 +306,37 @@ class GameTrainingDriver:
         for name in p.updating_sequence:
             cfg = opt_configs.get(name, CoordinateOptConfig())
             if name in p.fixed_effect_data_configs:
+                batch = self.fe_batches[name]
+                block_rows = None
+                if isinstance(batch.features, DenseFeatures):
+                    # the fused value+gradient kernel on the card; None on a CPU
+                    block_rows = select_fused_block_rows(
+                        losses_mod.for_task(p.task_type), batch.num_rows, batch.dim,
+                        batch.features.matrix.dtype, self.device)
                 coords[name] = FixedEffectCoordinate(
-                    self.fe_batches[name],
+                    batch,
                     GLMOptimizationProblem(
                         task=p.task_type,
                         optimizer=cfg.optimizer,
                         optimizer_config=cfg.optimizer_config(),
                         regularization=cfg.regularization_context(),
+                        fused_block_rows=block_rows,
                     ),
+                    down_sampling_rate=(
+                        cfg.down_sampling_rate if cfg.down_sampling_rate < 1.0 else None),
+                )
+            elif name in p.factored_configs:
+                spec = p.factored_configs[name]
+                coords[name] = FactoredRandomEffectCoordinate(
+                    self.re_datasets[name],
+                    p.task_type,
+                    mf_config=MFOptimizationConfig(spec.mf_num_iterations, spec.latent_dim),
+                    re_optimizer=spec.random_effect.optimizer,
+                    re_optimizer_config=spec.random_effect.optimizer_config(),
+                    re_regularization=spec.random_effect.regularization_context(),
+                    latent_optimizer=spec.latent_factor.optimizer,
+                    latent_optimizer_config=spec.latent_factor.optimizer_config(),
+                    latent_regularization=spec.latent_factor.regularization_context(),
                 )
             else:
                 coords[name] = RandomEffectCoordinate(
@@ -368,8 +410,10 @@ class GameTrainingDriver:
                     total = total + fe_feats[name].matvec(w)
                     continue
                 cols, vals, ent_pos = re_info[name]
-                total = total + gather_scores(global_coefficients(self.re_datasets[name], w),
-                                              ent_pos, cols, vals)
+                # a factored coordinate's IDENTITY local space is the global one
+                wg = (w.v @ w.matrix if isinstance(w, FactoredState)
+                      else global_coefficients(self.re_datasets[name], w))
+                total = total + gather_scores(wg, ent_pos, cols, vals)
             return total + offset
 
         return scorer
@@ -388,9 +432,11 @@ class GameTrainingDriver:
         return out
 
     # ------------------------------------------------------------------
-    def _make_checkpointer(self, combo_index: int, opt_configs):
+    def _make_checkpointer(self, combo_index: int, opt_configs, grid: bool = False):
         """The combo's checkpointer (async under --checkpoint-async), with
-        the JAX driver's fingerprint parts; None without --checkpoint-dir."""
+        the JAX driver's fingerprint parts; None without --checkpoint-dir.
+        Grid and per-combo runs fingerprint apart: their steps never
+        cross-resume."""
         p = self.params
         if not p.checkpoint_dir:
             return None
@@ -404,44 +450,123 @@ class GameTrainingDriver:
                     "num_rows": self.train_data.num_rows,
                     "combo": combo_index,
                     "configs": {k: str(v) for k, v in opt_configs.items()},
+                    **({"grid": True} if grid else {}),
                 }),
             ),
             p.checkpoint_async,
         )
 
-    def train(self) -> None:
+    @staticmethod
+    def _close_checkpointer(checkpointer) -> None:
+        """Async fence: every commit durable, and a background failure
+        surfaced, before the models are saved."""
+        if checkpointer is not None and hasattr(checkpointer, "close"):
+            checkpointer.close()
+
+    def _vmapped_grid_blocker(self, combos) -> Optional[str]:
+        """Why --vmapped-grid cannot apply, or None when it can: the grid
+        must vary only per-coordinate lambda on plain fixed/random
+        coordinates."""
         p = self.params
-        opt_configs = p.opt_configs()
-        coords = self._build_coordinates(opt_configs)
-        scorer = evaluators = None
-        if self.validation_data is not None:
-            scorer = self._validation_scorer(coords)
-            evaluators = self._validation_evaluators()
-        self.combo_coords.append(coords)
-        guard = None if p.divergence_guard == "off" else DivergenceGuard(mode=p.divergence_guard)
-        cd = CoordinateDescent(coords, self._training_loss_fn(), scorer, evaluators,
-                               divergence_guard=guard)
-        checkpointer = self._make_checkpointer(0, opt_configs)
-        try:
-            with self.timer.measure("combo-0"):
-                result = cd.run(p.num_iterations, self.train_data.num_rows, checkpointer)
-        finally:
-            # async fence: every commit durable, and a background failure
-            # surfaced, before the models are saved
-            if checkpointer is not None and hasattr(checkpointer, "close"):
-                checkpointer.close()
+        if len(combos) < 2:
+            return "grid has a single combo"
+        if p.factored_configs:
+            return "factored coordinates (lambda lives in nested configs)"
+        if p.compute_variance:
+            return "--compute-variance (save-time Hessians need per-combo statics)"
+        if p.divergence_guard != "off":
+            return "--divergence-guard (per-update host gate cannot enter the compiled cycle)"
+        for name in p.updating_sequence:
+            # every field but lambda must agree across the combos
+            non_lambda = {dataclasses.replace(c.get(name, CoordinateOptConfig()), reg_weight=0.0)
+                          for c in combos}
+            if len(non_lambda) > 1:
+                return f"combos vary beyond lambda for coordinate {name!r}"
+        return None
+
+    def _evaluation(self, coords):
+        """(validation scorer, evaluators, primary evaluator key), all None
+        without validation data."""
+        if self.validation_data is None:
+            return None, None, None
+        evaluators = self._validation_evaluators()
+        return self._validation_scorer(coords), evaluators, next(iter(evaluators), None)
+
+    def _record(self, i: int, opt_configs, result: CoordinateDescentResult, evaluators,
+                primary, tag: str = "") -> None:
+        """Keep combo ``i``'s result, log it, and move ``best_index`` when the
+        primary evaluator prefers it."""
         metrics = result.validation_history[-1] if result.validation_history else {}
         self.results.append((opt_configs, result, metrics))
         self.logger.info(
-            f"combo 0: objective={result.objective_history[-1]:.6g} "
+            f"combo {i}{tag}: objective={result.objective_history[-1]:.6g} "
             + " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
         )
-        for event in result.guard_events:
-            self.logger.warn(f"combo 0 divergence guard: {event}")
-        for cname, tracker in result.trackers.items():
-            summary = _summarize_tracker(tracker)
-            if summary:
-                self.logger.info(f"combo 0 [{cname}] {summary}")
+        if primary is not None and metrics:
+            ev = evaluators[primary][0]
+            best = self.results[self.best_index][2].get(primary) if i else None
+            if best is None or ev.better_than(metrics[primary], best):
+                self.best_index = i
+
+    def _train_shared_compile_grid(self, combos) -> None:
+        """Every combo through ``CoordinateDescent.run_grid`` on coordinates
+        built once; results and ``best_index`` as the per-combo path sets
+        them. With --checkpoint-dir each combo checkpoints per cycle and
+        resumes from its last complete iteration."""
+        p = self.params
+        coords = self._build_coordinates(combos[0])
+        scorer, evaluators, primary = self._evaluation(coords)
+        cd = CoordinateDescent(coords, self._training_loss_fn(), scorer, evaluators)
+        lam = {name: [c.get(name, CoordinateOptConfig()).reg_weight for c in combos]
+               for name in p.updating_sequence}
+        checkpointers = ([self._make_checkpointer(i, combos[i], grid=True)
+                          for i in range(len(combos))] if p.checkpoint_dir else None)
+        try:
+            with self.timer.measure("shared-compile-grid"):
+                grid_results = cd.run_grid(lam, p.num_iterations, self.train_data.num_rows,
+                                           checkpointers=checkpointers)
+        finally:
+            for ck in checkpointers or ():
+                self._close_checkpointer(ck)
+        for i, (opt_configs, result) in enumerate(zip(combos, grid_results)):
+            self.combo_coords.append(coords)
+            self._record(i, opt_configs, result, evaluators, primary, " (grid)")
+
+    def train(self) -> None:
+        p = self.params
+        combos = p.config_grid()
+        if p.vmapped_grid in ("true", "auto"):
+            blocker = self._vmapped_grid_blocker(combos)
+            if blocker is None:
+                self.logger.info(
+                    "--vmapped-grid: training through the shared-compile grid (the "
+                    "batched G-lane variant was removed; sequential won every "
+                    "measured race)")
+                self._train_shared_compile_grid(combos)
+                return
+            self.logger.warn(f"--vmapped-grid requested but falling back to the per-combo "
+                             f"rebuild grid: {blocker}")
+        loss_fn = self._training_loss_fn()
+        for i, opt_configs in enumerate(combos):
+            coords = self._build_coordinates(opt_configs)
+            scorer, evaluators, primary = self._evaluation(coords)
+            self.combo_coords.append(coords)
+            guard = (None if p.divergence_guard == "off"
+                     else DivergenceGuard(mode=p.divergence_guard))
+            cd = CoordinateDescent(coords, loss_fn, scorer, evaluators, divergence_guard=guard)
+            checkpointer = self._make_checkpointer(i, opt_configs)
+            try:
+                with self.timer.measure(f"combo-{i}"):
+                    result = cd.run(p.num_iterations, self.train_data.num_rows, checkpointer)
+            finally:
+                self._close_checkpointer(checkpointer)
+            self._record(i, opt_configs, result, evaluators, primary)
+            for event in result.guard_events:
+                self.logger.warn(f"combo {i} divergence guard: {event}")
+            for cname, tracker in result.trackers.items():
+                summary = _summarize_tracker(tracker)
+                if summary:
+                    self.logger.info(f"combo {i} [{cname}] {summary}")
 
     # ------------------------------------------------------------------
     def _rows_by_raw_id(self, name: str, rows: np.ndarray) -> Dict[str, np.ndarray]:
@@ -459,7 +584,7 @@ class GameTrainingDriver:
         def variances_for(name, coeffs):
             """1/H_jj at the final state, with --compute-variance; the
             residual is the total minus this coordinate's own score."""
-            if not p.compute_variance or combo_index is None:
+            if not p.compute_variance or combo_index is None or name in p.factored_configs:
                 return None
             cfg = p.random_effect_data_configs.get(name)
             if cfg is not None and cfg.projector == "RANDOM":
@@ -485,19 +610,33 @@ class GameTrainingDriver:
                 continue
             cfg = p.random_effect_data_configs[name]
             ds = self.re_datasets[name]
+            factored = isinstance(coeffs, FactoredState)
             entity_variances = (
                 None if var is None
                 else self._rows_by_raw_id(name, host(global_coefficients(ds, var)))
             )
+            means = coeffs.v @ coeffs.matrix if factored else global_coefficients(ds, coeffs)
             model_io.save_random_effect(
                 output_dir, name, p.task_type,
-                self._rows_by_raw_id(name, host(global_coefficients(ds, coeffs))),
+                self._rows_by_raw_id(name, host(means)),
                 self.shard_index_maps[cfg.feature_shard_id],
                 random_effect_id=cfg.random_effect_id,
                 feature_shard_id=cfg.feature_shard_id,
                 num_files=p.num_output_files_re_model,
                 entity_variances=entity_variances,
             )
+            if factored:
+                # the latent structure too (LatentFactorAvro, AvroUtils.scala:
+                # 244-266): the flattened coefficients above serve scoring, but
+                # alone they cannot rebuild the model
+                model_io.save_factored_random_effect(
+                    output_dir, name, self._rows_by_raw_id(name, host(coeffs.v)),
+                    host(coeffs.matrix),
+                    random_effect_id=cfg.random_effect_id,
+                    feature_shard_id=cfg.feature_shard_id,
+                    num_files=p.num_output_files_re_model,
+                    index_map=self.shard_index_maps[cfg.feature_shard_id],
+                )
 
     # ------------------------------------------------------------------
     def run(self, restart: bool = False) -> None:
@@ -593,11 +732,15 @@ class GameTrainingDriver:
         """Leave this run's ``retrain.json`` for the next run's planner."""
         p = self.params
         selected = self.results[self.best_index][0]
+
+        def kind(name: str) -> str:
+            if name in p.fixed_effect_data_configs:
+                return "fixed"
+            return "factored" if name in p.factored_configs else "random"
+
         coords = {
-            name: CoordinateRecord(
-                kind="fixed" if name in p.fixed_effect_data_configs else "random",
-                opt_config=str(selected.get(name, CoordinateOptConfig())),
-            )
+            name: CoordinateRecord(kind=kind(name),
+                                   opt_config=str(selected.get(name, CoordinateOptConfig())))
             for name in p.updating_sequence
         }
         manifest = RetrainManifest(

@@ -11,15 +11,18 @@ RANDOM projections).
     and the local projection are host-side numpy, identical to the JAX
     build; the tensors then move to the device. A RANDOM projection makes
     the local space the k-dimensional image of one shared Gaussian matrix
-    (projectors.py), so its stack is dense in every slot.
+    (projectors.py), so its stack is dense in every slot. A
+    features-to-samples ratio keeps, per entity, the features of highest
+    |Pearson correlation| with the label (``pearson_feature_scores``, numpy
+    float64), as the JAX build does.
 
-Pearson feature selection and the tensor cache are not yet ported.
+The tensor cache is not yet ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +86,56 @@ def balanced_entity_order(active_counts: np.ndarray, num_shards: int) -> np.ndar
     for p in per_shard:
         order.extend(p + [-1] * (cap - len(p)))
     return np.asarray(order, np.int64)
+
+
+def pearson_feature_scores(
+    entity_of_row: np.ndarray,
+    labels: np.ndarray,
+    feats: HostFeatures,
+    row_mask: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """|Pearson corr(feature, label)| per (entity, feature) pair present.
+
+    Returns (pair_entity, pair_feature, pair_score) for every distinct
+    (entity, feature) pair among masked-in rows, in ascending composite-key
+    order. Absent features are zeros and enter through the count and mean
+    terms; a feature of zero variance (an intercept) scores 1.0, so it is
+    always kept (data/LocalDataSet.scala:198-259 semantics).
+    """
+    n = feats.num_rows
+    rows_nnz = np.repeat(np.arange(n), np.diff(feats.indptr))
+    keep = row_mask[rows_nnz]
+    r = rows_nnz[keep]
+    c = feats.indices[keep].astype(np.int64)
+    v = feats.values[keep]
+    ent = entity_of_row[r].astype(np.int64)
+    y = labels[r]
+
+    # per-entity label statistics over the masked rows
+    me = np.max(entity_of_row[row_mask]) + 1 if row_mask.any() else 0
+    cnt_e = np.bincount(entity_of_row[row_mask], minlength=me).astype(np.float64)
+    sum_y = np.bincount(entity_of_row[row_mask], weights=labels[row_mask], minlength=me)
+    sum_y2 = np.bincount(entity_of_row[row_mask], weights=labels[row_mask] ** 2, minlength=me)
+
+    # per-(entity, feature) sums through composite keys
+    key = ent * feats.dim + c
+    uniq, inv = np.unique(key, return_inverse=True)
+    sum_x = np.bincount(inv, weights=v)
+    sum_x2 = np.bincount(inv, weights=v.astype(np.float64) ** 2)
+    sum_xy = np.bincount(inv, weights=(v * y).astype(np.float64))
+
+    pe = (uniq // feats.dim).astype(np.int64)
+    pf = (uniq % feats.dim).astype(np.int64)
+    ne = cnt_e[pe]
+    mean_x = sum_x / ne
+    mean_y = sum_y[pe] / ne
+    var_x = sum_x2 / ne - mean_x**2
+    var_y = sum_y2[pe] / ne - mean_y**2
+    cov = sum_xy / ne - mean_x * mean_y
+    denom = np.sqrt(np.maximum(var_x, 0.0) * np.maximum(var_y, 0.0))
+    score = np.where(denom > 1e-12, np.abs(cov) / np.maximum(denom, 1e-12), 0.0)
+    score = np.where(var_x <= 1e-12, 1.0, score)
+    return pe, pf, score
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,11 +214,6 @@ def build_random_effect_dataset(data: GameData, config: RandomEffectDataConfig,
     ``config.random_projection_dim`` and ``config.seed``."""
     if config.projector not in ("INDEX_MAP", "IDENTITY", "RANDOM"):
         raise ValueError(f"unknown random-effect projector {config.projector!r}")
-    if config.features_to_samples_ratio is not None:
-        raise ValueError(
-            "random-effect features-to-samples ratio (Pearson feature selection) "
-            "is not yet ported to photon_ml_tpu_torch"
-        )
     dev = resolve_device(device)
     real = _np_real()
     ids = data.ids[config.random_effect_id]
@@ -198,7 +246,7 @@ def build_random_effect_dataset(data: GameData, config: RandomEffectDataConfig,
             config, feats, num_entities_raw, projector, real)
     else:
         d_loc, local_to_global, project_rows = _local_index_maps(
-            config, ids, feats, n, num_entities_raw, active_mask, real)
+            config, data, ids, feats, n, num_entities_raw, active_mask, active_counts, real)
 
     # ---- entity-major training tensors ------------------------------------
     entity_order = balanced_entity_order(active_counts, config.num_shards)
@@ -293,21 +341,40 @@ def _random_projection(config, feats, num_entities_raw, projector, real):
     return d_loc, local_to_global, project_rows, projector.matrix
 
 
-def _local_index_maps(config, ids, feats, n, num_entities_raw, active_mask, real):
-    """The INDEX_MAP local space (each entity's features seen in its active
-    rows, in ascending global order) or the IDENTITY one (every column):
-    (D_loc, local_to_global by raw entity, project_rows)."""
+def _entity_feature_pairs(config, data, ids, feats, n, num_entities_raw, active_mask,
+                          active_counts):
+    """(entity, global feature) pairs of the INDEX_MAP local spaces: every
+    feature an entity saw in its active rows, or with a features-to-samples
+    ratio its top ceil(ratio * active count) by Pearson score (ties in
+    ascending feature order)."""
+    if config.features_to_samples_ratio is not None:
+        pe, pf, score = pearson_feature_scores(ids, data.response, feats, active_mask)
+        budget = np.ceil(config.features_to_samples_ratio * active_counts).astype(np.int64)
+        sel_order = np.lexsort((-score, pe))
+        pe_s, pf_s = pe[sel_order], pf[sel_order]
+        start = np.searchsorted(pe_s, np.arange(num_entities_raw), side="left")
+        rank_f = np.arange(len(pe_s)) - start[pe_s]
+        keep_pair = rank_f < budget[pe_s]
+        return pe_s[keep_pair], pf_s[keep_pair]
     rows_nnz = np.repeat(np.arange(n), np.diff(feats.indptr))
     keep = active_mask[rows_nnz]
     pair_key = ids[rows_nnz[keep]].astype(np.int64) * feats.dim + feats.indices[keep].astype(np.int64)
     uniq = np.unique(pair_key)
-    pair_e = (uniq // feats.dim).astype(np.int64)
-    pair_f = (uniq % feats.dim).astype(np.int64)
+    return (uniq // feats.dim).astype(np.int64), (uniq % feats.dim).astype(np.int64)
+
+
+def _local_index_maps(config, data, ids, feats, n, num_entities_raw, active_mask,
+                      active_counts, real):
+    """The INDEX_MAP local space (each entity's selected features, in
+    ascending global order) or the IDENTITY one (every column, whatever the
+    ratio): (D_loc, local_to_global by raw entity, project_rows)."""
     if config.projector == "IDENTITY":
         d_loc = feats.dim
         local_to_global = np.tile(np.arange(feats.dim, dtype=np.int32), (num_entities_raw, 1))
         pair_lookup = None
     else:  # INDEX_MAP: local order = ascending global column per entity
+        pair_e, pair_f = _entity_feature_pairs(config, data, ids, feats, n, num_entities_raw,
+                                               active_mask, active_counts)
         o = np.lexsort((pair_f, pair_e))
         pair_e, pair_f = pair_e[o], pair_f[o]
         ent_start = np.searchsorted(pair_e, np.arange(num_entities_raw), side="left")

@@ -1,6 +1,5 @@
 """GAME / GLM model persistence in the reference's on-disk layout (port of
-the fixed- and random-effect part of photon_ml_tpu/io/model_io.py; the
-factored and matrix-factorization layouts are not yet ported).
+photon_ml_tpu/io/model_io.py).
 
 Reference spec: avro/model/ModelProcessingUtils.scala:40-148 —
 
@@ -8,6 +7,13 @@ Reference spec: avro/model/ModelProcessingUtils.scala:40-148 —
   outputDir/fixed-effect/<coordinateName>/coefficients/part-00000.avro
   outputDir/random-effect/<coordinateName>/id-info
   outputDir/random-effect/<coordinateName>/coefficients/part-*.avro
+
+A factored random effect also keeps its latent structure beside the
+flattened coefficients: ``latent-factors/`` and ``latent-matrix/``
+(LatentFactorAvro, AvroUtils.scala:244-266), the word ``factored`` on the
+third line of ``id-info`` and the matrix columns' feature keys in
+``latent-matrix-features`` (JSON). A matrix-factorization model is two
+directories of LatentFactorAvro (ModelProcessingUtils.scala:251-311).
 
 Coefficients are BayesianLinearModelAvro records whose means/variances are
 NameTermValueAvro (feature name/term -> value); per-entity models use
@@ -17,6 +23,7 @@ IndexMap (feature key = "name\\x01term").
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict, List, Optional, Tuple
 
@@ -194,6 +201,126 @@ def load_random_effect(
     return out, task, re_id, shard
 
 
+# ---------------------------------------------------------------------------
+# latent factors (LatentFactorAvro part files of {effectId, latentFactor})
+# ---------------------------------------------------------------------------
+
+LATENT_FACTORS = "latent-factors"
+LATENT_MATRIX = "latent-matrix"
+LATENT_MATRIX_FEATURES = "latent-matrix-features"
+
+
+def save_latent_factors(path: str, factors: Dict[str, np.ndarray],
+                        num_files: int = 1) -> None:
+    """Write {effectId -> latent vector} as LatentFactorAvro part files,
+    the ids in sorted order dealt round-robin over ``num_files``."""
+    os.makedirs(path, exist_ok=True)
+    shards: List[List[dict]] = [[] for _ in range(max(num_files, 1))]
+    for i, (eid, vec) in enumerate(sorted(factors.items())):
+        shards[i % len(shards)].append(
+            {"effectId": str(eid), "latentFactor": [float(v) for v in np.asarray(vec)]}
+        )
+    for i, recs in enumerate(shards):
+        avro_io.write_container(
+            os.path.join(path, f"part-{i:05d}.avro"), recs, schemas.LATENT_FACTOR
+        )
+
+
+def load_latent_factors(path: str) -> Dict[str, np.ndarray]:
+    return {rec["effectId"]: np.asarray(rec["latentFactor"], np.float64)
+            for rec in avro_io.read_directory(path)}
+
+
+def save_matrix_factorization(output_dir: str, row_effect_type: str, col_effect_type: str,
+                              row_factors: Dict[str, np.ndarray],
+                              col_factors: Dict[str, np.ndarray], num_files: int = 1) -> None:
+    """MatrixFactorizationModel's layout (ModelProcessingUtils.scala:251-272):
+    ``<rowEffectType>/`` and ``<colEffectType>/`` of LatentFactorAvro files."""
+    save_latent_factors(os.path.join(output_dir, row_effect_type), row_factors, num_files)
+    save_latent_factors(os.path.join(output_dir, col_effect_type), col_factors, num_files)
+
+
+def load_matrix_factorization(input_dir: str, row_effect_type: str, col_effect_type: str
+                              ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """ModelProcessingUtils.scala:291-311 (a missing directory raises)."""
+    row_path = os.path.join(input_dir, row_effect_type)
+    col_path = os.path.join(input_dir, col_effect_type)
+    for p in (row_path, col_path):
+        if not os.path.isdir(p):
+            raise FileNotFoundError(f"latent factor directory not found: {p}")
+    return load_latent_factors(row_path), load_latent_factors(col_path)
+
+
+def save_factored_random_effect(
+    output_dir: str,
+    name: str,
+    entity_factors: Dict[str, np.ndarray],  # raw entity id -> (k,) latent coefficients
+    matrix: np.ndarray,  # (k, D_global) latent matrix
+    random_effect_id: str = "",
+    feature_shard_id: str = "",
+    num_files: int = 1,
+    index_map: Optional[IndexMap] = None,
+) -> None:
+    """A factored random effect's latent structure: the per-entity latent
+    coefficients (effectId = raw entity id), the matrix (one record a
+    latent dimension, effectId = its index) and, with ``index_map``, the
+    feature key of every matrix column, so a run with another index map
+    realigns the columns by name. Loads back to the same state."""
+    base = os.path.join(output_dir, RANDOM_EFFECT, name)
+    os.makedirs(base, exist_ok=True)
+    with open(os.path.join(base, ID_INFO), "w") as f:
+        f.write(f"{random_effect_id}\n{feature_shard_id}\nfactored\n")
+    save_latent_factors(os.path.join(base, LATENT_FACTORS), entity_factors, num_files)
+    matrix = np.asarray(matrix)
+    save_latent_factors(os.path.join(base, LATENT_MATRIX),
+                        {str(k): matrix[k] for k in range(matrix.shape[0])})
+    if index_map is not None:
+        # JSON, since feature names and terms may hold tabs and newlines
+        pairs = [list(_split_key(index_map.get_feature_name(j) or str(j)))
+                 for j in range(matrix.shape[1])]
+        with open(os.path.join(base, LATENT_MATRIX_FEATURES), "w") as f:
+            json.dump({"columns": pairs}, f)
+
+
+def _latent_matrix(base: str) -> np.ndarray:
+    rows = load_latent_factors(os.path.join(base, LATENT_MATRIX))
+    return np.stack([rows[str(k)] for k in range(len(rows))])
+
+
+def load_latent_matrix(input_dir: str, name: str) -> np.ndarray:
+    """Only the shared (k, D) latent matrix."""
+    return _latent_matrix(os.path.join(input_dir, RANDOM_EFFECT, name))
+
+
+def load_factored_random_effect(input_dir: str, name: str
+                                ) -> Tuple[Dict[str, np.ndarray], np.ndarray, str, str]:
+    """(entity latent factors, (k, D_global) matrix, reId, shard)."""
+    base = os.path.join(input_dir, RANDOM_EFFECT, name)
+    with open(os.path.join(base, ID_INFO)) as f:
+        lines = f.read().splitlines()
+    re_id = lines[0] if lines else ""
+    shard = lines[1] if len(lines) > 1 else ""
+    factors = load_latent_factors(os.path.join(base, LATENT_FACTORS))
+    return factors, _latent_matrix(base), re_id, shard
+
+
+def load_latent_matrix_feature_keys(input_dir: str, name: str) -> Optional[List[str]]:
+    """The training-order feature keys of the matrix columns, or None for a
+    model without the binding file. Lines of a name and a term split by a tab, the
+    binding's earlier format, still load."""
+    path = os.path.join(input_dir, RANDOM_EFFECT, name, LATENT_MATRIX_FEATURES)
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        text = f.read()
+    try:
+        pairs = json.loads(text)["columns"]
+    except json.JSONDecodeError:
+        pairs = [line.partition("\t")[::2] for line in text.splitlines() if line]
+    # always the delimiter form: a termless key is "name\x01", not "name"
+    return [f"{nm}{DELIMITER}{term}" for nm, term in pairs]
+
+
 def is_factored_random_effect(input_dir: str, name: str) -> bool:
     """Whether ``random-effect/<name>`` holds a factored model (its id-info
     says so on a third line)."""
@@ -203,6 +330,42 @@ def is_factored_random_effect(input_dir: str, name: str) -> bool:
     with open(info) as f:
         lines = f.read().splitlines()
     return len(lines) > 2 and lines[2] == "factored"
+
+
+def aligned_latent_matrix(input_dir: str, name: str, index_map: IndexMap,
+                          matrix: np.ndarray, warn=None) -> np.ndarray:
+    """A factored model's (k, D_train) matrix with its columns moved to this
+    run's index map by feature name (the columns are positions in the
+    training feature space). A model without the binding file is taken
+    positionally when the widths agree (with a warning) and raises when
+    they do not."""
+    train_keys = load_latent_matrix_feature_keys(input_dir, name)
+    if train_keys is None:
+        if len(index_map) != matrix.shape[1]:
+            raise ValueError(
+                f"factored model {name!r} predates the latent-matrix feature binding "
+                f"and this run's index map has {len(index_map)} features vs the "
+                f"matrix's {matrix.shape[1]} columns — cannot align; rebuild the "
+                "model or pass the training offheap index maps"
+            )
+        if warn is not None:
+            warn(
+                f"factored model {name!r} has no latent-matrix feature binding: "
+                "assuming this run's index map matches the training map "
+                "positionally (same size only proves length, not order) — scores "
+                "are wrong if the feature sets differ; rebuild the model to get the "
+                "binding"
+            )
+        return matrix.astype(np.float32)
+    aligned = np.zeros((matrix.shape[0], len(index_map)), np.float32)
+    for j, key in enumerate(train_keys):
+        tgt = index_map.get_index(key)
+        if tgt < 0 and key.endswith(DELIMITER):
+            # the empty-term fallback, e.g. (INTERCEPT) stored without a delimiter
+            tgt = index_map.get_index(key[: -len(DELIMITER)])
+        if tgt >= 0:
+            aligned[:, tgt] = matrix[:, j]
+    return aligned
 
 
 def list_game_model(input_dir: str) -> Dict[str, List[str]]:

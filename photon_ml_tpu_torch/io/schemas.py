@@ -65,6 +65,16 @@ BAYESIAN_LINEAR_MODEL = {
     ],
 }
 
+LATENT_FACTOR = {
+    "name": "LatentFactorAvro",
+    "namespace": "com.linkedin.photon.ml.avro.generated",
+    "type": "record",
+    "fields": [
+        {"name": "effectId", "type": "string"},
+        {"name": "latentFactor", "type": {"type": "array", "items": "double"}},
+    ],
+}
+
 # reference model class names, for modelClass/lossFunction round-trips
 SCORING_RESULT = {
     "name": "ScoringResultAvro",

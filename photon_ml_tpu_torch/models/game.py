@@ -1,10 +1,13 @@
-"""GAME model containers: fixed effect, random effect, the whole GAME model
-(port of the fixed/random parts of photon_ml_tpu/models/game.py).
+"""GAME model containers: fixed effect, random effect, factored random
+effect, matrix factorization and the whole GAME model (port of
+photon_ml_tpu/models/game.py).
 
 Reference spec: model/GAMEModel.scala:29-115 (coordinate -> sub-model, total
 score = sum of sub-scores), FixedEffectModel.scala, RandomEffectModel.scala:
-32-160 (a datum whose entity has no model scores 0). A random-effect model is
-one stacked coefficient tensor (E, D_loc) plus the gather bookkeeping.
+32-160 (a datum whose entity has no model scores 0),
+FactoredRandomEffectModel.scala:30-80, MatrixFactorizationModel.scala:32-180.
+A random-effect model is one stacked coefficient tensor (E, D_loc) plus the
+gather bookkeeping.
 """
 
 from __future__ import annotations
@@ -67,6 +70,70 @@ class RandomEffectModel:
         coefs = self.coefficients[ep[:, None], li]
         valid = (entity_pos[:, None] >= 0) & (feat_idx >= 0)
         return torch.sum(torch.where(valid, coefs * feat_val, torch.zeros_like(coefs)), dim=-1)
+
+
+@dataclasses.dataclass
+class FactoredRandomEffectModel:
+    """Per-entity latent coefficients and the shared latent matrix
+    (model/FactoredRandomEffectModel.scala:30-80)."""
+
+    latent_coefficients: Tensor  # (E, k)
+    latent_matrix: Tensor  # (k, D_loc)
+    random_effect_id: str
+    feature_shard_id: str
+    task: TaskType
+    entity_tensor_pos: Optional[np.ndarray] = None
+    entity_vocab: Optional[List[str]] = None
+
+    def to_random_effect_model(self, local_to_global: Tensor) -> RandomEffectModel:
+        """The original-space stacked coefficients W = V M
+        (FactoredRandomEffectModel.toRandomEffectModel)."""
+        return RandomEffectModel(
+            coefficients=self.latent_coefficients @ self.latent_matrix,
+            local_to_global=local_to_global,
+            random_effect_id=self.random_effect_id,
+            feature_shard_id=self.feature_shard_id,
+            task=self.task,
+            entity_tensor_pos=self.entity_tensor_pos,
+            entity_vocab=self.entity_vocab,
+        )
+
+
+@dataclasses.dataclass
+class MatrixFactorizationModel:
+    """Row and column latent factors; a datum scores the dot of its row's and
+    its column's factors (model/MatrixFactorizationModel.scala:32-180: the
+    RDDs of (id, vector) become two stacked factor tensors)."""
+
+    row_effect_type: str
+    col_effect_type: str
+    row_latent_factors: Tensor  # (R, k)
+    col_latent_factors: Tensor  # (C, k)
+    row_vocab: Optional[List[str]] = None
+    col_vocab: Optional[List[str]] = None
+
+    @property
+    def num_latent_factors(self) -> int:
+        return self.row_latent_factors.shape[-1]
+
+    def score(self, row_ids: Tensor, col_ids: Tensor) -> Tensor:
+        """(N,) scores of paired (row, column) indices; an index < 0 (no
+        factor) scores 0, as the reference's cogroup drops such datums."""
+        r = torch.clamp_min(row_ids, 0).long()
+        c = torch.clamp_min(col_ids, 0).long()
+        dots = torch.sum(self.row_latent_factors[r] * self.col_latent_factors[c], dim=-1)
+        valid = (row_ids >= 0) & (col_ids >= 0)
+        return torch.where(valid, dots, torch.zeros_like(dots))
+
+    def to_summary_string(self) -> str:
+        rn = np.linalg.norm(self.row_latent_factors.detach().cpu().numpy(), axis=-1)
+        cn = np.linalg.norm(self.col_latent_factors.detach().cpu().numpy(), axis=-1)
+        return (
+            f"MatrixFactorizationModel(row={self.row_effect_type}, "
+            f"col={self.col_effect_type}, k={self.num_latent_factors}): "
+            f"row L2 mean={rn.mean():.4g} max={rn.max():.4g}; "
+            f"col L2 mean={cn.mean():.4g} max={cn.max():.4g}"
+        )
 
 
 @dataclasses.dataclass

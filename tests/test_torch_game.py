@@ -86,12 +86,18 @@ def test_random_effect_dataset_is_byte_equal(glmix, name):
 
 
 def test_random_effect_dataset_refuses_unported_projections(glmix):
-    """Pearson feature selection is still refused; the RANDOM projection is
-    ported (held against the JAX build in tests/test_torch_projectors.py)."""
-    _, tdata = glmix
+    """Every projection is ported now, Pearson feature selection too (held
+    against the JAX build in tests/test_torch_pearson.py; RANDOM in
+    tests/test_torch_projectors.py); an unknown projector raises."""
+    jdata, tdata = glmix
     cfg = tgame.RandomEffectDataConfig("userId", "per_user", features_to_samples_ratio=0.5)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tgame.build_random_effect_dataset(tdata, cfg, device="cpu")
+    got = tgame.build_random_effect_dataset(tdata, cfg, device="cpu")
+    want = j_build(jdata, JReConfig("userId", "per_user", features_to_samples_ratio=0.5))
+    assert got.local_to_global.numpy().tobytes() == np.asarray(want.local_to_global).tobytes()
+    with pytest.raises(ValueError, match="unknown random-effect projector"):
+        tgame.build_random_effect_dataset(
+            tdata, tgame.RandomEffectDataConfig("userId", "per_user", projector="HASHED"),
+            device="cpu")
     cfg = tgame.RandomEffectDataConfig("userId", "per_user", projector="RANDOM",
                                        random_projection_dim=2)
     ds = tgame.build_random_effect_dataset(tdata, cfg, device="cpu")

@@ -5,7 +5,8 @@ flags (without ``--checkpoint-dir``) through both ``main([...])``.
 Objective histories and validation metrics at the ``solver`` tolerance of
 tests/tolerances.py, the same on-disk model layout, and each package loads
 the other's saved model. The pure-Python Avro codec writes the same bytes
-in both packages, every flag whose path is not yet ported raises, and
+in both packages, every flag whose path is not yet ported raises (the grid,
+factored and sampling flags run: tests/test_torch_game_grid*.py), and
 interop carries the GAME objects across.
 """
 
@@ -140,10 +141,7 @@ FENCED = [
     ["--shape-canonicalization", "on"],
     ["--adaptive-schedule", "on"],
     ["--plan", "auto"],
-    ["--vmapped-grid", "true"],
     ["--export-serve-store", "store"],
-    ["--factored-random-effect-optimization-configurations",
-     "per-user:10,1e-5,1,1,LBFGS,L2:10,1e-5,1,1,LBFGS,L2:2,2"],
 ]
 
 
@@ -154,21 +152,6 @@ def test_every_unported_flag_raises_naming_it(tmp_path, extra):
         tparams.parse_training_params(argv)
 
 
-@pytest.mark.parametrize("swap,what", [
-    (("--fixed-effect-optimization-configurations",
-      "fixed:50,1e-7,0.01,1,LBFGS,L2;fixed:50,1e-7,1,1,LBFGS,L2"), "lambda grids"),
-    (("--fixed-effect-optimization-configurations", "fixed:50,1e-7,0.01,0.5,LBFGS,L2"),
-     "down-sampling"),
-    (("--random-effect-data-configurations", "per-user:userId,per_user,1,-1,-1,0.5,INDEX_MAP"),
-     "features-to-samples ratio"),
-])
-def test_unported_configurations_raise(tmp_path, swap, what):
-    argv = _argv("train", "validate", str(tmp_path / "o"), "LBFGS")
-    argv[argv.index(swap[0]) + 1] = swap[1]
-    with pytest.raises(ValueError, match=f"{what}.* is not yet ported"):
-        tparams.parse_training_params(argv)
-
-
 def test_quickstart_flags_parse_like_the_jax_parser(tmp_path):
     from photon_ml_tpu.cli.game_params import parse_training_params as jparse
 
@@ -176,7 +159,8 @@ def test_quickstart_flags_parse_like_the_jax_parser(tmp_path):
     got, want = tparams.parse_training_params(argv), jparse(argv)
     assert got.updating_sequence == want.updating_sequence
     assert got.feature_shard_sections == want.feature_shard_sections
-    assert got.opt_configs()["per-user"].optimizer.value == "TRON"
+    assert len(got.config_grid()) == len(want.config_grid()) == 1
+    assert got.config_grid()[0]["per-user"].optimizer.value == "TRON"
     assert got.random_effect_data_configs["per-user"].projector == "INDEX_MAP"
     assert [(e.value, k, i) for e, k, i in got.evaluators] == \
         [(e.value, k, i) for e, k, i in want.evaluators]

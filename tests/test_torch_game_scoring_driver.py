@@ -170,16 +170,6 @@ def test_offheap_index_maps_round_trip(game_avro_dirs, tmp_path):  # noqa: F811
                     dtype=np.float32)
 
 
-def test_a_factored_model_is_refused(models, game_avro_dirs, tmp_path):  # noqa: F811
-    _, val_dir, _ = game_avro_dirs
-    _, model_dir = models["port"]
-    shutil.copytree(model_dir, tmp_path / "m")
-    with open(tmp_path / "m" / "random-effect" / "per-user" / "id-info", "a") as f:
-        f.write("factored\n")
-    with pytest.raises(ValueError, match="factored random effects are not yet ported"):
-        _score(tscoring, str(tmp_path / "m"), val_dir, str(tmp_path / "o"))
-
-
 def test_scoring_flags_parse_like_the_jax_parser():
     argv = ["--input-dirs", "a,b", "--game-model-input-dir", "m", "--output-dir", "o",
             "--evaluator-type", EVALUATORS, "--random-effect-id-set", "userId,itemId",
