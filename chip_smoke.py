@@ -73,6 +73,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import struct
 import subprocess
@@ -261,9 +262,37 @@ def phase_kernel_vs_plain(torch, fused_glm, losses):
     return max_abs_err
 
 
+# the dense race's shapes: the GLM path's, and the GAME drivers' fixed effect
+# (phase 10's training rows, 32 features and the intercept)
+RACE_SHAPES = ((N_FULL, D_FULL), (192667, 33))
+
+
+def dense_race_reports(torch, fused_glm, losses):
+    """The dense race (PHOTON_ML_TPU_FUSED=auto) at RACE_SHAPES in bf16 and
+    f32, each candidate's sec/pass or failure and the winner, printed."""
+    out = {}
+    for n, d in RACE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            rep = fused_glm.autotune_report(losses.logistic, n, d, dtype, "cuda")
+            key = f"{n}x{d} {str(dtype)[6:]}"
+            out[key] = rep
+            check(rep["candidates"] and all("sec_per_pass" in c or c.get("failed")
+                                            for c in rep["candidates"].values()),
+                  f"dense race {key}: a candidate has neither a time nor a failure: {rep}")
+            say(f"  dense race {key} (probe {min(n, fused_glm.PROBE_ROWS)} rows): winner "
+                f"{rep['winner'] or 'matmul'}; " + "; ".join(
+                    f"{name} " + (f"{c['sec_per_pass'] * 1e3:.4f} ms/pass, "
+                                  f"{c['one_stream_gb_per_sec']} GB/s one stream of X"
+                                  if "sec_per_pass" in c else f"FAILED {c['failed']}")
+                    for name, c in rep["candidates"].items()))
+    return out
+
+
 def phase_times(torch, fused_glm, losses):
     """Phase 4: kernel and plain times at N=262144, D=512 beside the bound;
-    the kernel by both methods (per-launch CUDA events, CUDA-graph replay)."""
+    the kernel by both methods (per-launch CUDA events, CUDA-graph replay);
+    the dense race's baseline (two torch.matmul) on the same inputs; then
+    the dense race's reports at RACE_SHAPES."""
     say("== phase 4: times at N=262144, D=512 (logistic): median of 30 per-launch CUDA-event "
         "readings; graph: median of 30 CUDA-graph replays of 20 launches")
     mem_rate, flop_rate = MEM_RATE, FP32_RATE
@@ -272,6 +301,7 @@ def phase_times(torch, fused_glm, losses):
         args = (losses.logistic,) + make_inputs(torch, losses.logistic, N_FULL, D_FULL, dtype, SEED)
         kernel_ms = time_ms(torch, lambda: fused_glm.fused_value_grad_kernel(*args))
         plain_ms = time_ms(torch, lambda: fused_glm.fused_value_grad_parts_plain(*args))
+        library_ms = time_ms(torch, lambda: fused_glm.matmul_value_grad(*args))
         kernel_ms2 = time_ms(torch, lambda: fused_glm.fused_value_grad_kernel(*args))
         graph = graph_ms(torch, lambda: fused_glm.fused_value_grad_kernel(*args))
         item = args[1].element_size()
@@ -282,16 +312,18 @@ def phase_times(torch, fused_glm, losses):
         ms = statistics.median([kernel_ms, kernel_ms2])
         name = str(dtype)[6:]
         out[name] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "flops": flops, "share_of_bound": bound_ms / ms,
             "ms_runs": [kernel_ms, kernel_ms2], "graph_ms": graph,
             "share_of_bound_graph": bound_ms / graph,
         }
         say(f"  {name:8s} kernel {kernel_ms:.4f} / {kernel_ms2:.4f} ms (graph {graph:.4f} ms)   "
-            f"plain two-pass {plain_ms:.4f} ms (context only)   bound {bound_ms:.4f} ms = {nbytes} B "
+            f"plain two-pass {plain_ms:.4f} ms (context only)   two torch.matmul (the race's "
+            f"baseline) {library_ms:.4f} ms   bound {bound_ms:.4f} ms = {nbytes} B "
             f"/ {mem_rate / 1e12:.2f} TB/s ({CARD}; ops bound {ops_ms:.4f} ms)   share of bound "
             f"{bound_ms / ms:.3f} (graph {bound_ms / graph:.3f})")
+    out["race"] = dense_race_reports(torch, fused_glm, losses)
     return out
 
 
@@ -303,6 +335,7 @@ def phase_train_grid(torch, fused_glm, kernel_ms):
     from photon_ml_tpu_torch.ops.objective import GLMBatch
     from photon_ml_tpu_torch.ops.regularization import RegularizationContext
     from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
+    from photon_ml_tpu_torch.ops import losses
     from photon_ml_tpu_torch.training import train_glm_grid
     from photon_ml_tpu_torch.types import TaskType
 
@@ -339,6 +372,10 @@ def phase_train_grid(torch, fused_glm, kernel_ms):
     fused_glm.fused_value_grad_kernel.launches = 0
     trained, kernel_s0 = timed(lambda: train_glm_grid(problem, batch, norm, LAMBDAS))
     launches = fused_glm.fused_value_grad_kernel.launches
+    chose = fused_glm.select_fused_block_rows(losses.logistic, N_FULL, D_FULL, torch.bfloat16,
+                                              "cuda") is not None
+    check(chose, "the dense race chose the matmul path for train_glm_grid's batch (it chose "
+                 "the kernel at every shape measured so far)")
     check(launches > 0, "train_glm_grid did not launch the fused kernel")
     _, kernel_s1 = timed(lambda: train_glm_grid(problem, batch, norm, LAMBDAS))
     before = fused_glm.fused_value_grad_kernel.launches
@@ -378,6 +415,7 @@ def phase_driver(torch, fused_glm, workdir):
     native loader must parse every file."""
     from photon_ml_tpu_torch.cli import glm_driver
     from photon_ml_tpu_torch.io import libsvm
+    from photon_ml_tpu_torch.ops import losses
     from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
 
     n_train, n_val, d, nnz = N_FULL, 8192, GLM_DRIVER_D, 32
@@ -408,6 +446,12 @@ def phase_driver(torch, fused_glm, workdir):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_glm.fused_value_grad_kernel.launches
+    b = driver.train_batch
+    chose = fused_glm.select_fused_block_rows(  # the race's cached choice for this batch
+        losses.for_task(driver.problem.task), b.num_rows, b.dim, b.features.matrix.dtype,
+        b.device) is not None
+    check(chose, "the dense race chose the matmul path for glm_driver's batch (it chose the "
+                 "kernel at every shape measured so far)")
     check(launches > 0, "glm_driver did not launch the fused kernel")
     check(libsvm.parse_counts == {"native_files": 2, "python_files": 0},
           f"LIBSVM files by parser {libsvm.parse_counts}: the native loader must read both")
@@ -1074,19 +1118,30 @@ def sparse_bytes(e, m, k, d):
             "hvp": slab_b + rows_b + 2 * cols_b + 4 * e + cols_b + 4 * e}
 
 
+PROFILE_ATTEMPTS = 3
+
+
 def launches_of_one_call(torch, fn):
     """The device kernels and the aten operators of one call, by
-    torch.profiler."""
+    torch.profiler, and the number of traced calls it took. CUPTI now and
+    then delivers no device record at all for a session (a trace with the
+    call's aten operators and no device event of any kind); such a session
+    shows nothing about the call, so the call is traced again in a fresh
+    session, up to PROFILE_ATTEMPTS calls. A trace that holds device events
+    is taken as it is."""
     from torch.profiler import ProfilerActivity, profile
 
-    sync(torch)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         sync(torch)
-    events = prof.events()
-    kernels = [ev.name for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
-    ops = sorted({ev.name for ev in events if ev.name.startswith("aten::")})
-    return kernels, ops
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync(torch)
+        events = prof.events()
+        kernels = [ev.name for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
+        ops = sorted({ev.name for ev in events if ev.name.startswith("aten::")})
+        if kernels:
+            break
+    return kernels, ops, attempt
 
 
 def phase_sparse_times(torch, fused_sparse, losses):
@@ -1094,9 +1149,14 @@ def phase_sparse_times(torch, fused_sparse, losses):
     ``fused_hvp_parts``) at the full-width shape and at the GAME driver's
     slab shape (logistic, f32), by both methods (per-launch CUDA events,
     CUDA-graph replay) and the host clock, twice each, beside its bound,
-    its tables' bytes and the plain version's time (context only). One
-    call's launches are counted by torch.profiler and by the wrappers'
-    counts."""
+    its tables' bytes, the plain version's time (context only) and the
+    dense incumbent's (the objective on the (E, M, D) stack: the sparse
+    race's baseline, in torch ops). One call's launches are counted by
+    torch.profiler and by the wrappers' counts."""
+    from photon_ml_tpu_torch.ops.features import DenseFeatures
+    from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+    from photon_ml_tpu_torch.ops.objective import GLMBatch, GLMObjective
+
     say("== phase 8: sparse kernel times (logistic, f32): median of 30 per-launch CUDA-event "
         "readings; graph: median of 30 CUDA-graph replays of 20 launches, per launch; host: "
         "host clock over 200 calls enqueued back to back, per call")
@@ -1116,6 +1176,12 @@ def phase_sparse_times(torch, fused_sparse, losses):
             "gevm": lambda: fused_sparse.fused_value_grad_parts_plain(loss, slab, y, wt, off, w),
             "hvp": lambda: fused_sparse.fused_hvp_parts_plain(loss, slab, y, wt, off, w, v, vshift),
         }
+        obj, norm = GLMObjective(loss), NormalizationContext.identity()
+        dense = GLMBatch(DenseFeatures(slab.to_dense()), y, off, wt)
+        library = {
+            "gevm": lambda: obj.value_and_grad(w, dense, norm),
+            "hvp": lambda: obj.hessian_vector(w, v, dense, norm),
+        }
         nbytes = sparse_bytes(e, m, k, d)
         # flops: 2 per slot per contraction (the margin loops over all K
         # slots), 2 per real slot for the transpose
@@ -1129,37 +1195,42 @@ def phase_sparse_times(torch, fused_sparse, losses):
                 f"{plan.row_threads} threads a row, {plan.smem_bytes} B of shared memory each")
             counter = fused_sparse.sparse_gevm_kernel if name == "gevm" else fused_sparse.sparse_hvp_kernel
             before = counter.launches
-            kernels, ops = launches_of_one_call(torch, calls[name])
-            check(counter.launches == before + 1, f"{name}: one call did not count one launch")
+            kernels, ops, traced = launches_of_one_call(torch, calls[name])
+            check(counter.launches == before + traced,
+                  f"{name}: {traced} traced call(s) did not count {traced} launch(es)")
             check(not any(op in ops for op in ("aten::add", "aten::constant_pad_nd", "aten::pad")),
                   f"{name}: one call ran row-sum operators {ops}")
-            check(kernels, f"{name}: torch.profiler recorded no device kernel for one call "
-                           "(CUPTI traced nothing), so the launch count cannot be shown")
+            check(kernels, f"{name}: torch.profiler recorded no device kernel in {traced} "
+                           "traced calls (CUPTI traced nothing), so the launch count cannot be "
+                           "shown")
             check(len(kernels) == 1, f"{name}: one call launched {len(kernels)} device kernels")
             say(f"    {name}: one call = {len(kernels)} device kernel(s) by torch.profiler "
-                f"{sorted(set(kernels))}, launch count +1, aten ops {ops}")
+                f"{sorted(set(kernels))}, launch count +1, aten ops {ops}"
+                + (f" (traced on call {traced}: CUPTI recorded no device event for the "
+                   f"{traced - 1} before)" if traced > 1 else ""))
             ev, gr, ho = [], [], []
             for _ in range(2):
                 ev.append(time_ms(torch, calls[name]))
                 gr.append(graph_ms(torch, calls[name]))
                 ho.append(host_ms(torch, calls[name]))
             plain_ms = time_ms(torch, plain[name])
+            library_ms = time_ms(torch, library[name])
             bytes_ms, ops_ms = nbytes[name] / MEM_RATE * 1e3, flops[name] / FP32_RATE * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             ms, graph = statistics.median(ev), statistics.median(gr)
             r = {"ms": ms, "ms_runs": ev, "graph_ms": graph, "graph_ms_runs": gr,
                  "host_ms": statistics.median(ho),
-                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                  "bytes": nbytes[name], "flops": flops[name], "share_of_bound": bound_ms / ms,
                  "share_of_bound_graph": bound_ms / graph, "table_bytes": tables.nbytes,
                  "design_bytes_ms": (nbytes[name] + tables.nbytes) / MEM_RATE * 1e3,
-                 "device_kernels_per_call": len(kernels), "shape": shape,
+                 "device_kernels_per_call": len(kernels), "profiled_calls": traced, "shape": shape,
                  "plan": dataclasses.asdict(plan)}
             say(f"    {name}: call {' / '.join(f'{x:.5f}' for x in ev)} ms (graph "
                 f"{' / '.join(f'{x:.5f}' for x in gr)} ms; host "
                 f"{' / '.join(f'{x:.5f}' for x in ho)} ms)   plain {plain_ms:.4f} ms "
-                f"(context only)   bound {bound_ms:.5f} ms = {nbytes[name]} B / "
+                f"(context only)   dense incumbent {library_ms:.4f} ms   bound {bound_ms:.5f} ms = {nbytes[name]} B / "
                 f"{MEM_RATE / 1e12:.2f} TB/s ({CARD}; ops bound {ops_ms:.5f} ms)   share of "
                 f"bound {bound_ms / ms:.3f} (graph {bound_ms / graph:.3f})   design overhead: "
                 f"column tables {tables.nbytes} B, with them {r['design_bytes_ms']:.5f} ms")
@@ -1286,15 +1357,17 @@ def _write_avro(path, encoded, schema, block=4096):
                     + avro_io.DEFAULT_SYNC)
 
 
-def write_game_avro(workdir, num_users, seed, wide=None):
+def write_game_avro(workdir, num_users, seed, wide=None, rows_per_user=None):
     """bench.py's GAME data as TrainingExampleAvro with two feature sections,
     each user's rows split 80/20 into train/ and validate/. ``wide=(names,
     per_row)`` widens the fixed section: each row carries ``per_row`` of
-    ``names`` feature names instead of the dense d_fixed."""
+    ``names`` feature names instead of the dense d_fixed. ``rows_per_user``
+    replaces bench.py's 8-15 rows a user."""
     from photon_ml_tpu_torch.io import schemas
 
     rng = np.random.default_rng(seed)
-    rows_per_user = rng.integers(8, 16, size=num_users)
+    if rows_per_user is None:
+        rows_per_user = rng.integers(8, 16, size=num_users)
     n = int(rows_per_user.sum())
     user = rng.permutation(np.repeat(np.arange(num_users), rows_per_user))
     d_fixed = GAME_D_FIXED if wide is None else wide[1]
@@ -1470,11 +1543,11 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
     fixed_err = hold_driver_fixed(torch, fused_glm, drivers["pallas"].combo_coords[0]["fixed"],
                                   "phase 10")
     (res_k, launches_k, *_), (res_p, launches_p, *_) = runs["pallas"], runs["off"]
-    check(launches_k["gevm"] > 0, "the pallas driver run launched no GEVM kernel")
+    kernels_launched(drivers["pallas"], launches_k, "the pallas driver run")
     check(launches_p["gevm"] == launches_p["hvp"] == 0,
           "the off driver run launched a sparse kernel")
-    check(launches_k["fused_glm"] > 0 and launches_p["fused_glm"] > 0,
-          "a GAME driver run's dense fixed effect did not launch the fused kernel")
+    check((launches_p["fused_glm"] > 0) == (launches_k["fused_glm"] > 0),
+          "the off driver run's dense fixed effect did not follow the dense race")
     for a, b in zip(res_k.objective_history, res_p.objective_history):
         check(abs(a - b) <= 1e-2 * abs(b) + 2e-3, f"objective histories differ: {a} vs {b}")
     say("  objective histories of the pallas and off runs agree within the solver tolerance")
@@ -1790,6 +1863,18 @@ def hold_driver_fixed(torch, fused_glm, coord, label):
                       f"{zero} rows at weight 0")
 
 
+def kernels_launched(driver, launches, label):
+    """A GAME driver run on the card launched its path's kernels: the GEVM
+    kernel, and the fused dense kernel, which the dense race chose for the
+    driver's fixed effect (``fused_block_rows`` set; it chose the kernel at
+    every shape measured so far)."""
+    fixed = driver.combo_coords[0]["fixed"]
+    check(fixed.problem.fused_block_rows is not None,
+          f"{label}: the dense race chose the matmul path for the fixed effect")
+    check(launches["gevm"] > 0 and launches["fused_glm"] > 0,
+          f"{label}: a kernel of the path did not launch: {launches}")
+
+
 def coordinate_scores(driver, result):
     """Each coordinate's training scores at the run's final parameters, and
     the total, on the host in float64."""
@@ -1799,7 +1884,17 @@ def coordinate_scores(driver, result):
     return {k: v.double().cpu().numpy() for k, v in out.items()}
 
 
-def scores_held(label, card, cpu):
+def lane_iterations(tracker):
+    """A random effect's per-lane iterations as numpy (a bucketed one's
+    buckets concatenated), None for any other tracker."""
+    if isinstance(tracker, tuple) and not hasattr(tracker, "iterations"):
+        parts = [lane_iterations(t) for t in tracker]
+        return None if not parts or any(p_ is None for p_ in parts) else np.concatenate(parts)
+    it = getattr(tracker, "iterations", None)
+    return None if it is None or it.ndim != 1 else it.cpu().numpy()
+
+
+def scores_held(label, card, cpu, what="card vs CPU"):
     """Every coordinate's training scores and the total, card (driver,
     result) against CPU. The fixed effect's are held row by row at the
     solver tolerance. A per-entity coordinate solves each entity as an f32
@@ -1810,7 +1905,8 @@ def scores_held(label, card, cpu):
     PR 8). Those coordinates and the total are held by the norm of the
     difference over the CPU's norm, within the solver's relative tolerance;
     the rows outside the elementwise tolerance and the lanes whose last
-    solve stopped apart are printed. Returns the numbers per coordinate."""
+    solve stopped apart (where both runs lay the lanes out alike) are
+    printed. ``what`` names the pair. Returns the numbers per coordinate."""
     from photon_ml_tpu_torch.algorithm.fixed_effect import FixedEffectCoordinate
 
     (card_driver, card_res), (cpu_driver, cpu_res) = card, cpu
@@ -1824,18 +1920,21 @@ def scores_held(label, card, cpu):
         outside = int((diff > SOLVER_ATOL + SOLVER_RTOL * np.abs(b)).sum())
         rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
         apart = None
-        if name in coords and card_res.trackers[name].iterations.ndim == 1:
-            apart = int((card_res.trackers[name].iterations.cpu()
-                         != cpu_res.trackers[name].iterations.cpu()).sum())
+        ta, tb = (r.trackers.get(name) for r in (card_res, cpu_res))
+        # lanes line up only between two runs of one layout (bucketed or not)
+        if name in coords and type(ta) is type(tb) and len(ta) == len(tb):
+            ia, ib = lane_iterations(ta), lane_iterations(tb)
+            if ia is not None and ib is not None and ia.shape == ib.shape:
+                apart = int((ia != ib).sum())
         if isinstance(coords.get(name), FixedEffectCoordinate):
-            held(f"{label}: {name} scores, card vs CPU", a, b)
+            held(f"{label}: {name} scores, {what}", a, b)
             how = "elementwise"
         else:
-            check(rel <= SOLVER_RTOL, f"{label}: {name} scores, card vs CPU: |diff| / |cpu| "
+            check(rel <= SOLVER_RTOL, f"{label}: {name} scores, {what}: |diff| / |ref| "
                                       f"{rel:.3g} > {SOLVER_RTOL}")
             how = "in norm"
-        say(f"  {label} {name} scores card vs CPU, held {how}: max |diff| {diff.max():.4g}, "
-            f"|diff| / |cpu| {rel:.3g}, rows outside the elementwise tolerance {outside} of "
+        say(f"  {label} {name} scores {what}, held {how}: max |diff| {diff.max():.4g}, "
+            f"|diff| / |ref| {rel:.3g}, rows outside the elementwise tolerance {outside} of "
             f"{a.size}" + ("" if apart is None else
                            f", lanes whose last solve stopped apart {apart}"))
         out[name] = {"max_abs_diff": float(diff.max()), "rel_norm": rel,
@@ -2120,9 +2219,10 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     the fixed section widened to FIXED_WIDE_NAMES names, FIXED_WIDE_PER_ROW a
     row, and the quickstart's fixed effect run to convergence: the fixed
     effect takes the sparse layout, the GEVM kernel launches, every fixed
-    solve converges, two card runs at GAME_USERS users write byte-equal
-    models, and at WIDE_CPU_USERS users the objective history on the card
-    holds against the same command on the CPU. The first fixed solve of that
+    solve converges; one card run at GAME_USERS users for the timings, and at
+    WIDE_CPU_USERS users two card runs write byte-equal models and the
+    objective history on the card holds against the same command on the
+    CPU. The first fixed solve of that
     pair then runs again on each side's batch at the quickstart's own cap of
     50, a witness of how far two unconverged trajectories part (printed, not
     held)."""
@@ -2133,9 +2233,9 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     say(f"== phase 16: game_training_driver.main, phase 10's data with the fixed section "
         f"widened to {FIXED_WIDE_PER_ROW} of {FIXED_WIDE_NAMES} names a row ({GAME_USERS} "
         f"users), the quickstart's flags with the fixed effect's cap raised to "
-        f"{FIXED_WIDE_ITERS} LBFGS iterations (L2 lambda 0.01), spec pallas; twice on {dev}; "
-        f"then at {WIDE_CPU_USERS} users once on {dev} and once on the CPU, and the first "
-        "fixed solve of that pair at the quickstart's cap of 50 on each")
+        f"{FIXED_WIDE_ITERS} LBFGS iterations (L2 lambda 0.01), spec pallas; once on {dev}; "
+        f"then at {WIDE_CPU_USERS} users twice on {dev} and once on the CPU, and the first "
+        "fixed solve of the card and CPU pair at the quickstart's cap of 50 on each")
     small = os.path.join(workdir, "small")
     for users, where, seed in ((GAME_USERS, workdir, SEED + 16),
                                (WIDE_CPU_USERS, small, SEED + 17)):
@@ -2157,8 +2257,9 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     runs = {}
     FixedEffectCoordinate.update = recorded
     try:
-        for label, device, data in (("card", dev, workdir), ("card again", dev, workdir),
-                                    ("card small", dev, small), ("cpu small", "cpu", small)):
+        for label, device, data in (("card", dev, workdir), ("card small", dev, small),
+                                    ("card small again", dev, small),
+                                    ("cpu small", "cpu", small)):
             out = os.path.join(workdir, "out-" + label.replace(" ", "-"))
             argv = ["--train-input-dirs", os.path.join(data, "train"),
                     "--validate-input-dirs", os.path.join(data, "validate"),
@@ -2186,13 +2287,13 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
                 + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()))
     finally:
         FixedEffectCoordinate.update = update
-    check(tree_bytes(os.path.join(runs["card"][1], "best"))
-          == tree_bytes(os.path.join(runs["card again"][1], "best")),
+    check(tree_bytes(os.path.join(runs["card small"][1], "best"))
+          == tree_bytes(os.path.join(runs["card small again"][1], "best")),
           "two card runs of the wide GAME driver wrote different model bytes")
     err = held("wide GAME objective history, card vs CPU", runs["card small"][0].objective_history,
                runs["cpu small"][0].objective_history)
-    say(f"  two card runs wrote byte-equal models; at {WIDE_CPU_USERS} users objective histories "
-        f"card vs CPU within {err:.3g} (solver tolerance)")
+    say(f"  at {WIDE_CPU_USERS} users two card runs wrote byte-equal models, and objective "
+        f"histories card vs CPU within {err:.3g} (solver tolerance)")
     # the quickstart's own cap, a witness and not held: neither side's first
     # fixed solve converges in 50 iterations, and the two trajectories part
     capped = {}
@@ -2213,20 +2314,33 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
             "objective_history": {k: runs[k][0].objective_history for k in runs}}
 
 
+# phase 17's depth: phase 10's generator and widths at a fifth of its users
+# (each of its ten driver runs is mostly Avro ingest, which scales with rows)
+CHECKPOINT_USERS = 4000
+
+
 def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
-    """Phase 17: phase 10's command with --checkpoint-dir on phase 10's data
-    under spec pallas and spec scatter: an uninterrupted run (the checkpoint's bytes and save time per step), a
-    subprocess stopped by PHOTON_PREEMPT_AT (exit 75) and resumed,
+    """Phase 17: phase 10's command with --checkpoint-dir on phase 10's
+    generator at CHECKPOINT_USERS users under spec pallas and spec scatter:
+    an uninterrupted run (the checkpoint's bytes and save time per step),
+    and a subprocess stopped by
+    PHOTON_PREEMPT_AT (exit 75) and resumed; under pallas also
     --checkpoint-async true, and --max-restarts 1 with an injected
-    preemption; every run's model bytes equal the uninterrupted run's."""
+    preemption; every run's model bytes equal the uninterrupted run's. Then
+    the same pair under spec auto (``checkpoints_under_auto``)."""
     from photon_ml_tpu_torch import checkpoint
     from photon_ml_tpu_torch.resilience import preemption
 
     say("== phase 17: checkpoints and preemption: phase 10's command with --checkpoint-dir on "
-        f"phase 10's data ({GAME_USERS} users), spec pallas then scatter")
+        f"phase 10's generator at {CHECKPOINT_USERS} users, spec pallas, scatter, then auto")
     here = os.path.dirname(os.path.abspath(__file__))
-    base = ["--train-input-dirs", os.path.join(workdir, "train"),
-            "--validate-input-dirs", os.path.join(workdir, "validate"),
+    data = os.path.join(workdir, "ck17-data")
+    t0 = time.perf_counter()
+    n_train, n_val = write_game_avro(data, CHECKPOINT_USERS, SEED + 170)
+    say(f"  Avro written in {time.perf_counter() - t0:.1f} s: {CHECKPOINT_USERS} users, "
+        f"{n_train} train rows, {n_val} validation rows")
+    base = ["--train-input-dirs", os.path.join(data, "train"),
+            "--validate-input-dirs", os.path.join(data, "validate"),
             "--device", dev, "--delete-output-dir-if-exists", "true"] + GAME_FLAGS
     out = {}
     for spec in ("pallas", "scatter"):
@@ -2279,6 +2393,13 @@ def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
             f"{kept}); resumed in {wall_r:.2f} s (GEVM launches {launches_r['gevm']}): model "
             "bytes and objective history equal to the uninterrupted run's")
 
+        out[spec] = {"saves": saves, "wall_s": wall, "subprocess_s": sub_s, "resume_s": wall_r}
+        if spec != "pallas":
+            # the async commit and the in-process restart do not depend on
+            # the solve family: they run under pallas only (cut for time)
+            say(f"  spec {spec}: --checkpoint-async and --max-restarts runs cut (run under "
+                "pallas only)")
+            continue
         preemption.reset()
         _, wall_a, _, _, _ = run_game_training(
             torch, fused_sparse, base + ["--output-dir", tag("async"), "--checkpoint-dir",
@@ -2298,9 +2419,55 @@ def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
               f"spec {spec}: the restarted run's model bytes differ")
         say(f"  spec {spec}: --checkpoint-async true {wall_a:.2f} s and --max-restarts 1 with a "
             f"preemption at step 3 {wall_m:.2f} s: model bytes equal to the uninterrupted run's")
-        out[spec] = {"saves": saves, "wall_s": wall, "subprocess_s": sub_s, "resume_s": wall_r,
-                     "async_s": wall_a, "restart_s": wall_m}
+        out[spec].update(async_s=wall_a, restart_s=wall_m)
+    out["auto"] = checkpoints_under_auto(torch, fused_sparse, workdir, base, here)
     return out
+
+
+def checkpoints_under_auto(torch, fused_sparse, workdir, base, here):
+    """Phase 17 under spec auto: the run records its race winners beside
+    its checkpoints (races.json) and a resumed run takes them. The stopped
+    subprocess is handed the uninterrupted run's record, and the resume
+    starts with both race caches empty: it must race nothing, and its model
+    bytes and objective history must equal the uninterrupted run's."""
+    from photon_ml_tpu_torch.cli.game_training_driver import RACES_FILE
+    from photon_ml_tpu_torch.ops import fused_glm
+    from photon_ml_tpu_torch.resilience import preemption
+
+    tag = lambda name: os.path.join(workdir, f"ck17-auto-{name}")
+    preemption.reset()
+    clean, wall, _, _, _ = run_game_training(
+        torch, fused_sparse, base + ["--output-dir", tag("out"), "--checkpoint-dir", tag("ck")],
+        "auto")
+    with open(os.path.join(tag("ck"), RACES_FILE)) as f:
+        decisions = json.load(f)
+    check({race for race, _, _ in decisions} == {"dense", "sparse"},
+          f"spec auto: the recorded race decisions {decisions}")
+    os.makedirs(tag("ck-sub"))
+    shutil.copy(os.path.join(tag("ck"), RACES_FILE), tag("ck-sub"))
+    env = dict(os.environ, PHOTON_SPARSE_KERNEL="auto", PHOTON_PREEMPT_AT="cycle:2")
+    argv = base + ["--output-dir", tag("sub"), "--checkpoint-dir", tag("ck-sub")]
+    proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.game_training_driver",
+                           *argv], cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 75, f"spec auto: the preempted subprocess exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+    fused_sparse._race_cache.clear()
+    fused_glm._autotune_cache.clear()
+    raced = len(fused_sparse.race_reports()), len(fused_glm._autotune_timings)
+    preemption.reset()
+    resumed, wall_r, _, _, _ = run_game_training(torch, fused_sparse, argv, "auto")
+    check((len(fused_sparse.race_reports()), len(fused_glm._autotune_timings)) == raced,
+          "spec auto: the resumed run raced instead of taking the recorded winners")
+    check(tree_bytes(os.path.join(tag("sub"), "best")) == tree_bytes(os.path.join(tag("out"),
+                                                                              "best")),
+          "spec auto: the resumed run's model bytes differ from the uninterrupted run's")
+    check(resumed.results[0][1].objective_history == clean.results[0][1].objective_history,
+          "spec auto: the resumed objective history differs")
+    say(f"  spec auto: uninterrupted run {wall:.2f} s recorded {len(decisions)} race decisions "
+        f"{decisions}; a subprocess handed them stopped at step 2 (exit 75); resumed in "
+        f"{wall_r:.2f} s with empty race caches, racing nothing: model bytes and objective "
+        "history equal to the uninterrupted run's")
+    return {"wall_s": wall, "resume_s": wall_r, "decisions": decisions}
 
 
 # the lambda grid of bench.py:2411-2438 on phase 10's data: the fixed
@@ -2469,8 +2636,7 @@ def phase_game_grid(torch, fused_sparse, workdir, dev="cuda"):
             check(m["AUC"] > GAME_AUC_FLOOR, f"{label}: validation AUC {m['AUC']}")
         grid_path = all("(grid)" in r.timings for _, r, _ in driver.results)
         check(grid_path == (label == "vmapped-grid"), f"{label}: trained through the wrong path")
-        check(launches["gevm"] > 0 and launches["fused_glm"] > 0,
-              f"{label}: a kernel of the path did not launch: {launches}")
+        kernels_launched(driver, launches, label)
         say(_run_line(label, driver, wall, launches, stages))
         grid[label] = (driver, out, wall, launches, stages)
     (pc, pc_out, *_), (vg, vg_out, *_) = grid["per-combo"], grid["vmapped-grid"]
@@ -2502,8 +2668,7 @@ def phase_game_grid(torch, fused_sparse, workdir, dev="cuda"):
         ds = driver.re_datasets["per-user"]
         sampled[label] = (driver, result, weights.cpu().numpy(), ds)
         if device != "cpu":
-            check(launches["gevm"] > 0 and launches["fused_glm"] > 0,
-                  f"{label}: a kernel of the path did not launch: {launches}")
+            kernels_launched(driver, launches, label)
         say(_run_line(label, driver, wall, launches, stages)
             + f"; per-user local dims {ds.local_dim} of {ds.global_dim}")
     card, cpu = sampled["card"], sampled["cpu"]
@@ -2576,8 +2741,7 @@ def phase_full_game(torch, fused_sparse, workdir, dev="cuda"):
         check(all(np.isfinite(result.objective_history)), f"{label}: non-finite objective")
         check(metrics["AUC"] > GAME_AUC_FLOOR, f"{label}: validation AUC {metrics['AUC']}")
         if device != "cpu":
-            check(launches["gevm"] > 0 and launches["fused_glm"] > 0,
-                  f"{label}: a kernel of the path did not launch: {launches}")
+            kernels_launched(driver, launches, label)
         state = result.coefficients["per-artist"]
         say(_run_line(label, driver, wall, launches, stages)
             + f"; objective history " + " ".join(f"{v:.6f}" for v in result.objective_history)
@@ -2684,6 +2848,220 @@ def phase_full_game(torch, fused_sparse, workdir, dev="cuda"):
             "score_abs_err": float(diff.max()), "factored_contrib": t}
 
 
+# --- size-bucketed random effects: the shape ladder and the sparse race ----
+
+# phase 10's generator with heavy-tailed rows per user: min(zipf(1.9) + 4,
+# 2048), drawn from its own seed; 20000 users, and 4000 for the card and CPU
+# pair
+SKEW_USERS, SKEW_SMALL_USERS, SKEW_SEED = 20000, 4000, 31
+SKEW_ZIPF, SKEW_MIN_ROWS, SKEW_MAX_ROWS = 1.9, 4, 2048
+BUCKETED_FLAGS = GAME_FLAGS + ["--bucketed-random-effects", "true"]
+
+
+def skewed_rows(num_users, seed):
+    return np.minimum(np.random.default_rng(seed).zipf(SKEW_ZIPF, size=num_users)
+                      + SKEW_MIN_ROWS, SKEW_MAX_ROWS)
+
+
+def expected_buckets(rows_per_user):
+    """The per-user dataset's stacks as the data implies them: (E_b, M_b)
+    of each size bucket of the training rows (80% of each user's, rounded
+    up), and of the one unbucketed stack."""
+    from photon_ml_tpu_torch.algorithm.bucketed_random_effect import partition_entities_by_size
+
+    train = np.ceil(0.8 * rows_per_user).astype(np.int64)
+    buckets = [(len(b), int(train[b].max())) for b in partition_entities_by_size(train)]
+    return buckets, (len(train), int(train.max()))
+
+
+class SlabEvaluations:
+    """Counts value+gradient evaluations on slabs of the fused family while
+    installed (the GEVM kernel launches once for each)."""
+
+    def __enter__(self):
+        from photon_ml_tpu_torch.ops.fused_sparse import SparseSlab
+        from photon_ml_tpu_torch.ops.objective import GLMObjective
+
+        self.count, self._cls, inner = 0, GLMObjective, GLMObjective.value_and_grad
+
+        def counted(obj, w, batch, *args, **kwargs):
+            if isinstance(batch.features, SparseSlab) and batch.features.kernel.startswith("pallas"):
+                self.count += 1
+            return inner(obj, w, batch, *args, **kwargs)
+
+        self._inner = inner
+        GLMObjective.value_and_grad = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.value_and_grad = self._inner
+
+
+def objectives_held(label, a, b):
+    return held(f"{label}: objective histories", a.objective_history, b.objective_history)
+
+
+def race_lines(fused_sparse):
+    """Every recorded sparse race: each candidate's time or failure reason,
+    and the winner; each raced name must have one or the other."""
+    out = {}
+    for key, rep in fused_sparse.race_reports().items():
+        label, shape = key[0], rep["shape"]
+        names = set(fused_sparse.sparse_candidates(shape["rows"])) | {"dense"}
+        check(names <= set(rep["candidates"]),
+              f"race {label}: candidates missing from the report: "
+              f"{sorted(names - set(rep['candidates']))}")
+        for name, c in rep["candidates"].items():
+            check("sec_per_pass" in c or bool(c.get("failed")),
+                  f"race {label}: {name} has neither a time nor a failure reason")
+        say(f"  race {label} (E={shape['lanes']} M={shape['rows']} K={shape['k']} "
+            f"D={shape['dim']}, first {min(shape['lanes'], fused_sparse.RACE_LANES)} lanes): winner "
+            f"{rep['winner'] or 'dense'}; " + "; ".join(
+                f"{name} " + (f"{c['sec_per_pass'] * 1e3:.4f} ms/pass" if "sec_per_pass" in c
+                              else c["failed"] if c["failed"].startswith("skipped")
+                              else f"FAILED {c['failed']}")
+                for name, c in rep["candidates"].items()))
+        out[label] = {"shape": shape, "winner": rep["winner"], "candidates": rep["candidates"]}
+    return out
+
+
+def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
+    """Phase 20: the GAME driver with --bucketed-random-effects true on a
+    heavy-tailed variant of phase 10's data. (a) the data, each bucket's
+    stack and the padded elements bucketed against unbucketed; (b) spec
+    pallas twice on the card: byte-equal models, one GEVM launch per bucket
+    per evaluation; (c) the same command unbucketed, held against (b) by
+    ``scores_held``'s rule and the objective histories; (d) spec auto with
+    --shape-canonicalization on: every bucket's race report, scores held
+    against (b); (e) both sparse kernels held against their plain version
+    on every bucket's slab and on the unbucketed one; (f) at 4000 users one
+    bucketed run on the card and one on the CPU, held likewise."""
+    from photon_ml_tpu_torch.ops import fused_glm
+
+    say(f"== phase 20: game_training_driver.main --bucketed-random-effects true, phase 10's "
+        f"generator with min(zipf({SKEW_ZIPF}) + {SKEW_MIN_ROWS}, {SKEW_MAX_ROWS}) rows a user "
+        f"(seed {SKEW_SEED}), {SKEW_USERS} users; spec pallas twice, unbucketed once, spec auto "
+        f"with --shape-canonicalization on; then {SKEW_SMALL_USERS} users on {dev} and the CPU")
+    rows = skewed_rows(SKEW_USERS, SKEW_SEED)
+    t0 = time.perf_counter()
+    big = os.path.join(workdir, "skew")
+    n_train, n_val = write_game_avro(big, SKEW_USERS, SEED + 20, rows_per_user=rows)
+    buckets, (e_all, m_all) = expected_buckets(rows)
+    k = GAME_D_RANDOM + 1
+    elems = {"bucketed": sum(e * m * k for e, m in buckets), "unbucketed": e_all * m_all * k}
+    say(f"  (a) Avro written in {time.perf_counter() - t0:.1f} s: {n_train} train rows, {n_val} "
+        f"validation rows; rows a user mean {rows.mean():.2f}, largest {rows.max()}; buckets "
+        + ", ".join(f"E={e} M={m} K={k}" for e, m in buckets)
+        + f"; unbucketed E={e_all} M={m_all} K={k}; padded elements bucketed "
+        f"{elems['bucketed']} against unbucketed {elems['unbucketed']} "
+        f"({elems['unbucketed'] / elems['bucketed']:.1f}x)")
+    base = ["--train-input-dirs", os.path.join(big, "train"),
+            "--validate-input-dirs", os.path.join(big, "validate"), "--device", dev]
+    out = {"buckets": buckets, "unbucketed": [e_all, m_all], "padded_elements": elems, "runs": {}}
+
+    def run(label, flags, spec, data_base=base):
+        d = os.path.join(workdir, "out20-" + label.replace(" ", "-"))
+        with SlabEvaluations() as evals:
+            driver, wall, launches, stages, _ = run_game_training(
+                torch, fused_sparse, data_base + ["--output-dir", d] + flags, spec)
+        result = driver.results[0][1]
+        check(all(np.isfinite(result.objective_history)), f"{label}: non-finite objective")
+        auc = driver.results[0][2]["AUC"]
+        check(auc > GAME_AUC_FLOOR, f"{label}: validation AUC {auc}")
+        say(_run_line(label, driver, wall, launches, stages)
+            + f"; value+gradient evaluations on fused slabs {evals.count}")
+        out["runs"][label] = {"wall_s": wall, "stages_s": stages, "launches": launches,
+                              "slab_evaluations": evals.count, "auc": auc,
+                              "objective_history": result.objective_history}
+        return driver, result, d, launches, evals.count
+
+    (b1, r1, d1, l1, n1) = run("(b) bucketed", BUCKETED_FLAGS, "pallas")
+    coord = b1.combo_coords[0]["per-user"]
+    got = sorted((int(sub.dataset.x.shape[0]), int(sub.dataset.x.shape[1])) for sub in coord._subs)
+    check(got == sorted(buckets), f"(b): bucket stacks {got}, the data implies {sorted(buckets)}")
+    check(all(sub.dataset.local_dim == k and sub.slab.max_nnz == k for sub in coord._subs),
+          "(b): a bucket's local dim or slab width is not 9")
+    check(coord.padded_elements() == elems["bucketed"], "(b): padded elements")
+    kernels_launched(b1, l1, "(b) bucketed")
+    check(l1["gevm"] == n1, f"(b): {l1['gevm']} GEVM launches for {n1} slab evaluations")
+    fixed_err = [hold_driver_fixed(torch, fused_glm, b1.combo_coords[0]["fixed"], "phase 20 (b)")]
+    b2 = run("(b) bucketed again", BUCKETED_FLAGS, "pallas")
+    check(tree_bytes(os.path.join(d1, "best")) == tree_bytes(os.path.join(b2[2], "best")),
+          "(b): two bucketed card runs wrote different model bytes")
+    check(b2[1].objective_history == r1.objective_history, "(b): objective histories differ")
+    say(f"  (b) two bucketed card runs: model bytes equal; GEVM launches {l1['gevm']} = one a "
+        f"bucket per evaluation ({len(buckets)} buckets)")
+    del b2
+
+    (c, rc, _, lc, _) = run("(c) unbucketed", GAME_FLAGS, "pallas")
+    kernels_launched(c, lc, "(c) unbucketed")
+    check(c.re_datasets["per-user"].x.numel() // k == e_all * m_all,
+          "(c): the unbucketed stack's shape")
+    out["held_unbucketed"] = scores_held("(c)", (b1, r1), (c, rc), "bucketed vs unbucketed")
+    objectives_held("(c) bucketed vs unbucketed", r1, rc)
+    tb, tc = out["runs"]["(b) bucketed"]["stages_s"], out["runs"]["(c) unbucketed"]["stages_s"]
+    say("  (c) stages, bucketed | unbucketed: " + ", ".join(
+        f"{key} {tb[key]:.2f} | {tc[key]:.2f} s" for key in tb))
+
+    fused_sparse._race_cache.clear()
+    fused_sparse._race_reports.clear()
+    (dd, rd, _, ld, nd) = run("(d) auto + ladder", BUCKETED_FLAGS + [
+        "--shape-canonicalization", "on"], "auto")
+    out["races"] = race_lines(fused_sparse)
+    subs = dd.combo_coords[0]["per-user"]._subs
+    check(len(out["races"]) >= 1, "(d): no sparse race was recorded")
+    # every race ran the kernel, and its evaluations are the solves' and
+    # the races' together
+    check(ld["gevm"] > 0 and ld["gevm"] == nd,
+          f"(d): {ld['gevm']} GEVM launches for {nd} value+gradient evaluations on fused slabs")
+    failed = {label: r["candidates"]["pallas"]["failed"] for label, r in out["races"].items()
+              if "failed" in r["candidates"]["pallas"]}
+    check(not failed, f"(d): the GEVM kernel failed its race: {failed}")
+    say("  (d) buckets (E, M) on the ladder and their families: " + ", ".join(
+        f"{tuple(s_.dataset.x.shape[:2])} {s_.slab.kernel if s_.slab is not None else 'dense'}"
+        for s_ in subs))
+    out["held_auto"] = scores_held("(d)", (dd, rd), (b1, r1), "auto + ladder vs (b)")
+    objectives_held("(d) auto + ladder vs (b)", rd, r1)
+    del dd
+
+    say("  (e) both sparse kernels on every bucket's slab and on the unbucketed slab")
+    errs = {"gevm": 0.0, "hvp": 0.0}
+    for sub in list(coord._subs) + [c.combo_coords[0]["per-user"]]:
+        e_ = hold_driver_slab(torch, fused_sparse, sub)
+        errs = {key: max(errs[key], e_[key]) for key in errs}
+    out["max_abs_err"] = errs
+    del c
+
+    small = os.path.join(workdir, "skew-small")
+    write_game_avro(small, SKEW_SMALL_USERS, SEED + 21,
+                    rows_per_user=skewed_rows(SKEW_SMALL_USERS, SKEW_SEED + 1))
+    pair = {}
+    for label, device in (("(f) card", dev), ("(f) cpu", "cpu")):
+        argv = ["--train-input-dirs", os.path.join(small, "train"),
+                "--validate-input-dirs", os.path.join(small, "validate"), "--device", device]
+        driver, result, _, launches, _ = run(label, BUCKETED_FLAGS, "pallas", argv)
+        if device != "cpu":
+            kernels_launched(driver, launches, label)
+            fixed_err.append(hold_driver_fixed(torch, fused_glm, driver.combo_coords[0]["fixed"],
+                                               "phase 20 (f)"))
+        pair[label] = (driver, result)
+    out["held_card_cpu"] = scores_held("(f)", pair["(f) card"], pair["(f) cpu"])
+    objectives_held("(f) card vs CPU", pair["(f) card"][1], pair["(f) cpu"][1])
+    out["fixed_max_abs_err"] = max(fixed_err)
+    return out
+
+
+# depth cut for the call's time limit, every check kept
+CUTS = [
+    f"phase 17: phase 10's generator and widths at {CHECKPOINT_USERS} users, not "
+    f"{GAME_USERS}",
+    "phase 17: specs scatter and auto run the uninterrupted and the stopped-and-resumed pair "
+    "only; --checkpoint-async and --max-restarts run under spec pallas alone",
+    "phase 16: one card run at 20000 users (timings); the byte-equal pair of card runs and "
+    f"the card and CPU pair at {WIDE_CPU_USERS} users",
+]
+
+
 def main() -> None:
     import torch
 
@@ -2769,6 +3147,8 @@ def main() -> None:
         wide = timed("16", phase_game_wide, torch, fused_sparse, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_full_") as workdir:
         full_game = timed("19c", phase_full_game, torch, fused_sparse, workdir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bucketed_") as workdir:
+        bucketed = timed("20", phase_bucketed, torch, fused_sparse, workdir)
     say(f"  -- the whole call {time.perf_counter() - start:.1f} s")
 
     bf16 = times["bfloat16"]
@@ -2787,15 +3167,21 @@ def main() -> None:
         "launches_game_grid": {k: game_grid[k]["launches"]["fused_glm"]
                                for k in ("per-combo", "vmapped-grid")},
         "launches_full_game": {k: v["fused_glm"] for k, v in full_game["launches"].items()},
+        "launches_bucketed": {k: v["launches"]["fused_glm"]
+                              for k, v in bucketed["runs"].items()},
         "max_abs_err": max(max_abs_err, game_runs["fixed_max_abs_err"],
-                           game_grid["fixed_max_abs_err"], full_game["fixed_max_abs_err"]),
+                           game_grid["fixed_max_abs_err"], full_game["fixed_max_abs_err"],
+                           bucketed["fixed_max_abs_err"]),
         "ms": bf16["ms"],
         "graph_ms": bf16["graph_ms"],
         "ms_method": MS_METHOD,
         "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"],
         "bound_by": bf16["bound_by"],
-        "library_ms": None,
+        "library_ms": bf16["library_ms"],
+        "library_what": "two torch.matmul products and elementwise ops on the same inputs "
+                        "(the dense race's baseline)",
+        "dense_race": times["race"],
         "shape": f"N={N_FULL} D={D_FULL} bf16",
         "f32": times["float32"],
     }]
@@ -2820,7 +3206,9 @@ def main() -> None:
             "launches_game_grid": {k: game_grid[k]["launches"][key]
                                    for k in ("per-combo", "vmapped-grid")},
             "launches_full_game": {k: v[key] for k, v in full_game["launches"].items()},
-            "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key]),
+            "launches_bucketed": {k: v["launches"][key] for k, v in bucketed["runs"].items()},
+            "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key],
+                               bucketed["max_abs_err"][key]),
             "ms": t["ms"],
             "graph_ms": t["graph_ms"],
             "host_ms": t["host_ms"],
@@ -2828,7 +3216,9 @@ def main() -> None:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
-            "library_ms": None,
+            "library_ms": t["library_ms"],
+            "library_what": "GLMObjective on the dense (E, M, D) stack of the same inputs, torch "
+                            "ops (the sparse race's dense incumbent)",
             "shape": t["shape"],
             "table_bytes": t["table_bytes"],
             "design_bytes_ms": t["design_bytes_ms"],
@@ -2836,8 +3226,8 @@ def main() -> None:
         })
     say(json.dumps({"sparse_fixed_effect": sparse_glm, "game_wide_fixed": wide,
                     "checkpoints": checkpoints, "glm_diagnostics": glm_diag,
-                    "game_grid": game_grid, "full_game": full_game, "phase_walls_s": walls,
-                    "card": card}))
+                    "game_grid": game_grid, "full_game": full_game, "bucketed": bucketed,
+                    "phase_walls_s": walls, "cuts": CUTS, "card": card}, default=str))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,0 +1,301 @@
+"""Size-bucketed random-effect coordinate (port of
+photon_ml_tpu/algorithm/bucketed_random_effect.py, without the mesh, the
+solve scheduler, the adaptive schedule and mid-coordinate resume).
+
+The plain :class:`RandomEffectCoordinate` pads every entity lane to the row
+count of the largest entity. Real per-member data is heavy-tailed, so most
+of that ``(E, M_max, D)`` stack is padding. Here entities are partitioned by
+sample count into geometric buckets (caps doubling per bucket), each bucket
+gets its own entity-major stack padded only to its own largest entity (and,
+with a shape ladder, up the ladder), and each bucket solves as its own
+lane-batched solve. The reference's analogue is the active-set cap
+(RandomEffectDataSet.scala:246-307), a hard truncation; bucketing keeps
+every active row.
+
+The coordinate protocol is unchanged (a drop-in for ``CoordinateDescent``):
+the state is a tuple of per-bucket ``(E_b, D_loc)`` stacks, and scores
+scatter back to the global row order through each bucket's row selection.
+With a sparse spec each bucket builds its own slab (``auto``: each bucket
+races the families and the dense stack on its own tensors).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.algorithm.random_effect import (
+    RandomEffectCoordinate,
+    global_coefficients,
+)
+from photon_ml_tpu_torch.data.game import (
+    GameData,
+    HostFeatures,
+    RandomEffectDataConfig,
+    build_random_effect_dataset,
+)
+from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+from photon_ml_tpu_torch.optim.common import OptimizerConfig
+from photon_ml_tpu_torch.types import OptimizerType, TaskType, real_dtype
+
+Tensor = torch.Tensor
+State = Tuple[Tensor, ...]
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} on the bucketed random effect is not yet ported to photon_ml_tpu_torch")
+
+
+def _filter_game_data(data: GameData, re_id: str, shard: str, row_sel: np.ndarray,
+                      entity_ids: np.ndarray) -> GameData:
+    """Row-subset view of one shard with the bucket's entities remapped to a
+    dense 0..E_b-1 id space (vectorized CSR slicing)."""
+    feats = data.shards[shard]
+    starts = feats.indptr[row_sel]
+    ends = feats.indptr[row_sel + 1]
+    lengths = (ends - starts).astype(np.int64)
+    item_idx = np.repeat(starts, lengths) + (
+        np.arange(int(lengths.sum())) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    )
+    new_indptr = np.zeros(len(row_sel) + 1, np.int64)
+    np.cumsum(lengths, out=new_indptr[1:])
+    sub = HostFeatures(new_indptr, feats.indices[item_idx], feats.values[item_idx], feats.dim)
+    # entity_ids is sorted: searchsorted gives the dense rank
+    dense_ids = np.searchsorted(entity_ids, data.ids[re_id][row_sel]).astype(np.int32)
+    vocab = [data.id_vocabs[re_id][e] for e in entity_ids]
+    return GameData(
+        response=data.response[row_sel],
+        offset=data.offset[row_sel],
+        weight=data.weight[row_sel],
+        ids={re_id: dense_ids},
+        id_vocabs={re_id: vocab},
+        shards={shard: sub},
+    )
+
+
+def partition_entities_by_size(counts: np.ndarray, max_buckets: int = 6) -> List[np.ndarray]:
+    """Entity ids grouped into geometric size buckets: bucket k holds the
+    entities with count in (min*2^(k-1), min*2^k] (caps double), the tail
+    merged into the last of at most ``max_buckets``."""
+    present = np.nonzero(counts > 0)[0]
+    if len(present) == 0:
+        return []
+    c = counts[present]
+    lo = max(int(c.min()), 1)
+    bucket_of = np.ceil(np.log2(np.maximum(c / lo, 1.0))).astype(np.int64)
+    bucket_of = np.minimum(bucket_of, max_buckets - 1)
+    return [
+        np.sort(present[bucket_of == b])
+        for b in range(int(bucket_of.max()) + 1)
+        if (bucket_of == b).any()
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketedDatasetBundle:
+    """The per-bucket datasets, built once per (data, config) and shared by
+    every grid combo's coordinate."""
+
+    buckets: List[np.ndarray]  # vocab-index entity sets, one per bucket
+    datasets: List[object]  # RandomEffectDataset per bucket
+    row_sels: List[np.ndarray]  # bucket rows -> global row index
+    dense_ids: List[np.ndarray]  # bucket rows -> dense (bucket-local) id
+    num_rows: int
+    vocab: List[str]
+    bucketer: Optional[object] = None  # the ladder the buckets were padded up, or None
+
+    @staticmethod
+    def build(data: GameData, config: RandomEffectDataConfig, max_buckets: int = 6,
+              bucketer=None, device=None) -> "BucketedDatasetBundle":
+        """``bucketer`` (``compile.ShapeBucketer`` or spec; None reads
+        ``PHOTON_SHAPE_LADDER``) also rounds every bucket's dims up the
+        ladder with masked padding. Each bucket is built on the host, padded
+        there, then moved to ``device`` (default cuda)."""
+        from photon_ml_tpu_torch.compile import canonicalize_re_dataset, resolve_bucketer
+
+        bucketer = resolve_bucketer(bucketer)
+        dev = resolve_device(device)
+        re_id = config.random_effect_id
+        ids = data.ids[re_id]
+        counts = np.bincount(ids, minlength=int(ids.max()) + 1 if len(ids) else 0)
+        buckets = partition_entities_by_size(counts, max_buckets)
+        datasets, row_sels, dense_ids = [], [], []
+        for entity_ids in buckets:
+            row_sel = np.nonzero(np.isin(ids, entity_ids))[0]
+            filtered = _filter_game_data(data, re_id, config.feature_shard_id, row_sel,
+                                         entity_ids)
+            datasets.append(canonicalize_re_dataset(
+                build_random_effect_dataset(filtered, config, device="cpu"), bucketer,
+                device=dev))
+            row_sels.append(row_sel)
+            dense_ids.append(filtered.ids[re_id])
+        return BucketedDatasetBundle(buckets=buckets, datasets=datasets, row_sels=row_sels,
+                                     dense_ids=dense_ids, num_rows=data.num_rows,
+                                     vocab=list(data.id_vocabs[re_id]), bucketer=bucketer)
+
+
+@dataclasses.dataclass
+class BucketedRandomEffectCoordinate:
+    """Per-entity solves bucketed by entity size (coordinate protocol).
+
+    ``sparse_kernel`` is each bucket's spec (None reads
+    ``PHOTON_SPARSE_KERNEL``). ``mesh_ctx``, ``solve_schedule`` and
+    ``adaptive`` name the JAX package's mesh, solve scheduler and adaptive
+    schedule, which are not ported: setting one raises.
+    """
+
+    data: GameData
+    config: RandomEffectDataConfig
+    task: TaskType
+    optimizer: OptimizerType = OptimizerType.LBFGS
+    optimizer_config: Optional[OptimizerConfig] = None
+    regularization: RegularizationContext = dataclasses.field(
+        default_factory=RegularizationContext.none
+    )
+    max_buckets: int = 6
+    bundle: Optional[BucketedDatasetBundle] = None  # prebuilt, shared
+    bucketer: Optional[object] = None
+    sparse_kernel: Optional[str] = None
+    device: Optional[object] = None  # where a bundle built here lives
+    mesh_ctx: Optional[object] = None
+    solve_schedule: Optional[object] = None
+    adaptive: Optional[object] = None
+
+    def __post_init__(self):
+        for name in ("mesh_ctx", "solve_schedule", "adaptive"):
+            if getattr(self, name) is not None:
+                raise _not_ported(name)
+        if self.bundle is None:
+            self.bundle = BucketedDatasetBundle.build(
+                self.data, self.config, self.max_buckets, self.bucketer, self.device)
+        b = self.bundle
+        self.buckets = b.buckets
+        self._num_rows = b.num_rows
+        self._row_sels = b.row_sels
+        self._dense_ids = b.dense_ids
+        self._subs: List[RandomEffectCoordinate] = [
+            RandomEffectCoordinate(
+                dataset=ds,
+                task=self.task,
+                optimizer=self.optimizer,
+                optimizer_config=self.optimizer_config,
+                regularization=self.regularization,
+                solve_label=f"bucket{i}",
+                sparse_kernel=self.sparse_kernel,
+                # the buckets' ladder pads the slab width too: one setting
+                bucketer=b.bucketer or "off",
+            )
+            for i, ds in enumerate(b.datasets)
+        ]
+        # each bucket's row selection on its dataset's device, made once
+        self._row_index = [torch.from_numpy(rs).to(sub.dataset.device)
+                           for rs, sub in zip(self._row_sels, self._subs)]
+
+    # -- exports for the driver (validation scoring, model save) -----------
+    def vocab_position_maps(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Original id-vocab index -> (owning bucket, position within that
+        bucket's coefficient stack); -1/-1 where no model exists."""
+        v = len(self.bundle.vocab)
+        bucket_of = np.full(v, -1, np.int32)
+        pos_in_bucket = np.full(v, -1, np.int32)
+        for bi, (sub, entity_ids, dense_ids) in enumerate(
+                zip(self._subs, self.buckets, self._dense_ids)):
+            # ladder-padded buckets carry -1 scoring rows beyond the real ones
+            entity_pos = sub.dataset.entity_pos.cpu().numpy()[: len(dense_ids)]
+            known = entity_pos >= 0
+            pos_of_dense = np.full(len(entity_ids), -1, np.int32)
+            pos_of_dense[dense_ids[known]] = entity_pos[known]
+            has = pos_of_dense >= 0
+            bucket_of[entity_ids[has]] = bi
+            pos_in_bucket[entity_ids[has]] = pos_of_dense[has]
+        return bucket_of, pos_in_bucket
+
+    def global_coefficient_stacks(self, state: State) -> List[Tensor]:
+        """Per-bucket ``(E_b, D_global)`` back-projected coefficient stacks."""
+        return [global_coefficients(sub.dataset, w) for sub, w in zip(self._subs, state)]
+
+    def entity_export_by_raw_id(self, state: State, residual_offsets: Optional[Tensor] = None):
+        """(means, variances) dicts keyed by raw entity id, global-space rows
+        as numpy arrays. ``variances`` is None unless ``residual_offsets``
+        (the global (N,) residual scores) is given; then it holds each
+        bucket's 1/H_jj at the final coefficients, scattered to global
+        space like the means."""
+        host = lambda t: t.detach().cpu().numpy()
+        mean_stacks = [host(s) for s in self.global_coefficient_stacks(state)]
+        var_stacks = None
+        if residual_offsets is not None:
+            var_stacks = []
+            for sub, rows, w in zip(self._subs, self._row_index, state):
+                if sub.dataset.projection_matrix is not None:
+                    # a diagonal variance does not survive a dense random
+                    # back-projection
+                    raise ValueError("per-entity variances are not defined in global space "
+                                     "for RANDOM-projected datasets")
+                var = sub.coefficient_variances(w, residual_offsets[rows])
+                var_stacks.append(host(global_coefficients(sub.dataset, var)))
+        bucket_of, pos_in_bucket = self.vocab_position_maps()
+        means, variances = {}, ({} if var_stacks is not None else None)
+        for vi, raw in enumerate(self.bundle.vocab):
+            b = bucket_of[vi]
+            if b >= 0:
+                means[raw] = mean_stacks[b][pos_in_bucket[vi]]
+                if variances is not None:
+                    variances[raw] = var_stacks[b][pos_in_bucket[vi]]
+        return means, variances
+
+    def stack_sizes(self) -> List[int]:
+        """Entity count per coefficient stack, in stack order (the offsets a
+        gather over the concatenated stacks needs)."""
+        return [s.num_entities for s in self._subs]
+
+    @property
+    def num_entities(self) -> int:
+        return sum(s.num_entities for s in self._subs)
+
+    def padded_elements(self) -> int:
+        """Elements of the per-bucket ``(E_b, M_b, D_b)`` stacks: what
+        bucketing shrinks against one ``(E, M_max, D_max)`` stack."""
+        return sum(s.dataset.x.numel() for s in self._subs)
+
+    # -- coordinate protocol ------------------------------------------------
+    def initial_coefficients(self) -> State:
+        return tuple(s.initial_coefficients() for s in self._subs)
+
+    def _bucket_shapes(self) -> List[List[int]]:
+        """Per-bucket coefficient-stack shapes (ladder padding included)."""
+        return [[int(s.num_entities), int(s.local_dim)] for s in self._subs]
+
+    def update(self, residual_offsets: Tensor, state: State,
+               reg_weight: Optional[float] = None, resume: Optional[dict] = None):
+        """Each bucket gathers its rows' residuals and solves on its own
+        (buckets are disjoint entity sets). Returns the new state and the
+        per-bucket OptResults. ``reg_weight`` overrides every bucket's total
+        regularization weight (``CoordinateDescent.run_grid``)."""
+        if resume is not None:
+            raise _not_ported("resuming inside the coordinate (a preemption payload)")
+        new_state, results = [], []
+        for sub, rows, w0 in zip(self._subs, self._row_index, state):
+            coefs, res = sub.update(residual_offsets[rows], w0, reg_weight)
+            new_state.append(coefs)
+            results.append(res)
+        return tuple(new_state), tuple(results)
+
+    def score(self, state: State) -> Tensor:
+        device = self._row_index[0].device if self._row_index else None
+        total = torch.zeros((self._num_rows,), dtype=real_dtype(), device=device)
+        for sub, rows, w in zip(self._subs, self._row_index, state):
+            # ladder-padded buckets score their pad rows too (0); slice them off
+            total[rows] = sub.score(w)[: rows.numel()]
+        return total
+
+    def regularization_term(self, state: State, reg_weight: Optional[float] = None) -> Tensor:
+        device = self._row_index[0].device if self._row_index else None
+        total = torch.zeros((), dtype=real_dtype(), device=device)
+        for sub, w in zip(self._subs, state):
+            total = total + sub.regularization_term(w, reg_weight)
+        return total

@@ -6,7 +6,9 @@ iteration and each coordinate: subtract the coordinate's own score from the
 total, update it on those residuals, re-score, record the objective (the
 training loss of the total scores plus every coordinate's regularization
 term) and the validation metrics after the update. Scores are dense (N,)
-tensors in global row order.
+tensors in global row order. A coordinate's parameters are a tensor, a
+``FactoredState``, or (bucketed random effects) a tuple of per-bucket
+stacks.
 
 With a checkpointer the state is saved after every update and a restart
 resumes from the last complete step; preemption is polled at every update
@@ -101,7 +103,7 @@ class CoordinateDescent:
                 else self.coordinates[n].initial_coefficients())
             for n in names
         }
-        device = next(iter(self.coordinates.values())).initial_coefficients().device
+        device = _leaves(next(iter(params.values())))[0].device
         zeros = lambda: torch.zeros((num_rows,), dtype=real_dtype(), device=device)
         scores = {n: zeros() for n in names}
         if initial_params is not None:
@@ -196,7 +198,8 @@ class CoordinateDescent:
             raise ValueError(f"checkpointers must match the grid ({g} combos), "
                              f"got {len(checkpointers)}")
         params0, scores0, total0 = self._seeded_state(num_rows, init_params)
-        lanes = lambda tree: {n: t.unsqueeze(0) for n, t in tree.items()}
+        lanes = lambda tree: {n: _map_leaves(lambda t: t.unsqueeze(0), v)
+                              for n, v in tree.items()}
         n_coords = len(names)
         out = []
         for i in range(g):
@@ -210,7 +213,8 @@ class CoordinateDescent:
                 if restored is not None:
                     # grid steps land only at iteration boundaries
                     start_iter = restored.step // n_coords
-                    params = {n: t[0] for n, t in restored.params.items()}
+                    params = {n: _map_leaves(lambda t: t[0], v)
+                              for n, v in restored.params.items()}
                     scores = {n: t[0] for n, t in restored.scores.items()}
                     total = restored.total_scores[0]
                     history = _History(restored.objective_history,
@@ -313,6 +317,19 @@ class CoordinateDescent:
             trackers=trackers,
             guard_events=list(guard.events[guard_events_start:]) if guard is not None else [],
         )
+
+
+def _leaves(value) -> List[Tensor]:
+    """A coordinate's parameters as a list of tensors: a tensor, the
+    per-bucket tuple of a bucketed coordinate, or a ``FactoredState``."""
+    if hasattr(value, "tree_flatten"):
+        return list(value.tree_flatten()[0])
+    return list(value) if isinstance(value, tuple) else [value]
+
+
+def _map_leaves(fn, value):
+    """``fn`` applied to a tensor, or to each stack of a bucketed tuple."""
+    return tuple(fn(t) for t in value) if isinstance(value, tuple) else fn(value)
 
 
 @dataclasses.dataclass

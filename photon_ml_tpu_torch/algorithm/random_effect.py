@@ -7,7 +7,8 @@ the leading axis of the padded ``(E, M, D_loc)`` tensors (data/game.py), so
 "one optimizer per entity" is one lane-batched LBFGS or TRON solve whose
 objective evaluates every entity at once. With a sparse spec
 (``PHOTON_SPARSE_KERNEL``, or ``sparse_kernel``) the features are a
-``SparseSlab`` built once from the dense stack; the ``pallas`` family then
+``SparseSlab`` built once from the dense stack (``auto``: when it wins the
+race against the dense stack); the ``pallas`` family then
 runs every value+gradient through the GEVM kernel and every CG step of TRON
 through the HVP kernel, one launch for all entities.
 
@@ -81,9 +82,10 @@ class RandomEffectCoordinate:
 
     ``sparse_kernel``: None reads ``PHOTON_SPARSE_KERNEL`` (default off =
     the dense stack); a family name builds the slab once, here, from the
-    dataset's dense stack (on its device) and keeps it for every update. A
-    RANDOM-projected dataset is dense in every slot, so it always solves on
-    the dense stack and builds no slab.
+    dataset's dense stack (on its device) and keeps it for every update;
+    ``auto`` races the families and the dense stack on this dataset's own
+    tensors and keeps the winner. A RANDOM-projected dataset is dense in
+    every slot, so it always solves on the dense stack and builds no slab.
     """
 
     dataset: RandomEffectDataset
@@ -95,6 +97,7 @@ class RandomEffectCoordinate:
     )
     solve_label: str = "re_solve"
     sparse_kernel: Optional[str] = None
+    bucketer: Optional[object] = None  # the slab width's ladder; None reads PHOTON_SHAPE_LADDER
 
     def __post_init__(self):
         if self.optimizer_config is None:
@@ -106,7 +109,11 @@ class RandomEffectCoordinate:
         self.slab: Optional[fused_sparse.SparseSlab] = None
         spec = fused_sparse.resolve_sparse_kernel(self.sparse_kernel)
         if spec is not None and self.dataset.projection_matrix is None:
-            self.slab = fused_sparse.build_and_select(self.dataset.x, spec, self.solve_label)
+            ds = self.dataset
+            # None: the race handed the dataset back to the dense incumbent
+            self.slab = fused_sparse.build_and_select(
+                self.task, ds.x, ds.labels, ds.base_offsets, ds.weights, spec,
+                self.solve_label, bucketer=self.bucketer)
 
     @property
     def num_entities(self) -> int:

@@ -163,6 +163,16 @@ def _unflatten_state(template: Dict[str, Any], arrays: Dict[str, np.ndarray],
             )
         if structure[name].get("refs"):
             raise _not_ported("restoring a by-reference checkpoint leaf")
+        for i, leaf in enumerate(leaves):
+            # the same structure with other shapes (a bucketed coordinate
+            # whose buckets were rebuilt differently) would train the wrong
+            # entities from the restored stacks
+            got, want = arrays[f"{name}.{i}"].shape, tuple(torch.as_tensor(leaf).shape)
+            if tuple(got) != want:
+                raise ValueError(
+                    f"checkpoint entry {name!r} leaf {i} has shape {tuple(got)}, this run's "
+                    f"state {want}; refusing to resume"
+                )
         out[name] = _unflatten(value, [
             _leaf_from_host(arrays[f"{name}.{i}"], dtypes.get(f"{name}.{i}"), leaf)
             for i, leaf in enumerate(leaves)

@@ -18,9 +18,9 @@ The training parser takes every flag of the JAX driver under the same name,
 plus ``--device`` (default ``cuda``). Grid alternatives are ';'-separated
 (``config_grid`` is their Cartesian product). ``validate`` rejects, naming
 the flag, every flag whose code path is not yet ported when it is set away
-from its default: bucketed/streaming random effects, solve compaction, the
-fused cycle, the mesh, the caches, warm starts, the planner and the rest
-listed in ``_FENCED``. The scoring parser takes every flag of the JAX
+from its default: streaming random effects, solve compaction, the fused
+cycle, the mesh, the caches, warm starts, the planner and the rest listed
+in ``_FENCED``. The scoring parser takes every flag of the JAX
 scoring driver, plus ``--device``.
 """
 
@@ -282,6 +282,13 @@ class GameTrainingParams:
     # CoordinateDescent.run_grid on coordinates built once; anything else
     # falls back (logged) to the per-combo rebuild
     vmapped_grid: str = "false"
+    # size-bucketed per-entity solves (algorithm/bucketed_random_effect):
+    # per-bucket padding on skewed entity distributions
+    bucketed_random_effects: bool = False
+    # canonical shape ladder (compile/canonical.py): "off" | "on" |
+    # "BASE:GROWTH"; each bucket's dims round up a geometric ladder with
+    # masked padding
+    shape_canonicalization: str = "off"
     # flags of the JAX driver given away from their default whose code paths
     # are not yet ported (filled by the parser; validate refuses them)
     unported_flags: List[str] = dataclasses.field(default_factory=list)
@@ -329,6 +336,12 @@ class GameTrainingParams:
             errors.append("--checkpoint-async needs --checkpoint-dir")
         if self.device not in ("cuda", "cpu"):
             errors.append(f"--device must be cuda or cpu, got {self.device!r}")
+        try:
+            from photon_ml_tpu_torch.compile import resolve_bucketer
+
+            resolve_bucketer(self.shape_canonicalization)
+        except ValueError as e:
+            errors.append(f"--shape-canonicalization: {e}")
         errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
                       for flag in self.unported_flags)
         if errors:
@@ -362,7 +375,6 @@ def _io_errors(params) -> List[str]:
 _FENCED = {
     "--distributed": "false",
     "--fused-cycle": "false",
-    "--bucketed-random-effects": "false",
     "--streaming-random-effects": "false",
     "--re-memory-budget-mb": None,
     "--tensor-cache": None,
@@ -370,7 +382,6 @@ _FENCED = {
     "--warm-start-from": None,
     "--export-serve-store": None,
     "--store-dtype": "f32",
-    "--shape-canonicalization": "off",
     "--solve-compaction": None,
     "--adaptive-schedule": None,
     "--plan": None,
@@ -441,6 +452,12 @@ def build_training_parser() -> argparse.ArgumentParser:
       help="train a lambda-only grid through CoordinateDescent.run_grid on "
            "coordinates built once (true|auto); other grids fall back, logged, "
            "to the per-combo rebuild")
+    a("--bucketed-random-effects", default="false",
+      help="size-bucketed per-entity solves: entities grouped by sample count, "
+           "each bucket padded only to its own largest entity")
+    a("--shape-canonicalization", default="off",
+      help="canonical shape ladder: off | on | BASE:GROWTH (e.g. 8:2); every "
+           "bucket's dims round up a geometric ladder with masked padding")
     for flag, default in _FENCED.items():
         kind = type(default) if isinstance(default, (int, float)) else None
         a(flag, dest=_dest(flag), default=default, type=kind,
@@ -510,6 +527,8 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         divergence_guard=ns.divergence_guard,
         vmapped_grid=("auto" if str(ns.vmapped_grid).lower() == "auto"
                       else "true" if _truthy(ns.vmapped_grid) else "false"),
+        bucketed_random_effects=_truthy(ns.bucketed_random_effects),
+        shape_canonicalization=ns.shape_canonicalization,
         unported_flags=_unported(ns),
         device=ns.device,
     )

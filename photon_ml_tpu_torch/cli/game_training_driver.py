@@ -16,9 +16,16 @@ lines as the JAX driver; tensors live on ``--device`` (default cuda).
 A dense fixed effect solves through the fused CUDA value+gradient kernel on
 the card; a fixed-effect shard wider than ``DENSE_DIM_THRESHOLD`` features
 trains on padded-COO ``SparseFeatures``; a down-sampling rate below 1
-zeroes the weights of the rows it drops. With ``PHOTON_SPARSE_KERNEL=pallas``
-the random effects solve over sparse slabs through the CUDA GEVM/HVP
-kernels. A factored coordinate (``--factored-random-effect-optimization-
+zeroes the weights of the rows it drops; ``PHOTON_ML_TPU_FUSED=auto`` (the
+default) races the fused kernel against two matmuls for each dense fixed
+effect. With ``PHOTON_SPARSE_KERNEL=pallas`` the random effects solve over
+sparse slabs through the CUDA GEVM/HVP kernels; ``auto`` races the families
+and the dense stack per dataset. ``--bucketed-random-effects true`` solves
+each random effect in size buckets (``--shape-canonicalization`` pads every
+bucket and slab width up a geometric ladder), one race per bucket under
+``auto``; with ``--checkpoint-dir`` the race winners are kept beside the
+steps (``races.json``) and a resumed run takes them. A
+factored coordinate (``--factored-random-effect-optimization-
 configurations``) factors its IDENTITY dataset and is saved both flattened
 and as latent factors. ``--vmapped-grid true|auto`` trains a lambda-only
 grid through ``CoordinateDescent.run_grid`` on coordinates built once.
@@ -53,6 +60,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.algorithm.bucketed_random_effect import (
+    BucketedDatasetBundle,
+    BucketedRandomEffectCoordinate,
+)
 from photon_ml_tpu_torch.algorithm.coordinate_descent import (
     CoordinateDescent,
     CoordinateDescentResult,
@@ -69,6 +80,7 @@ from photon_ml_tpu_torch.algorithm.random_effect import (
 )
 from photon_ml_tpu_torch.checkpoint import CoordinateDescentCheckpointer, fingerprint
 from photon_ml_tpu_torch.checkpoint_async import maybe_async
+from photon_ml_tpu_torch.compile import resolve_bucketer
 from photon_ml_tpu_torch.cli.game_params import (
     CoordinateOptConfig,
     GameTrainingParams,
@@ -98,6 +110,7 @@ from photon_ml_tpu_torch.io.offheap import load_shard_index_map
 from photon_ml_tpu_torch.models.game import gather_scores
 from photon_ml_tpu_torch.ops import losses as losses_mod
 from photon_ml_tpu_torch.ops.features import DenseFeatures
+from photon_ml_tpu_torch.ops import fused_glm, fused_sparse
 from photon_ml_tpu_torch.ops.fused_glm import select_fused_block_rows
 from photon_ml_tpu_torch.optim.common import OptResult, summarize_result, summarize_stacked_results
 from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
@@ -105,21 +118,28 @@ from photon_ml_tpu_torch.types import ModelOutputMode, TaskType
 from photon_ml_tpu_torch.utils.date_range import DateRange, expand_date_range_paths
 from photon_ml_tpu_torch.utils.io_utils import prepare_output_dir
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
+from photon_ml_tpu_torch.utils.profiling import maybe_trace
 from photon_ml_tpu_torch.utils.timer import Timer
 
 DENSE_DIM_THRESHOLD = 4096
 BEST_MODEL_DIR = "best"
 ALL_MODELS_DIR = "all"
+RACES_FILE = "races.json"  # in --checkpoint-dir: the run's race decisions
 
 
 def _summarize_tracker(tracker) -> str:
     """Per-coordinate convergence summary of the last update's OptResult
-    (RandomEffectOptimizationTracker.scala:62-95 for lane-batched solves)."""
-    if not isinstance(tracker, OptResult):
-        return ""
-    if tracker.reason.dim() >= 1:
-        return summarize_stacked_results(tracker)
-    return summarize_result(tracker)
+    (RandomEffectOptimizationTracker.scala:62-95 for lane-batched solves);
+    a bucketed coordinate's tuple gives one summary per bucket."""
+    # OptResult is a NamedTuple: test for it before the bucketed tuple
+    if isinstance(tracker, OptResult):
+        if tracker.reason.dim() >= 1:
+            return summarize_stacked_results(tracker)
+        return summarize_result(tracker)
+    if isinstance(tracker, tuple):
+        parts = [_summarize_tracker(t) for t in tracker]
+        return " | ".join(f"bucket{j}: {s}" for j, s in enumerate(parts) if s)
+    return ""
 
 
 def _input_files(dirs: List[str]) -> List[str]:
@@ -187,6 +207,11 @@ class GameTrainingDriver:
         params.validate()
         self.params = params
         self.device = resolve_device(params.device)
+        # the canonical shape ladder, None when off (the flag's default): it
+        # pads every bucket and every slab width the driver builds; the
+        # driver never reads PHOTON_SHAPE_LADDER
+        self.bucketer = resolve_bucketer(params.shape_canonicalization)
+        self._race_mark = len(fused_glm.race_log)  # where this run's race decisions start
         self._own_logger = logger is None
         self.logger = logger or PhotonLogger(
             os.path.join(params.output_dir, "photon-ml-tpu-game.log")
@@ -196,6 +221,8 @@ class GameTrainingDriver:
         self.train_data: Optional[GameData] = None
         self.validation_data: Optional[GameData] = None
         self.re_datasets: Dict[str, object] = {}
+        # bucketed coordinates' per-bucket datasets, built once, shared by combos
+        self.bucketed_bundles: Dict[str, BucketedDatasetBundle] = {}
         self.fe_batches: Dict[str, object] = {}
         # (config map, CoordinateDescentResult, final validation metrics)
         self.results: List[Tuple[Dict[str, CoordinateOptConfig], CoordinateDescentResult,
@@ -287,6 +314,16 @@ class GameTrainingDriver:
                 )
         with self.timer.measure("build-random-effect-datasets"):
             for name, cfg in p.random_effect_data_configs.items():
+                if p.bucketed_random_effects and name not in p.factored_configs:
+                    # a bucketed coordinate owns per-bucket stacks: the one
+                    # globally padded stack is what bucketing avoids
+                    self.bucketed_bundles[name] = BucketedDatasetBundle.build(
+                        self.train_data, cfg, bucketer=self.bucketer or "off",
+                        device=self.device)
+                    shapes = [tuple(ds.x.shape) for ds in self.bucketed_bundles[name].datasets]
+                    self.logger.info(f"bucketed RE {name}: {len(shapes)} buckets, "
+                                     f"(E, M, D) {shapes}")
+                    continue
                 if name in p.factored_configs and cfg.projector != "IDENTITY":
                     # the factored coordinate factors the unprojected dataset
                     cfg = dataclasses.replace(cfg, projector="IDENTITY")
@@ -338,6 +375,16 @@ class GameTrainingDriver:
                     latent_optimizer_config=spec.latent_factor.optimizer_config(),
                     latent_regularization=spec.latent_factor.regularization_context(),
                 )
+            elif name in self.bucketed_bundles:
+                coords[name] = BucketedRandomEffectCoordinate(
+                    self.train_data,
+                    p.random_effect_data_configs[name],
+                    p.task_type,
+                    optimizer=cfg.optimizer,
+                    optimizer_config=cfg.optimizer_config(),
+                    regularization=cfg.regularization_context(),
+                    bundle=self.bucketed_bundles[name],
+                )
             else:
                 coords[name] = RandomEffectCoordinate(
                     self.re_datasets[name],
@@ -346,6 +393,7 @@ class GameTrainingDriver:
                     optimizer_config=cfg.optimizer_config(),
                     regularization=cfg.regularization_context(),
                     solve_label=name,
+                    bucketer=self.bucketer or "off",
                 )
         return coords
 
@@ -397,8 +445,19 @@ class GameTrainingDriver:
                 cfg = p.random_effect_data_configs[name]
                 cols, vals = padded_row_coo(vdata.shards[cfg.feature_shard_id], pad_col=0)
                 vocab_ids = vdata.ids[cfg.random_effect_id]
-                pos_of_vocab = self._entity_position_of_vocab(name)
-                ent_pos = np.where(vocab_ids >= 0, pos_of_vocab[np.maximum(vocab_ids, 0)], -1)
+                safe_vid = np.maximum(vocab_ids, 0)
+                coord = coords.get(name)
+                if isinstance(coord, BucketedRandomEffectCoordinate):
+                    # each validation row's position in the concatenated
+                    # stacks: the bucket's offset + the position within it
+                    bucket_of, pos_in_bucket = coord.vocab_position_maps()
+                    starts = np.concatenate([[0], np.cumsum(coord.stack_sizes())[:-1]])
+                    b_of, p_in = bucket_of[safe_vid], pos_in_bucket[safe_vid]
+                    ent_pos = np.where((vocab_ids >= 0) & (b_of >= 0) & (p_in >= 0),
+                                       starts[np.maximum(b_of, 0)] + p_in, -1)
+                else:
+                    pos_of_vocab = self._entity_position_of_vocab(name)
+                    ent_pos = np.where(vocab_ids >= 0, pos_of_vocab[safe_vid], -1)
                 re_info[name] = (put(cols), put(vals), put(ent_pos.astype(np.int32)))
         offset = put(vdata.offset)
 
@@ -410,9 +469,13 @@ class GameTrainingDriver:
                     total = total + fe_feats[name].matvec(w)
                     continue
                 cols, vals, ent_pos = re_info[name]
-                # a factored coordinate's IDENTITY local space is the global one
-                wg = (w.v @ w.matrix if isinstance(w, FactoredState)
-                      else global_coefficients(self.re_datasets[name], w))
+                if isinstance(w, tuple):  # bucketed: gather from the concatenated stacks
+                    wg = torch.cat(coords[name].global_coefficient_stacks(w), dim=0)
+                elif isinstance(w, FactoredState):
+                    # a factored coordinate's IDENTITY local space is the global one
+                    wg = w.v @ w.matrix
+                else:
+                    wg = global_coefficients(self.re_datasets[name], w)
                 total = total + gather_scores(wg, ent_pos, cols, vals)
             return total + offset
 
@@ -440,6 +503,7 @@ class GameTrainingDriver:
         p = self.params
         if not p.checkpoint_dir:
             return None
+        races = self._record_race_decisions()
         return maybe_async(
             CoordinateDescentCheckpointer(
                 os.path.join(p.checkpoint_dir, f"combo-{combo_index}"),
@@ -451,10 +515,41 @@ class GameTrainingDriver:
                     "combo": combo_index,
                     "configs": {k: str(v) for k, v in opt_configs.items()},
                     **({"grid": True} if grid else {}),
+                    # a resume that would take other race winners is refused
+                    **({"races": races} if races else {}),
                 }),
             ),
             p.checkpoint_async,
         )
+
+    def _races_path(self) -> str:
+        return os.path.join(self.params.checkpoint_dir, RACES_FILE)
+
+    def _adopt_recorded_races(self) -> None:
+        """Take the race winners an earlier attempt recorded beside its
+        checkpoints, so this run's selections match the steps it resumes."""
+        path = self._races_path()
+        if os.path.exists(path):
+            with open(path) as f:
+                decisions = json.load(f)
+            fused_sparse.adopt_race_decisions(decisions)
+            self.logger.info(f"adopted {len(decisions)} race decisions from {path}")
+
+    def _record_race_decisions(self) -> list:
+        """This run's race decisions so far, one per (race, key) in first
+        order, as JSON lists; written beside the checkpoints for a resume."""
+        seen, decisions = set(), []
+        for race, key, winner in fused_glm.race_log[self._race_mark:]:
+            if (race, key) not in seen:
+                seen.add((race, key))
+                decisions.append([race, list(key), winner])
+        if decisions:
+            os.makedirs(self.params.checkpoint_dir, exist_ok=True)
+            tmp = self._races_path() + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(decisions, f)
+            os.replace(tmp, self._races_path())
+        return decisions
 
     @staticmethod
     def _close_checkpointer(checkpointer) -> None:
@@ -470,6 +565,8 @@ class GameTrainingDriver:
         p = self.params
         if len(combos) < 2:
             return "grid has a single combo"
+        if p.bucketed_random_effects:
+            return "--bucketed-random-effects (static per-bucket lambdas)"
         if p.factored_configs:
             return "factored coordinates (lambda lives in nested configs)"
         if p.compute_variance:
@@ -522,7 +619,7 @@ class GameTrainingDriver:
         checkpointers = ([self._make_checkpointer(i, combos[i], grid=True)
                           for i in range(len(combos))] if p.checkpoint_dir else None)
         try:
-            with self.timer.measure("shared-compile-grid"):
+            with self.timer.measure("shared-compile-grid"), maybe_trace("game-grid"):
                 grid_results = cd.run_grid(lam, p.num_iterations, self.train_data.num_rows,
                                            checkpointers=checkpointers)
         finally:
@@ -556,7 +653,7 @@ class GameTrainingDriver:
             cd = CoordinateDescent(coords, loss_fn, scorer, evaluators, divergence_guard=guard)
             checkpointer = self._make_checkpointer(i, opt_configs)
             try:
-                with self.timer.measure(f"combo-{i}"):
+                with self.timer.measure(f"combo-{i}"), maybe_trace(f"game-combo-{i}"):
                     result = cd.run(p.num_iterations, self.train_data.num_rows, checkpointer)
             finally:
                 self._close_checkpointer(checkpointer)
@@ -584,7 +681,8 @@ class GameTrainingDriver:
         def variances_for(name, coeffs):
             """1/H_jj at the final state, with --compute-variance; the
             residual is the total minus this coordinate's own score."""
-            if not p.compute_variance or combo_index is None or name in p.factored_configs:
+            if (not p.compute_variance or combo_index is None or name in p.factored_configs
+                    or isinstance(coeffs, tuple)):  # a bucketed coordinate exports its own
                 return None
             cfg = p.random_effect_data_configs.get(name)
             if cfg is not None and cfg.projector == "RANDOM":
@@ -609,6 +707,24 @@ class GameTrainingDriver:
                 )
                 continue
             cfg = p.random_effect_data_configs[name]
+            if isinstance(coeffs, tuple):  # bucketed
+                coord = self.combo_coords[combo_index][name]
+                resid = None
+                if p.compute_variance and combo_index is not None:
+                    if cfg.projector == "RANDOM":
+                        self.logger.warn(f"[{name}] variances skipped: RANDOM-projected space")
+                    else:
+                        resid = result.total_scores - coord.score(coeffs)
+                means, entity_variances = coord.entity_export_by_raw_id(coeffs, resid)
+                model_io.save_random_effect(
+                    output_dir, name, p.task_type, means,
+                    self.shard_index_maps[cfg.feature_shard_id],
+                    random_effect_id=cfg.random_effect_id,
+                    feature_shard_id=cfg.feature_shard_id,
+                    num_files=p.num_output_files_re_model,
+                    entity_variances=entity_variances,
+                )
+                continue
             ds = self.re_datasets[name]
             factored = isinstance(coeffs, FactoredState)
             entity_variances = (
@@ -658,6 +774,9 @@ class GameTrainingDriver:
         self.logger.info(f"device: {self.device}"
                          + (f" ({torch.cuda.get_device_name(self.device)})"
                             if self.device.type == "cuda" else ""))
+        self._race_mark = len(fused_glm.race_log)
+        if p.checkpoint_dir:
+            self._adopt_recorded_races()
         try:
             # stat tokens before ingest: a file overwritten mid-run is
             # recorded with the identity this run read
@@ -696,7 +815,7 @@ class GameTrainingDriver:
             "intercepts": {k: bool(v) for k, v in sorted(
                 (p.feature_shard_intercepts or {}).items())},
             "id_types": self._id_types(),
-            "ladder": None,  # the shape ladder is not yet ported
+            "ladder": self.bucketer.spec() if self.bucketer is not None else None,
             "offheap_indexmap_dir": p.offheap_indexmap_dir,
             "name_and_term": p.feature_name_and_term_set_path,
         }
@@ -709,7 +828,7 @@ class GameTrainingDriver:
             "sections": p.feature_shard_sections,
             "intercepts": p.feature_shard_intercepts,
             "id_types": self._id_types(),
-            "ladder": None,
+            "ladder": self.bucketer.spec() if self.bucketer is not None else None,
             "index_maps": {shard: index_map_digest(imap)
                            for shard, imap in sorted(self.shard_index_maps.items())},
         }
@@ -736,7 +855,9 @@ class GameTrainingDriver:
         def kind(name: str) -> str:
             if name in p.fixed_effect_data_configs:
                 return "fixed"
-            return "factored" if name in p.factored_configs else "random"
+            if name in p.factored_configs:
+                return "factored"
+            return "bucketed" if p.bucketed_random_effects else "random"
 
         coords = {
             name: CoordinateRecord(kind=kind(name),

@@ -82,6 +82,7 @@ from photon_ml_tpu_torch.utils.io_utils import (
     write_models_in_text,
 )
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
+from photon_ml_tpu_torch.utils.profiling import maybe_trace
 from photon_ml_tpu_torch.utils.timer import Timer
 
 # above this width batches stay sparse, as in the JAX driver
@@ -329,9 +330,10 @@ class Driver:
             constraints=self._constraints(),
             track_coefficients=p.validate_per_iteration,
         )
-        self.trained = train_glm_grid(
-            self.problem, self.train_batch, self.norm, p.regularization_weights
-        )
+        with maybe_trace("glm-train"):
+            self.trained = train_glm_grid(
+                self.problem, self.train_batch, self.norm, p.regularization_weights
+            )
         self.models = [
             (lam, self._to_raw_space(m))
             for lam, m in zip(self.trained.weights, self.trained.models)

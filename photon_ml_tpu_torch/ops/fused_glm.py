@@ -18,6 +18,8 @@ gradient product, and everything accumulates in f32.
 from __future__ import annotations
 
 import ctypes
+import os
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -170,19 +172,153 @@ def fused_value_grad_parts(
     )
 
 
+_FUSED_ENV = "PHOTON_ML_TPU_FUSED"  # "auto" (default) | "0" (off) | "1" (force)
+PROBE_ROWS = 1 << 17  # the race's row cap: throughput no longer moves past it
+RACE_PASSES = 8  # value+grad passes per timed run
+RACE_REPEATS = 3  # timed runs; the best counts
+MATMUL = "matmul"  # the race's baseline: two torch.matmul products
+
+_autotune_cache: dict = {}
+_autotune_timings: dict = {}
+_autotune_failures: dict = {}
+#: every decision of either race in this process, in order: ``("dense" |
+#: "sparse", key, winner)``, whether raced or read from the cache. The GAME
+#: driver keeps its run's share beside its checkpoints and adopts it when
+#: it resumes (``fused_sparse.adopt_race_decisions``), so a resumed run
+#: takes the winners the interrupted one took.
+race_log: list = []
+
+
+def fused_mode() -> str:
+    """``PHOTON_ML_TPU_FUSED``: ``auto`` (default) races the kernel against
+    the two-matmul path on the live card, ``0`` turns the kernel off, ``1``
+    takes it without a race."""
+    mode = os.environ.get(_FUSED_ENV, "auto").strip().lower()
+    if mode not in ("auto", "0", "1"):
+        raise ValueError(f"bad {_FUSED_ENV}={mode!r} (want auto | 0 | 1)")
+    return mode
+
+
+def matmul_value_grad(loss: PointwiseLoss, x: Tensor, y: Tensor, weights: Tensor,
+                      offsets: Tensor, w: Tensor) -> Tuple[Tensor, Tensor]:
+    """The race's baseline: ``(sum wt*l, X^T d)`` in two ``torch.matmul``
+    products (each reads X once) and elementwise ops."""
+    z = torch.matmul(x, w.to(x.dtype)).to(torch.float32) + offsets
+    keep = weights > 0
+    val = torch.sum(torch.where(keep, weights * loss.loss(z, y), 0.0))
+    d = torch.where(keep, weights * loss.d1(z, y), 0.0)
+    return val, torch.matmul(d.to(x.dtype), x).to(torch.float32)
+
+
+def time_value_and_grad(fn, w0: Tensor, data) -> float:
+    """Seconds per ``fn(w, data) -> (value, grad)`` pass: after a warm-up
+    pass, ``RACE_REPEATS`` runs of ``RACE_PASSES`` passes, each pass fed the
+    previous pass's ``w - 1e-6 g`` (fresh work every time); the best run
+    counts. On the card the passes are enqueued back to back between two
+    CUDA events; on a CPU the host clock reads them. Both races time this
+    way."""
+    cuda = w0.is_cuda
+    w = w0 - 1e-6 * fn(w0, data)[1]
+    best = float("inf")
+    for _ in range(RACE_REPEATS):
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        for _ in range(RACE_PASSES):
+            w = w - 1e-6 * fn(w, data)[1]
+        if cuda:
+            end.record()
+            end.synchronize()
+            sec = start.elapsed_time(end) / 1e3
+        else:
+            sec = time.perf_counter() - t0
+        best = min(best, sec / RACE_PASSES)
+    return best
+
+
+def _race_key(loss: PointwiseLoss, n: int, d: int, dtype: torch.dtype, device, mode: str):
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:  # "cuda" and "cuda:0" share a race
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return (loss.name, min(n, PROBE_ROWS), d, str(dtype).replace("torch.", ""), str(dev), mode)
+
+
+def _race(loss: PointwiseLoss, key: tuple, rows: int) -> Optional[int]:
+    """Time two ``torch.matmul`` products and the kernel on synthetic data
+    of the key's rows; return the faster (``rows`` or None). A kernel that
+    fails to build or launch is recorded with its reason and raises: only a
+    measured loss hands the pass to the matmul path."""
+    n_probe, d, device = key[1], key[2], key[4]
+    dtype = getattr(torch, key[3])
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((n_probe, d), generator=gen, device=device).to(dtype)
+    y = (torch.rand((n_probe,), generator=gen, device=device) < 0.5).to(torch.float32)
+    probe = (x, y, torch.ones((n_probe,), device=device), torch.zeros((n_probe,), device=device))
+    w0 = torch.zeros((d,), device=device)
+    timings = _autotune_timings[key] = {}
+    timings[None] = time_value_and_grad(lambda w, data: matmul_value_grad(loss, *data, w),
+                                        w0, probe)
+    try:
+        timings[rows] = time_value_and_grad(
+            lambda w, data: fused_value_grad_kernel(loss, *data, w)[:2], w0, probe)
+    except Exception as e:
+        _autotune_failures[key] = {rows: f"failed: {type(e).__name__}: {e}"[:300]}
+        raise
+    return min(timings, key=timings.get)
+
+
 def select_fused_block_rows(
     loss: PointwiseLoss, n: int, d: int, dtype: torch.dtype, device
 ) -> Optional[int]:
-    """The kernel's rows per tile when the dense pass of an (N, D) batch on
-    ``device`` goes through the kernel, else None: on a CPU, for f64
-    storage, or beyond the kernel's column limit.
-
-    Unlike the JAX function of the same name, nothing is raced here: on the
-    card the kernel is always taken (the race against the plain path is not
-    yet ported).
+    """The kernel's rows per tile when the dense value+gradient pass of an
+    (N, D) batch on ``device`` should go through the kernel, or ``None`` for
+    the plain path: always on a CPU, for f64 storage and beyond the kernel's
+    column limit; on the card as ``PHOTON_ML_TPU_FUSED`` says (``auto``
+    races the kernel against two ``torch.matmul`` products on synthetic
+    data of min(N, 2^17) rows and takes the faster, ``1`` takes the kernel
+    unraced). Race results are cached per (loss, rows, D, dtype, device,
+    mode); a kernel that fails in the race raises after its failure is
+    recorded.
     """
-    if torch.device(device).type != "cuda" or dtype not in KERNEL_DTYPES:
+    mode = fused_mode()
+    if mode == "0" or torch.device(device).type != "cuda" or dtype not in KERNEL_DTYPES:
         return None
     if n < 1 or not 1 <= d <= MAX_DIM:
         return None
-    return tile_rows(d, dtype)
+    rows = tile_rows(d, dtype)
+    if mode == "1":
+        return rows
+    key = _race_key(loss, n, d, dtype, device, mode)
+    if key not in _autotune_cache:
+        _autotune_cache[key] = _race(loss, key, rows)
+    race_log.append(("dense", key, _autotune_cache[key]))
+    return _autotune_cache[key]
+
+
+def autotune_report(loss: PointwiseLoss, n: int, d: int, dtype: torch.dtype, device) -> dict:
+    """Run the race (or read its cache) and return the winner with every
+    candidate: ``matmul`` (the two-product baseline, which reads X twice)
+    and ``cuda:<tile rows>`` (the kernel), each with sec/pass, examples/s
+    and the read rate of one stream of X in GB/s. Under ``1`` the winner is
+    the kernel and nothing was raced; a kernel that failed its race reads
+    as failed, with its reason."""
+    key = _race_key(loss, n, d, dtype, device, fused_mode())
+    # a kernel that failed its race is reported, not raced again
+    winner = None if key in _autotune_failures else select_fused_block_rows(
+        loss, n, d, dtype, device)
+    n_probe = key[1]
+    x_bytes = n_probe * d * torch.empty((), dtype=dtype).element_size()
+    name = lambda cand: MATMUL if cand is None else f"cuda:{cand}"
+    candidates = {
+        name(cand): {
+            "sec_per_pass": round(sec, 6),
+            "examples_per_sec": round(n_probe / sec, 1),
+            "one_stream_gb_per_sec": round(x_bytes / sec / 1e9, 1),
+        }
+        for cand, sec in _autotune_timings.get(key, {}).items()
+    }
+    for cand, reason in _autotune_failures.get(key, {}).items():
+        candidates[name(cand)] = {"failed": reason}
+    return {"winner": None if winner is None else name(winner), "candidates": candidates}

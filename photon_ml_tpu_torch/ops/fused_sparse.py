@@ -1,17 +1,22 @@
-"""Sparse per-entity slabs and their fused kernels (port of
-photon_ml_tpu/ops/fused_sparse.py, without the per-bucket race).
+"""Sparse per-entity slabs, their fused kernels and the per-bucket race
+(port of photon_ml_tpu/ops/fused_sparse.py).
 
 A random-effect coordinate's per-entity rows live in a padded-COO **slab**:
-``idx``/``val`` of shape ``(E, M, K)``, K the largest row non-zero count,
-padding slots at column 0 with value 0, each row's entries in ascending
-column order. Two formulations compute the same arithmetic on it: margins
-gathered per row, transposes applied in flat ``(m, k)`` order, row sums
-through the fixed-association ``tree_row_sum``.
+``idx``/``val`` of shape ``(E, M, K)``, K the largest row non-zero count
+(rounded up the shape ladder when one is asked for), padding slots at
+column 0 with value 0, each row's entries in ascending column order. Two
+formulations compute the same arithmetic on it: margins gathered per row,
+transposes applied in flat ``(m, k)`` order, row sums through the
+fixed-association ``tree_row_sum``.
 
   * the plain one (``SparseSlab.matvec`` / ``rmatvec``, and
-    ``*_parts_plain``): a gather and one flat ``index_add_``. It serves the
-    ``scatter``, ``segment`` and ``flat`` specs, which are three schedules
-    of that arithmetic in the JAX package;
+    ``*_parts_plain``): a gather and a transpose in flat order. It serves
+    the ``scatter``, ``segment`` and ``flat`` specs, which are three
+    schedules of that arithmetic in the JAX package. On a CPU the transpose
+    is one flat ``index_add_``, which adds in that order; on the card the
+    deterministic ``index_add_`` sums a column in another association
+    (``tools/sparse_flat_order.py``), so there it is ``FlatOrderPlan``: one
+    elementwise add per step down the longest column;
   * the fused one, spec ``pallas``: on a CUDA slab the hand-written kernels
     of ``csrc/fused_sparse.cu`` (value + gradient in one pass, and the
     Hessian-vector product in one pass), every lane in one launch; on a CPU
@@ -20,8 +25,13 @@ through the fixed-association ``tree_row_sum``.
 
 ``PHOTON_SPARSE_KERNEL`` keeps the JAX grammar: ``off`` (default) keeps the
 dense path; ``scatter`` | ``segment`` | ``flat`` | ``pallas`` |
-``pallas:<rows>`` select a family (``:<rows>`` is a TPU row-block schedule,
-accepted and ignored); ``auto`` (the race) is not yet ported and raises.
+``pallas:<rows>`` force a family (``:<rows>`` is a TPU row-block schedule:
+the same CUDA kernel here); ``auto`` races every family and the dense
+incumbent on each bucket's own tensors (``race_sparse_kernels``). A
+candidate is verified bitwise against the ``segment`` baseline, and every
+candidate that produced no timing is recorded with its reason (one that
+disagrees, or runs another name's code); a kernel that fails to build or
+launch on the card raises, in the race as under a forced spec.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from photon_ml_tpu_torch import native_build
+from photon_ml_tpu_torch.ops import fused_glm
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
 Tensor = torch.Tensor
@@ -43,6 +54,12 @@ Tensor = torch.Tensor
 SOURCE = "fused_sparse.cu"
 _SPARSE_ENV = "PHOTON_SPARSE_KERNEL"
 SPARSE_FAMILIES = ("scatter", "segment", "flat", "pallas")
+#: the family the race measures candidates against and verifies them by
+#: ("the kernel off")
+SPARSE_BASELINE = "segment"
+#: row blocks of the TPU's blocked pallas variants, raced by name where
+#: they divide the slab's padded row count (the same CUDA kernel here)
+PALLAS_ROW_BLOCKS = (256, 2048)
 VAL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -89,6 +106,10 @@ class SparseSlab:
     )
     # per kernel ("gevm", "hvp"): the checked launch description
     _launch: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # the card's flat-order transpose, built on first use and shared like _tables
+    _flat: Optional["FlatOrderPlan"] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     @property
     def num_rows(self) -> int:
@@ -115,9 +136,14 @@ class SparseSlab:
         return torch.sum(wv.to(acc) * self.val.to(acc), dim=-1)
 
     def _transpose_apply(self, contrib: Tensor) -> Tensor:
-        """The transpose action of every family: one flat index_add_ in
-        (lane, m, k) order into the raveled ``(..., D)`` output."""
+        """The transpose action of every plain family, in flat (lane, m, k)
+        order into the raveled ``(..., D)`` output: one ``index_add_`` on a
+        CPU, ``FlatOrderPlan`` on the card."""
         lead = tuple(self.idx.shape[:-2])
+        if contrib.is_cuda:
+            if self._flat is None:
+                self._flat = FlatOrderPlan.build(self.idx, self.val, self.dim)
+            return self._flat.apply(contrib).reshape(lead + (self.dim,))
         out = torch.zeros(math.prod(lead) * self.dim, dtype=contrib.dtype,
                           device=contrib.device)
         out.index_add_(0, self._flat_idx().reshape(-1), contrib.reshape(-1))
@@ -145,10 +171,11 @@ class SparseSlab:
         return out.reshape(lead + (self.dim,))
 
     def with_kernel(self, kernel: str) -> "SparseSlab":
-        return SparseSlab(self.idx, self.val, self.dim, kernel, self._tables)
+        return SparseSlab(self.idx, self.val, self.dim, kernel, self._tables, _flat=self._flat)
 
     def astype(self, dtype: torch.dtype) -> "SparseSlab":
-        return SparseSlab(self.idx, self.val.to(dtype), self.dim, self.kernel, self._tables)
+        return SparseSlab(self.idx, self.val.to(dtype), self.dim, self.kernel, self._tables,
+                          _flat=self._flat)
 
     def kernel_tables(self) -> "ColumnTables":
         """The kernels' column tables (see ``ColumnTables``), built once per
@@ -227,17 +254,77 @@ class ColumnTables:
                    (self.lane_cols, self.lane_slots, self.cols, self.col_end, self.slots))
 
 
-def build_sparse_slab(x, kernel: str = "scatter", dtype: Optional[torch.dtype] = None) -> SparseSlab:
+@dataclasses.dataclass(frozen=True)
+class FlatOrderPlan:
+    """The transpose ``out[lane, idx] += contrib`` in flat ``(m, k)`` order
+    from torch ops, for the card. Each populated (lane, column) owns its
+    real slots (value non-zero) in flat order; columns are ranked by
+    descending slot count, so the columns that still have a slot at step j
+    are a prefix of that ranking. A pass gathers every real contribution in
+    step-major order, adds step j's prefix into the accumulators with one
+    elementwise add, and writes each accumulator to its column once: per
+    column the adds of the CUDA kernel's column owner, in its order.
+    Padding slots add zero and are left out, as the kernel leaves them."""
+
+    gather: Tensor  # (nnz,) int64: positions in the raveled contributions, step-major
+    steps: Tuple[int, ...]  # step j: the columns that have a j-th slot
+    out_pos: Tensor  # (C,) int64: each ranked column's position in the raveled output
+    size: int  # elements of the raveled (..., D) output
+
+    @staticmethod
+    def build(idx: Tensor, val: Tensor, dim: int) -> "FlatOrderPlan":
+        mk = idx.shape[-2] * idx.shape[-1]
+        lanes = idx.numel() // mk if mk else 0
+        dev = idx.device
+        lane = torch.arange(lanes, device=dev, dtype=torch.int64)[:, None]
+        key = (idx.reshape(lanes, mk).long() + lane * dim).reshape(-1)
+        real = (val.reshape(-1) != 0).nonzero().squeeze(1)
+        # a stable sort by column keeps each column's slots in flat order
+        col_key, perm = torch.sort(key[real], stable=True)
+        cols, counts = torch.unique_consecutive(col_key, return_counts=True)
+        step = (torch.arange(col_key.numel(), device=dev)
+                - torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts))
+        order = torch.sort(counts, descending=True, stable=True)[1]
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(order.numel(), device=dev)
+        slot_rank = torch.repeat_interleave(rank, counts)
+        step_major = torch.sort(step * max(cols.numel(), 1) + slot_rank)[1]
+        per_step = torch.bincount(step, minlength=int(counts.max()) if counts.numel() else 0)
+        return FlatOrderPlan(real[perm][step_major], tuple(per_step.tolist()), cols[order],
+                             lanes * dim)
+
+    def apply(self, contrib: Tensor) -> Tensor:
+        """The raveled ``(..., D)`` transpose of ``(..., M, K)`` contributions."""
+        g = contrib.reshape(-1)[self.gather]
+        acc = torch.zeros(self.out_pos.numel(), dtype=contrib.dtype, device=contrib.device)
+        at = 0
+        for n in self.steps:
+            acc.narrow(0, 0, n).add_(g.narrow(0, at, n))
+            at += n
+        out = torch.zeros(self.size, dtype=contrib.dtype, device=contrib.device)
+        out[self.out_pos] = acc
+        return out
+
+
+def build_sparse_slab(x, bucketer=None, kernel: str = "scatter",
+                      dtype: Optional[torch.dtype] = None) -> SparseSlab:
     """Extract the padded-COO slab from a dense ``(..., M, D)`` stack (a
     tensor on any device, or an array). K is the largest row non-zero count
-    (at least 1); a stable sort of the zero mask keeps each row's non-zeros
-    in ascending column order; padding slots carry column 0 and value 0.
-    Byte-equal to the JAX package's build with the shape ladder off."""
+    (at least 1), rounded up the shape ladder (``bucketer``: a
+    ``compile.ShapeBucketer`` or spec, None reads ``PHOTON_SHAPE_LADDER``)
+    and capped at D; a stable sort of the zero mask keeps each row's
+    non-zeros in ascending column order; padding slots carry column 0 and
+    value 0. Byte-equal to the JAX package's build."""
+    from photon_ml_tpu_torch.compile import resolve_bucketer
+
     x = torch.as_tensor(x)
     d = x.shape[-1]
     mask = x != 0
     counts = mask.sum(dim=-1)
-    k = max(min(max(int(counts.max()) if counts.numel() else 0, 1), d), 1)
+    k_raw = max(int(counts.max()) if counts.numel() else 0, 1)
+    b = resolve_bucketer(bucketer)
+    k = k_raw if b is None else min(b.canon(k_raw), d)
+    k = max(min(k, d), 1)
     order = torch.sort((~mask).to(torch.uint8), dim=-1, stable=True)[1][..., :k]
     val = torch.gather(x, -1, order)
     pad = torch.arange(k, device=x.device) >= counts[..., None]
@@ -590,8 +677,10 @@ def fused_hvp_parts(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor,
     )
 
 
+
+
 # ---------------------------------------------------------------------------
-# selection
+# selection: the per-bucket race (dense incumbent against the sparse families)
 # ---------------------------------------------------------------------------
 
 
@@ -602,10 +691,16 @@ def _family_block(kernel: str) -> Tuple[str, int]:
     return kernel, 0
 
 
+def sparse_candidates(m: int) -> Tuple[str, ...]:
+    """The raced family names for a slab of ``m`` padded rows per lane."""
+    blocked = tuple(f"pallas:{b}" for b in PALLAS_ROW_BLOCKS if m > b and m % b == 0)
+    return SPARSE_FAMILIES + blocked
+
+
 def resolve_sparse_kernel(spec: Optional[str] = None) -> Optional[str]:
     """Effective sparse-kernel spec: an explicit value wins; ``None`` falls
-    back to ``PHOTON_SPARSE_KERNEL``. Returns ``None`` (off) or a family
-    name; ``auto`` raises (the race is not yet ported)."""
+    back to ``PHOTON_SPARSE_KERNEL``. Returns ``None`` (off), ``"auto"``
+    (race per bucket), or a family name."""
     if spec is None:
         spec = os.environ.get(_SPARSE_ENV)
     if spec is None:
@@ -614,30 +709,228 @@ def resolve_sparse_kernel(spec: Optional[str] = None) -> Optional[str]:
     if text in ("", "off", "false", "0", "none"):
         return None
     if text in ("on", "auto", "race"):
-        raise ValueError(
-            f"sparse-kernel spec {spec!r}: the per-bucket race (auto) is not yet "
-            "ported to photon_ml_tpu_torch; name a family instead"
-        )
+        return "auto"
     fam, _ = _family_block(text)
     if fam not in SPARSE_FAMILIES or (":" in text and fam != "pallas"):
+        # ":<rows>" is pallas-only grammar, as in the JAX package
         raise ValueError(
-            f"bad sparse-kernel spec {spec!r} (want off | "
+            f"bad sparse-kernel spec {spec!r} (want off | auto | "
             f"{' | '.join(SPARSE_FAMILIES)} | pallas:<rows>)"
         )
     return text
 
 
-def build_and_select(x, spec: str, label: str) -> SparseSlab:
-    """Slab build for one random-effect dataset with an already-resolved
-    family ``spec``. The fused family is never taken for f64 values: it
-    warns and runs the plain ``scatter`` family, as the JAX package does."""
-    slab = build_sparse_slab(x)
-    family = spec
-    if _family_block(family)[0] == "pallas" and slab.val.dtype == torch.float64:
-        warnings.warn(
-            f"{label}: pallas family is ineligible under float64; "
-            "running the scatter family instead",
-            stacklevel=2,
-        )
-        family = "scatter"
-    return slab.with_kernel(family)
+_race_cache: dict = {}
+_race_reports: dict = {}
+
+RACE_LANES = 512  # a race probes this many lanes of its dataset at most
+
+
+def _lane_vg(task):
+    """The solvers' own lane value+grad closure (``GLMObjective`` over a
+    lane-batched ``GLMBatch``, identity normalization, no L2), so the race
+    measures what a solve pays per evaluation."""
+    from photon_ml_tpu_torch.ops import losses as losses_mod
+    from photon_ml_tpu_torch.ops.features import DenseFeatures
+    from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+    from photon_ml_tpu_torch.ops.objective import GLMBatch, GLMObjective
+
+    obj = GLMObjective(losses_mod.for_task(task))
+    norm = NormalizationContext.identity()
+
+    def vg(feats, y, off, wt, w):
+        if isinstance(feats, Tensor):
+            feats = DenseFeatures(feats)
+        return obj.value_and_grad(w, GLMBatch(feats, y, off, wt), norm, 0.0)
+
+    return vg
+
+
+def _max_diff(a: Tensor, b: Tensor) -> float:
+    return float(torch.max(torch.abs(a.double() - b.double()))) if a.numel() else 0.0
+
+
+def _same_code(fam: str) -> Optional[str]:
+    """The raced name whose code ``fam`` runs in the port, or None: the
+    plain families are one formulation, the blocked pallas names the one
+    kernel."""
+    if fam in ("scatter", "flat"):
+        return SPARSE_BASELINE
+    if fam != "pallas" and _family_block(fam)[0] == "pallas":
+        return "pallas"
+    return None
+
+
+def race_sparse_kernels(task, slab: SparseSlab, x_dense, labels: Tensor, offsets: Tensor,
+                        weights: Tensor, candidates: Optional[Tuple[str, ...]] = None) -> dict:
+    """Race every sparse family (and the dense incumbent) on this bucket's
+    own tensors, its first ``RACE_LANES`` lanes, through the solvers' lane
+    value+grad closure.
+
+    Returns ``{"winner", "baseline", "shape", "nnz", "candidates"}`` as the
+    JAX package does: every raced name appears either with its timing or
+    with a ``"failed"`` reason (a value or gradient not bitwise the
+    ``segment`` baseline's, with the largest difference; ineligibility; or
+    a name that runs the code of another raced name: ``scatter`` and
+    ``flat`` are ``segment`` here, ``pallas:<rows>`` is ``pallas``, and
+    each is timed once). ``winner`` is a family name, or ``None`` when the
+    dense path keeps the bucket. A family that raises on a CUDA slab (a
+    kernel that fails to build or launch) raises here with its reason: only
+    a measured loss or a failed check hands the bucket to another family.
+    """
+    e, m, k = slab.idx.shape
+    d = slab.dim
+    n = min(e, RACE_LANES)
+    slab_p = SparseSlab(slab.idx[:n].contiguous(), slab.val[:n].contiguous(), d, slab.kernel)
+    y_p, off_p, wt_p = (t[:n].contiguous() for t in (labels, offsets, weights))
+    w0 = torch.zeros((n, d), dtype=_acc_dtype(slab.val.dtype), device=slab.device)
+    vg = _lane_vg(task)
+    time_vg = lambda data: fused_glm.time_value_and_grad(lambda w, dd: vg(*dd, w), w0, data)
+
+    report, timings, outputs = {}, {}, {}
+    cands = list(candidates if candidates is not None else sparse_candidates(m))
+    if SPARSE_BASELINE not in cands:
+        cands.insert(0, SPARSE_BASELINE)
+    f64 = slab.val.dtype == torch.float64
+    for fam in cands:
+        if _family_block(fam)[0] == "pallas" and f64:
+            report[fam] = {"failed": "skipped: pallas family ineligible under float64"}
+            continue
+        same = _same_code(fam)
+        if same is not None and same in cands:
+            report[fam] = {"failed": f"skipped: the port runs it as {same}, timed once"}
+            continue
+        data = (slab_p.with_kernel(fam), y_p, off_p, wt_p)
+        try:
+            outputs[fam] = vg(*data, w0)
+            # timing stays inside the try: a candidate that verifies but
+            # fails while timed reads as failed too
+            timings[fam] = time_vg(data)
+        except Exception as exc:
+            reason = f"error: {type(exc).__name__}: {exc}"[:300]
+            if slab.device.type == "cuda":
+                raise RuntimeError(f"sparse race, family {fam}: {reason}") from exc
+            # race probe on a CPU slab: the failure disqualifies the
+            # candidate and is recorded with its reason
+            report[fam] = {"failed": reason}
+            outputs.pop(fam, None)
+
+    base = outputs.get(SPARSE_BASELINE)
+    verified = {}
+    for fam, (val, grad) in outputs.items():
+        if base is None:
+            report.setdefault(fam, {})["failed"] = "baseline family failed; no verification possible"
+            continue
+        if not (torch.equal(val, base[0]) and torch.equal(grad, base[1])):
+            report[fam] = {"failed": (
+                f"numerics: not bitwise-equal to the {SPARSE_BASELINE} baseline on this "
+                f"device (max |diff| value {_max_diff(val, base[0]):.3e}, "
+                f"gradient {_max_diff(grad, base[1]):.3e})")}
+            continue
+        verified[fam] = timings[fam]
+
+    try:
+        x_p = torch.as_tensor(x_dense)[:n].to(slab.device).contiguous()
+        timings["dense"] = time_vg((x_p, y_p, off_p, wt_p))
+    except Exception as exc:  # noqa: BLE001 — incumbent probe: the race goes on without it, the failure recorded
+        report["dense"] = {"failed": f"error: {type(exc).__name__}: {exc}"[:300]}
+
+    rows = n * m
+    for fam, sec in timings.items():
+        if fam in verified or fam == "dense":
+            report[fam] = {
+                "sec_per_pass": round(sec, 6),
+                "lane_rows_per_sec": round(rows / sec, 1) if sec else 0.0,
+            }
+    eligible = dict(verified)
+    if "dense" in timings:
+        eligible["dense"] = timings["dense"]
+    winner = min(eligible, key=eligible.get) if eligible else None
+    return {
+        "winner": None if winner == "dense" else winner,
+        "baseline": SPARSE_BASELINE,
+        "shape": {"lanes": int(e), "rows": m, "k": k, "dim": d},
+        "nnz": slab_nnz_stats(slab),
+        "candidates": {fam: report[fam] for fam in cands + ["dense"] if fam in report},
+    }
+
+
+def select_sparse_kernel(task, slab: SparseSlab, x_dense, labels: Tensor, offsets: Tensor,
+                         weights: Tensor, spec: Optional[str] = None, label: str = "re",
+                         candidates: Optional[Tuple[str, ...]] = None) -> Optional[str]:
+    """Per-bucket family selection. ``spec`` (or ``PHOTON_SPARSE_KERNEL``):
+    off -> ``None`` (the dense path stays); a family name -> forced;
+    ``auto`` -> the race on this bucket's tensors, cached per (loss, shape,
+    dtype, device, candidates). Returns the family, or ``None`` for dense.
+    ``candidates`` narrows the race to the named families (and dense). A
+    race that raises (a kernel failing on the card) leaves its reason in
+    ``race_reports()`` and chooses nothing."""
+    from photon_ml_tpu_torch.ops import losses as losses_mod
+
+    resolved = resolve_sparse_kernel(spec)
+    if resolved != "auto":
+        return resolved
+    e, m, k = slab.idx.shape
+    # dtype is part of the key (pallas is ineligible under f64), and a
+    # narrowed race must not answer for the full one
+    key = (
+        losses_mod.for_task(task).name, e, m, k, slab.dim,
+        str(slab.val.dtype).replace("torch.", ""), str(slab.device),
+        tuple(candidates) if candidates else None,
+    )
+    if key not in _race_cache:
+        try:
+            report = race_sparse_kernels(task, slab, x_dense, labels, offsets, weights,
+                                         candidates=tuple(candidates) if candidates else None)
+        except Exception as exc:
+            # a kernel that failed on the card: recorded with its reason, then raised
+            _race_reports[(label,) + key] = {"failed": f"{type(exc).__name__}: {exc}"[:300]}
+            raise
+        _race_reports[(label,) + key] = report
+        _race_cache[key] = report["winner"]
+    fused_glm.race_log.append(("sparse", key, _race_cache[key]))
+    return _race_cache[key]
+
+
+def adopt_race_decisions(decisions) -> None:
+    """Seed both races' caches with recorded ``(race, key, winner)``
+    decisions (``fused_glm.race_log`` entries, tuples or the lists JSON
+    makes of them): the selections that meet those keys take the recorded
+    winners and race nothing."""
+
+    def as_tuple(v):
+        return tuple(as_tuple(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+    for race, key, winner in decisions:
+        cache = {"dense": fused_glm._autotune_cache, "sparse": _race_cache}[race]
+        cache[as_tuple(key)] = winner
+
+
+def race_reports() -> dict:
+    """Every recorded per-bucket race report, keyed by (label,) + cache key."""
+    return dict(_race_reports)
+
+
+def build_and_select(task, x, labels: Tensor, offsets: Tensor, weights: Tensor, spec: str,
+                     label: str, bucketer=None,
+                     candidates: Optional[Tuple[str, ...]] = None) -> Optional[SparseSlab]:
+    """Slab build and family selection for one bucket's dense stack ``x``,
+    with an already-resolved ``spec``: ``auto`` races on this bucket's own
+    tensors (narrowed to ``candidates`` when given), a family name is
+    forced. Returns the slab carrying the family, or ``None`` when the dense
+    path keeps the bucket. The fused family is never taken for f64 values:
+    a forced ``pallas`` warns and runs ``scatter``, as the JAX package does."""
+    slab = build_sparse_slab(x, bucketer=bucketer)
+    if spec == "auto":
+        family = select_sparse_kernel(task, slab, x, labels, offsets, weights, spec="auto",
+                                      label=label, candidates=candidates)
+    else:
+        family = spec
+        if _family_block(family)[0] == "pallas" and slab.val.dtype == torch.float64:
+            warnings.warn(
+                f"{label}: pallas family is ineligible under float64; "
+                "running the scatter family instead",
+                stacklevel=2,
+            )
+            family = "scatter"
+    return slab.with_kernel(family) if family is not None else None

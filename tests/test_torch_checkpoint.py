@@ -318,6 +318,55 @@ def test_a_preempted_subprocess_exits_75_and_its_rerun_resumes(game_avro_dirs, c
     assert _model_bytes(str(tmp_path / "out")) == clean_driver_run
 
 
+def test_a_resume_takes_the_recorded_race_winners_and_refuses_others(game_avro_dirs,  # noqa: F811
+                                                                     tmp_path, monkeypatch):
+    """Under ``PHOTON_SPARSE_KERNEL=auto`` the driver keeps its race winners
+    beside the steps (``races.json``, also in the fingerprint): a resumed
+    run takes them and races nothing, and ends bitwise where a run forced
+    to the recorded family ends; a resume whose winners differ is refused."""
+    import shutil
+
+    from photon_ml_tpu_torch.ops import fused_glm as tfg
+    from photon_ml_tpu_torch.ops import fused_sparse as tfs
+
+    train_dir, val_dir, _ = game_avro_dirs
+    argv = _quickstart(train_dir, val_dir, str(tmp_path / "out"), str(tmp_path / "ck"),
+                       "--device", "cpu")
+    monkeypatch.setenv("PHOTON_SPARSE_KERNEL", "auto")
+    monkeypatch.setattr(tfs, "_race_cache", {})
+    monkeypatch.setattr(tfs, "_race_reports", {})
+    monkeypatch.setenv("PHOTON_PREEMPT_AT", "cycle:2")
+    with pytest.raises(SystemExit):
+        tdriver.main(argv)
+    monkeypatch.delenv("PHOTON_PREEMPT_AT")
+    with open(tmp_path / "ck" / tdriver.RACES_FILE) as f:
+        (race, key, winner), = json.load(f)
+    assert race == "sparse" and key[-2:] == ["cpu", None]
+    shutil.copytree(tmp_path / "ck", tmp_path / "ck-other")
+
+    monkeypatch.setattr(tfs, "_race_cache", {})
+    monkeypatch.setattr(tfs, "race_sparse_kernels", lambda *a, **kw: pytest.fail("raced"))
+    preemption.reset()
+    resumed = tdriver.main(argv)
+    assert len(resumed.results[0][1].objective_history) == 4
+    assert resumed.combo_coords[0]["per-user"].slab is None if winner is None else (
+        resumed.combo_coords[0]["per-user"].slab.kernel == winner)
+    monkeypatch.setenv("PHOTON_SPARSE_KERNEL", winner or "off")
+    tdriver.main(_quickstart(train_dir, val_dir, str(tmp_path / "forced"),
+                             str(tmp_path / "ck-forced"), "--device", "cpu"))
+    assert _model_bytes(str(tmp_path / "out")) == _model_bytes(str(tmp_path / "forced"))
+
+    # another winner in the record: the fingerprint no longer matches
+    monkeypatch.setenv("PHOTON_SPARSE_KERNEL", "auto")
+    monkeypatch.setattr(tfs, "_race_cache", {})
+    with open(tmp_path / "ck-other" / tdriver.RACES_FILE, "w") as f:
+        json.dump([[race, key, "segment" if winner is None else None]], f)
+    with pytest.raises(ValueError, match="fingerprint"):
+        tdriver.main(_quickstart(train_dir, val_dir, str(tmp_path / "out-other"),
+                                 str(tmp_path / "ck-other"), "--device", "cpu"))
+    assert tfg.race_log  # the decisions were logged
+
+
 def _site_literals():
     """(kind, literal) of every faults.inject/corrupt/flag and
     preemption.check call in the port."""

@@ -26,6 +26,7 @@ from photon_ml_tpu_torch.ops import losses as tlosses
 from photon_ml_tpu_torch.ops.features import DenseFeatures
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.objective import GLMBatch, GLMObjective
+from photon_ml_tpu_torch.types import TaskType
 from tolerances import assert_allclose
 
 LOSSES = ["logistic", "squared", "poisson", "smoothed_hinge"]
@@ -336,20 +337,22 @@ def test_sparse_spec_grammar(monkeypatch):
     monkeypatch.setenv("PHOTON_SPARSE_KERNEL", "pallas")
     assert tfs.resolve_sparse_kernel(None) == "pallas"
     for race in ("auto", "on", "race"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            tfs.resolve_sparse_kernel(race)
+        assert tfs.resolve_sparse_kernel(race) == jfs.resolve_sparse_kernel(race) == "auto"
     for bad in ("bogus", "flat:128", "scatter:8"):
         with pytest.raises(ValueError, match="bad sparse-kernel spec"):
             tfs.resolve_sparse_kernel(bad)
 
 
 def test_f64_slab_is_never_fused():
-    x, *_ = _inputs(2, "logistic")
+    x, y, wt, off, *_ = _inputs(2, "logistic")
+    rows = tuple(torch.from_numpy(a) for a in (y, off, wt))
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        slab = tfs.build_and_select(torch.from_numpy(x.astype(np.float64)), "pallas", "re")
+        slab = tfs.build_and_select(TaskType.LOGISTIC_REGRESSION,
+                                    torch.from_numpy(x.astype(np.float64)), *rows, "pallas", "re")
     assert slab.kernel == "scatter" and any("float64" in str(w.message) for w in caught)
-    assert tfs.build_and_select(torch.from_numpy(x), "pallas:256", "re").kernel == "pallas:256"
+    assert tfs.build_and_select(TaskType.LOGISTIC_REGRESSION, torch.from_numpy(x), *rows,
+                                "pallas:256", "re").kernel == "pallas:256"
 
 
 @pytest.mark.parametrize("loss_name", LOSSES)

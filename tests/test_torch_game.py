@@ -139,11 +139,19 @@ def test_random_effect_update_and_score_match_jax(glmix, optimizer, spec):
 
 
 def test_random_effect_auto_spec_is_not_ported(glmix):
+    """The name predates the race: ``auto`` is ported now, so the coordinate
+    races on its own dataset, records the report, and keeps the winner."""
     _, tdata = glmix
     tds = tgame.build_random_effect_dataset(tdata, tgame.RandomEffectDataConfig("userId", "per_user"),
                                             device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        RandomEffectCoordinate(tds, TaskType.LOGISTIC_REGRESSION, sparse_kernel="auto")
+    coord = RandomEffectCoordinate(tds, TaskType.LOGISTIC_REGRESSION, sparse_kernel="auto",
+                                   solve_label="auto-spec")
+    reports = [r for k, r in tfs.race_reports().items() if k[0] == "auto-spec"]
+    winner = reports[0]["winner"] if reports else tfs.select_sparse_kernel(
+        TaskType.LOGISTIC_REGRESSION, tfs.build_sparse_slab(tds.x), tds.x, tds.labels,
+        tds.base_offsets, tds.weights, spec="auto")  # an earlier race of this key
+    assert (coord.slab is None) == (winner is None)
+    assert coord.slab is None or coord.slab.kernel == winner
 
 
 @pytest.mark.parametrize("spec", ["off", "pallas"])

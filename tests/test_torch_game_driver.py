@@ -131,14 +131,12 @@ FENCED = [
     ["--store-dtype", "bf16"],
     ["--distributed", "true"],
     ["--fused-cycle", "true"],
-    ["--bucketed-random-effects", "true"],
     ["--streaming-random-effects", "true"],
     ["--re-memory-budget-mb", "64"],
     ["--solve-compaction", "6"],
     ["--tensor-cache", "cache"],
     ["--persistent-cache", "cache"],
     ["--warm-start-from", "prior"],
-    ["--shape-canonicalization", "on"],
     ["--adaptive-schedule", "on"],
     ["--plan", "auto"],
     ["--export-serve-store", "store"],
@@ -247,3 +245,61 @@ def test_interop_carries_game_objects_both_ways(game_avro_dirs, jax_runs):  # no
     tron_cfg = interop.from_jax_numpy(JConfig.tron_default(), "cpu")
     assert (tron_cfg.max_iterations, tron_cfg.max_cg_iterations) == (15, 20)
     assert JConfig(**interop.to_numpy(tron_cfg)) == JConfig.tron_default()
+
+
+BUCKETED = ["--bucketed-random-effects", "true", "--compute-variance", "true"]
+
+
+@pytest.mark.parametrize("ladder", ["off", "on"])
+def test_bucketed_driver_matches_jax_driver(game_avro_dirs, tmp_path, ladder):  # noqa: F811
+    """``--bucketed-random-effects true`` (with ``--compute-variance``),
+    with and without the shape ladder: objectives, metrics and saved models
+    (means and variances) at ``solver``, and ``retrain.json`` as the JAX
+    driver writes it (``"ladder": "8:2"`` under ``on``)."""
+    import json
+
+    train_dir, val_dir, _ = game_avro_dirs
+    flags = BUCKETED + ["--shape-canonicalization", ladder]
+    outs = {"jax": str(tmp_path / "jax"), "port": str(tmp_path / "port")}
+    jd = jdriver.main(_argv(train_dir, val_dir, outs["jax"], "LBFGS") + flags)
+    td = tdriver.main(_argv(train_dir, val_dir, outs["port"], "LBFGS") + flags + ["--device", "cpu"])
+    coord = td.combo_coords[0]["per-user"]
+    assert type(coord).__name__ == type(jd.combo_coords[0]["per-user"]).__name__ == \
+        "BucketedRandomEffectCoordinate"
+    assert coord._bucket_shapes() == jd.combo_coords[0]["per-user"]._bucket_shapes()
+    assert not td.re_datasets  # no globally padded stack was built
+    (_, jres, jmetrics), (_, tres, tmetrics) = jd.results[0], td.results[0]
+    assert_allclose(tres.objective_history, jres.objective_history, kind="solver", dtype=np.float32)
+    assert_allclose(tmetrics["AUC"], jmetrics["AUC"], kind="solver", dtype=np.float32)
+    imap = jd.shard_index_maps["per_user"]
+    models = {}
+    for k, out in outs.items():
+        variances = {}
+        means = tmodel_io.load_random_effect(os.path.join(out, "best"), "per-user", imap,
+                                             variances_out=variances)[0]
+        models[k] = (means, variances)
+    (tm, tv), (jm, jv) = models["port"], models["jax"]
+    assert sorted(tm) == sorted(jm) == sorted(tv) == sorted(jv) and len(jm) == 12
+    for eid in jm:
+        assert_allclose(tm[eid], jm[eid], kind="solver")
+        assert_allclose(tv[eid], jv[eid], kind="solver")
+    loaded = {k: json.load(open(os.path.join(v, "retrain.json"))) for k, v in outs.items()}
+    for k in loaded:
+        del loaded[k]["output_dir"], loaded[k]["model_dir"]
+    assert loaded["port"] == loaded["jax"]
+    assert loaded["port"]["coordinates"]["per-user"]["kind"] == "bucketed"
+    assert loaded["port"]["ingest_inputs"]["ladder"] == (None if ladder == "off" else "8:2")
+
+
+def test_bucketed_vmapped_grid_falls_back_with_the_jax_reason(tmp_path):
+    argv = _argv("train", "validate", str(tmp_path / "o"), "LBFGS") + BUCKETED + [
+        "--vmapped-grid", "true"]
+    i = argv.index("--random-effect-optimization-configurations")
+    argv[i + 1] = "per-user:40,1e-4,0.1,1,LBFGS,L2;per-user:40,1e-4,1,1,LBFGS,L2"
+    port = tdriver.GameTrainingDriver(tparams.parse_training_params(argv + ["--device", "cpu"]))
+    jax_driver = jdriver.GameTrainingDriver(jdriver.parse_training_params(argv))
+    reason = port._vmapped_grid_blocker(port.params.config_grid())
+    assert reason == jax_driver._vmapped_grid_blocker(jax_driver.params.config_grid()) == \
+        "--bucketed-random-effects (static per-bucket lambdas)"
+    with pytest.raises(ValueError, match="--shape-canonicalization"):
+        tparams.parse_training_params(argv + ["--shape-canonicalization", "sideways"])

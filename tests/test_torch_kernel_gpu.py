@@ -263,3 +263,65 @@ def test_scoring_driver_on_the_card_equals_its_host_oracle(cuda_device, tmp_path
         scores[host] = d.scores
     assert np.all(np.isfinite(scores["false"]))
     np.testing.assert_allclose(scores["false"], scores["true"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(512, 8, 9, 9), (128, 64, 9, 9), (8, 2048, 9, 9),
+                                   (100, 7, 300, 5)])
+def test_plain_transpose_on_the_card_adds_in_the_kernels_order(cuda_device, shape):
+    """On the card the plain transpose (``FlatOrderPlan``) adds each column
+    in flat (m, k) order, as the GEVM kernel's column owner does: from the
+    kernel's own row derivatives it gives the kernel's gradient bit for
+    bit. (The deterministic ``index_add_`` sums long columns in another
+    association.)"""
+    e, m, d, max_nnz = shape
+    slab, y, wt, off, w, _, _ = _slab_inputs(sum(shape), "logistic", e, m, d, max_nnz,
+                                             cuda_device, full=max_nnz == d)
+    rows = torch.empty((2, e, m), device=cuda_device)
+    _, grad, _ = tsparse.sparse_gevm_kernel(tlosses.logistic, slab, y, wt, off, w,
+                                            row_values=rows)
+    assert torch.equal(slab.rmatvec(rows[1]), grad)
+
+
+@pytest.mark.gpu
+def test_dense_race_forces_without_racing_and_raises_on_a_failed_kernel(cuda_device,
+                                                                        monkeypatch):
+    for name in ("_autotune_cache", "_autotune_timings", "_autotune_failures"):
+        monkeypatch.setattr(tfused, name, {})
+    lo, rows = tlosses.logistic, tfused.tile_rows(33, torch.float32)
+    monkeypatch.setenv("PHOTON_ML_TPU_FUSED", "1")
+    assert tfused.select_fused_block_rows(lo, 1000, 33, torch.float32, "cuda") == rows
+    assert tfused._autotune_timings == {}  # nothing raced
+    monkeypatch.setenv("PHOTON_ML_TPU_FUSED", "auto")
+
+    def broken(*a, **kw):
+        raise RuntimeError("injected launch failure")
+
+    monkeypatch.setattr(tfused, "fused_value_grad_kernel", broken)
+    with pytest.raises(RuntimeError, match="injected launch failure"):
+        tfused.select_fused_block_rows(lo, 1000, 33, torch.float32, "cuda")
+    report = tfused.autotune_report(lo, 1000, 33, torch.float32, "cuda")
+    assert report["winner"] is None
+    assert report["candidates"][f"cuda:{rows}"] == {
+        "failed": "failed: RuntimeError: injected launch failure"}
+    assert "sec_per_pass" in report["candidates"]["matmul"]
+
+
+@pytest.mark.gpu
+def test_sparse_race_raises_when_a_family_fails_on_the_card(cuda_device, monkeypatch):
+    from photon_ml_tpu_torch.types import TaskType
+
+    slab, y, wt, off, _, _, _ = _slab_inputs(3, "logistic", 16, 8, 12, 4, cuda_device)
+
+    def broken(*a, **kw):
+        raise RuntimeError("injected launch failure")
+
+    monkeypatch.setattr(tsparse, "fused_value_grad_parts", broken)
+    monkeypatch.setattr(tsparse, "_race_cache", {})
+    monkeypatch.setattr(tsparse, "_race_reports", {})
+    with pytest.raises(RuntimeError, match="family pallas: error: RuntimeError: injected"):
+        tsparse.select_sparse_kernel(TaskType.LOGISTIC_REGRESSION, slab, slab.to_dense(), y,
+                                     off, wt, spec="auto", label="b0")
+    (key, report), = tsparse.race_reports().items()
+    assert key[0] == "b0" and "injected launch failure" in report["failed"]
+    assert tsparse._race_cache == {}  # nothing was chosen
