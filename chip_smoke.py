@@ -56,6 +56,14 @@ shapes and times it, then drives the port's main paths at full width:
     on the CPU, with the wide matvec and transposes timed against their
     bytes bound.
 
+  * the solve scheduler (phase 21, after phase 20 on its data): the
+    full-width random-effect solve one-shot, through the host chunk loop and
+    through the device rung loop (captured CUDA graphs), bitwise equal; the
+    lane-indirect kernels bitwise the full launch at every rung; the
+    bucketed GAME driver with ``--solve-compaction`` (host and device
+    loops) and ``--adaptive-schedule``, byte-equal models; and a stop at a
+    chunk or rung boundary resumed to the same model bytes.
+
 Deterministic algorithms are on from the start (``device.enable_determinism``).
 Every phase prints on its own lines and its wall; any failed check exits
 non-zero. The last lines are a JSON object of the sparse, checkpoint,
@@ -73,6 +81,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import struct
@@ -80,6 +89,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 
 import numpy as np
@@ -2319,12 +2329,30 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
 CHECKPOINT_USERS = 4000
 
 
+def stopped_in_process(torch, fused_sparse, argv, spec, at):
+    """A training-driver run in this process under PHOTON_PREEMPT_AT=``at``
+    (``site:N``); returns the code of the SystemExit it ended with (75 for
+    a preemption), None when it ran to its end."""
+    from photon_ml_tpu_torch.resilience import preemption
+
+    preemption.reset()
+    os.environ["PHOTON_PREEMPT_AT"] = at
+    try:
+        run_game_training(torch, fused_sparse, argv, spec)
+    except SystemExit as e:
+        return e.code
+    finally:
+        del os.environ["PHOTON_PREEMPT_AT"]
+        preemption.reset()
+    return None
+
+
 def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
     """Phase 17: phase 10's command with --checkpoint-dir on phase 10's
     generator at CHECKPOINT_USERS users under spec pallas and spec scatter:
     an uninterrupted run (the checkpoint's bytes and save time per step),
-    and a subprocess stopped by
-    PHOTON_PREEMPT_AT (exit 75) and resumed; under pallas also
+    and a run stopped by PHOTON_PREEMPT_AT (exit 75: a subprocess under
+    pallas, in-process under scatter) and resumed; under pallas also
     --checkpoint-async true, and --max-restarts 1 with an injected
     preemption; every run's model bytes equal the uninterrupted run's. Then
     the same pair under spec auto (``checkpoints_under_auto``)."""
@@ -2372,15 +2400,21 @@ def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
         check(len(saves) == 4 and steps == ["step-3", "step-4"],
               f"spec {spec}: checkpoint saves {saves}, kept {steps}")
 
-        env = dict(os.environ, PHOTON_SPARSE_KERNEL=spec, PHOTON_PREEMPT_AT="cycle:2")
         argv = base + ["--output-dir", tag("sub"), "--checkpoint-dir", tag("ck-sub")]
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.game_training_driver",
-                               *argv], cwd=here, env=env, capture_output=True, text=True,
-                              timeout=600)
+        if spec == "pallas":
+            # a process of its own: the exit code 75 a supervisor reads
+            env = dict(os.environ, PHOTON_SPARSE_KERNEL=spec, PHOTON_PREEMPT_AT="cycle:2")
+            proc = subprocess.run([sys.executable, "-m",
+                                   "photon_ml_tpu_torch.cli.game_training_driver", *argv],
+                                  cwd=here, env=env, capture_output=True, text=True, timeout=600)
+            code, how = proc.returncode, "subprocess"
+            detail = proc.stderr[-2000:]
+        else:
+            code, how, detail = stopped_in_process(torch, fused_sparse, argv, spec,
+                                                   "cycle:2"), "in-process run", ""
         sub_s = time.perf_counter() - t0
-        check(proc.returncode == 75, f"spec {spec}: the preempted subprocess exited "
-                                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+        check(code == 75, f"spec {spec}: the preempted {how} exited {code}: {detail}")
         kept = sorted(os.listdir(os.path.join(tag("ck-sub"), "combo-0")))
         check(kept[-1] == "step-2", f"spec {spec}: the preempted run kept {kept}")
         preemption.reset()
@@ -2389,7 +2423,7 @@ def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
               f"spec {spec}: the resumed run's model bytes differ from the uninterrupted run's")
         check(resumed.results[0][1].objective_history == clean.results[0][1].objective_history,
               f"spec {spec}: the resumed objective history differs")
-        say(f"  spec {spec}: subprocess stopped at step 2 exited 75 after {sub_s:.2f} s (kept "
+        say(f"  spec {spec}: {how} stopped at step 2 exited 75 after {sub_s:.2f} s (kept "
             f"{kept}); resumed in {wall_r:.2f} s (GEVM launches {launches_r['gevm']}): model "
             "bytes and objective history equal to the uninterrupted run's")
 
@@ -2420,16 +2454,17 @@ def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
         say(f"  spec {spec}: --checkpoint-async true {wall_a:.2f} s and --max-restarts 1 with a "
             f"preemption at step 3 {wall_m:.2f} s: model bytes equal to the uninterrupted run's")
         out[spec].update(async_s=wall_a, restart_s=wall_m)
-    out["auto"] = checkpoints_under_auto(torch, fused_sparse, workdir, base, here)
+    out["auto"] = checkpoints_under_auto(torch, fused_sparse, workdir, base)
     return out
 
 
-def checkpoints_under_auto(torch, fused_sparse, workdir, base, here):
+def checkpoints_under_auto(torch, fused_sparse, workdir, base):
     """Phase 17 under spec auto: the run records its race winners beside
     its checkpoints (races.json) and a resumed run takes them. The stopped
-    subprocess is handed the uninterrupted run's record, and the resume
-    starts with both race caches empty: it must race nothing, and its model
-    bytes and objective history must equal the uninterrupted run's."""
+    run (in this process, its race caches emptied first) is handed the
+    uninterrupted run's record, and the resume starts with both race caches
+    empty: it must race nothing, and its model bytes and objective history
+    must equal the uninterrupted run's."""
     from photon_ml_tpu_torch.cli.game_training_driver import RACES_FILE
     from photon_ml_tpu_torch.ops import fused_glm
     from photon_ml_tpu_torch.resilience import preemption
@@ -2445,12 +2480,12 @@ def checkpoints_under_auto(torch, fused_sparse, workdir, base, here):
           f"spec auto: the recorded race decisions {decisions}")
     os.makedirs(tag("ck-sub"))
     shutil.copy(os.path.join(tag("ck"), RACES_FILE), tag("ck-sub"))
-    env = dict(os.environ, PHOTON_SPARSE_KERNEL="auto", PHOTON_PREEMPT_AT="cycle:2")
     argv = base + ["--output-dir", tag("sub"), "--checkpoint-dir", tag("ck-sub")]
-    proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.game_training_driver",
-                           *argv], cwd=here, env=env, capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 75, f"spec auto: the preempted subprocess exited "
-                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+    # the stopped run starts as a fresh process would: both race caches empty
+    fused_sparse._race_cache.clear()
+    fused_glm._autotune_cache.clear()
+    code = stopped_in_process(torch, fused_sparse, argv, "auto", "cycle:2")
+    check(code == 75, f"spec auto: the preempted run exited {code}")
     fused_sparse._race_cache.clear()
     fused_glm._autotune_cache.clear()
     raced = len(fused_sparse.race_reports()), len(fused_glm._autotune_timings)
@@ -2464,7 +2499,7 @@ def checkpoints_under_auto(torch, fused_sparse, workdir, base, here):
     check(resumed.results[0][1].objective_history == clean.results[0][1].objective_history,
           "spec auto: the resumed objective history differs")
     say(f"  spec auto: uninterrupted run {wall:.2f} s recorded {len(decisions)} race decisions "
-        f"{decisions}; a subprocess handed them stopped at step 2 (exit 75); resumed in "
+        f"{decisions}; a run handed them stopped at step 2 (exit 75); resumed in "
         f"{wall_r:.2f} s with empty race caches, racing nothing: model bytes and objective "
         "history equal to the uninterrupted run's")
     return {"wall_s": wall, "resume_s": wall_r, "decisions": decisions}
@@ -3051,6 +3086,468 @@ def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
     return out
 
 
+# --- phase 21: the solve scheduler -------------------------------------------
+
+SCHED_CHUNK = 8
+SCHEDULED_FLAGS = {"host": ["--solve-compaction", str(SCHED_CHUNK)],
+                   "device": ["--solve-compaction", f"device:{SCHED_CHUNK}"]}
+
+
+def result_bits(torch, res):
+    """An OptResult's fields as comparable bit patterns (NaN padding of the
+    histories included): a float tensor viewed as integers of its width."""
+    out = []
+    for t in res:
+        if t is None:
+            out.append(None)
+            continue
+        t = t.detach()
+        if t.is_floating_point():
+            t = t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+        out.append(t.cpu())
+    return out
+
+
+def bitwise_results(torch, a, b) -> bool:
+    return all((x is None and y is None) or (x is not None and y is not None and torch.equal(x, y))
+               for x, y in zip(result_bits(torch, a), result_bits(torch, b)))
+
+
+def sparse_kernel_kind(name: str):
+    """'gevm' or 'hvp' for a traced sparse_pass kernel (its kHvp template
+    argument, demangled or mangled), 'sparse' when the name does not say,
+    None for any other kernel."""
+    if "sparse_pass" not in name:
+        return None
+    m = re.search(r"sparse_pass<[^,<>]*,[^,<>]*,\s*(true|false)", name)
+    if m:
+        return "hvp" if m.group(1) == "true" else "gevm"
+    m = re.search(r"sparse_passI\w*?Lb([01])E", name)
+    if m:
+        return "hvp" if m.group(1) == "1" else "gevm"
+    return "sparse"
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def trace_split(torch, fn, counters):
+    """One call of ``fn`` under torch.profiler and
+    ``torch.cuda.set_sync_debug_mode("warn")``: the host wall after a sync,
+    the kernels' device time summed from the trace's kernel events (those
+    replayed inside CUDA graphs included), the sparse kernels the trace
+    holds by kind, the ``counters``' (the GEVM and HVP wrappers') launch
+    counts over the same call, and the syncs the card reported. CUPTI now
+    and then delivers a session no device event; such a session is traced
+    again, up to PROFILE_ATTEMPTS calls. It may also drop a kernel record
+    (on an H100, whole runs of this script traced one sparse kernel fewer
+    than an eager solve launched), so a trace's count is a lower bound.
+    Each session starts with a small kernel of its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        sync(torch)
+        before = [c.launches for c in counters]
+        mode = torch.cuda.get_sync_debug_mode()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            sync(torch)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            sync(torch)
+            wall = time.perf_counter() - t0
+        counted = {k: c.launches - b for k, c, b in zip(("gevm", "hvp"), counters, before)}
+        kernels = [ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        traced = {"gevm": 0, "hvp": 0, "sparse": 0}
+        for ev in kernels:
+            kind = sparse_kernel_kind(ev.name)
+            if kind is not None:
+                traced[kind] += 1
+        if kernels:
+            break
+    kernel_us = sum(ev.time_range.elapsed_us() for ev in kernels)
+    return {"wall_s": wall, "kernel_s": kernel_us / 1e6 if kernel_us else None,
+            "calls": attempt, "traced": traced, "counted": counted,
+            "syncs": sum(SYNC_WARNING in str(w.message) for w in caught)}
+
+
+def phase_scheduler_solve(torch, fused_sparse, dev="cuda"):
+    """Phase 21 (a): RandomEffectCoordinate.update at full width (phase 9's
+    data: E=1024 M=64 K=16 D=2048, f32, spec pallas) with LBFGS and TRON,
+    one-shot, through the host chunk loop at chunk 8 and through the device
+    rung loop at chunk 8 (twice: the first captures the rung graphs); every
+    OptResult field and the coefficients bitwise equal across the three.
+    Prints the lane-iteration ledger, the wrappers' launch counts, counted
+    host reads, captures and replays, walls, and for one more solve of each
+    way a torch.profiler trace: host time against kernel time, the sparse
+    kernels it holds (for the device loop, those replayed from its graphs,
+    which no wrapper counts) and the syncs the card reported under
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    from photon_ml_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
+    from photon_ml_tpu_torch.compile import compile_stats
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+    from photon_ml_tpu_torch.optim.common import HostReads, OptimizerConfig
+    from photon_ml_tpu_torch.optim.scheduler import SolveSchedule, solve_stats
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+
+    say(f"== phase 21 (a): the solve scheduler at full width, E={E_RE} M={M_RE} D={D_RE} (K=16), "
+        f"f32, spec pallas: one-shot, host chunk loop and device rung loop at chunk {SCHED_CHUNK}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    x = skewed_stack(torch, E_RE, M_RE, D_RE, 16, g, dev)
+    w_true = 0.4 * torch.randn((E_RE, D_RE), device=dev, generator=g)
+    z = torch.matmul(x, w_true.unsqueeze(-1)).squeeze(-1)
+    y = (torch.sigmoid(z) > torch.rand(z.shape, device=dev, generator=g)).float()
+    ds = re_dataset(torch, x, y)
+    resid = torch.zeros((E_RE * M_RE,), device=dev)
+    configs = {"LBFGS": OptimizerConfig(max_iterations=60, tolerance=1e-7),
+               "TRON": OptimizerConfig.tron_default()}
+    counters = (fused_sparse.sparse_gevm_kernel, fused_sparse.sparse_hvp_kernel)
+    schedules = {"one-shot": None, "host": SolveSchedule(SCHED_CHUNK),
+                 "device": SolveSchedule(SCHED_CHUNK, loop="device")}
+    out = {}
+    for opt, cfg in configs.items():
+        runs = {}
+        for how, schedule in schedules.items():
+            coord = RandomEffectCoordinate(ds, TaskType.LOGISTIC_REGRESSION, OptimizerType(opt),
+                                           cfg, RegularizationContext.l2(0.5),
+                                           sparse_kernel="pallas", solve_schedule=schedule)
+            coord.slab.kernel_tables()
+            for rep in ((1, 2) if how == "device" else (1,)):
+                label = how if rep == 1 else f"{how} again"
+                sync(torch)
+                for c in counters:
+                    c.launches = 0
+                solve_stats.reset()
+                compile_stats.reset()
+                reads0 = HostReads.count
+                t0 = time.perf_counter()
+                w, res = coord.update(resid, coord.initial_coefficients())
+                sync(torch)
+                wall = time.perf_counter() - t0
+                rec = solve_stats.snapshot()[-1] if schedule is not None else None
+                site = compile_stats.snapshot().get("scheduler.rung", {})
+                runs[label] = {
+                    "result": res, "wall_s": wall,
+                    "launches": {"gevm": counters[0].launches, "hvp": counters[1].launches},
+                    "host_reads": HostReads.count - reads0,
+                    "executed": rec.executed if rec else None,
+                    "baseline": rec.baseline if rec else None,
+                    "dispatches": rec.dispatches if rec else None,
+                    "device_chunks": rec.device_chunks if rec else None,
+                    "captures": site.get("traces", 0), "replays": site.get("cache_hits", 0),
+                    "decay": ([f"{c.active_lanes}/{c.batch_lanes}@{c.limit}" for c in rec.chunks]
+                              if rec else None),
+                }
+                r = runs[label]
+                check(bool(torch.isfinite(res.value).all()) and bool(torch.isfinite(w).all()),
+                      f"(a) {opt} {label}: non-finite solve")
+                # a replay launches through its graph, not the wrappers: the
+                # second device solve's launches are read from its trace below
+                check(label == "device again" or (r["launches"]["gevm"] > 0 and (
+                    opt == "LBFGS" or r["launches"]["hvp"] > 0)),
+                      f"(a) {opt} {label}: a kernel of the path did not launch: {r['launches']}")
+                say(f"  (a) {opt} {label:12s}: wall {wall:.4f} s, wrapper launch counts GEVM "
+                    f"{r['launches']['gevm']} HVP {r['launches']['hvp']}, counted host reads "
+                    f"{r['host_reads']}"
+                    + ("" if rec is None else
+                       f", lane-iterations executed {rec.executed} of {rec.baseline} one-shot, "
+                       f"{rec.dispatches} host dispatches, {rec.device_chunks} device chunks, "
+                       f"captures {r['captures']} replays {r['replays']}; decay "
+                       + " -> ".join(r["decay"])))
+            if how == "device":
+                again = runs["device again"]
+                check(again["captures"] == 0, f"(a) {opt}: the second device solve captured "
+                                              f"{again['captures']} graphs")
+            # one more solve, traced: the sparse kernels torch.profiler saw
+            # against the wrappers' counts, and the syncs the card reported
+            # against the counted host reads
+            reads0 = HostReads.count
+            t = trace_split(torch, lambda: coord.update(resid, coord.initial_coefficients()),
+                            counters)
+            t["host_reads"] = HostReads.count - reads0
+            runs[how]["trace"] = t
+            traced, counted = t["traced"], t["counted"]
+            check(t["kernel_s"] is not None,
+                  f"(a) {opt} {how}: torch.profiler recorded no device kernel in {t['calls']} "
+                  "traced calls")
+            check(traced["sparse"] == 0, f"(a) {opt} {how}: sparse kernels of no known kind in "
+                                         f"the trace: {traced}")
+            if how == "device":
+                # the graphs are cached: the wrappers launch only the
+                # solve's initial evaluation, the replays the rest
+                check(traced["gevm"] > counted["gevm"] and (
+                    opt == "LBFGS" or traced["hvp"] > counted["hvp"]),
+                      f"(a) {opt} device: the trace holds no kernel replayed from a graph "
+                      f"(traced {traced}, wrapper counts {counted})")
+            else:
+                # every launch of an eager solve passes a wrapper; the trace
+                # may drop a record, never add one
+                check(0 < traced["gevm"] <= counted["gevm"] and traced["hvp"] <= counted["hvp"],
+                      f"(a) {opt} {how}: the trace holds {traced} sparse kernels, the wrappers "
+                      f"counted {counted}")
+            check(t["syncs"] >= t["host_reads"],
+                  f"(a) {opt} {how}: the card reported {t['syncs']} syncs, fewer than the "
+                  f"{t['host_reads']} counted host reads")
+            say(f"  (a) {opt} {how} traced ({t['calls']} call(s)): host wall {t['wall_s']:.4f} s, "
+                "device kernel time "
+                + ("not recorded" if t["kernel_s"] is None else
+                   f"{t['kernel_s']:.4f} s ({t['kernel_s'] / t['wall_s']:.3f} of the wall)")
+                + f"; sparse kernels by torch.profiler GEVM {traced['gevm']} HVP {traced['hvp']}"
+                f" (wrapper counts {counted['gevm']} / {counted['hvp']}); syncs reported by "
+                f"the card {t['syncs']}, counted host reads {t['host_reads']}")
+        base = runs["one-shot"]["result"]
+        for label in ("host", "device", "device again"):
+            check(bitwise_results(torch, runs[label]["result"], base),
+                  f"(a) {opt}: the {label} solve is not bitwise the one-shot solve")
+        say(f"  (a) {opt}: host and device solves bitwise equal to the one-shot solve "
+            "(coefficients and every OptResult field)")
+        out[opt] = {k: {kk: vv for kk, vv in v.items() if kk != "result"}
+                    for k, v in runs.items()}
+    return out
+
+
+def batch_independence(torch, fused_sparse, label, slab, y, wt, off, ladder):
+    """Phase 21 (b) on one slab: at every rung R of ``ladder`` the
+    lane-indirect GEVM and HVP launches over R lanes (the active-first
+    order: ascending ids) give those lanes' rows of the full launch bit for
+    bit, and the indirect kernels hold against their plain versions within
+    SPARSE_TOL. Returns the largest difference against the plain version."""
+    from photon_ml_tpu_torch.ops import losses
+
+    loss = losses.logistic
+    e, d = slab.idx.shape[0], slab.dim
+    g = torch.Generator(device=slab.device).manual_seed(SEED + 210)
+    w = 0.3 * torch.randn((e, d), device=slab.device, generator=g)
+    v = torch.randn((e, d), device=slab.device, generator=g)
+    vshift = torch.randn((e,), device=slab.device, generator=g)
+    full = fused_sparse.fused_value_grad_parts(loss, slab, y, wt, off, w)
+    full_hvp = fused_sparse.fused_hvp_parts(loss, slab, y, wt, off, w, v, vshift)
+    errs = {"gevm": 0.0, "hvp": 0.0}
+    rungs = sorted({min(r, e) for r in ladder}, reverse=True)
+    for r in rungs:
+        ids = torch.sort(torch.randperm(e, device=slab.device, generator=g)[:r])[0]
+        lanes = fused_sparse.SlabLanes(slab, ids.to(torch.int32))
+        sel = lambda t: t.index_select(0, ids).contiguous()
+        got = fused_sparse.fused_value_grad_parts(loss, lanes, sel(y), sel(wt), sel(off), sel(w))
+        got_hvp = fused_sparse.fused_hvp_parts(loss, lanes, sel(y), sel(wt), sel(off), sel(w),
+                                               sel(v), sel(vshift))
+        sync(torch)
+        for a, b in zip(got + got_hvp, full + full_hvp):
+            check(torch.equal(a, sel(b)), f"(b) {label}: rung {r}: a lane-indirect row is not "
+                                          "bitwise the full launch's")
+        plain = fused_sparse.fused_value_grad_parts_plain(loss, lanes, sel(y), sel(wt), sel(off),
+                                                          sel(w))
+        plain_hvp = fused_sparse.fused_hvp_parts_plain(loss, lanes, sel(y), sel(wt), sel(off),
+                                                       sel(w), sel(v), sel(vshift))
+        for key, a, b in (("gevm", got[1], plain[1]), ("hvp", got_hvp[0], plain_hvp[0])):
+            err = float(torch.linalg.vector_norm((a - b).double())
+                        / max(float(torch.linalg.vector_norm(b.double())), 1e-30))
+            check(err <= SPARSE_TOL, f"(b) {label}: rung {r} {key}: indirect against plain "
+                                     f"{err:.3g} > {SPARSE_TOL}")
+            errs[key] = max(errs[key], float((a - b).abs().max()))
+    say(f"  (b) {label}: rungs {rungs}: every lane-indirect GEVM and HVP row bitwise the full "
+        f"launch's; against plain within {SPARSE_TOL} (max |diff| GEVM {errs['gevm']:.3g}, HVP "
+        f"{errs['hvp']:.3g})")
+    return errs
+
+
+INDIRECT_WIDTHS = (64, 512)  # rung widths at which phase 21 (b) times the indirect launch
+
+
+def indirect_times(torch, fused_sparse, slab, y, wt, off):
+    """Phase 21 (b)'s timings on (a)'s slab: at each of INDIRECT_WIDTHS,
+    the lane-indirect GEVM and HVP launches over that many lanes of the
+    full slab, and the direct launch on a slab of the same lanes (its own
+    tables), by graph and by events, beside the bound of an R-lane call."""
+    from photon_ml_tpu_torch.ops import losses
+
+    loss = losses.logistic
+    e, m, k = slab.idx.shape
+    d = slab.dim
+    g = torch.Generator(device=slab.device).manual_seed(SEED + 211)
+    out = {}
+    for r in (min(r, e) for r in INDIRECT_WIDTHS):
+        ids = torch.sort(torch.randperm(e, device=slab.device, generator=g)[:r])[0]
+        sel = lambda t: t.index_select(0, ids).contiguous()
+        lanes = fused_sparse.SlabLanes(slab, ids.to(torch.int32))
+        own = fused_sparse.SparseSlab(sel(slab.idx), sel(slab.val), d, "pallas")
+        own.kernel_tables()
+        w = 0.1 * torch.randn((r, d), device=slab.device, generator=g)
+        v = torch.randn((r, d), device=slab.device, generator=g)
+        vs = torch.randn((r,), device=slab.device, generator=g)
+        rows = (sel(y), sel(wt), sel(off))
+        bound = {key: b / 3.35e12 * 1e3 for key, b in sparse_bytes(r, m, k, d).items()}
+        for label, feats in (("indirect", lanes), ("direct", own)):
+            calls = {"gevm": lambda f=feats: fused_sparse.fused_value_grad_parts(
+                         loss, f, *rows, w),
+                     "hvp": lambda f=feats: fused_sparse.fused_hvp_parts(loss, f, *rows, w, v, vs)}
+            for key, fn in calls.items():
+                out[f"{key} {label} R={r}"] = {
+                    "graph_ms": graph_ms(torch, fn), "ms": time_ms(torch, fn),
+                    "bound_ms": bound[key]}
+    say("  (b) indirect launch times (graph / events ms; bound ms), "
+        f"E={e} M={m} K={k} D={d}: " + "; ".join(
+            f"{name} {t['graph_ms']:.5f} / {t['ms']:.5f} ({t['bound_ms']:.5f})"
+            for name, t in out.items()))
+    return out
+
+
+def phase_scheduler(torch, fused_sparse, workdir, bucketed, dev="cuda"):
+    """Phase 21, run after phase 20 in its directory: (a) the full-width RE
+    solve three ways (``phase_scheduler_solve``); (b) batch independence
+    of the lane-indirect kernels at every rung, on (a)'s slab and on phase
+    20's tail bucket; (c) phase 20 (b)'s command with --solve-compaction 8
+    and device:8, model bytes equal to phase 20 (b)'s; (e) at 4000 users
+    (phase 20 (f)'s data) with --checkpoint-dir, stopped by
+    PHOTON_PREEMPT_AT=chunk:N (host loop) and rung:N (device loop) and
+    resumed, model bytes equal to the uninterrupted run's; (d) on the same
+    data, the device loop with --adaptive-schedule 0 (byte-equal), on
+    (scores held) and 1:1 over 3 iterations (buckets skipped, each a
+    recorded decision)."""
+    from photon_ml_tpu_torch.compile import ShapeBucketer, compile_stats
+    from photon_ml_tpu_torch.optim.fused_schedule import rung_ladder
+    from photon_ml_tpu_torch.optim.scheduler import solve_stats
+    from photon_ml_tpu_torch.resilience import preemption
+
+    counters = (fused_sparse.sparse_gevm_kernel, fused_sparse.sparse_hvp_kernel)
+    out = {"solve": phase_scheduler_solve(torch, fused_sparse, dev)}
+    launches = {k: sum(r["launches"][k] for o in out["solve"].values() for r in o.values())
+                for k in ("gevm", "hvp")}
+
+    say("== phase 21 (c)-(e): the GAME driver on phase 20's data with the scheduler")
+    data = os.path.join(workdir, "skew")
+    base = ["--train-input-dirs", os.path.join(data, "train"),
+            "--validate-input-dirs", os.path.join(data, "validate"), "--device", dev]
+    want = tree_bytes(os.path.join(workdir, "out20-(b)-bucketed", "best"))
+    ref_train = bucketed["runs"]["(b) bucketed"]["stages_s"]["train"]
+    runs = {}
+
+    def run(label, flags, data_base=base):
+        d = os.path.join(workdir, "out21-" + label)
+        solve_stats.reset()
+        compile_stats.reset()
+        driver, wall, l_, stages, _ = run_game_training(
+            torch, fused_sparse, data_base + ["--output-dir", d] + BUCKETED_FLAGS + flags, "pallas")
+        kernels_launched(driver, l_, label)
+        for k in launches:
+            launches[k] += l_[k]
+        t = solve_stats.totals()
+        site = compile_stats.snapshot().get("scheduler.rung", {})
+        runs[label] = {"wall_s": wall, "stages_s": stages, "launches": l_, "solve_totals": t,
+                       "captures": site.get("traces", 0), "replays": site.get("cache_hits", 0)}
+        say(f"  {label}: wall {wall:.2f} s, train stage {stages['train']:.2f} s (phase 20 (b) "
+            f"unscheduled {ref_train:.2f} s), launches {l_}; captures {runs[label]['captures']} "
+            f"replays {runs[label]['replays']}")
+        for line in solve_stats.summary().splitlines():
+            say(f"    {line}")
+        return driver, d
+
+    drivers = {}
+    for loop, flags in SCHEDULED_FLAGS.items():
+        drivers[loop], d = run(f"(c)-{loop}", flags)
+        check(tree_bytes(os.path.join(d, "best")) == want,
+              f"(c) --solve-compaction {flags[1]}: model bytes differ from phase 20 (b)'s")
+    say("  (c) host and device loops: model bytes equal to phase 20 (b)'s unscheduled run")
+
+    coord = drivers["device"].combo_coords[0]["per-user"]
+    tail = coord._subs[-1]
+    errs = batch_independence(
+        torch, fused_sparse, f"phase 20's tail bucket E={tail.dataset.num_entities} "
+        f"M={tail.slab.num_rows} K={tail.slab.max_nnz}", tail.slab, tail.dataset.labels,
+        tail.dataset.weights, tail.gathered_offsets(torch.zeros(
+            (int(tail.dataset.row_index.max()) + 1,), device=tail.slab.device)),
+        rung_ladder(ShapeBucketer(), tail.dataset.num_entities))
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    x = skewed_stack(torch, E_RE, M_RE, D_RE, 16, g, dev)
+    slab = fused_sparse.build_sparse_slab(x, kernel="pallas")
+    rows = torch.rand((E_RE, M_RE), device=dev, generator=g)
+    e2 = batch_independence(torch, fused_sparse, f"(a)'s slab E={E_RE} M={M_RE} K=16",
+                            slab, (rows < 0.5).float(), rows + 0.5, 0.1 * rows,
+                            rung_ladder(ShapeBucketer(), E_RE))
+    out["max_abs_err"] = {k: max(errs[k], e2[k]) for k in errs}
+    out["indirect_times"] = indirect_times(torch, fused_sparse, slab, (rows < 0.5).float(),
+                                           rows + 0.5, 0.1 * rows)
+    del drivers, coord, tail, slab, x
+
+    # (e), then (d) on (e)'s data: phase 20 (f)'s 4000 users
+    small = os.path.join(workdir, "skew-small")
+    sbase = ["--train-input-dirs", os.path.join(small, "train"),
+             "--validate-input-dirs", os.path.join(small, "validate"), "--device", dev,
+             "--delete-output-dir-if-exists", "true"]
+    preempt, clean = {}, {}
+    for loop, site, n in (("host", "chunk", 3), ("device", "rung", 2)):
+        flags = SCHEDULED_FLAGS[loop]
+        clean[loop] = run(f"(e)-{loop}-clean", flags + ["--checkpoint-dir",
+                          os.path.join(workdir, f"ck21-{loop}-clean")], sbase)
+        dc = clean[loop][1]
+        ck = os.path.join(workdir, f"ck21-{loop}")
+        argv = sbase + ["--output-dir", os.path.join(workdir, f"out21-(e)-{loop}")] + \
+            BUCKETED_FLAGS + flags + ["--checkpoint-dir", ck]
+        code = stopped_in_process(torch, fused_sparse, argv, "pallas", f"{site}:{n}")
+        check(code == preemption.PREEMPT_EXIT_CODE,
+              f"(e) {site}:{n}: the run exited {code}, not {preemption.PREEMPT_EXIT_CODE}")
+        meta_files = sorted(os.listdir(os.path.join(ck, "combo-0")))
+        with open(os.path.join(ck, "combo-0", meta_files[-1], "meta.json")) as f:
+            partial = json.load(f)["partial"]
+        check(partial is not None and partial.get("kind") == "bucketed_re"
+              and (partial.get("inner") or {}).get("kind") == "scheduler",
+              f"(e) {site}:{n}: the emergency checkpoint holds no scheduler progress: {partial}")
+        _, wall_r, _, _, _ = run_game_training(torch, fused_sparse, argv, "pallas")
+        check(tree_bytes(os.path.join(workdir, f"out21-(e)-{loop}", "best"))
+              == tree_bytes(os.path.join(dc, "best")),
+              f"(e) {site}:{n}: the resumed run's model bytes differ from the uninterrupted run's")
+        say(f"  (e) {loop} loop: stopped at {site}:{n} (exit 75, checkpoint {meta_files[-1]} with "
+            f"bucket {partial['bucket']} and the paused solve at iteration limit "
+            f"{partial['inner']['limit']}), resumed in {wall_r:.2f} s: model bytes equal to the "
+            "uninterrupted run's")
+        preempt[loop] = {"site": f"{site}:{n}", "bucket": partial["bucket"],
+                         "limit": partial["inner"]["limit"], "resume_s": wall_r}
+    out["preempt"] = preempt
+    check(tree_bytes(os.path.join(clean["host"][1], "best"))
+          == tree_bytes(os.path.join(clean["device"][1], "best")),
+          "(e) the host and device loops' uninterrupted runs wrote different model bytes")
+
+    ref_driver, ref_dir = clean["device"]
+    _, d0 = run("(d)-adaptive-0", SCHEDULED_FLAGS["device"] + ["--adaptive-schedule", "0"],
+                sbase)
+    check(tree_bytes(os.path.join(d0, "best")) == tree_bytes(os.path.join(ref_dir, "best")),
+          "(d) --adaptive-schedule 0: model bytes differ from the run without it")
+    for label, spec, extra in (("(d)-adaptive-on", "on", []),
+                               # a tolerance every bucket's score is under: the
+                               # epochs after the first skip buckets, each a
+                               # recorded decision, the coefficients carried
+                               ("(d)-adaptive-skips", "1:1", ["--num-iterations", "3"])):
+        driver, _ = run(label, SCHEDULED_FLAGS["device"] + ["--adaptive-schedule", spec] + extra,
+                        sbase)
+        coord = driver.combo_coords[0]["per-user"]
+        ledger = coord.ledger_export()
+        skipped = [d.describe() for d in coord.skip_decisions if d.action == "skipped"]
+        check(sum(e["skips"] for e in ledger.values()) == len(skipped),
+              f"{label}: a skip without its recorded decision")
+        if spec == "on":
+            out["held_adaptive_on"] = scores_held(
+                "(d)", (driver, driver.results[0][1]),
+                (ref_driver, ref_driver.results[0][1]), "adaptive on vs without")
+        else:
+            check(len(skipped) > 0, f"{label}: no bucket was skipped")
+        say(f"  {label}: --adaptive-schedule {spec}: {len(skipped)} skips, each a recorded "
+            f"decision" + (f", e.g. {skipped[0]}" if skipped else "")
+            + f"; ledger {json.dumps(ledger)}")
+        out[label] = {"decisions": [d.describe() for d in coord.skip_decisions],
+                      "ledger": ledger}
+    say(f"  (d) --adaptive-schedule 0: model bytes equal to the run without it ({SKEW_SMALL_USERS} "
+        "users)")
+    out["runs"] = runs
+    out["launches"] = launches
+    return out
+
 # depth cut for the call's time limit, every check kept
 CUTS = [
     f"phase 17: phase 10's generator and widths at {CHECKPOINT_USERS} users, not "
@@ -3059,6 +3556,10 @@ CUTS = [
     "only; --checkpoint-async and --max-restarts run under spec pallas alone",
     "phase 16: one card run at 20000 users (timings); the byte-equal pair of card runs and "
     f"the card and CPU pair at {WIDE_CPU_USERS} users",
+    "phase 17: only spec pallas stops a subprocess (exit 75); under scatter and auto the "
+    "stopped run is in-process (SystemExit 75), auto's with its race caches emptied first",
+    f"phase 21 (d): the --adaptive-schedule runs at {SKEW_SMALL_USERS} users (phase 20 (f)'s "
+    f"data, as (e)), not {SKEW_USERS}",
 ]
 
 
@@ -3149,6 +3650,7 @@ def main() -> None:
         full_game = timed("19c", phase_full_game, torch, fused_sparse, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bucketed_") as workdir:
         bucketed = timed("20", phase_bucketed, torch, fused_sparse, workdir)
+        scheduler = timed("21", phase_scheduler, torch, fused_sparse, workdir, bucketed)
     say(f"  -- the whole call {time.perf_counter() - start:.1f} s")
 
     bf16 = times["bfloat16"]
@@ -3207,8 +3709,14 @@ def main() -> None:
                                    for k in ("per-combo", "vmapped-grid")},
             "launches_full_game": {k: v[key] for k, v in full_game["launches"].items()},
             "launches_bucketed": {k: v["launches"][key] for k, v in bucketed["runs"].items()},
+            "launches_scheduler": scheduler["launches"][key],
+            # replays launch through their graphs, not the wrappers: phase 21
+            # (a)'s traced device-loop solve, by torch.profiler
+            "launches_device_loop_traced": {
+                opt: scheduler["solve"][opt]["device"]["trace"]["traced"][key]
+                for opt in scheduler["solve"]},
             "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key],
-                               bucketed["max_abs_err"][key]),
+                               bucketed["max_abs_err"][key], scheduler["max_abs_err"][key]),
             "ms": t["ms"],
             "graph_ms": t["graph_ms"],
             "host_ms": t["host_ms"],
@@ -3227,6 +3735,7 @@ def main() -> None:
     say(json.dumps({"sparse_fixed_effect": sparse_glm, "game_wide_fixed": wide,
                     "checkpoints": checkpoints, "glm_diagnostics": glm_diag,
                     "game_grid": game_grid, "full_game": full_game, "bucketed": bucketed,
+                    "scheduler": scheduler,
                     "phase_walls_s": walls, "cuts": CUTS, "card": card}, default=str))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))

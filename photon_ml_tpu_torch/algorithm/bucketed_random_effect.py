@@ -1,6 +1,5 @@
 """Size-bucketed random-effect coordinate (port of
-photon_ml_tpu/algorithm/bucketed_random_effect.py, without the mesh, the
-solve scheduler, the adaptive schedule and mid-coordinate resume).
+photon_ml_tpu/algorithm/bucketed_random_effect.py, without the mesh).
 
 The plain :class:`RandomEffectCoordinate` pads every entity lane to the row
 count of the largest entity. Real per-member data is heavy-tailed, so most
@@ -17,6 +16,16 @@ the state is a tuple of per-bucket ``(E_b, D_loc)`` stacks, and scores
 scatter back to the global row order through each bucket's row selection.
 With a sparse spec each bucket builds its own slab (``auto``: each bucket
 races the families and the dense stack on its own tensors).
+
+With a ``solve_schedule`` each bucket's solve is convergence-compacted
+(optim/scheduler.py): bucketing fixes the padding waste of skewed entity
+sizes, compaction the iteration waste of skewed convergence. Its chunk (or
+rung) pauses and the bucket boundaries are preemption drain points: the
+``Preempted`` payload carries the finished buckets' coefficients and the
+paused solve, and ``update(resume=)`` continues from it bitwise. With an
+``adaptive`` schedule (optim/convergence.py) every bucket's convergence
+score lands in a ledger, and a bucket under tolerance for ``patience``
+consecutive epochs is skipped, each skip a recorded ``PlanDecision``.
 """
 
 from __future__ import annotations
@@ -39,7 +48,11 @@ from photon_ml_tpu_torch.data.game import (
 )
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+from photon_ml_tpu_torch.compile.plan import PlanDecision
 from photon_ml_tpu_torch.optim.common import OptimizerConfig
+from photon_ml_tpu_torch.optim.convergence import ConvergenceLedger
+from photon_ml_tpu_torch.optim.scheduler import solve_stats
+from photon_ml_tpu_torch.resilience import faults, preemption
 from photon_ml_tpu_torch.types import OptimizerType, TaskType, real_dtype
 
 Tensor = torch.Tensor
@@ -144,9 +157,12 @@ class BucketedRandomEffectCoordinate:
     """Per-entity solves bucketed by entity size (coordinate protocol).
 
     ``sparse_kernel`` is each bucket's spec (None reads
-    ``PHOTON_SPARSE_KERNEL``). ``mesh_ctx``, ``solve_schedule`` and
-    ``adaptive`` name the JAX package's mesh, solve scheduler and adaptive
-    schedule, which are not ported: setting one raises.
+    ``PHOTON_SPARSE_KERNEL``). ``solve_schedule`` (a ``SolveSchedule``)
+    compacts every bucket's solve; ``adaptive`` (an ``AdaptiveSchedule``)
+    skips buckets whose score stayed under its tolerance. Buckets keep
+    their positional order (the resume payload's ``done.j`` prefix depends
+    on it). ``mesh_ctx`` names the JAX package's mesh, which is not ported:
+    setting it raises.
     """
 
     data: GameData
@@ -167,9 +183,8 @@ class BucketedRandomEffectCoordinate:
     adaptive: Optional[object] = None
 
     def __post_init__(self):
-        for name in ("mesh_ctx", "solve_schedule", "adaptive"):
-            if getattr(self, name) is not None:
-                raise _not_ported(name)
+        if self.mesh_ctx is not None:
+            raise _not_ported("mesh_ctx")
         if self.bundle is None:
             self.bundle = BucketedDatasetBundle.build(
                 self.data, self.config, self.max_buckets, self.bucketer, self.device)
@@ -189,9 +204,15 @@ class BucketedRandomEffectCoordinate:
                 sparse_kernel=self.sparse_kernel,
                 # the buckets' ladder pads the slab width too: one setting
                 bucketer=b.bucketer or "off",
+                solve_schedule=self.solve_schedule,
             )
             for i, ds in enumerate(b.datasets)
         ]
+        # adaptive-schedule state: the bucket-indexed ledger, the epoch
+        # counter and every recorded skip decision
+        self._ledger = ConvergenceLedger()
+        self._epoch = 0
+        self.skip_decisions: list = []
         # each bucket's row selection on its dataset's device, made once
         self._row_index = [torch.from_numpy(rs).to(sub.dataset.device)
                            for rs, sub in zip(self._row_sels, self._subs)]
@@ -270,19 +291,141 @@ class BucketedRandomEffectCoordinate:
         """Per-bucket coefficient-stack shapes (ladder padding included)."""
         return [[int(s.num_entities), int(s.local_dim)] for s in self._subs]
 
+    def _partial_payload(self, finished: List[Tensor], bucket: int,
+                         inner: Optional[dict] = None) -> dict:
+        """Preemption ``partial`` payload: the finished buckets'
+        coefficients, and for a drain inside bucket ``bucket`` its
+        scheduler snapshot nested under ``inner.`` keys."""
+        meta = {"kind": "bucketed_re", "bucket": bucket, "shapes": self._bucket_shapes(),
+                "inner": inner["meta"] if inner is not None else None}
+        arrays = {f"done.{j}": w.detach().cpu().numpy() for j, w in enumerate(finished)}
+        if inner is not None:
+            arrays.update({f"inner.{k}": v for k, v in inner["arrays"].items()})
+        return {"meta": meta, "arrays": arrays}
+
+    # -- adaptive-schedule plumbing (optim/convergence.py) -------------------
+    def _host_driven(self) -> bool:
+        return self.solve_schedule is not None or self.adaptive is not None
+
+    def _record_bucket_result(self, bi: int, res) -> None:
+        if not self._host_driven():
+            return
+        score = float(torch.max(res.grad_norm)) if res.grad_norm.numel() else 0.0
+        executed = int(torch.sum(res.iterations))
+        under = self.adaptive is not None and score < self.adaptive.tolerance
+        self._ledger.observe(bi, score, executed=executed, epoch=self._epoch,
+                             under_tolerance=under)
+        solve_stats.record_block(f"bucket{bi}", score=score, executed=executed)
+
+    def _record_bucket_skip(self, bi: int) -> None:
+        self._ledger.record_skip(bi, epoch=self._epoch)
+        solve_stats.record_block(f"bucket{bi}", skipped=True)
+        self.skip_decisions.append(PlanDecision(
+            "adaptive", "skipped",
+            f"bucket {bi} scored under tolerance "
+            f"{self.adaptive.tolerance:g} for >= {self.adaptive.patience} "
+            f"consecutive epochs; epoch {self._epoch} carries its "
+            "coefficients forward",
+        ))
+
+    def _adaptive_skips(self, n_buckets: int, start_bucket: int) -> set:
+        """The buckets this epoch skips. The ``optim.block_skip`` fault
+        site guards the decision: an injected fault degrades the epoch to
+        visit-everything with a recorded decision, never a silent skip."""
+        if self.adaptive is None:
+            return set()
+        candidates = {bi for bi in range(start_bucket, n_buckets)
+                      if self._ledger.should_skip(bi, self.adaptive)}
+        if candidates:
+            try:
+                faults.inject("optim.block_skip", epoch=self._epoch, buckets=len(candidates))
+            except Exception as e:  # noqa: BLE001 — an injected fault makes the skip decision untrusted; visiting everything is the safe degrade
+                self.skip_decisions.append(PlanDecision(
+                    "adaptive", "pinned",
+                    f"bucket-skip fault at epoch {self._epoch} "
+                    f"({type(e).__name__}: {e}); degraded to "
+                    "visit-everything for this epoch",
+                ))
+                return set()
+        return candidates
+
+    def ledger_export(self) -> dict:
+        """JSON-safe ledger entries ({bucket: entry}) for retrain.json."""
+        return self._ledger.to_json()
+
+    def _resume_point(self, resume: dict, device) -> Tuple[int, List[Tensor], Optional[dict]]:
+        """(bucket to start at, finished buckets' coefficients, the paused
+        solve's snapshot or None) of a ``bucketed_re`` payload."""
+        m = resume.get("meta") or {}
+        if m.get("kind") != "bucketed_re":
+            raise ValueError(f"resume payload kind {m.get('kind')!r} is not a "
+                             "bucketed-RE progress snapshot")
+        shapes = self._bucket_shapes()
+        saved = [list(map(int, x)) for x in (m.get("shapes") or [])]
+        if saved != shapes:
+            raise ValueError(
+                "bucketed resume snapshot does not match this coordinate's buckets "
+                f"({saved[:3]}... vs {shapes[:3]}...) — the buckets were rebuilt "
+                "differently since the emergency checkpoint; refusing to resume")
+        start = int(m["bucket"])
+        arrays = resume.get("arrays") or {}
+        done = [torch.from_numpy(np.array(arrays[f"done.{j}"])).to(device)
+                for j in range(start)]
+        inner = None
+        if m.get("inner") is not None:
+            inner = {"meta": m["inner"],
+                     "arrays": {k[len("inner."):]: v for k, v in arrays.items()
+                                if k.startswith("inner.")}}
+        return start, done, inner
+
     def update(self, residual_offsets: Tensor, state: State,
                reg_weight: Optional[float] = None, resume: Optional[dict] = None):
         """Each bucket gathers its rows' residuals and solves on its own
         (buckets are disjoint entity sets). Returns the new state and the
-        per-bucket OptResults. ``reg_weight`` overrides every bucket's total
-        regularization weight (``CoordinateDescent.run_grid``)."""
+        per-bucket OptResults (None for a bucket skipped or finished before
+        a resume). ``reg_weight`` overrides every bucket's total
+        regularization weight (``CoordinateDescent.run_grid``).
+
+        On the scheduled path the bucket boundaries (site ``"bucket"``) and
+        every solve's chunk or rung boundaries are preemption drain points:
+        ``Preempted`` carries the finished buckets' coefficients (and the
+        paused solve); passing that payload back as ``resume`` continues
+        from the interrupted bucket, bitwise as an uninterrupted update."""
+        start, new_state, inner = 0, [], None
         if resume is not None:
-            raise _not_ported("resuming inside the coordinate (a preemption payload)")
-        new_state, results = [], []
-        for sub, rows, w0 in zip(self._subs, self._row_index, state):
-            coefs, res = sub.update(residual_offsets[rows], w0, reg_weight)
+            start, new_state, inner = self._resume_point(resume, residual_offsets.device)
+        else:
+            self._epoch += 1
+        skips = self._adaptive_skips(len(self._subs), start)
+        results: List[object] = [None] * start
+        for bi, (sub, rows, w0) in enumerate(zip(self._subs, self._row_index, state)):
+            if bi < start:
+                continue
+            if bi in skips:
+                # coefficients carry forward unchanged; recorded, never silent
+                self._record_bucket_skip(bi)
+                new_state.append(w0)
+                results.append(None)
+                continue
+            kw = {} if reg_weight is None else {"reg_weight": reg_weight}
+            try:
+                coefs, res = sub.update(residual_offsets[rows], w0,
+                                        resume=inner if bi == start else None, **kw)
+            except preemption.Preempted as e:
+                # inside bucket bi: wrap the solve's snapshot with the
+                # buckets finished so far and unwind
+                raise preemption.Preempted(
+                    str(e), site=e.site,
+                    partial=self._partial_payload(new_state, bi, e.partial)) from e
             new_state.append(coefs)
             results.append(res)
+            self._record_bucket_result(bi, res)
+            if (self.solve_schedule is not None and bi + 1 < len(self._subs)
+                    and preemption.check("bucket", bucket=bi)):
+                raise preemption.Preempted(
+                    f"preempted at bucket boundary (bucket {bi + 1}/{len(self._subs)}): "
+                    f"{preemption.reason()}",
+                    site="bucket", partial=self._partial_payload(new_state, bi + 1))
         return tuple(new_state), tuple(results)
 
     def score(self, state: State) -> Tensor:

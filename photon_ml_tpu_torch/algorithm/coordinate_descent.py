@@ -11,7 +11,9 @@ tensors in global row order. A coordinate's parameters are a tensor, a
 stacks.
 
 With a checkpointer the state is saved after every update and a restart
-resumes from the last complete step; preemption is polled at every update
+resumes from the last complete step (and inside an interrupted update,
+when a scheduled coordinate drained at a chunk, rung or bucket boundary:
+its progress rides the checkpoint as ``partial``); preemption is polled at every update
 boundary (site ``"cycle"``), where the finished steps are made durable
 before :class:`~photon_ml_tpu_torch.resilience.preemption.Preempted`
 unwinds; a divergence guard gates every update.
@@ -119,19 +121,22 @@ class CoordinateDescent:
               scores: Dict[str, Tensor], total: Tensor, history: "_History",
               timings: Dict[str, float], trackers: Dict[str, object],
               lam: Optional[Dict[str, float]] = None,
-              skip: bool = False) -> Tuple[Tensor, bool]:
+              skip: bool = False, resume: Optional[dict] = None) -> Tuple[Tensor, bool]:
         """One update of coordinate ``name``, in place on ``params`` and
         ``scores``: solve on the other coordinates' scores (at ``lam[name]``
         when given), re-score, gate through the divergence guard, then record
         the objective and the validation metrics. ``skip`` records them on
-        the unchanged state. Returns (total scores, whether the guard kept
-        the update)."""
+        the unchanged state. ``resume`` hands the coordinate the paused
+        progress of an update a preemption interrupted. Returns (total
+        scores, whether the guard kept the update)."""
         ok = True
         if not skip:
             coord = self.coordinates[name]
             partial = total - scores[name]  # the other coordinates' scores
             t0 = time.perf_counter()
             kw = {} if lam is None else {"reg_weight": lam[name]}
+            if resume is not None:
+                kw["resume"] = resume
             new_params, trackers[name] = coord.update(partial, params[name], **kw)
             # chaos hook: a kind="nan" fault here corrupts the update
             # exactly like a diverged solve
@@ -266,12 +271,14 @@ class CoordinateDescent:
         trackers: Dict[str, object] = {}
 
         start_step = 0
+        midstep = None  # an interrupted update's progress, from the checkpoint
         if checkpointer is not None:
             restored = checkpointer.restore(params, scores, total)
             if restored is not None:
                 start_step = restored.step
                 params, scores, total = restored.params, restored.scores, restored.total_scores
                 history = _History(restored.objective_history, restored.validation_history)
+                midstep = restored.partial
 
         guard = self.divergence_guard
         guard_events_start = len(guard.events) if guard is not None else 0
@@ -282,10 +289,38 @@ class CoordinateDescent:
                 step += 1
                 if step <= start_step:
                     continue  # completed before the restart
+                resume = None
+                if midstep is not None and step == int(midstep["meta"].get("resume_step", -1)):
+                    # the emergency checkpoint interrupted this update: the
+                    # coordinate finishes it from its paused progress
+                    if midstep["meta"].get("coordinate") != name:
+                        raise ValueError(
+                            f"checkpoint partial targets coordinate "
+                            f"{midstep['meta'].get('coordinate')!r} at step {step} but the "
+                            f"sequence reaches {name!r} — updating sequence changed; "
+                            "refusing to resume")
+                    resume, midstep = midstep, None
                 # a skipped update leaves the state unchanged, but histories
                 # and checkpoints stay one entry per update
-                total, ok = self._step(name, step, params, scores, total, history,
-                                       timings, trackers, skip=skip_rest_of_cycle)
+                try:
+                    total, ok = self._step(name, step, params, scores, total, history,
+                                           timings, trackers, skip=skip_rest_of_cycle,
+                                           resume=resume)
+                except preemption.Preempted as e:
+                    # a drain inside the update: checkpoint the finished
+                    # steps with the coordinate's progress, then unwind
+                    if e.partial is not None and checkpointer is not None:
+                        payload = dict(e.partial)
+                        payload["meta"] = dict(payload.get("meta") or {}, coordinate=name,
+                                               resume_step=step)
+                        history.drain()
+                        e.checkpoint_path = checkpointer.save(CheckpointState(
+                            step=step - 1, params=params, scores=scores, total_scores=total,
+                            objective_history=history.objective,
+                            validation_history=history.validation, partial=payload,
+                        ))
+                        checkpointer.wait()  # durable before the process exits
+                    raise
                 if not ok and guard.mode == "skip_cycle":
                     skip_rest_of_cycle = True
                 path = None

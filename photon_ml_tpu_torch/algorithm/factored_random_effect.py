@@ -175,7 +175,7 @@ class FactoredRandomEffectCoordinate:
         x_rows = ds.x.reshape(e * m_cap, d)
         y_rows, off_rows, w_rows = ds.labels.reshape(-1), off.reshape(-1), ds.weights.reshape(-1)
         solve = entity_lane_fns(self.task, self.re_optimizer, self.re_optimizer_config,
-                                self.re_regularization)
+                                self.re_regularization)[0]
         lat_cfg = self.latent_optimizer_config
 
         v, mat = state.v, state.matrix

@@ -1,6 +1,5 @@
 """Random-effect coordinate: per-entity GLM solves as lanes of one solve
-(port of photon_ml_tpu/algorithm/random_effect.py, without the solve
-scheduler and the mesh).
+(port of photon_ml_tpu/algorithm/random_effect.py, without the mesh).
 
 Reference spec: algorithm/RandomEffectCoordinate.scala:36-201. Entities are
 the leading axis of the padded ``(E, M, D_loc)`` tensors (data/game.py), so
@@ -10,7 +9,10 @@ objective evaluates every entity at once. With a sparse spec
 ``SparseSlab`` built once from the dense stack (``auto``: when it wins the
 race against the dense stack); the ``pallas`` family then
 runs every value+gradient through the GEVM kernel and every CG step of TRON
-through the HVP kernel, one launch for all entities.
+through the HVP kernel, one launch for all entities. With a
+``solve_schedule`` (optim/scheduler.py) the solve runs chunked and
+convergence-compacted, on the host loop or the device rung loop, with the
+same bits as the one-shot solve.
 
 Scoring is one gather: score_n = sum_k val_nk * W[entity(n), col_nk]; rows
 whose entity has no model score 0.
@@ -31,7 +33,7 @@ from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.ops.objective import GLMBatch, GLMObjective
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.optim import lbfgs, tron
-from photon_ml_tpu_torch.optim.common import OptimizerConfig, OptResult
+from photon_ml_tpu_torch.optim.common import FIXED_SUMS, OptimizerConfig, OptResult
 from photon_ml_tpu_torch.optim.problem import _split_reg_weight, variances_from_hessian_diag
 from photon_ml_tpu_torch.types import OptimizerType, TaskType, real_dtype
 
@@ -40,10 +42,22 @@ Tensor = torch.Tensor
 
 def entity_lane_fns(task, optimizer, optimizer_config, regularization, reg_weight=None):
     """The lane-batched solve over the entities' ``(feats, y, off, wt)``
-    problems, ``feats`` a dense ``(E, M, D)`` tensor or a ``SparseSlab``:
-    ``solve(feats, y, off, wt, w0) -> OptResult``, a leading lane axis on
-    every field. (The resumable init/advance/result closures of the JAX
-    package serve its solve scheduler, which is not ported.)
+    problems, ``feats`` a dense ``(E, M, D)`` tensor, a ``SparseSlab`` or a
+    ``SlabLanes`` view, as the resumable closures the solve scheduler
+    drives (optim/scheduler.py, optim/fused_schedule.py):
+
+      * ``solve(feats, y, off, wt, w0) -> OptResult``, the one-shot solve;
+      * ``init(feats, y, off, wt, w0) -> state`` (one objective evaluation);
+      * ``advance(feats, y, off, wt, state, limit, trips=None) -> state``:
+        every lane to the absolute iteration bound ``limit``, on the host
+        loop (``trips`` None, ``limit`` an int), or in ``trips`` fixed-trip
+        iterations with no host sync (``limit`` a 0-dim tensor on the
+        lanes' device: the body of a captured CUDA graph);
+      * ``result(state) -> OptResult``.
+
+    Every field of the state and the result has a leading lane axis, and a
+    lane's arithmetic does not depend on the batch it rides in: the solvers
+    reduce over its coefficients with ``FIXED_SUMS``.
     """
     obj = GLMObjective(losses_mod.for_task(task))
     norm = NormalizationContext.identity()
@@ -51,7 +65,8 @@ def entity_lane_fns(task, optimizer, optimizer_config, regularization, reg_weigh
     cfg = optimizer_config
 
     def batch_of(feats, y, off, wt):
-        f = feats if isinstance(feats, fused_sparse.SparseSlab) else DenseFeatures(feats)
+        f = (feats if isinstance(feats, (fused_sparse.SparseSlab, fused_sparse.SlabLanes))
+             else DenseFeatures(feats))
         return GLMBatch(f, y, off, wt)
 
     def vg_of(*data) -> Callable:
@@ -64,16 +79,43 @@ def entity_lane_fns(task, optimizer, optimizer_config, regularization, reg_weigh
             batch = batch_of(*data)
             return lambda w, v: obj.hessian_vector(w, v, batch, norm, l2)
 
+        def init(feats, y, off, wt, w0):
+            return tron.tron_init_(vg_of(feats, y, off, wt), w0, cfg, sums=FIXED_SUMS)
+
+        def advance(feats, y, off, wt, state, limit, trips=None):
+            data = (feats, y, off, wt)
+            if trips is None:
+                return tron.tron_advance_(vg_of(*data), hvp_of(*data), state, cfg,
+                                          iteration_limit=limit, sums=FIXED_SUMS)
+            return tron.tron_chunk_(vg_of(*data), hvp_of(*data), state, cfg, limit, trips,
+                                    sums=FIXED_SUMS)
+
+        def result(state):
+            return tron.tron_result(state, sums=FIXED_SUMS)
+
         def solve(feats, y, off, wt, w0):
             data = (feats, y, off, wt)
-            return tron.tron_minimize_lanes(vg_of(*data), hvp_of(*data), w0, cfg)
+            return tron.tron_minimize_lanes(vg_of(*data), hvp_of(*data), w0, cfg,
+                                            sums=FIXED_SUMS)
 
-        return solve
+        return solve, init, advance, result
+
+    def init(feats, y, off, wt, w0):
+        return lbfgs.lbfgs_init_(vg_of(feats, y, off, wt), w0, cfg, l1_weight=l1,
+                                 sums=FIXED_SUMS)
+
+    def advance(feats, y, off, wt, state, limit, trips=None):
+        vg = vg_of(feats, y, off, wt)
+        if trips is None:
+            return lbfgs.lbfgs_advance_(vg, state, cfg, l1_weight=l1, iteration_limit=limit,
+                                        sums=FIXED_SUMS)
+        return lbfgs.lbfgs_chunk_(vg, state, cfg, limit, trips, l1_weight=l1, sums=FIXED_SUMS)
 
     def solve(feats, y, off, wt, w0):
-        return lbfgs.lbfgs_minimize_lanes(vg_of(feats, y, off, wt), w0, cfg, l1_weight=l1)
+        return lbfgs.lbfgs_minimize_lanes(vg_of(feats, y, off, wt), w0, cfg, l1_weight=l1,
+                                          sums=FIXED_SUMS)
 
-    return solve
+    return solve, init, advance, lbfgs.lbfgs_result
 
 
 @dataclasses.dataclass
@@ -98,6 +140,9 @@ class RandomEffectCoordinate:
     solve_label: str = "re_solve"
     sparse_kernel: Optional[str] = None
     bucketer: Optional[object] = None  # the slab width's ladder; None reads PHOTON_SHAPE_LADDER
+    # convergence-compaction schedule (optim.scheduler.SolveSchedule, None =
+    # one-shot): chunked solves whose converged lanes stop riding along
+    solve_schedule: Optional[object] = None
 
     def __post_init__(self):
         if self.optimizer_config is None:
@@ -107,6 +152,9 @@ class RandomEffectCoordinate:
                 else OptimizerConfig.lbfgs_default()
             )
         self.slab: Optional[fused_sparse.SparseSlab] = None
+        # the device loop's captured rung programs, keyed by this
+        # coordinate's own tensors (optim/fused_schedule.py)
+        self._graphs: dict = {}
         spec = fused_sparse.resolve_sparse_kernel(self.sparse_kernel)
         if spec is not None and self.dataset.projection_matrix is None:
             ds = self.dataset
@@ -137,15 +185,31 @@ class RandomEffectCoordinate:
                                              torch.zeros_like(gathered))
 
     def update(self, residual_offsets: Tensor, init_coefficients: Tensor,
-               reg_weight: Optional[float] = None) -> Tuple[Tensor, OptResult]:
+               reg_weight: Optional[float] = None,
+               resume: Optional[dict] = None) -> Tuple[Tensor, OptResult]:
         """Solve every entity's local problem; returns the stacked
-        coefficients (E, D_loc) and the lane-batched OptResult."""
+        coefficients (E, D_loc) and the lane-batched OptResult. With a
+        schedule the solve is compacted, its chunk (or rung) boundaries are
+        preemption drain points, and ``resume`` (a ``kind="scheduler"``
+        snapshot from one) finishes an interrupted solve bitwise."""
         ds = self.dataset
         feats = self.slab if self.slab is not None else ds.x
+        data = (feats, ds.labels, self.gathered_offsets(residual_offsets), ds.weights)
+        if self.solve_schedule is not None:
+            from photon_ml_tpu_torch.optim.scheduler import compacted_solve
+
+            results = compacted_solve(
+                data, init_coefficients, task=self.task, optimizer=self.optimizer,
+                optimizer_config=self.optimizer_config, regularization=self.regularization,
+                schedule=self.solve_schedule, label=self.solve_label, resume=resume,
+                reg_weight=reg_weight, graphs=self._graphs)
+            return results.coefficients, results
+        if resume is not None:
+            raise ValueError("a resume payload needs a solve schedule: only a scheduled "
+                             "solve pauses inside the coordinate")
         solve = entity_lane_fns(self.task, self.optimizer, self.optimizer_config,
-                                self.regularization, reg_weight)
-        results = solve(feats, ds.labels, self.gathered_offsets(residual_offsets),
-                        ds.weights, init_coefficients)
+                                self.regularization, reg_weight)[0]
+        results = solve(*data, init_coefficients)
         return results.coefficients, results
 
     def coefficient_variances(self, coefficients: Tensor, residual_offsets: Tensor) -> Tensor:

@@ -23,8 +23,12 @@ leaf exists).
 :meth:`CoordinateDescentCheckpointer._prepare` (the host snapshot) and
 ``_commit`` (retry + atomic rename) are split so that
 :class:`photon_ml_tpu_torch.checkpoint_async.AsyncCheckpointer` can run the
-commit on a background thread. The JAX package's by-reference leaves
-(spilled streaming state), mid-coordinate ``partial`` payloads, multihost
+commit on a background thread. ``CheckpointState.partial`` carries a
+drain inside an update (the solve scheduler's ``kind="scheduler"``
+snapshot, or the bucketed coordinate's ``"bucketed_re"`` progress) as
+``partial.*`` arrays and the ``partial`` meta, as the JAX package lays it
+out; a restore hands it back. The JAX package's by-reference leaves
+(spilled streaming state), the streaming coordinates' payloads, multihost
 restore agreement and plan-versioned elastic restore are not yet ported:
 meeting one raises.
 """
@@ -215,6 +219,13 @@ class CheckpointState:
     total_scores: Any  # (N,)
     objective_history: List[float]
     validation_history: List[Dict[str, float]]
+    # a drain inside an update: the in-flight coordinate's progress
+    # ({"meta", "arrays"}; meta names the coordinate and its resume_step)
+    partial: Optional[Dict[str, Any]] = None
+
+
+#: the mid-coordinate payload kinds a restore hands back to a coordinate
+RESUMABLE_PARTIALS = ("scheduler", "bucketed_re")
 
 
 class CoordinateDescentCheckpointer:
@@ -259,13 +270,18 @@ class CoordinateDescentCheckpointer:
         arrays, structure, dtypes = _flatten_state(
             {"params": state.params, "scores": state.scores, "total": state.total_scores}
         )
+        partial_meta = None
+        if state.partial is not None:
+            partial_meta = state.partial.get("meta") or {}
+            for k, v in (state.partial.get("arrays") or {}).items():
+                arrays[f"partial.{k}"] = np.asarray(v)
         meta = {
             "step": state.step,
             "fingerprint": self.run_fingerprint,
             "structure": structure,
             "objective_history": state.objective_history,
             "validation_history": state.validation_history,
-            "partial": None,
+            "partial": partial_meta,
         }
         if dtypes:
             meta["dtypes"] = dtypes
@@ -346,8 +362,10 @@ class CoordinateDescentCheckpointer:
                     f"checkpoint fingerprint {meta.get('fingerprint')!r} does not match "
                     f"this run ({self.run_fingerprint!r}); refusing to resume"
                 )
-            if meta.get("partial") is not None:
-                raise _not_ported("resuming inside a coordinate (a checkpoint's partial payload)")
+            partial_meta = meta.get("partial")
+            if partial_meta is not None and partial_meta.get("kind") not in RESUMABLE_PARTIALS:
+                raise _not_ported(f"resuming inside a coordinate from a "
+                                  f"{partial_meta.get('kind')!r} payload")
 
             def load_arrays() -> Dict[str, np.ndarray]:
                 with np.load(os.path.join(path, ARRAYS_FILE)) as npz:
@@ -361,6 +379,11 @@ class CoordinateDescentCheckpointer:
             except (resilience.RetryError, zipfile.BadZipFile, ValueError, EOFError) as e:
                 logger.warning("skipping corrupt checkpoint %s: %s", path, e)
                 continue
+            partial = None
+            if partial_meta is not None:
+                partial = {"meta": partial_meta,
+                           "arrays": {k[len("partial."):]: arrays.pop(k) for k in list(arrays)
+                                      if k.startswith("partial.")}}
             restored = _unflatten_state(
                 {"params": params_template, "scores": scores_template, "total": total_template},
                 arrays, meta["structure"], meta.get("dtypes") or {},
@@ -372,5 +395,6 @@ class CoordinateDescentCheckpointer:
                 total_scores=restored["total"],
                 objective_history=list(meta["objective_history"]),
                 validation_history=list(meta["validation_history"]),
+                partial=partial,
             )
         return None

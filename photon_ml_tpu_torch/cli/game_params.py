@@ -18,9 +18,10 @@ The training parser takes every flag of the JAX driver under the same name,
 plus ``--device`` (default ``cuda``). Grid alternatives are ';'-separated
 (``config_grid`` is their Cartesian product). ``validate`` rejects, naming
 the flag, every flag whose code path is not yet ported when it is set away
-from its default: streaming random effects, solve compaction, the fused
-cycle, the mesh, the caches, warm starts, the planner and the rest listed
-in ``_FENCED``. The scoring parser takes every flag of the JAX
+from its default: streaming random effects, the fused cycle, the mesh,
+the caches, warm starts, the planner and the rest listed in ``_FENCED``.
+``--solve-compaction`` and ``--adaptive-schedule`` are checked through the
+execution plan (compile/plan.py), as the JAX parser checks them. The scoring parser takes every flag of the JAX
 scoring driver, plus ``--device``.
 """
 
@@ -289,6 +290,13 @@ class GameTrainingParams:
     # "BASE:GROWTH"; each bucket's dims round up a geometric ladder with
     # masked padding
     shape_canonicalization: str = "off"
+    # convergence-compacted random-effect solves (optim/scheduler.py):
+    # "off" | "on" | CHUNK | "device[:CHUNK]"; None defers to
+    # PHOTON_SOLVE_CHUNK
+    solve_compaction: Optional[str] = None
+    # adaptive bucket scheduling (optim/convergence.py): "off" | "on" | TOL
+    # | "TOL:K"; None defers to PHOTON_ADAPTIVE_SCHEDULE
+    adaptive_schedule: Optional[str] = None
     # flags of the JAX driver given away from their default whose code paths
     # are not yet ported (filled by the parser; validate refuses them)
     unported_flags: List[str] = dataclasses.field(default_factory=list)
@@ -336,12 +344,42 @@ class GameTrainingParams:
             errors.append("--checkpoint-async needs --checkpoint-dir")
         if self.device not in ("cuda", "cpu"):
             errors.append(f"--device must be cuda or cpu, got {self.device!r}")
+        # the schedule flags are checked through the execution plan, as the
+        # JAX parser does: a broken spec is reported and normalized to "off"
+        # so the plan's own fences still run
+        ladder_spec = self.shape_canonicalization
         try:
             from photon_ml_tpu_torch.compile import resolve_bucketer
 
-            resolve_bucketer(self.shape_canonicalization)
+            resolve_bucketer(ladder_spec)
         except ValueError as e:
             errors.append(f"--shape-canonicalization: {e}")
+            ladder_spec = "off"
+        compaction_spec = self.solve_compaction
+        try:
+            from photon_ml_tpu_torch.optim.scheduler import resolve_schedule
+
+            resolve_schedule(compaction_spec)
+        except ValueError as e:
+            errors.append(f"--solve-compaction: {e}")
+            compaction_spec = "off"
+        adaptive_spec = self.adaptive_schedule
+        try:
+            from photon_ml_tpu_torch.optim.convergence import resolve_adaptive
+
+            resolve_adaptive(adaptive_spec)
+        except ValueError as e:
+            errors.append(f"--adaptive-schedule: {e}")
+            adaptive_spec = "off"
+        try:
+            from photon_ml_tpu_torch.compile.plan import ExecutionPlan
+
+            ExecutionPlan.resolve(
+                shape_canonicalization=ladder_spec, solve_compaction=compaction_spec,
+                adaptive_schedule=adaptive_spec, bucketed=self.bucketed_random_effects,
+                vmapped_grid=self.vmapped_grid)
+        except ValueError as e:
+            errors.append(str(e))
         errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
                       for flag in self.unported_flags)
         if errors:
@@ -382,8 +420,6 @@ _FENCED = {
     "--warm-start-from": None,
     "--export-serve-store": None,
     "--store-dtype": "f32",
-    "--solve-compaction": None,
-    "--adaptive-schedule": None,
     "--plan": None,
 }
 # values that leave a fenced flag unset, besides its default
@@ -458,6 +494,22 @@ def build_training_parser() -> argparse.ArgumentParser:
     a("--shape-canonicalization", default="off",
       help="canonical shape ladder: off | on | BASE:GROWTH (e.g. 8:2); every "
            "bucket's dims round up a geometric ladder with masked padding")
+    a("--solve-compaction", default=None,
+      help="convergence-compacted random-effect solves: run the lane-batched "
+           "per-entity solve in chunks, repacking unconverged lanes into "
+           "ladder-sized batches between chunks (bitwise-equal results): "
+           "off | on | CHUNK | device[:CHUNK] (the rung loop, one captured CUDA "
+           "graph per ladder rung on the card: host reads drop to O(#rungs)). "
+           "Default defers to PHOTON_SOLVE_CHUNK; --vmapped-grid true cannot "
+           "pause at chunk boundaries")
+    a("--adaptive-schedule", default=None,
+      help="adaptive scheduling for bucketed random effects: skip a bucket "
+           "whose gradient-norm score stayed under TOL for K consecutive "
+           "epochs (coefficients carried forward bitwise, every skip a recorded "
+           "plan decision): off | on | TOL | TOL:K (e.g. 1e-5:2). Default defers "
+           "to PHOTON_ADAPTIVE_SCHEDULE; the ledger lands in retrain.json; "
+           "pinned to always-visit without --bucketed-random-effects, fenced "
+           "with --vmapped-grid true")
     for flag, default in _FENCED.items():
         kind = type(default) if isinstance(default, (int, float)) else None
         a(flag, dest=_dest(flag), default=default, type=kind,
@@ -529,6 +581,8 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
                       else "true" if _truthy(ns.vmapped_grid) else "false"),
         bucketed_random_effects=_truthy(ns.bucketed_random_effects),
         shape_canonicalization=ns.shape_canonicalization,
+        solve_compaction=ns.solve_compaction,
+        adaptive_schedule=ns.adaptive_schedule,
         unported_flags=_unported(ns),
         device=ns.device,
     )

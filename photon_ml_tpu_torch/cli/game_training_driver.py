@@ -29,9 +29,14 @@ factored coordinate (``--factored-random-effect-optimization-
 configurations``) factors its IDENTITY dataset and is saved both flattened
 and as latent factors. ``--vmapped-grid true|auto`` trains a lambda-only
 grid through ``CoordinateDescent.run_grid`` on coordinates built once.
-``--checkpoint-dir`` saves the descent after every coordinate update (every
+``--solve-compaction`` runs every random-effect solve convergence-compacted
+(``device[:CHUNK]``: the rung loop, captured CUDA graphs on the card) and
+``--adaptive-schedule`` skips converged buckets, both resolved once by the
+execution plan (compile/plan.py); the run logs the capture and solve
+ledgers. ``--checkpoint-dir`` saves the descent after every coordinate update (every
 iteration on the grid path) and resumes from it; a preemption (SIGTERM/
-SIGINT, ``PHOTON_PREEMPT_AT``) drains to the next boundary, then relaunches
+SIGINT, ``PHOTON_PREEMPT_AT``) drains to the next boundary (inside a scheduled
+update: its chunk, rung or bucket boundary), then relaunches
 in-process (``--max-restarts``) or exits with code 75. The run leaves
 ``retrain.json`` at the output root, as the JAX driver does.
 
@@ -80,7 +85,8 @@ from photon_ml_tpu_torch.algorithm.random_effect import (
 )
 from photon_ml_tpu_torch.checkpoint import CoordinateDescentCheckpointer, fingerprint
 from photon_ml_tpu_torch.checkpoint_async import maybe_async
-from photon_ml_tpu_torch.compile import resolve_bucketer
+from photon_ml_tpu_torch.compile import compile_stats
+from photon_ml_tpu_torch.compile.plan import ExecutionPlan
 from photon_ml_tpu_torch.cli.game_params import (
     CoordinateOptConfig,
     GameTrainingParams,
@@ -114,6 +120,7 @@ from photon_ml_tpu_torch.ops import fused_glm, fused_sparse
 from photon_ml_tpu_torch.ops.fused_glm import select_fused_block_rows
 from photon_ml_tpu_torch.optim.common import OptResult, summarize_result, summarize_stacked_results
 from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
+from photon_ml_tpu_torch.optim.scheduler import solve_stats
 from photon_ml_tpu_torch.types import ModelOutputMode, TaskType
 from photon_ml_tpu_torch.utils.date_range import DateRange, expand_date_range_paths
 from photon_ml_tpu_torch.utils.io_utils import prepare_output_dir
@@ -207,10 +214,19 @@ class GameTrainingDriver:
         params.validate()
         self.params = params
         self.device = resolve_device(params.device)
-        # the canonical shape ladder, None when off (the flag's default): it
-        # pads every bucket and every slab width the driver builds; the
-        # driver never reads PHOTON_SHAPE_LADDER
-        self.bucketer = resolve_bucketer(params.shape_canonicalization)
+        # one execution plan resolves the shape ladder, the solve schedule
+        # (ladder-bound) and the adaptive schedule, and records every
+        # composition decision. The ladder is None when off (the flag's
+        # default): it pads every bucket and every slab width the driver
+        # builds; the driver never reads PHOTON_SHAPE_LADDER
+        self.plan = ExecutionPlan.resolve(
+            shape_canonicalization=params.shape_canonicalization,
+            solve_compaction=params.solve_compaction,
+            adaptive_schedule=params.adaptive_schedule,
+            bucketed=params.bucketed_random_effects,
+            vmapped_grid=params.vmapped_grid)
+        self.bucketer = self.plan.bucketer
+        self.solve_schedule = self.plan.schedule
         self._race_mark = len(fused_glm.race_log)  # where this run's race decisions start
         self._own_logger = logger is None
         self.logger = logger or PhotonLogger(
@@ -384,6 +400,8 @@ class GameTrainingDriver:
                     optimizer_config=cfg.optimizer_config(),
                     regularization=cfg.regularization_context(),
                     bundle=self.bucketed_bundles[name],
+                    solve_schedule=self.solve_schedule,
+                    adaptive=self.plan.adaptive,
                 )
             else:
                 coords[name] = RandomEffectCoordinate(
@@ -394,6 +412,7 @@ class GameTrainingDriver:
                     regularization=cfg.regularization_context(),
                     solve_label=name,
                     bucketer=self.bucketer or "off",
+                    solve_schedule=self.solve_schedule,
                 )
         return coords
 
@@ -573,6 +592,8 @@ class GameTrainingDriver:
             return "--compute-variance (save-time Hessians need per-combo statics)"
         if p.divergence_guard != "off":
             return "--divergence-guard (per-update host gate cannot enter the compiled cycle)"
+        if self.solve_schedule is not None:
+            return "--solve-compaction (chunk pauses re-enter the host per update)"
         for name in p.updating_sequence:
             # every field but lambda must agree across the combos
             non_lambda = {dataclasses.replace(c.get(name, CoordinateOptConfig()), reg_weight=0.0)
@@ -775,6 +796,9 @@ class GameTrainingDriver:
                          + (f" ({torch.cuda.get_device_name(self.device)})"
                             if self.device.type == "cuda" else ""))
         self._race_mark = len(fused_glm.race_log)
+        self.logger.info(self.plan.describe())
+        for line in self.plan.describe_decisions():
+            self.logger.info(f"plan decision: {line}")
         if p.checkpoint_dir:
             self._adopt_recorded_races()
         try:
@@ -800,10 +824,22 @@ class GameTrainingDriver:
                             self.save_models(os.path.join(p.output_dir, ALL_MODELS_DIR, str(i)),
                                              result, i)
                     self._write_retrain_manifest(best_dir)
-            self.logger.info(self.timer.summary())
+            self._log_run_summaries()
         finally:
             if self._own_logger:
                 self.logger.close()
+
+    def _log_run_summaries(self) -> None:
+        self.logger.info(self.timer.summary())
+        self.logger.info(compile_stats.summary())
+        if self.solve_schedule is not None or self.plan.adaptive is not None:
+            self.logger.info(solve_stats.summary())
+        if self.plan.adaptive is not None:
+            # every adaptive skip or degrade is a recorded decision
+            for combo in self.combo_coords:
+                for name, coord in combo.items():
+                    for dec in getattr(coord, "skip_decisions", ()) or ():
+                        self.logger.info(f"[{name}] {dec.describe()}")
 
     # --- retrain.json (photon_ml_tpu/retrain) ---------------------------
     def _ingest_inputs(self) -> Dict[str, object]:
@@ -859,9 +895,18 @@ class GameTrainingDriver:
                 return "factored"
             return "bucketed" if p.bucketed_random_effects else "random"
 
+        def ledger(name: str) -> Optional[dict]:
+            """The best combo's convergence ledger (None when the coordinate
+            keeps none or recorded nothing)."""
+            coord = (self.combo_coords[self.best_index].get(name)
+                     if 0 <= self.best_index < len(self.combo_coords) else None)
+            export = getattr(coord, "ledger_export", None)
+            return (export() or None) if callable(export) else None
+
         coords = {
             name: CoordinateRecord(kind=kind(name),
-                                   opt_config=str(selected.get(name, CoordinateOptConfig())))
+                                   opt_config=str(selected.get(name, CoordinateOptConfig())),
+                                   convergence_ledger=ledger(name))
             for name in p.updating_sequence
         }
         manifest = RetrainManifest(

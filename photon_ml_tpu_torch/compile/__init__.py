@@ -1,5 +1,7 @@
-"""Shape canonicalization (port of photon_ml_tpu/compile/, its ladder only):
-``ShapeBucketer`` and the masked padding of random-effect datasets."""
+"""Shape canonicalization and capture telemetry (port of
+photon_ml_tpu/compile/: the ladder, ``ShapeBucketer`` and the masked padding
+of random-effect datasets; the CUDA-graph counters of ``stats``; the
+environment gate and the execution plan the solve schedule needs)."""
 
 from __future__ import annotations
 
@@ -10,10 +12,20 @@ from photon_ml_tpu_torch.compile.canonical import (
     pad_axis,
     resolve_bucketer,
 )
+from photon_ml_tpu_torch.compile.stats import (
+    CompileStats,
+    CompileWatermark,
+    compile_stats,
+    instrumented_capture,
+)
 
 __all__ = [
+    "CompileStats",
+    "CompileWatermark",
     "ShapeBucketer",
     "canonicalize_re_arrays",
+    "compile_stats",
+    "instrumented_capture",
     "canonicalize_re_dataset",
     "pad_axis",
     "resolve_bucketer",

@@ -56,9 +56,11 @@
 //     when D is too wide; everything for a lane too large to stage, its row
 //     values then in a device scratch);
 //   * margins: a group of `row_threads` threads (a power of two, at most
-//     32, no more than K needs and no more than the block's rows leave
-//     room for) shares a row; each gathers its slots' coefficients from
-//     shared memory and sums its share of them in k order, and the group adds its
+//     32, no more than K needs, and no more than the rows of a block of
+//     the shape's own packing leave room for: a function of M and K alone,
+//     never of E, so a lane's sums do not depend on the batch it rides in)
+//     shares a row; each gathers its slots' coefficients from shared
+//     memory and sums its share of them in k order, and the group adds its
 //     partials by shuffles in the adjacent-pair order;
 //   * loss terms: one thread per row, into shared memory (zero-padded to a
 //     power of two rows per lane);
@@ -73,6 +75,16 @@
 //     the tree (lane i adds lane i + s for i a multiple of 2s): level for
 //     level the association of tree_row_sum, with no barrier between levels.
 //     Nothing else runs per call: one launch.
+//   * the lane-indirect launch (a solve scheduler's compacted batch): an
+//     int32 (R,) list of lane ids names the lanes of the full slab the R
+//     positions take. Position i reads lane ids[i]'s idx/val and its
+//     column-table entries from the full slab's tables; w, v, y/wt/off and
+//     every output are in compacted order. A block's lanes are then no one
+//     range, so it gathers their rows and table entries into shared memory
+//     with plain loads (packed, the table entries rebased to the block),
+//     and every phase after that is the direct launch's, with the same
+//     arithmetic: each position's results equal its lane's from the full
+//     launch, bit for bit.
 // Products use __fmul_rn and sums __fadd_rn, so nvcc does not contract them
 // into fused multiply-adds: each step rounds as the plain version does.
 
@@ -106,6 +118,7 @@ struct SlabPlan {
   int staged;             // 1: slab, y/wt/off, row values, tables in shared memory
   int stage_coef;         // 1: w (and v) staged in shared memory
   int smem_bytes;
+  int indirect;           // 1: the lane-indirect launch (its header layout)
 };
 
 }  // namespace photon
@@ -163,7 +176,9 @@ __host__ __device__ inline Layout layout(const SlabPlan& p, bool hvp) {
   const long long slots = l * p.m * p.k;
   const bool s = p.staged != 0;
   Layout o;
-  o.rows = align16(8 * (l + 1));
+  // header: the lanes' table offsets (direct), or their ids, both table
+  // prefixes and the scan's scratch (indirect)
+  o.rows = p.indirect ? align16(4 * (3 * l + 18)) : align16(8 * (l + 1));
   o.rowvec = o.rows + (s ? align16(8 * l * p.rows_pow2) : 0);
   o.idx = o.rowvec + (s ? 3 * staged_bytes(4 * l * p.m) : 0);
   o.val = o.idx + (s ? staged_bytes(4 * slots) : 0);
@@ -213,29 +228,94 @@ __device__ __forceinline__ float pair_tree(float x, unsigned mask, int width) {
   return x;
 }
 
+// The largest i in [0, n) with pre[i] <= x, for an ascending pre with
+// pre[0] <= x: the lane of block-local entry x.
+__device__ __forceinline__ int lane_of(const int* pre, int n, int x) {
+  int lo = 0, hi = n;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (pre[mid] <= x) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// Exclusive prefixes over the block's lanes gl[0, nl) of their column-table
+// entries (cpre) and real slots (spre), cpre[nl] and spre[nl] the totals:
+// each thread adds a contiguous share of lanes, warps scan by shuffles, the
+// eight warp totals meet in scratch (16 ints). Integer sums: exact in any
+// order. Ends with a barrier.
+__device__ __forceinline__ void lane_prefixes(const SlabPlan& p, const int* gl, int nl,
+                                              int* cpre, int* spre, int* scratch) {
+  const int per = (nl + kThreads - 1) / kThreads;
+  const int lo = min(nl, (int)threadIdx.x * per), hi = min(nl, lo + per);
+  int c = 0, s = 0;
+  for (int i = lo; i < hi; ++i) {
+    const int g = gl[i];
+    c += __ldg(p.lane_cols + g + 1) - __ldg(p.lane_cols + g);
+    s += __ldg(p.lane_slots + g + 1) - __ldg(p.lane_slots + g);
+  }
+  int ic = c, is = s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int tc = __shfl_up_sync(0xffffffffu, ic, o);
+    const int ts = __shfl_up_sync(0xffffffffu, is, o);
+    if (lane >= o) {
+      ic += tc;
+      is += ts;
+    }
+  }
+  if (lane == 31) {
+    scratch[warp] = ic;
+    scratch[8 + warp] = is;
+  }
+  __syncthreads();
+  int xc = ic - c, xs = is - s;
+  for (int w = 0; w < warp; ++w) {
+    xc += scratch[w];
+    xs += scratch[8 + w];
+  }
+  for (int i = lo; i < hi; ++i) {
+    cpre[i] = xc;
+    spre[i] = xs;
+    const int g = gl[i];
+    xc += __ldg(p.lane_cols + g + 1) - __ldg(p.lane_cols + g);
+    xs += __ldg(p.lane_slots + g + 1) - __ldg(p.lane_slots + g);
+  }
+  if (threadIdx.x == kThreads - 1) {
+    cpre[nl] = xc;
+    spre[nl] = xs;
+  }
+  __syncthreads();
+}
+
 // One launch for all lanes. GEVM (kHvp false): out = grad, sum_a = sum wl,
 // sum_b = sum d. HVP: out = hvp, sum_a = sum c. rows_out, when not null,
 // receives the row values ((wl, d) or (c,), E, M); scratch holds them when
 // they are not staged (2 * lanes_per_block * rows_pow2 floats per block).
-template <typename V, typename S, bool kHvp, bool kStaged, bool kStageCoef>
+// kIndirect: position e of the launch is lane lane_ids[e] of the slab
+// (p.lanes is then the number of positions); y, wt, off, w, v, vshift and
+// the outputs are indexed by position.
+template <typename V, typename S, bool kHvp, bool kStaged, bool kStageCoef, bool kIndirect>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    sparse_pass(const SlabPlan p, int loss, const float* __restrict__ y,
-                const float* __restrict__ wt, const float* __restrict__ off,
-                const float* __restrict__ w, const float* __restrict__ v,
-                const float* __restrict__ vshift, int vshift_stride,
-                float* __restrict__ out, float* __restrict__ sum_a,
+    sparse_pass(const SlabPlan p, const int* __restrict__ lane_ids, int loss,
+                const float* __restrict__ y, const float* __restrict__ wt,
+                const float* __restrict__ off, const float* __restrict__ w,
+                const float* __restrict__ v, const float* __restrict__ vshift,
+                int vshift_stride, float* __restrict__ out, float* __restrict__ sum_a,
                 float* __restrict__ sum_b, float* __restrict__ rows_out,
                 float* scratch) {
   extern __shared__ __align__(16) char smem[];
   const int m = p.m, k = p.k, d = p.d, pw = p.rows_pow2;
+  const long long mk = (long long)m * k;
   const long long e0 = (long long)blockIdx.x * p.lanes_per_block;
   const int nl = (int)min((long long)p.lanes_per_block, p.lanes - e0);
   const int nrows = nl * m;
   const Layout lay = layout(p, kHvp);
 
-  // 1. start the copies that need nothing: slab, row vectors, coefficients
-  const int* ix = p.idx + e0 * m * k;
-  const V* vx = static_cast<const V*>(p.val) + e0 * m * k;
+  // 1. start the copies that need nothing: slab (direct), row vectors,
+  // coefficients
+  const int* ix = p.idx + e0 * mk;
+  const V* vx = static_cast<const V*>(p.val) + e0 * mk;
   const float* ry = y + e0 * m;
   const float* rwt = wt + e0 * m;
   const float* roff = off + e0 * m;
@@ -243,8 +323,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const float* cv = kHvp ? v + e0 * d : nullptr;
   if constexpr (kStaged) {
     const long long vec_b = staged_bytes(4LL * p.lanes_per_block * m);
-    ix = stage(smem + lay.idx, ix, (long long)nrows * k);
-    vx = stage(smem + lay.val, vx, (long long)nrows * k);
+    if constexpr (!kIndirect) {
+      ix = stage(smem + lay.idx, ix, (long long)nrows * k);
+      vx = stage(smem + lay.val, vx, (long long)nrows * k);
+    }
     ry = stage(smem + lay.rowvec, ry, nrows);
     rwt = stage(smem + lay.rowvec + vec_b, rwt, nrows);
     roff = stage(smem + lay.rowvec + 2 * vec_b, roff, nrows);
@@ -256,12 +338,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                  (long long)nl * d);
   }
 
-  // 2. the lanes' offsets into the column tables; meanwhile zero the
-  // lanes' gradient rows and the row values' padding
-  int* lane_cols = reinterpret_cast<int*>(smem);
-  int* slot_range = lane_cols + nl + 1;
-  for (int i = threadIdx.x; i <= nl; i += blockDim.x) lane_cols[i] = __ldg(p.lane_cols + e0 + i);
-  if (threadIdx.x < 2) slot_range[threadIdx.x] = __ldg(p.lane_slots + e0 + threadIdx.x * nl);
+  // 2. the lanes' offsets into the column tables (direct: a slice of the
+  // slab's; indirect: the block's own prefixes over its lanes, in their
+  // rebased, block-local numbering); meanwhile zero the lanes' gradient
+  // rows and the row values' padding
+  int* gl = reinterpret_cast<int*>(smem);  // indirect: the block's lane ids
+  int* lane_cols = kIndirect ? gl + nl : reinterpret_cast<int*>(smem);
+  int* slot_range = lane_cols + nl + 1;  // direct: (first, end) slot; indirect: prefixes
+  if constexpr (kIndirect) {
+    for (int i = threadIdx.x; i < nl; i += blockDim.x) gl[i] = __ldg(lane_ids + e0 + i);
+    __syncthreads();
+    lane_prefixes(p, gl, nl, lane_cols, slot_range, slot_range + nl + 1);
+  } else {
+    for (int i = threadIdx.x; i <= nl; i += blockDim.x) lane_cols[i] = __ldg(p.lane_cols + e0 + i);
+    if (threadIdx.x < 2) slot_range[threadIdx.x] = __ldg(p.lane_slots + e0 + threadIdx.x * nl);
+  }
   float* rv = kStaged ? reinterpret_cast<float*>(smem + lay.rows)
                       : scratch + (long long)blockIdx.x * 2 * p.lanes_per_block * pw;
   float* rv1 = rv + nl * pw;
@@ -271,13 +362,45 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   zero_fill(out + e0 * d, nl * d);
   __syncthreads();
 
-  // 3. the block's column-table entries, then wait for every copy
-  const int c_lo = lane_cols[0], c_hi = lane_cols[nl];
-  const int s_lo = slot_range[0];
+  // 3. the block's column-table entries, then wait for every copy. The
+  // entries of a direct block are one range of the tables (entry i of the
+  // block is entry c_lo + i, its slots numbered from s_lo); an indirect
+  // block numbers its entries and slots from 0 in lane order.
+  const int c_lo = kIndirect ? 0 : lane_cols[0], c_hi = lane_cols[nl];
+  const int s_lo = kIndirect ? 0 : slot_range[0];
   const int* tcol = p.cols + c_lo;
   const int* tend = p.col_end + c_lo;
   const S* tslot = static_cast<const S*>(p.slots) + s_lo;
-  if constexpr (kStaged) {
+  if constexpr (kStaged && kIndirect) {
+    int* sidx = reinterpret_cast<int*>(smem + lay.idx);
+    V* sval = reinterpret_cast<V*>(smem + lay.val);
+    for (int i = threadIdx.x; i < nrows * k; i += kThreads) {
+      const int li = (int)(i / mk);
+      const long long at = (long long)gl[li] * mk + (i - li * mk);
+      sidx[i] = __ldg(p.idx + at);
+      sval[i] = static_cast<const V*>(p.val)[at];
+    }
+    int* scol = reinterpret_cast<int*>(smem + lay.cols);
+    int* send = reinterpret_cast<int*>(smem + lay.col_end);
+    S* sslot = reinterpret_cast<S*>(smem + lay.slots);
+    for (int c = threadIdx.x; c < c_hi; c += kThreads) {
+      const int li = lane_of(lane_cols, nl, c);
+      const int g = gl[li];
+      const int ge = __ldg(p.lane_cols + g) + c - lane_cols[li];
+      scol[c] = __ldg(p.cols + ge);
+      send[c] = __ldg(p.col_end + ge) - __ldg(p.lane_slots + g) + slot_range[li];
+    }
+    for (int s = threadIdx.x; s < slot_range[nl]; s += kThreads) {
+      const int li = lane_of(slot_range, nl, s);
+      const int g = gl[li];
+      sslot[s] = static_cast<const S*>(p.slots)[__ldg(p.lane_slots + g) + s - slot_range[li]];
+    }
+    ix = sidx;
+    vx = sval;
+    tcol = scol;
+    tend = send;
+    tslot = sslot;
+  } else if constexpr (kStaged) {
     tcol = stage(smem + lay.cols, tcol, c_hi - c_lo);
     tend = stage(smem + lay.col_end, tend, c_hi - c_lo);
     tslot = stage(smem + lay.slots, tslot, slot_range[1] - s_lo);
@@ -287,6 +410,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __syncthreads();
+  // an unstaged indirect block reads its lanes' rows from the full slab
+  constexpr bool kFar = kIndirect && !kStaged;
+  auto lane_idx = [&](int li) -> const int* {
+    return kFar ? p.idx + (long long)gl[li] * mk : ix + li * mk;
+  };
+  auto lane_val = [&](int li) -> const V* {
+    return kFar ? static_cast<const V*>(p.val) + (long long)gl[li] * mk : vx + li * mk;
+  };
 
   // 4. margins: a group of tpr threads per row; z (GEVM) into rv1, z and zv
   // (HVP) into rv1 and rv
@@ -296,12 +427,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       tpr == 32 ? 0xffffffffu : ((1u << tpr) - 1u) << ((threadIdx.x & 31) & ~(unsigned)(tpr - 1));
   for (int r = grp; r < nrows; r += kThreads / tpr) {
     const int li = r / m;
-    const int q0 = r * k;
+    const int q0 = (r - li * m) * k;
+    const int* lix = lane_idx(li) + q0;
+    const V* lvx = lane_val(li) + q0;
     const float* lw = cw + li * d;
     float z = 0.f, zv = 0.f;
     for (int q = t; q < k; q += tpr) {
-      const int j = ld<kStaged>(ix + q0 + q);
-      const float x = Val<V>::f(ld<kStaged>(vx + q0 + q));
+      const int j = ld<kStaged>(lix + q);
+      const float x = Val<V>::f(ld<kStaged>(lvx + q));
       z = __fadd_rn(z, __fmul_rn(ld<kStageCoef>(lw + j), x));
       if (kHvp) zv = __fadd_rn(zv, __fmul_rn(ld<kStageCoef>(cv + li * d + j), x));
     }
@@ -347,23 +480,31 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // q / k as a multiply-shift: exact for 16-bit slot positions
   const unsigned long long inv_k = ((1ULL << 32) + k - 1) / k;
   for (int c = c_lo + threadIdx.x; c < c_hi; c += kThreads) {
-    int lo = 0, hi = nl;  // lane_cols[lo] <= c < lane_cols[hi]
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) >> 1;
-      if (lane_cols[mid] <= c) lo = mid; else hi = mid;
-    }
+    const int lo = lane_of(lane_cols, nl, c);  // lane_cols[lo] <= c < lane_cols[lo + 1]
     const int i = c - c_lo;
-    const int beg = (i == 0 ? s_lo : ld<kStaged>(tend + i - 1)) - s_lo;
-    const int end = ld<kStaged>(tend + i) - s_lo;
+    int beg, end, col;
+    const S* sl = tslot;
+    if constexpr (kFar) {
+      // the full slab's own entry and global slot numbering
+      const int ge = __ldg(p.lane_cols + gl[lo]) + c - lane_cols[lo];
+      beg = ge == 0 ? 0 : __ldg(p.col_end + ge - 1);
+      end = __ldg(p.col_end + ge);
+      col = __ldg(p.cols + ge);
+      sl = static_cast<const S*>(p.slots);
+    } else {
+      beg = (i == 0 ? s_lo : ld<kStaged>(tend + i - 1)) - s_lo;
+      end = ld<kStaged>(tend + i) - s_lo;
+      col = ld<kStaged>(tcol + i);
+    }
     const float* rc = coef_rows + lo * pw;
-    const V* lval = vx + lo * m * k;
+    const V* lval = lane_val(lo);
     float acc = 0.f;
     for (int s = beg; s < end; ++s) {
-      const int q = (int)ld<kStaged>(tslot + s);
+      const int q = (int)ld<kStaged>(sl + s);
       const int row = sizeof(S) == 2 ? (int)((q * inv_k) >> 32) : q / k;
       acc = __fadd_rn(acc, __fmul_rn(Val<V>::f(ld<kStaged>(lval + q)), rc[row]));
     }
-    out[(e0 + lo) * d + ld<kStaged>(tcol + i)] = acc;
+    out[(e0 + lo) * d + col] = acc;
   }
 
   __syncthreads();
@@ -387,9 +528,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // have, and the SM's carveout at its largest shared share, so that the
 // resident blocks the plan counts on fit (the settings hold for the card
 // that is current then; the port drives one card).
-template <typename V, typename S, bool kHvp, bool kStaged, bool kStageCoef>
+template <typename V, typename S, bool kHvp, bool kStaged, bool kStageCoef, bool kIndirect>
 int configure() {
-  auto kernel = sparse_pass<V, S, kHvp, kStaged, kStageCoef>;
+  auto kernel = sparse_pass<V, S, kHvp, kStaged, kStageCoef, kIndirect>;
   static int done = 0;
   if (done) return 0;
   cudaError_t err = cudaFuncSetAttribute(
@@ -401,39 +542,48 @@ int configure() {
   return (int)err;
 }
 
-template <typename V, typename S, bool kHvp, bool kStaged, bool kStageCoef>
-int launch(const SlabPlan& p, int loss, const float* y, const float* wt,
-           const float* off, const float* w, const float* v,
-           const float* vshift, int vs, float* out, float* sum_a, float* sum_b,
-           float* rows_out, float* scratch, cudaStream_t stream) {
-  auto kernel = sparse_pass<V, S, kHvp, kStaged, kStageCoef>;
-  const int err = configure<V, S, kHvp, kStaged, kStageCoef>();
+struct Args {
+  const int* lane_ids;
+  int loss;
+  const float *y, *wt, *off, *w, *v, *vshift;
+  int vs;
+  float *out, *sum_a, *sum_b, *rows_out, *scratch;
+  cudaStream_t stream;
+};
+
+template <typename V, typename S, bool kHvp, bool kStaged, bool kStageCoef, bool kIndirect>
+int launch(const SlabPlan& p, const Args& a) {
+  auto kernel = sparse_pass<V, S, kHvp, kStaged, kStageCoef, kIndirect>;
+  const int err = configure<V, S, kHvp, kStaged, kStageCoef, kIndirect>();
   if (err != 0) return err;
   const long long blocks = (p.lanes + p.lanes_per_block - 1) / p.lanes_per_block;
-  kernel<<<(unsigned)blocks, kThreads, p.smem_bytes, stream>>>(
-      p, loss, y, wt, off, w, v, vshift, vs, out, sum_a, sum_b, rows_out, scratch);
+  kernel<<<(unsigned)blocks, kThreads, p.smem_bytes, a.stream>>>(
+      p, a.lane_ids, a.loss, a.y, a.wt, a.off, a.w, a.v, a.vshift, a.vs, a.out, a.sum_a,
+      a.sum_b, a.rows_out, a.scratch);
   return (int)cudaGetLastError();
 }
 
-template <typename V, typename S, bool kHvp>
-int launch_plan(const SlabPlan& p, int loss, const float* y, const float* wt,
-                const float* off, const float* w, const float* v,
-                const float* vshift, int vs, float* out, float* sum_a, float* sum_b,
-                float* rows_out, float* scratch, cudaStream_t stream) {
+template <typename V, typename S, bool kHvp, bool kIndirect>
+int launch_plan(const SlabPlan& p, const Args& a) {
   if (p.staged) {
-    if (p.stage_coef)
-      return launch<V, S, kHvp, true, true>(p, loss, y, wt, off, w, v, vshift, vs, out, sum_a, sum_b, rows_out, scratch, stream);
-    return launch<V, S, kHvp, true, false>(p, loss, y, wt, off, w, v, vshift, vs, out, sum_a, sum_b, rows_out, scratch, stream);
+    if (p.stage_coef) return launch<V, S, kHvp, true, true, kIndirect>(p, a);
+    return launch<V, S, kHvp, true, false, kIndirect>(p, a);
   }
-  if (p.stage_coef)
-    return launch<V, S, kHvp, false, true>(p, loss, y, wt, off, w, v, vshift, vs, out, sum_a, sum_b, rows_out, scratch, stream);
-  return launch<V, S, kHvp, false, false>(p, loss, y, wt, off, w, v, vshift, vs, out, sum_a, sum_b, rows_out, scratch, stream);
+  if (p.stage_coef) return launch<V, S, kHvp, false, true, kIndirect>(p, a);
+  return launch<V, S, kHvp, false, false, kIndirect>(p, a);
 }
 
-bool bad_plan(const SlabPlan* p, bool hvp) {
+template <typename V, typename S, bool kHvp>
+int launch_mode(const SlabPlan& p, const Args& a) {
+  if (p.indirect) return launch_plan<V, S, kHvp, true>(p, a);
+  return launch_plan<V, S, kHvp, false>(p, a);
+}
+
+bool bad_plan(const SlabPlan* p, bool hvp, const void* lane_ids) {
   if (p == nullptr || p->lanes < 1 || p->lanes > 2147483647LL || p->m < 1 ||
       p->k < 1 || p->d < 1 || p->lanes_per_block < 1)
     return true;
+  if ((p->indirect != 0) != (lane_ids != nullptr)) return true;
   const int t = p->row_threads;
   if (t < 1 || t > 32 || (t & (t - 1)) != 0) return true;
   if (p->rows_pow2 < p->m || (p->rows_pow2 & (p->rows_pow2 - 1)) != 0) return true;
@@ -446,59 +596,54 @@ bool bad_plan(const SlabPlan* p, bool hvp) {
 }
 
 template <bool kHvp>
-int dispatch(const SlabPlan* p, int loss, const void* y, const void* wt,
-             const void* off, const void* w, const void* v,
+int dispatch(const SlabPlan* p, const void* lane_ids, int loss, const void* y,
+             const void* wt, const void* off, const void* w, const void* v,
              const void* vshift, int vs, void* out, void* sum_a, void* sum_b,
              void* rows_out, void* scratch, void* stream) {
-  if (bad_plan(p, kHvp)) return (int)cudaErrorInvalidValue;
-  const float* fy = static_cast<const float*>(y);
-  const float* fwt = static_cast<const float*>(wt);
-  const float* foff = static_cast<const float*>(off);
-  const float* fw = static_cast<const float*>(w);
-  const float* fv = static_cast<const float*>(v);
-  const float* fs = static_cast<const float*>(vshift);
-  float* o = static_cast<float*>(out);
-  float* sa = static_cast<float*>(sum_a);
-  float* sb = static_cast<float*>(sum_b);
-  float* ro = static_cast<float*>(rows_out);
-  float* sc = static_cast<float*>(scratch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_plan(p, kHvp, lane_ids)) return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const int*>(lane_ids), loss,
+               static_cast<const float*>(y), static_cast<const float*>(wt),
+               static_cast<const float*>(off), static_cast<const float*>(w),
+               static_cast<const float*>(v), static_cast<const float*>(vshift), vs,
+               static_cast<float*>(out), static_cast<float*>(sum_a),
+               static_cast<float*>(sum_b), static_cast<float*>(rows_out),
+               static_cast<float*>(scratch), static_cast<cudaStream_t>(stream)};
   if (p->val_bf16) {
-    if (p->slot16)
-      return launch_plan<__nv_bfloat16, uint16_t, kHvp>(*p, loss, fy, fwt, foff, fw, fv, fs, vs, o, sa, sb, ro, sc, s);
-    return launch_plan<__nv_bfloat16, int, kHvp>(*p, loss, fy, fwt, foff, fw, fv, fs, vs, o, sa, sb, ro, sc, s);
+    if (p->slot16) return launch_mode<__nv_bfloat16, uint16_t, kHvp>(*p, a);
+    return launch_mode<__nv_bfloat16, int, kHvp>(*p, a);
   }
-  if (p->slot16)
-    return launch_plan<float, uint16_t, kHvp>(*p, loss, fy, fwt, foff, fw, fv, fs, vs, o, sa, sb, ro, sc, s);
-  return launch_plan<float, int, kHvp>(*p, loss, fy, fwt, foff, fw, fv, fs, vs, o, sa, sb, ro, sc, s);
+  if (p->slot16) return launch_mode<float, uint16_t, kHvp>(*p, a);
+  return launch_mode<float, int, kHvp>(*p, a);
 }
 
 }  // namespace
 
 extern "C" {
 
-
 // Both return a cudaError_t code; 0 means the kernel was launched on
-// `stream`. `plan` is a host pointer to the slab's SlabPlan; the others are
-// device pointers of contiguous f32 tensors: y, wt, off (lanes, m); w, v,
-// grad/hvp (lanes, d); the sums (lanes,); vshift (lanes,) with stride 1,
-// or one value for every lane with stride 0. rows_out ((2 or 1),
-// lanes, m) may be null; scratch is null when the plan stages the rows.
-int photon_sparse_gevm(const photon::SlabPlan* plan, int loss, const void* y,
-                       const void* wt, const void* off, const void* w,
+// `stream`. `plan` is a host pointer to the launch's SlabPlan; lane_ids is
+// null for the direct launch, else the device int32 (plan->lanes,) lane
+// ids of the lane-indirect one (plan->indirect set). The others are device
+// pointers of contiguous f32 tensors, indexed by launch position: y, wt,
+// off (lanes, m); w, v, grad/hvp (lanes, d); the sums (lanes,); vshift
+// (lanes,) with stride 1, or one value for every lane with stride 0.
+// rows_out ((2 or 1), lanes, m) may be null; scratch is null when the plan
+// stages the rows.
+int photon_sparse_gevm(const photon::SlabPlan* plan, const void* lane_ids, int loss,
+                       const void* y, const void* wt, const void* off, const void* w,
                        void* grad, void* sum_wl, void* sum_d, void* rows_out,
                        void* scratch, void* stream) {
-  return dispatch<false>(plan, loss, y, wt, off, w, nullptr, nullptr, 0, grad,
+  return dispatch<false>(plan, lane_ids, loss, y, wt, off, w, nullptr, nullptr, 0, grad,
                          sum_wl, sum_d, rows_out, scratch, stream);
 }
 
-int photon_sparse_hvp(const photon::SlabPlan* plan, int loss, const void* y,
-                      const void* wt, const void* off, const void* w,
+int photon_sparse_hvp(const photon::SlabPlan* plan, const void* lane_ids, int loss,
+                      const void* y, const void* wt, const void* off, const void* w,
                       const void* v, const void* vshift, int vshift_stride,
                       void* hvp, void* sum_c, void* rows_out, void* scratch,
                       void* stream) {
   if (vshift_stride != 0 && vshift_stride != 1) return (int)cudaErrorInvalidValue;
-  return dispatch<true>(plan, loss, y, wt, off, w, v, vshift, vshift_stride, hvp,
+  return dispatch<true>(plan, lane_ids, loss, y, wt, off, w, v, vshift, vshift_stride, hvp,
                         sum_c, nullptr, rows_out, scratch, stream);
 }
 

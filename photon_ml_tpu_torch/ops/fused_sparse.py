@@ -187,12 +187,14 @@ class SparseSlab:
             self._tables = ColumnTables.build(self.idx, self.val, self.dim)
         return self._tables
 
-    def _kernel_launch(self, kind: str) -> "_KernelLaunch":
+    def _kernel_launch(self, kind: str, positions: Optional[int] = None) -> "_KernelLaunch":
         """The slab's checked launch description for one kernel, made on
-        first use: the slab's checks run here, once."""
-        launch = self._launch.get(kind)
+        first use: the slab's checks run here, once. ``positions`` keys the
+        lane-indirect launch of that many positions."""
+        key = kind if positions is None else (kind, positions)
+        launch = self._launch.get(key)
         if launch is None:
-            launch = self._launch[kind] = _KernelLaunch.make(self, kind)
+            launch = self._launch[key] = _KernelLaunch.make(self, kind, positions)
         return launch
 
 
@@ -304,6 +306,52 @@ class FlatOrderPlan:
         out = torch.zeros(self.size, dtype=contrib.dtype, device=contrib.device)
         out[self.out_pos] = acc
         return out
+
+
+@dataclasses.dataclass
+class SlabLanes:
+    """Lanes ``ids`` of a slab, in that order: a solve scheduler's compacted
+    batch. The kernels read the lanes' data and column tables from the full
+    slab through their lane-indirect launch, so a compaction rebuilds no
+    table (``ColumnTables.build`` syncs the host and cannot be captured in
+    a CUDA graph). The plain formulation runs on ``plain()``, the lanes
+    gathered by ``index_select`` into a slab of their own at each call (the
+    device loop rewrites ``ids`` in place between chunks). ``ids`` is int32
+    ``(R,)`` on the slab's device."""
+
+    slab: SparseSlab
+    ids: Tensor
+
+    @property
+    def kernel(self) -> str:
+        return self.slab.kernel
+
+    @property
+    def dim(self) -> int:
+        return self.slab.dim
+
+    @property
+    def idx(self) -> Tensor:
+        """The full slab's indices (their device and type; the lanes'
+        own are ``plain().idx``)."""
+        return self.slab.idx
+
+    @property
+    def val(self) -> Tensor:
+        """The full slab's values (their type; the lanes' own are
+        ``plain().val``)."""
+        return self.slab.val
+
+    def plain(self) -> SparseSlab:
+        ids = self.ids.long()
+        return SparseSlab(self.slab.idx.index_select(0, ids), self.slab.val.index_select(0, ids),
+                          self.dim, self.kernel)
+
+    def matvec(self, w: Tensor) -> Tensor:
+        return self.plain().matvec(w)
+
+    def rmatvec(self, d: Tensor) -> Tensor:
+        return self.plain().rmatvec(d)
 
 
 def build_sparse_slab(x, bucketer=None, kernel: str = "scatter",
@@ -423,8 +471,21 @@ def _staged(n: int) -> int:
     return _align16(n) + 16
 
 
+def row_threads_for(m: int, k: int) -> int:
+    """Threads per row of an ``(M, K)`` slab: a power of two, at most 32,
+    no more than K needs, and no more than the rows of a block packed at
+    ``SLOTS_PER_BLOCK`` leave room for. A function of M and K alone: the
+    margin's K-term association follows it, so a lane's arithmetic does not
+    depend on how many lanes the launch holds (the solve scheduler's
+    compacted batches rely on that)."""
+    lanes = max(1, -(-SLOTS_PER_BLOCK // (m * k)))
+    return min(32, _pow2_at_least(k),
+               1 << max(0, (KERNEL_THREADS // (lanes * m)).bit_length() - 1))
+
+
 def plan_launch(e: int, m: int, k: int, d: int, val_bytes: int, hvp: bool, sms: int = 132,
-                lane_cols: Optional[int] = None, lane_slots: Optional[int] = None) -> LaunchPlan:
+                lane_cols: Optional[int] = None, lane_slots: Optional[int] = None,
+                indirect: bool = False) -> LaunchPlan:
     """Pack lanes into blocks and choose what each block stages while its
     ``SMEM_BUDGET`` lasts: first the lanes' data (idx/val, y/wt/off, two
     arrays of row values, and their column-table entries: ``lane_cols``
@@ -436,15 +497,16 @@ def plan_launch(e: int, m: int, k: int, d: int, val_bytes: int, hvp: bool, sms: 
     slab is small, so a block that packs lanes always stages. Where the
     grid would need more than one wave of ``BLOCKS_PER_SM`` blocks on each
     of ``sms`` SMs, a block takes more lanes while they stage as much. A row
-    gets as many threads as the block's rows leave room for, at most what K
-    needs and 32."""
+    gets ``row_threads_for(m, k)`` threads. ``indirect`` plans the
+    lane-indirect launch of ``e`` positions (its block header holds the
+    lanes' ids and table prefixes)."""
     lane_cols = min(m * k, d) if lane_cols is None else lane_cols
     lane_slots = m * k if lane_slots is None else lane_slots
     pw = _pow2_at_least(m)
 
     def layout(lanes):
         slots = lanes * m * k
-        used = _align16(8 * (lanes + 1))
+        used = _align16(4 * (3 * lanes + 18)) if indirect else _align16(8 * (lanes + 1))
         data = (_align16(8 * lanes * pw) + 3 * _staged(4 * lanes * m)
                 + _staged(4 * slots) + _staged(val_bytes * slots)
                 + 2 * _staged(4 * lanes * lane_cols)
@@ -465,8 +527,7 @@ def plan_launch(e: int, m: int, k: int, d: int, val_bytes: int, hvp: bool, sms: 
     blocks = -(-e // lanes)
     return LaunchPlan(
         lanes_per_block=lanes, blocks=blocks, threads=KERNEL_THREADS,
-        row_threads=min(32, _pow2_at_least(k),
-                        1 << max(0, (KERNEL_THREADS // (lanes * m)).bit_length() - 1)),
+        row_threads=row_threads_for(m, k),
         rows_pow2=pw, table_cols=lanes * lane_cols, table_slots=lanes * lane_slots,
         staged=staged, stage_coef=stage_coef, smem_bytes=used,
         scratch_floats=0 if staged else blocks * 2 * lanes * pw,
@@ -480,7 +541,8 @@ class _SlabPlan(ctypes.Structure):
                 ("idx", "val", "lane_cols", "lane_slots", "cols", "col_end", "slots")] + [
         ("lanes", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
             "m", "k", "d", "val_bf16", "slot16", "lanes_per_block", "row_threads",
-            "rows_pow2", "table_cols", "table_slots", "staged", "stage_coef", "smem_bytes")]
+            "rows_pow2", "table_cols", "table_slots", "staged", "stage_coef", "smem_bytes",
+            "indirect")]
 
 
 @dataclasses.dataclass
@@ -498,7 +560,9 @@ class _KernelLaunch:
     ref: object  # ctypes pointer to struct
 
     @staticmethod
-    def make(slab: "SparseSlab", kind: str) -> "_KernelLaunch":
+    def make(slab: "SparseSlab", kind: str, positions: Optional[int] = None) -> "_KernelLaunch":
+        """``positions``: the lane-indirect launch of that many positions
+        (planned as an R-lane slab with the full slab's per-lane maxima)."""
         if not slab.idx.is_cuda:
             raise ValueError("the sparse kernels need a CUDA slab")
         if slab.idx.dim() != 3:
@@ -510,27 +574,30 @@ class _KernelLaunch:
         dev = slab.idx.device
         _check("idx", slab.idx, (e, m, k), (torch.int32,), dev)
         _check("val", slab.val, (e, m, k), VAL_DTYPES, dev)
+        n = e if positions is None else positions
+        if n < 1:
+            raise ValueError(f"a lane-indirect launch needs at least one position, got {n}")
         t = slab.kernel_tables()
-        plan = plan_launch(e, m, k, d, slab.val.element_size(), kind == "hvp",
+        plan = plan_launch(n, m, k, d, slab.val.element_size(), kind == "hvp",
                            torch.cuda.get_device_properties(dev).multi_processor_count,
-                           t.max_lane_cols, t.max_lane_slots)
+                           t.max_lane_cols, t.max_lane_slots, indirect=positions is not None)
         if plan.lanes_per_block * max(m * k, d) >= 2 ** 31:
             raise ValueError(f"slab shape (E={e}, M={m}, K={k}) out of the kernels' range")
         struct = _SlabPlan(
             slab.idx.data_ptr(), slab.val.data_ptr(), t.lane_cols.data_ptr(),
             t.lane_slots.data_ptr(), t.cols.data_ptr(), t.col_end.data_ptr(),
-            t.slots.data_ptr(), e, m, k, d, int(slab.val.dtype == torch.bfloat16),
+            t.slots.data_ptr(), n, m, k, d, int(slab.val.dtype == torch.bfloat16),
             int(t.slot16), plan.lanes_per_block, plan.row_threads, plan.rows_pow2,
             plan.table_cols, plan.table_slots, int(plan.staged), int(plan.stage_coef),
-            plan.smem_bytes)
-        return _KernelLaunch(e, m, d, dev, plan, struct, ctypes.byref(struct))
+            plan.smem_bytes, int(positions is not None))
+        return _KernelLaunch(n, m, d, dev, plan, struct, ctypes.byref(struct))
 
 
 def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.photon_sparse_gevm.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p]
+    lib.photon_sparse_gevm.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p]
     lib.photon_sparse_gevm.restype = ctypes.c_int
-    lib.photon_sparse_hvp.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, p]
+    lib.photon_sparse_hvp.argtypes = [p, p, i, p, p, p, p, p, p, i, p, p, p, p, p]
     lib.photon_sparse_hvp.restype = ctypes.c_int
 
 
@@ -589,38 +656,55 @@ def _run(fn, what: str, launch: _KernelLaunch, args, rows_out: Optional[Tensor],
                            f"(E, M, D) = {(launch.e, launch.m, launch.d)}, {launch.plan}")
 
 
+def _lane_launch(slab: SparseSlab, kind: str, lane_ids: Optional[Tensor]):
+    """(launch, lane-id pointer): the direct launch, or the lane-indirect
+    one over ``lane_ids`` (contiguous int32 ``(R,)`` on the slab's device,
+    each a lane of the slab: the kernel reads what they name)."""
+    if lane_ids is None:
+        return slab._kernel_launch(kind), None
+    launch = slab._kernel_launch(kind, lane_ids.numel())
+    _check("lane_ids", lane_ids, (lane_ids.numel(),), (torch.int32,), launch.device)
+    return launch, lane_ids.data_ptr()
+
+
 def sparse_gevm_kernel(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor,
                        weights: Tensor, offsets: Tensor, w: Tensor,
-                       row_values: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
+                       row_values: Optional[Tensor] = None,
+                       lane_ids: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch the GEVM kernel: ``(sum wl (E,), grad (E, D), sum d (E,))``.
     The slab is a CUDA ``(E, M, K)`` slab (int32 indices, f32/bf16 values);
     labels/weights/offsets ``(E, M)`` and w ``(E, D)`` are contiguous f32 on
     its device. Raises on anything else. ``row_values``, a ``(2, E, M)`` f32
     buffer, receives the row values wl and d (for tests; the main path
-    passes none)."""
-    launch = slab._kernel_launch("gevm")
+    passes none). With ``lane_ids`` (int32 ``(R,)``), the lane-indirect
+    launch: position i is lane ``lane_ids[i]`` of the slab, and the row
+    vectors, w and every output have R positions in that order."""
+    launch, ids = _lane_launch(slab, "gevm", lane_ids)
     ptrs = _f32_args(launch, (("labels", labels, "rows"), ("weights", weights, "rows"),
                               ("offsets", offsets, "rows"), ("w", w, "cols")))
     grad, sum_wl, sum_d = (torch.empty(shape, dtype=torch.float32, device=launch.device)
                            for shape in ((launch.e, launch.d), launch.e, launch.e))
     _run(_library().photon_sparse_gevm, "GEVM", launch,
-         [launch.ref, loss.kernel_id, *ptrs, grad.data_ptr(), sum_wl.data_ptr(),
+         [launch.ref, ids, loss.kernel_id, *ptrs, grad.data_ptr(), sum_wl.data_ptr(),
           sum_d.data_ptr()], row_values, 2)
     sparse_gevm_kernel.launches += 1
     return sum_wl, grad, sum_d
 
 
+# the launches this wrapper issues, eagerly or once into a CUDA graph being
+# captured; a replay of that graph launches its kernels without the wrapper
 sparse_gevm_kernel.launches = 0
 
 
 def sparse_hvp_kernel(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor,
                       weights: Tensor, offsets: Tensor, w: Tensor, v: Tensor,
-                      vshift: Tensor, row_values: Optional[Tensor] = None
-                      ) -> Tuple[Tensor, Tensor]:
+                      vshift: Tensor, row_values: Optional[Tensor] = None,
+                      lane_ids: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Launch the HVP kernel: ``(hvp (E, D), sum c (E,))``; as the GEVM
     kernel, plus v ``(E, D)`` and vshift, ``(E,)`` or one value ``()`` for
-    every lane, f32. ``row_values``, a ``(1, E, M)`` f32 buffer, receives c."""
-    launch = slab._kernel_launch("hvp")
+    every lane, f32. ``row_values``, a ``(1, E, M)`` f32 buffer, receives c.
+    ``lane_ids`` as for the GEVM kernel."""
+    launch, ids = _lane_launch(slab, "hvp", lane_ids)
     scalar = vshift.dim() == 0
     ptrs = _f32_args(launch, (("labels", labels, "rows"), ("weights", weights, "rows"),
                               ("offsets", offsets, "rows"), ("w", w, "cols"),
@@ -629,11 +713,13 @@ def sparse_hvp_kernel(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor,
     hvp, sum_c = (torch.empty(shape, dtype=torch.float32, device=launch.device)
                   for shape in ((launch.e, launch.d), launch.e))
     _run(_library().photon_sparse_hvp, "HVP", launch,
-         [launch.ref, loss.kernel_id, *ptrs, hvp.data_ptr(), sum_c.data_ptr()], row_values, 1)
+         [launch.ref, ids, loss.kernel_id, *ptrs, hvp.data_ptr(), sum_c.data_ptr()],
+         row_values, 1)
     sparse_hvp_kernel.launches += 1
     return hvp, sum_c
 
 
+# counted as the GEVM wrapper's
 sparse_hvp_kernel.launches = 0
 
 
@@ -643,40 +729,50 @@ def _f32(t: Tensor, shape) -> Tensor:
     return torch.broadcast_to(t.to(torch.float32), shape).contiguous()
 
 
-def fused_value_grad_parts(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor,
+def _kernel_target(slab) -> Tuple[SparseSlab, Optional[Tensor]]:
+    """(the slab a kernel launches on, lane ids or None) of a slab or a
+    ``SlabLanes`` view."""
+    if isinstance(slab, SlabLanes):
+        return slab.slab, slab.ids
+    return slab, None
+
+
+def fused_value_grad_parts(loss: PointwiseLoss, slab, labels: Tensor,
                            weights: Tensor, offsets: Tensor, w: Tensor
                            ) -> Tuple[Tensor, Tensor, Tensor]:
     """Per lane ``(sum_m wt*l, X^T d, sum_m d)``: ``(E,)``, ``(E, D)``,
     ``(E,)``. ``offsets`` already fold the normalization margin shift. A
-    CUDA slab goes through the GEVM kernel (one launch, row sums inside),
-    a CPU slab through the plain version."""
+    CUDA slab goes through the GEVM kernel (one launch, row sums inside; a
+    ``SlabLanes`` view through its lane-indirect launch), a CPU slab through
+    the plain version."""
     if not slab.idx.is_cuda:
         return fused_value_grad_parts_plain(loss, slab, labels, weights, offsets, w)
-    rows = slab.idx.shape[:-1]
+    base, ids = _kernel_target(slab)
+    rows = (w.shape[0], base.num_rows)
     return sparse_gevm_kernel(
-        loss, slab, _f32(labels, rows), _f32(weights, rows), _f32(offsets, rows),
-        _f32(w, (rows[0], slab.dim)),
+        loss, base, _f32(labels, rows), _f32(weights, rows), _f32(offsets, rows),
+        _f32(w, (rows[0], base.dim)), lane_ids=ids,
     )
 
 
-def fused_hvp_parts(loss: PointwiseLoss, slab: SparseSlab, labels: Tensor,
+def fused_hvp_parts(loss: PointwiseLoss, slab, labels: Tensor,
                     weights: Tensor, offsets: Tensor, w: Tensor, v: Tensor,
                     vshift: Tensor) -> Tuple[Tensor, Tensor]:
     """Per lane ``(X^T c, sum_m c)`` with ``c = [wt>0] wt l''(z) (X v +
     vshift)``: ``(E, D)`` and ``(E,)``; vshift is per lane."""
-    lanes = tuple(slab.idx.shape[:-2])
+    lanes = tuple(w.shape[:-1])
     if not slab.idx.is_cuda:
         vshift = torch.broadcast_to(torch.as_tensor(vshift, device=w.device), lanes)
         return fused_hvp_parts_plain(loss, slab, labels, weights, offsets, w, v, vshift)
     vshift = torch.as_tensor(vshift, dtype=torch.float32, device=w.device)
-    rows = slab.idx.shape[:-1]
-    cols = (rows[0], slab.dim)
+    base, ids = _kernel_target(slab)
+    rows = (lanes[0], base.num_rows)
+    cols = (lanes[0], base.dim)
     return sparse_hvp_kernel(
-        loss, slab, _f32(labels, rows), _f32(weights, rows), _f32(offsets, rows),
+        loss, base, _f32(labels, rows), _f32(weights, rows), _f32(offsets, rows),
         _f32(w, cols), _f32(v, cols), vshift if vshift.dim() == 0 else _f32(vshift, lanes),
+        lane_ids=ids,
     )
-
-
 
 
 # ---------------------------------------------------------------------------

@@ -30,17 +30,54 @@ class PointwiseLoss:
     twice_differentiable: bool = True
 
 
+# On a CPU tensor torch's vectorized elementwise loops compute the elements
+# that do not fill a last pair of vector registers with scalar code
+# (``vectorized_loop`` in aten/src/ATen/native/cpu/Loops.h hands the rest
+# to ``basic_loop``), and a loop over more than ``at::internal::GRAIN_SIZE``
+# (32768, aten/src/ATen/Parallel.h) elements is split between threads,
+# each part with its own tail. The scalar exp, log1p and sigmoid can differ
+# from the vector ones in the last bit, so an element's bits would depend
+# on where it sits in its tensor. The solve scheduler's compacted batches
+# move a lane's rows to other places, so on a CPU these functions run a
+# lane batch (two axes or more) over zero-padded flat blocks of whole
+# vectors, each under the grain: every element takes the vector code
+# wherever it sits. One problem (one axis) has no batch and runs as it is.
+# tests/test_torch_ops.py places one lane at every offset to catch a torch
+# that breaks this. (A CUDA kernel computes every element alike.)
+_CPU_BLOCK = 16384  # elements a block: whole vector pairs, below the 32768 grain
+_CPU_VECTORS = 64  # a multiple of two vector registers of floats or doubles
+
+
+def _every_element_alike(fn: Callable[[Tensor], Tensor]) -> Callable[[Tensor], Tensor]:
+    def apply(t: Tensor) -> Tensor:
+        if t.is_cuda or t.dim() < 2 or t.numel() == 0:
+            return fn(t)
+        flat = t.reshape(-1)
+        n = flat.numel()
+        if n % _CPU_VECTORS:
+            flat = torch.cat([flat, flat.new_zeros(_CPU_VECTORS - n % _CPU_VECTORS)])
+        out = torch.cat([fn(flat[i:i + _CPU_BLOCK]) for i in range(0, flat.numel(), _CPU_BLOCK)])
+        return out[:n].reshape(t.shape)
+
+    return apply
+
+
+_exp = _every_element_alike(torch.exp)
+_log1p = _every_element_alike(torch.log1p)
+_sigmoid = _every_element_alike(torch.sigmoid)
+
+
 # Logistic: log(1 + e^z) - y z, y in {0, 1}; stable form below.
 def _logistic_loss(z: Tensor, y: Tensor) -> Tensor:
-    return torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-torch.abs(z))) - y * z
+    return torch.clamp_min(z, 0.0) + _log1p(_exp(-torch.abs(z))) - y * z
 
 
 def _logistic_d1(z: Tensor, y: Tensor) -> Tensor:
-    return torch.sigmoid(z) - y
+    return _sigmoid(z) - y
 
 
 def _logistic_d2(z: Tensor, y: Tensor) -> Tensor:
-    s = torch.sigmoid(z)
+    s = _sigmoid(z)
     return s * (1.0 - s)
 
 
@@ -66,9 +103,9 @@ squared = PointwiseLoss(
 # Poisson: e^z - y z (negative log-likelihood up to a constant)
 poisson = PointwiseLoss(
     name="POISSON",
-    loss=lambda z, y: torch.exp(z) - y * z,
-    d1=lambda z, y: torch.exp(z) - y,
-    d2=lambda z, y: torch.exp(z),
+    loss=lambda z, y: _exp(z) - y * z,
+    d1=lambda z, y: _exp(z) - y,
+    d2=lambda z, y: _exp(z),
     mean=torch.exp,
     kernel_id=2,
 )

@@ -24,7 +24,7 @@ import torch
 
 from photon_ml_tpu_torch.ops.features import DenseFeatures
 from photon_ml_tpu_torch.ops import fused_sparse
-from photon_ml_tpu_torch.ops.fused_sparse import SparseSlab, tree_row_sum
+from photon_ml_tpu_torch.ops.fused_sparse import SlabLanes, SparseSlab, tree_row_sum
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 
@@ -36,7 +36,7 @@ class GLMBatch:
     """Struct-of-arrays batch (data/LabeledPoint.scala:28-62: label,
     features, offset, weight)."""
 
-    features: object  # DenseFeatures, SparseFeatures or SparseSlab
+    features: object  # DenseFeatures, SparseFeatures, SparseSlab or SlabLanes
     labels: Tensor  # (N,) or (E, M)
     offsets: Tensor  # like labels
     weights: Tensor  # like labels — 0 marks padding rows
@@ -72,13 +72,15 @@ def _row_sum(features, x: Tensor) -> Tensor:
     """Row reduction per problem: the fixed-association pairwise tree for a
     slab (every sparse family and the fused kernels' wrappers share it, so
     the scalars agree across families), a plain sum for dense rows."""
-    if isinstance(features, SparseSlab):
+    if isinstance(features, (SparseSlab, SlabLanes)):
         return tree_row_sum(x)
     return torch.sum(x, dim=-1)
 
 
-def _l2_term(w: Tensor, l2_weight) -> Tensor:
-    return 0.5 * l2_weight * torch.sum(torch.square(w), dim=-1)
+def _l2_term(features, w: Tensor, l2_weight) -> Tensor:
+    """l2/2 * ||w||^2 per problem, a slab's lanes summed as ``_row_sum``
+    sums them: in the fixed association, which no batch changes."""
+    return 0.5 * l2_weight * _row_sum(features, torch.square(w))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +110,7 @@ class GLMObjective:
     def value(self, w, batch: GLMBatch, norm: NormalizationContext, l2_weight=0.0) -> Tensor:
         z = self.margins(w, batch, norm)
         total = _row_sum(batch.features, _wmul(batch.weights, self.loss.loss(z, batch.labels)))
-        return total + _l2_term(w, l2_weight)
+        return total + _l2_term(batch.features, w, l2_weight)
 
     def value_and_grad(self, w, batch: GLMBatch, norm: NormalizationContext,
                        l2_weight=0.0) -> Tuple[Tensor, Tensor]:
@@ -140,7 +142,7 @@ class GLMObjective:
             if norm.shifts is not None:
                 grad_eff = grad_eff - norm.shifts * _row_sum(batch.features, d).unsqueeze(-1)
         grad = grad_eff * norm.factors if norm.factors is not None else grad_eff
-        return lv + _l2_term(w, l2_weight), grad + l2_weight * w
+        return lv + _l2_term(batch.features, w, l2_weight), grad + l2_weight * w
 
     def _use_fused(self, batch: GLMBatch) -> bool:
         """Static dispatch to the fused single-pass pieces."""
@@ -155,7 +157,7 @@ class GLMObjective:
         """Dispatch to the fused sparse pieces: the slab's ``kernel`` names
         the family (f64 values are never fused)."""
         return (
-            isinstance(batch.features, SparseSlab)
+            isinstance(batch.features, (SparseSlab, SlabLanes))
             and batch.features.kernel.startswith("pallas")
             and batch.features.val.dtype != torch.float64
         )

@@ -10,10 +10,11 @@ the reference's OptimizationStatesTracker.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from photon_ml_tpu_torch.ops.fused_sparse import tree_row_sum
 from photon_ml_tpu_torch.types import ConvergenceReason
 
 Tensor = torch.Tensor
@@ -41,6 +42,56 @@ class OptimizerConfig:
     @staticmethod
     def tron_default() -> "OptimizerConfig":
         return OptimizerConfig(max_iterations=15, tolerance=1e-5)
+
+
+class HostReads:
+    """Count of the values the solver loops read back from their tensors
+    to decide on the host (each is a sync with the card): the solve
+    scheduler's ledger charges a solve the reads made while it ran."""
+
+    count = 0
+
+    @classmethod
+    def read(cls, t: Tensor):
+        """``t.item()``, counted."""
+        cls.count += 1
+        return t.item()
+
+
+class LaneSums(NamedTuple):
+    """The reductions a lane solver takes over each lane's coefficients
+    (the last axis)."""
+
+    sum: Callable[[Tensor], Tensor]
+    dot: Callable[[Tensor, Tensor], Tensor]
+    norm: Callable[[Tensor], Tensor]
+
+
+#: torch's own reductions: what one problem, or lanes that always ride in
+#: the same batch, are solved with
+LIBRARY_SUMS = LaneSums(
+    sum=lambda x: torch.sum(x, dim=-1),
+    dot=lambda a, b: torch.sum(a * b, dim=-1),
+    norm=lambda a: torch.linalg.vector_norm(a, dim=-1),
+)
+
+
+def _wide_sum(x: Tensor) -> Tensor:
+    return tree_row_sum(x.double()).to(x.dtype)
+
+
+#: each lane's row in the fixed association of ``tree_row_sum``, in float64
+#: (a float32 product is exact there) and rounded back: a lane's sums are a
+#: function of its own values alone, whatever the batch it rides in, and
+#: they stay close to the exact sum, which any other order approximates.
+#: torch's reductions may choose their order from the number of rows, so
+#: the random-effect lanes, which the solve scheduler moves between
+#: batches, are solved with these.
+FIXED_SUMS = LaneSums(
+    sum=_wide_sum,
+    dot=lambda a, b: tree_row_sum(a.double() * b.double()).to(a.dtype),
+    norm=lambda a: torch.sqrt(tree_row_sum(torch.square(a.double()))).to(a.dtype),
+)
 
 
 class OptResult(NamedTuple):

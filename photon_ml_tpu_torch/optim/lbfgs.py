@@ -21,7 +21,9 @@ Every state tensor carries a leading lane axis ``L``: a lane is one problem,
 and lanes that have converged are masked no-ops while the others advance.
 The fixed-effect GLM solve is one lane; the random-effect coordinate can
 batch entities as lanes. The loop tests convergence on the host once per
-iteration and once per line-search step.
+iteration and once per line-search step; ``lbfgs_chunk_`` runs the same
+iteration with fixed trip counts and no host test, for a captured CUDA
+graph (optim/fused_schedule.py).
 
 ``value_and_grad_fn`` maps ``(L, D)`` coefficients to ``((L,), (L, D))``
 smooth values and gradients, with L2 already folded in.
@@ -34,7 +36,13 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from photon_ml_tpu_torch.optim.common import OptimizerConfig, OptResult
+from photon_ml_tpu_torch.optim.common import (
+    LIBRARY_SUMS,
+    HostReads,
+    LaneSums,
+    OptimizerConfig,
+    OptResult,
+)
 from photon_ml_tpu_torch.optim.constraints import Bounds, as_bounds
 from photon_ml_tpu_torch.types import ConvergenceReason
 
@@ -58,12 +66,13 @@ def _gather(buf: Tensor, pos: Tensor) -> Tensor:
 
 
 def _two_loop_direction(pg: Tensor, S: Tensor, Y: Tensor, rho: Tensor,
-                        k: Tensor, m: int, depth: int) -> Tensor:
+                        k: Tensor, m: int, depth: int, dot) -> Tensor:
     """Limited-memory two-loop recursion over the ring buffers.
 
     ``depth`` (<= m) is a host-side bound on the pairs any lane holds; the
-    recursion positions beyond a lane's own count are masked, so the loops
-    may stop at ``depth`` with the same result as running all m.
+    recursion positions beyond a lane's own count are masked exactly, so
+    the loops may stop at any ``depth`` that covers them with the same bits
+    as running all m.
     """
     n_valid = torch.clamp(k, max=m)
     q = pg
@@ -71,23 +80,26 @@ def _two_loop_direction(pg: Tensor, S: Tensor, Y: Tensor, rho: Tensor,
     for j in range(depth):
         pos = torch.remainder(k - 1 - j, m)
         valid = j < n_valid
-        a = torch.where(valid, _gather(rho, pos) * torch.sum(_gather(S, pos) * q, -1),
+        a = torch.where(valid, _gather(rho, pos) * dot(_gather(S, pos), q),
                         torch.zeros_like(n_valid, dtype=pg.dtype))
         q = q - a[:, None] * _gather(Y, pos)
         alphas.append(a)
 
     newest = torch.remainder(k - 1, m)
     s_new, y_new = _gather(S, newest), _gather(Y, newest)
-    sy = torch.sum(s_new * y_new, -1)
-    yy = torch.sum(y_new * y_new, -1)
+    sy = dot(s_new, y_new)
+    yy = dot(y_new, y_new)
     gamma = torch.where(k > 0, sy / torch.clamp_min(yy, _EPS), torch.ones_like(sy))
     r = gamma[:, None] * q
     for j in reversed(range(depth)):
         pos = torch.remainder(k - 1 - j, m)
         valid = j < n_valid
-        b = _gather(rho, pos) * torch.sum(_gather(Y, pos) * r, -1)
+        b = _gather(rho, pos) * dot(_gather(Y, pos), r)
         coef = torch.where(valid, alphas[j] - b, torch.zeros_like(b))
-        r = r + coef[:, None] * _gather(S, pos)
+        # a masked position leaves r as it is, the sign of a zero included
+        # (r + 0 * 0 would turn -0.0 into +0.0): the depth may exceed a
+        # lane's pairs by any amount without touching its bits
+        r = _where(valid, r + coef[:, None] * _gather(S, pos), r)
     return -r
 
 
@@ -117,9 +129,9 @@ class LBFGSState:
 
 
 
-def _problem_fns(l1: Tensor, bounds: Bounds):
+def _problem_fns(l1: Tensor, bounds: Bounds, sums: LaneSums):
     def F_of(w, f):
-        return f + l1[:, 0] * torch.sum(torch.abs(w), -1)
+        return f + l1[:, 0] * sums.sum(torch.abs(w))
 
     def reduced_pg(w, g):
         """(Pseudo-)gradient with bound-blocked components zeroed: at an
@@ -136,26 +148,34 @@ def _problem_fns(l1: Tensor, bounds: Bounds):
 
 
 def _lane_l1(l1_weight, lanes: int, like: Tensor) -> Tensor:
-    l1 = torch.as_tensor(l1_weight, dtype=like.dtype, device=like.device)
+    # a Python number is filled on the device (no copy from the host, so a
+    # CUDA-graph capture can make it)
+    if isinstance(l1_weight, (int, float)):
+        l1 = torch.full((), float(l1_weight), dtype=like.dtype, device=like.device)
+    else:
+        l1 = torch.as_tensor(l1_weight, dtype=like.dtype, device=like.device)
     return torch.broadcast_to(l1.reshape(-1, 1), (lanes, 1))
 
 
 def lbfgs_init_(value_and_grad_fn: LaneFn, w0: Tensor, config: OptimizerConfig,
                 l1_weight=0.0, bounds: Bounds = None,
-                track_coefficients: bool = False) -> LBFGSState:
-    """Fresh solve state at ``w0`` (L, D) — one objective evaluation."""
+                track_coefficients: bool = False, sums: LaneSums = LIBRARY_SUMS) -> LBFGSState:
+    """Fresh solve state at ``w0`` (L, D) — one objective evaluation.
+    ``sums``: the reductions over each lane's coefficients, the same for
+    every call of one solve (``common.FIXED_SUMS`` where the lanes change
+    batches)."""
     m, max_iter = config.num_corrections, config.max_iterations
     lanes, dim = w0.shape
     opts = dict(dtype=w0.dtype, device=w0.device)
     l1 = _lane_l1(l1_weight, lanes, w0)
     bounds = as_bounds(bounds, w0)
-    F_of, reduced_pg = _problem_fns(l1, bounds)
+    F_of, reduced_pg = _problem_fns(l1, bounds, sums)
     if bounds is not None:
         w0 = torch.clamp(w0, bounds[0], bounds[1])
 
     f0, g0 = value_and_grad_fn(w0)
     F0 = F_of(w0, f0)
-    pg0_norm = torch.linalg.vector_norm(reduced_pg(w0, g0), dim=-1)
+    pg0_norm = sums.norm(reduced_pg(w0, g0))
 
     hist = torch.full((lanes, max_iter + 1), float("nan"), **opts)
     value_history = hist.clone()
@@ -191,47 +211,53 @@ def _where(mask: Tensor, new: Tensor, old: Tensor) -> Tensor:
     return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
 
 
-def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
-                   config: OptimizerConfig, l1_weight=0.0, bounds: Bounds = None,
-                   iteration_limit: Optional[int] = None) -> LBFGSState:
-    """Iterate every lane until it converges or reaches the absolute
-    ``iteration_limit`` (None = config.max_iterations)."""
-    m, max_iter, tol = config.num_corrections, config.max_iterations, config.tolerance
-    limit = max_iter if iteration_limit is None else iteration_limit
-    s = state
-    lanes = s.w.shape[0]
-    l1 = _lane_l1(l1_weight, lanes, s.w)
-    bounds = as_bounds(bounds, s.w)
-    F_of, reduced_pg = _problem_fns(l1, bounds)
-    use_l1 = l1 > 0.0
-    lane_idx = torch.arange(lanes, device=s.w.device)
-    zero_w = torch.zeros_like(s.w)
-    # host-side bound on the curvature pairs any lane holds (k <= iteration)
-    depth = min(m, int(s.iteration.max()))
+class _Iteration:
+    """One LBFGS/OWL-QN iteration over lanes, shared by the host loop
+    (``lbfgs_advance_``) and the fixed-trip chunk (``lbfgs_chunk_``): the
+    same tensor ops in the same order, so both give every lane the same
+    bits."""
 
-    def orthant_project(w_trial, xi):
-        projected = torch.where(w_trial * xi > 0.0, w_trial, zero_w)
-        w_trial = torch.where(use_l1, projected, w_trial)
+    def __init__(self, state: LBFGSState, config: OptimizerConfig, l1_weight, bounds: Bounds,
+                 sums: LaneSums):
+        self.config = config
+        self.sums = sums
+        lanes = state.w.shape[0]
+        l1 = _lane_l1(l1_weight, lanes, state.w)
+        self.bounds = as_bounds(bounds, state.w)
+        self.F_of, self.reduced_pg = _problem_fns(l1, self.bounds, sums)
+        self.use_l1 = l1 > 0.0
+        self.lane_idx = torch.arange(lanes, device=state.w.device)
+        self.zero_w = torch.zeros_like(state.w)
+
+    def orthant_project(self, w_trial, xi):
+        projected = torch.where(w_trial * xi > 0.0, w_trial, self.zero_w)
+        w_trial = torch.where(self.use_l1, projected, w_trial)
         # then the box, as the JAX package: with L1 and a box that excludes
         # 0 the clip can move an orthant-zeroed coordinate onto a bound
-        if bounds is not None:
-            w_trial = torch.clamp(w_trial, bounds[0], bounds[1])
+        if self.bounds is not None:
+            w_trial = torch.clamp(w_trial, self.bounds[0], self.bounds[1])
         return w_trial
 
-    while True:
-        active = (s.reason == 0) & (s.iteration < limit)
-        if not bool(active.any()):
-            return s
+    def __call__(self, value_and_grad_fn: LaneFn, s: LBFGSState, active: Tensor, depth: int,
+                 fixed: bool) -> LBFGSState:
+        """Advance the lanes of ``active`` one iteration (every other lane
+        is left as it is, bit for bit). ``fixed``: the line search runs all
+        its steps, testing nothing on the host (a masked step is exact)."""
+        config = self.config
+        m, max_iter, tol = config.num_corrections, config.max_iterations, config.tolerance
+        F_of, reduced_pg, use_l1, zero_w = self.F_of, self.reduced_pg, self.use_l1, self.zero_w
+        lane_idx = self.lane_idx
         pg = reduced_pg(s.w, s.g)
-        d = _two_loop_direction(pg, s.S, s.Y, s.rho, s.k, m, depth)
+        dot = self.sums.dot
+        d = _two_loop_direction(pg, s.S, s.Y, s.rho, s.k, m, depth, dot)
         # OWL-QN: constrain the direction to the descent orthant of -pg
         d = torch.where(use_l1, torch.where(d * pg < 0.0, d, zero_w), d)
         # safeguard: steepest descent when d is not a descent direction
-        bad = torch.sum(pg * d, -1) >= 0.0
+        bad = dot(pg, d) >= 0.0
         d = _where(bad, -pg, d)
 
         xi = torch.where(s.w != 0.0, torch.sign(s.w), torch.sign(-pg))
-        d_norm = torch.linalg.vector_norm(d, dim=-1)
+        d_norm = self.sums.norm(d)
         t = torch.where(s.k == 0, 1.0 / torch.clamp_min(d_norm, 1.0), torch.ones_like(d_norm))
 
         # backtracking Armijo line search, lanes masked once they accept
@@ -239,13 +265,13 @@ def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
         ok = torch.zeros_like(active)
         steps = 0
         searching = active
-        while steps < config.max_line_search_steps and bool(searching.any()):
-            w_t = orthant_project(s.w + t[:, None] * d, xi)
+        while steps < config.max_line_search_steps and (fixed or HostReads.read(searching.any())):
+            w_t = self.orthant_project(s.w + t[:, None] * d, xi)
             f_t, g_t = value_and_grad_fn(w_t)
             F_t = F_of(w_t, f_t)
             # Armijo on the step actually taken (pg . (w_t - w)): right when
             # the orthant or box projection removes part of the direction
-            ok_t = F_t <= s.F + _C1 * torch.sum(pg * (w_t - s.w), -1)
+            ok_t = F_t <= s.F + _C1 * dot(pg, w_t - s.w)
             w_n = _where(searching, w_t, w_n)
             f_n = _where(searching, f_t, f_n)
             g_n = _where(searching, g_t, g_n)
@@ -267,7 +293,7 @@ def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
         # curvature pair update
         sv = w_n - s.w
         yv = g_n - s.g
-        sy = torch.sum(sv * yv, -1)
+        sy = dot(sv, yv)
         store = active & ls_ok & (sy > _EPS)
         pos = torch.remainder(s.k, m)
         S, Y, rho = s.S.clone(), s.Y.clone(), s.rho.clone()
@@ -280,7 +306,7 @@ def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
         f_out = torch.where(ls_ok, f_n, s.f)
         g_out = _where(ls_ok, g_n, s.g)
         F_out = torch.where(ls_ok, F_n, s.F)
-        pg_norm = torch.linalg.vector_norm(reduced_pg(w_out, g_out), dim=-1)
+        pg_norm = self.sums.norm(reduced_pg(w_out, g_out))
         it = s.iteration + 1
 
         grad_ok = pg_norm <= tol * torch.clamp_min(s.pg0_norm, _EPS)
@@ -310,7 +336,7 @@ def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
             w_history = w_history.clone()
             w_history[lane_idx, slot] = _where(active, w_out, w_history[lane_idx, slot])
 
-        s = LBFGSState(
+        return LBFGSState(
             w=_where(active, w_out, s.w),
             f=torch.where(active, f_out, s.f),
             g=_where(active, g_out, s.g),
@@ -324,7 +350,43 @@ def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
             w_history=w_history,
             F0=s.F0, pg0_norm=s.pg0_norm,
         )
-        depth = min(m, depth + 1)
+
+
+def lbfgs_advance_(value_and_grad_fn: LaneFn, state: LBFGSState,
+                   config: OptimizerConfig, l1_weight=0.0, bounds: Bounds = None,
+                   iteration_limit: Optional[int] = None,
+                   sums: LaneSums = LIBRARY_SUMS) -> LBFGSState:
+    """Iterate every lane until it converges or reaches the absolute
+    ``iteration_limit`` (None = config.max_iterations)."""
+    limit = config.max_iterations if iteration_limit is None else iteration_limit
+    s = state
+    step = _Iteration(s, config, l1_weight, bounds, sums)
+    # host-side bound on the curvature pairs any lane holds (k <= iteration)
+    depth = min(config.num_corrections, HostReads.read(s.iteration.max()))
+    while True:
+        active = (s.reason == 0) & (s.iteration < limit)
+        if not HostReads.read(active.any()):
+            return s
+        s = step(value_and_grad_fn, s, active, depth, fixed=False)
+        depth = min(config.num_corrections, depth + 1)
+
+
+def lbfgs_chunk_(value_and_grad_fn: LaneFn, state: LBFGSState, config: OptimizerConfig,
+                 limit: Tensor, trips: int, l1_weight=0.0, bounds: Bounds = None,
+                 sums: LaneSums = LIBRARY_SUMS) -> LBFGSState:
+    """``trips`` iterations toward the absolute iteration bound ``limit``
+    (a 0-dim tensor on the lanes' device) with no host sync: every trip
+    runs the whole two-loop depth and every line-search step, masked where
+    a lane has nothing to do. A masked step is exact, so each lane ends
+    bitwise where ``lbfgs_advance_(..., iteration_limit=limit)`` leaves it
+    when ``trips`` covers the iterations it still has to the bound: the
+    body of a captured CUDA graph."""
+    s = state
+    step = _Iteration(s, config, l1_weight, bounds, sums)
+    for _ in range(trips):
+        active = (s.reason == 0) & (s.iteration < limit)
+        s = step(value_and_grad_fn, s, active, config.num_corrections, fixed=True)
+    return s
 
 
 def lbfgs_result(state: LBFGSState) -> OptResult:
@@ -343,12 +405,14 @@ def lbfgs_result(state: LBFGSState) -> OptResult:
 
 def lbfgs_minimize_lanes(value_and_grad_fn: LaneFn, w0: Tensor,
                          config: OptimizerConfig, l1_weight=0.0, bounds: Bounds = None,
-                         track_coefficients: bool = False) -> OptResult:
+                         track_coefficients: bool = False,
+                         sums: LaneSums = LIBRARY_SUMS) -> OptResult:
     """Minimize f_l(w_l) + l1_l * ||w_l||_1 for every lane l of ``w0`` (L, D),
     within ``bounds`` when given."""
-    state = lbfgs_init_(value_and_grad_fn, w0, config, l1_weight, bounds, track_coefficients)
+    state = lbfgs_init_(value_and_grad_fn, w0, config, l1_weight, bounds, track_coefficients,
+                        sums)
     final = lbfgs_advance_(value_and_grad_fn, state, config, l1_weight, bounds,
-                           iteration_limit=config.max_iterations)
+                           iteration_limit=config.max_iterations, sums=sums)
     return lbfgs_result(final)
 
 

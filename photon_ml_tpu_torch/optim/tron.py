@@ -14,7 +14,9 @@ failure count and ``ConvergenceReason``; lanes that have stopped are masked
 no-ops while the others advance. The CG loops of all lanes run in lockstep
 under a per-lane active mask, so every CG step is one Hessian-vector call
 for all lanes — on a fused slab, one launch of the HVP kernel. The loops
-test convergence on the host once per outer iteration and once per CG step.
+test convergence on the host once per outer iteration and once per CG step;
+``tron_chunk_`` runs the same iteration with fixed trip counts and no host
+test, for a captured CUDA graph (optim/fused_schedule.py).
 
 ``value_and_grad_fn`` maps ``(L, D)`` coefficients to ``((L,), (L, D))``
 and ``hvp_fn(w, v)`` maps two ``(L, D)`` tensors to ``(L, D)``, with L2
@@ -31,7 +33,13 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from photon_ml_tpu_torch.optim.common import OptimizerConfig, OptResult
+from photon_ml_tpu_torch.optim.common import (
+    LIBRARY_SUMS,
+    HostReads,
+    LaneSums,
+    OptimizerConfig,
+    OptResult,
+)
 from photon_ml_tpu_torch.optim.constraints import Bounds, as_bounds
 from photon_ml_tpu_torch.types import ConvergenceReason
 
@@ -57,47 +65,42 @@ def _reduced_grad(w: Tensor, g: Tensor, bounds: Bounds) -> Tensor:
     return torch.where(blocked, torch.zeros_like(g), g)
 
 
-def _dot(a: Tensor, b: Tensor) -> Tensor:
-    return torch.sum(a * b, dim=-1)
-
-
-def _norm(a: Tensor) -> Tensor:
-    return torch.linalg.vector_norm(a, dim=-1)
-
-
 def _where(mask: Tensor, new: Tensor, old: Tensor) -> Tensor:
     return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
 
 
 def _truncated_cg(hvp: Callable[[Tensor], Tensor], g: Tensor, delta: Tensor,
-                  max_cg_iter: int, live: Tensor) -> Tuple[Tensor, Tensor]:
+                  max_cg_iter: int, live: Tensor, fixed: bool = False,
+                  sums: LaneSums = LIBRARY_SUMS) -> Tuple[Tensor, Tensor]:
     """Steihaug truncated CG per lane: approximately solve H s = -g with
     ||s|| <= delta. Lanes outside ``live`` start done. Returns (s, r) with r
-    the final residual -g - H s."""
-    gnorm = _norm(g)
+    the final residual -g - H s. ``fixed``: all ``max_cg_iter`` steps run,
+    testing nothing on the host (a step of a done lane is exact)."""
+    dot, norm = sums.dot, sums.norm
+    gnorm = norm(g)
     s = torch.zeros_like(g)
     r = -g
     d = -g
-    rtr = _dot(g, g)
+    rtr = dot(g, g)
     done = (gnorm == 0.0) | ~live
     for _ in range(max_cg_iter):
-        if not bool((~done).any()):
+        if not fixed and not HostReads.read((~done).any()):
             break
         hd = hvp(d)
-        dhd = _dot(d, hd)
+        dhd = dot(d, hd)
         alpha = rtr / torch.clamp_min(dhd, _EPS)
         s_try = s + alpha[:, None] * d
         # negative curvature or a step leaving the region: walk to the
         # boundary along d and stop
-        hit = (dhd <= 0.0) | (_norm(s_try) >= delta)
-        sd = _dot(s, d)
-        dd = torch.clamp_min(_dot(d, d), _EPS)
-        ss = _dot(s, s)
+        hit = (dhd <= 0.0) | (norm(s_try) >= delta)
+        sd = dot(s, d)
+        dd = torch.clamp_min(dot(d, d), _EPS)
+        ss = dot(s, s)
         rad = torch.sqrt(torch.clamp_min(sd * sd + dd * (delta * delta - ss), 0.0))
         tau = (-sd + rad) / dd
         s_new = torch.where(hit[:, None], s + tau[:, None] * d, s_try)
         r_new = r - torch.where(hit, tau, alpha)[:, None] * hd
-        rtr_new = _dot(r_new, r_new)
+        rtr_new = dot(r_new, r_new)
         small = torch.sqrt(rtr_new) <= _CG_TOL * gnorm
         beta = rtr_new / torch.clamp_min(rtr, _EPS)
         d_new = r_new + beta[:, None] * d
@@ -131,8 +134,12 @@ class TRONState:
 
 
 def tron_init_(value_and_grad_fn: LaneFn, w0: Tensor, config: OptimizerConfig,
-               bounds: Bounds = None, track_coefficients: bool = False) -> TRONState:
-    """Fresh solve state at ``w0`` (L, D) — one objective evaluation."""
+               bounds: Bounds = None, track_coefficients: bool = False,
+               sums: LaneSums = LIBRARY_SUMS) -> TRONState:
+    """Fresh solve state at ``w0`` (L, D) — one objective evaluation.
+    ``sums``: the reductions over each lane's coefficients, the same for
+    every call of one solve (``common.FIXED_SUMS`` where the lanes change
+    batches)."""
     lanes, dim = w0.shape
     opts = dict(dtype=w0.dtype, device=w0.device)
     long = dict(dtype=torch.int64, device=w0.device)
@@ -140,7 +147,7 @@ def tron_init_(value_and_grad_fn: LaneFn, w0: Tensor, config: OptimizerConfig,
     if bounds is not None:
         w0 = torch.clamp(w0, bounds[0], bounds[1])
     f0, g0 = value_and_grad_fn(w0)
-    g0_norm = _norm(_reduced_grad(w0, g0, bounds))
+    g0_norm = sums.norm(_reduced_grad(w0, g0, bounds))
     hist = torch.full((lanes, config.max_iterations + 1), float("nan"), **opts)
     value_history = hist.clone()
     value_history[:, 0] = f0
@@ -164,134 +171,166 @@ def tron_init_(value_and_grad_fn: LaneFn, w0: Tensor, config: OptimizerConfig,
     )
 
 
+def _tron_iteration(value_and_grad_fn: LaneFn, hvp_fn: LaneHvp, s: TRONState, active: Tensor,
+                    config: OptimizerConfig, bounds: Bounds, fixed: bool,
+                    sums: LaneSums) -> TRONState:
+    """Advance the lanes of ``active`` one trust-region iteration (every
+    other lane is left as it is, bit for bit); shared by the host loop
+    (``tron_advance_``) and the fixed-trip chunk (``tron_chunk_``), so both
+    give every lane the same bits. ``fixed``: the CG loop runs all its
+    steps."""
+    max_iter, tol = config.max_iterations, config.tolerance
+    dot, norm = sums.dot, sums.norm
+    lane_idx = torch.arange(s.w.shape[0], device=s.w.device)
+    code = lambda r: torch.full_like(s.reason, int(r))
+    step, r = _truncated_cg(lambda v: hvp_fn(s.w, v), _reduced_grad(s.w, s.g, bounds),
+                            s.delta, config.max_cg_iterations, active, fixed, sums)
+    w_trial = s.w + step
+    if bounds is not None:
+        # clip before evaluating, and measure the quadratic model and
+        # the radius update on the step actually taken (the clipped one)
+        w_trial = torch.clamp(w_trial, bounds[0], bounds[1])
+        step = w_trial - s.w
+        snorm = norm(step)
+        gs = dot(s.g, step)
+        prered = -(gs + 0.5 * dot(step, hvp_fn(s.w, step)))
+    else:
+        snorm = norm(step)
+        gs = dot(s.g, step)
+        # r = -g - H s  =>  -0.5 (g.s - s.r) = -(g.s + 0.5 s.H.s)
+        prered = -0.5 * (gs - dot(step, r))
+    f_new, g_new = value_and_grad_fn(w_trial)
+    actred = s.f - f_new
+
+    # first iteration: shrink the initial radius to the first step length
+    delta = torch.where(s.iteration == 0, torch.minimum(s.delta, snorm), s.delta)
+    # radius update (interpolated step-length alpha, LIBLINEAR rules)
+    denom = f_new - s.f - gs
+    alpha = torch.where(denom <= 0.0, torch.full_like(denom, _SIGMA3),
+                        torch.clamp_min(-0.5 * (gs / denom), _SIGMA1))
+    asn = alpha * snorm
+    delta = torch.where(
+        actred < _ETA0 * prered,
+        torch.minimum(torch.maximum(asn, _SIGMA1 * snorm), _SIGMA2 * delta),
+        torch.where(
+            actred < _ETA1 * prered,
+            torch.maximum(_SIGMA1 * delta, torch.minimum(asn, _SIGMA2 * delta)),
+            torch.where(
+                actred < _ETA2 * prered,
+                torch.maximum(_SIGMA1 * delta, torch.minimum(asn, _SIGMA3 * delta)),
+                torch.maximum(delta, torch.minimum(asn, _SIGMA3 * delta)),
+            ),
+        ),
+    )
+    # divergence guard: a non-finite trial point is never accepted; it
+    # counts as an improvement failure and the region shrinks
+    finite = (
+        torch.isfinite(f_new)
+        & torch.all(torch.isfinite(w_trial), -1)
+        & torch.all(torch.isfinite(g_new), -1)
+    )
+    accept = (actred > _ETA0 * prered) & finite
+    w_out = _where(accept, w_trial, s.w)
+    f_out = torch.where(accept, f_new, s.f)
+    g_out = _where(accept, g_new, s.g)
+    failures = torch.where(accept, torch.zeros_like(s.failures), s.failures + 1)
+    # a NaN objective poisons the interpolated radius: restore a finite,
+    # shrunken one (from the step length, else from the last radius)
+    eps = torch.full_like(delta, _EPS)
+    delta = torch.where(
+        torch.isfinite(delta), delta,
+        torch.where(torch.isfinite(snorm), torch.maximum(_SIGMA1 * snorm, eps),
+                    torch.maximum(_SIGMA1 * s.delta, eps)),
+    )
+
+    g_norm = norm(_reduced_grad(w_out, g_out, bounds))
+    it = s.iteration + 1
+    grad_ok = g_norm <= tol * torch.clamp_min(s.g0_norm, _EPS)
+    func_ok = accept & (torch.abs(actred) <= tol * torch.clamp_min(torch.abs(s.f0), _EPS))
+    reason = torch.where(
+        grad_ok, code(ConvergenceReason.GRADIENT_CONVERGED),
+        torch.where(
+            failures >= config.max_improvement_failures,
+            code(ConvergenceReason.OBJECTIVE_NOT_IMPROVING),
+            torch.where(
+                func_ok, code(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+                torch.where(it >= max_iter, code(ConvergenceReason.MAX_ITERATIONS),
+                            code(ConvergenceReason.NOT_CONVERGED)),
+            ),
+        ),
+    )
+
+    slot = torch.clamp(it, max=max_iter)
+    value_history = s.value_history.clone()
+    value_history[lane_idx, slot] = torch.where(active, f_out, value_history[lane_idx, slot])
+    grad_norm_history = s.grad_norm_history.clone()
+    grad_norm_history[lane_idx, slot] = torch.where(
+        active, g_norm, grad_norm_history[lane_idx, slot]
+    )
+    w_history = s.w_history
+    if w_history is not None:
+        w_history = w_history.clone()
+        w_history[lane_idx, slot] = _where(active, w_out, w_history[lane_idx, slot])
+
+    return TRONState(
+        w=_where(active, w_out, s.w),
+        f=torch.where(active, f_out, s.f),
+        g=_where(active, g_out, s.g),
+        delta=torch.where(active, delta, s.delta),
+        iteration=torch.where(active, it, s.iteration),
+        failures=torch.where(active, failures, s.failures),
+        reason=torch.where(active, reason, s.reason),
+        value_history=value_history,
+        grad_norm_history=grad_norm_history,
+        w_history=w_history,
+        f0=s.f0, g0_norm=s.g0_norm,
+    )
+
+
 def tron_advance_(value_and_grad_fn: LaneFn, hvp_fn: LaneHvp, state: TRONState,
                   config: OptimizerConfig, bounds: Bounds = None,
-                  iteration_limit: Optional[int] = None) -> TRONState:
+                  iteration_limit: Optional[int] = None,
+                  sums: LaneSums = LIBRARY_SUMS) -> TRONState:
     """Iterate every lane until it converges or reaches the absolute
     ``iteration_limit`` (None = config.max_iterations)."""
     bounds = as_bounds(bounds, state.w)
-    max_iter, tol = config.max_iterations, config.tolerance
-    limit = max_iter if iteration_limit is None else iteration_limit
+    limit = config.max_iterations if iteration_limit is None else iteration_limit
     s = state
-    lane_idx = torch.arange(s.w.shape[0], device=s.w.device)
-    code = lambda r: torch.full_like(s.reason, int(r))
-
     while True:
         active = (s.reason == 0) & (s.iteration < limit)
-        if not bool(active.any()):
+        if not HostReads.read(active.any()):
             return s
-        step, r = _truncated_cg(lambda v: hvp_fn(s.w, v), _reduced_grad(s.w, s.g, bounds),
-                                s.delta, config.max_cg_iterations, active)
-        w_trial = s.w + step
-        if bounds is not None:
-            # clip before evaluating, and measure the quadratic model and
-            # the radius update on the step actually taken (the clipped one)
-            w_trial = torch.clamp(w_trial, bounds[0], bounds[1])
-            step = w_trial - s.w
-            snorm = _norm(step)
-            gs = _dot(s.g, step)
-            prered = -(gs + 0.5 * _dot(step, hvp_fn(s.w, step)))
-        else:
-            snorm = _norm(step)
-            gs = _dot(s.g, step)
-            # r = -g - H s  =>  -0.5 (g.s - s.r) = -(g.s + 0.5 s.H.s)
-            prered = -0.5 * (gs - _dot(step, r))
-        f_new, g_new = value_and_grad_fn(w_trial)
-        actred = s.f - f_new
-
-        # first iteration: shrink the initial radius to the first step length
-        delta = torch.where(s.iteration == 0, torch.minimum(s.delta, snorm), s.delta)
-        # radius update (interpolated step-length alpha, LIBLINEAR rules)
-        denom = f_new - s.f - gs
-        alpha = torch.where(denom <= 0.0, torch.full_like(denom, _SIGMA3),
-                            torch.clamp_min(-0.5 * (gs / denom), _SIGMA1))
-        asn = alpha * snorm
-        delta = torch.where(
-            actred < _ETA0 * prered,
-            torch.minimum(torch.maximum(asn, _SIGMA1 * snorm), _SIGMA2 * delta),
-            torch.where(
-                actred < _ETA1 * prered,
-                torch.maximum(_SIGMA1 * delta, torch.minimum(asn, _SIGMA2 * delta)),
-                torch.where(
-                    actred < _ETA2 * prered,
-                    torch.maximum(_SIGMA1 * delta, torch.minimum(asn, _SIGMA3 * delta)),
-                    torch.maximum(delta, torch.minimum(asn, _SIGMA3 * delta)),
-                ),
-            ),
-        )
-        # divergence guard: a non-finite trial point is never accepted; it
-        # counts as an improvement failure and the region shrinks
-        finite = (
-            torch.isfinite(f_new)
-            & torch.all(torch.isfinite(w_trial), -1)
-            & torch.all(torch.isfinite(g_new), -1)
-        )
-        accept = (actred > _ETA0 * prered) & finite
-        w_out = _where(accept, w_trial, s.w)
-        f_out = torch.where(accept, f_new, s.f)
-        g_out = _where(accept, g_new, s.g)
-        failures = torch.where(accept, torch.zeros_like(s.failures), s.failures + 1)
-        # a NaN objective poisons the interpolated radius: restore a finite,
-        # shrunken one (from the step length, else from the last radius)
-        eps = torch.full_like(delta, _EPS)
-        delta = torch.where(
-            torch.isfinite(delta), delta,
-            torch.where(torch.isfinite(snorm), torch.maximum(_SIGMA1 * snorm, eps),
-                        torch.maximum(_SIGMA1 * s.delta, eps)),
-        )
-
-        g_norm = _norm(_reduced_grad(w_out, g_out, bounds))
-        it = s.iteration + 1
-        grad_ok = g_norm <= tol * torch.clamp_min(s.g0_norm, _EPS)
-        func_ok = accept & (torch.abs(actred) <= tol * torch.clamp_min(torch.abs(s.f0), _EPS))
-        reason = torch.where(
-            grad_ok, code(ConvergenceReason.GRADIENT_CONVERGED),
-            torch.where(
-                failures >= config.max_improvement_failures,
-                code(ConvergenceReason.OBJECTIVE_NOT_IMPROVING),
-                torch.where(
-                    func_ok, code(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
-                    torch.where(it >= max_iter, code(ConvergenceReason.MAX_ITERATIONS),
-                                code(ConvergenceReason.NOT_CONVERGED)),
-                ),
-            ),
-        )
-
-        slot = torch.clamp(it, max=max_iter)
-        value_history = s.value_history.clone()
-        value_history[lane_idx, slot] = torch.where(active, f_out, value_history[lane_idx, slot])
-        grad_norm_history = s.grad_norm_history.clone()
-        grad_norm_history[lane_idx, slot] = torch.where(
-            active, g_norm, grad_norm_history[lane_idx, slot]
-        )
-        w_history = s.w_history
-        if w_history is not None:
-            w_history = w_history.clone()
-            w_history[lane_idx, slot] = _where(active, w_out, w_history[lane_idx, slot])
-
-        s = TRONState(
-            w=_where(active, w_out, s.w),
-            f=torch.where(active, f_out, s.f),
-            g=_where(active, g_out, s.g),
-            delta=torch.where(active, delta, s.delta),
-            iteration=torch.where(active, it, s.iteration),
-            failures=torch.where(active, failures, s.failures),
-            reason=torch.where(active, reason, s.reason),
-            value_history=value_history,
-            grad_norm_history=grad_norm_history,
-            w_history=w_history,
-            f0=s.f0, g0_norm=s.g0_norm,
-        )
+        s = _tron_iteration(value_and_grad_fn, hvp_fn, s, active, config, bounds, fixed=False,
+                            sums=sums)
 
 
-def tron_result(state: TRONState, bounds: Bounds = None) -> OptResult:
+def tron_chunk_(value_and_grad_fn: LaneFn, hvp_fn: LaneHvp, state: TRONState,
+                config: OptimizerConfig, limit: Tensor, trips: int,
+                bounds: Bounds = None, sums: LaneSums = LIBRARY_SUMS) -> TRONState:
+    """``trips`` iterations toward the absolute iteration bound ``limit``
+    (a 0-dim tensor on the lanes' device) with no host sync: every trip
+    runs every CG step, masked where a lane has nothing to do. Each lane
+    ends bitwise where ``tron_advance_(..., iteration_limit=limit)`` leaves
+    it when ``trips`` covers its remaining iterations: the body of a
+    captured CUDA graph."""
+    bounds = as_bounds(bounds, state.w)
+    s = state
+    for _ in range(trips):
+        active = (s.reason == 0) & (s.iteration < limit)
+        s = _tron_iteration(value_and_grad_fn, hvp_fn, s, active, config, bounds, fixed=True,
+                            sums=sums)
+    return s
+
+
+def tron_result(state: TRONState, bounds: Bounds = None,
+                sums: LaneSums = LIBRARY_SUMS) -> OptResult:
     """OptResult view of a (possibly paused) lane-batched state; the final
     gradient norm is the reduced gradient's under ``bounds``."""
     bounds = as_bounds(bounds, state.w)
     return OptResult(
         coefficients=state.w,
         value=state.f,
-        grad_norm=_norm(_reduced_grad(state.w, state.g, bounds)),
+        grad_norm=sums.norm(_reduced_grad(state.w, state.g, bounds)),
         iterations=state.iteration,
         reason=state.reason,
         value_history=state.value_history,
@@ -302,13 +341,14 @@ def tron_result(state: TRONState, bounds: Bounds = None) -> OptResult:
 
 def tron_minimize_lanes(value_and_grad_fn: LaneFn, hvp_fn: LaneHvp, w0: Tensor,
                         config: OptimizerConfig, bounds: Bounds = None,
-                        track_coefficients: bool = False) -> OptResult:
+                        track_coefficients: bool = False,
+                        sums: LaneSums = LIBRARY_SUMS) -> OptResult:
     """Minimize f_l(w_l) for every lane l of ``w0`` (L, D), within ``bounds``
     when given."""
-    state = tron_init_(value_and_grad_fn, w0, config, bounds, track_coefficients)
+    state = tron_init_(value_and_grad_fn, w0, config, bounds, track_coefficients, sums)
     final = tron_advance_(value_and_grad_fn, hvp_fn, state, config, bounds,
-                          iteration_limit=config.max_iterations)
-    return tron_result(final, bounds)
+                          iteration_limit=config.max_iterations, sums=sums)
+    return tron_result(final, bounds, sums)
 
 
 def tron_minimize_(value_and_grad_fn: Callable[[Tensor], Tuple[Tensor, Tensor]],

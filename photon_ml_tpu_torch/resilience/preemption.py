@@ -62,8 +62,10 @@ SITES = PREEMPT_SITES
 class Preempted(RuntimeError):
     """Raised at a safe boundary after a preemption request.
 
-    ``partial`` is the JAX package's mid-coordinate payload; no poll site
-    of the port sets it (the port's only site lies between updates).
+    ``partial`` is the mid-coordinate payload of a drain inside an update
+    (the solve scheduler's ``chunk`` and ``rung`` sites, the bucketed
+    coordinate's ``bucket`` site); coordinate descent folds it into the
+    emergency checkpoint.
     ``checkpoint_path`` is set once the emergency checkpoint landed.
     """
 

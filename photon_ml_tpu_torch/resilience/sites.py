@@ -17,6 +17,8 @@ __all__ = ["FAULT_SITES", "PREEMPT_SITES"]
 FAULT_SITES: Dict[str, str] = {
     "io.checkpoint_write": "per checkpoint save attempt (checkpoint.py)",
     "optim.step": "coordinate-descent updates, NaN corruption (algorithm/coordinate_descent.py)",
+    "optim.block_skip": "adaptive-schedule skip decision boundary; an injected fault degrades the epoch to visit-everything, never a silent skip (algorithm/bucketed_random_effect.py)",
+    "optim.device_drain": "device-loop dispatch gate; an injected fault degrades the solve to the host chunk loop, bitwise (optim/scheduler.py)",
     "preempt.signal": "preemption polls; flags instead of raising (resilience/preemption.py)",
 }
 
@@ -24,4 +26,7 @@ FAULT_SITES: Dict[str, str] = {
 #: ``preemption.check`` and the ``PHOTON_PREEMPT_AT`` grammar
 PREEMPT_SITES: Tuple[str, ...] = (
     "cycle",  # coordinate-descent update boundary
+    "chunk",  # compacted-solver chunk boundary (optim/scheduler.py)
+    "bucket",  # scheduled bucketed-RE bucket boundary (algorithm/bucketed_random_effect.py)
+    "rung",  # device-loop rung-hop boundary (optim/fused_schedule.py)
 )

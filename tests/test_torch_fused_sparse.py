@@ -267,10 +267,13 @@ def test_launch_plan_covers_every_lane_within_shared_memory(shape, kind, val_byt
     assert lanes >= 1 and plan.blocks * lanes >= e > (plan.blocks - 1) * lanes
     assert plan.threads % plan.row_threads == 0 and plan.row_threads <= 32
     # threads per row: a power of two, no more than K needs, and the rows
-    # of a block fill at most its threads
+    # of a block of the shape's own packing (SLOTS_PER_BLOCK, whatever E
+    # is) fill at most its threads
     tpr = plan.row_threads
     assert tpr & (tpr - 1) == 0 and (tpr == 1 or tpr < 2 * k)
-    assert tpr == 1 or tpr * lanes * m <= plan.threads < 2 * tpr * lanes * m or tpr in (32, k)
+    base = -(-tfs.SLOTS_PER_BLOCK // (m * k))
+    assert tpr == 1 or tpr * base * m <= plan.threads < 2 * tpr * base * m or tpr in (32, k)
+    assert tpr == tfs.row_threads_for(m, k)
     assert plan.rows_pow2 >= m > plan.rows_pow2 // 2 or plan.rows_pow2 == m == 1
     assert plan.smem_bytes <= tfs.SMEM_BUDGET <= tfs.SMEM_LIMIT
     # by default the tables are staged at what the shape allows
@@ -304,6 +307,22 @@ def test_launch_plan_covers_every_lane_within_shared_memory(shape, kind, val_byt
         assert twice.lanes_per_block == -(-tfs.SLOTS_PER_BLOCK // (m * k)) < lanes
     if m == 40000:
         assert not plan.staged and plan.scratch_floats > 0
+
+
+@pytest.mark.parametrize("shape", [(12, 9, 9), (64, 16, 2048), (1, 16, 2048), (37, 1, 65),
+                                   (2048, 3, 64)])
+@pytest.mark.parametrize("val_bytes", [4, 2])
+def test_lane_arithmetic_does_not_depend_on_the_lane_count(shape, val_bytes):
+    """What sets a lane's association (threads per row, rows padded to a
+    power of two) is the same for every E from 1 to 20000, direct or
+    lane-indirect: a compacted batch sums each lane as the full one does."""
+    m, k, d = shape
+    want = (tfs.row_threads_for(m, k), 1 << (m - 1).bit_length() if m > 1 else 1)
+    for indirect in (False, True):
+        got = {(p.row_threads, p.rows_pow2)
+               for p in (tfs.plan_launch(e, m, k, d, val_bytes, hvp, indirect=indirect)
+                         for e in range(1, 20001) for hvp in (False, True))}
+        assert got == {want}
 
 
 def test_launch_plan_stages_the_tables_a_slab_needs():

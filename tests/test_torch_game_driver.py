@@ -133,11 +133,9 @@ FENCED = [
     ["--fused-cycle", "true"],
     ["--streaming-random-effects", "true"],
     ["--re-memory-budget-mb", "64"],
-    ["--solve-compaction", "6"],
     ["--tensor-cache", "cache"],
     ["--persistent-cache", "cache"],
     ["--warm-start-from", "prior"],
-    ["--adaptive-schedule", "on"],
     ["--plan", "auto"],
     ["--export-serve-store", "store"],
 ]

@@ -162,6 +162,48 @@ def test_sparse_kernels_match_plain_on_card(cuda_device, loss_name, storage):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("shape", [(256, 64, 2048, 16, False), (2000, 12, 9, 9, True),
+                                   (100, 7, 300, 5, False), (25, 12, 4096, 9, False),
+                                   (3, 20000, 24, 4, False)])
+def test_lane_indirect_launch_equals_the_full_launch_bitwise(cuda_device, shape, storage):
+    """Every position of the lane-indirect launch equals its lane's row of
+    the full launch, bit for bit, at any lane count and order (the solve
+    scheduler's contract), and the plain version of the gathered lanes
+    within the kernels' tolerance."""
+    e, m, d, max_nnz, full = shape
+    slab, y, wt, off, w, v, vshift = _slab_inputs(e + m, "logistic", e, m, d, max_nnz,
+                                                  cuda_device, full)
+    if storage == "bf16":
+        slab = slab.astype(torch.bfloat16)
+    loss = tlosses.logistic
+    whole = tsparse.fused_value_grad_parts(loss, slab, y, wt, off, w)
+    whole_hvp = tsparse.fused_hvp_parts(loss, slab, y, wt, off, w, v, vshift)
+    rng = np.random.default_rng(e)
+    for n in sorted({1, 2, min(7, e), min(16, e), min(64, e), e}):
+        for order in ("ascending", "shuffled"):
+            ids = rng.choice(e, size=n, replace=False)
+            ids = np.sort(ids) if order == "ascending" else ids
+            idt = torch.from_numpy(ids.astype(np.int32)).to(cuda_device)
+            lanes = tsparse.SlabLanes(slab, idt)
+            sel = lambda t: t.index_select(0, idt.long()).contiguous()
+            before = (tsparse.sparse_gevm_kernel.launches, tsparse.sparse_hvp_kernel.launches)
+            got = tsparse.fused_value_grad_parts(loss, lanes, sel(y), sel(wt), sel(off), sel(w))
+            hvp = tsparse.fused_hvp_parts(loss, lanes, sel(y), sel(wt), sel(off), sel(w),
+                                          sel(v), sel(vshift))
+            torch.cuda.synchronize()
+            assert (tsparse.sparse_gevm_kernel.launches,
+                    tsparse.sparse_hvp_kernel.launches) == (before[0] + 1, before[1] + 1)
+            for a, b in zip(got + hvp, whole + whole_hvp):
+                assert torch.equal(a, sel(b)), (n, order)
+            want = tsparse.fused_value_grad_parts_plain(loss, lanes, sel(y), sel(wt), sel(off),
+                                                        sel(w))
+            want_hvp = tsparse.fused_hvp_parts_plain(loss, lanes, sel(y), sel(wt), sel(off),
+                                                     sel(w), sel(v), sel(vshift))
+            assert _close(got[1], want[1], 1e-5) and _close(hvp[0], want_hvp[0], 1e-5)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(256, 64, 2048, 16), (2000, 12, 9, 9), (100, 7, 300, 5),
                                    (2, 20000, 24, 4)])
 def test_sparse_kernel_sums_are_tree_row_sums_of_their_row_values(cuda_device, shape):
@@ -325,3 +367,109 @@ def test_sparse_race_raises_when_a_family_fails_on_the_card(cuda_device, monkeyp
     (key, report), = tsparse.race_reports().items()
     assert key[0] == "b0" and "injected launch failure" in report["failed"]
     assert tsparse._race_cache == {}  # nothing was chosen
+
+
+def _scheduled_problem(device, optimizer, e=96, m=12, d=64, max_nnz=6):
+    """A pallas slab problem for the solve scheduler on the card: logistic,
+    L2, labels from a planted model, every lane's rows real."""
+    slab, y, wt, off, _, _, _ = _slab_inputs(e + m, "logistic", e, m, d, max_nnz, device)
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+    from photon_ml_tpu_torch.optim.common import OptimizerConfig
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+
+    cfg = (OptimizerConfig(max_iterations=15, tolerance=1e-5) if optimizer == "TRON"
+           else OptimizerConfig(max_iterations=60, tolerance=1e-7))
+    kw = dict(task=TaskType.LOGISTIC_REGRESSION, optimizer=OptimizerType[optimizer],
+              optimizer_config=cfg, regularization=RegularizationContext.l2(0.5))
+    wt = torch.where(wt > 0, wt, torch.ones_like(wt))
+    off = torch.where(off.abs() < 10, off, torch.zeros_like(off))
+    return (slab, y, off, wt), torch.zeros((e, d), device=device), kw
+
+
+def _result_bits(res):
+    return [None if t is None else (t.view(torch.int32) if t.dtype == torch.float32 else t)
+            for t in res]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["LBFGS", "TRON"])
+def test_captured_rung_equals_the_eager_rung_bitwise(cuda_device, optimizer):
+    """One rung program of the device loop, replayed from its CUDA graphs,
+    leaves the full state bit for bit where the same programs run eagerly
+    leave it. The replays launch, through the graphs and not the wrappers,
+    the sparse kernels an eager chunk launches: torch.profiler counts them
+    against the wrappers' counts of the eager chunks (a fixed-trip chunk
+    launches the same kernels whatever its lanes' state)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_ml_tpu_torch.algorithm.random_effect import entity_lane_fns
+    from photon_ml_tpu_torch.optim import fused_schedule
+
+    counters = (tsparse.sparse_gevm_kernel, tsparse.sparse_hvp_kernel)
+    data, w0, kw = _scheduled_problem(cuda_device, optimizer)
+    _, init, advance, _ = entity_lane_fns(**kw)
+    loops = [fused_schedule._RungLoop(data, init(*data, w0), advance, 4) for _ in range(2)]
+    for loop in loops:
+        loop.horizon.fill_(kw["optimizer_config"].max_iterations)
+    rung = 64
+    before = sum(c.launches for c in counters)
+    for _ in range(3):
+        loops[0].eager_chunk(rung)
+    eager = sum(c.launches for c in counters) - before
+    assert eager > 0 and eager % 3 == 0
+    loops[1].run(rung, key="test")  # captures, then replays the first chunk
+    # CUPTI now and then delivers a session no device record, or drops one:
+    # up to three sessions, each replaying one chunk
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        before = sum(c.launches for c in counters)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loops[1].run(rung, key="test")
+            torch.cuda.synchronize()
+        assert sum(c.launches for c in counters) == before  # a replay passes no wrapper
+        replayed_kernels = sum("sparse_pass" in ev.name for ev in prof.events()
+                               if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if replayed_kernels == eager // 3:
+            break
+    assert replayed_kernels == eager // 3
+    # the same chunks on both loops: 3 eager; on the graphs, the capturing
+    # run and each traced one (a session that traced nothing replayed too)
+    replayed = 2 + attempt
+    for _ in range(3 - replayed):
+        loops[1].run(rung, key="test")
+    for _ in range(replayed - 3):
+        loops[0].eager_chunk(rung)
+    torch.cuda.synchronize()
+    for n in loops[0].names:
+        a, b = loops[0].state[n], loops[1].state[n]
+        assert torch.equal(*(t.view(torch.int32) if t.dtype == torch.float32 else t
+                             for t in (a, b))), n
+    assert int(loops[0].lim) == int(loops[1].lim) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["LBFGS", "TRON"])
+def test_scheduled_solves_on_the_card_are_bitwise_the_one_shot(cuda_device, optimizer):
+    from photon_ml_tpu_torch.algorithm.random_effect import entity_lane_fns
+    from photon_ml_tpu_torch.optim.scheduler import SolveSchedule, compacted_solve
+
+    data, w0, kw = _scheduled_problem(cuda_device, optimizer)
+    want = _result_bits(entity_lane_fns(**kw)[0](*data, w0))
+    graphs = {}
+    for schedule in (SolveSchedule(4), SolveSchedule(4, loop="device"),
+                     SolveSchedule(4, loop="device")):
+        got = compacted_solve(data, w0, schedule=schedule, graphs=graphs, **kw)
+        assert all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(_result_bits(got), want)), schedule
+
+
+@pytest.mark.gpu
+def test_device_loop_refuses_the_plain_slab_families_on_the_card(cuda_device):
+    from photon_ml_tpu_torch.optim.scheduler import SolveSchedule, compacted_solve
+
+    data, w0, kw = _scheduled_problem(cuda_device, "LBFGS")
+    for family in ("scatter", "segment"):
+        feats = data[0].with_kernel(family)
+        with pytest.raises(ValueError, match=f"cannot capture the '{family}' slab family"):
+            compacted_solve((feats,) + data[1:], w0, schedule=SolveSchedule(4, loop="device"),
+                            **kw)

@@ -56,6 +56,32 @@ def test_loss_functions_match(rng, loss_name):
         assert tlosses.for_task(task).name == jlosses.for_task(task.value).name
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("loss_name", LOSSES)
+def test_a_lane_gets_the_same_loss_bits_at_every_offset(rng, loss_name, dtype):
+    """A lane's loss, d1 and d2 bits do not depend on where the lane sits in
+    its batch: short lanes placed at every offset of a (2, 207) batch give
+    the bits of the lane alone. At the last offsets a lane lies in the flat
+    batch's last elements, which do not fill a pair of vector registers
+    (414 elements leave 30 floats or 14 doubles), where a CPU elementwise
+    loop may run scalar code."""
+    tl = getattr(tlosses, loss_name)
+    lane, width = 12, 207
+    for _ in range(24):
+        z = torch.from_numpy(rng.normal(scale=3.0, size=lane)).to(dtype)
+        y = torch.from_numpy(_labels(rng, loss_name, lane)).to(dtype)
+        for fn in ("loss", "d1", "d2"):
+            f = getattr(tl, fn)
+            want = f(z[None], y[None])[0]
+            for offset in range(width - lane + 1):
+                zb = torch.full((2, width), 0.5, dtype=dtype)
+                yb = torch.zeros_like(zb)
+                zb[1, offset:offset + lane] = z
+                yb[1, offset:offset + lane] = y
+                got = f(zb, yb)[1, offset:offset + lane]
+                assert torch.equal(got, want), f"{loss_name}.{fn} at offset {offset}"
+
+
 def _stats(rng, d, intercept):
     mean = rng.normal(size=d).astype(np.float32)
     std = rng.uniform(0.5, 2.0, size=d).astype(np.float32)

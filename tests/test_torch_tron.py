@@ -89,7 +89,7 @@ def test_tron_lanes_match_vmapped_jax(task, layout):
     want = jax.vmap(j_solve)(jfeats, jnp.asarray(y), jnp.asarray(off), jnp.asarray(wt),
                              jnp.asarray(w0))
     solve = entity_lane_fns(TaskType(task), OptimizerType.TRON, interop.from_jax_numpy(cfg, "cpu"),
-                            interop.from_jax_numpy(reg, "cpu"))
+                            interop.from_jax_numpy(reg, "cpu"))[0]
     t = torch.from_numpy
     got = solve(tfeats, t(y), t(off), t(wt), t(w0))
     assert tuple(got.coefficients.shape) == w0.shape and tuple(got.reason.shape) == (6,)

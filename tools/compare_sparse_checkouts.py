@@ -74,7 +74,7 @@ def time_checkout(root: str) -> dict:
         res = {"table_bytes": table_bytes(slab)}
         for name, fn in fns.items():
             fn()  # builds the slab's tables and plan outside the readings
-            kernels, _ = cs.launches_of_one_call(torch, fn)
+            kernels = cs.launches_of_one_call(torch, fn)[0]
             res[name] = {"ms": cs.time_ms(torch, fn), "graph_ms": cs.graph_ms(torch, fn),
                          "host_ms": cs.host_ms(torch, fn), "device_kernels_per_call": len(kernels)}
         out[label] = res
