@@ -62,7 +62,22 @@ shapes and times it, then drives the port's main paths at full width:
     lane-indirect kernels bitwise the full launch at every rung; the
     bucketed GAME driver with ``--solve-compaction`` (host and device
     loops) and ``--adaptive-schedule``, byte-equal models; and a stop at a
-    chunk or rung boundary resumed to the same model bytes.
+    chunk or rung boundary resumed to the same model bytes; (f) the dense
+    (E, M, D) stack's compacted solves bitwise the one-shot solve at every
+    rung, at the GAME driver's stack shape and a wider D.
+
+  * the tensor cache and streaming (phase 22): (a) phase 6's GLM command
+    with ``--streaming-chunk-rows`` (LBFGS with ``--tensor-cache`` cold and
+    warm, at ``PHOTON_PREFETCH_DEPTH=0``, and TRON; held against the
+    in-memory solves), and a ``torch.profiler`` trace of one streamed pass
+    (the pinned side-stream H2D copies against the kernels); (b) phase
+    20's data with ``--streaming-random-effects`` and a block budget:
+    held against the in-memory run, byte-equal at depth 0, with
+    ``--solve-compaction`` and after a stop at a block boundary, both
+    sparse kernels held on every block's slab, the update's peak device
+    memory against the budget; (c) phase 10's command with
+    ``--tensor-cache`` cold and warm (the warm run decodes no training
+    file).
 
 Deterministic algorithms are on from the start (``device.enable_determinism``).
 Every phase prints on its own lines and its wall; any failed check exits
@@ -480,6 +495,7 @@ def phase_driver(torch, fused_glm, workdir):
     say(f"  validation AUC {auc:.6f} at best lambda={driver.best_reg_weight:g}; "
         f"output/ {outputs}, best/ {best}; kernel launches {launches}; wall {wall:.2f} s")
     check(auc > 0.5, f"validation AUC {auc} <= 0.5")
+    driver.argv = argv  # phase 22 (a) streams the same command
 
     # the same solves with the plain objective on the card, as the reference
     plain = GLMOptimizationProblem(driver.problem.task, optimizer_config=driver.problem.optimizer_config,
@@ -491,7 +507,7 @@ def phase_driver(torch, fused_glm, workdir):
         fv, pv = float(res.value), float(ref.value)
         say(f"  lambda={lam:g}: driver objective {fv:.6f}  plain-objective solve {pv:.6f}")
         check(abs(fv - pv) <= 1e-2 * abs(pv) + 2e-3, f"lambda={lam}: driver objective off the plain solve")
-    return launches
+    return launches, driver
 
 
 # --- the GLM driver's whole surface: diagnostics, box constraints, Avro ----
@@ -891,16 +907,31 @@ def phase_glm_diagnostics(torch, fused_glm, workdir, dev="cuda"):
         f"and records equal the first's; stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(spans.items())))
     out["all"] = {"wall_s": [wall, wall2], "launches": launches, "spans_s": spans}
-    cpu = run_glm_stages(torch, fused_glm, io("all-cpu", "cpu") + DIAG_FLAGS)
+    # card against CPU on the first quarter of the training rows (a cut for
+    # the call's time): one more card run, then the CPU run, on that subset
+    quarter = os.path.join(workdir, "train-quarter")
+    os.makedirs(quarter, exist_ok=True)
+    with open(os.path.join(workdir, "train", "part-00000.txt")) as f, \
+            open(os.path.join(quarter, "part-00000.txt"), "w") as g:
+        for _, line in zip(range(N_FULL // 4), f):
+            g.write(line)
+    io_q = lambda out, device: [a if a != os.path.join(workdir, "train") else quarter
+                                for a in io(out, device)]
+    card_q = run_glm_stages(torch, fused_glm, io_q("all-quarter", dev) + DIAG_FLAGS)
+    path_q = os.path.join(workdir, "all-quarter")
+    _check_diagnosed(card_q[0], path_q, "(b) quarter", "ALL", dev)
+    card_counts = _plain_counts(card_q[3], "(b) quarter")
+    cpu = run_glm_stages(torch, fused_glm, io_q("all-cpu", "cpu") + DIAG_FLAGS)
     cpu_path = os.path.join(workdir, "all-cpu")
     check(cpu[2]["total"] == 0, f"(b) CPU: fused launches {cpu[2]}")
     _check_diagnosed(cpu[0], cpu_path, "(b) CPU", "ALL", "cpu")
     check(all(_check_box(cpu[0], "(b) CPU")), "(b) CPU: the box binds nothing in a solve")
     cpu_counts = _plain_counts(cpu[3], "(b) CPU")
-    errs = _diagnostics_held(runs[0][:5], cpu, path, cpu_path)
+    errs = _diagnostics_held(card_q[:5], cpu, path_q, cpu_path)
     moved = [int(np.abs(np.subtract(a, b)).sum()) for i in range(2)
              for a, b in zip(card_counts[i], cpu_counts[i])]
-    say(f"  (b) on the CPU: wall {cpu[1]:.2f} s; card vs CPU within the solver tolerance, largest "
+    say(f"  (b) card and CPU on the first {N_FULL // 4} training rows: card wall "
+        f"{card_q[1]:.2f} s, CPU wall {cpu[1]:.2f} s; card vs CPU within the solver tolerance, largest "
         f"|diff| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; Kendall counts moved by {moved[:3]} pairs and HL bin counts by {moved[3:]} rows "
         f"per model (each run's counts = numpy's on its own predictions)")
@@ -1993,7 +2024,8 @@ SPARSE_GLM_FLAGS = ["--task", "LOGISTIC_REGRESSION", "--input-file-format", "LIB
 FIXED_WIDE_NAMES, FIXED_WIDE_PER_ROW = 1 << 17, 32
 # phase 16's card-against-CPU pair runs at this depth (users), the same
 # generator and widths: the CPU run at GAME_USERS took 65 s of the call
-WIDE_CPU_USERS = 4000
+WIDE_CPU_USERS = 2000
+WIDE_USERS = 10000  # phase 16's one card run (timings); a depth cut, see CUTS
 # the quickstart's fixed effect (LBFGS, L2 lambda 0.01) with its iteration
 # cap raised from 50 until the card and the CPU both converge: 131073
 # columns at lambda 0.01 are nearly separable, and after 50 iterations the
@@ -2229,7 +2261,7 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     the fixed section widened to FIXED_WIDE_NAMES names, FIXED_WIDE_PER_ROW a
     row, and the quickstart's fixed effect run to convergence: the fixed
     effect takes the sparse layout, the GEVM kernel launches, every fixed
-    solve converges; one card run at GAME_USERS users for the timings, and at
+    solve converges; one card run at WIDE_USERS users for the timings, and at
     WIDE_CPU_USERS users two card runs write byte-equal models and the
     objective history on the card holds against the same command on the
     CPU. The first fixed solve of that
@@ -2241,13 +2273,13 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     from photon_ml_tpu_torch.types import ConvergenceReason
 
     say(f"== phase 16: game_training_driver.main, phase 10's data with the fixed section "
-        f"widened to {FIXED_WIDE_PER_ROW} of {FIXED_WIDE_NAMES} names a row ({GAME_USERS} "
+        f"widened to {FIXED_WIDE_PER_ROW} of {FIXED_WIDE_NAMES} names a row ({WIDE_USERS} "
         f"users), the quickstart's flags with the fixed effect's cap raised to "
         f"{FIXED_WIDE_ITERS} LBFGS iterations (L2 lambda 0.01), spec pallas; once on {dev}; "
         f"then at {WIDE_CPU_USERS} users twice on {dev} and once on the CPU, and the first "
         "fixed solve of the card and CPU pair at the quickstart's cap of 50 on each")
     small = os.path.join(workdir, "small")
-    for users, where, seed in ((GAME_USERS, workdir, SEED + 16),
+    for users, where, seed in ((WIDE_USERS, workdir, SEED + 16),
                                (WIDE_CPU_USERS, small, SEED + 17)):
         t0 = time.perf_counter()
         n_train, n_val = write_game_avro(where, users, seed,
@@ -2326,7 +2358,7 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
 
 # phase 17's depth: phase 10's generator and widths at a fifth of its users
 # (each of its ten driver runs is mostly Avro ingest, which scales with rows)
-CHECKPOINT_USERS = 4000
+CHECKPOINT_USERS = 2000
 
 
 def stopped_in_process(torch, fused_sparse, argv, spec, at):
@@ -2888,7 +2920,7 @@ def phase_full_game(torch, fused_sparse, workdir, dev="cuda"):
 # phase 10's generator with heavy-tailed rows per user: min(zipf(1.9) + 4,
 # 2048), drawn from its own seed; 20000 users, and 4000 for the card and CPU
 # pair
-SKEW_USERS, SKEW_SMALL_USERS, SKEW_SEED = 20000, 4000, 31
+SKEW_USERS, SKEW_SMALL_USERS, SKEW_SEED = 20000, 2000, 31  # small: a depth cut, see CUTS
 SKEW_ZIPF, SKEW_MIN_ROWS, SKEW_MAX_ROWS = 1.9, 4, 2048
 BUCKETED_FLAGS = GAME_FLAGS + ["--bucketed-random-effects", "true"]
 
@@ -3028,7 +3060,13 @@ def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
         f"bucket per evaluation ({len(buckets)} buckets)")
     del b2
 
-    (c, rc, _, lc, _) = run("(c) unbucketed", GAME_FLAGS, "pallas")
+    from photon_ml_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
+
+    with UpdatePeak(torch, RandomEffectCoordinate) as c_peak:
+        (c, rc, _, lc, _) = run("(c) unbucketed", GAME_FLAGS, "pallas")
+    # phase 22 (b) holds the streaming runs against this one
+    out["_inmemory"] = (c, rc, c_peak.summary())
+    say(f"  (c) in-memory update peak device memory {c_peak.summary()[0]} B above its start")
     kernels_launched(c, lc, "(c) unbucketed")
     check(c.re_datasets["per-user"].x.numel() // k == e_all * m_all,
           "(c): the unbucketed stack's shape")
@@ -3292,8 +3330,12 @@ def phase_scheduler_solve(torch, fused_sparse, dev="cuda"):
                 check(0 < traced["gevm"] <= counted["gevm"] and traced["hvp"] <= counted["hvp"],
                       f"(a) {opt} {how}: the trace holds {traced} sparse kernels, the wrappers "
                       f"counted {counted}")
-            check(t["syncs"] >= t["host_reads"],
-                  f"(a) {opt} {how}: the card reported {t['syncs']} syncs, fewer than the "
+            # the lane ids of a compaction are uploaded from pinned memory
+            # without a sync: on the one-shot solve and on the host loop
+            # every sync is a counted host read
+            check(t["syncs"] == t["host_reads"] if how != "device"
+                  else t["syncs"] >= t["host_reads"],
+                  f"(a) {opt} {how}: the card reported {t['syncs']} syncs against "
                   f"{t['host_reads']} counted host reads")
             say(f"  (a) {opt} {how} traced ({t['calls']} call(s)): host wall {t['wall_s']:.4f} s, "
                 "device kernel time "
@@ -3548,14 +3590,494 @@ def phase_scheduler(torch, fused_sparse, workdir, bucketed, dev="cuda"):
     out["launches"] = launches
     return out
 
+# --- phase 21 (f) and phase 22: dense-stack bits, streaming, the tensor cache -
+
+
+DENSE_STACK_SHAPES = (("the GAME driver's stack", 20000, 12, 9),
+                      ("a wider stack", 2048, 16, 128))
+
+
+def dense_stack_problem(torch, dev, e, m, d, seed):
+    """A dense (E, M, D) random-effect stack problem (logistic, labels from a
+    planted model, about half the slots non-zero, 15% of the rows at weight
+    0), made on the host from ``seed`` and moved to ``dev``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((e, m, d), generator=g) * (torch.rand((e, m, d), generator=g) < 0.5)
+    w_true = 0.4 * torch.randn((e, d), generator=g)
+    z = torch.einsum("emd,ed->em", x, w_true)
+    y = (torch.sigmoid(z) > torch.rand((e, m), generator=g)).float()
+    wt = (torch.rand((e, m), generator=g) < 0.85).float()
+    off = 0.1 * torch.randn((e, m), generator=g)
+    return tuple(t.to(dev) for t in (x, y, off, wt)), torch.zeros((e, d), device=dev)
+
+
+def phase_dense_stack_bits(torch, dev="cuda"):
+    """Phase 21 (f): the dense (E, M, D) stack's lanes go through a batched
+    ``torch.matmul``, whose cuBLAS kernel may be chosen by the batch count.
+    At the GAME driver's stack shape and at a wider D, the margins and the
+    gradient transpose of the lanes a compaction keeps, computed as a
+    batch of their own at each rung width, against the same lanes' rows of
+    the full batch: the lanes whose bits differ are counted. The scheduler
+    must refuse a dense stack on the card (host and device loop), naming
+    the reason; the one-shot solve runs."""
+    from photon_ml_tpu_torch.algorithm.random_effect import entity_lane_fns
+    from photon_ml_tpu_torch.ops.features import DenseFeatures
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+    from photon_ml_tpu_torch.optim.common import OptimizerConfig
+    from photon_ml_tpu_torch.optim.scheduler import SolveSchedule, compacted_solve
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+
+    say("== phase 21 (f): the dense stack's batched matmul across batch counts, and the "
+        "scheduler's refusal of a dense stack on the card")
+    out = {}
+    for label, e, m, d in DENSE_STACK_SHAPES:
+        (x, y, off, wt), w0 = dense_stack_problem(torch, dev, e, m, d, SEED + e + d)
+        g = torch.Generator(device=dev).manual_seed(SEED + 3)
+        w = 0.3 * torch.randn((e, d), device=dev, generator=g)
+        r = torch.randn((e, m), device=dev, generator=g)
+        full = DenseFeatures(x)
+        z_full, t_full = full.matvec(w), full.rmatvec(r)
+        parted = {}
+        widths = [n for n in (8, 64, 512, 4096, e // 2) if n < e]
+        for n in widths:
+            ids = torch.randperm(e, device=dev, generator=g)[:n].sort().values
+            part = DenseFeatures(x.index_select(0, ids))
+            z, t = part.matvec(w.index_select(0, ids)), part.rmatvec(r.index_select(0, ids))
+            lanes = ((z != z_full.index_select(0, ids)).any(-1)
+                     | (t != t_full.index_select(0, ids)).any(-1))
+            parted[n] = int(lanes.sum())
+        say(f"  (f) {label} E={e} M={m} D={d}: lanes whose margins or transpose bits differ "
+            "from the full batch's, by batch width: "
+            + ", ".join(f"{n}: {k} of {n}" for n, k in parted.items()))
+        out[label] = {"lanes_parted_by_width": parted}
+        for opt in ("LBFGS", "TRON"):
+            cfg = (OptimizerConfig.tron_default() if opt == "TRON"
+                   else OptimizerConfig(max_iterations=60, tolerance=1e-7))
+            kw = dict(task=TaskType.LOGISTIC_REGRESSION, optimizer=OptimizerType[opt],
+                      optimizer_config=cfg, regularization=RegularizationContext.l2(0.5))
+            for sched in (SolveSchedule(SCHED_CHUNK), SolveSchedule(SCHED_CHUNK, loop="device")):
+                try:
+                    compacted_solve((x, y, off, wt), w0, schedule=sched, **kw)
+                    refused = None
+                except ValueError as exc:
+                    refused = str(exc)
+                check(refused is not None and "batch count" in refused,
+                      f"(f) {label} {opt} {sched.describe()}: a dense stack's compacted solve "
+                      "was not refused on the card")
+            res = entity_lane_fns(**kw)[0](x, y, off, wt, w0)
+            check(bool(torch.isfinite(res.value).all()), f"(f) {label} {opt}: the one-shot "
+                                                         "solve is not finite")
+        say(f"  (f) {label}: compacted solves refused on the card (host and device loop, "
+            "LBFGS and TRON) with the reason; the one-shot solves finite")
+    return out
+
+
+class UpdatePeak:
+    """While installed, every ``cls.update`` call records the device memory
+    it allocated at its peak: (allocated before, peak during), bytes."""
+
+    def __init__(self, torch, cls):
+        self.torch, self.cls, self.calls = torch, cls, []
+
+    def __enter__(self):
+        torch, inner = self.torch, self.cls.update
+        self._inner = inner
+        if not torch.cuda.is_available():  # a CPU rehearsal: nothing to measure
+            return self
+
+        def measured(coord, *args, **kwargs):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = inner(coord, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((before, torch.cuda.max_memory_allocated()))
+            return out
+
+        self.cls.update = measured
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update = self._inner
+
+    def summary(self):
+        """(largest peak increment over an update, its absolute peak)."""
+        return max(((peak - before, peak) for before, peak in self.calls), default=(0, 0))
+
+
+STREAM_CHUNK_ROWS = 32768  # phase 22 (a): 8 chunks of phase 6's 262144 rows
+STREAM_BUDGET_MB = 1  # phase 22 (b): 10 blocks of phase 20's data
+STREAM_BLOCK_STOP = 3  # phase 22 (b): the subprocess stops at this block boundary
+
+
+def copy_overlap(events, torch):
+    """From a torch.profiler trace: H2D copy time, kernel time and the share
+    of the copy time that overlaps kernel time (interval union of each)."""
+    def union(spans):
+        spans = sorted(spans)
+        merged = []
+        for a, b in spans:
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        return merged
+
+    dev = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
+    copies = union((ev.time_range.start, ev.time_range.end) for ev in dev
+                   if "memcpy" in ev.name.lower() and "htod" in ev.name.lower().replace(" ", ""))
+    kernels = union((ev.time_range.start, ev.time_range.end) for ev in dev
+                    if "memcpy" not in ev.name.lower() and "memset" not in ev.name.lower())
+    copy_us = sum(b - a for a, b in copies)
+    kernel_us = sum(b - a for a, b in kernels)
+    both = 0.0
+    for a, b in copies:
+        for c, d in kernels:
+            both += max(0.0, min(b, d) - max(a, c))
+    return {"h2d_copies": len(copies), "h2d_us": copy_us, "kernel_us": kernel_us,
+            "overlap_share": both / copy_us if copy_us else None}
+
+
+def _models_of(driver):
+    return {lam: m.coefficients.means.double().cpu().numpy() for lam, m in driver.models}
+
+
+def glm_models_held(label, got, want):
+    """A streamed GLM driver's lambdas against an in-memory solve's: each
+    objective at ``solver``, and the coefficients where both solves
+    stopped at the same iteration for the same reason (f32 stopping tests
+    pin objectives, not coefficients; ROADMAP Queue 3)."""
+    (g_res, g_models), (w_res, w_models) = got, want
+    compared = 0
+    for lam in sorted(g_models):
+        gr, wr = g_res[lam], w_res[lam]
+        held(f"{label} lambda={lam:g}: objective", float(gr.value), float(wr.value))
+        if (int(gr.iterations), int(gr.reason)) == (int(wr.iterations), int(wr.reason)):
+            held(f"{label} lambda={lam:g}: coefficients", g_models[lam], w_models[lam])
+            compared += 1
+    check(compared > 0, f"{label}: no lambda stopped alike: no coefficients were compared")
+    return compared
+
+
+def phase_streaming_glm(torch, fused_glm, workdir, driver6, dev="cuda"):
+    """Phase 22 (a), after phase 6 on its LIBSVM pair: the GLM driver with
+    --streaming-chunk-rows (8 chunks) under LBFGS, with --tensor-cache cold
+    then warm (the warm run parses no training file and spills nothing,
+    and writes the cold run's model bytes), at PHOTON_PREFETCH_DEPTH=0
+    (byte-equal), and under TRON; each held against the in-memory solve of
+    the same optimizer (phase 6's run for LBFGS) at ``solver``; then one
+    streamed value+gradient pass traced by torch.profiler (H2D copy time,
+    kernel time and their overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.io import libsvm
+    from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
+    from photon_ml_tpu_torch.optim.streaming import make_streaming_value_and_grad
+    from photon_ml_tpu_torch.training import train_glm_grid
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    say(f"== phase 22 (a): glm_driver.main --streaming-chunk-rows {STREAM_CHUNK_ROWS} on phase "
+        f"6's LIBSVM pair ({N_FULL} x {GLM_DRIVER_D} + intercept): LBFGS with --tensor-cache "
+        "cold and warm, at depth 0, and TRON")
+    argv6 = driver6.argv
+    cache = os.path.join(workdir, "tcache22")
+    out, runs = {}, {}
+
+    def run(label, flags, env=None):
+        d = os.path.join(workdir, "out22-" + label)
+        argv = [a if a != argv6[argv6.index("--output-directory") + 1] else d for a in argv6]
+        sync(torch)
+        libsvm.parse_counts.update(native_files=0, python_files=0)
+        fused_glm.fused_value_grad_kernel.launches = 0
+        spilled = dict(glm_driver.spill_counts)
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        t0 = time.perf_counter()
+        try:
+            driver = glm_driver.main(argv + ["--streaming-chunk-rows", str(STREAM_CHUNK_ROWS),
+                                             "--device", dev] + flags)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        sync(torch)
+        wall = time.perf_counter() - t0
+        tot = driver.timer.totals
+        rec = {"wall_s": wall, "preprocess_s": tot["preprocess"], "train_s": tot["train"],
+               "parsed": dict(libsvm.parse_counts),
+               "spilled": {k: glm_driver.spill_counts[k] - spilled[k] for k in spilled},
+               "chunks": len(driver.streaming_source.loaders),
+               "fused_launches": fused_glm.fused_value_grad_kernel.launches}
+        check(driver.device.type == dev and driver.train_batch is None,
+              f"(a) {label}: not a streamed run on {dev}")
+        check(rec["chunks"] == -(-driver.streaming_source.num_rows // STREAM_CHUNK_ROWS),
+              f"(a) {label}: {rec['chunks']} chunks")
+        check(rec["parsed"]["python_files"] == 0, f"(a) {label}: a file went through the "
+                                                   f"Python parser {rec['parsed']}")
+        say(f"  (a) {label}: wall {wall:.2f} s, preprocess {rec['preprocess_s']:.2f} s, train "
+            f"{rec['train_s']:.2f} s; LIBSVM files parsed {rec['parsed']['native_files']}, "
+            f"spilled files {rec['spilled']['files']} chunks {rec['spilled']['chunks']}; "
+            + "; ".join(f"lambda={lam:g} value {float(r.value):.6f} iters {int(r.iterations)}"
+                        for lam, r in zip(driver.trained.weights, driver.trained.results)))
+        runs[label] = driver
+        out[label] = rec
+        return driver, d
+
+    def results(driver):
+        return (dict(zip(driver.trained.weights, driver.trained.results)), _models_of(driver))
+
+    cold, d_cold = run("lbfgs-cold", ["--tensor-cache", cache])
+    check(out["lbfgs-cold"]["spilled"] == {"files": 1, "chunks": out["lbfgs-cold"]["chunks"]}
+          and out["lbfgs-cold"]["parsed"]["native_files"] == 2,
+          f"(a) the cold run: spilled {out['lbfgs-cold']['spilled']}, parsed "
+          f"{out['lbfgs-cold']['parsed']}")
+    glm_models_held("(a) streamed LBFGS vs phase 6", results(cold), results(driver6))
+    warm, d_warm = run("lbfgs-warm", ["--tensor-cache", cache])
+    check(out["lbfgs-warm"]["spilled"] == {"files": 0, "chunks": 0}
+          and out["lbfgs-warm"]["parsed"]["native_files"] == 1,
+          f"(a) the warm run decoded: spilled {out['lbfgs-warm']['spilled']}, parsed "
+          f"{out['lbfgs-warm']['parsed']} (only the validation file may be parsed)")
+    for sub in ("output", "best"):
+        check(tree_bytes(os.path.join(d_warm, sub)) == tree_bytes(os.path.join(d_cold, sub)),
+              f"(a) the warm run's {sub}/ bytes differ from the cold run's")
+    _, d_sync = run("lbfgs-depth0", ["--tensor-cache", cache], {"PHOTON_PREFETCH_DEPTH": "0"})
+    for sub in ("output", "best"):
+        check(tree_bytes(os.path.join(d_sync, sub)) == tree_bytes(os.path.join(d_cold, sub)),
+              f"(a) the depth-0 run's {sub}/ bytes differ from the pipelined run's")
+    say(f"  (a) warm --tensor-cache: preprocess {out['lbfgs-warm']['preprocess_s']:.2f} s "
+        f"against the cold {out['lbfgs-cold']['preprocess_s']:.2f} s, no training file parsed, "
+        "nothing spilled, model bytes equal; PHOTON_PREFETCH_DEPTH=0: model bytes equal")
+    tron, _ = run("tron", ["--tensor-cache", cache, "--optimizer", "TRON"])
+    problem = GLMOptimizationProblem(tron.problem.task, OptimizerType.TRON,
+                                     tron.problem.optimizer_config, tron.problem.regularization)
+    ref = train_glm_grid(problem, driver6.train_batch, driver6.norm, LAMBDAS)
+    ref_models = {lam: driver6._to_raw_space(m).coefficients.means.double().cpu().numpy()
+                  for lam, m in zip(ref.weights, ref.models)}
+    glm_models_held("(a) streamed TRON vs in-memory TRON",
+                    results(tron), (dict(zip(ref.weights, ref.results)), ref_models))
+    del ref
+
+    # one streamed value+gradient pass under the profiler, on the warm chunks
+    src = warm.streaming_source
+    if dev != "cuda":
+        return out
+    vg = make_streaming_value_and_grad(src, warm.problem.objective, warm.norm, device="cuda")
+    w = warm.trained.models[-1].coefficients.means
+    vg(w)  # warm-up: pinned buffers and the side stream
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vg(w)
+        sync(torch)
+        pass_s = time.perf_counter() - t0
+    ov = copy_overlap(prof.events(), torch)
+    nbytes = sum(a.nbytes for load in src.loaders for a in load().values())
+    check(ov["h2d_copies"] >= len(src.loaders), f"(a) the trace holds {ov['h2d_copies']} H2D "
+                                                f"copies for {len(src.loaders)} chunks")
+    say(f"  (a) one streamed value+gradient pass, traced: wall {pass_s:.4f} s for {nbytes} B of "
+        f"chunk files ({nbytes / pass_s / 1e9:.2f} GB/s); H2D copies {ov['h2d_copies']} "
+        f"{ov['h2d_us'] / 1e3:.3f} ms, kernels {ov['kernel_us'] / 1e3:.3f} ms, share of the "
+        f"copy time overlapping kernel time "
+        + ("n/a" if ov["overlap_share"] is None else f"{ov['overlap_share']:.3f}"))
+    out["trace"] = dict(ov, pass_s=pass_s, chunk_bytes=nbytes)
+    del runs, cold, warm, tron
+    return out
+
+
+def hold_block_slabs(torch, fused_sparse, manifest, label):
+    """Both sparse kernels on every block's slab of a streaming manifest
+    (the per-block coordinate builds it on the card), held against their
+    plain version as ``hold_driver_slab`` holds the driver's slab."""
+    from photon_ml_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
+    from photon_ml_tpu_torch.types import TaskType
+
+    errs = {"gevm": 0.0, "hvp": 0.0}
+    for i, ds, _, _ in manifest.iter_blocks(0, device="cuda"):
+        sub = RandomEffectCoordinate(ds, TaskType.LOGISTIC_REGRESSION, sparse_kernel="pallas",
+                                     solve_label=f"{label} block {i}")
+        e_ = hold_driver_slab(torch, fused_sparse, sub)
+        errs = {k: max(errs[k], e_[k]) for k in errs}
+        del sub, ds
+    return errs
+
+
+def phase_streaming_game(torch, fused_sparse, workdir, inmem, dev="cuda"):
+    """Phase 22 (b), after phase 21 on phase 20's data: the GAME driver with
+    --streaming-random-effects and --re-memory-budget-mb STREAM_BUDGET_MB
+    (at least 8 blocks), spec pallas, through --tensor-cache: held against
+    phase 20 (c)'s in-memory run (objectives at ``solver``, per-entity
+    scores by ``scores_held``); at PHOTON_PREFETCH_DEPTH=0 and with
+    --solve-compaction 8 the model bytes equal the first run's; a
+    subprocess stopped at a block boundary (exit 75) resumes to the same
+    bytes; both sparse kernels held on every block's slab; the peak device
+    memory of the streaming update against the budget and the in-memory
+    update's."""
+    from photon_ml_tpu_torch.algorithm.streaming_random_effect import (
+        StreamingRandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.resilience import preemption
+
+    c_driver, c_result, c_peak = inmem
+    big = os.path.join(workdir, "skew")
+    budget = int(STREAM_BUDGET_MB * 1e6)
+    say(f"== phase 22 (b): game_training_driver.main --streaming-random-effects true "
+        f"--re-memory-budget-mb {STREAM_BUDGET_MB} on phase 20's data ({SKEW_USERS} users), "
+        "spec pallas, --tensor-cache; held against phase 20 (c)'s in-memory run")
+    cache = os.path.join(workdir, "tcache22b")
+    base = ["--train-input-dirs", os.path.join(big, "train"),
+            "--validate-input-dirs", os.path.join(big, "validate"), "--device", dev,
+            "--tensor-cache", cache, "--re-memory-budget-mb", str(STREAM_BUDGET_MB)]
+    out = {"runs": {}}
+
+    def run(label, flags, env=None):
+        d = os.path.join(workdir, "out22b-" + label.replace(" ", "-"))
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        try:
+            with UpdatePeak(torch, StreamingRandomEffectCoordinate) as peak:
+                driver, wall, launches, stages, _ = run_game_training(
+                    torch, fused_sparse, base + ["--output-dir", d] + flags, "pallas")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        result = driver.results[0][1]
+        check(all(np.isfinite(result.objective_history)), f"(b) {label}: non-finite objective")
+        inc, absolute = peak.summary()
+        say(_run_line(f"(b) {label}", driver, wall, launches, stages)
+            + f"; streaming update peak device memory {inc} B above its start ({absolute} B "
+            "allocated in all)")
+        out["runs"][label] = {"wall_s": wall, "stages_s": stages, "launches": launches,
+                              "update_peak_increment_b": inc, "update_peak_b": absolute}
+        return driver, result, d, launches
+
+    d1, r1, dir1, l1 = run("streaming", GAME_FLAGS)
+    manifest = d1.streaming_manifests["per-user"]
+    n_blocks = len(manifest.blocks)
+    check(n_blocks >= 8, f"(b): {n_blocks} blocks; the budget must give at least 8")
+    check(manifest.max_block_bytes <= budget, "(b): a block's slab exceeds the budget")
+    kernels_launched(d1, l1, "(b) streaming")
+    out["blocks"] = [b["num_entities"] for b in manifest.blocks]
+    out["max_block_bytes"] = manifest.max_block_bytes
+    out["held_in_memory"] = scores_held("(b)", (d1, r1), (c_driver, c_result),
+                                        "streaming vs in-memory")
+    objectives_held("(b) streaming vs in-memory", r1, c_result)
+    inc, absolute = out["runs"]["streaming"]["update_peak_increment_b"], \
+        out["runs"]["streaming"]["update_peak_b"]
+    say(f"  (b) {n_blocks} blocks (entities " + ", ".join(map(str, out["blocks"]))
+        + f"), largest x-stack {manifest.max_block_bytes} B against the budget {budget} B; "
+        f"streaming update peak {inc} B above its start ({inc / budget:.2f}x the budget) "
+        f"against the in-memory update's {c_peak[0]} B ({c_peak[0] / max(inc, 1):.1f}x the "
+        f"streaming one's); GEVM launches {l1['gevm']}")
+    want = tree_bytes(os.path.join(dir1, "best"))
+    _, r0, dir0, _ = run("depth 0", GAME_FLAGS, {"PHOTON_PREFETCH_DEPTH": "0"})
+    check(tree_bytes(os.path.join(dir0, "best")) == want,
+          "(b) the depth-0 run's model bytes differ from the pipelined run's")
+    _, rs, dirs, ls = run("compacted", GAME_FLAGS + ["--solve-compaction", str(SCHED_CHUNK)])
+    check(tree_bytes(os.path.join(dirs, "best")) == want,
+          "(b) the --solve-compaction run's model bytes differ from the one-shot run's")
+    say("  (b) PHOTON_PREFETCH_DEPTH=0 and --solve-compaction 8: model bytes equal to the "
+        f"pipelined one-shot run's (GEVM launches compacted {ls['gevm']})")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = base + ["--output-dir", os.path.join(workdir, "out22b-stopped"),
+                   "--checkpoint-dir", os.path.join(workdir, "ck22b")] + GAME_FLAGS
+    env = dict(os.environ, PHOTON_SPARSE_KERNEL="pallas",
+               PHOTON_PREEMPT_AT=f"block:{STREAM_BLOCK_STOP}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.game_training_driver",
+                           *argv], cwd=here, env=env, capture_output=True, text=True,
+                          timeout=600)
+    sub_s = time.perf_counter() - t0
+    check(proc.returncode == 75, f"(b) the subprocess stopped at block {STREAM_BLOCK_STOP} "
+                                 f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    preemption.reset()
+    # a new process resumes into an output dir of its own: the stopped run's
+    # dir keeps the spilled state the checkpoint refers to by reference
+    resumed_dir = os.path.join(workdir, "out22b-resumed")
+    argv[argv.index("--output-dir") + 1] = resumed_dir
+    resumed, wall_r, _, _, _ = run_game_training(torch, fused_sparse, argv, "pallas")
+    check(tree_bytes(os.path.join(resumed_dir, "best")) == want,
+          "(b) the run resumed from a block boundary wrote other model bytes")
+    check(resumed.results[0][1].objective_history == r1.objective_history,
+          "(b) the resumed objective history differs")
+    say(f"  (b) a subprocess stopped at block boundary {STREAM_BLOCK_STOP} exited 75 after "
+        f"{sub_s:.2f} s; resumed in {wall_r:.2f} s: model bytes and objective history equal")
+    out.update(subprocess_s=sub_s, resume_s=wall_r)
+    say("  (b) both sparse kernels on every block's slab")
+    out["max_abs_err"] = (hold_block_slabs(torch, fused_sparse, manifest, "(b)")
+                          if dev == "cuda" else {"gevm": 0.0, "hvp": 0.0})
+    out["gevm_launches"] = l1["gevm"]
+    return out
+
+
+def phase_cache_game(torch, fused_sparse, workdir, dev="cuda"):
+    """Phase 22 (c), on phase 10's data: phase 10's command with
+    --tensor-cache cold, then warm; the warm run never calls
+    read_game_data on the training files (counted) and writes the cold
+    run's model bytes; the preprocess spans of both."""
+    from photon_ml_tpu_torch.io import avro_data
+
+    say("== phase 22 (c): phase 10's command with --tensor-cache, cold then warm")
+    cache = os.path.join(workdir, "tcache22c")
+    real = avro_data.read_game_data
+    calls = []
+
+    def counted(files, *a, **kw):
+        calls.append(len(files))
+        return real(files, *a, **kw)
+
+    out = {}
+    avro_data.read_game_data = counted
+    try:
+        for label in ("cold", "warm"):
+            calls.clear()
+            d = os.path.join(workdir, f"out22c-{label}")
+            argv = ["--train-input-dirs", os.path.join(workdir, "train"),
+                    "--validate-input-dirs", os.path.join(workdir, "validate"),
+                    "--output-dir", d, "--device", dev, "--tensor-cache", cache] + GAME_FLAGS
+            driver, wall, launches, stages, _ = run_game_training(torch, fused_sparse, argv,
+                                                                  "pallas")
+            tot = driver.timer.totals
+            out[label] = {"wall_s": wall, "stages_s": stages, "read_game_data_calls": len(calls),
+                          "spans_s": {k: tot[k] for k in ("prepare-feature-maps",
+                                                          "read-train-data",
+                                                          "build-random-effect-datasets")}}
+            say(_run_line(f"(c) {label}", driver, wall, launches, stages)
+                + "; preprocess spans " + ", ".join(f"{k} {v:.2f} s"
+                                                    for k, v in out[label]["spans_s"].items())
+                + f"; read_game_data calls {len(calls)}")
+            out[label]["dir"] = d
+    finally:
+        avro_data.read_game_data = real
+    check(out["cold"]["read_game_data_calls"] == 2 and out["warm"]["read_game_data_calls"] == 1,
+          f"(c) read_game_data calls cold {out['cold']['read_game_data_calls']}, warm "
+          f"{out['warm']['read_game_data_calls']} (the warm run reads only the validation files)")
+    check(tree_bytes(os.path.join(out["warm"]["dir"], "best"))
+          == tree_bytes(os.path.join(out["cold"]["dir"], "best")),
+          "(c) the warm run's model bytes differ from the cold run's")
+    say(f"  (c) warm run: training files never decoded, model bytes equal; preprocess "
+        f"{out['warm']['stages_s']['preprocess']:.2f} s against the cold "
+        f"{out['cold']['stages_s']['preprocess']:.2f} s")
+    return out
+
+
 # depth cut for the call's time limit, every check kept
 CUTS = [
     f"phase 17: phase 10's generator and widths at {CHECKPOINT_USERS} users, not "
-    f"{GAME_USERS}",
+    f"{GAME_USERS} (4000 before phase 22 was added)",
     "phase 17: specs scatter and auto run the uninterrupted and the stopped-and-resumed pair "
     "only; --checkpoint-async and --max-restarts run under spec pallas alone",
-    "phase 16: one card run at 20000 users (timings); the byte-equal pair of card runs and "
-    f"the card and CPU pair at {WIDE_CPU_USERS} users",
+    f"phase 16: one card run at {WIDE_USERS} users (timings), not 20000; the byte-equal pair "
+    f"of card runs and the card and CPU pair at {WIDE_CPU_USERS} users, not 4000",
+    f"phase 20 (f) and phase 21 (d)-(e): {SKEW_SMALL_USERS} users, not 4000",
+    "phase 18 (b): the card-against-CPU pair of ALL + TRON + box runs on the first quarter of "
+    "phase 6's training rows; the two byte-equal card runs keep every row",
     "phase 17: only spec pallas stops a subprocess (exit 75); under scatter and auto the "
     "stopped run is in-process (SystemExit 75), auto's with its race caches emptied first",
     f"phase 21 (d): the --adaptive-schedule runs at {SKEW_SMALL_USERS} users (phase 20 (f)'s "
@@ -3629,8 +4151,10 @@ def main() -> None:
     times = timed("4", phase_times, torch, fused_glm, losses)
     grid_launches = timed("5", phase_train_grid, torch, fused_glm, times["bfloat16"]["graph_ms"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        driver_launches = timed("6", phase_driver, torch, fused_glm, workdir)
+        driver_launches, driver6 = timed("6", phase_driver, torch, fused_glm, workdir)
         glm_diag = timed("18", phase_glm_diagnostics, torch, fused_glm, workdir)
+        stream_glm = timed("22a", phase_streaming_glm, torch, fused_glm, workdir, driver6)
+        del driver6
     sparse_err = timed("7", phase_sparse_vs_plain, torch, fused_sparse, losses)
     sparse_times = timed("8", phase_sparse_times, torch, fused_sparse, losses)
     re_runs = timed("9", phase_re_solve, torch, fused_sparse, sparse_times["full width"])
@@ -3642,6 +4166,7 @@ def main() -> None:
         timed("14", phase_random_projection, torch, trained)
         checkpoints = timed("17", phase_checkpoints, torch, fused_sparse, workdir)
         game_grid = timed("19ab", phase_game_grid, torch, fused_sparse, workdir)
+        cache_game = timed("22c", phase_cache_game, torch, fused_sparse, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as workdir:
         sparse_glm = timed("15", phase_sparse_glm, torch, fused_sparse, losses, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as workdir:
@@ -3651,6 +4176,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bucketed_") as workdir:
         bucketed = timed("20", phase_bucketed, torch, fused_sparse, workdir)
         scheduler = timed("21", phase_scheduler, torch, fused_sparse, workdir, bucketed)
+        dense_bits = timed("21f", phase_dense_stack_bits, torch)
+        stream_game = timed("22b", phase_streaming_game, torch, fused_sparse, workdir,
+                            bucketed.pop("_inmemory"))
     say(f"  -- the whole call {time.perf_counter() - start:.1f} s")
 
     bf16 = times["bfloat16"]
@@ -3710,13 +4238,15 @@ def main() -> None:
             "launches_full_game": {k: v[key] for k, v in full_game["launches"].items()},
             "launches_bucketed": {k: v["launches"][key] for k, v in bucketed["runs"].items()},
             "launches_scheduler": scheduler["launches"][key],
+            "launches_streaming_game": stream_game["runs"]["streaming"]["launches"][key],
             # replays launch through their graphs, not the wrappers: phase 21
             # (a)'s traced device-loop solve, by torch.profiler
             "launches_device_loop_traced": {
                 opt: scheduler["solve"][opt]["device"]["trace"]["traced"][key]
                 for opt in scheduler["solve"]},
             "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key],
-                               bucketed["max_abs_err"][key], scheduler["max_abs_err"][key]),
+                               bucketed["max_abs_err"][key], scheduler["max_abs_err"][key],
+                               stream_game["max_abs_err"][key]),
             "ms": t["ms"],
             "graph_ms": t["graph_ms"],
             "host_ms": t["host_ms"],
@@ -3735,7 +4265,8 @@ def main() -> None:
     say(json.dumps({"sparse_fixed_effect": sparse_glm, "game_wide_fixed": wide,
                     "checkpoints": checkpoints, "glm_diagnostics": glm_diag,
                     "game_grid": game_grid, "full_game": full_game, "bucketed": bucketed,
-                    "scheduler": scheduler,
+                    "scheduler": scheduler, "dense_stack_bits": dense_bits,
+                    "streaming": {"glm": stream_glm, "game": stream_game, "cache": cache_game},
                     "phase_walls_s": walls, "cuts": CUTS, "card": card}, default=str))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))

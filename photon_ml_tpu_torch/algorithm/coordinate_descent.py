@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from photon_ml_tpu_torch.checkpoint import CheckpointState
+from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.resilience import faults, preemption
 from photon_ml_tpu_torch.resilience.guards import DivergenceGuard, GuardEvent
 from photon_ml_tpu_torch.types import real_dtype
@@ -105,7 +106,12 @@ class CoordinateDescent:
                 else self.coordinates[n].initial_coefficients())
             for n in names
         }
-        device = _leaves(next(iter(params.values())))[0].device
+        # the first tensor leaf; when every state is a handle (streaming
+        # coordinates), the device the first coordinate solves on
+        device = next((t.device for v in params.values() for t in _leaves(v)
+                       if isinstance(t, Tensor)), None)
+        if device is None:
+            device = resolve_device(getattr(next(iter(self.coordinates.values())), "device", None))
         zeros = lambda: torch.zeros((num_rows,), dtype=real_dtype(), device=device)
         scores = {n: zeros() for n in names}
         if initial_params is not None:

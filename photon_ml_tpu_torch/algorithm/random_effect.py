@@ -143,6 +143,9 @@ class RandomEffectCoordinate:
     # convergence-compaction schedule (optim.scheduler.SolveSchedule, None =
     # one-shot): chunked solves whose converged lanes stop riding along
     solve_schedule: Optional[object] = None
+    # a slab built elsewhere (the streaming coordinate's per-block one),
+    # taken as it is; None builds one here when the spec asks for it
+    sparse_slab: Optional[fused_sparse.SparseSlab] = None
 
     def __post_init__(self):
         if self.optimizer_config is None:
@@ -151,12 +154,12 @@ class RandomEffectCoordinate:
                 if self.optimizer == OptimizerType.TRON
                 else OptimizerConfig.lbfgs_default()
             )
-        self.slab: Optional[fused_sparse.SparseSlab] = None
+        self.slab: Optional[fused_sparse.SparseSlab] = self.sparse_slab
         # the device loop's captured rung programs, keyed by this
         # coordinate's own tensors (optim/fused_schedule.py)
         self._graphs: dict = {}
         spec = fused_sparse.resolve_sparse_kernel(self.sparse_kernel)
-        if spec is not None and self.dataset.projection_matrix is None:
+        if self.slab is None and spec is not None and self.dataset.projection_matrix is None:
             ds = self.dataset
             # None: the race handed the dataset back to the dense incumbent
             self.slab = fused_sparse.build_and_select(

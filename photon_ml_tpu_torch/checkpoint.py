@@ -27,10 +27,15 @@ commit on a background thread. ``CheckpointState.partial`` carries a
 drain inside an update (the solve scheduler's ``kind="scheduler"``
 snapshot, or the bucketed coordinate's ``"bucketed_re"`` progress) as
 ``partial.*`` arrays and the ``partial`` meta, as the JAX package lays it
-out; a restore hands it back. The JAX package's by-reference leaves
-(spilled streaming state), the streaming coordinates' payloads, multihost
-restore agreement and plan-versioned elastic restore are not yet ported:
-meeting one raises.
+out; a restore hands it back (the streaming random effect's
+``"streaming_re"`` block progress too). A leaf with the by-reference
+protocol (``__checkpoint_ref__`` / ``__checkpoint_from_ref__``: the
+streaming coordinate's spilled state, already durable on disk) is stored
+as a JSON ref in the structure instead of arrays; a ref that cannot be
+rebuilt (a spill dir written and since removed) raises
+:class:`CheckpointRefError`, and restore falls back to an older step. The
+multihost restore agreement and the plan-versioned elastic restore are not
+yet ported.
 """
 
 from __future__ import annotations
@@ -89,8 +94,6 @@ def _flatten(value: Any) -> Tuple[List[Any], str]:
             children, aux = v.tree_flatten()
             return (f"CustomNode({type(v).__name__}[{aux}], ["
                     + ", ".join(walk(x) for x in children) + "])")
-        if hasattr(v, "__checkpoint_ref__"):
-            raise _not_ported("a by-reference checkpoint leaf (spilled streaming state)")
         leaves.append(v)
         return "*"
 
@@ -112,6 +115,26 @@ def _unflatten(template: Any, leaves: List[Any]) -> Any:
         return next(it)
 
     return build(template)
+
+
+class CheckpointRefError(ValueError):
+    """A by-reference leaf could not be rebuilt (wrong kind, stale ref);
+    restore treats the step as unusable and falls back."""
+
+
+def _is_ref_leaf(x: Any) -> bool:
+    return hasattr(x, "__checkpoint_ref__")
+
+
+def rebuild_from_ref(template: Any, ref: Any) -> Any:
+    """A by-reference leaf rebuilt from its stored JSON ref through the
+    template leaf's ``__checkpoint_from_ref__``."""
+    if not hasattr(template, "__checkpoint_from_ref__"):
+        raise CheckpointRefError(
+            f"cannot rebuild {type(template).__name__} from a reference: "
+            "the template has no __checkpoint_from_ref__"
+        )
+    return template.__checkpoint_from_ref__(ref)
 
 
 def _leaf_to_host(leaf: Any) -> Tuple[np.ndarray, Optional[str]]:
@@ -137,8 +160,12 @@ def _flatten_state(state: Dict[str, Any]):
     dtypes: Dict[str, str] = {}
     for name, value in state.items():
         leaves, treedef = _flatten(value)
-        structure[name] = {"num_leaves": len(leaves), "treedef": treedef, "refs": {}}
+        refs: Dict[str, Any] = {}
+        structure[name] = {"num_leaves": len(leaves), "treedef": treedef, "refs": refs}
         for i, leaf in enumerate(leaves):
+            if _is_ref_leaf(leaf):
+                refs[str(i)] = leaf.__checkpoint_ref__()
+                continue
             arrays[f"{name}.{i}"], dtype = _leaf_to_host(leaf)
             if dtype is not None:
                 dtypes[f"{name}.{i}"] = dtype
@@ -165,9 +192,16 @@ def _unflatten_state(template: Dict[str, Any], arrays: Dict[str, np.ndarray],
                 f"checkpoint entry {name!r} structure {structure[name]['treedef']} "
                 f"does not match template {treedef}; refusing to resume"
             )
-        if structure[name].get("refs"):
-            raise _not_ported("restoring a by-reference checkpoint leaf")
+        refs = structure[name].get("refs") or {}
         for i, leaf in enumerate(leaves):
+            if str(i) in refs:
+                if not _is_ref_leaf(leaf):
+                    raise CheckpointRefError(
+                        f"checkpoint entry {name!r} leaf {i} was saved by "
+                        "reference but the template leaf has no "
+                        "__checkpoint_from_ref__ — coordinate types changed"
+                    )
+                continue
             # the same structure with other shapes (a bucketed coordinate
             # whose buckets were rebuilt differently) would train the wrong
             # entities from the restored stacks
@@ -178,6 +212,7 @@ def _unflatten_state(template: Dict[str, Any], arrays: Dict[str, np.ndarray],
                     f"state {want}; refusing to resume"
                 )
         out[name] = _unflatten(value, [
+            rebuild_from_ref(leaf, refs[str(i)]) if str(i) in refs else
             _leaf_from_host(arrays[f"{name}.{i}"], dtypes.get(f"{name}.{i}"), leaf)
             for i, leaf in enumerate(leaves)
         ])
@@ -225,7 +260,7 @@ class CheckpointState:
 
 
 #: the mid-coordinate payload kinds a restore hands back to a coordinate
-RESUMABLE_PARTIALS = ("scheduler", "bucketed_re")
+RESUMABLE_PARTIALS = ("scheduler", "bucketed_re", "streaming_re")
 
 
 class CoordinateDescentCheckpointer:
@@ -384,10 +419,15 @@ class CoordinateDescentCheckpointer:
                 partial = {"meta": partial_meta,
                            "arrays": {k[len("partial."):]: arrays.pop(k) for k in list(arrays)
                                       if k.startswith("partial.")}}
-            restored = _unflatten_state(
-                {"params": params_template, "scores": scores_template, "total": total_template},
-                arrays, meta["structure"], meta.get("dtypes") or {},
-            )
+            try:
+                restored = _unflatten_state(
+                    {"params": params_template, "scores": scores_template,
+                     "total": total_template},
+                    arrays, meta["structure"], meta.get("dtypes") or {},
+                )
+            except CheckpointRefError as e:
+                logger.warning("skipping unrestorable checkpoint %s: %s", path, e)
+                continue
             return CheckpointState(
                 step=int(meta["step"]),
                 params=restored["params"],

@@ -18,8 +18,10 @@ The training parser takes every flag of the JAX driver under the same name,
 plus ``--device`` (default ``cuda``). Grid alternatives are ';'-separated
 (``config_grid`` is their Cartesian product). ``validate`` rejects, naming
 the flag, every flag whose code path is not yet ported when it is set away
-from its default: streaming random effects, the fused cycle, the mesh,
-the caches, warm starts, the planner and the rest listed in ``_FENCED``.
+from its default: the fused cycle, the mesh, the persistent cache, warm
+starts, the planner and the rest listed in ``_FENCED``. Streaming random
+effects (``--streaming-random-effects``, ``--re-memory-budget-mb``, which
+implies it) and ``--tensor-cache`` run.
 ``--solve-compaction`` and ``--adaptive-schedule`` are checked through the
 execution plan (compile/plan.py), as the JAX parser checks them. The scoring parser takes every flag of the JAX
 scoring driver, plus ``--device``.
@@ -286,6 +288,12 @@ class GameTrainingParams:
     # size-bucketed per-entity solves (algorithm/bucketed_random_effect):
     # per-bucket padding on skewed entity distributions
     bucketed_random_effects: bool = False
+    # out-of-core random effects (algorithm/streaming_random_effect.py): the
+    # entity blocks stream from disk, sized by the budget (MB) when given
+    streaming_random_effects: bool = False
+    re_memory_budget_mb: Optional[float] = None
+    # content-addressed cache of built ingest tensors (io/tensor_cache.py)
+    tensor_cache_dir: Optional[str] = None
     # canonical shape ladder (compile/canonical.py): "off" | "on" |
     # "BASE:GROWTH"; each bucket's dims round up a geometric ladder with
     # masked padding
@@ -305,6 +313,8 @@ class GameTrainingParams:
 
     def validate(self) -> None:
         errors = []
+        if self.re_memory_budget_mb is not None and self.re_memory_budget_mb <= 0:
+            errors.append("--re-memory-budget-mb must be positive")
         # bools are accepted from programmatic construction
         if isinstance(self.vmapped_grid, bool):
             self.vmapped_grid = "true" if self.vmapped_grid else "false"
@@ -377,7 +387,7 @@ class GameTrainingParams:
             ExecutionPlan.resolve(
                 shape_canonicalization=ladder_spec, solve_compaction=compaction_spec,
                 adaptive_schedule=adaptive_spec, bucketed=self.bucketed_random_effects,
-                vmapped_grid=self.vmapped_grid)
+                vmapped_grid=self.vmapped_grid, streaming=self.streaming_random_effects)
         except ValueError as e:
             errors.append(str(e))
         errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
@@ -413,9 +423,6 @@ def _io_errors(params) -> List[str]:
 _FENCED = {
     "--distributed": "false",
     "--fused-cycle": "false",
-    "--streaming-random-effects": "false",
-    "--re-memory-budget-mb": None,
-    "--tensor-cache": None,
     "--persistent-cache": None,
     "--warm-start-from": None,
     "--export-serve-store": None,
@@ -491,6 +498,17 @@ def build_training_parser() -> argparse.ArgumentParser:
     a("--bucketed-random-effects", default="false",
       help="size-bucketed per-entity solves: entities grouped by sample count, "
            "each bucket padded only to its own largest entity")
+    a("--streaming-random-effects", default="false",
+      help="out-of-core random effects: entity blocks written once to disk "
+           "stream through the solve, one block resident (two while the next "
+           "one's copy is in flight)")
+    a("--re-memory-budget-mb", default=None,
+      help="cap the resident random-effect block slab (MB); implies "
+           "--streaming-random-effects")
+    a("--tensor-cache", dest="tensor_cache_dir", default=None,
+      help="content-addressed on-disk cache of built ingest tensors (keyed by "
+           "source file stats + ingest config): warm runs skip the Avro decode, "
+           "grouping and padding; any input or config change is a miss")
     a("--shape-canonicalization", default="off",
       help="canonical shape ladder: off | on | BASE:GROWTH (e.g. 8:2); every "
            "bucket's dims round up a geometric ladder with masked padding")
@@ -580,6 +598,11 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         vmapped_grid=("auto" if str(ns.vmapped_grid).lower() == "auto"
                       else "true" if _truthy(ns.vmapped_grid) else "false"),
         bucketed_random_effects=_truthy(ns.bucketed_random_effects),
+        streaming_random_effects=(_truthy(ns.streaming_random_effects)
+                                  or ns.re_memory_budget_mb is not None),
+        re_memory_budget_mb=(float(ns.re_memory_budget_mb)
+                             if ns.re_memory_budget_mb is not None else None),
+        tensor_cache_dir=ns.tensor_cache_dir,
         shape_canonicalization=ns.shape_canonicalization,
         solve_compaction=ns.solve_compaction,
         adaptive_schedule=ns.adaptive_schedule,

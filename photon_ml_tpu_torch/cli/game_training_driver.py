@@ -33,11 +33,20 @@ grid through ``CoordinateDescent.run_grid`` on coordinates built once.
 (``device[:CHUNK]``: the rung loop, captured CUDA graphs on the card) and
 ``--adaptive-schedule`` skips converged buckets, both resolved once by the
 execution plan (compile/plan.py); the run logs the capture and solve
-ledgers. ``--checkpoint-dir`` saves the descent after every coordinate update (every
+ledgers. ``--streaming-random-effects true`` writes each random effect's
+entity blocks once under ``<output>/streaming-re/<coord>`` (sized by
+``--re-memory-budget-mb``, else 1024 entities a block) and streams them
+through the pipelined block loop (algorithm/streaming_random_effect.py);
+its state is spilled to ``<output>/streaming-re-state/``. ``--tensor-cache
+DIR`` keeps the decoded training columns, each in-memory random-effect
+dataset and each coordinate's entity blocks in a content-addressed cache
+(io/tensor_cache.py, the JAX package's keys and layout): a warm run skips
+the Avro decode (the feature-key scan still runs) and the builds. ``--checkpoint-dir`` saves the descent after every coordinate update (every
 iteration on the grid path) and resumes from it; a preemption (SIGTERM/
 SIGINT, ``PHOTON_PREEMPT_AT``) drains to the next boundary (inside a scheduled
 update: its chunk, rung or bucket boundary), then relaunches
-in-process (``--max-restarts``) or exits with code 75. The run leaves
+in-process (``--max-restarts``) or exits with code 75 (a streaming update
+drains at its block boundaries too). The run leaves
 ``retrain.json`` at the output root, as the JAX driver does.
 
     python -m photon_ml_tpu_torch.cli.game_training_driver \\
@@ -83,6 +92,11 @@ from photon_ml_tpu_torch.algorithm.random_effect import (
     RandomEffectCoordinate,
     global_coefficients,
 )
+from photon_ml_tpu_torch.algorithm.streaming_random_effect import (
+    SpilledREState,
+    StreamingRandomEffectCoordinate,
+    write_re_entity_blocks,
+)
 from photon_ml_tpu_torch.checkpoint import CoordinateDescentCheckpointer, fingerprint
 from photon_ml_tpu_torch.checkpoint_async import maybe_async
 from photon_ml_tpu_torch.compile import compile_stats
@@ -96,6 +110,8 @@ from photon_ml_tpu_torch.data.game import (
     GameData,
     build_fixed_effect_batch,
     build_random_effect_dataset,
+    game_data_from_arrays,
+    game_data_to_arrays,
     padded_row_coo,
 )
 from photon_ml_tpu_torch.device import enable_determinism, resolve_device
@@ -224,7 +240,8 @@ class GameTrainingDriver:
             solve_compaction=params.solve_compaction,
             adaptive_schedule=params.adaptive_schedule,
             bucketed=params.bucketed_random_effects,
-            vmapped_grid=params.vmapped_grid)
+            vmapped_grid=params.vmapped_grid,
+            streaming=params.streaming_random_effects)
         self.bucketer = self.plan.bucketer
         self.solve_schedule = self.plan.schedule
         self._race_mark = len(fused_glm.race_log)  # where this run's race decisions start
@@ -239,6 +256,12 @@ class GameTrainingDriver:
         self.re_datasets: Dict[str, object] = {}
         # bucketed coordinates' per-bucket datasets, built once, shared by combos
         self.bucketed_bundles: Dict[str, BucketedDatasetBundle] = {}
+        # --streaming-random-effects: each coordinate's entity-block layout
+        self.streaming_manifests: Dict[str, object] = {}
+        self._stream_state_seq = 0
+        # tensor-cache keys for retrain.json
+        self._coord_cache_keys: Dict[str, Optional[str]] = {}
+        self._data_cache_key: Optional[str] = None
         self.fe_batches: Dict[str, object] = {}
         # (config map, CoordinateDescentResult, final validation metrics)
         self.results: List[Tuple[Dict[str, CoordinateOptConfig], CoordinateDescentResult,
@@ -302,16 +325,101 @@ class GameTrainingDriver:
         ids |= {id_name for _, _, id_name in self.params.evaluators if id_name}
         return sorted(ids)
 
+    def _tensor_cache(self):
+        """The --tensor-cache store (made on first use), or None."""
+        if not self.params.tensor_cache_dir:
+            return None
+        if not hasattr(self, "_tensor_cache_obj"):
+            from photon_ml_tpu_torch.io.tensor_cache import TensorCache
+
+            self._tensor_cache_obj = TensorCache(self.params.tensor_cache_dir)
+        return self._tensor_cache_obj
+
+    def _ingest_cache_config(self) -> Dict[str, object]:
+        """The ingest part of every tensor-cache key (the JAX driver's
+        fields): anything that changes the decoded columns, the feature
+        index assignment or the padded shapes changes the key."""
+        p = self.params
+        return {
+            "sections": p.feature_shard_sections,
+            "intercepts": p.feature_shard_intercepts,
+            "id_types": self._id_types(),
+            "ladder": self.bucketer.spec() if self.bucketer is not None else None,
+            "index_maps": {shard: index_map_digest(imap)
+                           for shard, imap in sorted(self.shard_index_maps.items())},
+        }
+
+    def _next_stream_state_seq(self) -> int:
+        self._stream_state_seq += 1
+        return self._stream_state_seq
+
+    def _read_train_data(self, train_files: List[str]) -> None:
+        """The training columns: a tensor-cache hit, or the Avro decode
+        (then stored when a cache is set)."""
+        p = self.params
+        cache = self._tensor_cache()
+        train_key = (cache.key_for(train_files, {"kind": "game_data",
+                                                 **self._ingest_cache_config()})
+                     if cache is not None else None)
+        self._data_cache_key = train_key
+        hit = cache.get(train_key) if cache is not None else None
+        if hit is not None:
+            self.train_data = game_data_from_arrays(hit.arrays, hit.meta)
+            self.logger.info(f"tensor cache HIT {train_key[:12]}: Avro decode skipped")
+            return
+        self.train_data = avro_data.read_game_data(
+            train_files, self.shard_index_maps,
+            p.feature_shard_sections, self._id_types(),
+            shard_intercepts=p.feature_shard_intercepts or None,
+        )
+        if cache is not None:
+            from photon_ml_tpu_torch.resilience import RetryError
+
+            try:
+                arrays, meta = game_data_to_arrays(self.train_data)
+                cache.put(train_key, arrays, meta)
+                self.logger.info(f"tensor cache stored {train_key[:12]}")
+            except RetryError as e:
+                self.logger.info(f"tensor cache write failed (uncached): {e}")
+
+    def _write_streaming_blocks(self, name: str, cfg, train_files: List[str]) -> None:
+        """Write coordinate ``name``'s entity blocks once (each built and
+        released in turn); every combo streams the same blocks."""
+        p = self.params
+        cache = self._tensor_cache()
+        budget = int(p.re_memory_budget_mb * 1e6) if p.re_memory_budget_mb is not None else None
+        block_key = (cache.key_for(train_files, {
+            "kind": "streaming_re_blocks", "coord": name, "config": dataclasses.asdict(cfg),
+            "budget": budget, **self._ingest_cache_config()}) if cache is not None else None)
+        self._coord_cache_keys[name] = block_key
+        manifest = write_re_entity_blocks(
+            self.train_data, cfg, os.path.join(p.output_dir, "streaming-re", name),
+            # `is None`, not falsy: a zero budget must not pass both sizing modes
+            block_entities=None if budget is not None else 1024,
+            memory_budget_bytes=budget, bucketer=self.bucketer or "off",
+            tensor_cache=cache, cache_key=block_key)
+        self.streaming_manifests[name] = manifest
+        self.logger.info(f"streaming RE {name}: {len(manifest.blocks)} blocks, max resident "
+                         f"slab {manifest.max_block_bytes}B")
+
+    def _cached_re_dataset(self, name: str, cfg, train_files: List[str]):
+        """An in-memory random-effect dataset through the tensor cache."""
+        cache = self._tensor_cache()
+        re_key = (cache.key_for(train_files, {"kind": "re_dataset", "coord": name,
+                                              "config": dataclasses.asdict(cfg),
+                                              **self._ingest_cache_config()})
+                  if cache is not None else None)
+        self._coord_cache_keys[name] = re_key
+        return build_random_effect_dataset(self.train_data, cfg, device=self.device,
+                                           tensor_cache=cache, cache_key=re_key)
+
     def prepare_datasets(self) -> None:
         """Read the training (and validation) rows, then build each
         coordinate's tensors on the device; each step is a timer span."""
         p = self.params
+        train_files = _input_files(self._train_dirs())
         with self.timer.measure("read-train-data"):
-            self.train_data = avro_data.read_game_data(
-                _input_files(self._train_dirs()), self.shard_index_maps,
-                p.feature_shard_sections, self._id_types(),
-                shard_intercepts=p.feature_shard_intercepts or None,
-            )
+            self._read_train_data(train_files)
         self.logger.info(f"training rows: {self.train_data.num_rows}")
         if p.validate_input_dirs:
             with self.timer.measure("read-validation-data"):
@@ -330,6 +438,9 @@ class GameTrainingDriver:
                 )
         with self.timer.measure("build-random-effect-datasets"):
             for name, cfg in p.random_effect_data_configs.items():
+                if p.streaming_random_effects and name not in p.factored_configs:
+                    self._write_streaming_blocks(name, cfg, train_files)
+                    continue
                 if p.bucketed_random_effects and name not in p.factored_configs:
                     # a bucketed coordinate owns per-bucket stacks: the one
                     # globally padded stack is what bucketing avoids
@@ -343,9 +454,7 @@ class GameTrainingDriver:
                 if name in p.factored_configs and cfg.projector != "IDENTITY":
                     # the factored coordinate factors the unprojected dataset
                     cfg = dataclasses.replace(cfg, projector="IDENTITY")
-                self.re_datasets[name] = build_random_effect_dataset(
-                    self.train_data, cfg, device=self.device
-                )
+                self.re_datasets[name] = self._cached_re_dataset(name, cfg, train_files)
 
     def _dense(self, shard: str) -> bool:
         """A fixed-effect shard's layout: dense up to the threshold."""
@@ -390,6 +499,23 @@ class GameTrainingDriver:
                     latent_optimizer=spec.latent_factor.optimizer,
                     latent_optimizer_config=spec.latent_factor.optimizer_config(),
                     latent_regularization=spec.latent_factor.regularization_context(),
+                )
+            elif name in self.streaming_manifests:
+                coords[name] = StreamingRandomEffectCoordinate(
+                    manifest=self.streaming_manifests[name],
+                    task=p.task_type,
+                    optimizer=cfg.optimizer,
+                    optimizer_config=cfg.optimizer_config(),
+                    regularization=cfg.regularization_context(),
+                    # the plan carries the schedule, sparse spec and prefetch depth
+                    plan=self.plan,
+                    device=self.device,
+                    # spilled state under this run's output dir, never in a
+                    # (possibly shared, cache-resident) manifest dir; one per
+                    # coordinate instance, so grid combos never share one
+                    state_root=os.path.join(
+                        p.output_dir, "streaming-re-state",
+                        f"{name}-{os.getpid()}-{self._next_stream_state_seq()}"),
                 )
             elif name in self.bucketed_bundles:
                 coords[name] = BucketedRandomEffectCoordinate(
@@ -466,7 +592,8 @@ class GameTrainingDriver:
                 vocab_ids = vdata.ids[cfg.random_effect_id]
                 safe_vid = np.maximum(vocab_ids, 0)
                 coord = coords.get(name)
-                if isinstance(coord, BucketedRandomEffectCoordinate):
+                if isinstance(coord, (BucketedRandomEffectCoordinate,
+                                      StreamingRandomEffectCoordinate)):
                     # each validation row's position in the concatenated
                     # stacks: the bucket's offset + the position within it
                     bucket_of, pos_in_bucket = coord.vocab_position_maps()
@@ -488,7 +615,8 @@ class GameTrainingDriver:
                     total = total + fe_feats[name].matvec(w)
                     continue
                 cols, vals, ent_pos = re_info[name]
-                if isinstance(w, tuple):  # bucketed: gather from the concatenated stacks
+                if isinstance(w, (tuple, SpilledREState)):
+                    # bucketed or streaming: gather from the concatenated stacks
                     wg = torch.cat(coords[name].global_coefficient_stacks(w), dim=0)
                 elif isinstance(w, FactoredState):
                     # a factored coordinate's IDENTITY local space is the global one
@@ -584,6 +712,8 @@ class GameTrainingDriver:
         p = self.params
         if len(combos) < 2:
             return "grid has a single combo"
+        if p.streaming_random_effects:
+            return "--streaming-random-effects (host streaming cannot vmap)"
         if p.bucketed_random_effects:
             return "--bucketed-random-effects (static per-bucket lambdas)"
         if p.factored_configs:
@@ -703,7 +833,8 @@ class GameTrainingDriver:
             """1/H_jj at the final state, with --compute-variance; the
             residual is the total minus this coordinate's own score."""
             if (not p.compute_variance or combo_index is None or name in p.factored_configs
-                    or isinstance(coeffs, tuple)):  # a bucketed coordinate exports its own
+                    or isinstance(coeffs, (tuple, SpilledREState))):
+                # a bucketed or streaming coordinate exports its own
                 return None
             cfg = p.random_effect_data_configs.get(name)
             if cfg is not None and cfg.projector == "RANDOM":
@@ -728,7 +859,7 @@ class GameTrainingDriver:
                 )
                 continue
             cfg = p.random_effect_data_configs[name]
-            if isinstance(coeffs, tuple):  # bucketed
+            if isinstance(coeffs, (tuple, SpilledREState)):  # bucketed or streaming
                 coord = self.combo_coords[combo_index][name]
                 resid = None
                 if p.compute_variance and combo_index is not None:
@@ -832,6 +963,10 @@ class GameTrainingDriver:
     def _log_run_summaries(self) -> None:
         self.logger.info(self.timer.summary())
         self.logger.info(compile_stats.summary())
+        if self.params.tensor_cache_dir:
+            from photon_ml_tpu_torch.io.tensor_cache import cache_stats
+
+            self.logger.info(cache_stats.summary())
         if self.solve_schedule is not None or self.plan.adaptive is not None:
             self.logger.info(solve_stats.summary())
         if self.plan.adaptive is not None:
@@ -893,6 +1028,8 @@ class GameTrainingDriver:
                 return "fixed"
             if name in p.factored_configs:
                 return "factored"
+            if name in self.streaming_manifests:
+                return "streaming_random"
             return "bucketed" if p.bucketed_random_effects else "random"
 
         def ledger(name: str) -> Optional[dict]:
@@ -904,9 +1041,13 @@ class GameTrainingDriver:
             return (export() or None) if callable(export) else None
 
         coords = {
-            name: CoordinateRecord(kind=kind(name),
-                                   opt_config=str(selected.get(name, CoordinateOptConfig())),
-                                   convergence_ledger=ledger(name))
+            name: CoordinateRecord(
+                kind=kind(name),
+                opt_config=str(selected.get(name, CoordinateOptConfig())),
+                cache_key=self._coord_cache_keys.get(name),
+                streaming_manifest_dir=(os.path.abspath(self.streaming_manifests[name].dir)
+                                        if name in self.streaming_manifests else None),
+                convergence_ledger=ledger(name))
             for name in p.updating_sequence
         }
         manifest = RetrainManifest(
@@ -918,6 +1059,7 @@ class GameTrainingDriver:
             ingest_digest=self._ingest_digest(),
             updating_sequence=list(p.updating_sequence),
             coordinates=coords,
+            data_cache_key=self._data_cache_key,
             eval_identity=self._eval_identity(),
         )
         self.logger.info(f"retrain manifest written: {manifest.save(p.output_dir)}")

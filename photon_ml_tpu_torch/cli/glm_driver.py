@@ -10,8 +10,12 @@ the warm-started lambda grid (box constraints from
 selects the best lambda, diagnose (``--diagnostic-mode``) writes
 ``model-diagnostic.html`` and the ``diagnostics/`` Avro records. Models are
 written in text form (``output/`` per lambda, ``best/`` for the selection).
-Same flag names, log lines and output layout as the JAX driver; tensors
-live on ``--device`` (default cuda). Batches up to ``DENSE_DIM_THRESHOLD``
+With ``--streaming-chunk-rows`` preprocess spills dense row chunks to disk
+(``stream-chunks/``, or a ``--tensor-cache`` entry a warm run reuses
+without decoding) and train streams them through the optimizer
+(``training.train_glm_grid_streaming``); ``--shape-canonicalization`` pads
+every chunk's rows up the ladder. Same flag names, log lines and output
+layout as the JAX driver; tensors live on ``--device`` (default cuda). Batches up to ``DENSE_DIM_THRESHOLD``
 features are dense, and on the card their value+gradient pass is the fused
 CUDA kernel; wider batches are padded-COO ``SparseFeatures``.
 
@@ -27,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import os
+import shutil
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +43,7 @@ from photon_ml_tpu_torch.cli.glm_params import (
     InputFormatType,
     parse_from_command_line,
 )
+from photon_ml_tpu_torch.compile.canonical import resolve_bucketer
 from photon_ml_tpu_torch.data.validators import sanity_check_data
 from photon_ml_tpu_torch.device import enable_determinism, resolve_device
 from photon_ml_tpu_torch.diagnostics import (
@@ -69,7 +75,11 @@ from photon_ml_tpu_torch.ops.stats import BasicStatisticalSummary, summarize
 from photon_ml_tpu_torch.optim.common import OptimizerConfig, summarize_result
 from photon_ml_tpu_torch.optim.constraints import BoxConstraints, parse_constraint_string
 from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
-from photon_ml_tpu_torch.training import TrainedModelList, train_glm_grid
+from photon_ml_tpu_torch.training import (
+    TrainedModelList,
+    train_glm_grid,
+    train_glm_grid_streaming,
+)
 from photon_ml_tpu_torch.types import (
     ConvergenceReason,
     NormalizationType,
@@ -89,6 +99,9 @@ from photon_ml_tpu_torch.utils.timer import Timer
 DENSE_DIM_THRESHOLD = 4096
 LEARNED_MODELS_TEXT = "output"  # Driver.LEARNED_MODELS_TEXT parity
 REPORT_FILE = "model-diagnostic.html"
+#: input files decoded and chunks written by streaming preprocesses in this
+#: process (a warm --tensor-cache run adds nothing)
+spill_counts = {"files": 0, "chunks": 0}
 
 
 class DriverStage(enum.IntEnum):
@@ -126,6 +139,8 @@ class Driver:
         self.validation_metrics: Dict[float, Dict[str, float]] = {}
         self.per_iteration_metrics: Dict[float, List[Dict[str, float]]] = {}
         self.problem: Optional[GLMOptimizationProblem] = None
+        # out-of-core mode: the chunk source replaces train_batch
+        self.streaming_source = None
 
     def _advance(self, stage: DriverStage) -> None:
         """Stage assertion (Driver.scala:513-527 parity)."""
@@ -158,6 +173,10 @@ class Driver:
                 with self.timer.measure("diagnose"):
                     self.diagnose()
             self.logger.info(self.timer.summary())
+            if p.tensor_cache_dir:
+                from photon_ml_tpu_torch.io.tensor_cache import cache_stats
+
+                self.logger.info(cache_stats.summary())
         finally:
             if self._own_logger:
                 self.logger.close()
@@ -225,9 +244,162 @@ class Driver:
             num_partitions=max(p.offheap_indexmap_num_partitions, 1),
         )
 
+    def _preprocess_streaming(self) -> None:
+        """Out-of-core preprocess: decode the input file by file and spill
+        dense row chunks of ``--streaming-chunk-rows`` rows, never building
+        the whole batch (StorageLevel.scala:22-24's DISK_ONLY). Rows are
+        re-chunked across file boundaries, so every chunk but the tail has
+        one shape. With ``--tensor-cache`` the chunks are a cache entry a
+        warm run memory-maps, skipping decode, sanity checks and spill;
+        otherwise they go to ``<output>/stream-chunks/``, purged first. The
+        summary accumulates over the chunks."""
+        import shutil
+
+        from photon_ml_tpu_torch.optim.streaming import (
+            ChunkedGLMSource,
+            streaming_summarize,
+            write_chunk,
+        )
+
+        p = self.params
+        paths = self._input_paths(p.training_data_dir)
+        file_ds = {}
+        if p.input_file_format == InputFormatType.LIBSVM:
+            if p.feature_dimension > 0:
+                # the width is given: no file is read before the cache lookup
+                n_feat = p.feature_dimension
+            else:
+                first = read_libsvm(paths[0], dim=None, add_intercept=p.add_intercept)
+                n_feat = first.dim - int(p.add_intercept)
+                file_ds[paths[0]] = first
+            self.index_map = IndexMap.for_libsvm(n_feat, p.add_intercept)
+            read_file = lambda path: read_libsvm(path, dim=n_feat, add_intercept=p.add_intercept)
+        else:
+            self.index_map = self._build_index_map()
+            read_file = lambda path: self._read_avro(path)
+
+        dim = len(self.index_map)
+        if dim > DENSE_DIM_THRESHOLD:
+            raise ValueError(
+                f"--streaming-chunk-rows spills DENSE chunks; {dim} features "
+                f"exceeds the dense threshold ({DENSE_DIM_THRESHOLD}). The "
+                "wide-sparse regime streams through the in-memory sparse "
+                "layout instead (sparse chunk spilling is not implemented)."
+            )
+
+        def spill_chunks(chunk_dir: str) -> None:
+            """Decode file by file into ``chunk_dir``; rows carried across
+            file boundaries so every chunk but the tail has one shape."""
+            chunk_i, total_rows, buf, buf_rows = 0, 0, [], 0
+
+            def flush(final=False):
+                nonlocal chunk_i, buf, buf_rows
+                while buf_rows >= p.streaming_chunk_rows or (final and buf_rows > 0):
+                    take = min(buf_rows, p.streaming_chunk_rows)
+                    parts, got = [], 0
+                    while got < take:
+                        head = buf[0]
+                        n_h = len(head["y"])
+                        if got + n_h <= take:
+                            parts.append(buf.pop(0))
+                            got += n_h
+                        else:
+                            split = take - got
+                            parts.append({k: v[:split] for k, v in head.items()})
+                            buf[0] = {k: v[split:] for k, v in head.items()}
+                            got = take
+                    write_chunk(chunk_dir, chunk_i,
+                                {k: np.concatenate([q[k] for q in parts]) for k in parts[0]})
+                    chunk_i += 1
+                    buf_rows -= take
+
+            for path in paths:
+                ds = file_ds.pop(path, None) or read_file(path)
+                batch = to_batch(ds, dense=True, device="cpu")
+                sanity_check_data(batch, p.task_type, p.data_validation_type)
+                buf.append({
+                    "x": batch.features.matrix.numpy()[: ds.num_rows],
+                    "y": np.asarray(ds.labels),
+                    "offsets": (np.asarray(ds.offsets) if ds.offsets is not None
+                                else np.zeros(ds.num_rows, np.float32)),
+                    "weights": (np.asarray(ds.weights) if ds.weights is not None
+                                else np.ones(ds.num_rows, np.float32)),
+                })
+                buf_rows += ds.num_rows
+                total_rows += ds.num_rows
+                flush()
+            flush(final=True)
+            spill_counts["files"] += len(paths)
+            spill_counts["chunks"] += chunk_i
+            self.logger.info(
+                f"streaming mode: {total_rows} rows x {dim} features spilled "
+                f"to {chunk_i} chunks of {p.streaming_chunk_rows} rows (+ tail)"
+            )
+
+        source_dir = None
+        if p.tensor_cache_dir:
+            from photon_ml_tpu_torch.io.tensor_cache import TensorCache, index_map_digest
+            from photon_ml_tpu_torch.resilience import RetryError
+
+            cache = TensorCache(p.tensor_cache_dir)
+            cache_key = cache.key_for(paths, {
+                "kind": "glm_stream_chunks",
+                "chunk_rows": p.streaming_chunk_rows,
+                "format": p.input_file_format,
+                "fields": p.field_names_type,
+                "intercept": p.add_intercept,
+                "index_map": index_map_digest(self.index_map),
+            })
+            source_dir = cache.get_dir(cache_key)
+            if source_dir is not None:
+                self.logger.info(f"tensor cache HIT {cache_key[:12]}: decode + spill skipped")
+            else:
+                try:
+                    source_dir = cache.build_dir(cache_key, spill_chunks)
+                    self.logger.info(f"tensor cache stored {cache_key[:12]}")
+                except RetryError as e:
+                    self.logger.info(f"tensor cache unusable (uncached): {e}")
+                    source_dir = None
+        if source_dir is None:
+            source_dir = os.path.join(p.output_dir, "stream-chunks")
+            # stale chunks of an aborted run must never be trained on, and a
+            # failed purge raises
+            if os.path.exists(source_dir):
+                shutil.rmtree(source_dir)
+            os.makedirs(source_dir)
+            spill_chunks(source_dir)
+        self.streaming_source = ChunkedGLMSource.from_chunk_dir(source_dir)
+
+        if p.normalization_type != NormalizationType.NONE or p.summarization_output_dir:
+            self.summary = streaming_summarize(self.streaming_source, device=self.device)
+            if p.summarization_output_dir:
+                write_basic_statistics(self.summary, p.summarization_output_dir, self.index_map)
+        if p.normalization_type != NormalizationType.NONE:
+            intercept = self.index_map.intercept_index
+            self.norm = NormalizationContext.build(
+                p.normalization_type,
+                mean=self.summary.mean,
+                std=self.summary.std,
+                max_magnitude=self.summary.max_magnitude,
+                intercept_id=intercept if intercept >= 0 else None,
+            )
+
+        if p.validating_data_dir:
+            if p.input_file_format == InputFormatType.LIBSVM:
+                vds = read_libsvm(self._input_paths(p.validating_data_dir)[0],
+                                  dim=dim - int(p.add_intercept), add_intercept=p.add_intercept)
+            else:
+                vds = self._read_avro(p.validating_data_dir)
+            self.validation_batch = to_batch(vds, dense=True, device=self.device)
+            sanity_check_data(self.validation_batch, p.task_type, p.data_validation_type)
+        self._advance(DriverStage.PREPROCESSED)
+
     def preprocess(self) -> None:
         self._assert_stage(DriverStage.INIT)
         p = self.params
+        if p.streaming_chunk_rows > 0:
+            self._preprocess_streaming()
+            return
         if p.input_file_format == InputFormatType.LIBSVM:
             paths = self._input_paths(p.training_data_dir)
             dim = p.feature_dimension if p.feature_dimension > 0 else None
@@ -331,9 +503,17 @@ class Driver:
             track_coefficients=p.validate_per_iteration,
         )
         with maybe_trace("glm-train"):
-            self.trained = train_glm_grid(
-                self.problem, self.train_batch, self.norm, p.regularization_weights
-            )
+            if self.streaming_source is not None:
+                self.trained = train_glm_grid_streaming(
+                    self.problem, self.streaming_source, self.norm, p.regularization_weights,
+                    bucketer=resolve_bucketer(p.shape_canonicalization), device=self.device,
+                )
+                # the spilled chunks are dead weight once training is done
+                shutil.rmtree(os.path.join(p.output_dir, "stream-chunks"), ignore_errors=True)
+            else:
+                self.trained = train_glm_grid(
+                    self.problem, self.train_batch, self.norm, p.regularization_weights
+                )
         self.models = [
             (lam, self._to_raw_space(m))
             for lam, m in zip(self.trained.weights, self.trained.models)

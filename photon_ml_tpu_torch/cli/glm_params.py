@@ -3,10 +3,10 @@ photon_ml_tpu/cli/glm_params.py).
 
 Reference spec: Params.scala:42-205 and OptionNames.scala:24-59. Flag names
 are the JAX driver's, plus ``--device`` (default ``cuda``). The out-of-core
-flags (``--streaming-chunk-rows``, ``--tensor-cache``,
-``--persistent-cache``, ``--shape-canonicalization``) are not yet ported:
-they are parsed and then rejected by ``validate`` with a ValueError that
-names the flag.
+flags ``--streaming-chunk-rows``, ``--tensor-cache`` and
+``--shape-canonicalization`` run; ``--persistent-cache`` (XLA's compilation
+cache, which has no counterpart here) is not yet ported: it is parsed and
+then rejected by ``validate`` with a ValueError that names the flag.
 """
 
 from __future__ import annotations
@@ -82,10 +82,7 @@ class GLMParams:
 
     def _not_yet_ported(self) -> List[str]:
         checks = [
-            (self.streaming_chunk_rows > 0, "--streaming-chunk-rows"),
-            (self.tensor_cache_dir is not None, "--tensor-cache"),
             (self.persistent_cache_dir is not None, "--persistent-cache"),
-            (self.shape_canonicalization != "off", "--shape-canonicalization"),
         ]
         return [f"{flag} is not yet ported to photon_ml_tpu_torch" for bad, flag in checks if bad]
 
@@ -117,6 +114,23 @@ class GLMParams:
                 errors.append(f"negative regularization weight {w}")
         if self.validate_per_iteration and self.validating_data_dir is None:
             errors.append("--validate-per-iteration requires --validating-data-directory")
+        if self.streaming_chunk_rows > 0:
+            if self.validate_per_iteration:
+                errors.append(
+                    "--streaming-chunk-rows does not keep per-iteration "
+                    "coefficient snapshots (--validate-per-iteration)"
+                )
+            if self.diagnostic_mode != DiagnosticMode.NONE:
+                errors.append(
+                    "--streaming-chunk-rows does not support --diagnostic-mode "
+                    "(diagnostics need the in-memory batch)"
+                )
+        try:
+            from photon_ml_tpu_torch.compile import resolve_bucketer
+
+            resolve_bucketer(self.shape_canonicalization)
+        except ValueError as e:
+            errors.append(f"--shape-canonicalization: {e}")
         if self.diagnostic_mode.runs_validate and self.validating_data_dir is None:
             errors.append(
                 f"diagnostic mode {self.diagnostic_mode.value} requires "

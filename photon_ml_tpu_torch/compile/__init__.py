@@ -10,6 +10,7 @@ from photon_ml_tpu_torch.compile.canonical import (
     canonicalize_re_arrays,
     canonicalize_re_dataset,
     pad_axis,
+    pad_glm_chunk,
     resolve_bucketer,
 )
 from photon_ml_tpu_torch.compile.stats import (
@@ -28,5 +29,6 @@ __all__ = [
     "instrumented_capture",
     "canonicalize_re_dataset",
     "pad_axis",
+    "pad_glm_chunk",
     "resolve_bucketer",
 ]

@@ -1,6 +1,5 @@
 """Shape canonicalization: round dynamic dims up a geometric ladder (port of
-photon_ml_tpu/compile/canonical.py, without ``pad_glm_chunk``, which serves
-the streaming fixed effect).
+photon_ml_tpu/compile/canonical.py).
 
 A :class:`ShapeBucketer` rounds each dynamic dim up the ladder
 ``base * growth^k``, so N distinct natural shapes collapse onto about
@@ -173,4 +172,25 @@ def canonicalize_re_dataset(ds, bucketer: Optional[ShapeBucketer], device=None):
         **{f: torch.from_numpy(np.ascontiguousarray(out[f])).to(device) for f in fields},
         num_entities=int(out["x"].shape[0]),
         global_dim=ds.global_dim,
+    )
+
+
+def pad_glm_chunk(host: tuple, bucketer: Optional[ShapeBucketer]) -> tuple:
+    """A host ``(x, y, offsets, weights)`` GLM chunk with its row count
+    rounded up the ladder with weight-0 rows (exact no-ops in the additive
+    value, gradient, Hessian-vector and diagonal passes); a None bucketer
+    is the identity. Every chunk of a ladder-sized stream then has one
+    shape, so the tail chunk shares the others' launch plans."""
+    if bucketer is None:
+        return host
+    x, y, off, wt = host
+    n = x.shape[0]
+    n_pad = bucketer.canon(n)
+    if n_pad == n:
+        return host
+    return (
+        pad_axis(x, 0, n_pad, 0.0),
+        pad_axis(y, 0, n_pad, 0.0),
+        pad_axis(off, 0, n_pad, 0.0),
+        pad_axis(wt, 0, n_pad, 0.0),
     )

@@ -13,9 +13,13 @@ schedule, the adaptive bucket schedule, the sparse-kernel spec and the
   * the ladder binds into the schedule's bucketer, so compacted lane rungs
     and padded bucket shapes share one rung vocabulary.
 
-The rest of the JAX plan waits for the modules it plans: ``--plan`` and
-the cost model (compile/cost.py), ``--fused-cycle``, the mesh
-(``--distributed``) and streaming raise "not yet ported".
+Streaming random effects (``streaming``) plan like buckets: blocks are the
+unit of adaptive visits, ``--bucketed-random-effects`` beside streaming is
+subsumed (a recorded decision), and the prefetch depth is resolved once
+here (``PHOTON_PREFETCH_DEPTH``). The rest of the JAX plan waits for the
+modules it plans: ``--plan`` and the cost model (compile/cost.py),
+``--fused-cycle`` and the mesh (``--distributed``) raise "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ class ExecutionPlan:
     adaptive: Optional[object] = None  # optim.convergence.AdaptiveSchedule
     sparse_kernel: Optional[str] = None
     decisions: Tuple[PlanDecision, ...] = ()
+    prefetch_depth: Optional[int] = None  # io.pipeline depth, resolved once
+    streaming: bool = False
 
     @classmethod
     def resolve(cls, *, shape_canonicalization: Optional[str] = None,
@@ -67,7 +73,8 @@ class ExecutionPlan:
                 adaptive_schedule: Optional[object] = None, bucketed: bool = False,
                 vmapped_grid: str = "false", sparse_kernel: Optional[str] = None,
                 distributed: bool = False, streaming: bool = False,
-                fused_cycle: bool = False, plan: Optional[str] = None) -> "ExecutionPlan":
+                fused_cycle: bool = False, plan: Optional[str] = None,
+                prefetch_depth: Optional[int] = None) -> "ExecutionPlan":
         """Resolve every policy once (``PHOTON_SHAPE_LADDER``,
         ``PHOTON_SOLVE_CHUNK``, ``PHOTON_ADAPTIVE_SCHEDULE`` and
         ``PHOTON_SPARSE_KERNEL`` read when unset) and apply the composition
@@ -79,14 +86,16 @@ class ExecutionPlan:
         if plan is not None and str(plan).strip().lower() not in ("", "off", "false", "0",
                                                                  "no", "none"):
             raise _not_ported("--plan (the cost model, compile/cost.py)")
-        for flag, on in (("--fused-cycle", fused_cycle), ("--distributed (the mesh)", distributed),
-                         ("--streaming-random-effects", streaming)):
+        from photon_ml_tpu_torch.io.pipeline import resolve_depth
+
+        for flag, on in (("--fused-cycle", fused_cycle), ("--distributed (the mesh)", distributed)):
             if on:
                 raise _not_ported(flag)
         bucketer = resolve_bucketer(shape_canonicalization)
         schedule = resolve_schedule(solve_compaction)
         adaptive = resolve_adaptive(adaptive_schedule)
         sparse = resolve_sparse_kernel(sparse_kernel)
+        prefetch_depth = resolve_depth(prefetch_depth)
         decisions = []
 
         # ---- impossible pairs (the fences the plan keeps) -----------------
@@ -105,8 +114,18 @@ class ExecutionPlan:
                 "per-combo grid"
             )
 
+        # ---- subsumed pairs ----------------------------------------------
+        if streaming and bucketed:
+            decisions.append(PlanDecision(
+                "bucketed", "subsumed",
+                "streaming already sorts entities by size into "
+                "tightly-padded blocks; --bucketed-random-effects is "
+                "redundant and the streaming coordinate serves both",
+            ))
+            bucketed = False
+
         # ---- adaptive block scheduling: needs block/bucket granularity ----
-        if adaptive is not None and not bucketed:
+        if adaptive is not None and not (streaming or bucketed):
             decisions.append(PlanDecision(
                 "adaptive", "pinned",
                 "adaptive scheduling needs block/bucket visitation "
@@ -131,7 +150,8 @@ class ExecutionPlan:
             schedule = dataclasses.replace(schedule, bucketer=bucketer)
 
         return cls(bucketer=bucketer, schedule=schedule, adaptive=adaptive,
-                   sparse_kernel=sparse, decisions=tuple(decisions))
+                   sparse_kernel=sparse, decisions=tuple(decisions),
+                   prefetch_depth=prefetch_depth, streaming=streaming)
 
     def describe(self) -> str:
         """One log line: every resolved policy, explicit about 'off'."""
@@ -143,7 +163,7 @@ class ExecutionPlan:
              if self.adaptive is not None else "adaptive=off"),
             "sharding=none",
             f"sparse={self.sparse_kernel or 'off'}",
-            "streaming=off",
+            f"streaming={'on' if self.streaming else 'off'}",
         ]
         return "execution plan: " + " ".join(parts)
 

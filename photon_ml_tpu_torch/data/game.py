@@ -16,7 +16,12 @@ RANDOM projections).
     |Pearson correlation| with the label (``pearson_feature_scores``, numpy
     float64), as the JAX build does.
 
-The tensor cache is not yet ported.
+With a tensor cache (io/tensor_cache.py) the decoded columns
+(:func:`game_data_to_arrays`) and each built random-effect dataset
+(``build_random_effect_dataset(tensor_cache=, cache_key=)``) are stored as
+``.npy`` arrays in the JAX package's entry layout; a hit skips the decode,
+or the grouping, projection and padding. Arrays of a hit are memory maps,
+copied before they become tensors.
 """
 
 from __future__ import annotations
@@ -70,6 +75,44 @@ class GameData:
     @property
     def num_rows(self) -> int:
         return len(self.response)
+
+
+def game_data_to_arrays(data: GameData):
+    """A GameData as (named arrays, JSON-safe meta) for the tensor cache, in
+    the JAX package's entry layout: a warm run rebuilds the decoded columns
+    without reading Avro."""
+    arrays = {"response": data.response, "offset": data.offset, "weight": data.weight}
+    for k, v in data.ids.items():
+        arrays[f"ids~{k}"] = v
+    for k, f in data.shards.items():
+        arrays[f"shard~{k}~indptr"] = f.indptr
+        arrays[f"shard~{k}~indices"] = f.indices
+        arrays[f"shard~{k}~values"] = f.values
+    meta = {
+        "id_types": sorted(data.ids),
+        "shards": {k: int(f.dim) for k, f in data.shards.items()},
+        "id_vocabs": {k: list(v) for k, v in data.id_vocabs.items()},
+    }
+    return arrays, meta
+
+
+def game_data_from_arrays(arrays, meta) -> GameData:
+    """Inverse of :func:`game_data_to_arrays` over a cache hit; every
+    array is copied out of its memory map."""
+    own = lambda a: np.array(a)
+    return GameData(
+        response=own(arrays["response"]),
+        offset=own(arrays["offset"]),
+        weight=own(arrays["weight"]),
+        ids={k: own(arrays[f"ids~{k}"]) for k in meta["id_types"]},
+        id_vocabs={k: list(v) for k, v in meta["id_vocabs"].items()},
+        shards={
+            k: HostFeatures(indptr=own(arrays[f"shard~{k}~indptr"]),
+                            indices=own(arrays[f"shard~{k}~indices"]),
+                            values=own(arrays[f"shard~{k}~values"]), dim=int(dim))
+            for k, dim in meta["shards"].items()
+        },
+    )
 
 
 def balanced_entity_order(active_counts: np.ndarray, num_shards: int) -> np.ndarray:
@@ -203,15 +246,55 @@ class RandomEffectDataset:
         return self.x.device
 
 
+def _re_dataset_from_cache(entry, device) -> RandomEffectDataset:
+    """A RandomEffectDataset from a tensor-cache hit: each memory-mapped
+    array is copied, then moved to ``device``."""
+    put = lambda a: torch.from_numpy(np.array(a)).to(device)
+    return RandomEffectDataset(
+        **{f: put(entry.arrays[f]) for f in RandomEffectDataset.TENSOR_FIELDS},
+        num_entities=int(entry.meta["num_entities"]),
+        global_dim=int(entry.meta["global_dim"]),
+        projection_matrix=(put(entry.arrays["projection_matrix"])
+                           if "projection_matrix" in entry.arrays else None),
+    )
+
+
 def build_random_effect_dataset(data: GameData, config: RandomEffectDataConfig,
-                                device=None, projector=None) -> RandomEffectDataset:
+                                device=None, projector=None, tensor_cache=None,
+                                cache_key: Optional[str] = None) -> RandomEffectDataset:
     """Host-side build — group by entity, cap the active set, project to
     each entity's local space, pad — then the tensors move to ``device``
     (default cuda). Arrays are byte-equal to the JAX build's.
 
     ``projector`` (a ProjectionMatrixProjector) is consulted only for
     ``config.projector == "RANDOM"``; omitted, one is built from
-    ``config.random_projection_dim`` and ``config.seed``."""
+    ``config.random_projection_dim`` and ``config.seed``.
+
+    With a ``tensor_cache`` and a ``cache_key`` (the content address of the
+    source files and this config, which the caller computes) the built
+    arrays are stored, and a later call with the same key skips the build.
+    A cache write that stays broken degrades to the uncached build."""
+    if tensor_cache is not None and cache_key is not None:
+        hit = tensor_cache.get(cache_key)
+        if hit is not None:
+            return _re_dataset_from_cache(hit, resolve_device(device))
+    ds = _build_random_effect_dataset(data, config, device, projector)
+    if tensor_cache is not None and cache_key is not None:
+        from photon_ml_tpu_torch.resilience import RetryError
+
+        arrays = {f: getattr(ds, f).cpu().numpy() for f in RandomEffectDataset.TENSOR_FIELDS}
+        if ds.projection_matrix is not None:
+            arrays["projection_matrix"] = ds.projection_matrix.cpu().numpy()
+        try:
+            tensor_cache.put(cache_key, arrays,
+                             meta={"num_entities": ds.num_entities, "global_dim": ds.global_dim})
+        except RetryError:
+            pass  # uncached: the built dataset is still returned
+    return ds
+
+
+def _build_random_effect_dataset(data: GameData, config: RandomEffectDataConfig,
+                                 device=None, projector=None) -> RandomEffectDataset:
     if config.projector not in ("INDEX_MAP", "IDENTITY", "RANDOM"):
         raise ValueError(f"unknown random-effect projector {config.projector!r}")
     dev = resolve_device(device)

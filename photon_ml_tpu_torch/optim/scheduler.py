@@ -26,9 +26,14 @@ over a lane's coefficients through the fixed-association ``lane_sum``
 (optim/common.py), never through a library reduction whose order may
 follow the batch; the CPU's transcendental functions compute every lane
 element alike (ops/losses.py); on the card the ``pallas`` slab kernels
-choose a lane's summation order from (M, K, D) alone. A dense stack's
-products go through a library matmul, whose kernel may change with the
-batch, so on the card the claim covers slab lanes.
+choose a lane's summation order from (M, K, D) alone. A dense ``(E, M, D)``
+stack's products go through a batched ``torch.matmul``, and on the card
+cuBLAS chooses its kernel by the batch count: on an NVIDIA H100 the
+compacted solves of a dense stack parted from the one-shot solve's bits
+at the GAME driver's stack shape and at a wider D, host and device loop,
+LBFGS and TRON (chip_smoke.py phase 21 (f)). So on the card the scheduler
+refuses a dense stack (:data:`DENSE_STACK_REFUSAL`); on the CPU it is
+bitwise and runs.
 
 ``schedule.loop == "device"`` runs the rung loop of optim/fused_schedule.py
 instead (on the card, one captured CUDA graph per rung width): same bits,
@@ -365,11 +370,23 @@ def _gather_state(state, idx: Tensor):
         for n in _fields(state)})
 
 
+def _upload_lanes(idx: np.ndarray, device: torch.device) -> Tensor:
+    """Lane ids as an int64 tensor on ``device``. On the card the copy is
+    issued from pinned memory with ``non_blocking=True``, so it does not
+    synchronize the host (a pageable copy would, uncounted by
+    ``HostReads``); the caching host allocator keeps the pinned buffer
+    until the copy has run. The bits are the same either way."""
+    host = torch.from_numpy(idx.astype(np.int64))
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
 def _gather_batch(data, state, idx: np.ndarray, n_active: int):
     """Compact the ``idx`` lanes of (data, state); entries past
     ``n_active`` repeat a real lane and get ``reason`` forced non-zero so
     they freeze."""
-    idx_t = torch.from_numpy(idx.astype(np.int64)).to(state.w.device)
+    idx_t = _upload_lanes(idx, state.w.device)
     state_c = _gather_state(state, idx_t)
     pad = torch.arange(idx.shape[0], device=state.w.device) >= n_active
     state_c.reason = torch.where(pad, torch.full_like(state_c.reason, _PAD_REASON),
@@ -380,7 +397,7 @@ def _gather_batch(data, state, idx: np.ndarray, n_active: int):
 def _scatter_batch(full_state, part_state, idx: np.ndarray, n_active: int):
     """Scatter the first ``n_active`` lanes of a compacted batch back into
     entity order (pad lanes land nowhere)."""
-    pos = torch.from_numpy(idx[:n_active].astype(np.int64)).to(full_state.w.device)
+    pos = _upload_lanes(idx[:n_active], full_state.w.device)
     return dataclasses.replace(full_state, **{
         n: (None if getattr(full_state, n) is None else
             getattr(full_state, n).index_copy(0, pos, getattr(part_state, n)[:n_active]))
@@ -432,6 +449,15 @@ def _restore_state(template_state, partial: dict):
 # ---------------------------------------------------------------------------
 
 
+#: why a dense stack's compacted solve is refused on the card
+DENSE_STACK_REFUSAL = (
+    "--solve-compaction refuses a dense (E, M, D) random-effect stack on the card: its "
+    "batched torch.matmul lets cuBLAS choose the kernel by the batch count, so a compacted "
+    "lane would not get the one-shot solve's bits (measured on an NVIDIA H100, chip_smoke.py "
+    "phase 21 (f)); solve on a sparse slab (PHOTON_SPARSE_KERNEL=pallas) or without "
+    "compaction")
+
+
 def compacted_solve(data, w0: Tensor, *, task, optimizer, optimizer_config, regularization,
                     schedule: SolveSchedule, label: str = "re_solve",
                     resume: Optional[dict] = None, reg_weight=None,
@@ -457,8 +483,11 @@ def compacted_solve(data, w0: Tensor, *, task, optimizer, optimizer_config, regu
     site guards that dispatch: an injected fault degrades this solve to
     the host loop below, which recomputes from scratch with the same bits.
     Nothing else degrades: a capture, replay or kernel error raises.
-    ``reg_weight`` overrides the total regularization weight.
+    ``reg_weight`` overrides the total regularization weight. A dense stack
+    on the card is refused (:data:`DENSE_STACK_REFUSAL`).
     """
+    if isinstance(data[0], Tensor) and data[0].is_cuda:
+        raise ValueError(DENSE_STACK_REFUSAL)
     cfg = dict(task=task, optimizer=optimizer, optimizer_config=optimizer_config,
                regularization=regularization)
     lanes = int(w0.shape[0])
@@ -547,7 +576,8 @@ def compacted_solve(data, w0: Tensor, *, task, optimizer, optimizer_config, regu
             compacted = True
         cur_active = int(active_idx.size)
 
-    max_iteration = int(state.iteration.max()) if lanes else 0
+    # the last chunk's read holds every lane's iteration count: no sync here
+    max_iteration = int(iters.max(initial=0))
     solve_stats.record(SolveRecord(
         label=label, lanes=lanes, max_iteration=max_iteration, executed=executed,
         baseline=lanes * max_iteration, chunks=chunks,

@@ -36,8 +36,12 @@ def tree_all_finite(tree: Any) -> bool:
     """True iff every floating tensor leaf of ``tree`` (a tensor, or
     dicts/lists/tuples of them) is fully finite. Waits for the device (one
     small scalar transfer per call)."""
+    # a by-reference leaf (a streaming coordinate's spilled state) holds no
+    # tensor here: its blocks are on disk
     flags = [torch.all(torch.isfinite(t)).reshape(1)
-             for t in map(torch.as_tensor, _leaves(tree)) if t.is_floating_point()]
+             for t in map(torch.as_tensor, (x for x in _leaves(tree)
+                                            if not hasattr(x, "__checkpoint_ref__")))
+             if t.is_floating_point()]
     if not flags:
         return True
     return bool(torch.cat([f.to(flags[0].device) for f in flags]).all())

@@ -15,6 +15,9 @@ __all__ = ["FAULT_SITES", "PREEMPT_SITES"]
 
 #: site -> where it fires; keys are the exact literals production code passes
 FAULT_SITES: Dict[str, str] = {
+    "io.cache_read": "tensor-cache entry reads and probes; a read fault that survives retries degrades to a miss (io/tensor_cache.py)",
+    "io.cache_write": "tensor-cache entry commits; a write that stays broken raises RetryError and the drivers go on uncached (io/tensor_cache.py)",
+    "io.cache_invalidate": "tensor-cache entry removal; a failure is a logged no-op (io/tensor_cache.py)",
     "io.checkpoint_write": "per checkpoint save attempt (checkpoint.py)",
     "optim.step": "coordinate-descent updates, NaN corruption (algorithm/coordinate_descent.py)",
     "optim.block_skip": "adaptive-schedule skip decision boundary; an injected fault degrades the epoch to visit-everything, never a silent skip (algorithm/bucketed_random_effect.py)",
@@ -29,4 +32,5 @@ PREEMPT_SITES: Tuple[str, ...] = (
     "chunk",  # compacted-solver chunk boundary (optim/scheduler.py)
     "bucket",  # scheduled bucketed-RE bucket boundary (algorithm/bucketed_random_effect.py)
     "rung",  # device-loop rung-hop boundary (optim/fused_schedule.py)
+    "block",  # streaming random-effect entity-block boundary (algorithm/streaming_random_effect.py)
 )

@@ -6,19 +6,21 @@ captures the run's identity: the training files' stat tokens
 (:func:`file_stat_token`), the ingest-config inputs and digest
 (:func:`index_map_digest` of every feature shard), per-coordinate records
 and the model it produced, so the JAX package's delta planner
-(``--warm-start-from``) can read a run of this port. Fields of features the
-port does not have yet (streaming manifests, convergence ledgers, the
-planner's cost model, the tensor cache) take the values the JAX driver
-writes when those features are off.
+(``--warm-start-from``) can read a run of this port: the tensor-cache keys,
+the streaming manifests' directories and the convergence ledgers included.
+The planner's cost model, which the port does not have yet, takes the
+value the JAX driver writes when planning is off. ``file_stat_token`` and
+``index_map_digest`` are io/tensor_cache.py's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import json
 import os
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, List, Optional
+
+from photon_ml_tpu_torch.io.tensor_cache import file_stat_token, index_map_digest
 
 __all__ = [
     "MANIFEST_FORMAT",
@@ -31,32 +33,6 @@ __all__ = [
 
 RETRAIN_MANIFEST = "retrain.json"
 MANIFEST_FORMAT = 1
-
-
-def file_stat_token(paths: Iterable[str]) -> list:
-    """[path, size, mtime_ns] per source file, sorted by path — the identity
-    of the inputs (photon_ml_tpu/io/tensor_cache.py's vocabulary). Taken
-    before ingest, so the record describes the files the run is about to
-    read."""
-    out = []
-    for p in sorted(paths):
-        st = os.stat(p)
-        out.append([os.path.abspath(p), int(st.st_size), int(st.st_mtime_ns)])
-    return out
-
-
-def index_map_digest(index_map) -> str:
-    """SHA-256 of an index map's feature names in index order, through the
-    shared protocol (``__len__`` + ``get_feature_name``); the in-memory list
-    is read directly when the map has one."""
-    h = hashlib.sha256()
-    names = getattr(index_map, "index_to_name", None)
-    if names is None:
-        names = (index_map.get_feature_name(i) for i in range(len(index_map)))
-    for name in names:
-        h.update((name or "").encode())
-        h.update(b"\x00")
-    return h.hexdigest()
 
 
 @dataclasses.dataclass

@@ -4,8 +4,7 @@ GAME driver's scheduler flags against the JAX package (CPU):
   * ``ExecutionPlan.resolve`` gives the JAX schedule, adaptive schedule,
     ladder and recorded decisions for the flag combinations the port runs,
     and raises the JAX ``PlanError`` words for the impossible pairs;
-  * ``--plan``, ``--fused-cycle``, the mesh and streaming raise "not yet
-    ported";
+  * ``--plan``, ``--fused-cycle`` and the mesh raise "not yet ported";
   * ``--solve-compaction`` and ``--adaptive-schedule`` are validated as the
     JAX parser validates them;
   * the driver with ``--solve-compaction`` (host and device loops) matches
@@ -46,6 +45,10 @@ COMBOS = [
     dict(solve_compaction="4", vmapped_grid="true"),
     dict(adaptive_schedule="on", bucketed=True, vmapped_grid="true"),
     dict(adaptive_schedule="on", vmapped_grid="true"),
+    dict(streaming=True),
+    dict(streaming=True, bucketed=True),
+    dict(streaming=True, adaptive_schedule="1e-3:2"),
+    dict(streaming=True, solve_compaction="4", shape_canonicalization="on"),
 ]
 
 
@@ -79,7 +82,7 @@ def test_resolve_matches_jax(kw, monkeypatch):
 @pytest.mark.parametrize("kw,flag", [
     (dict(plan="auto"), "--plan"), (dict(fused_cycle=True), "--fused-cycle"),
     (dict(distributed=True), "--distributed"),
-    (dict(streaming=True), "--streaming-random-effects")])
+    (dict(plan="on"), "--plan")])
 def test_unported_policies_raise(kw, flag):
     with pytest.raises(NotImplementedError, match=f"{flag}.* not yet ported"):
         ExecutionPlan.resolve(**kw)

@@ -131,9 +131,6 @@ FENCED = [
     ["--store-dtype", "bf16"],
     ["--distributed", "true"],
     ["--fused-cycle", "true"],
-    ["--streaming-random-effects", "true"],
-    ["--re-memory-budget-mb", "64"],
-    ["--tensor-cache", "cache"],
     ["--persistent-cache", "cache"],
     ["--warm-start-from", "prior"],
     ["--plan", "auto"],

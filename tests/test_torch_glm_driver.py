@@ -102,10 +102,7 @@ def _check_drivers_agree(task, tmp, *extra):
 
 
 OUT_OF_SLICE = [
-    (["--streaming-chunk-rows", "64"], "--streaming-chunk-rows"),
-    (["--tensor-cache", "cache"], "--tensor-cache"),
     (["--persistent-cache", "cache"], "--persistent-cache"),
-    (["--shape-canonicalization", "on"], "--shape-canonicalization"),
 ]
 
 

@@ -473,3 +473,102 @@ def test_device_loop_refuses_the_plain_slab_families_on_the_card(cuda_device):
         with pytest.raises(ValueError, match=f"cannot capture the '{family}' slab family"):
             compacted_solve((feats,) + data[1:], w0, schedule=SolveSchedule(4, loop="device"),
                             **kw)
+
+
+def _dense_stack_problem(device, optimizer, e, m, d):
+    """A dense (E, M, D) random-effect stack problem: logistic, L2, labels
+    from a planted model, a few rows of each lane padded with weight 0."""
+    from photon_ml_tpu_torch.ops.regularization import RegularizationContext
+    from photon_ml_tpu_torch.optim.common import OptimizerConfig
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+
+    g = torch.Generator(device="cpu").manual_seed(e + m + d)
+    x = torch.randn((e, m, d), generator=g) * (torch.rand((e, m, d), generator=g) < 0.5)
+    w_true = torch.randn((e, d), generator=g) * 0.4
+    y = (torch.sigmoid(torch.einsum("emd,ed->em", x, w_true)) > torch.rand((e, m), generator=g))
+    wt = (torch.rand((e, m), generator=g) < 0.85).float()
+    off = torch.randn((e, m), generator=g) * 0.1
+    cfg = (OptimizerConfig(max_iterations=15, tolerance=1e-5) if optimizer == "TRON"
+           else OptimizerConfig(max_iterations=60, tolerance=1e-7))
+    kw = dict(task=TaskType.LOGISTIC_REGRESSION, optimizer=OptimizerType[optimizer],
+              optimizer_config=cfg, regularization=RegularizationContext.l2(0.5))
+    data = tuple(t.to(device) for t in (x, y.float(), off, wt))
+    return data, torch.zeros((e, d), device=device), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["LBFGS", "TRON"])
+def test_dense_stack_compaction_is_refused_on_the_card(cuda_device, optimizer):
+    """The dense stack's lanes go through a batched ``torch.matmul``, whose
+    cuBLAS kernel follows the batch count: on an H100 its compacted solves
+    parted from the one-shot solve's bits (chip_smoke.py phase 21 (f)). So
+    the scheduler refuses a dense stack on the card, host and device loop,
+    naming the reason; the one-shot solve runs."""
+    from photon_ml_tpu_torch.algorithm.random_effect import entity_lane_fns
+    from photon_ml_tpu_torch.optim.scheduler import SolveSchedule, compacted_solve
+
+    data, w0, kw = _dense_stack_problem(cuda_device, optimizer, 2000, 12, 9)
+    for schedule in (SolveSchedule(4), SolveSchedule(4, loop="device")):
+        with pytest.raises(ValueError, match="refuses a dense .* batch count"):
+            compacted_solve(data, w0, schedule=schedule, **kw)
+    res = entity_lane_fns(**kw)[0](*data, w0)
+    assert bool(torch.isfinite(res.value).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 3])
+def test_pinned_side_stream_place_is_bitwise_the_synchronous_copy(cuda_device, depth):
+    """``pipelined_to_device`` on the card (pinned host memory, H2D on a side
+    stream, the consumer's stream waiting on each copy's event) gives the
+    blocks the synchronous copy gives, and a kernel reading each block right
+    away, while the next block's copy is in flight, reads the copied bits."""
+    from photon_ml_tpu_torch.io.pipeline import pipelined_to_device
+
+    rng = np.random.default_rng(depth)
+    blocks = [{"x": rng.normal(size=(2048, 513)).astype(np.float32),
+               "i": rng.integers(0, 1 << 30, size=4099).astype(np.int64), "_k": k}
+              for k in range(8)]
+    to_host = lambda b: {k: (np.array(v) if isinstance(v, np.ndarray) else v)
+                         for k, v in b.items()}
+    sync = [(b["x"].sum(dtype=torch.float64).item(), b["x"].clone(), b["i"].clone())
+            for b in pipelined_to_device(lambda: iter(blocks), to_host, cuda_device, 0)]
+    got = []
+    for b in pipelined_to_device(lambda: iter(blocks), to_host, cuda_device, depth):
+        assert b["x"].is_cuda and b["i"].is_cuda
+        got.append((b["x"].sum(dtype=torch.float64).item(), b["x"].clone(), b["i"].clone()))
+        del b
+    assert [g[0] for g in got] == [s[0] for s in sync]
+    for (_, gx, gi), (_, sx, si), blk in zip(got, sync, blocks):
+        assert torch.equal(gx, sx) and torch.equal(gi, si)
+        assert np.array_equal(gx.cpu().numpy(), blk["x"])
+
+
+@pytest.mark.gpu
+def test_compacted_solve_host_reads_equal_the_syncs_the_card_reports(cuda_device):
+    """Every sync the host loop makes is a counted host read: the lane ids
+    of each compaction are uploaded from pinned memory without one."""
+    import warnings
+
+    from photon_ml_tpu_torch.algorithm.random_effect import entity_lane_fns
+    from photon_ml_tpu_torch.optim.common import HostReads
+    from photon_ml_tpu_torch.optim.scheduler import SolveSchedule, compacted_solve
+
+    for optimizer in ("LBFGS", "TRON"):
+        data, w0, kw = _scheduled_problem(cuda_device, optimizer)
+        entity_lane_fns(**kw)[0](*data, w0)  # the slab's tables and launch plans, made once
+        for schedule in (None, SolveSchedule(4)):
+            torch.cuda.synchronize()
+            reads0 = HostReads.count
+            mode = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    if schedule is None:
+                        entity_lane_fns(**kw)[0](*data, w0)
+                    else:
+                        compacted_solve(data, w0, schedule=schedule, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            syncs = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+            assert syncs == HostReads.count - reads0, (optimizer, schedule, syncs)

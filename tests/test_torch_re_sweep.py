@@ -1,6 +1,7 @@
 """The random-effect coordinate of both packages across tasks, regularizers
 and row weights (CPU): logistic, Poisson and linear x L2, L1 and elastic net
-(OWL-QN for the last two) x unit rows and weighted rows with zeros, every
+(OWL-QN for the last two), and the smoothed hinge x L2 and L1, x unit rows
+and weighted rows with zeros, every
 row with an offset and a residual, through the ``off``, ``scatter`` and
 ``pallas`` families of each package (the JAX ``pallas`` family in Pallas
 interpret mode, the port's through the kernels' plain version).
@@ -66,13 +67,18 @@ def _port_data(jdata):
 
 
 CASES = [(t, r, w) for t in TASKS for r in REGS for w in (False, True)]
+# the smoothed hinge is first-order only: LBFGS (L2) and OWL-QN (L1), where a
+# lane's stop may fall one test apart (ROADMAP Queue 3), so its objective is
+# held and its coefficients only where every run stopped alike
+CASES += [("SMOOTHED_HINGE_LOSS_LINEAR_SVM", r, w) for r in ("L2", "L1") for w in (False, True)]
 
 
 def _case_id(case):
     task, reg, weighted = case
     if (task, reg, weighted) == ("LOGISTIC_REGRESSION", "EN", True):
         return "roadmap"
-    return f"{task.split('_')[0].lower()}-{reg}-{'weighted' if weighted else 'unit'}"
+    name = "hinge" if task == "SMOOTHED_HINGE_LOSS_LINEAR_SVM" else task.split("_")[0].lower()
+    return f"{name}-{reg}-{'weighted' if weighted else 'unit'}"
 
 
 @pytest.mark.parametrize("case", CASES, ids=[_case_id(c) for c in CASES])
