@@ -103,6 +103,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 import zlib
@@ -3595,6 +3596,7 @@ def phase_scheduler(torch, fused_sparse, workdir, bucketed, dev="cuda"):
 
 DENSE_STACK_SHAPES = (("the GAME driver's stack", 20000, 12, 9),
                       ("a wider stack", 2048, 16, 128))
+DENSE_CHUNK = 2  # phase 21 (f)'s chunk: every solve compacts onto several rungs
 
 
 def dense_stack_problem(torch, dev, e, m, d, seed):
@@ -3612,23 +3614,24 @@ def dense_stack_problem(torch, dev, e, m, d, seed):
 
 
 def phase_dense_stack_bits(torch, dev="cuda"):
-    """Phase 21 (f): the dense (E, M, D) stack's lanes go through a batched
-    ``torch.matmul``, whose cuBLAS kernel may be chosen by the batch count.
-    At the GAME driver's stack shape and at a wider D, the margins and the
-    gradient transpose of the lanes a compaction keeps, computed as a
-    batch of their own at each rung width, against the same lanes' rows of
-    the full batch: the lanes whose bits differ are counted. The scheduler
-    must refuse a dense stack on the card (host and device loop), naming
-    the reason; the one-shot solve runs."""
+    """Phase 21 (f): the dense (E, M, D) stack contracts through elementwise
+    products and ``tree_row_sum`` (ops/features.py), so a lane's bits do not
+    follow the lane count. At the GAME driver's stack shape and at a wider
+    D: the margins and the gradient transpose of the lanes a compaction
+    keeps, computed as a batch of their own at each rung width, against the
+    same lanes' rows of the full batch (the lanes whose bits differ are
+    counted: all 0); then the compacted solves, host and device loop, LBFGS
+    and TRON, bitwise the one-shot solve, every rung each one visited
+    printed (each must visit more than one), with the solve walls."""
     from photon_ml_tpu_torch.algorithm.random_effect import entity_lane_fns
     from photon_ml_tpu_torch.ops.features import DenseFeatures
     from photon_ml_tpu_torch.ops.regularization import RegularizationContext
     from photon_ml_tpu_torch.optim.common import OptimizerConfig
-    from photon_ml_tpu_torch.optim.scheduler import SolveSchedule, compacted_solve
+    from photon_ml_tpu_torch.optim.scheduler import SolveSchedule, compacted_solve, solve_stats
     from photon_ml_tpu_torch.types import OptimizerType, TaskType
 
-    say("== phase 21 (f): the dense stack's batched matmul across batch counts, and the "
-        "scheduler's refusal of a dense stack on the card")
+    say("== phase 21 (f): the dense stack's lanes across batch counts, and its compacted "
+        "solves against the one-shot solve")
     out = {}
     for label, e, m, d in DENSE_STACK_SHAPES:
         (x, y, off, wt), w0 = dense_stack_problem(torch, dev, e, m, d, SEED + e + d)
@@ -3649,26 +3652,41 @@ def phase_dense_stack_bits(torch, dev="cuda"):
         say(f"  (f) {label} E={e} M={m} D={d}: lanes whose margins or transpose bits differ "
             "from the full batch's, by batch width: "
             + ", ".join(f"{n}: {k} of {n}" for n, k in parted.items()))
-        out[label] = {"lanes_parted_by_width": parted}
+        check(not any(parted.values()), f"(f) {label}: a lane's bits followed the batch width "
+                                        f"{parted}")
+        out[label] = {"lanes_parted_by_width": parted, "solves": {}}
         for opt in ("LBFGS", "TRON"):
             cfg = (OptimizerConfig.tron_default() if opt == "TRON"
                    else OptimizerConfig(max_iterations=60, tolerance=1e-7))
             kw = dict(task=TaskType.LOGISTIC_REGRESSION, optimizer=OptimizerType[opt],
                       optimizer_config=cfg, regularization=RegularizationContext.l2(0.5))
-            for sched in (SolveSchedule(SCHED_CHUNK), SolveSchedule(SCHED_CHUNK, loop="device")):
-                try:
-                    compacted_solve((x, y, off, wt), w0, schedule=sched, **kw)
-                    refused = None
-                except ValueError as exc:
-                    refused = str(exc)
-                check(refused is not None and "batch count" in refused,
-                      f"(f) {label} {opt} {sched.describe()}: a dense stack's compacted solve "
-                      "was not refused on the card")
-            res = entity_lane_fns(**kw)[0](x, y, off, wt, w0)
-            check(bool(torch.isfinite(res.value).all()), f"(f) {label} {opt}: the one-shot "
-                                                         "solve is not finite")
-        say(f"  (f) {label}: compacted solves refused on the card (host and device loop, "
-            "LBFGS and TRON) with the reason; the one-shot solves finite")
+            sync(torch)
+            t0 = time.perf_counter()
+            want = entity_lane_fns(**kw)[0](x, y, off, wt, w0)
+            sync(torch)
+            walls = {"one-shot": time.perf_counter() - t0}
+            check(bool(torch.isfinite(want.value).all()),
+                  f"(f) {label} {opt}: the one-shot solve is not finite")
+            rungs, graphs = {}, {}
+            for how, sched in (("host", SolveSchedule(DENSE_CHUNK)),
+                               ("device", SolveSchedule(DENSE_CHUNK, loop="device"))):
+                t0 = time.perf_counter()
+                got = compacted_solve((x, y, off, wt), w0, schedule=sched, graphs=graphs, **kw)
+                sync(torch)
+                walls[how] = time.perf_counter() - t0
+                rec = solve_stats.snapshot()[-1]
+                rungs[how] = sorted({c.batch_lanes for c in rec.chunks}, reverse=True)
+                check(bitwise_results(torch, got, want),
+                      f"(f) {label} {opt} {how} loop: the compacted solve is not bitwise the "
+                      f"one-shot solve (rungs {rungs[how]})")
+                check(len(rungs[how]) > 1, f"(f) {label} {opt} {how} loop: the solve never "
+                                           "compacted")
+            out[label]["solves"][opt] = {"walls_s": walls, "rungs": rungs,
+                                         "iterations_max": int(want.iterations.max())}
+            say(f"  (f) {label} {opt}: host and device loop bitwise the one-shot solve; rungs "
+                f"host {rungs['host']}, device {rungs['device']}; walls " + ", ".join(
+                    f"{k} {v:.3f} s" for k, v in walls.items()))
+        del x, y, off, wt, w0, full, z_full, t_full
     return out
 
 
@@ -4020,8 +4038,12 @@ def phase_cache_game(torch, fused_sparse, workdir, dev="cuda"):
     """Phase 22 (c), on phase 10's data: phase 10's command with
     --tensor-cache cold, then warm; the warm run never calls
     read_game_data on the training files (counted) and writes the cold
-    run's model bytes; the preprocess spans of both."""
+    run's model bytes; the preprocess spans of both. The warm run also
+    takes --export-serve-store: its store is byte-equal to the
+    ``build_model_store`` export of its saved model (phase 23 serves it)."""
+    from photon_ml_tpu_torch.compile import ShapeBucketer
     from photon_ml_tpu_torch.io import avro_data
+    from photon_ml_tpu_torch.serve import build_model_store
 
     say("== phase 22 (c): phase 10's command with --tensor-cache, cold then warm")
     cache = os.path.join(workdir, "tcache22c")
@@ -4041,6 +4063,8 @@ def phase_cache_game(torch, fused_sparse, workdir, dev="cuda"):
             argv = ["--train-input-dirs", os.path.join(workdir, "train"),
                     "--validate-input-dirs", os.path.join(workdir, "validate"),
                     "--output-dir", d, "--device", dev, "--tensor-cache", cache] + GAME_FLAGS
+            if label == "warm":
+                argv += ["--export-serve-store", os.path.join(workdir, SERVE_STORE)]
             driver, wall, launches, stages, _ = run_game_training(torch, fused_sparse, argv,
                                                                   "pallas")
             tot = driver.timer.totals
@@ -4053,6 +4077,8 @@ def phase_cache_game(torch, fused_sparse, workdir, dev="cuda"):
                                                     for k, v in out[label]["spans_s"].items())
                 + f"; read_game_data calls {len(calls)}")
             out[label]["dir"] = d
+            if label == "warm":
+                out[label]["driver_export_s"] = tot["export-serve-store"]
     finally:
         avro_data.read_game_data = real
     check(out["cold"]["read_game_data_calls"] == 2 and out["warm"]["read_game_data_calls"] == 1,
@@ -4064,6 +4090,325 @@ def phase_cache_game(torch, fused_sparse, workdir, dev="cuda"):
     say(f"  (c) warm run: training files never decoded, model bytes equal; preprocess "
         f"{out['warm']['stages_s']['preprocess']:.2f} s against the cold "
         f"{out['cold']['stages_s']['preprocess']:.2f} s")
+    store, again = os.path.join(workdir, SERVE_STORE), os.path.join(workdir, "store22c-again")
+    build_model_store(os.path.join(out["warm"]["dir"], "best"), again, bucketer=ShapeBucketer())
+    check(stores_equal(store, again), "(c) the warm run's --export-serve-store store differs "
+                                      "from build_model_store's export of its saved model")
+    out["export_serve_store_s"] = out["warm"]["driver_export_s"]
+    say(f"  (c) warm run's --export-serve-store ({out['export_serve_store_s']:.2f} s): the "
+        "store is byte-equal to build_model_store's export of the saved model (meta.json's "
+        "source_model_dir aside)")
+    shutil.rmtree(again)
+    return out
+
+
+def stores_equal(a, b) -> bool:
+    """Two serve stores hold the same bytes, meta.json's source_model_dir
+    aside."""
+    ta, tb = tree_bytes(a), tree_bytes(b)
+    if sorted(ta) != sorted(tb):
+        return False
+    for name in ta:
+        if name == "meta.json":
+            ma, mb = json.loads(ta[name]), json.loads(tb[name])
+            ma.pop("source_model_dir"), mb.pop("source_model_dir")
+            if ma != mb:
+                return False
+        elif ta[name] != tb[name]:
+            return False
+    return True
+
+
+# --- phase 23: serving ---------------------------------------------------------
+
+SERVE_STORE = "store22c"  # phase 22 (c)'s warm run exports phase 10's model here
+SERVE_BATCH_ROWS = (1, 8, 32, 128)
+SERVE_THREADS, SWAP_THREADS = 32, 16
+# warmup's nnz cap: the fixed shard carries 33 nnz a row (rung 64)
+SERVE_WARM_NNZ = 64
+# phase 23 (b): rows served at max_batch_rows 1, and at 8 and 128 (depth
+# cuts, see CUTS)
+SERVE_PREFIX_ROWS = {1: 2048, 8: 4096, 128: 4096}
+SERVE_SUBPROCESS_ROWS = 256  # phase 23 (e): score lines, half before the swap line
+
+
+def serve_requests(workdir):
+    """Phase 10's validation rows as serve-protocol request rows (the
+    features and ids the batch driver reads from the same Avro file)."""
+    from photon_ml_tpu_torch.io import avro as avro_io
+
+    recs = avro_io.read_container(os.path.join(workdir, "validate", "part-00000.avro"))
+    return [{"features": {"fixedFeatures": r["fixedFeatures"], "userFeatures": r["userFeatures"]},
+             "ids": {"userId": (r.get("metadataMap") or {}).get("userId")}} for r in recs]
+
+
+def served_concurrently(server, requests, threads):
+    """Single-row requests from ``threads`` client threads, each sending its
+    next request when its last one is answered (at most ``threads`` in
+    flight); (scores in request order, wall seconds)."""
+    scores = np.full(len(requests), np.nan, np.float32)
+
+    def client(k):
+        for i in range(k, len(requests), threads):
+            got = server.score_rows([requests[i]])
+            if len(got) != 1:
+                raise RuntimeError(f"request {i} came back with {len(got)} scores")
+            scores[i] = got[0]
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        for f in [pool.submit(client, k) for k in range(threads)]:
+            f.result()
+    return scores, time.perf_counter() - t0
+
+
+def batch_split(torch, srv, requests, rows, dev):
+    """One batch of ``rows`` requests: featurizing it on one thread (ms),
+    scoring it padded (host ms, median of 30 calls: uploads, kernels and
+    the read back), and on the card the kernels' device time over 20 calls
+    of a torch.profiler trace against its wall (the device's busy share)."""
+    t0 = time.perf_counter()
+    batch = srv.featurize(requests[:rows])
+    feat_ms = (time.perf_counter() - t0) * 1e3
+    padded = batch.padded(srv.bucketer)
+    calls = []
+    for _ in range(33):
+        t0 = time.perf_counter()
+        srv._score_with(srv.model, padded)
+        calls.append(time.perf_counter() - t0)
+    out = {"featurize_ms": feat_ms, "score_ms": statistics.median(calls[3:]) * 1e3,
+           "padded_rows": padded.num_rows}
+    if dev != "cpu":
+        tr = trace_split(torch, lambda: [srv._score_with(srv.model, padded) for _ in range(20)],
+                         ())
+        out["device_busy_share"] = (tr["kernel_s"] or 0.0) / tr["wall_s"]
+    return out
+
+
+def device_bytes(bundle) -> int:
+    """Bytes of a server generation's coefficient tensors on the device."""
+    ts = [w for *_, w in bundle.fixed]
+    for *_, slab, scales in bundle.random:
+        ts += [slab] + ([] if scales is None else [scales])
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def quant_budget(meta, requests, ref):
+    """tests/tolerances.quant_score_budget over tests/game_test_utils.
+    serving_score_budget: per row, ||values||_1 of each random effect's
+    shard (the intercept's 1 included) times the coordinate's pinned
+    coefficient budget, plus 1e-6 + 1e-6 |reference score|."""
+    budget = np.zeros(len(requests))
+    for e in meta["random"]:
+        coeff = float(e["quantization"]["coeff_err_budget"])
+        sections = GAME_SECTIONS[e["shard"]]
+        budget += coeff * np.array([1.0 + sum(abs(float(f["value"])) for sec in sections
+                                              for f in q["features"].get(sec) or [])
+                                    for q in requests])
+    return budget + 1e-6 + 1e-6 * np.abs(np.asarray(ref, np.float64))
+
+
+def phase_serving(torch, workdir, dev="cuda"):
+    """Phase 23, on phase 10's data and model (phase 22 (c)'s warm run and
+    its --export-serve-store store). (a) bf16 and int8 exports of the same
+    model; slab bytes on disk and on the device by store dtype. (b) the
+    validation rows as concurrent single-row requests (32 client threads) at
+    max_batch_rows 1, 8, 32 and 128 after warmup (each client sends its
+    next request when its last one is answered): p50/p99 latency, QPS and
+    batch fill, and one full batch's featurize and scoring times; no new
+    batch shape after warmup; at 32 the f32 scores np.array_equal to
+    cli.game_scoring_driver.main's device scores on the same rows
+    (--offheap-indexmap-dir <store>/features). Warmup covers nnz up to 64:
+    a row carries 33 fixed-effect nnz (rung 64), so a cap of 16 would
+    leave every request a shape warmup never saw. (c) the bf16 and
+    int8 stores' scores within the pinned quantization budget of the f32
+    scores. (d) a swap under load (16 client threads) between the stores of
+    two of phase 19 (a)'s lambda models: no request dropped, no new shape in
+    the probe, the new model's scores served after. (e) serve_driver as a
+    subprocess fed JSON lines (score lines, one swap line, score lines,
+    EOF): every response equals the in-process server's score."""
+    from photon_ml_tpu_torch.cli import game_scoring_driver
+    from photon_ml_tpu_torch.compile import ShapeBucketer
+    from photon_ml_tpu_torch.serve import (ModelStore, ModelSwapper, ScoringServer, ServeStats,
+                                           build_model_store)
+
+    say("== phase 23: serving phase 10's model (phase 22 (c)'s --export-serve-store) on "
+        f"{dev}: store dtypes, latency against max_batch_rows, quantized scores, a swap under "
+        "load, the serve driver as a subprocess")
+    model = os.path.join(workdir, "out22c-warm", "best")
+    stores = {"f32": os.path.join(workdir, SERVE_STORE)}
+    t0 = time.perf_counter()
+    for dt in ("bf16", "int8"):
+        stores[dt] = os.path.join(workdir, f"store23-{dt}")
+        build_model_store(model, stores[dt], bucketer=ShapeBucketer(), store_dtype=dt)
+    say(f"  (a) bf16 and int8 stores exported in {time.perf_counter() - t0:.2f} s")
+    requests = serve_requests(workdir)
+    out = {"rows": len(requests), "stores": {}, "batch_rows": {}}
+
+    def server_of(store_dir, rows, stats=None):
+        srv = ScoringServer(ModelStore(store_dir), shard_sections=GAME_SECTIONS,
+                            max_batch_rows=rows, max_wait_ms=2.0,
+                            stats=stats or ServeStats(), device=dev)
+        srv.warmup(warm_nnz=SERVE_WARM_NNZ)
+        return srv
+
+    for dt, path in stores.items():
+        srv = server_of(path, 128)
+        fp = srv.store.footprint()
+        out["stores"][dt] = {"slab_bytes_disk": fp["slab_bytes_disk"],
+                             "device_bytes": device_bytes(srv.model),
+                             "slab_shape": list(srv.store.random[0].slab.shape)}
+        if dt != "f32":
+            # every row as one request, split into 128-row batches; held
+            # against the f32 scores in (c)
+            out["stores"][dt]["scores"] = srv.score_rows(requests)
+        srv.close()
+        say(f"  (a) {dt}: slab {tuple(out['stores'][dt]['slab_shape'])}, "
+            f"{fp['slab_bytes_disk']} slab bytes on disk (slab and scales files), "
+            f"{out['stores'][dt]['device_bytes']} coefficient bytes on the device "
+            "(fixed effect, slab and scales)")
+
+    # (b) the f32 store against max_batch_rows
+    drv = run_scoring(torch, ["--input-dirs", os.path.join(workdir, "validate"),
+                              "--game-model-input-dir", model,
+                              "--output-dir", os.path.join(workdir, "scores23"),
+                              "--offheap-indexmap-dir", os.path.join(stores["f32"], "features"),
+                              "--feature-shard-id-to-feature-section-keys-map",
+                              "global:fixedFeatures|per_user:userFeatures", "--device", dev])[0]
+    check(drv.data.num_rows == len(requests), "(b) the driver and the requests count different "
+                                              "rows")
+    for rows in SERVE_BATCH_ROWS:
+        reqs = requests[:SERVE_PREFIX_ROWS.get(rows, len(requests))]
+        srv = server_of(stores["f32"], rows)
+        split = batch_split(torch, srv, requests, rows, dev)
+        srv.stats.reset()
+        scores, wall = served_concurrently(srv, reqs, SERVE_THREADS)
+        snap = srv.stats.snapshot()
+        new_shapes = srv.new_request_compiles()
+        srv.close()
+        check(new_shapes == 0, f"(b) max_batch_rows {rows}: {new_shapes} new request shapes "
+                               "after warmup")
+        check(np.array_equal(scores, drv.scores[:len(reqs)]) if rows == 32 else
+              bool(np.isfinite(scores).all()),
+              f"(b) max_batch_rows {rows}: served scores differ from the scoring driver's")
+        if rows == 32:
+            served32 = scores
+        out["batch_rows"][rows] = {k: snap[k] for k in (
+            "requests", "batches", "p50_ms", "p99_ms", "qps", "batch_fill_ratio",
+            "avg_batch_rows", "avg_requests_per_batch")}
+        out["batch_rows"][rows]["wall_s"] = wall
+        out["batch_rows"][rows]["bitwise_driver"] = bool(np.array_equal(
+            scores, drv.scores[:len(reqs)]))
+        out["batch_rows"][rows]["one_full_batch"] = split
+        say(f"  (b) max_batch_rows {rows:3d}: {len(reqs)} single-row requests from "
+            f"{SERVE_THREADS} closed-loop client threads in {wall:.2f} s; p50 "
+            f"{snap['p50_ms']:.3f} ms, p99 {snap['p99_ms']:.3f} ms, {snap['qps']:.1f} req/s, "
+            f"batch fill {snap['batch_fill_ratio']:.4f} ({snap['avg_requests_per_batch']} "
+            f"requests a batch); new shapes after warmup 0; scores bitwise the driver's "
+            f"{out['batch_rows'][rows]['bitwise_driver']}; one full batch: featurize "
+            f"{split['featurize_ms']:.3f} ms on one thread, score {split['score_ms']:.3f} ms "
+            f"({split['padded_rows']} padded rows)"
+            + (f", device busy {split['device_busy_share']:.3f} of it"
+               if "device_busy_share" in split else ""))
+    say(f"  (b) at max_batch_rows 32 the {len(requests)} served f32 scores are np.array_equal "
+        "to game_scoring_driver.main's device scores")
+
+    # (c) quantized stores within their budget of the f32 scores
+    for dt in ("bf16", "int8"):
+        meta = ModelStore(stores[dt]).meta
+        got = out["stores"][dt].pop("scores")
+        budget = quant_budget(meta, requests, served32)
+        diff = np.abs(got.astype(np.float64) - served32)
+        check(bool((diff <= budget).all()), f"(c) {dt}: {int((diff > budget).sum())} scores "
+                                            "outside the quantization budget")
+        check(not np.array_equal(got, served32), f"(c) {dt}: scores bitwise the f32 ones")
+        out["stores"][dt]["max_abs_score_err"] = float(diff.max())
+        out["stores"][dt]["coeff_err_budget"] = meta["random"][0]["quantization"][
+            "coeff_err_budget"]
+        say(f"  (c) {dt}: max |score - f32 score| {diff.max():.3e}, every row within its "
+            f"budget (largest {budget.max():.3e})")
+
+    # (d) a swap under load between two of phase 19 (a)'s lambda models
+    lam = [os.path.join(workdir, "grid-per-combo", "all", str(i), "") for i in (0, 1)]
+    lam_stores = []
+    for i, m in enumerate(lam):
+        lam_stores.append(os.path.join(workdir, f"store23-lambda{i}"))
+        build_model_store(m, lam_stores[-1], bucketer=ShapeBucketer())
+    srv = server_of(lam_stores[0], 32)
+    before = srv.score_rows(requests[:64])
+    swapper = ModelSwapper(srv)
+    fired, errors = [], []
+    stop = threading.Event()
+
+    def client(k):
+        i = k
+        while not stop.is_set() or i < k + SWAP_THREADS * 4:
+            try:
+                fired.append(srv.score_rows([requests[i % len(requests)]]))
+            except Exception as exc:  # noqa: BLE001 — a dropped request is what (d) counts
+                errors.append(repr(exc))
+            i += SWAP_THREADS
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SWAP_THREADS)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    report = swapper.swap(lam_stores[1])
+    time.sleep(0.5)
+    stop.set()
+    for t in threads:
+        t.join()
+    after = srv.score_rows(requests[:64])
+    srv.close()
+    fresh = server_of(lam_stores[1], 32)
+    want_after = fresh.score_rows(requests[:64])
+    fresh.close()
+    check(not errors, f"(d) {len(errors)} requests failed during the swap: {errors[:3]}")
+    check(report["dropped_requests"] == 0 and report["new_compiles"] == 0
+          and report["shape_compatible"], f"(d) swap report {report}")
+    check(np.array_equal(after, want_after) and not np.array_equal(before, after),
+          "(d) after the swap the server does not serve the new model's scores")
+    out["swap"] = {"report": {k: report[k] for k in ("generation", "shape_compatible",
+                                                     "new_compiles", "dropped_requests")},
+                   "requests_during": len(fired), "failed": len(errors)}
+    say(f"  (d) swap under load ({SWAP_THREADS} threads, {len(fired)} requests answered, "
+        f"{len(errors)} failed): generation {report['generation']}, shape-compatible, "
+        f"{report['new_compiles']} new shapes in the probe, {report['dropped_requests']} "
+        "dropped; the new model's scores served after")
+
+    # (e) the serve driver as a subprocess
+    n = SERVE_SUBPROCESS_ROWS
+    lines = [json.dumps({"id": f"a{i}", "rows": [q]}) for i, q in enumerate(requests[:n // 2])]
+    lines.append(json.dumps({"cmd": "swap", "store_dir": lam_stores[1], "id": "swap"}))
+    lines += [json.dumps({"id": f"b{i}", "rows": [q]})
+              for i, q in enumerate(requests[n // 2:n])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve_driver",
+         "--model-store-dir", stores["f32"],
+         "--feature-shard-id-to-feature-section-keys-map",
+         "global:fixedFeatures|per_user:userFeatures", "--max-batch-rows", "32",
+         "--warm-nnz", str(SERVE_WARM_NNZ), "--device", dev],
+        input="\n".join(lines) + "\n", capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"(e) serve_driver exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    by_id = {r.get("id"): r for r in map(json.loads, proc.stdout.splitlines())}
+    check(by_id.get("swap", {}).get("swap", {}).get("new_compiles") == 0,
+          f"(e) the swap line's response {by_id.get('swap')}")
+    fresh = server_of(lam_stores[1], 32)
+    want_b = fresh.score_rows(requests[n // 2:n])
+    fresh.close()
+    got_a = np.asarray([by_id[f"a{i}"]["scores"][0] for i in range(n // 2)], np.float32)
+    got_b = np.asarray([by_id[f"b{i}"]["scores"][0] for i in range(n - n // 2)], np.float32)
+    check(np.array_equal(got_a, served32[:n // 2]) and np.array_equal(got_b, want_b),
+          "(e) the serve driver's responses differ from the in-process server's scores")
+    summary = [line for line in proc.stderr.splitlines() if "serve stats:" in line]
+    check(bool(summary), "(e) the serve driver logged no stats summary at shutdown")
+    out["subprocess"] = {"wall_s": wall, "responses": len(by_id)}
+    say(f"  (e) serve_driver subprocess: {n} score lines and one swap line in {wall:.2f} s "
+        "(start and warmup included); every response equals the in-process server's score; "
+        f"its shutdown summary: {summary[-1].split('serve stats: ')[-1]}")
     return out
 
 
@@ -4082,6 +4427,9 @@ CUTS = [
     "stopped run is in-process (SystemExit 75), auto's with its race caches emptied first",
     f"phase 21 (d): the --adaptive-schedule runs at {SKEW_SMALL_USERS} users (phase 20 (f)'s "
     f"data, as (e)), not {SKEW_USERS}",
+    "phase 23 (b): single-row requests of the first "
+    + ", ".join(f"{n} validation rows at max_batch_rows {b}" for b, n in SERVE_PREFIX_ROWS.items())
+    + ", not all 37488 (32 serves every row; 8192 at 1, 8 and 128 before this cut)",
 ]
 
 
@@ -4167,6 +4515,7 @@ def main() -> None:
         checkpoints = timed("17", phase_checkpoints, torch, fused_sparse, workdir)
         game_grid = timed("19ab", phase_game_grid, torch, fused_sparse, workdir)
         cache_game = timed("22c", phase_cache_game, torch, fused_sparse, workdir)
+        serving = timed("23", phase_serving, torch, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as workdir:
         sparse_glm = timed("15", phase_sparse_glm, torch, fused_sparse, losses, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as workdir:
@@ -4267,6 +4616,7 @@ def main() -> None:
                     "game_grid": game_grid, "full_game": full_game, "bucketed": bucketed,
                     "scheduler": scheduler, "dense_stack_bits": dense_bits,
                     "streaming": {"glm": stream_glm, "game": stream_game, "cache": cache_game},
+                    "serving": serving,
                     "phase_walls_s": walls, "cuts": CUTS, "card": card}, default=str))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))

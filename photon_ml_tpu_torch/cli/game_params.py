@@ -21,10 +21,13 @@ the flag, every flag whose code path is not yet ported when it is set away
 from its default: the fused cycle, the mesh, the persistent cache, warm
 starts, the planner and the rest listed in ``_FENCED``. Streaming random
 effects (``--streaming-random-effects``, ``--re-memory-budget-mb``, which
-implies it) and ``--tensor-cache`` run.
+implies it), ``--tensor-cache`` and ``--export-serve-store`` with
+``--store-dtype`` run.
 ``--solve-compaction`` and ``--adaptive-schedule`` are checked through the
 execution plan (compile/plan.py), as the JAX parser checks them. The scoring parser takes every flag of the JAX
-scoring driver, plus ``--device``.
+scoring driver, plus ``--device``. The serve parser takes every flag of the
+JAX serve driver, plus ``--device``; ``--persistent-cache`` is fenced
+there too.
 """
 
 from __future__ import annotations
@@ -294,6 +297,11 @@ class GameTrainingParams:
     re_memory_budget_mb: Optional[float] = None
     # content-addressed cache of built ingest tensors (io/tensor_cache.py)
     tensor_cache_dir: Optional[str] = None
+    # export the trained best model as an mmap'd serving store
+    # (serve/model_store.py) right after save, with this slab policy
+    # (serve/quantize.py): f32 (bitwise default) | bf16 | int8
+    export_serve_store: Optional[str] = None
+    store_dtype: str = "f32"
     # canonical shape ladder (compile/canonical.py): "off" | "on" |
     # "BASE:GROWTH"; each bucket's dims round up a geometric ladder with
     # masked padding
@@ -343,6 +351,12 @@ class GameTrainingParams:
         errors.extend(_io_errors(self))
         if self.io_retry_base_delay < 0:
             errors.append("--io-retry-base-delay must be >= 0")
+        try:
+            from photon_ml_tpu_torch.serve.quantize import validate_store_dtype
+
+            validate_store_dtype(self.store_dtype)
+        except ValueError as e:
+            errors.append(f"--store-dtype: {e}")
         if self.divergence_guard not in ("off", "rollback", "skip_cycle"):
             errors.append(
                 "--divergence-guard must be 'off', 'rollback', or "
@@ -425,8 +439,6 @@ _FENCED = {
     "--fused-cycle": "false",
     "--persistent-cache": None,
     "--warm-start-from": None,
-    "--export-serve-store": None,
-    "--store-dtype": "f32",
     "--plan": None,
 }
 # values that leave a fenced flag unset, besides its default
@@ -505,6 +517,15 @@ def build_training_parser() -> argparse.ArgumentParser:
     a("--re-memory-budget-mb", default=None,
       help="cap the resident random-effect block slab (MB); implies "
            "--streaming-random-effects")
+    a("--export-serve-store", dest="export_serve_store", default=None,
+      help="after save, export the best model as an mmap'd serving store at "
+           "this dir (serve/model_store.py) — the artifact a live scoring "
+           "server hot-swaps in")
+    a("--store-dtype", default="f32", choices=_store_dtype_choices(),
+      help="slab storage policy for --export-serve-store: f32 keeps the "
+           "bitwise-to-the-driver contract; bf16/int8 (per-row absmax scales) "
+           "halve/quarter the slab bytes under a pinned, export-verified "
+           "quantization-error budget")
     a("--tensor-cache", dest="tensor_cache_dir", default=None,
       help="content-addressed on-disk cache of built ingest tensors (keyed by "
            "source file stats + ingest config): warm runs skip the Avro decode, "
@@ -546,6 +567,14 @@ def _add_io_flags(a) -> None:
       help="max corrupt blocks skipped per part file before raising")
     a("--io-retries", type=int, default=4,
       help="attempts for every filesystem read (exponential backoff)")
+
+
+def _store_dtype_choices() -> List[str]:
+    """The --store-dtype choices (imported lazily: the serve package
+    imports the drivers)."""
+    from photon_ml_tpu_torch.serve.quantize import STORE_DTYPES
+
+    return list(STORE_DTYPES)
 
 
 def _truthy(v) -> bool:
@@ -603,6 +632,8 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         re_memory_budget_mb=(float(ns.re_memory_budget_mb)
                              if ns.re_memory_budget_mb is not None else None),
         tensor_cache_dir=ns.tensor_cache_dir,
+        export_serve_store=ns.export_serve_store,
+        store_dtype=ns.store_dtype,
         shape_canonicalization=ns.shape_canonicalization,
         solve_compaction=ns.solve_compaction,
         adaptive_schedule=ns.adaptive_schedule,
@@ -710,6 +741,162 @@ def parse_scoring_params(argv: Optional[List[str]] = None) -> GameScoringParams:
         on_corrupt=ns.on_corrupt,
         corrupt_skip_budget=ns.corrupt_skip_budget,
         io_retries=ns.io_retries,
+        device=ns.device,
+    )
+    params.validate()
+    return params
+
+
+@dataclasses.dataclass
+class GameServeParams:
+    """Online scoring server parameters (photon_ml_tpu_torch.serve; the JAX
+    package's GameServeParams with ``device``)."""
+
+    # model source: a prebuilt serve store, or a saved GAME model dir the
+    # driver exports into one at --model-store-dir first
+    model_store_dir: str = ""
+    game_model_input_dir: Optional[str] = None
+    feature_shard_sections: Dict[str, List[str]] = dataclasses.field(default_factory=dict)
+    # micro-batching (serve/batcher.py): coalesce concurrent requests up to
+    # this many rows / this long a wait onto one ladder-canonical batch
+    max_batch_rows: int = 128
+    max_wait_ms: float = 2.0
+    # canonical shape ladder — defaults ON for serving
+    shape_canonicalization: str = "on"
+    # the JAX server's persistent XLA cache; the port has no counterpart
+    # (the command line fences it, the driver warns on it)
+    persistent_cache_dir: Optional[str] = None
+    # warmup: score every (rows, nnz) ladder rung at startup; nnz cap per
+    # shard for the warmed rungs
+    warmup: bool = True
+    warm_nnz: Optional[int] = None
+    # fail startup unless the start compiled nothing new (needs the cache)
+    assert_warm: bool = False
+    # export the model store from --game-model-input-dir then exit
+    build_store_only: bool = False
+    num_store_partitions: int = 1
+    # slab storage policy when THIS driver exports the store
+    store_dtype: str = "f32"
+    log_path: Optional[str] = None
+    # flags given away from their default whose code paths are not yet
+    # ported (filled by the parser; validate refuses them)
+    unported_flags: List[str] = dataclasses.field(default_factory=list)
+    # where the server scores: "cuda" (default) or "cpu"
+    device: str = "cuda"
+
+    def validate(self) -> None:
+        errors = []
+        if not self.model_store_dir:
+            errors.append("--model-store-dir is required")
+        try:
+            from photon_ml_tpu_torch.serve.quantize import validate_store_dtype
+
+            validate_store_dtype(self.store_dtype)
+        except ValueError as e:
+            errors.append(f"--store-dtype: {e}")
+        if self.build_store_only and not self.game_model_input_dir:
+            errors.append("--build-store-only needs --game-model-input-dir")
+        if self.max_batch_rows < 1:
+            errors.append("--max-batch-rows must be >= 1")
+        if self.max_wait_ms < 0:
+            errors.append("--max-wait-ms must be >= 0")
+        if self.num_store_partitions < 1:
+            errors.append("--num-store-partitions must be >= 1")
+        if self.warm_nnz is not None and self.warm_nnz < 1:
+            errors.append("--warm-nnz must be >= 1")
+        if self.assert_warm and not self.persistent_cache_dir:
+            errors.append(
+                "--assert-warm needs --persistent-cache (zero new compiles "
+                "is only achievable from a filled persistent cache)"
+            )
+        if self.assert_warm and not self.warmup:
+            errors.append(
+                "--assert-warm needs warmup: with --no-warmup nothing "
+                "compiles at startup, so 'zero new compiles' would hold "
+                "vacuously while every first request pays a compile"
+            )
+        try:
+            from photon_ml_tpu_torch.compile import resolve_bucketer
+
+            resolve_bucketer(self.shape_canonicalization)
+        except ValueError as e:
+            errors.append(f"--shape-canonicalization: {e}")
+        if self.device not in ("cuda", "cpu"):
+            errors.append(f"--device must be cuda or cpu, got {self.device!r}")
+        errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
+                      for flag in self.unported_flags)
+        if errors:
+            raise ValueError("; ".join(errors))
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="photon-ml-tpu-torch game-serve",
+        description="persistent online GAME scoring server on the card (JSON-lines "
+        "on stdin/stdout; photon_ml_tpu_torch.serve)",
+    )
+    a = p.add_argument
+    a("--model-store-dir", required=True,
+      help="mmap'd serving store (serve/model_store.py layout); built here "
+           "from --game-model-input-dir when absent")
+    a("--game-model-input-dir", default=None,
+      help="saved GAME model dir (reference Avro layout) to export into "
+           "the store when the store does not exist yet")
+    a("--feature-shard-id-to-feature-section-keys-map", dest="shard_sections",
+      default=None)
+    a("--max-batch-rows", type=int, default=128,
+      help="micro-batch row cap: concurrent requests coalesce up to this "
+           "many rows per device call")
+    a("--max-wait-ms", type=float, default=2.0,
+      help="micro-batch window: the first request of an idle window waits "
+           "at most this long for company (a saturated queue never waits)")
+    a("--shape-canonicalization", default="on",
+      help="batch-shape ladder: off | on | BASE:GROWTH (default ON — every "
+           "request shape rounds up to a warmed canonical shape)")
+    a("--persistent-cache", dest="persistent_cache_dir", default=None,
+      help="not yet ported to photon_ml_tpu_torch")
+    a("--no-warmup", action="store_true",
+      help="skip the startup ladder warmup")
+    a("--warm-nnz", type=int, default=None,
+      help="nnz-per-row cap the warmup assumes (default 64, clamped to the "
+           "feature dim)")
+    a("--assert-warm", default="false",
+      help="fail startup unless zero new compiles after warmup (needs the "
+           "persistent cache, which the port does not have)")
+    a("--build-store-only", default="false",
+      help="export --game-model-input-dir into --model-store-dir, then exit")
+    a("--num-store-partitions", type=int, default=1,
+      help="pmix partitions for the store's feature/entity lookups")
+    a("--store-dtype", default="f32", choices=_store_dtype_choices(),
+      help="slab storage policy when exporting the store here: f32 "
+           "(bitwise default) | bf16 | int8 with per-row absmax scales, "
+           "under a pinned export-verified quantization-error budget")
+    a("--log-path", default=None, help="log file (default: stderr only)")
+    a("--device", dest="device", default="cuda", choices=["cuda", "cpu"],
+      help="where the server scores (default cuda; cuda without a card raises)")
+    return p
+
+
+def parse_serve_params(argv: Optional[List[str]] = None) -> GameServeParams:
+    ns = build_serve_parser().parse_args(argv)
+    params = GameServeParams(
+        model_store_dir=ns.model_store_dir,
+        game_model_input_dir=ns.game_model_input_dir,
+        feature_shard_sections=parse_shard_sections(ns.shard_sections),
+        max_batch_rows=ns.max_batch_rows,
+        max_wait_ms=ns.max_wait_ms,
+        shape_canonicalization=ns.shape_canonicalization,
+        persistent_cache_dir=ns.persistent_cache_dir,
+        warmup=not ns.no_warmup,
+        warm_nnz=ns.warm_nnz,
+        assert_warm=_truthy(ns.assert_warm),
+        build_store_only=_truthy(ns.build_store_only),
+        num_store_partitions=ns.num_store_partitions,
+        store_dtype=ns.store_dtype,
+        log_path=ns.log_path,
+        unported_flags=(["--persistent-cache"]
+                        if str(ns.persistent_cache_dir or "").strip().lower() not in _UNSET
+                        else []),
         device=ns.device,
     )
     params.validate()

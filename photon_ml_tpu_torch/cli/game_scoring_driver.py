@@ -47,6 +47,7 @@ from photon_ml_tpu_torch.io import avro_data, model_io, schemas
 from photon_ml_tpu_torch.io.index_map import IndexMap
 from photon_ml_tpu_torch.io.offheap import load_shard_index_map
 from photon_ml_tpu_torch.models.game import gather_scores
+from photon_ml_tpu_torch.ops.fused_sparse import tree_row_sum
 from photon_ml_tpu_torch.resilience import preemption
 from photon_ml_tpu_torch.utils.io_utils import prepare_output_dir
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
@@ -63,17 +64,19 @@ def padded_coo(feats, device):
 
 
 def fixed_contrib(w: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """score_n = sum_k vals_nk * w[idx_nk]."""
-    return torch.sum(w[idx] * vals, dim=-1)
+    """score_n = sum_k vals_nk * w[idx_nk], the K terms summed by
+    ``tree_row_sum`` (as ``models.game.gather_scores`` sums them): a row's
+    bits do not follow the row count or a zero-padded K."""
+    return tree_row_sum(w[idx] * vals)
 
 
 def factored_contrib(latent: torch.Tensor, matrix: torch.Tensor, ent_pos: torch.Tensor,
                      idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """score_n = (sum_k vals_nk * M[:, idx_nk]) . latent[ent_pos_n]; a row
     with ent_pos -1 scores 0 (FactoredRandomEffectCoordinate.score over a
-    saved model)."""
-    xp = torch.sum(matrix.T[idx] * vals[:, :, None], dim=1)  # (N, k)
-    contrib = torch.sum(xp * latent[torch.clamp_min(ent_pos, 0)], dim=-1)
+    saved model). Both sums go through ``tree_row_sum``."""
+    xp = tree_row_sum((matrix.T[idx] * vals[:, :, None]).transpose(1, 2))  # (N, k)
+    contrib = tree_row_sum(xp * latent[torch.clamp_min(ent_pos, 0)])
     return torch.where(ent_pos >= 0, contrib, torch.zeros_like(contrib))
 
 

@@ -955,10 +955,38 @@ class GameTrainingDriver:
                             self.save_models(os.path.join(p.output_dir, ALL_MODELS_DIR, str(i)),
                                              result, i)
                     self._write_retrain_manifest(best_dir)
+                self._export_store(best_dir)
+            elif p.export_serve_store:
+                self.logger.warn(
+                    "--model-output-mode NONE: no saved model, so no "
+                    "serving store can be written"
+                )
             self._log_run_summaries()
         finally:
             if self._own_logger:
                 self.logger.close()
+
+    def _export_store(self, best_dir: str) -> None:
+        """--export-serve-store: the trained best model as an mmap'd serving
+        store (serve/model_store.py), what a live ScoringServer hot-swaps
+        in; timed under the JAX driver's span name."""
+        p = self.params
+        if not p.export_serve_store:
+            return
+        from photon_ml_tpu_torch.compile import ShapeBucketer
+        from photon_ml_tpu_torch.serve.model_store import build_model_store
+
+        with self.timer.measure("export-serve-store"):
+            build_model_store(
+                best_dir, p.export_serve_store,
+                bucketer=self.bucketer or ShapeBucketer(),
+                store_dtype=p.store_dtype,
+            )
+        self.logger.info(
+            f"serving store exported: {p.export_serve_store} "
+            f"(dtype {p.store_dtype}; swap it into a live server via "
+            "serve.swap.ModelSwapper)"
+        )
 
     def _log_run_summaries(self) -> None:
         self.logger.info(self.timer.summary())

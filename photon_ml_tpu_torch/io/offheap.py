@@ -100,6 +100,28 @@ def _load_native():
     return native_build.load_host("pmix_store.cpp", configure)
 
 
+_lookups: Dict[str, ctypes.PyDLL] = {}
+
+
+def _lookup_lib(lib):
+    """The library's two lookups bound through ``ctypes.PyDLL``: a call
+    holds the GIL. A lookup takes microseconds; released and taken back on
+    every call (``ctypes.CDLL``), the GIL had threads featurizing at once
+    (the scoring server's clients, serve/server.py) queue on it at every
+    lookup."""
+    py = _lookups.get(lib._name)
+    if py is None:
+        py = ctypes.PyDLL(lib._name)
+        py.pmix_get_index.restype = ctypes.c_long
+        py.pmix_get_index.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long]
+        py.pmix_get_name.restype = ctypes.c_long
+        py.pmix_get_name.argtypes = [
+            ctypes.c_void_p, ctypes.c_long, ctypes.c_char_p, ctypes.c_long,
+        ]
+        _lookups[lib._name] = py
+    return py
+
+
 # ---------------------------------------------------------------------------
 # single-partition access (native or pure-Python, same file format)
 # ---------------------------------------------------------------------------
@@ -149,6 +171,7 @@ class _NativePartition:
 
     def __init__(self, path: str, lib):
         self._lib = lib
+        self._lookup = _lookup_lib(lib)
         self._handle = lib.pmix_open(path.encode())
         if not self._handle:
             raise IOError(f"cannot open pmix store {path}")
@@ -156,15 +179,15 @@ class _NativePartition:
         self._buf = ctypes.create_string_buffer(4096)
 
     def get_index(self, key: bytes) -> int:
-        return int(self._lib.pmix_get_index(self._handle, key, len(key)))
+        return int(self._lookup.pmix_get_index(self._handle, key, len(key)))
 
     def get_name(self, idx: int) -> Optional[str]:
-        n = int(self._lib.pmix_get_name(self._handle, idx, self._buf, len(self._buf)))
+        n = int(self._lookup.pmix_get_name(self._handle, idx, self._buf, len(self._buf)))
         if n < 0:
             return None
         if n > len(self._buf):
             self._buf = ctypes.create_string_buffer(n)
-            n = int(self._lib.pmix_get_name(self._handle, idx, self._buf, len(self._buf)))
+            n = int(self._lookup.pmix_get_name(self._handle, idx, self._buf, len(self._buf)))
         return self._buf.raw[:n].decode("utf-8")
 
     def close(self) -> None:
@@ -373,6 +396,60 @@ def load_index_map(path: str):
     if os.path.isdir(path):
         return IndexMap.load(os.path.join(path, "feature-index.json"))
     return IndexMap.load(path)
+
+
+# ---------------------------------------------------------------------------
+# coefficient-slab row lookup (the feature-index machinery generalized)
+# ---------------------------------------------------------------------------
+
+
+class SlabRowIndex(OffHeapIndexMap):
+    """Entity raw id -> coefficient-slab row, over the same mapped ``.pmix``
+    partition files as the feature index: the serving ``ModelStore``
+    (serve/model_store.py) keeps each random effect's per-entity
+    coefficients as one ``(E, D)`` slab whose row order is this store's
+    global index order, so ``get_row(raw_id)`` is a hash probe in mapped
+    memory. Rows are the JAX package's for the same key set."""
+
+    def __init__(self, store_dir: str, force_python: bool = False):
+        super().__init__(store_dir, force_python=force_python)
+        if self._intercept:
+            raise IOError(
+                f"{store_dir} was built with an intercept slot — not a slab "
+                "row index (build with build_slab_index)"
+            )
+
+    @property
+    def num_rows(self) -> int:
+        return self._num_features
+
+    def get_row(self, key: str) -> int:
+        """Slab row of ``key``; -1 when the entity has no model."""
+        return self.get_index(key)
+
+    def row_key(self, row: int) -> Optional[str]:
+        return self.get_feature_name(row)
+
+
+def build_slab_index(
+    output_dir: str,
+    keys: Iterable[str],
+    num_partitions: int = 1,
+    force_python: bool = False,
+) -> None:
+    """Write an entity -> slab-row lookup store: ``build_offheap_store``
+    without the intercept slot (slab rows are exactly the key set)."""
+    build_offheap_store(
+        output_dir,
+        keys,
+        add_intercept=False,
+        num_partitions=num_partitions,
+        force_python=force_python,
+    )
+
+
+def open_slab_index(store_dir: str, force_python: bool = False) -> SlabRowIndex:
+    return SlabRowIndex(store_dir, force_python=force_python)
 
 
 def load_shard_index_map(base_dir: str, shard: str):

@@ -18,6 +18,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.ops.fused_sparse import tree_row_sum
 from photon_ml_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
@@ -28,10 +29,12 @@ def gather_scores(coefficients: Tensor, entity_pos: Tensor, feat_idx: Tensor,
     """score_n = sum_k val_nk * coefficients[entity_pos_n, idx_nk] over
     padded-COO rows whose pad slots carry index 0 and value 0; a row with
     entity_pos -1 (no model) scores 0 (RandomEffectModel.scala:129-158).
-    The scoring driver's and the training driver's validation gather."""
+    The scoring driver's, the server's and the training driver's validation
+    gather. The K terms are summed by ``tree_row_sum``: a row's score has
+    the same bits in a batch of any row count and at any zero-padded K."""
     gathered = coefficients[torch.clamp_min(entity_pos, 0)[:, None], feat_idx]
     valid = entity_pos[:, None] >= 0
-    return torch.sum(torch.where(valid, gathered * feat_val, torch.zeros_like(gathered)), dim=-1)
+    return tree_row_sum(torch.where(valid, gathered * feat_val, torch.zeros_like(gathered)))
 
 
 @dataclasses.dataclass

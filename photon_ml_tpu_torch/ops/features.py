@@ -5,8 +5,10 @@ Two layouts with one protocol (``matvec``, ``rmatvec``, ``sq_rmatvec``,
 ``row_sq_norms``, ``to_dense``, ``astype``), so the objective is
 layout-blind:
 
-  * ``DenseFeatures`` — an ``(N, D)`` matrix (or an ``(E, M, D)`` stack of
-    lanes); every contraction is a matmul.
+  * ``DenseFeatures`` — an ``(N, D)`` matrix, whose contractions are
+    matmuls, or an ``(E, M, D)`` stack of lanes, whose contractions are
+    elementwise products summed by ``tree_row_sum`` (a lane's bits then do
+    not depend on how many lanes ride with it).
   * ``SparseFeatures`` — padded per-row COO, ``indices``/``values`` of
     shape ``(N, K)``; padding slots carry index 0 and value 0. The margin is
     a gather and a row sum, the transpose a scatter-add into ``(D,)`` in the
@@ -32,6 +34,8 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+
+from photon_ml_tpu_torch.ops.fused_sparse import tree_row_sum
 
 Tensor = torch.Tensor
 
@@ -72,14 +76,23 @@ class DenseFeatures:
         return _rmatvec(torch.square(self.to_dense()), d.to(_acc_dtype(self.matrix.dtype)))
 
 
-# A stack of lanes, (E, M, D) with (E, D) coefficients, contracts lane by
-# lane; a single (N, D) matrix keeps the plain matrix-vector product.
+# A single (N, D) matrix keeps the plain matrix-vector product. A stack of
+# lanes, (E, M, D) with (E, D) coefficients, contracts lane by lane in a
+# fixed association: the elementwise product, then ``tree_row_sum`` over D
+# for a margin and over M for a transpose (the product transposed so the
+# summed axis is last). A batched torch.matmul would let cuBLAS choose its
+# kernel by the batch count, and a lane's bits would follow the number of
+# lanes solved with it; the solve scheduler moves lanes between batches.
 def _matvec(x: Tensor, w: Tensor) -> Tensor:
-    return x @ w if x.dim() == 2 else torch.matmul(x, w.unsqueeze(-1)).squeeze(-1)
+    if x.dim() == 2:
+        return x @ w
+    return tree_row_sum(x * w.unsqueeze(-2))
 
 
 def _rmatvec(x: Tensor, d: Tensor) -> Tensor:
-    return d @ x if x.dim() == 2 else torch.matmul(d.unsqueeze(-2), x).squeeze(-2)
+    if x.dim() == 2:
+        return d @ x
+    return tree_row_sum((x * d.unsqueeze(-1)).transpose(-1, -2))
 
 
 @dataclasses.dataclass

@@ -11,8 +11,9 @@ padding row's loss is zeroed too).
 A batch is one problem, ``(N,)`` rows of a dense ``(N, D)`` matrix or of
 padded-COO ``SparseFeatures`` with ``(D,)`` coefficients, or a stack of lanes (the random effect's entities):
 ``(E, M)`` rows of a dense ``(E, M, D)`` stack or a ``SparseSlab``, with
-``(E, D)`` coefficients; values then come back per lane, ``(E,)``. Rows of a
-slab are summed through the fixed-association ``tree_row_sum``.
+``(E, D)`` coefficients; values then come back per lane, ``(E,)``. The rows
+and contractions of a stack of lanes are summed through the
+fixed-association ``tree_row_sum``.
 """
 
 from __future__ import annotations
@@ -68,17 +69,24 @@ def _wmul(weights: Tensor, x: Tensor) -> Tensor:
     return torch.where(weights > 0.0, weights * x, torch.zeros_like(x))
 
 
+def _is_lane_stack(features) -> bool:
+    """A batch of lanes: a slab, or a dense ``(E, M, D)`` stack."""
+    return (isinstance(features, (SparseSlab, SlabLanes))
+            or (isinstance(features, DenseFeatures) and features.matrix.dim() == 3))
+
+
 def _row_sum(features, x: Tensor) -> Tensor:
     """Row reduction per problem: the fixed-association pairwise tree for a
-    slab (every sparse family and the fused kernels' wrappers share it, so
-    the scalars agree across families), a plain sum for dense rows."""
-    if isinstance(features, (SparseSlab, SlabLanes)):
+    stack of lanes (every sparse family and the fused kernels' wrappers
+    share it, so the scalars agree across families; a lane's sum does not
+    follow the lane count), a plain sum for the rows of one problem."""
+    if _is_lane_stack(features):
         return tree_row_sum(x)
     return torch.sum(x, dim=-1)
 
 
 def _l2_term(features, w: Tensor, l2_weight) -> Tensor:
-    """l2/2 * ||w||^2 per problem, a slab's lanes summed as ``_row_sum``
+    """l2/2 * ||w||^2 per problem, a stack's lanes summed as ``_row_sum``
     sums them: in the fixed association, which no batch changes."""
     return 0.5 * l2_weight * _row_sum(features, torch.square(w))
 

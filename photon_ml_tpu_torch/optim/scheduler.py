@@ -27,13 +27,11 @@ over a lane's coefficients through the fixed-association ``lane_sum``
 follow the batch; the CPU's transcendental functions compute every lane
 element alike (ops/losses.py); on the card the ``pallas`` slab kernels
 choose a lane's summation order from (M, K, D) alone. A dense ``(E, M, D)``
-stack's products go through a batched ``torch.matmul``, and on the card
-cuBLAS chooses its kernel by the batch count: on an NVIDIA H100 the
-compacted solves of a dense stack parted from the one-shot solve's bits
-at the GAME driver's stack shape and at a wider D, host and device loop,
-LBFGS and TRON (chip_smoke.py phase 21 (f)). So on the card the scheduler
-refuses a dense stack (:data:`DENSE_STACK_REFUSAL`); on the CPU it is
-bitwise and runs.
+stack contracts through elementwise products and ``tree_row_sum``
+(ops/features.py, ops/objective.py), never a batched ``torch.matmul``,
+whose cuBLAS kernel follows the batch count (it parted compacted lanes
+from the one-shot solve's bits on an NVIDIA H100, chip_smoke.py phase 21
+(f)). So a dense stack is compacted on the card as on the CPU.
 
 ``schedule.loop == "device"`` runs the rung loop of optim/fused_schedule.py
 instead (on the card, one captured CUDA graph per rung width): same bits,
@@ -449,15 +447,6 @@ def _restore_state(template_state, partial: dict):
 # ---------------------------------------------------------------------------
 
 
-#: why a dense stack's compacted solve is refused on the card
-DENSE_STACK_REFUSAL = (
-    "--solve-compaction refuses a dense (E, M, D) random-effect stack on the card: its "
-    "batched torch.matmul lets cuBLAS choose the kernel by the batch count, so a compacted "
-    "lane would not get the one-shot solve's bits (measured on an NVIDIA H100, chip_smoke.py "
-    "phase 21 (f)); solve on a sparse slab (PHOTON_SPARSE_KERNEL=pallas) or without "
-    "compaction")
-
-
 def compacted_solve(data, w0: Tensor, *, task, optimizer, optimizer_config, regularization,
                     schedule: SolveSchedule, label: str = "re_solve",
                     resume: Optional[dict] = None, reg_weight=None,
@@ -483,11 +472,8 @@ def compacted_solve(data, w0: Tensor, *, task, optimizer, optimizer_config, regu
     site guards that dispatch: an injected fault degrades this solve to
     the host loop below, which recomputes from scratch with the same bits.
     Nothing else degrades: a capture, replay or kernel error raises.
-    ``reg_weight`` overrides the total regularization weight. A dense stack
-    on the card is refused (:data:`DENSE_STACK_REFUSAL`).
+    ``reg_weight`` overrides the total regularization weight.
     """
-    if isinstance(data[0], Tensor) and data[0].is_cuda:
-        raise ValueError(DENSE_STACK_REFUSAL)
     cfg = dict(task=task, optimizer=optimizer, optimizer_config=optimizer_config,
                regularization=regularization)
     lanes = int(w0.shape[0])

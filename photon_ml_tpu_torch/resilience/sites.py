@@ -23,6 +23,7 @@ FAULT_SITES: Dict[str, str] = {
     "optim.block_skip": "adaptive-schedule skip decision boundary; an injected fault degrades the epoch to visit-everything, never a silent skip (algorithm/bucketed_random_effect.py)",
     "optim.device_drain": "device-loop dispatch gate; an injected fault degrades the solve to the host chunk loop, bitwise (optim/scheduler.py)",
     "preempt.signal": "preemption polls; flags instead of raising (resilience/preemption.py)",
+    "serve.dequant": "quantized-store open gate: scale-sidecar/budget validation before a bf16/int8 slab may serve (serve/model_store.py)",
 }
 
 #: preemption poll boundaries (the safe drain points) accepted by

@@ -6,8 +6,9 @@ Objective histories and validation metrics at the ``solver`` tolerance of
 tests/tolerances.py, the same on-disk model layout, and each package loads
 the other's saved model. The pure-Python Avro codec writes the same bytes
 in both packages, every flag whose path is not yet ported raises (the grid,
-factored and sampling flags run: tests/test_torch_game_grid*.py), and
-interop carries the GAME objects across.
+factored and sampling flags run: tests/test_torch_game_grid*.py; so do
+``--export-serve-store`` and ``--store-dtype``), and interop carries the
+GAME objects across.
 """
 
 import os
@@ -128,13 +129,11 @@ def test_port_driver_saves_variances_and_all_models(game_avro_dirs, tmp_path):  
 
 
 FENCED = [
-    ["--store-dtype", "bf16"],
     ["--distributed", "true"],
     ["--fused-cycle", "true"],
     ["--persistent-cache", "cache"],
     ["--warm-start-from", "prior"],
     ["--plan", "auto"],
-    ["--export-serve-store", "store"],
 ]
 
 
@@ -143,6 +142,54 @@ def test_every_unported_flag_raises_naming_it(tmp_path, extra):
     argv = _argv("train", "validate", str(tmp_path / "o"), "LBFGS") + extra
     with pytest.raises(ValueError, match=f"{extra[0]} is not yet ported"):
         tparams.parse_training_params(argv)
+
+
+# the serving store's flags, fenced until the serving slice was ported
+STORE_FLAGS = [["--store-dtype", "bf16"], ["--export-serve-store", "store"]]
+
+
+@pytest.mark.parametrize("extra", STORE_FLAGS, ids=[f[0] for f in STORE_FLAGS])
+def test_store_flags_parse_like_the_jax_parser(tmp_path, extra):
+    from photon_ml_tpu.cli.game_params import parse_training_params as jparse
+
+    argv = _argv("train", "validate", str(tmp_path / "o"), "LBFGS") + extra
+    got, want = tparams.parse_training_params(argv), jparse(argv)
+    assert got.unported_flags == []
+    assert (got.export_serve_store, got.store_dtype) == \
+        (want.export_serve_store, want.store_dtype)
+
+
+def test_a_bad_store_dtype_is_refused_as_in_jax(tmp_path):
+    from photon_ml_tpu.cli.game_params import parse_training_params as jparse
+
+    argv = _argv("train", "validate", str(tmp_path / "o"), "LBFGS") + ["--store-dtype", "fp8"]
+    for parse in (tparams.parse_training_params, jparse):
+        with pytest.raises(SystemExit):  # argparse's choices
+            parse(argv)
+    good = _argv("train", "validate", str(tmp_path / "o"), "LBFGS")
+    for params in (tparams.parse_training_params(good), jparse(good)):
+        params.store_dtype = "fp8"
+        with pytest.raises(ValueError, match="--store-dtype"):
+            params.validate()
+
+
+def test_export_serve_store_runs_and_both_packages_open_the_store(game_avro_dirs,  # noqa: F811
+                                                                  tmp_path):
+    from photon_ml_tpu.serve import ModelStore as JStore
+    from photon_ml_tpu_torch.serve import ModelStore as TStore
+
+    train_dir, val_dir, _ = game_avro_dirs
+    store = str(tmp_path / "store")
+    driver = tdriver.main(_argv(train_dir, val_dir, str(tmp_path / "o"), "LBFGS")
+                          + ["--device", "cpu", "--export-serve-store", store,
+                             "--store-dtype", "int8"])
+    assert driver.timer.totals["export-serve-store"] >= 0
+    port, jax_ = TStore(store), JStore(store)
+    assert port.store_dtype == jax_.store_dtype == "int8"
+    assert [r.name for r in port.random] == [r.name for r in jax_.random] == ["per-user"]
+    assert np.array_equal(port.random[0].dequantized(), jax_.random[0].dequantized())
+    port.close()
+    jax_.close()
 
 
 def test_quickstart_flags_parse_like_the_jax_parser(tmp_path):

@@ -12,6 +12,8 @@ of d to bf16 can land on the other side of an ulp when the margin's
 summation order differs).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -498,21 +500,100 @@ def _dense_stack_problem(device, optimizer, e, m, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("optimizer", ["LBFGS", "TRON"])
-def test_dense_stack_compaction_is_refused_on_the_card(cuda_device, optimizer):
-    """The dense stack's lanes go through a batched ``torch.matmul``, whose
-    cuBLAS kernel follows the batch count: on an H100 its compacted solves
-    parted from the one-shot solve's bits (chip_smoke.py phase 21 (f)). So
-    the scheduler refuses a dense stack on the card, host and device loop,
-    naming the reason; the one-shot solve runs."""
+def test_dense_stack_compaction_is_bitwise_the_one_shot_on_the_card(cuda_device, optimizer):
+    """The dense stack contracts through elementwise products and
+    ``tree_row_sum`` (a batched ``torch.matmul`` let cuBLAS choose its
+    kernel by the batch count, and compacted lanes parted from the one-shot
+    solve's bits on an H100): its compacted solves, host and device loop,
+    are bitwise the one-shot solve on the card."""
     from photon_ml_tpu_torch.algorithm.random_effect import entity_lane_fns
     from photon_ml_tpu_torch.optim.scheduler import SolveSchedule, compacted_solve
 
     data, w0, kw = _dense_stack_problem(cuda_device, optimizer, 2000, 12, 9)
-    for schedule in (SolveSchedule(4), SolveSchedule(4, loop="device")):
-        with pytest.raises(ValueError, match="refuses a dense .* batch count"):
-            compacted_solve(data, w0, schedule=schedule, **kw)
-    res = entity_lane_fns(**kw)[0](*data, w0)
-    assert bool(torch.isfinite(res.value).all())
+    want = _result_bits(entity_lane_fns(**kw)[0](*data, w0))
+    graphs = {}
+    for schedule in (SolveSchedule(2), SolveSchedule(2, loop="device")):
+        got = compacted_solve(data, w0, schedule=schedule, graphs=graphs, **kw)
+        assert all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(_result_bits(got), want)), schedule
+
+
+_SERVE_SCHEMA = {
+    "name": "GameExampleAvro", "namespace": "test", "type": "record",
+    "fields": [
+        {"name": "uid", "type": ["null", "string"], "default": None},
+        {"name": "label", "type": "double"},
+        {"name": "fixedFeatures", "type": {"type": "array", "items": {
+            "name": "FeatureAvro", "namespace": "com.linkedin.photon.avro.generated",
+            "type": "record", "fields": [{"name": "name", "type": "string"},
+                                         {"name": "term", "type": "string"},
+                                         {"name": "value", "type": "double"}]}}},
+        {"name": "userFeatures", "type": {
+            "type": "array", "items": "com.linkedin.photon.avro.generated.FeatureAvro"}},
+        {"name": "metadataMap", "type": ["null", {"type": "map", "values": "string"}],
+         "default": None},
+        {"name": "offset", "type": ["null", "double"], "default": None},
+    ],
+}
+
+
+@pytest.mark.gpu
+def test_served_scores_equal_the_scoring_driver_on_the_card(cuda_device, tmp_path):
+    """Concurrent single-row requests through the server on the card are
+    bitwise the batch scoring driver's device scores on the same rows (a
+    model and rows made with the port alone, from a numpy seed)."""
+    import concurrent.futures
+
+    from photon_ml_tpu_torch.cli import game_scoring_driver
+    from photon_ml_tpu_torch.io import avro, model_io
+    from photon_ml_tpu_torch.io.index_map import IndexMap, feature_key
+    from photon_ml_tpu_torch.serve import ModelStore, ScoringServer, ServeStats, build_model_store
+    from photon_ml_tpu_torch.types import TaskType
+
+    rng = np.random.default_rng(12)
+    fmap = IndexMap.build([feature_key(f"f{j}", "") for j in range(20)], add_intercept=True)
+    umap = IndexMap.build([feature_key(f"u{j}", "") for j in range(6)], add_intercept=True)
+    model = str(tmp_path / "model")
+    task = TaskType.LOGISTIC_REGRESSION
+    model_io.save_fixed_effect(model, "fixed", task, rng.normal(size=len(fmap)).astype(np.float32),
+                               fmap, feature_shard_id="global")
+    model_io.save_random_effect(model, "per-user", task,
+                                {f"user{i}": rng.normal(size=len(umap)).astype(np.float32)
+                                 for i in range(300)},
+                                umap, random_effect_id="userId", feature_shard_id="per_user")
+    records, requests = [], []
+    for r in range(2000):
+        fixed = [{"name": f"f{j}", "term": "", "value": float(rng.normal())}
+                 for j in rng.choice(20, rng.integers(1, 12), replace=False)]
+        user = [{"name": f"u{j}", "term": "", "value": float(rng.normal())}
+                for j in rng.choice(6, rng.integers(1, 6), replace=False)]
+        uid = f"user{rng.integers(0, 320)}"  # some users have no model
+        offset = float(rng.normal())
+        records.append({"uid": str(r), "label": float(rng.integers(0, 2)),
+                        "fixedFeatures": fixed, "userFeatures": user,
+                        "metadataMap": {"userId": uid}, "offset": offset})
+        requests.append({"features": {"fixedFeatures": fixed, "userFeatures": user},
+                         "ids": {"userId": uid}, "offset": offset})
+    os.makedirs(tmp_path / "in")
+    avro.write_container(str(tmp_path / "in" / "part-00000.avro"), records, _SERVE_SCHEMA)
+    store = str(tmp_path / "store")
+    build_model_store(model, store)
+    driver = game_scoring_driver.main([
+        "--input-dirs", str(tmp_path / "in"), "--game-model-input-dir", model,
+        "--output-dir", str(tmp_path / "scores"),
+        "--offheap-indexmap-dir", os.path.join(store, "features"),
+        "--feature-shard-id-to-feature-section-keys-map",
+        "global:fixedFeatures|per_user:userFeatures", "--device", "cuda"])
+    server = ScoringServer(ModelStore(store), shard_sections={
+        "global": ["fixedFeatures"], "per_user": ["userFeatures"]},
+        max_batch_rows=32, stats=ServeStats(), device=cuda_device)
+    server.warmup(warm_nnz=16)
+    with concurrent.futures.ThreadPoolExecutor(32) as pool:
+        futs = list(pool.map(lambda q: server.submit_rows([q]), requests))
+    served = np.concatenate([f.result(timeout=120) for f in futs])
+    assert server.new_request_compiles() == 0
+    server.close()
+    assert np.array_equal(served, driver.scores)
 
 
 @pytest.mark.gpu
