@@ -79,6 +79,16 @@ shapes and times it, then drives the port's main paths at full width:
     ``--tensor-cache`` cold and warm (the warm run decodes no training
     file).
 
+  * the daily retrain loop (phase 24, last, on phase 20's data): phase 22
+    (b)'s first run is yesterday's; (a) the same command with
+    ``--warm-start-from`` short-circuits (no ingest, no kernel launch,
+    byte-equal model); (b) after a new part file (2 rows for every user of
+    one prior block, 64 new users) the unchanged blocks are frozen (their
+    users' coefficients bitwise the prior's) and the dirty and new blocks
+    re-solve warm through the GEVM kernel; (c) bucketed in-memory warm
+    starts at 2000 users on the card and the CPU; (d) ``--plan off`` and
+    ``--plan auto`` (the cost model written, then loaded).
+
 Deterministic algorithms are on from the start (``device.enable_determinism``).
 Every phase prints on its own lines and its wall; any failed check exits
 non-zero. The last lines are a JSON object of the sparse, checkpoint,
@@ -431,9 +441,17 @@ def _write_libsvm(path, n, d, nnz, w_true, rng):
     vals = rng.normal(size=(n, nnz)).astype(np.float32)
     z = (vals * w_true[cols]).sum(1)
     labels = np.where(rng.random(n) < 1.0 / (1.0 + np.exp(-z)), 1, -1)
+    # one %-format a block of rows ("label col:value ..." with 1-based
+    # columns and 4 decimals): the bytes of a per-row f-string, in half the time
+    row = "%d " + " ".join(["%d:%.4f"] * nnz) + "\n"
     with open(path, "w") as f:
-        for i in range(n):
-            f.write(f"{labels[i]} " + " ".join(f"{c + 1}:{v:.4f}" for c, v in zip(cols[i], vals[i])) + "\n")
+        for lo in range(0, n, 4096):
+            hi = min(n, lo + 4096)
+            items = np.empty((hi - lo, 2 * nnz + 1), dtype=object)
+            items[:, 0] = labels[lo:hi].tolist()
+            items[:, 1::2] = (cols[lo:hi] + 1).tolist()
+            items[:, 2::2] = vals[lo:hi].astype(np.float64).tolist()
+            f.write((row * (hi - lo)) % tuple(items.ravel().tolist()))
 
 
 def phase_driver(torch, fused_glm, workdir):
@@ -1405,8 +1423,6 @@ def write_game_avro(workdir, num_users, seed, wide=None, rows_per_user=None):
     per_row)`` widens the fixed section: each row carries ``per_row`` of
     ``names`` feature names instead of the dense d_fixed. ``rows_per_user``
     replaces bench.py's 8-15 rows a user."""
-    from photon_ml_tpu_torch.io import schemas
-
     rng = np.random.default_rng(seed)
     if rows_per_user is None:
         rows_per_user = rng.integers(8, 16, size=num_users)
@@ -1434,7 +1450,22 @@ def write_game_avro(workdir, num_users, seed, wide=None, rows_per_user=None):
     order = np.argsort(user, kind="stable")
     rank[order] = np.arange(n) - np.searchsorted(user[order], user[order])
     validate = rank >= np.ceil(0.8 * rows_per_user[user])
-    schema = {
+
+    def records(sel):
+        rows = np.nonzero(sel)[0]
+        return _game_records([str(r) for r in rows], y[rows], x_f[rows], cols[rows], x_r[rows],
+                             [f"user{u}" for u in user[rows]],
+                             wide[0] if wide else d_fixed)
+
+    for name, sel in (("train", ~validate), ("validate", validate)):
+        _write_avro(os.path.join(workdir, name, "part-00000.avro"), records(sel), _game_schema())
+    return int((~validate).sum()), int(validate.sum())
+
+
+def _game_schema():
+    from photon_ml_tpu_torch.io import schemas
+
+    return {
         "name": "GameExampleAvro", "namespace": "smoke", "type": "record",
         "fields": [
             {"name": "uid", "type": ["null", "string"], "default": None},
@@ -1447,10 +1478,15 @@ def write_game_avro(workdir, num_users, seed, wide=None, rows_per_user=None):
         ],
     }
 
-    # each record encoded by hand, as avro.write_datum would encode it (the
-    # generic encoder took a minute for phase 10's rows on the card's host)
+
+def _game_records(uids, y, x_f, cols, x_r, users, n_fixed_names):
+    """The records of ``_game_schema``, each encoded by hand as
+    avro.write_datum would encode it (the generic encoder took a minute for
+    phase 10's rows on the card's host): row i has the fixed features
+    ``f{cols[i, j]}`` valued ``x_f[i, j]``, the user features ``u0..u7`` and
+    ``userId`` ``users[i]`` in its metadataMap."""
     pack = struct.Struct("<d").pack
-    fixed_keys = [_avro_str(f"f{j}") + b"\x00" for j in range(wide[0] if wide else d_fixed)]
+    fixed_keys = [_avro_str(f"f{j}") + b"\x00" for j in range(n_fixed_names)]
     user_keys = [_avro_str(f"u{j}") + b"\x00" for j in range(GAME_D_RANDOM)]
     user_ids = _avro_str("userId")
 
@@ -1458,16 +1494,31 @@ def write_game_avro(workdir, num_users, seed, wide=None, rows_per_user=None):
         return (_avro_long(len(x_r_)) + b"".join(keys[c] + pack(v) for c, v in zip(cols_r, x_r_))
                 + b"\x00")
 
-    def records(sel):
-        rows = np.nonzero(sel)[0]
-        xf, xr, cf = x_f[rows].tolist(), x_r[rows].tolist(), cols[rows].tolist()
-        return [b"\x02" + _avro_str(str(r)) + pack(float(y[r])) + features(fixed_keys, cf[i], xf[i])
-                + features(user_keys, range(GAME_D_RANDOM), xr[i]) + b"\x02\x02" + user_ids
-                + _avro_str(f"user{user[r]}") + b"\x00" for i, r in enumerate(rows)]
+    xf, xr, cf = x_f.tolist(), x_r.tolist(), cols.tolist()
+    return [b"\x02" + _avro_str(uid) + pack(float(y[i])) + features(fixed_keys, cf[i], xf[i])
+            + features(user_keys, range(GAME_D_RANDOM), xr[i]) + b"\x02\x02" + user_ids
+            + _avro_str(users[i]) + b"\x00" for i, uid in enumerate(uids)]
 
-    for name, sel in (("train", ~validate), ("validate", validate)):
-        _write_avro(os.path.join(workdir, name, "part-00000.avro"), records(sel), schema)
-    return int((~validate).sum()), int(validate.sum())
+
+def write_delta_avro(path, user_rows, rng):
+    """One more training part file of phase 20's schema and feature names
+    (``f0..f31``, ``u0..u7``): ``user_rows`` maps a raw user id to its count
+    of new rows, drawn from ``rng`` as write_game_avro draws (a logistic
+    model with 15% of the labels flipped)."""
+    users = [u for u, k in user_rows.items() for _ in range(k)]
+    n = len(users)
+    x_f = rng.normal(size=(n, GAME_D_FIXED)).astype(np.float32)
+    x_r = rng.normal(size=(n, GAME_D_RANDOM)).astype(np.float32)
+    w_f = rng.normal(size=GAME_D_FIXED).astype(np.float32)
+    w_u = (rng.normal(size=(n, GAME_D_RANDOM)) * 1.5).astype(np.float32)
+    margin = x_f @ w_f + np.sum(x_r * w_u, axis=1)
+    y = (1.0 / (1.0 + np.exp(-margin)) > rng.random(n)).astype(np.float32)
+    flip = rng.random(n) < 0.15
+    y[flip] = 1.0 - y[flip]
+    cols = np.broadcast_to(np.arange(GAME_D_FIXED), (n, GAME_D_FIXED))
+    _write_avro(path, _game_records([f"delta{r}" for r in range(n)], y, x_f, cols, x_r, users,
+                                    GAME_D_FIXED), _game_schema())
+    return n
 
 
 # the README quickstart's GAME flags (without --checkpoint-dir) on the
@@ -1514,14 +1565,21 @@ def run_game_training(torch, fused_sparse, argv, spec):
                 "hvp": fused_sparse.sparse_hvp_kernel.launches,
                 "fused_glm": fused_glm.fused_value_grad_kernel.launches}
     counts = dict(avro_data.ingest_counts)
-    check(counts["row_loop_files"] == 0 and counts["rejected_files"] == 0
-          and counts["native_files"] > 0,
-          f"spec {spec}: Avro files by path {counts}: the native decoder must read every file")
+    if driver.delta_plan is not None and driver.delta_plan.short_circuit:
+        # the prior model copied forward: no ingest at all
+        check(not any(counts.values()), f"spec {spec}: a short-circuited run read Avro files "
+                                        f"{counts}")
+    else:
+        check(counts["row_loop_files"] == 0 and counts["rejected_files"] == 0
+              and counts["native_files"] > 0,
+              f"spec {spec}: Avro files by path {counts}: the native decoder must read every "
+              "file")
     tot = driver.timer.totals
     # the grid path's validation runs inside its "(grid)" span
     validate = sum(r.timings.get("(validation)", 0.0) for _, r, _ in driver.results)
-    stages = {"preprocess": tot["prepare-feature-maps"] + tot["prepare-datasets"],
-              "train": tot["train"] - validate, "validate": validate, "save": tot["save"]}
+    stages = {"preprocess": tot.get("prepare-feature-maps", 0.0) + tot.get("prepare-datasets", 0.0),
+              "train": tot.get("train", 0.0) - validate, "validate": validate,
+              "save": tot.get("save", 0.0)}
     return driver, wall, launches, stages, counts
 
 
@@ -2691,8 +2749,11 @@ def phase_game_grid(torch, fused_sparse, workdir, dev="cuda"):
         f"10's data ({GAME_USERS} users): fixed lambda {', '.join(GRID_LAMBDAS)}, random "
         "lambda 0.1, 2 iterations, --model-output-mode ALL, spec pallas; per combo, then "
         "--vmapped-grid true")
+    # the first run decodes the Avro into a tensor cache of its own; the
+    # other three read the columns from it (a cut, see CUTS)
     base = ["--train-input-dirs", os.path.join(workdir, "train"),
-            "--validate-input-dirs", os.path.join(workdir, "validate"), "--device", dev]
+            "--validate-input-dirs", os.path.join(workdir, "validate"),
+            "--tensor-cache", os.path.join(workdir, "tcache19"), "--device", dev]
     grid = {}
     for label, extra in (("per-combo", []), ("vmapped-grid", ["--vmapped-grid", "true"])):
         out = os.path.join(workdir, f"grid-{label}")
@@ -2924,6 +2985,7 @@ def phase_full_game(torch, fused_sparse, workdir, dev="cuda"):
 SKEW_USERS, SKEW_SMALL_USERS, SKEW_SEED = 20000, 2000, 31  # small: a depth cut, see CUTS
 SKEW_ZIPF, SKEW_MIN_ROWS, SKEW_MAX_ROWS = 1.9, 4, 2048
 BUCKETED_FLAGS = GAME_FLAGS + ["--bucketed-random-effects", "true"]
+SKEW_CACHE = "tcache20"  # phases 20 and 21: the tensor cache of phase 20's training columns
 
 
 def skewed_rows(num_users, seed):
@@ -3025,9 +3087,13 @@ def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
         f"({elems['unbucketed'] / elems['bucketed']:.1f}x)")
     base = ["--train-input-dirs", os.path.join(big, "train"),
             "--validate-input-dirs", os.path.join(big, "validate"), "--device", dev]
+    # the bucketed runs here and phase 21's read the training columns from
+    # one tensor cache, filled by (b)'s first run (a cut, see CUTS); the
+    # unbucketed run (c) decodes (a cache would store its 1.2 GB stack)
+    cached = base[:-2] + ["--tensor-cache", os.path.join(workdir, SKEW_CACHE)] + base[-2:]
     out = {"buckets": buckets, "unbucketed": [e_all, m_all], "padded_elements": elems, "runs": {}}
 
-    def run(label, flags, spec, data_base=base):
+    def run(label, flags, spec, data_base=cached):
         d = os.path.join(workdir, "out20-" + label.replace(" ", "-"))
         with SlabEvaluations() as evals:
             driver, wall, launches, stages, _ = run_game_training(
@@ -3064,7 +3130,7 @@ def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
     from photon_ml_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
 
     with UpdatePeak(torch, RandomEffectCoordinate) as c_peak:
-        (c, rc, _, lc, _) = run("(c) unbucketed", GAME_FLAGS, "pallas")
+        (c, rc, _, lc, _) = run("(c) unbucketed", GAME_FLAGS, "pallas", base)
     # phase 22 (b) holds the streaming runs against this one
     out["_inmemory"] = (c, rc, c_peak.summary())
     say(f"  (c) in-memory update peak device memory {c_peak.summary()[0]} B above its start")
@@ -3467,7 +3533,8 @@ def phase_scheduler(torch, fused_sparse, workdir, bucketed, dev="cuda"):
     say("== phase 21 (c)-(e): the GAME driver on phase 20's data with the scheduler")
     data = os.path.join(workdir, "skew")
     base = ["--train-input-dirs", os.path.join(data, "train"),
-            "--validate-input-dirs", os.path.join(data, "validate"), "--device", dev]
+            "--validate-input-dirs", os.path.join(data, "validate"),
+            "--tensor-cache", os.path.join(workdir, SKEW_CACHE), "--device", dev]
     want = tree_bytes(os.path.join(workdir, "out20-(b)-bucketed", "best"))
     ref_train = bucketed["runs"]["(b) bucketed"]["stages_s"]["train"]
     runs = {}
@@ -3905,15 +3972,16 @@ def phase_streaming_glm(torch, fused_glm, workdir, driver6, dev="cuda"):
     return out
 
 
-def hold_block_slabs(torch, fused_sparse, manifest, label):
-    """Both sparse kernels on every block's slab of a streaming manifest
-    (the per-block coordinate builds it on the card), held against their
-    plain version as ``hold_driver_slab`` holds the driver's slab."""
+def hold_block_slabs(torch, fused_sparse, manifest, label, indices=None):
+    """Both sparse kernels on every block's slab of a streaming manifest, or
+    on the blocks ``indices`` (the per-block coordinate builds it on the
+    card), held against their plain version as ``hold_driver_slab`` holds
+    the driver's slab."""
     from photon_ml_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
     from photon_ml_tpu_torch.types import TaskType
 
     errs = {"gevm": 0.0, "hvp": 0.0}
-    for i, ds, _, _ in manifest.iter_blocks(0, device="cuda"):
+    for i, ds, _, _ in manifest.iter_blocks(0, indices=indices, device="cuda"):
         sub = RandomEffectCoordinate(ds, TaskType.LOGISTIC_REGRESSION, sparse_kernel="pallas",
                                      solve_label=f"{label} block {i}")
         e_ = hold_driver_slab(torch, fused_sparse, sub)
@@ -4031,6 +4099,8 @@ def phase_streaming_game(torch, fused_sparse, workdir, inmem, dev="cuda"):
     out["max_abs_err"] = (hold_block_slabs(torch, fused_sparse, manifest, "(b)")
                           if dev == "cuda" else {"gevm": 0.0, "hvp": 0.0})
     out["gevm_launches"] = l1["gevm"]
+    # phase 24 retrains from the first run: its output dir and command
+    out["_prior"] = (dir1, base)
     return out
 
 
@@ -4413,6 +4483,248 @@ def phase_serving(torch, workdir, dev="cuda"):
 
 
 # depth cut for the call's time limit, every check kept
+# --- phase 24: the daily retrain loop -----------------------------------------
+
+RETRAIN_NEW_USERS = 64  # phase 24 (b): users the delta file brings, 4-12 rows each
+RETRAIN_SMALL_SHARE = 0.05  # phase 24 (c): the share of the 2000 users given 2 new rows
+
+
+def delta_plan_summary(plan):
+    """A delta plan as comparable values: file classes (by name), each
+    coordinate's status and reason, the short-circuit and the decisions."""
+    f = plan.files
+    return ({k: [os.path.basename(p_) for p_ in getattr(f, k)]
+             for k in ("unchanged", "changed", "new", "removed")},
+            {n: [c.status, c.reason] for n, c in plan.coordinates.items()},
+            plan.short_circuit, list(plan.describe_decisions()))
+
+
+def planned_lines(driver):
+    """Every planned decision of a --plan auto run, with its predicted and
+    realized cost."""
+    return [d.describe() for d in driver.plan.decisions if d.planned_choice() is not None]
+
+
+def phase_retrain(torch, fused_sparse, workdir, stream_game, dev="cuda"):
+    """Phase 24, the daily retrain loop, last, on phase 20's data: phase 22
+    (b)'s first streaming run is yesterday's run. (a) the same command with
+    --warm-start-from it: a short circuit (the prior model copied forward,
+    no ingest, no kernel launch, byte-equal best/). (b) a new training part
+    file (2 rows for every user of the prior's middle block, RETRAIN_NEW_USERS
+    new users, phase 20's feature names), then --warm-start-from the prior:
+    unchanged blocks frozen (their entities' coefficients bitwise the
+    prior's), the dirty and new blocks re-solved warm through the GEVM
+    kernel (both sparse kernels held on their slabs), the fixed effect
+    warm-started through the fused kernel, retrain.json chained. (c) on
+    phase 20 (f)'s 2000 users, bucketed: a cold run, a delta file for
+    RETRAIN_SMALL_SHARE of the users, warm runs on the card and on the CPU
+    (the per-bucket warm stacks built, bitwise equal on both, and exported
+    back bitwise the prior model's rows; equal delta plans; scores held by
+    ``scores_held``). (d) --plan off gives the cold run's model bytes;
+    --plan auto cold plans from static priors and writes cost-model.json,
+    and its warm run loads it; every planned decision is printed with its
+    predicted and realized cost. Nothing is claimed of the times."""
+    from photon_ml_tpu_torch import retrain
+    from photon_ml_tpu_torch.algorithm.streaming_random_effect import StreamingREManifest
+    from photon_ml_tpu_torch.compile import compile_stats
+    from photon_ml_tpu_torch.compile.cost import COST_MODEL_FILENAME
+    from photon_ml_tpu_torch.optim.scheduler import solve_stats
+    from photon_ml_tpu_torch.io import model_io
+    from photon_ml_tpu_torch.ops import fused_glm
+
+    prior_dir, base = stream_game["_prior"]
+    cold = stream_game["runs"]["streaming"]
+    say(f"== phase 24: the daily retrain loop (--warm-start-from) on phase 20's data, from "
+        f"phase 22 (b)'s first streaming run; then --plan on phase 20 (f)'s {SKEW_SMALL_USERS} "
+        "users")
+    out = {"runs": {}}
+
+    def run(label, argv, spec="pallas"):
+        # each run's realized costs are its own, as in a process of its own
+        solve_stats.reset()
+        compile_stats.reset()
+        driver, wall, launches, stages, counts = run_game_training(torch, fused_sparse, argv,
+                                                                   spec)
+        say(_run_line(label, driver, wall, launches, stages)
+            + f"; Avro files read natively {counts['native_files']}")
+        out["runs"][label] = {"wall_s": wall, "stages_s": stages, "launches": launches,
+                              "spans_s": dict(driver.timer.totals)}
+        return driver, launches
+
+    def means(model_dir, driver):
+        imap = driver.shard_index_maps["per_user"]
+        return model_io.load_random_effect(os.path.join(model_dir, "best"), "per-user", imap)[0]
+
+    # (a) nothing changed
+    dir_a = os.path.join(workdir, "out24a")
+    a, la = run("(a) unchanged", base + ["--output-dir", dir_a, "--warm-start-from", prior_dir]
+                + GAME_FLAGS)
+    check(a.delta_plan is not None and a.delta_plan.short_circuit,
+          "(a): the unchanged rerun did not short-circuit")
+    check(not any(la.values()), f"(a): the short-circuited run launched kernels {la}")
+    check(a.results == [], "(a): the short-circuited run trained")
+    check(tree_bytes(os.path.join(dir_a, "best")) == tree_bytes(os.path.join(prior_dir, "best")),
+          "(a): best/ differs from the prior model's bytes")
+    span = a.timer.totals["delta-short-circuit"]
+    say(f"  (a) short circuit: span delta-short-circuit {span:.3f} s; best/ byte-equal to the "
+        f"prior's; kernel launches {la}; retrain.json model {retrain.load_prior_manifest(dir_a).model_dir}")
+    out["short_circuit_s"] = span
+
+    # (b) a delta: the prior's middle block's users get 2 rows each, new users join
+    prior = retrain.load_prior_manifest(prior_dir)
+    prior_sm = StreamingREManifest.load(prior.coordinates["per-user"].streaming_manifest_dir)
+    mid = len(prior_sm.blocks) // 2
+    mid_users = [prior_sm.vocab[v] for v in prior_sm.load_block_meta(mid, "cpu").entity_ids]
+    rng = np.random.default_rng(SEED + 240)
+    new_users = [f"user{SKEW_USERS + j}" for j in range(RETRAIN_NEW_USERS)]
+    user_rows = {u: 2 for u in mid_users}
+    user_rows.update({u: int(rng.integers(4, 13)) for u in new_users})
+    n_new = write_delta_avro(os.path.join(workdir, "skew", "train", "part-00001.avro"),
+                             user_rows, rng)
+    say(f"  (b) delta file part-00001.avro: {n_new} rows, 2 for each of the {len(mid_users)} "
+        f"users of the prior's block {mid} of {len(prior_sm.blocks)} and 4-12 for each of "
+        f"{len(new_users)} new users")
+    dir_b = os.path.join(workdir, "out24b")
+    b, lb = run("(b) delta", base + ["--output-dir", dir_b, "--warm-start-from", prior_dir]
+                + GAME_FLAGS)
+    plan = b.delta_plan
+    check(plan is not None and not plan.short_circuit, "(b): no delta plan")
+    check(len(plan.files.new) == 1 and not plan.files.changed and not plan.files.removed,
+          f"(b): files {plan.files.describe()}")
+    deltas = b.block_deltas.get("per-user") or []
+    check(deltas, "(b): the blocks were not built by the delta builder (block reuse off)")
+    by = {s_: sum(d.status == s_ for d in deltas) for s_ in ("unchanged", "dirty", "new")}
+    frozen = b._frozen_blocks.get("per-user", frozenset())
+    check(frozen and frozen == {d.index for d in deltas if d.status == "unchanged"},
+          f"(b): frozen blocks {sorted(frozen)} are not the unchanged ones")
+    check(by["dirty"] >= 1 and by["new"] >= 1, f"(b): block statuses {by}")
+    check(any(d.status == "dirty" and d.prior_index == mid for d in deltas),
+          f"(b): the prior's block {mid} is not dirty")
+    dirty = plan.dirty_entities.get("userId", set())
+    check(set(mid_users) | set(new_users) == dirty, "(b): the dirty set is not the delta's users")
+    sm = b.streaming_manifests["per-user"]
+    m_prior, m_b = means(prior_dir, b), means(dir_b, b)
+    frozen_users = [sm.vocab[v] for i in sorted(frozen) for v in sm.load_block_meta(i, "cpu").entity_ids]
+    check(all(np.array_equal(m_prior[u], m_b[u]) for u in frozen_users),
+          "(b): a frozen entity's coefficients differ from the prior model's")
+    moved = sum(not np.array_equal(m_prior[u], m_b[u]) for u in mid_users)
+    check(moved == len(mid_users), f"(b): {len(mid_users) - moved} dirty users did not move")
+    check(all(u in m_b for u in new_users), "(b): a new user is missing from the model")
+    kernels_launched(b, lb, "(b) delta")
+    fixed_err = hold_driver_fixed(torch, fused_glm, b.combo_coords[0]["fixed"], "phase 24 (b)")
+    resolved = [i for i in range(len(sm.blocks)) if i not in frozen]
+    say(f"  (b) both sparse kernels on the {len(resolved)} re-solved blocks' slabs")
+    errs = (hold_block_slabs(torch, fused_sparse, sm, "(b)", indices=resolved)
+            if dev == "cuda" else {"gevm": 0.0, "hvp": 0.0})
+    chained = retrain.load_prior_manifest(dir_b)
+    check(chained.model_dir == os.path.abspath(os.path.join(dir_b, "best"))
+          and os.path.isdir(chained.coordinates["per-user"].streaming_manifest_dir),
+          "(b): retrain.json does not chain to this run")
+    reasons = sorted({d.reason for d in deltas if d.status != "unchanged"})
+    say(f"  (b) blocks {len(deltas)}: unchanged {by['unchanged']}, dirty {by['dirty']}, new "
+        f"{by['new']} (reasons: {reasons}); frozen {len(frozen)} blocks ({len(frozen_users)} users) bitwise the "
+        f"prior model's; {moved} dirty users moved, {len(new_users)} new users solved; "
+        f"GEVM launches {lb['gevm']} against 22 (b)'s cold run's {cold['launches']['gevm']}; "
+        f"train stage {out['runs']['(b) delta']['stages_s']['train']:.2f} s against "
+        f"{cold['stages_s']['train']:.2f} s (nothing is claimed)")
+    out.update(blocks=by, frozen_blocks=len(frozen), frozen_users=len(frozen_users),
+               dirty_users=len(dirty), max_abs_err=errs, fixed_max_abs_err=fixed_err,
+               launches={"cold": cold["launches"], "short-circuit": la, "delta": lb})
+
+    # (c) and (d): in-memory bucketed warm starts and the planner, 2000 users
+    small = os.path.join(workdir, "skew-small")
+
+    def small_argv(label, device=dev, extra=()):
+        return (["--train-input-dirs", os.path.join(small, "train"),
+                 "--validate-input-dirs", os.path.join(small, "validate"), "--device", device,
+                 "--output-dir", os.path.join(workdir, "out24-" + label)]
+                + BUCKETED_FLAGS + list(extra))
+
+    c_cold, lc = run("(c) cold", small_argv("c-cold"))
+    kernels_launched(c_cold, lc, "(c) cold")
+    dir_cc = os.path.join(workdir, "out24-c-cold")
+    _, _ = run("(d) plan off", small_argv("d-off", extra=["--plan", "off"]))
+    check(tree_bytes(os.path.join(workdir, "out24-d-off", "best"))
+          == tree_bytes(os.path.join(dir_cc, "best")),
+          "(d): the --plan off run's model bytes differ from the run without the flag")
+    # the device loop under --plan auto: its solve ledger, its graph
+    # captures (the port's traces) and the buckets' ledgers are the realized
+    # costs the run feeds back
+    planned = ["--plan", "auto", "--solve-compaction", f"device:{SCHED_CHUNK}"]
+    d_cold, _ = run("(d) plan auto cold", small_argv("d-auto", extra=planned))
+    src = next(x for x in d_cold.plan.decisions if x.policy == "cost-model")
+    check(src.action in ("priors", "degraded") and "static priors" in src.reason,
+          f"(d): the cold run's cost model came from {src.describe()}")
+    dir_da = os.path.join(workdir, "out24-d-auto")
+    sidecar = os.path.join(dir_da, COST_MODEL_FILENAME)
+    check(os.path.exists(sidecar), "(d): the cold run wrote no cost-model.json")
+    observed = json.load(open(sidecar))["observations"] if os.path.exists(sidecar) else {}
+    check(bool(observed), "(d): the cold run realized no cost")
+    say(f"  (d) --plan off: model bytes equal to the run without the flag; --plan auto cold: "
+        f"{src.describe()}; cost-model.json keys {sorted(observed)}")
+    for line_ in planned_lines(d_cold):
+        say(f"  (d) cold planned: {line_}")
+
+    vocab_small = sorted(c_cold.train_data.id_vocabs["userId"])
+    rng_c = np.random.default_rng(SEED + 241)
+    picked = rng_c.choice(len(vocab_small), size=int(RETRAIN_SMALL_SHARE * len(vocab_small)),
+                          replace=False)
+    n_small = write_delta_avro(os.path.join(small, "train", "part-00001.avro"),
+                               {vocab_small[i]: 2 for i in sorted(picked)}, rng_c)
+    say(f"  (c) delta file: {n_small} rows for {len(picked)} of {len(vocab_small)} users")
+    pair = {}
+    for label, device in (("(c) warm card", dev), ("(c) warm cpu", "cpu")):
+        tag = label.split()[-1]
+        argv = small_argv(f"c-warm-{tag}", device, ["--warm-start-from", dir_cc])
+        driver, lw = run(label, argv)
+        check(driver.delta_plan is not None and driver._warm_bucketed.get("per-user"),
+              f"{label}: the per-bucket warm stacks were not built")
+        log = open(os.path.join(workdir, f"out24-c-warm-{tag}", "photon-ml-tpu-game.log")).read()
+        check(re.search(r"warm-starting \d+ bucket stacks from the prior model", log) is not None,
+              f"{label}: the warm-start log line is missing")
+        if device != "cpu":
+            kernels_launched(driver, lw, label)
+        pair[label] = (driver, driver.results[0][1])
+    # the warm stacks: the card run's are the CPU run's bit for bit (one
+    # prior, one bucket layout), and exported back through the buckets'
+    # layout they are the prior model's rows, bit for bit
+    card_d, cpu_d = pair["(c) warm card"][0], pair["(c) warm cpu"][0]
+    stacks = card_d._warm_bucketed["per-user"]
+    check(len(stacks) == len(cpu_d._warm_bucketed["per-user"]) and all(
+        np.array_equal(a, b) for a, b in zip(stacks, cpu_d._warm_bucketed["per-user"])),
+          "(c): the card run's warm stacks differ from the CPU run's")
+    coord = card_d.combo_coords[0]["per-user"]
+    back = coord.entity_export_by_raw_id(tuple(torch.from_numpy(w).to(dev) for w in stacks))[0]
+    prior_rows = model_io.load_random_effect(os.path.join(dir_cc, "best"), "per-user",
+                                             card_d.shard_index_maps["per_user"])[0]
+    moved = [r for r, row in prior_rows.items() if not np.array_equal(back.get(r), row)]
+    check(not moved and len(prior_rows) == len(back),
+          f"(c): {len(moved)} of {len(prior_rows)} prior rows come back from the warm stacks "
+          f"changed, e.g. {moved[:5]}")
+    say(f"  (c) warm stacks: {len(stacks)} buckets, bitwise the CPU run's; exported back, "
+        f"{len(prior_rows)} of {len(prior_rows)} prior rows bitwise the prior model's")
+    card_plan, cpu_plan = (delta_plan_summary(pair[k][0].delta_plan)
+                           for k in ("(c) warm card", "(c) warm cpu"))
+    check(card_plan == cpu_plan, f"(c): the card's delta plan {card_plan} is not the CPU's "
+                                 f"{cpu_plan}")
+    out["held_card_cpu"] = scores_held("(c)", pair["(c) warm card"], pair["(c) warm cpu"])
+    out["delta_plan_small"] = card_plan
+    say(f"  (c) the delta plans of the card and CPU runs are equal: {card_plan[1]}")
+
+    d_warm, _ = run("(d) plan auto warm", small_argv("d-auto-warm", extra=planned + [
+        "--warm-start-from", dir_da]))
+    src = next(x for x in d_warm.plan.decisions if x.policy == "cost-model")
+    check(src.action == "loaded", f"(d): the warm run's cost model: {src.describe()}")
+    lines = planned_lines(d_warm)
+    check(lines and all("predicted=" in line_ for line_ in lines),
+          "(d): a planned decision without a predicted cost")
+    say(f"  (d) --plan auto warm: {src.describe()}")
+    for line_ in lines:
+        say(f"  (d) warm planned: {line_}")
+    out["plan"] = {"cold": planned_lines(d_cold), "warm": lines}
+    return out
+
+
 CUTS = [
     f"phase 17: phase 10's generator and widths at {CHECKPOINT_USERS} users, not "
     f"{GAME_USERS} (4000 before phase 22 was added)",
@@ -4430,6 +4742,11 @@ CUTS = [
     "phase 23 (b): single-row requests of the first "
     + ", ".join(f"{n} validation rows at max_batch_rows {b}" for b, n in SERVE_PREFIX_ROWS.items())
     + ", not all 37488 (32 serves every row; 8192 at 1, 8 and 128 before this cut)",
+    "phase 19 (a)-(b): the per-combo run decodes phase 10's training Avro into a tensor "
+    "cache; the --vmapped-grid run and the sampled card and CPU runs read the columns from it",
+    "phases 20 (b)-(d) and 21 (c): phase 20 (b)'s first run decodes the training Avro into a "
+    "tensor cache; the second (b) run, (d) and 21 (c)'s two runs read from it (the unbucketed "
+    "(c) decodes)",
 ]
 
 
@@ -4528,6 +4845,8 @@ def main() -> None:
         dense_bits = timed("21f", phase_dense_stack_bits, torch)
         stream_game = timed("22b", phase_streaming_game, torch, fused_sparse, workdir,
                             bucketed.pop("_inmemory"))
+        retrain = timed("24", phase_retrain, torch, fused_sparse, workdir, stream_game)
+        stream_game.pop("_prior")
     say(f"  -- the whole call {time.perf_counter() - start:.1f} s")
 
     bf16 = times["bfloat16"]
@@ -4548,9 +4867,10 @@ def main() -> None:
         "launches_full_game": {k: v["fused_glm"] for k, v in full_game["launches"].items()},
         "launches_bucketed": {k: v["launches"]["fused_glm"]
                               for k, v in bucketed["runs"].items()},
+        "launches_delta_retrain": {k: v["fused_glm"] for k, v in retrain["launches"].items()},
         "max_abs_err": max(max_abs_err, game_runs["fixed_max_abs_err"],
                            game_grid["fixed_max_abs_err"], full_game["fixed_max_abs_err"],
-                           bucketed["fixed_max_abs_err"]),
+                           bucketed["fixed_max_abs_err"], retrain["fixed_max_abs_err"]),
         "ms": bf16["ms"],
         "graph_ms": bf16["graph_ms"],
         "ms_method": MS_METHOD,
@@ -4588,6 +4908,8 @@ def main() -> None:
             "launches_bucketed": {k: v["launches"][key] for k, v in bucketed["runs"].items()},
             "launches_scheduler": scheduler["launches"][key],
             "launches_streaming_game": stream_game["runs"]["streaming"]["launches"][key],
+            # phase 24: 22 (b)'s cold run, the short-circuited rerun, the delta run
+            "launches_delta_retrain": {k: v[key] for k, v in retrain["launches"].items()},
             # replays launch through their graphs, not the wrappers: phase 21
             # (a)'s traced device-loop solve, by torch.profiler
             "launches_device_loop_traced": {
@@ -4595,7 +4917,7 @@ def main() -> None:
                 for opt in scheduler["solve"]},
             "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key],
                                bucketed["max_abs_err"][key], scheduler["max_abs_err"][key],
-                               stream_game["max_abs_err"][key]),
+                               stream_game["max_abs_err"][key], retrain["max_abs_err"][key]),
             "ms": t["ms"],
             "graph_ms": t["graph_ms"],
             "host_ms": t["host_ms"],
@@ -4616,7 +4938,7 @@ def main() -> None:
                     "game_grid": game_grid, "full_game": full_game, "bucketed": bucketed,
                     "scheduler": scheduler, "dense_stack_bits": dense_bits,
                     "streaming": {"glm": stream_glm, "game": stream_game, "cache": cache_game},
-                    "serving": serving,
+                    "serving": serving, "retrain": retrain,
                     "phase_walls_s": walls, "cuts": CUTS, "card": card}, default=str))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))

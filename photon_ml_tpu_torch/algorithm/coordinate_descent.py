@@ -16,7 +16,9 @@ when a scheduled coordinate drained at a chunk, rung or bucket boundary:
 its progress rides the checkpoint as ``partial``); preemption is polled at every update
 boundary (site ``"cycle"``), where the finished steps are made durable
 before :class:`~photon_ml_tpu_torch.resilience.preemption.Preempted`
-unwinds; a divergence guard gates every update.
+unwinds; a divergence guard gates every update. ``frozen`` coordinates
+(the delta retrain's unchanged ones) carry their warm-started state forward
+without solving.
 
 ``run_grid`` trains a lambda grid on coordinates built once: combo ``g``
 runs the same cycle with every coordinate's total regularization weight
@@ -263,13 +265,34 @@ class CoordinateDescent:
         return out
 
     def run(self, num_iterations: int, num_rows: int, checkpointer=None,
-            initial_params: Optional[Dict[str, Tensor]] = None) -> CoordinateDescentResult:
+            initial_params: Optional[Dict[str, Tensor]] = None,
+            frozen: Optional[set] = None) -> CoordinateDescentResult:
         """``checkpointer`` (``checkpoint.CoordinateDescentCheckpointer`` or
         its async wrapper) saves after every update and resumes from the
         last complete step, which takes precedence over ``initial_params``.
         ``initial_params`` warm-starts named coordinates; they contribute
-        their scores from step zero."""
+        their scores from step zero.
+
+        ``frozen`` (the delta-retrain skip, retrain/) names coordinates whose
+        data and configuration are unchanged since the prior run: they carry
+        their ``initial_params`` and step-zero scores forward bitwise and
+        never solve, while the objective still counts their terms and the
+        histories and checkpoints stay one entry per update. Every frozen
+        name must be warm-started (freezing an unseeded coordinate would
+        freeze zeros)."""
         names = list(self.coordinates)
+        frozen = frozenset(frozen or ())
+        if frozen:
+            unknown = frozen - set(names)
+            if unknown:
+                raise ValueError(f"frozen coordinates {sorted(unknown)} are "
+                                 "not in the updating sequence")
+            unseeded = [n for n in frozen if initial_params is None or n not in initial_params]
+            if unseeded:
+                raise ValueError(
+                    f"frozen coordinates {sorted(unseeded)} have no "
+                    "initial_params — freezing needs the prior coefficients"
+                )
         params, scores, total = self._seeded_state(num_rows, initial_params)
         history = _History()
         timings = {n: 0.0 for n in names}
@@ -306,11 +329,13 @@ class CoordinateDescent:
                             f"sequence reaches {name!r} — updating sequence changed; "
                             "refusing to resume")
                     resume, midstep = midstep, None
-                # a skipped update leaves the state unchanged, but histories
-                # and checkpoints stay one entry per update
+                # a skipped update (the guard abandoned the cycle, or the
+                # coordinate is frozen) leaves the state unchanged, but
+                # histories and checkpoints stay one entry per update
                 try:
                     total, ok = self._step(name, step, params, scores, total, history,
-                                           timings, trackers, skip=skip_rest_of_cycle,
+                                           timings, trackers,
+                                           skip=skip_rest_of_cycle or name in frozen,
                                            resume=resume)
                 except preemption.Preempted as e:
                     # a drain inside the update: checkpoint the finished

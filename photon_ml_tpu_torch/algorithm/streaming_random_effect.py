@@ -29,8 +29,11 @@ schedule, blocks under tolerance for ``patience`` epochs are skipped, each
 skip a recorded decision, and the convergence ledger is a sidecar file.
 Block boundaries are preemption drain points (site ``"block"``).
 
-The delta-retrain hooks (``frozen_blocks``), the elastic re-plan monitor
-(``elastic``) and ``initial_epoch`` are not yet ported: setting one raises.
+``frozen_blocks`` (the delta retrain's unchanged blocks, retrain/delta.py)
+never solve: their coefficients carry forward bitwise from the warm-seeded
+state, and their scores are computed once and cached. The elastic re-plan
+monitor (``elastic``) and ``initial_epoch`` are not yet ported: setting one
+raises.
 """
 
 from __future__ import annotations
@@ -447,13 +450,16 @@ class StreamingRandomEffectCoordinate:
     # the resolved compile.plan.ExecutionPlan: fills the policies above when unset
     plan: Optional[object] = None
     device: Optional[object] = None  # where blocks solve (default cuda)
+    # the delta retrain's skip set: blocks whose data and membership are
+    # unchanged since the prior run. They never solve (coefficients carry
+    # forward bitwise from the warm-seeded incoming state, no slab read)
+    # and their scores are computed once and cached. The caller seeds the
+    # state with the prior coefficients (retrain.warm.seed_spilled_state).
     frozen_blocks: Optional[frozenset] = None
     elastic: Optional[object] = None
     initial_epoch: int = 0
 
     def __post_init__(self):
-        if self.frozen_blocks:
-            raise _not_ported("frozen_blocks (the delta-retrain skip set)")
         if self.elastic is not None:
             raise _not_ported("elastic (the re-plan monitor)")
         if self.initial_epoch:
@@ -484,6 +490,14 @@ class StreamingRandomEffectCoordinate:
             self.state_root = os.path.join(base, f"state-{os.getpid()}-{_instance_seq}")
         self._epoch = 0
         self._shapes = [(b["num_entities"], b["local_dim"]) for b in self.manifest.blocks]
+        self.frozen_blocks = frozenset(self.frozen_blocks or ())
+        bad = [i for i in self.frozen_blocks if not 0 <= i < len(self.manifest.blocks)]
+        if bad:
+            raise ValueError(f"frozen_blocks {sorted(bad)} out of range for a "
+                             f"{len(self.manifest.blocks)}-block manifest")
+        # frozen block -> (row_sel, scores): epoch-invariant, so one
+        # streaming pass serves the whole descent
+        self._frozen_scores: dict = {}
         self._sparse_spec = fused_sparse.resolve_sparse_kernel(self.sparse_kernel)
         # block -> its slab on the host (None: the block stays dense)
         self._host_slabs: Dict[int, Optional[dict]] = {}
@@ -598,7 +612,10 @@ class StreamingRandomEffectCoordinate:
                                            cached["kernel"], tables)
         slab = fused_sparse.build_and_select(
             self.task, ds.x, ds.labels, ds.base_offsets, ds.weights, self._sparse_spec,
-            f"streaming-re[block {i}]")
+            f"streaming-re[block {i}]",
+            # --plan auto narrows the race to the predicted family against
+            # the dense incumbent; None races every family
+            candidates=getattr(self.plan, "sparse_candidates", None))
         if slab is None:
             self._host_slabs[i] = None
             return None
@@ -652,7 +669,7 @@ class StreamingRandomEffectCoordinate:
         snapshot); passing that payload back as ``resume`` continues from
         the first unfinished block, bitwise as an uninterrupted update."""
         n_blocks = len(self.manifest.blocks)
-        active = list(range(n_blocks))
+        active = [i for i in range(n_blocks) if i not in self.frozen_blocks]
         inner_resume = None
         if resume is not None:
             m = resume["meta"]
@@ -679,6 +696,10 @@ class StreamingRandomEffectCoordinate:
                                        shapes=self._shapes)
             done_locals = set()
         resid = torch.as_tensor(residual_offsets, device=self._device)
+        # frozen blocks never solve: an atomic per-block copy of the
+        # incoming (warm-seeded) coefficients, no slab read
+        for i in sorted(self.frozen_blocks):
+            new_state.write(i, state.block(i))
         summaries: List[Optional[OptResult]] = [None] * n_blocks
         pending = [i for i in active if i not in done_locals]
         pending, skipped = self._adaptive_partition(pending)
@@ -728,12 +749,17 @@ class StreamingRandomEffectCoordinate:
         return new_state, tuple(summaries)
 
     def score(self, state: SpilledREState) -> Tensor:
-        """(N,) scores, block by block; a skipped block reuses the scores of
-        its last pass (its coefficients have not changed since)."""
+        """(N,) scores, block by block; a frozen block reuses the scores of
+        its first pass, a skipped block those of its last pass (their
+        coefficients have not changed since)."""
         total = torch.zeros((self.manifest.num_rows,), dtype=real_dtype(), device=self._device)
         stream = []
         for i in range(len(self.manifest.blocks)):
-            cached = self._skipped_scores.get(i) if i in self._adaptive_skipped else None
+            cached = None
+            if i in self.frozen_blocks:
+                cached = self._frozen_scores.get(i)
+            elif i in self._adaptive_skipped:
+                cached = self._skipped_scores.get(i)
             if cached is not None:
                 rows, vals = cached
                 total[torch.from_numpy(rows).to(self._device)] = vals.to(self._device)
@@ -745,7 +771,9 @@ class StreamingRandomEffectCoordinate:
             # ladder-padded blocks score their pad rows too; slice them off
             vals = self._sub_for(ds).score(w)[: row_sel.numel()]
             total[row_sel] = vals
-            if i in self._adaptive_skipped:
+            if i in self.frozen_blocks:
+                self._frozen_scores[i] = (row_sel.cpu().numpy(), vals.cpu())
+            elif i in self._adaptive_skipped:
                 self._skipped_scores[i] = (row_sel.cpu().numpy(), vals.cpu())
             del ds, w
         return total

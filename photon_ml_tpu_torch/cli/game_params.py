@@ -18,11 +18,11 @@ The training parser takes every flag of the JAX driver under the same name,
 plus ``--device`` (default ``cuda``). Grid alternatives are ';'-separated
 (``config_grid`` is their Cartesian product). ``validate`` rejects, naming
 the flag, every flag whose code path is not yet ported when it is set away
-from its default: the fused cycle, the mesh, the persistent cache, warm
-starts, the planner and the rest listed in ``_FENCED``. Streaming random
-effects (``--streaming-random-effects``, ``--re-memory-budget-mb``, which
-implies it), ``--tensor-cache`` and ``--export-serve-store`` with
-``--store-dtype`` run.
+from its default: the fused cycle, the mesh and the persistent cache
+(``_FENCED``). Streaming random effects (``--streaming-random-effects``,
+``--re-memory-budget-mb``, which implies it), ``--tensor-cache``,
+``--export-serve-store`` with ``--store-dtype``, the delta retrain
+(``--warm-start-from``) and the planner (``--plan off|auto``) run.
 ``--solve-compaction`` and ``--adaptive-schedule`` are checked through the
 execution plan (compile/plan.py), as the JAX parser checks them. The scoring parser takes every flag of the JAX
 scoring driver, plus ``--device``. The serve parser takes every flag of the
@@ -35,6 +35,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import os
 from typing import Dict, List, Optional, Tuple
 
 from photon_ml_tpu_torch.data.game import RandomEffectDataConfig
@@ -313,6 +314,14 @@ class GameTrainingParams:
     # adaptive bucket scheduling (optim/convergence.py): "off" | "on" | TOL
     # | "TOL:K"; None defers to PHOTON_ADAPTIVE_SCHEDULE
     adaptive_schedule: Optional[str] = None
+    # delta retraining (retrain/): the prior run's output dir, whose
+    # retrain.json the planner diffs the new inputs against; unchanged
+    # coordinates and entity blocks skip their solves bitwise, dirty work
+    # re-solves warm-started from the prior model
+    warm_start_from: Optional[str] = None
+    # the cost-based planner (compile/cost.py): "off" | "auto"; None
+    # defers to PHOTON_PLAN
+    plan: Optional[str] = None
     # flags of the JAX driver given away from their default whose code paths
     # are not yet ported (filled by the parser; validate refuses them)
     unported_flags: List[str] = dataclasses.field(default_factory=list)
@@ -395,15 +404,32 @@ class GameTrainingParams:
         except ValueError as e:
             errors.append(f"--adaptive-schedule: {e}")
             adaptive_spec = "off"
+        plan_spec = self.plan
+        try:
+            from photon_ml_tpu_torch.compile.overrides import resolve_plan_mode
+
+            resolve_plan_mode(plan_spec)
+        except ValueError as e:
+            errors.append(str(e))
+            plan_spec = "off"
         try:
             from photon_ml_tpu_torch.compile.plan import ExecutionPlan
 
             ExecutionPlan.resolve(
                 shape_canonicalization=ladder_spec, solve_compaction=compaction_spec,
                 adaptive_schedule=adaptive_spec, bucketed=self.bucketed_random_effects,
-                vmapped_grid=self.vmapped_grid, streaming=self.streaming_random_effects)
+                vmapped_grid=self.vmapped_grid, streaming=self.streaming_random_effects,
+                plan=plan_spec)
         except ValueError as e:
             errors.append(str(e))
+        if self.warm_start_from and (os.path.abspath(self.warm_start_from)
+                                     == os.path.abspath(self.output_dir)):
+            errors.append(
+                "--warm-start-from must point at a PRIOR run's output "
+                "dir, not this run's --output-dir (preparing the "
+                "output dir would destroy the prior model the warm "
+                "start reads)"
+            )
         errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
                       for flag in self.unported_flags)
         if errors:
@@ -438,8 +464,6 @@ _FENCED = {
     "--distributed": "false",
     "--fused-cycle": "false",
     "--persistent-cache": None,
-    "--warm-start-from": None,
-    "--plan": None,
 }
 # values that leave a fenced flag unset, besides its default
 _UNSET = ("", "none", "off", "false", "0", "no")
@@ -549,6 +573,23 @@ def build_training_parser() -> argparse.ArgumentParser:
            "to PHOTON_ADAPTIVE_SCHEDULE; the ledger lands in retrain.json; "
            "pinned to always-visit without --bucketed-random-effects, fenced "
            "with --vmapped-grid true")
+    a("--warm-start-from", dest="warm_start_from", default=None,
+      help="prior run's output dir (holds retrain.json + the saved "
+           "model): delta retraining — unchanged coordinates/entity "
+           "blocks skip their solves bitwise, dirty work re-solves "
+           "warm-started from the prior model, an all-unchanged rerun "
+           "reuses the prior model wholesale; a missing/corrupt prior "
+           "degrades to a recorded cold run")
+    a("--plan", default=None,
+      help="cost-based query planner: off | auto. Under auto, knobs left "
+           "unset (shape ladder, solve-chunk size, sparse family, "
+           "prefetch depth, blocking) are chosen by the cost model "
+           "(compile/cost.py) from workload statistics, corrected by the "
+           "realized-cost feedback persisted in the cost-model.json "
+           "sidecar beside retrain.json; every choice is a recorded "
+           "PlanDecision with predicted AND realized cost. Explicit flags "
+           "and env knobs always win over the planner. Default defers to "
+           "PHOTON_PLAN (off = today's behavior, bitwise)")
     for flag, default in _FENCED.items():
         kind = type(default) if isinstance(default, (int, float)) else None
         a(flag, dest=_dest(flag), default=default, type=kind,
@@ -637,6 +678,8 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         shape_canonicalization=ns.shape_canonicalization,
         solve_compaction=ns.solve_compaction,
         adaptive_schedule=ns.adaptive_schedule,
+        warm_start_from=ns.warm_start_from,
+        plan=ns.plan,
         unported_flags=_unported(ns),
         device=ns.device,
     )

@@ -49,6 +49,17 @@ in-process (``--max-restarts``) or exits with code 75 (a streaming update
 drains at its block boundaries too). The run leaves
 ``retrain.json`` at the output root, as the JAX driver does.
 
+``--warm-start-from PRIOR_OUTPUT_DIR`` runs the daily retrain loop
+(retrain/): the delta planner diffs the training files against the prior
+run's ``retrain.json``; an all-unchanged rerun copies the prior model
+forward with no ingest and no solve; otherwise every coordinate warm-starts
+from the prior model, unchanged coordinates are frozen, and a dirty
+streaming random effect pins the prior blocking, reusing and freezing its
+unchanged blocks. Any unusable prior degrades to a logged cold run.
+``--plan auto`` lets the cost model (compile/cost.py) choose the knobs left
+unset and writes ``cost-model.json`` beside ``retrain.json``; the next run
+reads it from the ``--warm-start-from`` dir, else from its own output dir.
+
     python -m photon_ml_tpu_torch.cli.game_training_driver \\
       --train-input-dirs data/train --validate-input-dirs data/val \\
       --output-dir out --task-type LOGISTIC_REGRESSION \\
@@ -68,6 +79,7 @@ import hashlib
 import json
 import logging
 import os
+import shutil
 import sys
 from typing import Dict, List, Optional, Tuple
 
@@ -94,6 +106,7 @@ from photon_ml_tpu_torch.algorithm.random_effect import (
 )
 from photon_ml_tpu_torch.algorithm.streaming_random_effect import (
     SpilledREState,
+    StreamingREManifest,
     StreamingRandomEffectCoordinate,
     write_re_entity_blocks,
 )
@@ -118,6 +131,7 @@ from photon_ml_tpu_torch.device import enable_determinism, resolve_device
 from photon_ml_tpu_torch import resilience
 from photon_ml_tpu_torch.resilience import preemption
 from photon_ml_tpu_torch.resilience.guards import DivergenceGuard
+from photon_ml_tpu_torch import retrain
 from photon_ml_tpu_torch.retrain.manifest import (
     CoordinateRecord,
     RetrainManifest,
@@ -241,7 +255,11 @@ class GameTrainingDriver:
             adaptive_schedule=params.adaptive_schedule,
             bucketed=params.bucketed_random_effects,
             vmapped_grid=params.vmapped_grid,
-            streaming=params.streaming_random_effects)
+            streaming=params.streaming_random_effects,
+            plan=params.plan,
+            # warm starts inherit the prior run's realized costs; cold runs
+            # read back their own sidecar on the next invocation
+            cost_model_dir=(params.warm_start_from or params.output_dir))
         self.bucketer = self.plan.bucketer
         self.solve_schedule = self.plan.schedule
         self._race_mark = len(fused_glm.race_log)  # where this run's race decisions start
@@ -271,6 +289,17 @@ class GameTrainingDriver:
         # identity of the inputs for retrain.json, taken before ingest
         self._train_file_stats: Optional[list] = None
         self._eval_identity_cache: Optional[Dict[str, object]] = None
+        # --- the delta retrain (retrain/) -------------------------------
+        self.retrain_prior = None  # the prior run's RetrainManifest, or None
+        self.delta_plan = None  # the resolved DeltaPlan, or None: a cold run
+        self.block_deltas: Dict[str, list] = {}  # streaming coord -> [BlockDelta]
+        self._train_files: List[str] = []
+        self._frozen_blocks: Dict[str, frozenset] = {}  # coord -> skip set
+        self._warm_fixed: Dict[str, np.ndarray] = {}
+        self._warm_dense_re: Dict[str, np.ndarray] = {}
+        self._warm_spilled: Dict[str, SpilledREState] = {}
+        self._warm_bucketed: Dict[str, list] = {}  # coord -> per-bucket stacks
+        self._warm_means_cache: Dict[str, Optional[dict]] = {}
 
     # ------------------------------------------------------------------
     def _shard_ids(self) -> List[str]:
@@ -362,6 +391,17 @@ class GameTrainingDriver:
                                                  **self._ingest_cache_config()})
                      if cache is not None else None)
         self._data_cache_key = train_key
+        if (cache is not None and self.retrain_prior is not None
+                and self.retrain_prior.data_cache_key
+                and self.retrain_prior.data_cache_key != train_key):
+            # cache hygiene: the prior run's whole-set ingest entry can never
+            # be addressed again (its file stats are history). Streaming-block
+            # entries are kept: the prior block layout may be one
+            if cache.invalidate(self.retrain_prior.data_cache_key):
+                self.logger.info(
+                    "tensor cache: invalidated superseded prior ingest "
+                    f"entry {self.retrain_prior.data_cache_key[:12]}"
+                )
         hit = cache.get(train_key) if cache is not None else None
         if hit is not None:
             self.train_data = game_data_from_arrays(hit.arrays, hit.meta)
@@ -392,6 +432,8 @@ class GameTrainingDriver:
             "kind": "streaming_re_blocks", "coord": name, "config": dataclasses.asdict(cfg),
             "budget": budget, **self._ingest_cache_config()}) if cache is not None else None)
         self._coord_cache_keys[name] = block_key
+        if self._delta_streaming_build(name, cfg, budget, cache, train_files):
+            return
         manifest = write_re_entity_blocks(
             self.train_data, cfg, os.path.join(p.output_dir, "streaming-re", name),
             # `is None`, not falsy: a zero budget must not pass both sizing modes
@@ -410,6 +452,13 @@ class GameTrainingDriver:
                                               **self._ingest_cache_config()})
                   if cache is not None else None)
         self._coord_cache_keys[name] = re_key
+        prior_rec = (self.retrain_prior.coordinates.get(name)
+                     if self.retrain_prior is not None else None)
+        if (cache is not None and prior_rec is not None and prior_rec.kind == "random"
+                and prior_rec.cache_key and prior_rec.cache_key != re_key):
+            # a superseded in-memory dataset entry (warm starts read the
+            # saved model, never the cached dataset)
+            cache.invalidate(prior_rec.cache_key)
         return build_random_effect_dataset(self.train_data, cfg, device=self.device,
                                            tensor_cache=cache, cache_key=re_key)
 
@@ -417,7 +466,10 @@ class GameTrainingDriver:
         """Read the training (and validation) rows, then build each
         coordinate's tensors on the device; each step is a timer span."""
         p = self.params
-        train_files = _input_files(self._train_dirs())
+        # the file list the delta plan and the manifest's stat tokens came
+        # from: one file set for plan, ingest and retrain.json
+        train_files = self._train_files or _input_files(self._train_dirs())
+        self._train_files = train_files
         with self.timer.measure("read-train-data"):
             self._read_train_data(train_files)
         self.logger.info(f"training rows: {self.train_data.num_rows}")
@@ -510,6 +562,15 @@ class GameTrainingDriver:
                     # the plan carries the schedule, sparse spec and prefetch depth
                     plan=self.plan,
                     device=self.device,
+                    # the delta retrain's unchanged blocks skip their solves
+                    # (empty or None on a cold run)
+                    frozen_blocks=self._frozen_blocks.get(name),
+                    # a warm delta retrain seeds the convergence ledger from
+                    # the prior run's record (a sidecar beside the manifest
+                    # still wins inside the coordinate)
+                    ledger_seed=(self.retrain_prior.coordinates[name].convergence_ledger
+                                 if self.retrain_prior is not None
+                                 and name in self.retrain_prior.coordinates else None),
                     # spilled state under this run's output dir, never in a
                     # (possibly shared, cache-resident) manifest dir; one per
                     # coordinate instance, so grid combos never share one
@@ -756,11 +817,12 @@ class GameTrainingDriver:
             if best is None or ev.better_than(metrics[primary], best):
                 self.best_index = i
 
-    def _train_shared_compile_grid(self, combos) -> None:
+    def _train_shared_compile_grid(self, combos, init_params=None) -> None:
         """Every combo through ``CoordinateDescent.run_grid`` on coordinates
         built once; results and ``best_index`` as the per-combo path sets
         them. With --checkpoint-dir each combo checkpoints per cycle and
-        resumes from its last complete iteration."""
+        resumes from its last complete iteration. ``init_params`` (the delta
+        retrain) seeds every combo from the prior run's selected model."""
         p = self.params
         coords = self._build_coordinates(combos[0])
         scorer, evaluators, primary = self._evaluation(coords)
@@ -772,6 +834,7 @@ class GameTrainingDriver:
         try:
             with self.timer.measure("shared-compile-grid"), maybe_trace("game-grid"):
                 grid_results = cd.run_grid(lam, p.num_iterations, self.train_data.num_rows,
+                                           init_params=init_params,
                                            checkpointers=checkpointers)
         finally:
             for ck in checkpointers or ():
@@ -783,14 +846,20 @@ class GameTrainingDriver:
     def train(self) -> None:
         p = self.params
         combos = p.config_grid()
+        self._prepare_warm_starts()
+        warm_init = self._warm_init()
+        frozen = self._frozen_coordinate_names(warm_init)
         if p.vmapped_grid in ("true", "auto"):
-            blocker = self._vmapped_grid_blocker(combos)
+            blocker = ("delta-frozen coordinates (the per-coordinate skip lives "
+                       "outside the compiled grid cycle)"
+                       if frozen else self._vmapped_grid_blocker(combos))
             if blocker is None:
                 self.logger.info(
                     "--vmapped-grid: training through the shared-compile grid (the "
                     "batched G-lane variant was removed; sequential won every "
-                    "measured race)")
-                self._train_shared_compile_grid(combos)
+                    "measured race)"
+                    + (" — every lane warm-started from the prior model" if warm_init else ""))
+                self._train_shared_compile_grid(combos, init_params=warm_init)
                 return
             self.logger.warn(f"--vmapped-grid requested but falling back to the per-combo "
                              f"rebuild grid: {blocker}")
@@ -805,7 +874,10 @@ class GameTrainingDriver:
             checkpointer = self._make_checkpointer(i, opt_configs)
             try:
                 with self.timer.measure(f"combo-{i}"), maybe_trace(f"game-combo-{i}"):
-                    result = cd.run(p.num_iterations, self.train_data.num_rows, checkpointer)
+                    # each combo gets its own copy of the warm state
+                    result = cd.run(p.num_iterations, self.train_data.num_rows, checkpointer,
+                                    initial_params=self._warm_init() if i else warm_init,
+                                    frozen=frozen)
             finally:
                 self._close_checkpointer(checkpointer)
             self._record(i, opt_configs, result, evaluators, primary)
@@ -934,9 +1006,20 @@ class GameTrainingDriver:
             self._adopt_recorded_races()
         try:
             # stat tokens before ingest: a file overwritten mid-run is
-            # recorded with the identity this run read
-            self._train_file_stats = file_stat_token(_input_files(self._train_dirs()))
-            self._eval_identity()
+            # recorded with the identity this run read, and tomorrow's delta
+            # run classifies it changed, never wrongly frozen
+            train_files = _input_files(self._train_dirs())
+            self._train_files = train_files
+            self._train_file_stats = file_stat_token(train_files)
+            self._eval_identity()  # the validation side, before it is read
+            self._maybe_plan_delta(train_files)
+            if self.delta_plan is not None and self.delta_plan.short_circuit:
+                # nothing changed: the prior model is this run's result;
+                # re-export it, no ingest and no training
+                with self.timer.measure("delta-short-circuit"):
+                    self._short_circuit_run()
+                self._log_run_summaries()
+                return
             with self.timer.measure("prepare-feature-maps"):
                 self.prepare_feature_maps()
             with self.timer.measure("prepare-datasets"):
@@ -954,12 +1037,13 @@ class GameTrainingDriver:
                         for i, (_, result, _) in enumerate(self.results):
                             self.save_models(os.path.join(p.output_dir, ALL_MODELS_DIR, str(i)),
                                              result, i)
+                    self._record_realized_costs()
                     self._write_retrain_manifest(best_dir)
                 self._export_store(best_dir)
-            elif p.export_serve_store:
+            elif p.warm_start_from or p.export_serve_store:
                 self.logger.warn(
                     "--model-output-mode NONE: no saved model, so no "
-                    "serving store can be written"
+                    "retrain manifest / serving store can be written"
                 )
             self._log_run_summaries()
         finally:
@@ -1046,9 +1130,28 @@ class GameTrainingDriver:
             }
         return self._eval_identity_cache
 
-    def _write_retrain_manifest(self, best_dir: str) -> None:
-        """Leave this run's ``retrain.json`` for the next run's planner."""
+    def _write_retrain_manifest(self, best_dir: str, short_circuit: bool = False) -> None:
+        """Leave this run's ``retrain.json`` for the next run's planner. A
+        short-circuited run's inputs are the prior run's by construction, so
+        it keeps the prior's digests, coordinate records and cache key."""
         p = self.params
+        if short_circuit:
+            prior = self.retrain_prior
+            manifest = RetrainManifest(
+                output_dir=os.path.abspath(p.output_dir),
+                model_dir=os.path.abspath(best_dir),
+                task=p.task_type.value,
+                file_stats=self._train_file_stats,
+                ingest_inputs=self._ingest_inputs(),
+                ingest_digest=prior.ingest_digest,
+                updating_sequence=list(p.updating_sequence),
+                coordinates=dict(prior.coordinates),
+                data_cache_key=prior.data_cache_key,
+                eval_identity=self._eval_identity(),
+                cost_model=self._plan_cost_model_json(),
+            )
+            self.logger.info(f"retrain manifest written: {manifest.save(p.output_dir)}")
+            return
         selected = self.results[self.best_index][0]
 
         def kind(name: str) -> str:
@@ -1089,8 +1192,340 @@ class GameTrainingDriver:
             coordinates=coords,
             data_cache_key=self._data_cache_key,
             eval_identity=self._eval_identity(),
+            cost_model=self._plan_cost_model_json(),
         )
         self.logger.info(f"retrain manifest written: {manifest.save(p.output_dir)}")
+
+    # --- the delta retrain (retrain/) ------------------------------------
+    def _maybe_plan_delta(self, train_files: List[str]) -> None:
+        """Load the prior manifest and resolve the delta plan
+        (--warm-start-from). Any failure reading the prior degrades to a
+        logged cold run: a broken prior must never give a wrong warm result
+        (the ``retrain.delta_plan`` fault site)."""
+        p = self.params
+        if not p.warm_start_from:
+            return
+        try:
+            self.retrain_prior = retrain.load_prior_manifest(p.warm_start_from)
+            combos = p.config_grid()
+            combo_configs = None
+            if len(combos) == 1:
+                combo_configs = {name: str(combos[0].get(name, CoordinateOptConfig()))
+                                 for name in p.updating_sequence}
+            # classification stays inside the guard: a parseable but
+            # malformed manifest surfaces here, not as a crashed run
+            self.delta_plan = retrain.plan_delta(
+                self.retrain_prior, train_files,
+                task=p.task_type.value,
+                updating_sequence=p.updating_sequence,
+                ingest_inputs=self._ingest_inputs(),
+                combo_configs=combo_configs,
+                eval_identity=self._eval_identity(),
+            )
+        except Exception as e:  # noqa: BLE001 — any unreadable, corrupt or malformed prior (bad JSON, vanished model, bad stat tokens, injected fault) degrades to a cold run, never a wrong warm one
+            self.retrain_prior = None
+            self.delta_plan = None
+            self.logger.warn(
+                f"--warm-start-from {p.warm_start_from}: prior manifest "
+                f"unusable ({type(e).__name__}: {e}) — retraining cold"
+            )
+            return
+        self.logger.info(
+            f"delta retrain plan: files {self.delta_plan.files.describe()}; "
+            + " ".join(f"{n}={c.status}" for n, c in self.delta_plan.coordinates.items())
+        )
+        for line in self.delta_plan.describe_decisions():
+            self.logger.info(f"delta retrain: {line}")
+
+    def _dirty_entities(self) -> Dict[str, set]:
+        """Raw entity ids whose data moved, probed once from the changed and
+        new files' id columns (the cost scales with the delta)."""
+        if self.delta_plan is None:
+            return {}
+        if not self.delta_plan.dirty_entities:
+            self.delta_plan.dirty_entities = retrain.probe_dirty_entities(
+                self.delta_plan.files, self._id_types())
+            for t, ids in sorted(self.delta_plan.dirty_entities.items()):
+                self.logger.info(f"delta retrain: {len(ids)} dirty {t!r} entities")
+        return self.delta_plan.dirty_entities
+
+    def _load_prior_layout(self, name: str, rec):
+        """The prior run's streaming block layout, or None with the degrade
+        logged: a vanished or corrupt prior layout costs a recorded cold
+        block build, never a failed run or stale blocks."""
+        try:
+            return StreamingREManifest.load(rec.streaming_manifest_dir)
+        except Exception as e:  # noqa: BLE001 — a vanished or corrupt prior block layout (a lost cache entry) degrades to a recorded cold build
+            self.logger.warn(
+                f"delta retrain [{name}]: prior block layout at "
+                f"{rec.streaming_manifest_dir} unusable "
+                f"({type(e).__name__}: {e}) — cold block build"
+            )
+            return None
+
+    def _delta_streaming_build(self, name: str, cfg, budget: Optional[int], cache,
+                               train_files: List[str]) -> bool:
+        """Build ``name``'s entity blocks through the delta builder (prior
+        blocking pinned, unchanged payloads reused, each block's status
+        recorded) when the plan says the coordinate is dirty and the prior
+        blocks are reusable, or take the prior layout as it is when the
+        coordinate is unchanged. False: the cold builder runs, with the
+        reason logged."""
+        p = self.params
+        plan, prior = self.delta_plan, self.retrain_prior
+        if plan is None or prior is None:
+            return False
+        cdelta = plan.coordinates.get(name)
+        rec = prior.coordinates.get(name)
+        if cdelta is None or rec is None:
+            return False
+        if (cdelta.status == "unchanged" and rec.kind == "streaming_random"
+                and rec.streaming_manifest_dir and prior.ingest_digest == self._ingest_digest()):
+            # clean files and identical ingest: the prior block layout is this
+            # run's, as it is (row space and vocab identical by construction)
+            prior_sm = self._load_prior_layout(name, rec)
+            if prior_sm is None:
+                return False
+            self.streaming_manifests[name] = prior_sm
+            self._coord_cache_keys[name] = rec.cache_key
+            self.logger.info(
+                f"delta retrain [{name}]: coordinate unchanged — prior "
+                f"block layout reused verbatim ({len(prior_sm.blocks)} "
+                "blocks, no rebuild)"
+            )
+            return True
+        if cdelta.status != "dirty":
+            return False
+        if rec.kind != "streaming_random" or not rec.streaming_manifest_dir:
+            self.logger.info(
+                f"delta retrain [{name}]: prior coordinate was "
+                f"{rec.kind!r}, not streaming — cold block build"
+            )
+            return False
+        if prior.ingest_digest != self._ingest_digest():
+            self.logger.info(
+                f"delta retrain [{name}]: feature space changed since the "
+                "prior run (index-map digests differ) — block reuse off, "
+                "cold block build (warm start stays on, by feature name)"
+            )
+            return False
+        prior_sm = self._load_prior_layout(name, rec)
+        if prior_sm is None:
+            return False
+        dirty_raw = self._dirty_entities().get(cfg.random_effect_id, set())
+        delta_key = (cache.key_for(train_files, {
+            "kind": "streaming_re_blocks_delta", "coord": name,
+            "config": dataclasses.asdict(cfg), "budget": budget,
+            "prior": prior.model_dir, "dirty": retrain.dirty_set_digest(dirty_raw),
+            **self._ingest_cache_config()}) if cache is not None else None)
+        manifest, deltas = retrain.build_delta_streaming_manifest(
+            self.train_data, cfg, os.path.join(p.output_dir, "streaming-re", name),
+            prior_sm, dirty_raw,
+            bucketer=self.bucketer or "off",
+            block_entities=None if budget is not None else 1024,
+            memory_budget_bytes=budget,
+            tensor_cache=cache, cache_key=delta_key,
+        )
+        self.streaming_manifests[name] = manifest
+        self.block_deltas[name] = deltas
+        if delta_key is not None:
+            self._coord_cache_keys[name] = delta_key
+        by_status = {"unchanged": 0, "dirty": 0, "new": 0}
+        for d in deltas:
+            by_status[d.status] = by_status.get(d.status, 0) + 1
+        self.logger.info(
+            f"delta retrain [{name}]: {len(deltas)} blocks — "
+            f"{by_status['unchanged']} unchanged (solve skipped, payload "
+            f"reused), {by_status['dirty']} dirty, {by_status['new']} new"
+        )
+        return True
+
+    def _prior_entity_means(self, name: str):
+        """The prior per-entity global rows of coordinate ``name`` (kept;
+        None when the prior model lacks it or it is factored)."""
+        if name not in self._warm_means_cache:
+            cfg = self.params.random_effect_data_configs[name]
+            self._warm_means_cache[name] = retrain.random_effect_entity_means(
+                self.retrain_prior.model_dir, name,
+                self.shard_index_maps[cfg.feature_shard_id])
+        return self._warm_means_cache[name]
+
+    def _prepare_warm_starts(self) -> None:
+        """Every coordinate's warm-start state from the prior model (once;
+        combos share it) and the frozen-block sets. Paths without a warm
+        representation (factored latent state) stay cold with a logged
+        reason, never a silent wrong warm start."""
+        if self.retrain_prior is None or self.delta_plan is None:
+            return
+        p = self.params
+        prior = self.retrain_prior
+        combos = p.config_grid()
+        single = combos[0] if len(combos) == 1 else None
+        for name in p.updating_sequence:
+            cdelta = self.delta_plan.coordinates.get(name)
+            if cdelta is None or cdelta.status == "new":
+                continue
+            if name in p.factored_configs:
+                self.logger.info(
+                    f"delta retrain [{name}]: factored latent state does "
+                    "not round-trip through dense rows — cold solve"
+                )
+                continue
+            if name in p.fixed_effect_data_configs:
+                spec = p.fixed_effect_data_configs[name]
+                w = retrain.fixed_effect_init(prior.model_dir, name,
+                                              self.shard_index_maps[spec.feature_shard_id])
+                if w is not None:
+                    self._warm_fixed[name] = w
+                continue
+            means = self._prior_entity_means(name)
+            if name in self.bucketed_bundles:
+                if means is None:
+                    self.logger.info(
+                        f"delta retrain [{name}]: prior model has no "
+                        "reusable coefficients for this bucketed "
+                        "coordinate — cold solve"
+                    )
+                    continue
+                self._warm_bucketed[name] = retrain.bucketed_random_effect_init(
+                    means, self.bucketed_bundles[name])
+                self.logger.info(
+                    f"delta retrain [{name}]: warm-starting "
+                    f"{len(self._warm_bucketed[name])} bucket stacks from "
+                    "the prior model (gathered through the bucket layout)"
+                )
+                continue
+            if means is None:
+                self.logger.info(
+                    f"delta retrain [{name}]: prior model has no reusable "
+                    "coefficients for this coordinate — cold solve"
+                )
+                continue
+            if name in self.streaming_manifests:
+                self._warm_spilled[name] = retrain.seed_spilled_state(
+                    self.streaming_manifests[name], means,
+                    os.path.join(p.output_dir, "retrain-warm", name))
+                deltas = self.block_deltas.get(name)
+                rec = prior.coordinates.get(name)
+                cfg_now = (str(single.get(name, CoordinateOptConfig()))
+                           if single is not None else None)
+                if deltas and rec is not None and cfg_now == rec.opt_config:
+                    self._frozen_blocks[name] = frozenset(
+                        d.index for d in deltas if d.status == "unchanged")
+                    self.logger.info(
+                        f"delta retrain [{name}]: freezing "
+                        f"{len(self._frozen_blocks[name])}/{len(deltas)} "
+                        "unchanged blocks (solves skipped, coefficients "
+                        "bitwise from the prior model)"
+                    )
+                elif deltas:
+                    self.logger.info(
+                        f"delta retrain [{name}]: optimization grid "
+                        "differs from the prior selected combo — no block "
+                        "freezing (warm start only)"
+                    )
+                continue
+            cfg = p.random_effect_data_configs[name]
+            self._warm_dense_re[name] = retrain.dense_random_effect_init(
+                means, vocab=self.train_data.id_vocabs[cfg.random_effect_id],
+                pos_of_vocab=self._entity_position_of_vocab(name),
+                local_to_global=self.re_datasets[name].local_to_global.cpu().numpy())
+
+    def _warm_init(self) -> Optional[Dict[str, object]]:
+        """The per-coordinate warm-start parameters on the device (fresh
+        tensors at each call: a combo never shares another's), or None when
+        cold."""
+        put = lambda w: torch.from_numpy(np.array(w)).to(self.device)
+        out: Dict[str, object] = {}
+        for n, w in self._warm_fixed.items():
+            out[n] = put(w)
+        for n, w in self._warm_dense_re.items():
+            out[n] = put(w)
+        for n, stacks in self._warm_bucketed.items():
+            # per-bucket stacks, as initial_coefficients() gives them
+            out[n] = tuple(put(w) for w in stacks)
+        out.update(self._warm_spilled)
+        return out or None
+
+    def _frozen_coordinate_names(self, warm_init) -> set:
+        """Coordinates the plan froze and the warm start could seed:
+        freezing without the prior coefficients would freeze zeros."""
+        if self.delta_plan is None:
+            return set()
+        frozen = self.delta_plan.frozen_coordinates()
+        out = {n for n in frozen if warm_init is not None and n in warm_init}
+        for n in sorted(frozen - out):
+            self.logger.warn(
+                f"delta retrain [{n}]: classified unchanged but no warm "
+                "state could be built — re-solving instead of freezing"
+            )
+        return out
+
+    def _short_circuit_run(self) -> None:
+        """All-unchanged rerun: copy the prior model forward bitwise and
+        re-export it: 0 solves, 0 kernel launches, no ingest."""
+        p = self.params
+        best_dir = os.path.join(p.output_dir, BEST_MODEL_DIR)
+        if os.path.abspath(self.retrain_prior.model_dir) != os.path.abspath(best_dir):
+            shutil.copytree(self.retrain_prior.model_dir, best_dir, dirs_exist_ok=True)
+        self.logger.info(
+            "delta retrain: inputs, configuration, and grid identical to "
+            f"the prior run — prior model reused wholesale at {best_dir} "
+            "(0 solves, 0 new XLA compiles)"
+        )
+        self._write_retrain_manifest(best_dir, short_circuit=True)
+        self._export_store(best_dir)
+
+    def _record_realized_costs(self) -> None:
+        """Close the planner loop (--plan auto): attach this run's realized
+        costs, from the registries the planner predicts over, to the plan's
+        decisions, fold them into the cost model and write
+        ``cost-model.json`` beside ``retrain.json``. A trace here is a
+        CUDA-graph capture (compile/stats.py). No-op under --plan off."""
+        if self.plan.plan_mode != "auto":
+            return
+        from photon_ml_tpu_torch.compile.cost import TRACE_COST
+
+        sched_cost = solve_stats.realized_plan_cost()
+        if sched_cost is not None:
+            self.plan.record_realized("schedule", sched_cost)
+            # sharding's realized burden: the executed lane-iterations,
+            # without the pause tariff
+            self.plan.record_realized(
+                "sharding", float(solve_stats.totals()["executed_lane_iterations"]))
+        traces = compile_stats.total_traces()
+        if traces:
+            self.plan.record_realized("ladder", TRACE_COST * float(traces))
+        # blocking: the best combo's per-block imbalance, from its ledgers
+        block_costs = self._ledger_block_costs()
+        if block_costs:
+            self.plan.record_realized("blocking",
+                                      max(block_costs) / max(1e-9, min(block_costs)))
+        path = self.plan.save_cost_model(self.params.output_dir)
+        if path:
+            self.logger.info(f"plan cost model written: {path}")
+            for dec in self.plan.decisions:
+                if dec.realized_cost is not None:
+                    self.logger.info(dec.describe())
+
+    def _plan_cost_model_json(self) -> Optional[dict]:
+        """The plan's cost model for retrain.json; None under --plan off
+        (the field stays absent)."""
+        if self.plan.plan_mode != "auto" or self.plan.cost_model is None:
+            return None
+        return self.plan.cost_model.to_json()
+
+    def _ledger_block_costs(self) -> list:
+        """The best combo's per-block observed costs (empty when no
+        coordinate kept a convergence ledger): the blocking-drift signal."""
+        costs: list = []
+        if not 0 <= self.best_index < len(self.combo_coords):
+            return costs
+        for coord in self.combo_coords[self.best_index].values():
+            ledger = getattr(coord, "_ledger", None)
+            if ledger is not None:
+                costs.extend(float(c) for c in ledger.observed_costs().values())
+        return costs
 
 
 def main(argv: Optional[List[str]] = None) -> GameTrainingDriver:

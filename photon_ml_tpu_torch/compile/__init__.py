@@ -1,7 +1,7 @@
 """Shape canonicalization and capture telemetry (port of
 photon_ml_tpu/compile/: the ladder, ``ShapeBucketer`` and the masked padding
 of random-effect datasets; the CUDA-graph counters of ``stats``; the
-environment gate and the execution plan the solve schedule needs)."""
+environment gate, the planner's cost model and the execution plan)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ from photon_ml_tpu_torch.compile.canonical import (
     pad_glm_chunk,
     resolve_bucketer,
 )
+from photon_ml_tpu_torch.compile.cost import CostModel, WorkloadProfile
+from photon_ml_tpu_torch.compile.overrides import Overrides, resolve_overrides
 from photon_ml_tpu_torch.compile.stats import (
     CompileStats,
     CompileWatermark,
@@ -23,7 +25,10 @@ from photon_ml_tpu_torch.compile.stats import (
 __all__ = [
     "CompileStats",
     "CompileWatermark",
+    "CostModel",
+    "Overrides",
     "ShapeBucketer",
+    "WorkloadProfile",
     "canonicalize_re_arrays",
     "compile_stats",
     "instrumented_capture",
@@ -31,4 +36,5 @@ __all__ = [
     "pad_axis",
     "pad_glm_chunk",
     "resolve_bucketer",
+    "resolve_overrides",
 ]

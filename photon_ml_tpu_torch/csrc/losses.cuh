@@ -2,7 +2,9 @@
 //
 // loss ids: 0 logistic (y in {0, 1}), 1 squared, 2 Poisson, 3 smoothed
 // hinge on t = (2y - 1) z. Formulas as in photon_ml_tpu_torch/ops/losses.py
-// (the loss's kernel_id names it here).
+// (the loss's kernel_id names it here). A product that a subtraction
+// follows is rounded on its own (__fmul_rn), as torch's separate multiply
+// and subtract round it: nvcc would otherwise fuse the two into one fma.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,7 +15,7 @@ namespace photon {
 __device__ __forceinline__ void loss_and_d1(int loss, float z, float y,
                                             float* l, float* d1) {
   if (loss == 0) {
-    *l = fmaxf(z, 0.f) + log1pf(expf(-fabsf(z))) - y * z;
+    *l = fmaxf(z, 0.f) + log1pf(expf(-fabsf(z))) - __fmul_rn(y, z);
     *d1 = 1.f / (1.f + expf(-z)) - y;
   } else if (loss == 1) {
     const float r = z - y;
@@ -21,7 +23,7 @@ __device__ __forceinline__ void loss_and_d1(int loss, float z, float y,
     *d1 = r;
   } else if (loss == 2) {
     const float e = expf(z);
-    *l = e - y * z;
+    *l = e - __fmul_rn(y, z);
     *d1 = e - y;
   } else {
     const float s = 2.f * y - 1.f;

@@ -216,9 +216,24 @@ def collect_entity_ids(
     paths: Sequence[str], id_types: Sequence[str]
 ) -> Dict[str, set]:
     """Raw entity-id sets per id type (record field first, then
-    metadataMap); a row missing an id type adds nothing to its set. The
-    Python row loop, as in the JAX package."""
+    metadataMap); a row missing an id type adds nothing to its set: the
+    delta-retrain planner's dirty-set probe (retrain/delta.py), which reads
+    only the changed files. Columnar through the native decoder when the
+    files support it; the Python row loop otherwise."""
     out: Dict[str, set] = {t: set() for t in id_types}
+    native = _native_columns(paths)
+    if native is not None:
+        columns = []
+        for cols in native:
+            lookup = _IdColumns(cols)
+            columns.append({t: lookup.column(t) for t in id_types})
+        if all(c is not None for per in columns for c in per.values()):
+            _read_natively(native, columns)
+            for per in columns:
+                for t, col in per.items():
+                    out[t].update(v for v in col if v is not None)
+            return out
+        _read_natively(native, None)
     for rec in _iter_records(paths):
         meta = rec.get("metadataMap") or {}
         for t in id_types:
@@ -467,6 +482,58 @@ def read_game_data(
     )
 
 
+class _IdColumns:
+    """Raw entity ids of one file's native columns, per id type: the record
+    field first, then ``metadataMap`` per record (DataProcessingUtils.scala:
+    90-114 lookup order)."""
+
+    def __init__(self, cols):
+        self.cols = cols
+        self._meta = None
+        self._meta_tried = False
+
+    def _meta_lookup(self, i: int, t: str) -> Optional[str]:
+        if not self._meta_tried:
+            self._meta_tried = True
+            m = self.cols.string_map("metadataMap")
+            if m is not None:
+                mcounts, mkeys, mvals, mpresent = m
+                mstarts = np.zeros(len(mcounts) + 1, np.int64)
+                np.cumsum(mcounts, out=mstarts[1:])
+                mdense = np.cumsum(mpresent.astype(np.int64)) - 1
+                self._meta = (mstarts, mkeys, mvals, mpresent, mdense)
+        if self._meta is None:
+            return None
+        mstarts, mkeys, mvals, mpresent, mdense = self._meta
+        if not mpresent[i]:
+            return None
+        di = int(mdense[i])
+        for j in range(int(mstarts[di]), int(mstarts[di + 1])):
+            if mkeys[j] == t:
+                return mvals[j]
+        return None
+
+    def column(self, t: str) -> Optional[List[Optional[str]]]:
+        """One id per row (None where neither the field nor metadataMap
+        has it), or None for an id field of an exotic type."""
+        cols = self.cols
+        ftype = cols.field_type(t)
+        field_vals = None  # list with None where the field value is null
+        if ftype in ("int", "long"):
+            sc = cols.scalar(t)
+            field_vals = [str(int(v)) if pr else None for v, pr in zip(sc[0], sc[1])]
+        elif ftype is not None:
+            st = cols.strings(t)
+            if st is None:
+                return None
+            field_vals = list(st[0])
+        out = []
+        for i in range(cols.n):
+            v = field_vals[i] if field_vals is not None else None
+            out.append(self._meta_lookup(i, t) if v is None else v)
+        return out
+
+
 def _read_game_data_columnar(
     cols_list,
     shard_index_maps: Dict[str, IndexMap],
@@ -512,53 +579,11 @@ def _read_game_data_columnar(
         # ids: record field first, metadataMap PER RECORD otherwise
         # (DataProcessingUtils.scala:90-114 lookup order; the python loop's
         # `t in rec and rec[t] is not None` is a per-record decision)
-        meta = None
-        meta_tried = False
-
-        def _meta_lookup(i, t):
-            nonlocal meta, meta_tried
-            if not meta_tried:
-                meta_tried = True
-                m = cols.string_map("metadataMap")
-                if m is not None:
-                    mcounts, mkeys, mvals, mpresent = m
-                    mstarts = np.zeros(len(mcounts) + 1, np.int64)
-                    np.cumsum(mcounts, out=mstarts[1:])
-                    mdense = np.cumsum(mpresent.astype(np.int64)) - 1
-                    meta = (mstarts, mkeys, mvals, mpresent, mdense)
-            if meta is None:
-                return None
-            mstarts, mkeys, mvals, mpresent, mdense = meta
-            if not mpresent[i]:
-                return None
-            di = int(mdense[i])
-            for j in range(int(mstarts[di]), int(mstarts[di + 1])):
-                if mkeys[j] == t:
-                    return mvals[j]
-            return None
-
+        lookup = _IdColumns(cols)
         for t in id_types:
-            ftype = cols.field_type(t)
-            field_vals = None  # list with None where the field value is null
-            if ftype in ("int", "long"):
-                sc = cols.scalar(t)
-                field_vals = [
-                    str(int(v)) if pr else None for v, pr in zip(sc[0], sc[1])
-                ]
-            elif ftype is not None:
-                st = cols.strings(t)
-                if st is not None:
-                    field_vals = list(st[0])
-                else:
-                    return None  # exotic id field type -> python loop
-            got = []
-            for i in range(n):
-                v = field_vals[i] if field_vals is not None else None
-                if v is None:
-                    v = _meta_lookup(i, t)
-                if v is None:
-                    return None  # missing id -> python loop raises the error
-                got.append(v)
+            got = lookup.column(t)
+            if got is None or any(v is None for v in got):
+                return None  # exotic id type, or a missing id: the python loop
             raw_ids[t].extend(got)
 
         # per-shard features: union of the shard's sections

@@ -5,7 +5,8 @@ A random-effect coordinate's per-entity rows live in a padded-COO **slab**:
 ``idx``/``val`` of shape ``(E, M, K)``, K the largest row non-zero count
 (rounded up the shape ladder when one is asked for), padding slots at
 column 0 with value 0, each row's entries in ascending column order. Two
-formulations compute the same arithmetic on it: margins gathered per row,
+formulations compute the same arithmetic on it: margins gathered per row
+and added in the kernels' association (``kernel_order_row_sum``),
 transposes applied in flat ``(m, k)`` order, row sums through the
 fixed-association ``tree_row_sum``.
 
@@ -80,6 +81,26 @@ def tree_row_sum(x: Tensor) -> Tensor:
     return x[..., 0]
 
 
+def kernel_order_row_sum(prod: Tensor) -> Tensor:
+    """Row sums of ``(..., M, K)`` products in the kernels' association
+    (csrc/fused_sparse.cu, step 4): ``tpr = row_threads_for(M, K)``
+    partials, partial ``t`` adding the products ``q = t, t + tpr, ...`` in
+    turn from zero, then ``tree_row_sum`` over the ``tpr`` partials. ``tpr``
+    depends on (M, K) alone, so a lane's bits do not depend on the batch.
+    A partial never holds -0 (it starts at +0), so the zero padding up to a
+    multiple of ``tpr`` adds nothing."""
+    m, k = prod.shape[-2], prod.shape[-1]
+    tpr = row_threads_for(m, k)
+    steps = -(-k // tpr)
+    if steps * tpr != k:
+        prod = torch.nn.functional.pad(prod, (0, steps * tpr - k))
+    prod = prod.reshape(prod.shape[:-1] + (steps, tpr))
+    z = torch.zeros(prod.shape[:-2] + (tpr,), dtype=prod.dtype, device=prod.device)
+    for s in range(steps):
+        z = z + prod[..., s, :]
+    return tree_row_sum(z)
+
+
 # ---------------------------------------------------------------------------
 # the slab
 # ---------------------------------------------------------------------------
@@ -133,7 +154,7 @@ class SparseSlab:
     def matvec(self, w: Tensor) -> Tensor:
         acc = _acc_dtype(self.val.dtype)
         wv = w.reshape(-1)[self._flat_idx()]
-        return torch.sum(wv.to(acc) * self.val.to(acc), dim=-1)
+        return kernel_order_row_sum(wv.to(acc) * self.val.to(acc))
 
     def _transpose_apply(self, contrib: Tensor) -> Tensor:
         """The transpose action of every plain family, in flat (lane, m, k)
@@ -270,8 +291,10 @@ class FlatOrderPlan:
 
     gather: Tensor  # (nnz,) int64: positions in the raveled contributions, step-major
     steps: Tuple[int, ...]  # step j: the columns that have a j-th slot
-    out_pos: Tensor  # (C,) int64: each ranked column's position in the raveled output
-    size: int  # elements of the raveled (..., D) output
+    # (size,) int64: each raveled output position's ranked column, or C (a
+    # zero) where no column lands: the output is one gather, which a CUDA
+    # graph can capture
+    out_map: Tensor
 
     @staticmethod
     def build(idx: Tensor, val: Tensor, dim: int) -> "FlatOrderPlan":
@@ -292,20 +315,21 @@ class FlatOrderPlan:
         slot_rank = torch.repeat_interleave(rank, counts)
         step_major = torch.sort(step * max(cols.numel(), 1) + slot_rank)[1]
         per_step = torch.bincount(step, minlength=int(counts.max()) if counts.numel() else 0)
-        return FlatOrderPlan(real[perm][step_major], tuple(per_step.tolist()), cols[order],
-                             lanes * dim)
+        out_map = torch.full((lanes * dim,), cols.numel(), dtype=torch.int64, device=dev)
+        out_map[cols[order]] = torch.arange(cols.numel(), device=dev)
+        return FlatOrderPlan(real[perm][step_major], tuple(per_step.tolist()), out_map)
 
     def apply(self, contrib: Tensor) -> Tensor:
         """The raveled ``(..., D)`` transpose of ``(..., M, K)`` contributions."""
         g = contrib.reshape(-1)[self.gather]
-        acc = torch.zeros(self.out_pos.numel(), dtype=contrib.dtype, device=contrib.device)
+        # a trailing zero serves the output positions no column lands on
+        acc = torch.zeros(self.steps[0] + 1 if self.steps else 1, dtype=contrib.dtype,
+                          device=contrib.device)
         at = 0
         for n in self.steps:
             acc.narrow(0, 0, n).add_(g.narrow(0, at, n))
             at += n
-        out = torch.zeros(self.size, dtype=contrib.dtype, device=contrib.device)
-        out[self.out_pos] = acc
-        return out
+        return acc.index_select(0, self.out_map)
 
 
 @dataclasses.dataclass
@@ -321,6 +345,11 @@ class SlabLanes:
 
     slab: SparseSlab
     ids: Tensor
+    # the device loop's inverse permutation of every lane (``inv[l] < R``
+    # exactly for the R gathered lanes, at their positions): with it the
+    # plain transpose runs on the full slab, through the slab's one
+    # FlatOrderPlan, which a CUDA graph can capture
+    inv: Optional[Tensor] = None
 
     @property
     def kernel(self) -> str:
@@ -351,7 +380,15 @@ class SlabLanes:
         return self.plain().matvec(w)
 
     def rmatvec(self, d: Tensor) -> Tensor:
-        return self.plain().rmatvec(d)
+        if self.inv is None:
+            return self.plain().rmatvec(d)
+        # the lanes' rows in place among zero rows, transposed on the full
+        # slab: each lane's columns add its own slots in flat order, as the
+        # gathered slab's plan adds them, so the result is bitwise the same
+        lanes = self.slab.idx.shape[0]
+        pad = d.new_zeros((lanes - d.shape[0],) + tuple(d.shape[1:]))
+        full = torch.cat([d, pad]).index_select(0, self.inv)
+        return self.slab.rmatvec(full).index_select(0, self.ids.long())
 
 
 def build_sparse_slab(x, bucketer=None, kernel: str = "scatter",
@@ -820,6 +857,7 @@ _race_cache: dict = {}
 _race_reports: dict = {}
 
 RACE_LANES = 512  # a race probes this many lanes of its dataset at most
+RACE_GATE_SEED = 20260729  # the seeded coefficients the race also verifies at
 
 
 def _lane_vg(task):
@@ -861,7 +899,8 @@ def race_sparse_kernels(task, slab: SparseSlab, x_dense, labels: Tensor, offsets
                         weights: Tensor, candidates: Optional[Tuple[str, ...]] = None) -> dict:
     """Race every sparse family (and the dense incumbent) on this bucket's
     own tensors, its first ``RACE_LANES`` lanes, through the solvers' lane
-    value+grad closure.
+    value+grad closure. Each candidate is verified at w = 0 and at a seeded
+    w (``RACE_GATE_SEED``), where the margins' association shows.
 
     Returns ``{"winner", "baseline", "shape", "nnz", "candidates"}`` as the
     JAX package does: every raced name appears either with its timing or
@@ -880,6 +919,10 @@ def race_sparse_kernels(task, slab: SparseSlab, x_dense, labels: Tensor, offsets
     slab_p = SparseSlab(slab.idx[:n].contiguous(), slab.val[:n].contiguous(), d, slab.kernel)
     y_p, off_p, wt_p = (t[:n].contiguous() for t in (labels, offsets, weights))
     w0 = torch.zeros((n, d), dtype=_acc_dtype(slab.val.dtype), device=slab.device)
+    # the gate's second point: a seeded draw, the same on every device (at
+    # w = 0 every margin is 0 whatever order its products are added in)
+    w1 = (0.1 * torch.randn((n, d), generator=torch.Generator().manual_seed(RACE_GATE_SEED),
+                            dtype=torch.float64)).to(w0.dtype).to(slab.device)
     vg = _lane_vg(task)
     time_vg = lambda data: fused_glm.time_value_and_grad(lambda w, dd: vg(*dd, w), w0, data)
 
@@ -898,7 +941,7 @@ def race_sparse_kernels(task, slab: SparseSlab, x_dense, labels: Tensor, offsets
             continue
         data = (slab_p.with_kernel(fam), y_p, off_p, wt_p)
         try:
-            outputs[fam] = vg(*data, w0)
+            outputs[fam] = vg(*data, w0) + vg(*data, w1)
             # timing stays inside the try: a candidate that verifies but
             # fails while timed reads as failed too
             timings[fam] = time_vg(data)
@@ -913,15 +956,17 @@ def race_sparse_kernels(task, slab: SparseSlab, x_dense, labels: Tensor, offsets
 
     base = outputs.get(SPARSE_BASELINE)
     verified = {}
-    for fam, (val, grad) in outputs.items():
+    for fam, got in outputs.items():
         if base is None:
             report.setdefault(fam, {})["failed"] = "baseline family failed; no verification possible"
             continue
-        if not (torch.equal(val, base[0]) and torch.equal(grad, base[1])):
+        if not all(torch.equal(a, b) for a, b in zip(got, base)):
             report[fam] = {"failed": (
                 f"numerics: not bitwise-equal to the {SPARSE_BASELINE} baseline on this "
-                f"device (max |diff| value {_max_diff(val, base[0]):.3e}, "
-                f"gradient {_max_diff(grad, base[1]):.3e})")}
+                f"device (max |diff| value "
+                f"{max(_max_diff(got[0], base[0]), _max_diff(got[2], base[2])):.3e}, "
+                f"gradient {max(_max_diff(got[1], base[1]), _max_diff(got[3], base[3])):.3e}; "
+                "at w = 0 and at a seeded w)")}
             continue
         verified[fam] = timings[fam]
 

@@ -206,6 +206,15 @@ class ConvergenceLedger:
     def gids(self) -> List[int]:
         return sorted(self._entries)
 
+    def observed_costs(self) -> Dict[int, float]:
+        """Per-block average lane-iterations per visit: the planner's
+        blocking-drift signal. Blocks never visited report no cost."""
+        out: Dict[int, float] = {}
+        for g, e in self._entries.items():
+            if e["visits"] > 0 and e["executed"] > 0:
+                out[int(g)] = e["executed"] / e["visits"]
+        return out
+
     # -- persistence (atomic sidecar + retrain.json embedding) --------------
     def to_json(self) -> Dict[str, dict]:
         return {str(g): dict(e) for g, e in sorted(self._entries.items())}

@@ -51,9 +51,12 @@ loop, bitwise.
 **No fallback hides this loop.** The JAX package degrades any failure of
 its fused path to the host loop. Here only the injected
 ``optim.device_drain`` fault does (optim/scheduler.py); a capture, replay
-or kernel error raises. On the card the ``scatter`` and ``segment``/``flat``
-slab families are refused: their transpose builds a ``FlatOrderPlan`` per
-gathered slab, which reads sizes back to the host and cannot be captured.
+or kernel error raises. The plain slab families (``scatter``,
+``segment``, ``flat``) run too: a rung's gathered lanes are a ``SlabLanes``
+view carrying the rung's inverse permutation, so their transpose runs on
+the full slab through its one ``FlatOrderPlan``, built before the first
+capture (a plan built per gathered slab would read sizes back to the host
+inside the graph), bitwise the gathered slab's.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ from typing import Callable, List, Optional
 import torch
 
 from photon_ml_tpu_torch.compile.stats import instrumented_capture
-from photon_ml_tpu_torch.ops.fused_sparse import SlabLanes, SparseSlab
+from photon_ml_tpu_torch.ops.fused_sparse import FlatOrderPlan, SlabLanes, SparseSlab
 from photon_ml_tpu_torch.optim.common import HostReads, OptResult
 from photon_ml_tpu_torch.resilience import preemption
 
@@ -100,14 +103,13 @@ def next_lower_rung(bucketer, rung: int) -> int:
     return prev
 
 
-def _check_device_family(feats) -> None:
+def _prepare_device_family(feats) -> None:
+    """A plain slab family's transpose on the card is the full slab's
+    ``FlatOrderPlan``: build it now, outside any capture (its build reads
+    sizes back to the host)."""
     if (isinstance(feats, SparseSlab) and feats.idx.is_cuda
-            and not feats.kernel.startswith("pallas")):
-        raise ValueError(
-            f"the device solve loop cannot capture the {feats.kernel!r} slab family on the "
-            "card: its transpose builds a FlatOrderPlan for each gathered slab, which reads "
-            "sizes back to the host; use the pallas family or the host loop "
-            "(--solve-compaction CHUNK)")
+            and not feats.kernel.startswith("pallas") and feats._flat is None):
+        feats._flat = FlatOrderPlan.build(feats.idx, feats.val, feats.dim)
 
 
 class _Rung:
@@ -121,7 +123,7 @@ class _Rung:
         self.inv = torch.zeros((loop.lanes,), dtype=torch.int64, device=dev)
         if isinstance(loop.feats, SparseSlab):
             self.ids = torch.zeros((rung,), dtype=torch.int32, device=dev)
-            feats = SlabLanes(loop.feats, self.ids)
+            feats = SlabLanes(loop.feats, self.ids, self.inv)
         else:
             feats = loop.feats.new_zeros((rung,) + tuple(loop.feats.shape[1:]))
         rows = lambda t: t.new_zeros((rung,) + tuple(t.shape[1:]))
@@ -310,7 +312,7 @@ def device_solve(data, w0: Tensor, *, task, optimizer, optimizer_config, regular
         solve_stats,
     )
 
-    _check_device_family(data[0])
+    _prepare_device_family(data[0])
     reads0 = HostReads.count
     cfg = dict(task=task, optimizer=optimizer, optimizer_config=optimizer_config,
                regularization=regularization)

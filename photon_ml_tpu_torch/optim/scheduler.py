@@ -285,6 +285,21 @@ class SolveStats:
                 "host_reads": self._counters["host_reads"],
             }
 
+    def realized_plan_cost(self) -> Optional[float]:
+        """This run's solve ledger in planner cost units (compile/cost.py):
+        executed lane-iterations plus the host-pause tariff per host
+        dispatch (every chunk on the host loop, every rung hop on the
+        device loop; chunks inside a rung's graph pause nothing). The
+        realized cost ``ExecutionPlan.record_realized`` feeds back into the
+        schedule's predictions; None when no solves ran."""
+        from photon_ml_tpu_torch.compile.cost import CHUNK_PAUSE_COST
+
+        with self._lock:
+            if not self._counters["solves"]:
+                return None
+            return float(self._counters["executed"]
+                         + CHUNK_PAUSE_COST * self._counters["chunks"])
+
     def summary(self) -> str:
         """Driver-log summary: the ledger plus the active-lane decay of the
         worst (largest-baseline) solve."""

@@ -20,6 +20,7 @@ FAULT_SITES: Dict[str, str] = {
     "io.cache_invalidate": "tensor-cache entry removal; a failure is a logged no-op (io/tensor_cache.py)",
     "io.checkpoint_write": "per checkpoint save attempt (checkpoint.py)",
     "optim.step": "coordinate-descent updates, NaN corruption (algorithm/coordinate_descent.py)",
+    "retrain.delta_plan": "delta-retrain prior manifest/model reads; failure degrades to a recorded cold run (retrain/manifest.py)",
     "optim.block_skip": "adaptive-schedule skip decision boundary; an injected fault degrades the epoch to visit-everything, never a silent skip (algorithm/bucketed_random_effect.py)",
     "optim.device_drain": "device-loop dispatch gate; an injected fault degrades the solve to the host chunk loop, bitwise (optim/scheduler.py)",
     "preempt.signal": "preemption polls; flags instead of raising (resilience/preemption.py)",

@@ -5,12 +5,16 @@ The training driver writes it at the output root (atomic tmp+rename). It
 captures the run's identity: the training files' stat tokens
 (:func:`file_stat_token`), the ingest-config inputs and digest
 (:func:`index_map_digest` of every feature shard), per-coordinate records
-and the model it produced, so the JAX package's delta planner
-(``--warm-start-from``) can read a run of this port: the tensor-cache keys,
-the streaming manifests' directories and the convergence ledgers included.
-The planner's cost model, which the port does not have yet, takes the
-value the JAX driver writes when planning is off. ``file_stat_token`` and
-``index_map_digest`` are io/tensor_cache.py's.
+and the model it produced, so the next run's delta planner
+(``--warm-start-from``, retrain/delta.py) answers "what changed since the
+prior run?" from stat calls and one small JSON read. Each package reads the
+other's file: the tensor-cache keys, the streaming manifests' directories,
+the convergence ledgers and, under ``--plan auto``, the cost model included.
+``file_stat_token`` and ``index_map_digest`` are io/tensor_cache.py's.
+
+Reading the prior run's manifest carries the ``retrain.delta_plan`` fault
+site: a corrupt or injected-faulty prior raises, and the driver records a
+cold run. A broken prior costs a cold retrain, never a wrong warm one.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import os
 from typing import Dict, List, Optional
 
 from photon_ml_tpu_torch.io.tensor_cache import file_stat_token, index_map_digest
+from photon_ml_tpu_torch.resilience import faults
 
 __all__ = [
     "MANIFEST_FORMAT",
@@ -29,6 +34,7 @@ __all__ = [
     "RetrainManifest",
     "file_stat_token",
     "index_map_digest",
+    "load_prior_manifest",
 ]
 
 RETRAIN_MANIFEST = "retrain.json"
@@ -109,3 +115,39 @@ class RetrainManifest:
             json.dump(payload, f, indent=1, sort_keys=True)
         os.replace(path + ".tmp", path)
         return path
+
+    @classmethod
+    def load(cls, directory: str) -> "RetrainManifest":
+        with open(os.path.join(directory, RETRAIN_MANIFEST)) as f:
+            raw = json.load(f)
+        if int(raw.get("format", -1)) != MANIFEST_FORMAT:
+            raise ValueError(
+                f"retrain manifest format {raw.get('format')!r} != "
+                f"{MANIFEST_FORMAT} — prior run predates/postdates this "
+                "planner; retrain cold"
+            )
+        coords = {
+            name: CoordinateRecord(**rec)
+            for name, rec in raw.pop("coordinates").items()
+        }
+        return cls(coordinates=coords, **raw)
+
+    def stat_by_path(self) -> Dict[str, tuple]:
+        return {p: (int(size), int(mtime)) for p, size, mtime in self.file_stats}
+
+
+def load_prior_manifest(prior_dir: str) -> RetrainManifest:
+    """The prior run's manifest from its output dir (``--warm-start-from``).
+
+    Carries the ``retrain.delta_plan`` fault site and checks the model
+    reference: a manifest whose saved model has since vanished is as
+    useless as a corrupt one. Any failure raises; the driver catches it,
+    records the cold-degrade decision and trains cold."""
+    faults.inject("retrain.delta_plan", prior_dir=prior_dir)
+    manifest = RetrainManifest.load(prior_dir)
+    if not os.path.isdir(manifest.model_dir):
+        raise FileNotFoundError(
+            f"prior retrain manifest at {prior_dir} references model dir "
+            f"{manifest.model_dir}, which no longer exists"
+        )
+    return manifest

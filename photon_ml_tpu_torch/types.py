@@ -75,6 +75,11 @@ class ConvergenceReason(enum.IntEnum):
     OBJECTIVE_NOT_IMPROVING = 4
 
 
+def dtype_name() -> str:
+    """The precision knob's raw value (validated by ``real_dtype``)."""
+    return os.environ.get(DTYPE_ENV, "float32")
+
+
 def real_dtype() -> torch.dtype:
     """Framework-wide real dtype for features, labels and coefficients.
 
@@ -82,7 +87,7 @@ def real_dtype() -> torch.dtype:
     precision (the reference is JVM doubles throughout). Anything else is
     rejected loudly.
     """
-    name = os.environ.get(DTYPE_ENV, "float32").strip() or "float32"
+    name = dtype_name().strip() or "float32"
     if name == "float32":
         return torch.float32
     if name == "float64":

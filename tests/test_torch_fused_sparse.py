@@ -156,6 +156,55 @@ def test_tree_row_sum_is_bitwise_the_jax_tree(n):
     assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
+def _kernel_loop_margins(w, idx, val):
+    """csrc/fused_sparse.cu step 4 in numpy float32, one row at a time: tpr
+    threads, thread t adding w[j] * x for q = t, t + tpr, ... from 0, then
+    the adjacent-pair tree over the tpr partials (pair_tree)."""
+    e, m, k = idx.shape
+    tpr = tfs.row_threads_for(m, k)
+    out = np.zeros((e, m), np.float32)
+    for li in range(e):
+        for r in range(m):
+            parts = []
+            for t in range(tpr):
+                z = np.float32(0.0)
+                for q in range(t, k, tpr):
+                    z = np.float32(z + np.float32(w[li, idx[li, r, q]] * val[li, r, q]))
+                parts.append(z)
+            while len(parts) > 1:
+                parts = [np.float32(parts[i] + parts[i + 1]) for i in range(0, len(parts), 2)]
+            out[li, r] = parts[0]
+    return out
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("e,m,d,max_nnz", [
+    (3, 12, 9, 9),  # the GAME driver's slab shape: tpr 2, K odd
+    (2, 37, 65, 1),  # K = 1
+    (4, 5, 40, 33),  # K not a multiple of tpr
+    (2, 3, 20, 7),
+    (1, 64, 300, 64),
+    (5, 16, 120, 24),
+])
+def test_plain_margin_is_bitwise_the_kernel_loop(e, m, d, max_nnz, storage):
+    """SparseSlab.matvec adds its K products in the kernels' association,
+    so the plain version and the kernel agree bitwise at any w."""
+    rng = np.random.default_rng(e * 1000 + m + max_nnz)
+    x = _dense_stack(rng, e, m, d, max_nnz=max_nnz)
+    x[:, :, rng.integers(d)] = rng.normal(size=(e, m))  # rows at K exactly
+    slab = tfs.build_sparse_slab(torch.from_numpy(x))
+    if storage == "bf16":
+        slab = slab.astype(torch.bfloat16)
+    w = rng.normal(size=(e, d)).astype(np.float32)
+    got = slab.matvec(torch.from_numpy(w)).numpy()
+    val = slab.val.to(torch.float32).numpy()  # bf16 upcast, as Val<V>::f does
+    want = _kernel_loop_margins(w, slab.idx.numpy(), val)
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.array_equal(tfs.SlabLanes(slab, torch.tensor([e - 1, 0], dtype=torch.int32))
+                          .matvec(torch.from_numpy(w[[e - 1, 0]])).numpy(), got[[e - 1, 0]])
+
+
 @pytest.mark.parametrize("shape,max_nnz", [((4, 19, 33), 6), ((3, 8, 5), 1), ((2, 7, 9), 9),
                                            ((5, 16), 4)])
 def test_build_sparse_slab_is_byte_equal_to_jax(shape, max_nnz):

@@ -132,8 +132,6 @@ FENCED = [
     ["--distributed", "true"],
     ["--fused-cycle", "true"],
     ["--persistent-cache", "cache"],
-    ["--warm-start-from", "prior"],
-    ["--plan", "auto"],
 ]
 
 

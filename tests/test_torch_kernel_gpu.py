@@ -309,6 +309,57 @@ def test_scoring_driver_on_the_card_equals_its_host_oracle(cuda_device, tmp_path
     np.testing.assert_allclose(scores["false"], scores["true"], rtol=1e-4, atol=1e-5)
 
 
+def _phase20_bucket_shapes():
+    """(E, M) of phase 20's size buckets (chip_smoke.py: 20000 users,
+    min(zipf(1.9) + 4, 2048) rows each, 80% of them training rows)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    rows = chip_smoke.skewed_rows(chip_smoke.SKEW_USERS, chip_smoke.SKEW_SEED)
+    return chip_smoke.expected_buckets(rows)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("loss_name", ["logistic", "squared", "poisson"])
+def test_sparse_kernels_are_bitwise_the_plain_version_at_nonzero_w(cuda_device, loss_name,
+                                                                   storage):
+    """At w != 0 the plain margin adds its K products in the kernels'
+    association (``kernel_order_row_sum``), so the kernels' row values (the
+    weighted losses and d, functions of z; c, of z and zv) and every output
+    of both kernels equal the plain version's bit for bit: at full width, at
+    the GAME driver's slab shape and at phase 20's bucket shapes. The
+    losses' ``y * z`` is rounded before the subtraction in ``losses.cuh``
+    as in torch (unfused, the Poisson loss parted in its last bits:
+    tools/sparse_loss_bits.py)."""
+    shapes = [(256, 64, 2048, 16, False), (20000, 12, 9, 9, True)]
+    shapes += [(e, m, 9, 9, True) for e, m in _phase20_bucket_shapes()]
+    loss = getattr(tlosses, loss_name)
+    for e, m, d, max_nnz, full in shapes:
+        slab, y, wt, off, w, v, vshift = _slab_inputs(e + m + d, loss_name, e, m, d, max_nnz,
+                                                      cuda_device, full)
+        if storage == "bf16":
+            slab = slab.astype(torch.bfloat16)
+        assert bool(torch.all(w != 0))
+        rows = torch.empty((2, e, m), device=cuda_device)
+        c_rows = torch.empty((1, e, m), device=cuda_device)
+        got = tsparse.sparse_gevm_kernel(loss, slab, y, wt, off, w, row_values=rows)
+        got_hvp = tsparse.sparse_hvp_kernel(loss, slab, y, wt, off, w, v, vshift,
+                                            row_values=c_rows)
+        z = slab.matvec(w) + off
+        masked = lambda x: torch.where(wt > 0, wt * x, torch.zeros_like(x))
+        c = masked(loss.d2(z, y)) * (slab.matvec(v) + vshift[:, None])
+        assert torch.equal(rows[0], masked(loss.loss(z, y))), (e, m, "wl")
+        assert torch.equal(rows[1], masked(loss.d1(z, y))), (e, m, "d")
+        assert torch.equal(c_rows[0], c), (e, m, "c")
+        want = tsparse.fused_value_grad_parts_plain(loss, slab, y, wt, off, w)
+        want_hvp = tsparse.fused_hvp_parts_plain(loss, slab, y, wt, off, w, v, vshift)
+        for a, b in zip(got + got_hvp, want + want_hvp):
+            assert torch.equal(a, b), (e, m, storage)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(512, 8, 9, 9), (128, 64, 9, 9), (8, 2048, 9, 9),
                                    (100, 7, 300, 5)])
@@ -467,14 +518,22 @@ def test_scheduled_solves_on_the_card_are_bitwise_the_one_shot(cuda_device, opti
 
 @pytest.mark.gpu
 def test_device_loop_refuses_the_plain_slab_families_on_the_card(cuda_device):
+    """The device loop no longer refuses the plain slab families: a rung's
+    lanes transpose on the full slab through its one FlatOrderPlan, so the
+    captured rungs are bitwise the host loop and the one-shot solve."""
+    from photon_ml_tpu_torch.algorithm.random_effect import entity_lane_fns
     from photon_ml_tpu_torch.optim.scheduler import SolveSchedule, compacted_solve
 
     data, w0, kw = _scheduled_problem(cuda_device, "LBFGS")
     for family in ("scatter", "segment"):
-        feats = data[0].with_kernel(family)
-        with pytest.raises(ValueError, match=f"cannot capture the '{family}' slab family"):
-            compacted_solve((feats,) + data[1:], w0, schedule=SolveSchedule(4, loop="device"),
-                            **kw)
+        fam = (data[0].with_kernel(family),) + data[1:]
+        want = _result_bits(entity_lane_fns(**kw)[0](*fam, w0))
+        graphs = {}
+        for schedule in (SolveSchedule(4), SolveSchedule(4, loop="device"),
+                         SolveSchedule(4, loop="device")):
+            got = compacted_solve(fam, w0, schedule=schedule, graphs=graphs, **kw)
+            assert all((a is None and b is None) or torch.equal(a, b)
+                       for a, b in zip(_result_bits(got), want)), (family, schedule)
 
 
 def _dense_stack_problem(device, optimizer, e, m, d):

@@ -320,7 +320,14 @@ def test_spilled_state_checkpoints_by_reference(glmix, manifest, tmp_path):
 
 @pytest.mark.parametrize("field", ["frozen_blocks", "elastic", "initial_epoch"])
 def test_unported_hooks_raise(manifest, field):
-    value = {"frozen_blocks": frozenset({0}), "elastic": object(), "initial_epoch": 2}[field]
+    if field == "frozen_blocks":
+        # the delta retrain's skip set is ported (tests/test_torch_retrain.py
+        # holds what it does); a block index outside the manifest is refused
+        assert _port(manifest, frozen_blocks=frozenset({0})).frozen_blocks == {0}
+        with pytest.raises(ValueError, match="out of range"):
+            _port(manifest, frozen_blocks=frozenset({len(manifest.blocks)}))
+        return
+    value = {"elastic": object(), "initial_epoch": 2}[field]
     with pytest.raises(NotImplementedError, match=f"{field} .* not yet ported"):
         _port(manifest, **{field: value})
 
