@@ -89,6 +89,15 @@ shapes and times it, then drives the port's main paths at full width:
     starts at 2000 users on the card and the CPU; (d) ``--plan off`` and
     ``--plan auto`` (the cost model written, then loaded).
 
+  * multi-process GAME training (phase 25, after phase 23 on phase 10's
+    data): (a) the GAME driver with ``--distributed`` on a 1-rank NCCL
+    group, model bytes equal to phase 10's; (b) ``cli.game_multihost_driver``
+    at 1 rank (NCCL), held against phase 10's model; (c) 2 ranks sharing
+    the card over gloo, checkpointed, held against (b), 2 part files, the
+    fused-GLM and GEVM kernels launched on each rank; (d) 2-rank
+    ``cli.game_multihost_scoring_driver`` against the scoring driver; (e)
+    (c) extended by one iteration resumes only the new updates.
+
 Deterministic algorithms are on from the start (``device.enable_determinism``).
 Every phase prints on its own lines and its wall; any failed check exits
 non-zero. The last lines are a JSON object of the sparse, checkpoint,
@@ -198,11 +207,13 @@ def host_ms(torch, fn, calls: int = 200) -> float:
     return elapsed / calls * 1e3
 
 
-def graph_ms(torch, fn, reps: int = 20, runs: int = 30) -> float:
+def graph_ms(torch, fn, reps: int = 20, runs: int = 30, budget_ms: float = 1500.0) -> float:
     """Median device time of one call of ``fn``: ``reps`` calls captured in
     one CUDA graph, the graph replayed ``runs`` times between CUDA events,
     each replay's time divided by ``reps`` (the host's launch time between
-    back-to-back calls stays out of the number)."""
+    back-to-back calls stays out of the number). A slow call gets fewer
+    replays: as many as fill ``budget_ms`` of device time, at least 5 (a
+    14.8 ms call would otherwise hold the card 9 s for one reading)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -213,8 +224,12 @@ def graph_ms(torch, fn, reps: int = 20, runs: int = 30) -> float:
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
+    first = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    first[0].record()
     graph.replay()
+    first[1].record()
     torch.cuda.synchronize()
+    runs = max(5, min(runs, int(budget_ms / max(first[0].elapsed_time(first[1]), 1e-3))))
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(runs)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(runs)]
     for s_, e_ in zip(starts, ends):
@@ -956,11 +971,12 @@ def phase_glm_diagnostics(torch, fused_glm, workdir, dev="cuda"):
         f"per model (each run's counts = numpy's on its own predictions)")
     out["all"].update(cpu_wall_s=cpu[1], cpu_abs_err=errs)
 
-    # (c) Avro input: selected features and summaries, then an off-heap index
+    # (c) Avro input: selected features and summaries, then an off-heap index;
+    # the training split is (b)'s quarter (a cut for the call's time)
     names = [f"f{j}" for j in range(GLM_DRIVER_D)]
     t0 = time.perf_counter()
-    for split in ("train", "validate"):
-        ds = read_libsvm(os.path.join(workdir, split, "part-00000.txt"), dim=len(names),
+    for split, src in (("train", quarter), ("validate", os.path.join(workdir, "validate"))):
+        ds = read_libsvm(os.path.join(src, "part-00000.txt"), dim=len(names),
                          add_intercept=False)
         write_glm_avro(ds, os.path.join(workdir, f"avro-{split}", "part-00000.avro"), names)
     selected = os.path.join(workdir, "selected-features.txt")
@@ -1417,12 +1433,14 @@ def _write_avro(path, encoded, schema, block=4096):
                     + avro_io.DEFAULT_SYNC)
 
 
-def write_game_avro(workdir, num_users, seed, wide=None, rows_per_user=None):
+def write_game_avro(workdir, num_users, seed, wide=None, rows_per_user=None, parts=1):
     """bench.py's GAME data as TrainingExampleAvro with two feature sections,
     each user's rows split 80/20 into train/ and validate/. ``wide=(names,
     per_row)`` widens the fixed section: each row carries ``per_row`` of
     ``names`` feature names instead of the dense d_fixed. ``rows_per_user``
-    replaces bench.py's 8-15 rows a user."""
+    replaces bench.py's 8-15 rows a user. ``parts`` splits each directory's
+    rows, in order, over that many part files (the same rows in the same
+    global order)."""
     rng = np.random.default_rng(seed)
     if rows_per_user is None:
         rows_per_user = rng.integers(8, 16, size=num_users)
@@ -1458,7 +1476,11 @@ def write_game_avro(workdir, num_users, seed, wide=None, rows_per_user=None):
                              wide[0] if wide else d_fixed)
 
     for name, sel in (("train", ~validate), ("validate", validate)):
-        _write_avro(os.path.join(workdir, name, "part-00000.avro"), records(sel), _game_schema())
+        encoded = records(sel)
+        bounds = np.linspace(0, len(encoded), parts + 1).astype(int)
+        for i in range(parts):
+            _write_avro(os.path.join(workdir, name, f"part-{i:05d}.avro"),
+                        encoded[bounds[i]:bounds[i + 1]], _game_schema())
     return int((~validate).sum()), int(validate.sum())
 
 
@@ -1952,8 +1974,10 @@ def hold_driver_fixed(torch, fused_glm, coord, label):
     n, d = x.shape
     g = torch.Generator(device=x.device).manual_seed(SEED + 31)
     resid = 0.5 * torch.randn((n,), device=x.device, generator=g)
+    # the multihost driver's row-block coordinate does not down-sample
     batch = maybe_down_sample(GLMBatch(b.features, b.labels, b.offsets + resid, b.weights),
-                              task, coord.down_sampling_rate, DOWN_SAMPLING_SEED)
+                              task, getattr(coord, "down_sampling_rate", None),
+                              DOWN_SAMPLING_SEED)
     w = 0.3 * torch.randn((d,), device=x.device, generator=g)
     zero = int((batch.weights == 0).sum())
     return hold_fused(torch, fused_glm,
@@ -2084,7 +2108,7 @@ FIXED_WIDE_NAMES, FIXED_WIDE_PER_ROW = 1 << 17, 32
 # phase 16's card-against-CPU pair runs at this depth (users), the same
 # generator and widths: the CPU run at GAME_USERS took 65 s of the call
 WIDE_CPU_USERS = 2000
-WIDE_USERS = 10000  # phase 16's one card run (timings); a depth cut, see CUTS
+WIDE_USERS = 5000  # phase 16's one card run (timings); a depth cut, see CUTS
 # the quickstart's fixed effect (LBFGS, L2 lambda 0.01) with its iteration
 # cap raised from 50 until the card and the CPU both converge: 131073
 # columns at lambda 0.01 are nearly separable, and after 50 iterations the
@@ -4725,16 +4749,408 @@ def phase_retrain(torch, fused_sparse, workdir, stream_game, dev="cuda"):
     return out
 
 
+MH_PARTS = 4  # phase 25: phase 10's rows over 4 part files, so 2 ranks both decode rows
+MH_TIMEOUT_S = 300  # phase 25: a rank group that runs longer fails the phase
+ELEMENTWISE = (1e-4, 1e-5)  # tests/tolerances.py "elementwise" (rtol, atol), f32
+# phase 25 holds two GAME models' per-user coefficients by the norm of their
+# difference over the reference's norm, and by the count of users with a
+# coefficient outside the solver tolerance. An f32 LBFGS lane may stop an
+# iteration apart when the residuals it solves on differ in the last bits,
+# so a few users always move; the sound readings on an NVIDIA H100 (PERF.md,
+# phase 25) were 3.66e-4 and 72 of 20000 users for (b) against phase 10 and
+# 6.21e-4 and 69 for (c) against (b). The limits sit a few times above
+# them: one bucket's or one rank's slice of users solved wrong exceeds both.
+MH_REL_LIMIT = 3e-3
+MH_OUTSIDE_LIMIT = 200
+HOLD_RANK = "--hold-rank"  # the argument that runs this script as one training rank
+
+
+def _free_init(workdir):
+    """A fresh file:// rendezvous under ``workdir`` for one group."""
+    import uuid
+
+    return f"file://{os.path.join(workdir, 'pg-' + uuid.uuid4().hex)}"
+
+
+def start_rank_group(module, argv, world, workdir, label, hold=False):
+    """Start ``world`` processes of ``python -m
+    photon_ml_tpu_torch.cli.<module>`` on the card with one file://
+    rendezvous; every rank starts with its kernel counts at 0 (a fresh
+    process). With ``hold`` each rank runs the training driver through this
+    script's HOLD_RANK mode, which then holds the kernels on the rank's own
+    coordinates. Each rank's output goes to files under ``workdir`` (a pipe
+    nobody reads while another group is joined could fill). Returns the
+    handle ``join_rank_group`` takes."""
+    init = _free_init(workdir)
+    env = dict(os.environ, PHOTON_SPARSE_KERNEL="pallas")
+    head = ([os.path.abspath(__file__), HOLD_RANK] if hold
+            else ["-m", f"photon_ml_tpu_torch.cli.{module}"])
+    tag = re.sub(r"\W+", "-", label).strip("-")
+    logs = [tuple(open(os.path.join(workdir, f"{tag}-rank{r}.{k}"), "w+")
+                  for k in ("out", "err")) for r in range(world)]
+    t0, launched_at = time.perf_counter(), time.time()
+    procs = [subprocess.Popen(
+        [sys.executable] + head + [
+         "--multihost-coordinator", init, "--multihost-num-processes", str(world),
+         "--multihost-process-id", str(r)] + argv,
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=out, stderr=err,
+        text=True) for r, (out, err) in enumerate(logs)]
+    return label, procs, logs, t0, launched_at
+
+
+def join_rank_group(handle):
+    """Wait for a started group under MH_TIMEOUT_S (killing it and failing
+    past that); fail if a rank exited non-zero. Returns (wall, [(returncode,
+    stdout, stderr, launched_at, exited_at)]): epoch seconds, each rank's
+    exit within the 0.05 s poll."""
+    label, procs, logs, t0, launched_at = handle
+    exited = [None] * len(procs)
+    while None in exited:
+        for r, p_ in enumerate(procs):
+            if exited[r] is None and p_.poll() is not None:
+                exited[r] = (time.perf_counter(), time.time())
+        if None in exited and time.perf_counter() - t0 > MH_TIMEOUT_S:
+            for p_ in procs:
+                p_.kill()
+                p_.wait()
+            fail(f"{label}: the {len(procs)} ranks did not finish within {MH_TIMEOUT_S} s")
+        time.sleep(0.05)
+    outs = []
+    for p_, (out, err), (_, at) in zip(procs, logs, exited):
+        out.seek(0)
+        err.seek(0)
+        outs.append((p_.returncode, out.read(), err.read(), launched_at, at))
+        out.close()
+        err.close()
+    for r, (rc, _, err, *_) in enumerate(outs):
+        if rc != 0:
+            say(f"  {label} rank {r} exited {rc}; its stderr ends:\n{err[-4000:]}")
+            fail(f"{label}: rank {r} exited {rc}")
+    return max(t for t, _ in exited) - t0, outs
+
+
+def stop_rank_groups(*handles):
+    """Kill every rank of the started groups that is still running (a
+    failed check must leave no process behind)."""
+    for handle in handles:
+        for p_ in handle[1]:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+
+
+def _rank_summaries(out_dir, world, outs=None):
+    """Each rank's photon-ml-tpu-mh-<r>.json; with the group's ``outs``,
+    also its start-up (launch to ``main``), set-up (``main`` to the run:
+    the flags parsed and checked) and exit (run's end to the process's end)
+    seconds."""
+    summaries = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"photon-ml-tpu-mh-{r}.json")) as f:
+            summary = json.load(f)
+        if outs is not None:
+            summary["startup_s"] = summary["entered_at"] - outs[r][3]
+            summary["setup_s"] = summary["started_at"] - summary["entered_at"]
+            summary["exit_s"] = outs[r][4] - summary["finished_at"]
+        summaries.append(summary)
+    return summaries
+
+
+def _game_models(out_dir, idx):
+    """(fixed-effect means, {raw id: per-user means}) of a saved model, by
+    the off-heap index's feature positions."""
+    from photon_ml_tpu_torch.io import model_io
+    from photon_ml_tpu_torch.io.offheap import load_shard_index_map
+
+    best = os.path.join(out_dir, "best")
+    fe = model_io.load_fixed_effect(best, "fixed", load_shard_index_map(idx, "global"))[0]
+    re_means = model_io.load_random_effect(best, "per-user",
+                                           load_shard_index_map(idx, "per_user"))[0]
+    return fe, re_means
+
+
+def models_held(label, got, want):
+    """Two GAME models: the fixed effect's coefficients elementwise at the
+    solver tolerance; the per-user coefficients by the norm of the
+    difference over the reference's norm within MH_REL_LIMIT, and at most
+    MH_OUTSIDE_LIMIT users with a coefficient outside the solver tolerance.
+    Returns (max abs diff, users outside the elementwise tolerance,
+    bitwise)."""
+    (fe_a, re_a), (fe_b, re_b) = got, want
+    check(set(re_a) == set(re_b), f"{label}: the entity sets differ")
+    held(f"{label}: fixed-effect coefficients", fe_a, fe_b)
+    users = sorted(re_b)
+    a = np.stack([re_a[k] for k in users])
+    b = np.stack([re_b[k] for k in users])
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    check(rel <= MH_REL_LIMIT, f"{label}: per-user coefficients |diff| / |ref| {rel:.3g} > "
+                               f"{MH_REL_LIMIT}")
+    outside = int(np.any(np.abs(a - b) > SOLVER_ATOL + SOLVER_RTOL * np.abs(b), axis=1).sum())
+    check(outside <= MH_OUTSIDE_LIMIT, f"{label}: {outside} of {len(users)} users outside the "
+                                       f"elementwise tolerance > {MH_OUTSIDE_LIMIT}")
+    worst = max(float(np.max(np.abs(fe_a - fe_b))), float(np.max(np.abs(a - b))))
+    bitwise = bool(np.array_equal(fe_a, fe_b) and np.array_equal(a, b))
+    say(f"  {label}: per-user |diff| / |ref| {rel:.3g} (limit {MH_REL_LIMIT}), users outside "
+        f"the elementwise tolerance {outside} of {len(users)} (limit {MH_OUTSIDE_LIMIT})")
+    return worst, outside, bitwise
+
+
+def _scores_by_uid(scores_dir):
+    from photon_ml_tpu_torch.io import avro as avro_io
+
+    out = {}
+    for f in sorted(os.listdir(scores_dir)):
+        for rec in avro_io.read_container(os.path.join(scores_dir, f)):
+            out[int(rec["uid"])] = rec["predictionScore"]
+    return np.asarray([out[k] for k in sorted(out)], np.float32)
+
+
+def run_multihost_in_process(torch, fused_sparse, argv, workdir):
+    """The multihost driver at one rank in this process, its kernel counts
+    set to 0 just before: its summary dict (launches, backend, ...)."""
+    from photon_ml_tpu_torch.cli import game_multihost_driver
+    from photon_ml_tpu_torch.ops import fused_glm
+
+    os.environ["PHOTON_SPARSE_KERNEL"] = "pallas"
+    sync(torch)
+    for c in (fused_sparse.sparse_gevm_kernel, fused_sparse.sparse_hvp_kernel,
+              fused_glm.fused_value_grad_kernel):
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        result = game_multihost_driver.main(
+            ["--multihost-coordinator", _free_init(workdir), "--multihost-num-processes", "1",
+             "--multihost-process-id", "0"] + argv)
+    finally:
+        del os.environ["PHOTON_SPARSE_KERNEL"]
+    sync(torch)
+    result["in_process_wall_s"] = time.perf_counter() - t0
+    return result
+
+
+def hold_rank_kernels(torch, fused_glm, fused_sparse, result, label):
+    """The kernels on one multihost rank's own coordinates, against their
+    plain versions: the fused kernel on its fixed-effect rows, both sparse
+    kernels on its per-user slab. {"fused_glm", "gevm", "hvp"}: max |kernel
+    - plain|."""
+    coords = result["coordinates"]
+    held_ = {"fused_glm": hold_driver_fixed(torch, fused_glm, coords["fixed"],
+                                            f"phase 25 {label}")}
+    held_.update(hold_driver_slab(torch, fused_sparse, coords["per-user"].coordinate))
+    return held_
+
+
+def hold_rank(argv):
+    """One rank of phase 25 (c) (``chip_smoke.py --hold-rank <driver
+    flags>``): the multihost training driver, then the kernels held on
+    this rank's coordinates. The driver has written its summary, launch
+    counts included, before the holds launch anything; the holds go to
+    kernel-holds-<rank>.json beside it."""
+    import torch
+
+    from photon_ml_tpu_torch.cli import game_multihost_driver
+    from photon_ml_tpu_torch.ops import fused_glm, fused_sparse
+
+    result = game_multihost_driver.main(argv)
+    rank = result["process_id"]
+    holds = hold_rank_kernels(torch, fused_glm, fused_sparse, result, f"rank {rank}")
+    with open(os.path.join(os.path.dirname(result["output"]), f"kernel-holds-{rank}.json"),
+              "w") as f:
+        json.dump(holds, f)
+
+
+def phase_multihost(torch, fused_sparse, fused_glm, workdir, dev="cuda"):
+    """Phase 25: multi-process GAME training on phase 10's data at full
+    width. (a) the GAME driver with --distributed on a 1-rank NCCL group
+    (model bytes = phase 10's); (b) the multihost driver, 1 rank, NCCL
+    (coefficients within solver of phase 10's); (c) the multihost driver, 2
+    ranks on the one card over gloo, beside (a) and (b) (within solver of
+    (b); 2 part files; fused-GLM and GEVM launches on each rank;
+    checkpointed). (b) and each
+    rank of (c) hold the kernels on their own blocks against the plain
+    versions. (d) the multihost scoring driver, 2 ranks, on (c)'s model
+    against the single-process scoring driver at elementwise; (e) (c)
+    extended by one iteration resumes only the new updates; (d) and (e) run
+    side by side."""
+    say(f"== phase 25: multi-process GAME training on phase 10's data ({GAME_USERS} users): "
+        "--distributed, the multihost driver at 1 rank (NCCL) and 2 ranks (gloo, one card), "
+        "multihost scoring, the 2-rank run resumed from its checkpoint")
+    out = {"runs": {}}
+    idx = os.path.join(workdir, "index-maps")  # phase 13's index of these training rows
+    # phase 10's rows in the same order over MH_PARTS part files
+    mh_dir = os.path.join(workdir, "mh-data")
+    write_game_avro(mh_dir, GAME_USERS, SEED, parts=MH_PARTS)
+    mh_flags = ["--train-input-dirs", os.path.join(mh_dir, "train"),
+                "--validate-input-dirs", os.path.join(mh_dir, "validate"), "--device", dev,
+                "--offheap-indexmap-dir", idx, "--delete-output-dir-if-exists", "true"] + GAME_FLAGS
+    ckpt = os.path.join(workdir, "mh-ckpt")
+    # (c) runs beside (a) and (b), which run in this process: it only reads
+    # the part files above; (e) resumes it from its checkpoint
+    group_c = start_rank_group("game_multihost_driver",
+                               ["--output-dir", os.path.join(workdir, "out-mh2"), "--checkpoint-dir",
+                                ckpt] + mh_flags, 2, workdir, "(25c)", hold=True)
+    try:
+        # (a) the single-process driver on a 1-rank group
+        base = ["--train-input-dirs", os.path.join(workdir, "train"),
+                "--validate-input-dirs", os.path.join(workdir, "validate"), "--device", dev]
+        dist_out = os.path.join(workdir, "out-dist")
+        driver, wall, launches, stages, _ = run_game_training(
+            torch, fused_sparse, base + ["--output-dir", dist_out, "--distributed", "true"]
+            + GAME_FLAGS, "pallas")
+        fixed = driver.combo_coords[0]["fixed"]
+        with open(os.path.join(dist_out, "photon-ml-tpu-game.log")) as f:
+            group = re.search(r"distributed: (\d+)-rank mesh \((\w+), ", f.read())
+        check(group is not None and group.groups() == ("1", "nccl"),
+              f"(a) did not run on a 1-rank NCCL group: {group and group.groups()}")
+        kernels_launched(driver, launches, "phase 25 (a)")
+        same = tree_bytes(os.path.join(dist_out, "best")) == tree_bytes(
+            os.path.join(workdir, "out-pallas", "best"))
+        check(same, "(a) --distributed at one rank did not write phase 10's model bytes")
+        holds = {"a": {"fused_glm": hold_driver_fixed(torch, fused_glm, fixed, "phase 25 (a)"),
+                       **hold_driver_slab(torch, fused_sparse,
+                                          driver.combo_coords[0]["per-user"])}}
+        out["runs"]["a"] = {"backend": "nccl", "world": 1, "wall_s": wall,
+                            "launches": launches, "stages_s": stages}
+        say(f"  (a) game_training_driver --distributed, beside (c): backend nccl, world 1, "
+            f"wall {wall:.2f} s, launches {launches}; model bytes equal phase 10's")
+        # (b) in this process (its counts set to 0 just before): a 1-rank
+        # NCCL group needs no second process
+        result_b = run_multihost_in_process(
+            torch, fused_sparse, ["--output-dir", os.path.join(workdir, "out-mh1")] + mh_flags,
+            workdir)
+        holds["b"] = [hold_rank_kernels(torch, fused_glm, fused_sparse, result_b, "(b)")]
+        joined_c = join_rank_group(group_c)
+    finally:
+        stop_rank_groups(group_c)
+    phase10 = _game_models(os.path.join(workdir, "out-pallas"), idx)
+    runs_b_c = {}
+    for key, world in (("b", 1), ("c", 2)):
+        o = os.path.join(workdir, f"out-mh{world}")
+        if world == 1:
+            ranks, wall = [result_b], result_b["in_process_wall_s"]
+        else:
+            wall, outs = joined_c
+            ranks = _rank_summaries(o, world, outs)
+            holds[key] = []
+            for r in range(world):
+                with open(os.path.join(o, f"kernel-holds-{r}.json")) as f:
+                    holds[key].append(json.load(f))
+        want_backend = "nccl" if world == 1 else "gloo"
+        check(all(r["backend"] == want_backend for r in ranks),
+              f"({key}) backends {[r['backend'] for r in ranks]}, not {want_backend}")
+        check(all(r["objective_history"] == ranks[0]["objective_history"] for r in ranks),
+              f"({key}) the ranks walked different trajectories")
+        for r, summary in enumerate(ranks):
+            check(summary["launches"]["fused_glm"] > 0 and summary["launches"]["gevm"] > 0,
+                  f"({key}) rank {r} launched {summary['launches']}: a kernel of the path did "
+                  "not launch")
+        parts = sorted(os.listdir(os.path.join(o, "best", "random-effect", "per-user",
+                                               "coefficients")))
+        check(len(parts) == world, f"({key}) random-effect part files {parts}")
+        runs_b_c[key] = _game_models(o, idx)
+        out["runs"][key] = {"backend": want_backend, "world": world, "wall_s": wall,
+                            "rank_walls_s": [r["wall_s"] for r in ranks],
+                            "rank_startup_s": [r.get("startup_s") for r in ranks],
+                            "rank_setup_s": [r.get("setup_s") for r in ranks],
+                            "rank_exit_s": [r.get("exit_s") for r in ranks],
+                            "launches_by_rank": [r["launches"] for r in ranks],
+                            "kernel_holds_by_rank": holds[key],
+                            "objective_history": ranks[0]["objective_history"],
+                            "auc": ranks[0]["validation_metrics"]["AUC"]}
+        say(f"  ({key}) game_multihost_driver at {world} rank(s)"
+            + ("" if world == 1 else ", beside (a) and (b)") + f": backend {want_backend}, wall "
+            f"{wall:.2f} s (in the driver " + ", ".join(f"{r['wall_s']:.2f}" for r in ranks)
+            + " s" + ("" if world == 1 else "; start-up " + ", ".join(
+                f"{r['startup_s']:.2f}" for r in ranks) + " s; set-up " + ", ".join(
+                f"{r['setup_s']:.2f}" for r in ranks) + " s; exit " + ", ".join(
+                f"{r['exit_s']:.2f}" for r in ranks) + " s")
+            + "), launches by rank " + "; ".join(str(r["launches"]) for r in ranks)
+            + f", AUC {ranks[0]['validation_metrics']['AUC']:.6f}, parts {parts}; each rank's "
+            "kernels on its own blocks within tolerance of the plain versions, max |diff| "
+            + "; ".join(", ".join(f"{k} {v:.3g}" for k, v in h.items()) for h in holds[key]))
+    worst, outside, bitwise = models_held("(b) against phase 10", runs_b_c["b"], phase10)
+    out["runs"]["b"].update(max_abs_diff_vs_phase10=worst, users_outside_vs_phase10=outside,
+                            bitwise_vs_phase10=bitwise)
+    say(f"  (b) within solver of phase 10's model: max |diff| {worst:.3g}; bitwise {bitwise}")
+    worst, outside, bitwise = models_held("(c) against (b)", runs_b_c["c"], runs_b_c["b"])
+    out["runs"]["c"].update(max_abs_diff_vs_b=worst, users_outside_vs_b=outside,
+                            bitwise_vs_b=bitwise)
+    say(f"  (c) within solver of (b): max |diff| {worst:.3g}; bitwise {bitwise}")
+    every = [holds["a"]] + holds["b"] + holds["c"]
+    out["fixed_max_abs_err"] = max(h["fused_glm"] for h in every)
+    out["max_abs_err"] = {k: max(h[k] for h in every) for k in ("gevm", "hvp")}
+    # (d) multihost scoring of (c)'s model and (e) (c) extended by one
+    # iteration, which restores (c)'s last step and runs only the 2 new
+    # updates, run side by side: each only reads what (c) wrote
+    score_flags = ["--input-dirs", os.path.join(mh_dir, "validate"),
+                   "--game-model-input-dir", os.path.join(workdir, "out-mh2", "best"),
+                   "--feature-shard-id-to-feature-section-keys-map",
+                   "global:fixedFeatures|per_user:userFeatures", "--offheap-indexmap-dir", idx,
+                   "--evaluator-type", "AUC", "--device", dev, "--delete-output-dir-if-exists",
+                   "true"]
+    steps_c = sorted(os.listdir(os.path.join(ckpt, "combo-0")))
+    flags3 = list(mh_flags)
+    flags3[flags3.index("--num-iterations") + 1] = "3"
+    o3 = os.path.join(workdir, "out-mh2-3")
+    group_d = start_rank_group("game_multihost_scoring_driver",
+                               ["--output-dir", os.path.join(workdir, "mh-scores")] + score_flags,
+                               2, workdir, "(25d)")
+    group_e = start_rank_group("game_multihost_driver", ["--output-dir", o3, "--checkpoint-dir",
+                                                         ckpt] + flags3, 2, workdir,
+                               "(25e) extended to 3 iterations")
+    try:
+        single, swall = run_scoring(torch, ["--output-dir", os.path.join(workdir, "sp-scores")]
+                                    + score_flags)
+        wall, _ = join_rank_group(group_d)
+        w3, outs = join_rank_group(group_e)
+    finally:
+        stop_rank_groups(group_d, group_e)
+    got = _scores_by_uid(os.path.join(workdir, "mh-scores", "scores"))
+    want = _scores_by_uid(os.path.join(workdir, "sp-scores", "scores"))
+    check(got.shape == want.shape and np.allclose(got, want, rtol=ELEMENTWISE[0],
+                                                  atol=ELEMENTWISE[1]),
+          "(d) multihost scores differ from the scoring driver's beyond elementwise")
+    out["runs"]["d"] = {"backend": "gloo", "world": 2, "wall_s": wall, "single_wall_s": swall,
+                        "max_abs_diff": float(np.max(np.abs(got - want))),
+                        "auc_single": single.metrics["AUC"]}
+    say(f"  (d) multihost scoring at 2 ranks, beside (e): wall {wall:.2f} s; {len(got)} scores "
+        f"within elementwise of the scoring driver's (max |diff| "
+        f"{out['runs']['d']['max_abs_diff']:.3g}, single-process wall {swall:.2f} s)")
+    resumed = _rank_summaries(o3, 2, outs)
+    steps3 = sorted(os.listdir(os.path.join(ckpt, "combo-0")))
+    check(steps_c == ["step-3", "step-4"] and steps3 == ["step-5", "step-6"],
+          f"(e) checkpoint steps {steps_c} then {steps3}")
+    check(all(r["objective_history"][:4] == out["runs"]["c"]["objective_history"]
+              and len(r["objective_history"]) == 6 for r in resumed),
+          "(e) the resumed run did not restore (c)'s 4 updates")
+    out["runs"]["e"] = {"backend": "gloo", "world": 2, "wall_s": w3,
+                        "rank_walls_s": [r["wall_s"] for r in resumed],
+                        "launches_by_rank": [r["launches"] for r in resumed],
+                        "steps": [steps_c, steps3]}
+    say(f"  (e) (c) extended to 3 iterations, beside (d): wall {w3:.2f} s (in the driver "
+        + ", ".join(f"{r['wall_s']:.2f}" for r in resumed) + " s), restoring step 4 "
+        f"(steps {steps_c}) and running only steps 5-6 ({steps3}); launches by rank "
+        + "; ".join(str(r["launches"]) for r in resumed))
+    return out
+
+
 CUTS = [
+    "phase 25: (c)'s two ranks run beside (a) and (b) in this process, and (d) beside (e) "
+    "(each only reads what the runs before it wrote)",
+    "graph timings of a slow call replay the graph fewer times (as many as fill 1.5 s of device "
+    "time, at least 5): phase 15's deterministic scatter is timed over 5 replays, not 30",
     f"phase 17: phase 10's generator and widths at {CHECKPOINT_USERS} users, not "
     f"{GAME_USERS} (4000 before phase 22 was added)",
     "phase 17: specs scatter and auto run the uninterrupted and the stopped-and-resumed pair "
     "only; --checkpoint-async and --max-restarts run under spec pallas alone",
-    f"phase 16: one card run at {WIDE_USERS} users (timings), not 20000; the byte-equal pair "
+    f"phase 16: one card run at {WIDE_USERS} users (timings), not 20000 (10000 before phase "
+    "25's (b) and (c) held the kernels on their ranks' blocks); the byte-equal pair "
     f"of card runs and the card and CPU pair at {WIDE_CPU_USERS} users, not 4000",
     f"phase 20 (f) and phase 21 (d)-(e): {SKEW_SMALL_USERS} users, not 4000",
     "phase 18 (b): the card-against-CPU pair of ALL + TRON + box runs on the first quarter of "
     "phase 6's training rows; the two byte-equal card runs keep every row",
+    "phase 18 (c): the TrainingExampleAvro copy's training split is (b)'s quarter of phase 6's "
+    "training rows (all of them before phase 25 was added); the validation split keeps every row",
     "phase 17: only spec pallas stops a subprocess (exit 75); under scatter and auto the "
     "stopped run is in-process (SystemExit 75), auto's with its race caches emptied first",
     f"phase 21 (d): the --adaptive-schedule runs at {SKEW_SMALL_USERS} users (phase 20 (f)'s "
@@ -4833,6 +5249,7 @@ def main() -> None:
         game_grid = timed("19ab", phase_game_grid, torch, fused_sparse, workdir)
         cache_game = timed("22c", phase_cache_game, torch, fused_sparse, workdir)
         serving = timed("23", phase_serving, torch, workdir)
+        multihost = timed("25", phase_multihost, torch, fused_sparse, fused_glm, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as workdir:
         sparse_glm = timed("15", phase_sparse_glm, torch, fused_sparse, losses, workdir)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as workdir:
@@ -4850,6 +5267,15 @@ def main() -> None:
     say(f"  -- the whole call {time.perf_counter() - start:.1f} s")
 
     bf16 = times["bfloat16"]
+
+    def mh_launches(key):
+        """Phase 25's launches: (a) the 1-rank --distributed run, then each
+        rank of (b) and (c), each rank counted from 0 in its own process."""
+        runs = multihost["runs"]
+        return {"a": runs["a"]["launches"][key],
+                **{f"{k}_rank{r}": n[key] for k in ("b", "c")
+                   for r, n in enumerate(runs[k]["launches_by_rank"])}}
+
     kernels = [{
         "name": "fused_glm_value_grad",
         "route": "cuda",
@@ -4868,9 +5294,11 @@ def main() -> None:
         "launches_bucketed": {k: v["launches"]["fused_glm"]
                               for k, v in bucketed["runs"].items()},
         "launches_delta_retrain": {k: v["fused_glm"] for k, v in retrain["launches"].items()},
+        "launches_multihost": mh_launches("fused_glm"),
         "max_abs_err": max(max_abs_err, game_runs["fixed_max_abs_err"],
                            game_grid["fixed_max_abs_err"], full_game["fixed_max_abs_err"],
-                           bucketed["fixed_max_abs_err"], retrain["fixed_max_abs_err"]),
+                           bucketed["fixed_max_abs_err"], retrain["fixed_max_abs_err"],
+                           multihost["fixed_max_abs_err"]),
         "ms": bf16["ms"],
         "graph_ms": bf16["graph_ms"],
         "ms_method": MS_METHOD,
@@ -4910,6 +5338,7 @@ def main() -> None:
             "launches_streaming_game": stream_game["runs"]["streaming"]["launches"][key],
             # phase 24: 22 (b)'s cold run, the short-circuited rerun, the delta run
             "launches_delta_retrain": {k: v[key] for k, v in retrain["launches"].items()},
+            "launches_multihost": mh_launches(key),
             # replays launch through their graphs, not the wrappers: phase 21
             # (a)'s traced device-loop solve, by torch.profiler
             "launches_device_loop_traced": {
@@ -4917,7 +5346,8 @@ def main() -> None:
                 for opt in scheduler["solve"]},
             "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key],
                                bucketed["max_abs_err"][key], scheduler["max_abs_err"][key],
-                               stream_game["max_abs_err"][key], retrain["max_abs_err"][key]),
+                               stream_game["max_abs_err"][key], retrain["max_abs_err"][key],
+                               multihost["max_abs_err"][key]),
             "ms": t["ms"],
             "graph_ms": t["graph_ms"],
             "host_ms": t["host_ms"],
@@ -4938,7 +5368,7 @@ def main() -> None:
                     "game_grid": game_grid, "full_game": full_game, "bucketed": bucketed,
                     "scheduler": scheduler, "dense_stack_bits": dense_bits,
                     "streaming": {"glm": stream_glm, "game": stream_game, "cache": cache_game},
-                    "serving": serving, "retrain": retrain,
+                    "serving": serving, "retrain": retrain, "multihost": multihost,
                     "phase_walls_s": walls, "cuts": CUTS, "card": card}, default=str))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))
@@ -4947,4 +5377,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [HOLD_RANK]:
+        hold_rank(sys.argv[2:])
+    else:
+        main()

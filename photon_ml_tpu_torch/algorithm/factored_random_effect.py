@@ -26,7 +26,7 @@ row's features and dots them with the row's entity factors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -105,6 +105,13 @@ class FactoredRandomEffectCoordinate:
     latent_regularization: RegularizationContext = dataclasses.field(
         default_factory=RegularizationContext.none
     )
+    # an entity-sharded refit's cross-rank sum (parallel.mesh.MeshContext
+    # .sum): the latent fit's data value, gradient and Hessian-vector
+    # product are summed over ranks before the L2 term, so every rank walks
+    # one trajectory on the replicated M (the JAX package's psum under
+    # ``axis_name``); None = one process holds every entity
+    collective: Optional[Callable[[Tensor], Tensor]] = dataclasses.field(
+        default=None, compare=False)
 
     def __post_init__(self):
         ds = self.dataset
@@ -146,19 +153,27 @@ class FactoredRandomEffectCoordinate:
         def margins(mat):
             return torch.sum((x_rows @ mat.T) * v_rows, dim=-1) + off_rows
 
+        coll = self.collective
+
         def value_and_grad(m_flat):
             mat = m_flat.reshape(k, d)
             z = margins(mat)
             f = torch.sum(loss.loss(z, y_rows) * w_rows)
             s = w_rows * loss.d1(z, y_rows)
             g = ((s[:, None] * v_rows).T @ x_rows).reshape(-1)
+            if coll is not None:
+                summed = coll(torch.cat([f.reshape(1), g]))
+                f, g = summed[0], summed[1:]
             return f + 0.5 * l2 * torch.sum(torch.square(m_flat)), g + l2 * m_flat
 
         def hvp(m_flat, tangent):
             z = margins(m_flat.reshape(k, d))
             t = tangent.reshape(k, d)
             c = w_rows * loss.d2(z, y_rows) * torch.sum((x_rows @ t.T) * v_rows, dim=-1)
-            return ((c[:, None] * v_rows).T @ x_rows).reshape(-1) + l2 * tangent
+            hv = ((c[:, None] * v_rows).T @ x_rows).reshape(-1)
+            if coll is not None:
+                hv = coll(hv)
+            return hv + l2 * tangent
 
         return value_and_grad, hvp
 

@@ -33,8 +33,15 @@ protocol (``__checkpoint_ref__`` / ``__checkpoint_from_ref__``: the
 streaming coordinate's spilled state, already durable on disk) is stored
 as a JSON ref in the structure instead of arrays; a ref that cannot be
 rebuilt (a spill dir written and since removed) raises
-:class:`CheckpointRefError`, and restore falls back to an older step. The
-multihost restore agreement and the plan-versioned elastic restore are not
+:class:`CheckpointRefError`, and restore falls back to an older step.
+
+Multihost (``multihost=`` a ``parallel.multihost.MultihostContext``): every
+rank snapshots together (the leaves ``sharded`` names, a coordinate's
+per-rank entity blocks, are all-gathered in rank order into the global
+array), ONLY the coordinator writes, and a barrier fences the write; a
+restore agrees on the step with a collective min over every rank's latest
+complete step and hands each rank its own block of the sharded leaves. The
+directory is shared by the ranks. The plan-versioned elastic restore is not
 yet ported.
 """
 
@@ -263,15 +270,34 @@ class CheckpointState:
 RESUMABLE_PARTIALS = ("scheduler", "bucketed_re", "streaming_re")
 
 
+def _sharded_flat_indices(params: Dict[str, Any], sharded: Dict[str, Any]) -> List[int]:
+    """Positions, among the flattened leaves of ``params`` (dict keys
+    sorted, as ``_flatten`` walks them), of the leaves ``sharded`` names
+    (coordinate -> indices among that coordinate's own leaves)."""
+    out, base = [], 0
+    for name in sorted(params):
+        n = len(_flatten(params[name])[0])
+        out.extend(base + int(i) for i in sharded.get(name, ()))
+        base += n
+    return out
+
+
 class CoordinateDescentCheckpointer:
     """Atomic per-step checkpoint writer/reader with retention."""
 
-    def __init__(self, directory: str, run_fingerprint: str = "", keep: int = 2):
+    def __init__(self, directory: str, run_fingerprint: str = "", keep: int = 2,
+                 multihost=None, sharded: Optional[Dict[str, Any]] = None):
+        """``multihost``/``sharded``: see the module docstring; ``sharded``
+        maps a coordinate to the indices of its state's leaves that are the
+        rank's entity block (a coordinate's ``rank_sharded_leaves``)."""
         self.directory = directory
         self.run_fingerprint = run_fingerprint
         self.keep = max(keep, 1)
-        os.makedirs(directory, exist_ok=True)
-        self._sweep_stale_tmp()
+        self.multihost = multihost
+        self.sharded = dict(sharded or {})
+        if multihost is None or multihost.coordinator_only_io():
+            os.makedirs(directory, exist_ok=True)
+            self._sweep_stale_tmp()
 
     def _sweep_stale_tmp(self) -> None:
         """Remove ``.ckpt-*`` debris a crashed writer left behind (a temp dir
@@ -282,8 +308,16 @@ class CoordinateDescentCheckpointer:
                 logger.warning("removing stale checkpoint temp dir %s", stale)
                 shutil.rmtree(stale, ignore_errors=True)
 
+    def _gathers(self) -> bool:
+        return (self.multihost is not None and self.multihost.num_processes > 1
+                and bool(self.sharded))
+
     def _step_dirs(self) -> List[Tuple[int, str]]:
         out = []
+        if not os.path.isdir(self.directory):
+            # a rank whose coordinator never wrote here: no steps (the
+            # collective min in restore settles what the job resumes)
+            return out
         for name in os.listdir(self.directory):
             if name.startswith(STEP_PREFIX):
                 try:
@@ -301,9 +335,20 @@ class CoordinateDescentCheckpointer:
 
     # ------------------------------------------------------------------
     def _prepare(self, state: CheckpointState) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
-        """Host snapshot of ``state``: (flat arrays, meta)."""
+        """Host snapshot of ``state``: (flat arrays, meta). A collective
+        under multihost (the sharded leaves are all-gathered): every rank
+        calls it together."""
+        params = state.params
+        if self._gathers():
+            ctx = self.multihost.mesh_context()
+            params = {}
+            for name, value in state.params.items():
+                leaves, _ = _flatten(value)
+                idx = set(int(i) for i in self.sharded.get(name, ()))
+                params[name] = _unflatten(value, [ctx.concat(leaf) if i in idx else leaf
+                                                  for i, leaf in enumerate(leaves)])
         arrays, structure, dtypes = _flatten_state(
-            {"params": state.params, "scores": state.scores, "total": state.total_scores}
+            {"params": params, "scores": state.scores, "total": state.total_scores}
         )
         partial_meta = None
         if state.partial is not None:
@@ -359,7 +404,19 @@ class CoordinateDescentCheckpointer:
 
     def save(self, state: CheckpointState) -> str:
         arrays, meta = self._prepare(state)
-        return self._commit(state.step, arrays, meta)
+        mh = self.multihost
+        if mh is not None and not mh.coordinator_only_io():
+            # the other ranks fence the coordinator's write
+            mh.barrier("ckpt-write")
+            return os.path.join(self.directory, f"{STEP_PREFIX}{state.step}")
+        try:
+            return self._commit(state.step, arrays, meta)
+        finally:
+            # even when the write fails: the other ranks already wait in
+            # their barrier, and skipping it would strand them until the
+            # timeout instead of surfacing the coordinator's exception
+            if mh is not None:
+                mh.barrier("ckpt-write")
 
     def wait(self) -> None:
         """Every save of this checkpointer is durable when it returns, so the
@@ -374,14 +431,25 @@ class CoordinateDescentCheckpointer:
                 total_template: Any) -> Optional[CheckpointState]:
         """Load the newest complete checkpoint; None when there is none.
 
+        Under multihost the steps considered stop at the collective min of
+        every rank's latest step, and a rank with none means a fresh start:
+        a collective, so every rank restores together.
+
         Stale ``.ckpt-*`` temp dirs are never candidates, and a step whose
         ``arrays.npz`` is truncated, undecodable or fails its checksums is
         skipped with a warning in favour of the next-newest. Reads retry
         under the active I/O policy. The templates give the structure and
         the device of the restored tensors; a fingerprint mismatch raises.
         """
+        max_step = None
+        if self.multihost is not None:
+            max_step = self.multihost.agree_restore_step(self.latest_step())
+            if max_step is None:
+                return None
         policy = resilience.current_config().io_policy
-        for _, path in reversed(self._step_dirs()):
+        for step, path in reversed(self._step_dirs()):
+            if max_step is not None and step > max_step:
+                continue
 
             def load_meta() -> dict:
                 with open(os.path.join(path, META_FILE)) as f:
@@ -419,6 +487,13 @@ class CoordinateDescentCheckpointer:
                 partial = {"meta": partial_meta,
                            "arrays": {k[len("partial."):]: arrays.pop(k) for k in list(arrays)
                                       if k.startswith("partial.")}}
+            if self._gathers():
+                # this rank's block of every gathered leaf
+                leaves = _flatten(params_template)[0]
+                rank = self.multihost.process_id
+                for i in _sharded_flat_indices(params_template, self.sharded):
+                    per = torch.as_tensor(leaves[i]).shape[0]
+                    arrays[f"params.{i}"] = arrays[f"params.{i}"][rank * per:(rank + 1) * per]
             try:
                 restored = _unflatten_state(
                     {"params": params_template, "scores": scores_template,

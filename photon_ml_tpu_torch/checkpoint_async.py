@@ -122,8 +122,13 @@ class AsyncCheckpointer:
             raise RuntimeError("AsyncCheckpointer is closed")
         self._raise_pending()
         # the host snapshot must happen NOW, while the state tensors are live
+        # (and, multihost, together on every rank: the sharded-leaf gather)
         arrays, meta = self.inner._prepare(state)
         final_dir = f"{self.inner.directory}/{STEP_PREFIX}{state.step}"
+        mh = self.inner.multihost
+        if mh is not None and not mh.coordinator_only_io():
+            # only the coordinator commits; the fence is wait()/close()
+            return final_dir
         self._ensure_worker()
         self._queue.put((state.step, arrays, meta))
         return final_dir
@@ -132,7 +137,14 @@ class AsyncCheckpointer:
         """Fence: block until every enqueued commit is durable; re-raise a
         commit failure."""
         self._queue.join()
+        self._fence()
         self._raise_pending()
+
+    def _fence(self) -> None:
+        """Multihost: no rank passes a fence before the coordinator's
+        queued commits are durable."""
+        if self.inner.multihost is not None:
+            self.inner.multihost.barrier("ckpt-async-fence")
 
     def close(self) -> None:
         """Drain, stop the worker, surface any pending failure."""
@@ -143,6 +155,7 @@ class AsyncCheckpointer:
             self._queue.put(None)
             self._thread.join()
         self._closed = True
+        self._fence()
         self._raise_pending()
 
     def __enter__(self) -> "AsyncCheckpointer":

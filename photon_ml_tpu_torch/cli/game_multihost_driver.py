@@ -1,0 +1,821 @@
+"""Multi-process SPMD GAME training driver (port of the in-memory path of
+photon_ml_tpu/cli/game_multihost_driver.py).
+
+Every process runs this SAME program, one process per device: it decodes
+ONLY its share of the input part files (with the shared prebuilt feature
+index, DataProcessingUtils.scala:57-80 semantics), ingests per host — the
+collective shuffle routes random-effect rows to their entity's owner
+(parallel/shuffle.py) and fixed-effect rows stay where they were decoded —
+trains the coordinate descent over the per-host coordinates, and each
+process writes its OWN part file of every random-effect model (the
+coefficient blocks are never gathered); the coordinator writes the fixed
+effect, the metadata and ``retrain.json``.
+
+The cluster driver of the reference (cli/game/training/Driver.scala:537 on
+Spark executors): the same flag grammar, SPMD instead of driver/executor.
+Scope: the coordinate grid (best combo by the primary validation
+evaluator; ``--grid-warm-start true`` seeds each combo from the previous
+combo's coefficients), plain, bucketed and factored random effects under
+the INDEX_MAP, RANDOM and IDENTITY projectors, ``--checkpoint-dir``
+(resuming at the step every process can restore), ``--max-restarts``,
+validation and ``retrain.json``. Feature maps must be prebuilt
+(``--offheap-indexmap-dir`` or a name-and-term path). Not yet ported, each
+raising and naming itself: ``--streaming-random-effects`` (and the
+``--solve-compaction`` that needs it), the multihost
+``--warm-start-from``, relaunch adoption and fixed-effect chunk ownership.
+
+Run (one process per device):
+
+    python -m photon_ml_tpu_torch.cli.game_multihost_driver \\
+        --multihost-coordinator HOST:PORT --multihost-num-processes N \\
+        --multihost-process-id I  <game training flags...>
+
+The backend follows the job's topology (parallel/multihost.py). Each
+process also writes ``photon-ml-tpu-mh-<I>.json`` beside its
+log: its backend, device, wall, the launches of each kernel, and the
+epoch seconds at which ``main`` was entered, the run started (after the
+flags were parsed and checked) and the run finished: what a launcher needs
+to split a process's life into start-up, set-up, run and exit.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch import resilience
+from photon_ml_tpu_torch.cli.game_params import CoordinateOptConfig, parse_training_params
+from photon_ml_tpu_torch.device import enable_determinism
+from photon_ml_tpu_torch.io import model_io
+from photon_ml_tpu_torch.io.avro_data import read_game_data
+from photon_ml_tpu_torch.ops import losses as losses_mod
+from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+from photon_ml_tpu_torch.ops.objective import GLMBatch
+from photon_ml_tpu_torch.optim.common import OptResult
+from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
+from photon_ml_tpu_torch.parallel import multihost
+from photon_ml_tpu_torch.parallel.distributed import DistributedFixedEffectSolver
+from photon_ml_tpu_torch.parallel.mesh import MeshContext
+from photon_ml_tpu_torch.parallel.perhost_ingest import (
+    BucketedShardedREData,
+    HostRows,
+    _unpack_u64,
+    concat_host_rows,
+    csr_to_padded,
+    global_row_layout,
+    host_file_share,
+    merge_group_ids,
+    merge_row_vectors,
+    per_host_re_dataset,
+)
+from photon_ml_tpu_torch.parallel.shuffle import collective_sum
+from photon_ml_tpu_torch.resilience import preemption
+from photon_ml_tpu_torch.utils.logging import PhotonLogger
+
+Tensor = torch.Tensor
+
+MH_FLAGS = ("--multihost-coordinator", "--multihost-num-processes", "--multihost-process-id",
+            "--grid-warm-start")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to photon_ml_tpu_torch")
+
+
+def _local_game_data(gds, shard: str, dim: int):
+    """This host's decoded files as one GameData of one feature shard (CSR
+    rows concatenated in file order)."""
+    from photon_ml_tpu_torch.data.game import GameData, HostFeatures
+
+    indptr, base = [np.zeros(1, np.int64)], 0
+    for _, gd in gds:
+        f = gd.shards[shard]
+        indptr.append(np.asarray(f.indptr[1:], np.int64) + base)
+        base += int(f.indptr[-1])
+    cat = lambda arrays, dtype: (np.concatenate(arrays) if arrays else np.zeros(0, dtype))
+    feats = HostFeatures(indptr=np.concatenate(indptr),
+                         indices=cat([gd.shards[shard].indices for _, gd in gds], np.int32),
+                         values=cat([gd.shards[shard].values for _, gd in gds], np.float32),
+                         dim=dim)
+    return GameData(response=cat([gd.response for _, gd in gds], np.float32),
+                    offset=cat([gd.offset for _, gd in gds], np.float32),
+                    weight=cat([gd.weight for _, gd in gds], np.float32),
+                    ids={}, id_vocabs={}, shards={shard: feats})
+
+
+class MultihostFixedEffectCoordinate:
+    """Fixed-effect coordinate over per-host row blocks (drop-in for
+    CoordinateDescent): rows stay where they were decoded, the solve is the
+    distributed one (each rank's fused or plain pass, then the fixed-order
+    sum), and scoring scatters this rank's margins into the global (N,)
+    vector merged by one fixed-order sum (each row is scored by one rank)."""
+
+    def __init__(self, batch: GLMBatch, row_ids: np.ndarray, num_rows: int,
+                 problem: GLMOptimizationProblem, ctx: MeshContext):
+        self.ctx = ctx
+        self.num_rows = num_rows
+        self.batch = batch
+        self.row_ids = torch.from_numpy(np.asarray(row_ids, np.int64)).to(batch.device)
+        self.norm = NormalizationContext.identity()
+        self.solver = DistributedFixedEffectSolver(problem, ctx)
+
+    @property
+    def problem(self) -> GLMOptimizationProblem:
+        return self.solver.problem
+
+    @property
+    def dim(self) -> int:
+        return self.batch.dim
+
+    def initial_coefficients(self) -> Tensor:
+        return torch.zeros((self.dim,), dtype=self.batch.labels.dtype, device=self.batch.device)
+
+    def update(self, residual_offsets: Tensor, init_coefficients: Tensor,
+               reg_weight: Optional[float] = None) -> Tuple[Tensor, OptResult]:
+        # residuals arrive in GLOBAL row order; take this rank's rows
+        b = self.batch
+        batch = GLMBatch(b.features, b.labels, b.offsets + residual_offsets[self.row_ids],
+                         b.weights)
+        model, result = self.solver.run(batch, self.norm, init_coefficients, reg_weight)
+        return model.coefficients.means, result
+
+    def score(self, coefficients: Tensor) -> Tensor:
+        out = torch.zeros((self.num_rows,), dtype=coefficients.dtype,
+                          device=coefficients.device)
+        out[self.row_ids] = self.batch.features.matvec(coefficients)
+        return self.ctx.sum(out)
+
+    def regularization_term(self, coefficients: Tensor,
+                            reg_weight: Optional[float] = None) -> Tensor:
+        return self.problem.regularization_term_value(coefficients, reg_weight)
+
+    def rebind(self, problem: GLMOptimizationProblem) -> "MultihostFixedEffectCoordinate":
+        """A coordinate sharing this one's device-resident rows but solving
+        another problem (the combo grid uploads the rows once)."""
+        import copy
+
+        c = copy.copy(self)
+        c.solver = DistributedFixedEffectSolver(problem, self.ctx)
+        return c
+
+
+def _add_multihost_flags(argv: List[str]) -> Tuple[dict, List[str]]:
+    """Strip the --multihost-* / --grid-warm-start flags; the rest is the
+    GAME training grammar."""
+    mh_args = {"coordinator": None, "num_processes": None, "process_id": None,
+               "grid_warm_start": False}
+    rest: List[str] = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a not in MH_FLAGS:
+            rest.append(a)
+            i += 1
+            continue
+        if i + 1 >= len(argv):
+            raise ValueError(f"{a} requires a value")
+        value = argv[i + 1]
+        if a == "--multihost-coordinator":
+            mh_args["coordinator"] = value
+        elif a == "--multihost-num-processes":
+            mh_args["num_processes"] = int(value)
+        elif a == "--multihost-process-id":
+            mh_args["process_id"] = int(value)
+        else:
+            mh_args["grid_warm_start"] = value.strip().lower() in ("true", "1", "yes")
+        i += 2
+    return mh_args, rest
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    """Train on this process's share; every process of the job calls it."""
+    entered_at = time.time()
+    enable_determinism()
+    mh_args, rest = _add_multihost_flags(list(argv) if argv is not None else sys.argv[1:])
+    p = parse_training_params(rest)
+    _check_multihost_support(p)
+    # SPMD preemption: every process observes the same request and drains at
+    # the same update boundary, so the emergency checkpoint's collectives
+    # stay aligned; a relaunch re-ingests and resumes at the agreed step
+    try:
+        with preemption.signal_scope():
+            try:
+                return preemption.run_with_restarts(
+                    lambda attempt: _main_once(mh_args, p, entered_at, restart=attempt > 0),
+                    p.max_restarts)
+            except preemption.Preempted as e:
+                print(f"photon-ml-tpu-torch multihost: preempted ({e}); exiting "
+                      f"{preemption.PREEMPT_EXIT_CODE}", file=sys.stderr)
+                raise SystemExit(preemption.PREEMPT_EXIT_CODE) from e
+    finally:
+        multihost.shutdown()
+
+
+def _check_multihost_support(p) -> None:
+    """Scope checks (testable without launching processes): flags this
+    driver does not implement are refused, never ignored."""
+    unsupported = [flag for flag, on in (
+        ("--compute-variance", p.compute_variance),
+        ("--vmapped-grid", p.vmapped_grid != "false"),
+    ) if on]
+    if unsupported:
+        raise ValueError(
+            f"multihost driver does not implement {unsupported} — rejecting rather than "
+            "silently ignoring (the coefficient blocks are per process, so one compiled "
+            "cycle over the whole grid cannot hold them)")
+    from photon_ml_tpu_torch.optim.scheduler import resolve_schedule
+
+    if p.streaming_random_effects:
+        raise _not_ported("--streaming-random-effects under the multihost driver "
+                          "(per-host streaming)")
+    if resolve_schedule(p.solve_compaction) is not None:
+        raise ValueError(
+            "multihost driver composes --solve-compaction with --streaming-random-effects "
+            "(each host compacts its owned blocks) — the in-memory per-host random-effect "
+            "solver runs one-shot; drop --solve-compaction (--streaming-random-effects "
+            "--solve-compaction is not yet ported to photon_ml_tpu_torch)")
+    if p.warm_start_from:
+        raise _not_ported("the multihost --warm-start-from (_prepare_multihost_warm)")
+
+
+def _attempt_relaunch_adoption(p, mh, ctx, logger):
+    """Relaunch adoption of a prior cohort's per-host streaming layout
+    (parallel/elastic.py's relaunch re-plan). Only a streaming run adopts."""
+    raise _not_ported("relaunch adoption (the multihost relaunch re-plan)")
+
+
+def _fe_chunk_share(all_files, adopted, mh, logger):
+    """This host's input-file share: the positional share, or an adopted
+    re-plan's fixed-effect chunk ownership."""
+    if adopted:
+        raise _not_ported("fixed-effect chunk ownership (an adopted re-plan's FE chunks)")
+    return host_file_share(all_files, mh.num_processes, mh.process_id)
+
+
+def _shard_maps(p, needed_shards) -> Dict[str, object]:
+    """The prebuilt, shared feature maps (a full-data scan on every host
+    would defeat per-host ingest)."""
+    maps = {}
+    for shard in needed_shards:
+        if p.offheap_indexmap_dir:
+            from photon_ml_tpu_torch.io.offheap import load_shard_index_map
+
+            maps[shard] = load_shard_index_map(p.offheap_indexmap_dir, shard)
+        elif p.feature_name_and_term_set_path:
+            from photon_ml_tpu_torch.io.name_and_term import NameAndTermFeatureSetContainer
+
+            all_sections = sorted({s for secs in p.feature_shard_sections.values() for s in secs})
+            nt = NameAndTermFeatureSetContainer.read_from_text(
+                p.feature_name_and_term_set_path, all_sections)
+            maps[shard] = nt.index_map(p.feature_shard_sections.get(shard) or ["features"],
+                                       p.feature_shard_intercepts.get(shard, True))
+        else:
+            raise ValueError(
+                "multihost ingest needs prebuilt feature maps: pass --offheap-indexmap-dir "
+                "(FeatureIndexingJob output) or --feature-name-and-term-set-path")
+    return maps
+
+
+def _decode_share(p, share, shard_maps, needed_shards, id_types, response_required=True):
+    """[(global ordinal, GameData)] of this host's ``share`` [(file,
+    global ordinal)]."""
+    gds = []
+    for f, ordinal in share:
+        gds.append((ordinal, read_game_data(
+            [f], shard_maps,
+            {s: p.feature_shard_sections.get(s) or ["features"] for s in needed_shards},
+            id_types,
+            shard_intercepts={s: p.feature_shard_intercepts.get(s, True) for s in needed_shards},
+            response_required=response_required)))
+    return gds
+
+
+def _host_rows(gds, file_base, shard: str, id_name: str, global_dim: int) -> HostRows:
+    parts = []
+    for ordinal, gd in gds:
+        f = gd.shards[shard]
+        fi, fv = csr_to_padded(f, gd.num_rows)
+        vocab = gd.id_vocabs[id_name]
+        parts.append(HostRows(
+            entity_raw_ids=[vocab[i] for i in gd.ids[id_name]],
+            row_index=file_base[ordinal] + np.arange(gd.num_rows, dtype=np.int64),
+            labels=np.nan_to_num(gd.response).astype(np.float32),
+            weights=gd.weight.astype(np.float32), offsets=gd.offset.astype(np.float32),
+            feat_idx=fi, feat_val=fv, global_dim=f.dim))
+    return concat_host_rows(parts, global_dim)
+
+
+def kernel_launches() -> Dict[str, int]:
+    """This process's launches of each kernel so far (the wrappers count
+    where they launch)."""
+    from photon_ml_tpu_torch.ops import fused_glm, fused_sparse
+
+    return {"fused_glm": fused_glm.fused_value_grad_kernel.launches,
+            "gevm": fused_sparse.sparse_gevm_kernel.launches,
+            "hvp": fused_sparse.sparse_hvp_kernel.launches}
+
+
+def _main_once(mh_args: dict, p, entered_at: float, restart: bool = False) -> dict:
+    from photon_ml_tpu_torch.cli.game_training_driver import io_resilience_config
+
+    t_start, started_at = time.perf_counter(), time.time()
+    mh = multihost.initialize(mh_args["coordinator"], mh_args["num_processes"],
+                              mh_args["process_id"], device=p.device)
+    ctx = mh.mesh_context()
+    with resilience.resilience_scope(io_resilience_config(
+            p.on_corrupt, p.corrupt_skip_budget, p.io_retries, p.io_retry_base_delay)):
+        out = _train(mh_args, p, mh, ctx, restart)
+    out["wall_s"] = time.perf_counter() - t_start
+    out["launches"] = kernel_launches()
+    out["entered_at"], out["started_at"], out["finished_at"] = (entered_at, started_at,
+                                                                time.time())
+    with open(os.path.join(p.output_dir, f"photon-ml-tpu-mh-{mh.process_id}.json"), "w") as f:
+        json.dump({k: out[k] for k in ("process_id", "num_processes", "backend", "device",
+                                       "wall_s", "launches", "objective_history",
+                                       "validation_metrics", "num_rows", "entered_at",
+                                       "started_at", "finished_at")}, f, default=str)
+    return out
+
+
+def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
+    from photon_ml_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
+    from photon_ml_tpu_torch.cli.game_training_driver import (
+        _default_evaluators,
+        _input_files,
+        _summarize_tracker,
+        resolve_date_range_dirs,
+    )
+    from photon_ml_tpu_torch.compile.plan import ExecutionPlan
+    from photon_ml_tpu_torch.data.game import build_fixed_effect_batch
+    from photon_ml_tpu_torch.evaluation.evaluators import evaluator_for
+    from photon_ml_tpu_torch.io.tensor_cache import file_stat_token
+
+    # the coordinator owns the output dir's lifecycle (stale per-host part
+    # files of another topology must never merge into a reloaded model);
+    # a supervised relaunch keeps the dir (its checkpoints are the resume)
+    if mh.coordinator_only_io():
+        from photon_ml_tpu_torch.utils.io_utils import prepare_output_dir
+
+        if restart:
+            os.makedirs(p.output_dir, exist_ok=True)
+        else:
+            prepare_output_dir(p.output_dir, p.delete_output_dir_if_exists)
+    mh.barrier("output-dir")
+    logger = PhotonLogger(os.path.join(p.output_dir, f"photon-ml-tpu-mh-{mh.process_id}.log"))
+    logger.info(f"multihost: process {mh.process_id} of {mh.num_processes}, backend "
+                f"{ctx.backend}, device {ctx.device}")
+    plan = ExecutionPlan.resolve(
+        shape_canonicalization=p.shape_canonicalization, solve_compaction=p.solve_compaction,
+        adaptive_schedule=p.adaptive_schedule, distributed=True,
+        streaming=p.streaming_random_effects, bucketed=p.bucketed_random_effects, plan=p.plan,
+        num_processes=mh.num_processes)
+    logger.info(plan.describe())
+    for line in plan.describe_decisions():
+        logger.info(f"execution plan: {line}")
+    for cname, dc in p.random_effect_data_configs.items():
+        proj = dc.projector.upper()
+        if proj not in ("INDEX_MAP", "IDENTITY", "RANDOM"):
+            raise ValueError(f"coordinate {cname!r} requests unknown projector {dc.projector!r}")
+        if proj == "RANDOM" and dc.random_projection_dim is None:
+            raise ValueError(f"coordinate {cname!r}: RANDOM projector needs "
+                             "random_projection_dim in its data configuration")
+    combos = p.config_grid()
+
+    # ---- feature maps: prebuilt, shared, mmap'd -----------------------------
+    needed_shards = ({c.feature_shard_id for c in p.fixed_effect_data_configs.values()}
+                     | {c.feature_shard_id for c in p.random_effect_data_configs.values()})
+    shard_maps = _shard_maps(p, needed_shards)
+
+    # ---- per-host decode ----------------------------------------------------
+    # _input_files is deterministic and identical on every host: no global
+    # re-sort, so the row order is the single-process driver's
+    all_files = _input_files(resolve_date_range_dirs(
+        p.train_input_dirs, p.train_date_range, p.train_date_range_days_ago))
+    train_file_stats = file_stat_token(all_files)
+    host_files = _fe_chunk_share(all_files, {}, mh, logger)
+    id_types = sorted({c.random_effect_id for c in p.random_effect_data_configs.values()})
+    gds = _decode_share(p, host_files, shard_maps, needed_shards, id_types)
+    file_base, n_global = global_row_layout(len(all_files), gds, ctx, mh.num_processes)
+    logger.info(f"host {mh.process_id}: {len(gds)}/{len(all_files)} files, "
+                f"{sum(gd.num_rows for _, gd in gds)}/{n_global} rows")
+
+    def assemble_global(vec_per_gd) -> Tensor:
+        merged = merge_row_vectors(gds, file_base, n_global, ctx, mh.num_processes, vec_per_gd)
+        return torch.from_numpy(np.asarray(merged)).to(ctx.device)
+
+    labels_g = assemble_global(lambda gd: gd.response.astype(np.float32))
+    weights_g = assemble_global(lambda gd: gd.weight.astype(np.float32))
+    offsets_g = assemble_global(lambda gd: gd.offset.astype(np.float32))
+
+    # ---- datasets, built once (combo-invariant) ------------------------------
+    fe_coords: Dict[str, MultihostFixedEffectCoordinate] = {}
+    re_datasets: Dict[str, object] = {}
+    for name in p.updating_sequence:
+        if name in p.fixed_effect_data_configs:
+            spec = p.fixed_effect_data_configs[name]
+            local = _local_game_data(gds, spec.feature_shard_id,
+                                     len(shard_maps[spec.feature_shard_id]))
+            batch = build_fixed_effect_batch(local, spec.feature_shard_id, dense=True,
+                                             device=ctx.device)
+            row_ids = np.concatenate([file_base[o] + np.arange(gd.num_rows) for o, gd in gds]
+                                     ) if gds else np.zeros(0, np.int64)
+            default = CoordinateOptConfig()
+            fe_coords[name] = MultihostFixedEffectCoordinate(
+                batch, row_ids, n_global,
+                GLMOptimizationProblem(p.task_type, default.optimizer, default.optimizer_config(),
+                                       default.regularization_context()), ctx)
+            continue
+        dc = p.random_effect_data_configs[name]
+        if name in p.factored_configs and dc.projector.upper() != "IDENTITY":
+            raise ValueError(
+                f"factored coordinate {name!r} requires an IDENTITY projector in its data "
+                f"config (got {dc.projector!r}) — the latent matrix projects the global "
+                "shard space")
+        rows = _host_rows(gds, file_base, dc.feature_shard_id, dc.random_effect_id,
+                          len(shard_maps[dc.feature_shard_id]))
+        bucketed = p.bucketed_random_effects and name not in p.factored_configs
+        re_datasets[name] = per_host_re_dataset(
+            rows, ctx, mh.num_processes, mh.process_id,
+            active_upper_bound=dc.active_upper_bound, size_buckets=8 if bucketed else 1,
+            projector=dc.projector.upper(), projection_dim=dc.random_projection_dim,
+            projection_seed=dc.seed, projection_keep_intercept=dc.random_projection_intercept)
+        logger.info(f"random effect {name}: {re_datasets[name].num_entities} entities, "
+                    f"{re_datasets[name].entities_per_device} lanes on this process")
+
+    def build_coords(combo: Dict[str, CoordinateOptConfig]) -> Dict[str, object]:
+        from photon_ml_tpu_torch.algorithm.factored_random_effect import MFOptimizationConfig
+        from photon_ml_tpu_torch.parallel.perhost_factored import (
+            PerHostFactoredRandomEffectCoordinate,
+        )
+        from photon_ml_tpu_torch.parallel.perhost_ingest import (
+            PerHostBucketedRandomEffectSolver,
+            PerHostRandomEffectSolver,
+        )
+
+        coords: Dict[str, object] = {}
+        for name in p.updating_sequence:
+            cfg = combo.get(name, CoordinateOptConfig())
+            if name in fe_coords:
+                coords[name] = fe_coords[name].rebind(GLMOptimizationProblem(
+                    p.task_type, cfg.optimizer, cfg.optimizer_config(),
+                    cfg.regularization_context()))
+            elif name in p.factored_configs:
+                spec = p.factored_configs[name]
+                coords[name] = PerHostFactoredRandomEffectCoordinate(
+                    re_datasets[name], p.task_type,
+                    mf_config=MFOptimizationConfig(spec.mf_num_iterations, spec.latent_dim),
+                    re_optimizer=spec.random_effect.optimizer,
+                    re_optimizer_config=spec.random_effect.optimizer_config(),
+                    re_regularization=spec.random_effect.regularization_context(),
+                    latent_optimizer=spec.latent_factor.optimizer,
+                    latent_optimizer_config=spec.latent_factor.optimizer_config(),
+                    latent_regularization=spec.latent_factor.regularization_context(),
+                    ctx=ctx)
+            else:
+                sd = re_datasets[name]
+                cls = (PerHostBucketedRandomEffectSolver if isinstance(sd, BucketedShardedREData)
+                       else PerHostRandomEffectSolver)
+                coords[name] = cls(sd, p.task_type, cfg.optimizer, cfg.optimizer_config(),
+                                   cfg.regularization_context(), ctx, solve_label=name,
+                                   bucketer=plan.bucketer)
+        return coords
+
+    # ---- validation data, decoded once ---------------------------------------
+    val_data = None
+    if p.validate_input_dirs:
+        val_data = _decode_validation(p, mh, ctx, shard_maps, needed_shards, id_types)
+
+    loss = losses_mod.for_task(p.task_type)
+
+    def loss_fn(total_scores: Tensor) -> Tensor:
+        return torch.sum(weights_g * loss.loss(total_scores + offsets_g, labels_g))
+
+    specs = p.evaluators or _default_evaluators(p.task_type)
+    primary = specs[0]
+    primary_key = primary[0].value if primary[1] is None else f"{primary[0].value}@{primary[1]}"
+    primary_ev = evaluator_for(primary[0], primary[1] or 10)
+
+    best_index, best_value, best_result, best_coords = 0, None, None, None
+    all_metrics: List[Dict[str, float]] = []
+    prev_coefficients = None
+    hb_dir = os.path.join(p.output_dir, "heartbeats")
+    mh.write_heartbeat(hb_dir, step=None)
+    if mh.coordinator_only_io():
+        logger.info(mh.describe_heartbeats(hb_dir))
+    for i, combo in enumerate(combos):
+        coords = build_coords(combo)
+        checkpointer = None
+        if p.checkpoint_dir:
+            from photon_ml_tpu_torch.checkpoint import CoordinateDescentCheckpointer, fingerprint
+            from photon_ml_tpu_torch.checkpoint_async import maybe_async
+
+            checkpointer = maybe_async(CoordinateDescentCheckpointer(
+                os.path.join(p.checkpoint_dir, f"combo-{i}"),
+                run_fingerprint=fingerprint({
+                    "multihost": True,
+                    "coordinates": p.updating_sequence,
+                    "num_rows": n_global,
+                    "combo": i,
+                    "warm_start": mh_args["grid_warm_start"],
+                    "configs": {k: str(v) for k, v in combo.items()},
+                }),
+                multihost=mh,
+                sharded={n: c.rank_sharded_leaves for n, c in coords.items()
+                         if hasattr(c, "rank_sharded_leaves")}),
+                p.checkpoint_async)
+        cd = CoordinateDescent(coords, loss_fn)
+        try:
+            result = cd.run(p.num_iterations, n_global, checkpointer,
+                            initial_params=(prev_coefficients if mh_args["grid_warm_start"]
+                                            else None))
+        finally:
+            if checkpointer is not None and hasattr(checkpointer, "close"):
+                checkpointer.close()
+        prev_coefficients = result.coefficients
+        mh.write_heartbeat(hb_dir, step=(i + 1) * p.num_iterations)
+        if mh.coordinator_only_io():
+            logger.info(mh.describe_heartbeats(hb_dir))
+        logger.info(f"combo {i}: objective history "
+                    + " ".join(f"{v:.6g}" for v in result.objective_history))
+        for cname, tracker in result.trackers.items():
+            summary = _summarize_tracker(tracker)
+            if summary:
+                logger.info(f"combo {i} [{cname}] (this process) {summary}")
+        metrics: Dict[str, float] = {}
+        if val_data is not None:
+            metrics = _validate(p, mh, ctx, coords, result, val_data)
+            logger.info(f"combo {i} validation: "
+                        + " ".join(f"{k}={v:.6g}" for k, v in metrics.items()))
+        all_metrics.append(metrics)
+        if metrics and primary_key in metrics:
+            value = metrics[primary_key]
+            if best_value is None or primary_ev.better_than(value, best_value):
+                best_value, best_index = value, i
+                best_result, best_coords = result, coords
+        elif best_result is None:
+            best_result, best_coords = result, coords
+    if len(combos) > 1:
+        logger.info(f"best combo: {best_index}"
+                    + (f" ({primary_key}={best_value:.6g})" if best_value is not None else ""))
+    result, coords = best_result, best_coords
+
+    # ---- save (reference layout; random-effect parts written per host) ------
+    out = os.path.join(p.output_dir, "best")
+    mh.barrier("pre-save")
+    if mh.coordinator_only_io():
+        os.makedirs(out, exist_ok=True)
+    mh.barrier("outdir")
+    for name in p.updating_sequence:
+        w = result.coefficients[name]
+        if name in p.fixed_effect_data_configs:
+            if mh.coordinator_only_io():
+                spec = p.fixed_effect_data_configs[name]
+                model_io.save_fixed_effect(out, name, p.task_type, w.detach().cpu().numpy(),
+                                           shard_maps[spec.feature_shard_id],
+                                           feature_shard_id=spec.feature_shard_id)
+        else:
+            dc = p.random_effect_data_configs[name]
+            save = (_save_factored_parts if name in p.factored_configs
+                    else _save_random_effect_parts)
+            save(out, name, p, dc, coords[name], w, shard_maps[dc.feature_shard_id], mh)
+        mh.barrier(f"saved-{name}")
+    logger.info(f"model saved to {out}")
+    if mh.coordinator_only_io():
+        try:
+            _write_mh_retrain_manifest(p, plan, out, shard_maps, combos, best_index,
+                                       train_file_stats, logger)
+        except (OSError, TypeError, ValueError) as e:
+            # a failed manifest write degrades tomorrow's run to cold; it
+            # must not fail today's finished training run
+            logger.warn(f"retrain manifest write failed ({e}); the next run retrains cold")
+    mh.barrier("retrain-manifest")
+    logger.close()
+    return {
+        "objective_history": result.objective_history,
+        "validation_metrics": all_metrics[best_index],
+        "all_metrics": all_metrics,
+        "best_index": best_index,
+        "num_rows": n_global,
+        "process_id": mh.process_id,
+        "num_processes": mh.num_processes,
+        "backend": ctx.backend,
+        "device": str(ctx.device),
+        "output": out,
+        "coordinates": coords,
+        "result": result,
+    }
+
+
+def _mh_ingest_inputs(p, plan) -> Dict[str, object]:
+    bk = plan.bucketer
+    return {
+        "sections": {k: list(v) for k, v in sorted((p.feature_shard_sections or {}).items())},
+        "intercepts": {k: bool(v) for k, v in sorted(
+            (p.feature_shard_intercepts or {}).items())},
+        "id_types": sorted({c.random_effect_id for c in p.random_effect_data_configs.values()}),
+        "ladder": bk.spec() if bk is not None else None,
+        "offheap_indexmap_dir": p.offheap_indexmap_dir,
+        "name_and_term": p.feature_name_and_term_set_path,
+    }
+
+
+def _write_mh_retrain_manifest(p, plan, best_dir, shard_maps, combos, best_index,
+                               train_file_stats, logger) -> None:
+    """The coordinator's ``retrain.json``: the next run's planner diffs
+    against it."""
+    from photon_ml_tpu_torch.cli.game_training_driver import (
+        _input_files,
+        resolve_date_range_dirs,
+    )
+    from photon_ml_tpu_torch.io.tensor_cache import file_stat_token, index_map_digest
+    from photon_ml_tpu_torch.retrain.manifest import CoordinateRecord, RetrainManifest
+
+    sel = combos[best_index]
+    coords = {}
+    for name in p.updating_sequence:
+        kind = ("fixed" if name in p.fixed_effect_data_configs
+                else "factored" if name in p.factored_configs
+                else "bucketed" if p.bucketed_random_effects else "random")
+        coords[name] = CoordinateRecord(kind=kind,
+                                        opt_config=str(sel.get(name, CoordinateOptConfig())))
+    ingest = _mh_ingest_inputs(p, plan)
+    digest = hashlib.sha256(json.dumps(dict(ingest, index_maps={
+        shard: index_map_digest(imap) for shard, imap in sorted(shard_maps.items())}),
+        sort_keys=True, default=str).encode()).hexdigest()
+    val_files = (_input_files(resolve_date_range_dirs(
+        p.validate_input_dirs, p.validate_date_range, p.validate_date_range_days_ago))
+        if p.validate_input_dirs else [])
+    manifest = RetrainManifest(
+        output_dir=os.path.abspath(p.output_dir), model_dir=os.path.abspath(best_dir),
+        task=p.task_type.value, file_stats=train_file_stats, ingest_inputs=ingest,
+        ingest_digest=digest, updating_sequence=list(p.updating_sequence),
+        coordinates=coords, data_cache_key=None,
+        eval_identity={"validate_files": file_stat_token(val_files),
+                       "evaluators": [[etype.value, k, id_name]
+                                      for etype, k, id_name in (p.evaluators or [])]})
+    logger.info(f"retrain manifest written: {manifest.save(p.output_dir)}")
+
+
+def _re_dir(out, name, dc, mh, id_info: str) -> str:
+    """The coordinator makes a random effect's dirs and id-info; the other
+    processes wait for it."""
+    base = os.path.join(out, model_io.RANDOM_EFFECT, name)
+    if mh.coordinator_only_io():
+        os.makedirs(os.path.join(base, model_io.COEFFICIENTS), exist_ok=True)
+        with open(os.path.join(base, model_io.ID_INFO), "w") as f:
+            f.write(id_info)
+    mh.barrier(f"re-dir-{name}")
+    return base
+
+
+def _save_random_effect_parts(out, name, p, dc, coord, w, imap, mh) -> None:
+    """Each process writes ONE part file with its entities (the coefficient
+    blocks never cross processes, ModelProcessingUtils.scala:205-219); raw
+    ids rode the exchange (``raw_ids_by_key``)."""
+    from photon_ml_tpu_torch.io import avro as avro_io
+    from photon_ml_tpu_torch.io import schemas
+
+    sd = coord.data
+    base = _re_dir(out, name, dc, mh, f"{dc.random_effect_id}\n{dc.feature_shard_id}\n")
+    if isinstance(sd, BucketedShardedREData):
+        groups = [(wb, b.entity_keys, b.entity_mask, b.local_to_global)
+                  for b, wb in zip(sd.buckets, w)]
+    else:
+        groups = [(w, sd.entity_keys, sd.entity_mask, sd.local_to_global)]
+    pm = sd.projection_matrix
+    host = lambda t: t.detach().cpu().numpy()
+    records = []
+    for warr, karr, marr, larr in groups:
+        wh, kh, lh = host(warr), host(karr), host(larr)
+        keys = _unpack_u64(kh[:, 0], kh[:, 1])
+        for lane in np.nonzero(host(marr))[0]:
+            raw = sd.raw_ids_by_key[int(keys[lane])]
+            if pm is not None:
+                # RANDOM: back-project through the shared matrix
+                dense = np.asarray(pm).T @ np.asarray(wh[lane], np.float32)
+            else:
+                dense = np.zeros(sd.global_dim, np.float32)
+                valid = lh[lane] >= 0
+                dense[lh[lane][valid]] = wh[lane][valid]
+            records.append(model_io._model_record(raw, p.task_type, dense, None, imap))
+    avro_io.write_container(
+        os.path.join(base, model_io.COEFFICIENTS, f"part-{mh.process_id:05d}.avro"), records,
+        schemas.BAYESIAN_LINEAR_MODEL)
+
+
+def _save_factored_parts(out, name, p, dc, coord, state, imap, mh) -> None:
+    """A factored random effect: each process writes ITS entities' W = V M
+    part and latent-factor part; the coordinator writes the shared latent
+    matrix, its column keys and the factored id-info marker."""
+    from photon_ml_tpu_torch.io import avro as avro_io
+    from photon_ml_tpu_torch.io import schemas
+
+    base = os.path.join(out, model_io.RANDOM_EFFECT, name)
+    matrix = state.matrix.detach().cpu().numpy().astype(np.float32)
+    if mh.coordinator_only_io():
+        os.makedirs(os.path.join(base, model_io.LATENT_FACTORS), exist_ok=True)
+        model_io.save_latent_factors(os.path.join(base, model_io.LATENT_MATRIX),
+                                     {str(k): matrix[k] for k in range(matrix.shape[0])})
+    mh.barrier(f"fre-dir-{name}")
+    _save_random_effect_parts(out, name, p, dc, coord, coord.random_effect_coefficients(state),
+                              imap, mh)
+    # the factored marker last: the plain writer wrote the 2-line id-info
+    if mh.coordinator_only_io():
+        with open(os.path.join(base, model_io.ID_INFO), "w") as f:
+            f.write(f"{dc.random_effect_id}\n{dc.feature_shard_id}\nfactored\n")
+        pairs = [list(model_io._split_key(imap.get_feature_name(j) or str(j)))
+                 for j in range(matrix.shape[1])]
+        with open(os.path.join(base, model_io.LATENT_MATRIX_FEATURES), "w") as f:
+            json.dump({"columns": pairs}, f)
+    recs = [{"effectId": str(eid), "latentFactor": [float(v) for v in vec]}
+            for eid, vec in sorted(coord.latent_factors_by_raw_id(state).items())]
+    avro_io.write_container(
+        os.path.join(base, model_io.LATENT_FACTORS, f"part-{mh.process_id:05d}.avro"), recs,
+        schemas.LATENT_FACTOR)
+
+
+def _decode_validation(p, mh, ctx, shard_maps, needed_shards, id_types) -> dict:
+    """This host's share of the validation files and the merged replicated
+    label / weight / offset vectors, decoded once per run."""
+    from photon_ml_tpu_torch.cli.game_training_driver import (
+        _default_evaluators,
+        _input_files,
+        resolve_date_range_dirs,
+    )
+
+    specs = p.evaluators or _default_evaluators(p.task_type)
+    grouped_ids = sorted({idn for _, _, idn in specs if idn is not None})
+    id_types = sorted(set(id_types) | set(grouped_ids))
+    val_files = _input_files(resolve_date_range_dirs(
+        p.validate_input_dirs, p.validate_date_range, p.validate_date_range_days_ago))
+    vgds = _decode_share(p, host_file_share(val_files, mh.num_processes, mh.process_id),
+                         shard_maps, needed_shards, id_types)
+    file_base, nv = global_row_layout(len(val_files), vgds, ctx, mh.num_processes)
+
+    def merge(vec_per_gd):
+        return merge_row_vectors(vgds, file_base, nv, ctx, mh.num_processes, vec_per_gd)
+
+    return {"specs": specs, "grouped_ids": grouped_ids, "vgds": vgds, "file_base": file_base,
+            "nv": nv, "labels": merge(lambda gd: gd.response.astype(np.float32)),
+            "weights": merge(lambda gd: gd.weight.astype(np.float32)),
+            "offsets": merge(lambda gd: gd.offset.astype(np.float32))}
+
+
+def _validate(p, mh, ctx, coords, result, val_data) -> Dict[str, float]:
+    """Validation metrics: each host scores only its share of the rows;
+    the fixed effect locally (its model is replicated), random effects by
+    routing each row to its entity's owner (score_routed_rows; factored
+    coordinates against W = V M). Scores merge with one collective sum, so
+    every host computes the same metrics."""
+    from photon_ml_tpu_torch.evaluation.evaluators import evaluator_for
+    from photon_ml_tpu_torch.parallel.perhost_factored import (
+        PerHostFactoredRandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.parallel.perhost_ingest import score_routed_rows
+
+    vgds, file_base, nv = val_data["vgds"], val_data["file_base"], val_data["nv"]
+    scores = val_data["offsets"].astype(np.float64).copy()
+    for name in p.updating_sequence:
+        coord, w = coords[name], result.coefficients[name]
+        if name in p.fixed_effect_data_configs:
+            spec = p.fixed_effect_data_configs[name]
+            w_host = w.detach().cpu().numpy()
+            local = np.zeros(nv, np.float32)
+            for ordinal, gd in vgds:
+                fi, fv = csr_to_padded(gd.shards[spec.feature_shard_id], gd.num_rows)
+                sel = np.where(fi >= 0, w_host[np.maximum(fi, 0)], 0.0)
+                local[file_base[ordinal] + np.arange(gd.num_rows)] = np.sum(sel * fv, axis=1)
+            scores += collective_sum(local, ctx, mh.num_processes)
+            continue
+        dc = p.random_effect_data_configs[name]
+        vrows = _host_rows(vgds, file_base, dc.feature_shard_id, dc.random_effect_id,
+                           coord.data.global_dim)
+        if isinstance(coord, PerHostFactoredRandomEffectCoordinate):
+            w = coord.random_effect_coefficients(w)
+        scores += score_routed_rows(coord.data, w, vrows, nv, ctx, mh.num_processes,
+                                    mh.process_id)
+    s = torch.from_numpy(scores.astype(np.float32))
+    group_cols = {idn: torch.from_numpy(merge_group_ids(vgds, file_base, nv, idn, ctx,
+                                                        mh.num_processes))
+                  for idn in val_data["grouped_ids"]}
+    metrics: Dict[str, float] = {}
+    for etype, k, id_name in val_data["specs"]:
+        ev = evaluator_for(etype, k or 10)
+        kwargs = {"labels": torch.from_numpy(val_data["labels"]),
+                  "weights": torch.from_numpy(val_data["weights"])}
+        if id_name is not None:
+            kwargs["group_ids"] = group_cols[id_name]
+        metrics[etype.value if k is None else f"{etype.value}@{k}"] = float(
+            ev.evaluate(s, **kwargs))
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -18,8 +18,10 @@ The training parser takes every flag of the JAX driver under the same name,
 plus ``--device`` (default ``cuda``). Grid alternatives are ';'-separated
 (``config_grid`` is their Cartesian product). ``validate`` rejects, naming
 the flag, every flag whose code path is not yet ported when it is set away
-from its default: the fused cycle, the mesh and the persistent cache
-(``_FENCED``). Streaming random effects (``--streaming-random-effects``,
+from its default: the fused cycle and the persistent cache (``_FENCED``).
+``--distributed`` runs on the process group (parallel/; with
+``--streaming-random-effects`` it is not yet ported). Streaming random
+effects (``--streaming-random-effects``,
 ``--re-memory-budget-mb``, which implies it), ``--tensor-cache``,
 ``--export-serve-store`` with ``--store-dtype``, the delta retrain
 (``--warm-start-from``) and the planner (``--plan off|auto``) run.
@@ -295,6 +297,9 @@ class GameTrainingParams:
     # out-of-core random effects (algorithm/streaming_random_effect.py): the
     # entity blocks stream from disk, sized by the budget (MB) when given
     streaming_random_effects: bool = False
+    # --distributed: the coordinates solve over the process group's ranks
+    # (parallel/distributed.py); one rank is bitwise the plain run
+    distributed: bool = False
     re_memory_budget_mb: Optional[float] = None
     # content-addressed cache of built ingest tensors (io/tensor_cache.py)
     tensor_cache_dir: Optional[str] = None
@@ -430,6 +435,10 @@ class GameTrainingParams:
                 "output dir would destroy the prior model the warm "
                 "start reads)"
             )
+        if self.distributed and self.streaming_random_effects:
+            # the JAX path is PerHostStreamingRandomEffectCoordinate
+            errors.append("--streaming-random-effects --distributed is not yet ported to "
+                          "photon_ml_tpu_torch")
         errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
                       for flag in self.unported_flags)
         if errors:
@@ -461,7 +470,6 @@ def _io_errors(params) -> List[str]:
 # flag -> its default; a parsed value other than the default (or an "off"
 # spelling) names the flag in validate's "not yet ported" error
 _FENCED = {
-    "--distributed": "false",
     "--fused-cycle": "false",
     "--persistent-cache": None,
 }
@@ -534,6 +542,10 @@ def build_training_parser() -> argparse.ArgumentParser:
     a("--bucketed-random-effects", default="false",
       help="size-bucketed per-entity solves: entities grouped by sample count, "
            "each bucket padded only to its own largest entity")
+    a("--distributed", default="false",
+      help="entity- and row-sharded solves over the process group (a world of one "
+           "unless a group is already up; multi-process training is "
+           "game_multihost_driver)")
     a("--streaming-random-effects", default="false",
       help="out-of-core random effects: entity blocks written once to disk "
            "stream through the solve, one block resident (two while the next "
@@ -668,6 +680,7 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         vmapped_grid=("auto" if str(ns.vmapped_grid).lower() == "auto"
                       else "true" if _truthy(ns.vmapped_grid) else "false"),
         bucketed_random_effects=_truthy(ns.bucketed_random_effects),
+        distributed=_truthy(ns.distributed),
         streaming_random_effects=(_truthy(ns.streaming_random_effects)
                                   or ns.re_memory_budget_mb is not None),
         re_memory_budget_mb=(float(ns.re_memory_budget_mb)

@@ -59,6 +59,10 @@ unchanged blocks. Any unusable prior degrades to a logged cold run.
 ``--plan auto`` lets the cost model (compile/cost.py) choose the knobs left
 unset and writes ``cost-model.json`` beside ``retrain.json``; the next run
 reads it from the ``--warm-start-from`` dir, else from its own output dir.
+``--distributed`` brings up a process group of one rank (NCCL on the card)
+and trains on it, bitwise the plain run; this driver reads every input file
+and writes the model on every process, so it refuses a larger group:
+multi-process training is ``cli/game_multihost_driver``'s.
 
     python -m photon_ml_tpu_torch.cli.game_training_driver \\
       --train-input-dirs data/train --validate-input-dirs data/val \\
@@ -256,6 +260,7 @@ class GameTrainingDriver:
             bucketed=params.bucketed_random_effects,
             vmapped_grid=params.vmapped_grid,
             streaming=params.streaming_random_effects,
+            distributed=params.distributed,
             plan=params.plan,
             # warm starts inherit the prior run's realized costs; cold runs
             # read back their own sidecar on the next invocation
@@ -300,8 +305,29 @@ class GameTrainingDriver:
         self._warm_spilled: Dict[str, SpilledREState] = {}
         self._warm_bucketed: Dict[str, list] = {}  # coord -> per-bucket stacks
         self._warm_means_cache: Dict[str, Optional[dict]] = {}
+        self._mesh_ctx = None  # --distributed: the process group's mesh, made lazily
 
     # ------------------------------------------------------------------
+    def _mesh_context(self):
+        """The process group's mesh (``--distributed``, brought up when the
+        run starts): a world of one on an in-process store unless a group is
+        already up. A world of more than one is refused: this driver reads
+        every file on every process and saves from each, which the
+        multihost driver does not."""
+        if self._mesh_ctx is None:
+            from photon_ml_tpu_torch.parallel import multihost
+
+            mh = multihost.initialize(device=str(self.device))
+            if mh.num_processes > 1:
+                raise ValueError(
+                    f"--distributed under a {mh.num_processes}-process group: this driver "
+                    "reads every input file and writes the model on every process; train "
+                    "multi-process with game_multihost_driver")
+            self._mesh_ctx = mh.mesh_context()
+            self.logger.info(f"distributed: {self._mesh_ctx.world}-rank mesh "
+                             f"({self._mesh_ctx.backend}, {self._mesh_ctx.device})")
+        return self._mesh_ctx
+
     def _shard_ids(self) -> List[str]:
         p = self.params
         shards = {spec.feature_shard_id for spec in p.fixed_effect_data_configs.values()}
@@ -773,6 +799,8 @@ class GameTrainingDriver:
         p = self.params
         if len(combos) < 2:
             return "grid has a single combo"
+        if p.distributed:
+            return "--distributed (the mesh's collectives cannot nest under the combo grid)"
         if p.streaming_random_effects:
             return "--streaming-random-effects (host streaming cannot vmap)"
         if p.bucketed_random_effects:
@@ -1005,6 +1033,8 @@ class GameTrainingDriver:
         if p.checkpoint_dir:
             self._adopt_recorded_races()
         try:
+            if p.distributed:
+                self._mesh_context()  # the 1-rank group; a larger one is refused here
             # stat tokens before ingest: a file overwritten mid-run is
             # recorded with the identity this run read, and tomorrow's delta
             # run classifies it changed, never wrongly frozen
@@ -1047,6 +1077,11 @@ class GameTrainingDriver:
                 )
             self._log_run_summaries()
         finally:
+            if self._mesh_ctx is not None:
+                from photon_ml_tpu_torch.parallel import multihost
+
+                multihost.shutdown()  # the group this run brought up, if it did
+                self._mesh_ctx = None
             if self._own_logger:
                 self.logger.close()
 
@@ -1358,6 +1393,11 @@ class GameTrainingDriver:
         if self.retrain_prior is None or self.delta_plan is None:
             return
         p = self.params
+        if p.distributed:
+            self.logger.info(
+                "delta retrain: --distributed solvers manage their own "
+                "sharded/padded state — warm starts off (cold solves)")
+            return
         prior = self.retrain_prior
         combos = p.config_grid()
         single = combos[0] if len(combos) == 1 else None

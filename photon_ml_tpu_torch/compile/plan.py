@@ -26,8 +26,9 @@ recorded blocking and sharding calls. The model is the ``cost-model.json``
 sidecar of ``cost_model_dir`` (loaded, or static priors when the sidecar is
 missing or torn, each a recorded decision); ``record_realized`` feeds a
 run's realized costs back and ``save_cost_model`` writes the sidecar.
-``plan="off"`` (the default) resolves bitwise as before. ``--fused-cycle``
-and the mesh (``--distributed``) raise "not yet ported".
+``plan="off"`` (the default) resolves bitwise as before. ``--distributed``
+resolves ``sharding="mesh"`` (parallel/); ``--fused-cycle`` and
+``--streaming-random-effects --distributed`` raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -93,6 +94,7 @@ class ExecutionPlan:
     decisions: Tuple[PlanDecision, ...] = ()
     prefetch_depth: Optional[int] = None  # io.pipeline depth, resolved once
     streaming: bool = False
+    sharding: str = "none"  # "mesh" under --distributed
     # "off": every knob is the flag or env the caller set (bitwise the
     # resolution without a planner); "auto": unset knobs were chosen by
     # the cost model
@@ -112,6 +114,7 @@ class ExecutionPlan:
                 vmapped_grid: str = "false", sparse_kernel: Optional[str] = None,
                 distributed: bool = False, streaming: bool = False,
                 fused_cycle: bool = False, plan: Optional[str] = None,
+                num_processes: int = 1,
                 prefetch_depth: Optional[int] = None,
                 workload: Optional[WorkloadProfile] = None,
                 cost_model_dir: Optional[str] = None,
@@ -131,9 +134,11 @@ class ExecutionPlan:
         from photon_ml_tpu_torch.optim.scheduler import resolve_schedule
         from photon_ml_tpu_torch.io.pipeline import resolve_depth
 
-        for flag, on in (("--fused-cycle", fused_cycle), ("--distributed (the mesh)", distributed)):
-            if on:
-                raise _not_ported(flag)
+        if fused_cycle:
+            raise _not_ported("--fused-cycle")
+        if distributed and streaming:
+            # the JAX path is PerHostStreamingRandomEffectCoordinate
+            raise _not_ported("--streaming-random-effects --distributed")
         overrides = resolve_overrides(plan)
         # an explicit prefetch depth (argument or env) wins over the
         # planner: probe before resolve_depth folds in its default
@@ -192,6 +197,23 @@ class ExecutionPlan:
             ))
             bucketed = False
 
+        # ---- sharding mode + composition notes ----------------------------
+        sharding = "mesh" if distributed else "none"
+        if sharding == "mesh" and schedule is not None:
+            decisions.append(PlanDecision(
+                "schedule", "composed",
+                "compacted solves under --distributed run on the training "
+                "driver's one rank as the single-host compacted solve (the "
+                "multihost driver compacts only with --streaming-random-effects)",
+            ))
+        if sharding == "mesh" and sparse is not None:
+            decisions.append(PlanDecision(
+                "sparse", "composed",
+                "each rank keeps the single-host sparse-kernel selection on its "
+                "block of the entities (the kernels are bitwise the plain "
+                "formulation, so the selection changes no result)",
+            ))
+
         # ---- adaptive block scheduling: needs block/bucket granularity ----
         if adaptive is not None and not (streaming or bucketed):
             decisions.append(PlanDecision(
@@ -221,17 +243,17 @@ class ExecutionPlan:
             # sharding follows the process topology (the planner cannot
             # conjure cards); the predicted cost is kept for the audit
             decisions.append(PlanDecision(
-                "sharding", "planned:none",
-                "topology none from --distributed/--streaming at "
-                "num_processes=1; predicted cost recorded for the "
+                "sharding", f"planned:{sharding}",
+                f"topology {sharding} from --distributed/--streaming at "
+                f"num_processes={num_processes}; predicted cost recorded for the "
                 "realized-cost audit",
-                predicted_cost=cost_model.predict("sharding", "none",
+                predicted_cost=cost_model.predict("sharding", sharding,
                                                   workload or WorkloadProfile()),
             ))
 
         return cls(bucketer=bucketer, schedule=schedule, adaptive=adaptive,
                    sparse_kernel=sparse, decisions=tuple(decisions),
-                   prefetch_depth=prefetch_depth, streaming=streaming,
+                   prefetch_depth=prefetch_depth, streaming=streaming, sharding=sharding,
                    plan_mode=overrides.plan_mode,
                    cost_model=cost_model, workload=workload,
                    sparse_candidates=sparse_candidates)
@@ -376,7 +398,7 @@ class ExecutionPlan:
              if self.schedule is not None else "schedule=one-shot"),
             (f"adaptive={self.adaptive.describe()}"
              if self.adaptive is not None else "adaptive=off"),
-            "sharding=none",
+            f"sharding={self.sharding}",
             f"sparse={self.sparse_kernel or 'off'}",
             f"streaming={'on' if self.streaming else 'off'}",
         ]

@@ -122,6 +122,13 @@ class GLMObjective:
 
     def value_and_grad(self, w, batch: GLMBatch, norm: NormalizationContext,
                        l2_weight=0.0) -> Tuple[Tensor, Tensor]:
+        lv, grad = self.data_value_and_grad(w, batch, norm)
+        return lv + _l2_term(batch.features, w, l2_weight), grad + l2_weight * w
+
+    def data_value_and_grad(self, w, batch: GLMBatch,
+                            norm: NormalizationContext) -> Tuple[Tensor, Tensor]:
+        """The data term of ``value_and_grad`` (no L2): what a row-sharded
+        solve sums over ranks before the L2 term is added once."""
         w_eff = norm.effective_coefficients(w)
         if self._use_fused(batch):
             from photon_ml_tpu_torch.ops import fused_glm
@@ -150,7 +157,7 @@ class GLMObjective:
             if norm.shifts is not None:
                 grad_eff = grad_eff - norm.shifts * _row_sum(batch.features, d).unsqueeze(-1)
         grad = grad_eff * norm.factors if norm.factors is not None else grad_eff
-        return lv + _l2_term(batch.features, w, l2_weight), grad + l2_weight * w
+        return lv, grad
 
     def _use_fused(self, batch: GLMBatch) -> bool:
         """Static dispatch to the fused single-pass pieces."""
@@ -173,6 +180,10 @@ class GLMObjective:
     def hessian_vector(self, w, v, batch: GLMBatch, norm: NormalizationContext,
                        l2_weight=0.0) -> Tensor:
         """H(w) @ v (HessianVectorAggregator.scala:90-116 algebra, batched)."""
+        return self.data_hessian_vector(w, v, batch, norm) + l2_weight * v
+
+    def data_hessian_vector(self, w, v, batch: GLMBatch, norm: NormalizationContext) -> Tensor:
+        """The data term of ``hessian_vector`` (no L2)."""
         w_eff = norm.effective_coefficients(w)
         v_eff = norm.effective_coefficients(v)
         if self._use_sparse_fused(batch):
@@ -193,14 +204,17 @@ class GLMObjective:
             hv_eff = batch.features.rmatvec(c)
             if norm.shifts is not None:
                 hv_eff = hv_eff - norm.shifts * _row_sum(batch.features, c).unsqueeze(-1)
-        hv = hv_eff * norm.factors if norm.factors is not None else hv_eff
-        return hv + l2_weight * v
+        return hv_eff * norm.factors if norm.factors is not None else hv_eff
 
     def hessian_diagonal(self, w, batch: GLMBatch, norm: NormalizationContext,
                          l2_weight=0.0) -> Tensor:
         """diag(H) = factor^2 * [(X^2)^T d2 - 2 shift (X^T d2) + shift^2 sum(d2)]
         + l2 (TwiceDiffFunction.scala:151-162 behavior), expanded so a sparse
         batch never densifies."""
+        return self.data_hessian_diagonal(w, batch, norm) + l2_weight
+
+    def data_hessian_diagonal(self, w, batch: GLMBatch, norm: NormalizationContext) -> Tensor:
+        """The data term of ``hessian_diagonal`` (no L2)."""
         w_eff = norm.effective_coefficients(w)
         z = batch.features.matvec(w_eff) + norm.margin_shift(w_eff) + batch.offsets
         d2 = _wmul(batch.weights, self.loss.d2(z, batch.labels))
@@ -213,7 +227,7 @@ class GLMObjective:
             )
         if norm.factors is not None:
             diag = diag * torch.square(norm.factors)
-        return diag + l2_weight
+        return diag
 
     def mean_prediction(self, w, batch: GLMBatch, norm: NormalizationContext) -> Tensor:
         return self.loss.mean(self.margins(w, batch, norm))

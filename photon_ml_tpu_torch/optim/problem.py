@@ -11,14 +11,14 @@ and refuses L1/elastic net (Params.scala:177-180). Variances are
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.ops import losses as losses_mod
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
-from photon_ml_tpu_torch.ops.objective import GLMBatch, GLMObjective
+from photon_ml_tpu_torch.ops.objective import GLMBatch, GLMObjective, _l2_term
 from photon_ml_tpu_torch.ops.regularization import RegularizationContext
 from photon_ml_tpu_torch.optim.common import OptimizerConfig, OptResult
 from photon_ml_tpu_torch.optim.constraints import BoxConstraints
@@ -70,6 +70,13 @@ class GLMOptimizationProblem:
     # carry per-iteration coefficient snapshots through the solve (the
     # ModelTracker analogue backing --validate-per-iteration)
     track_coefficients: bool = False
+    # a row-sharded solve's cross-rank sum (parallel.mesh.MeshContext.sum):
+    # every value+gradient, Hessian-vector product and Hessian diagonal is
+    # the rank's data term, this fixed-order sum, then the L2 term once, so
+    # every rank walks one trajectory (the JAX package's psum under
+    # ``axis_name``); None = one process holds every row
+    collective: Optional[Callable[[Tensor], Tensor]] = dataclasses.field(
+        default=None, compare=False)
 
     def __post_init__(self):
         tron = self.optimizer == OptimizerType.TRON
@@ -116,8 +123,7 @@ class GLMOptimizationProblem:
         variances = None
         if self.compute_variance:
             _, l2 = _split_reg_weight(self.regularization, reg_weight)
-            variances = variances_from_hessian_diag(
-                self.objective.hessian_diagonal(w, batch, norm, l2))
+            variances = variances_from_hessian_diag(self.hessian_diagonal(w, batch, norm, l2))
         return GeneralizedLinearModel(Coefficients(w, variances), self.task), result
 
     def run_lanes(
@@ -138,15 +144,27 @@ class GLMOptimizationProblem:
             else None
         )
 
+        coll = self.collective
+
+        def vg(w, b):
+            if coll is None:
+                return obj.value_and_grad(w, b, norm, l2)
+            lv, g = obj.data_value_and_grad(w, b, norm)
+            summed = coll(torch.cat([lv.reshape(1), g]))
+            return summed[0] + _l2_term(b.features, w, l2), summed[1:] + l2 * w
+
         def lane_vg(w_lanes):
-            vals, grads = zip(*(obj.value_and_grad(w, b, norm, l2)
-                                for w, b in zip(w_lanes, batches)))
+            vals, grads = zip(*(vg(w, b) for w, b in zip(w_lanes, batches)))
             return torch.stack(vals), torch.stack(grads)
 
         if self.optimizer == OptimizerType.TRON:
+            def hvp(w, v, b):
+                if coll is None:
+                    return obj.hessian_vector(w, v, b, norm, l2)
+                return coll(obj.data_hessian_vector(w, v, b, norm)) + l2 * v
+
             def lane_hvp(w_lanes, v_lanes):
-                return torch.stack([obj.hessian_vector(w, v, b, norm, l2)
-                                    for w, v, b in zip(w_lanes, v_lanes, batches)])
+                return torch.stack([hvp(w, v, b) for w, v, b in zip(w_lanes, v_lanes, batches)])
 
             return tron_minimize_lanes(
                 lane_vg, lane_hvp, w0, self.optimizer_config, bounds=bounds,
@@ -156,6 +174,14 @@ class GLMOptimizationProblem:
             lane_vg, w0, self.optimizer_config, l1_weight=l1, bounds=bounds,
             track_coefficients=self.track_coefficients,
         )
+
+    def hessian_diagonal(self, w: Tensor, batch: GLMBatch, norm: NormalizationContext,
+                         l2_weight=0.0) -> Tensor:
+        """diag(H) at ``w`` on ``batch``, summed over ranks when the
+        problem is row-sharded."""
+        if self.collective is None:
+            return self.objective.hessian_diagonal(w, batch, norm, l2_weight)
+        return self.collective(self.objective.data_hessian_diagonal(w, batch, norm)) + l2_weight
 
     def regularization_term_value(self, w: Tensor, reg_weight: Optional[float] = None) -> Tensor:
         """lambda_1 * ||w||_1 + lambda_2/2 * ||w||^2 (GLOP.scala:235-278)."""

@@ -19,6 +19,9 @@ FAULT_SITES: Dict[str, str] = {
     "io.cache_write": "tensor-cache entry commits; a write that stays broken raises RetryError and the drivers go on uncached (io/tensor_cache.py)",
     "io.cache_invalidate": "tensor-cache entry removal; a failure is a logged no-op (io/tensor_cache.py)",
     "io.checkpoint_write": "per checkpoint save attempt (checkpoint.py)",
+    "multihost.barrier": "cross-process sync points (parallel/multihost.py)",
+    "multihost.heartbeat": "per-host heartbeat writes (parallel/multihost.py)",
+    "multihost.entity_route": "host-granular entity-routing exchange (parallel/shuffle.py)",
     "optim.step": "coordinate-descent updates, NaN corruption (algorithm/coordinate_descent.py)",
     "retrain.delta_plan": "delta-retrain prior manifest/model reads; failure degrades to a recorded cold run (retrain/manifest.py)",
     "optim.block_skip": "adaptive-schedule skip decision boundary; an injected fault degrades the epoch to visit-everything, never a silent skip (algorithm/bucketed_random_effect.py)",

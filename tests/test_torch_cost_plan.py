@@ -245,7 +245,7 @@ def test_explicit_knobs_always_win_under_auto():
 
 
 def test_unsupported_topologies_still_raise_under_auto():
-    for kw in (dict(fused_cycle=True), dict(distributed=True)):
+    for kw in (dict(fused_cycle=True), dict(distributed=True, streaming=True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ExecutionPlan.resolve(plan="auto", workload=SKEWED, **kw)
 

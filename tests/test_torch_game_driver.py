@@ -129,7 +129,6 @@ def test_port_driver_saves_variances_and_all_models(game_avro_dirs, tmp_path):  
 
 
 FENCED = [
-    ["--distributed", "true"],
     ["--fused-cycle", "true"],
     ["--persistent-cache", "cache"],
 ]

@@ -712,3 +712,69 @@ def test_compacted_solve_host_reads_equal_the_syncs_the_card_reports(cuda_device
                     torch.cuda.set_sync_debug_mode(mode)
             syncs = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
             assert syncs == HostReads.count - reads0, (optimizer, schedule, syncs)
+
+
+def _shuffle_payload(world):
+    rng = np.random.default_rng(23)
+    n, k = 300, 3
+    fi = np.sort(rng.integers(0, 40, (n, k)), axis=1).astype(np.int32)
+    return dict(raw_ids=[f"u{int(u)}" for u in rng.integers(0, 31, n)],
+                row_index=np.arange(n, dtype=np.int64), labels=np.zeros(n, np.float32),
+                weights=np.ones(n, np.float32), offsets=np.zeros(n, np.float32), feat_idx=fi,
+                feat_val=rng.normal(size=(n, k)).astype(np.float32), global_dim=40,
+                owner_rank=np.arange(n) % world, num_buckets=64)
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_collectives_on_the_card(cuda_device):
+    from photon_ml_tpu_torch.parallel import multihost
+
+    mh = multihost.initialize(device="cuda")
+    try:
+        ctx = mh.mesh_context()
+        assert (ctx.backend, ctx.world, ctx.device.type) == ("nccl", 1, "cuda")
+        f = torch.linspace(-1.0, 1.0, 7, device=cuda_device)
+        assert torch.equal(ctx.sum(f), f) and ctx.sum(f).device.type == "cuda"
+        i = torch.arange(5, device=cuda_device)
+        assert torch.equal(ctx.max(i), i) and torch.equal(ctx.concat(i), i)
+        send = torch.arange(6, dtype=torch.int32, device=cuda_device).reshape(1, 2, 3)
+        assert torch.equal(ctx.all_to_all(send), send)
+        host = torch.arange(3, dtype=torch.int64)  # a host tensor is staged onto the card
+        assert torch.equal(ctx.sum(host), host) and ctx.sum(host).device.type == "cpu"
+        assert mh.agree_restore_step(3) == 3
+        mh.barrier("card")
+    finally:
+        multihost.shutdown()
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card_shuffle_the_bytes_one_rank_does(cuda_device, tmp_path):
+    from torch_ranks import run_ranks
+
+    two = run_ranks("torch_rank_jobs:card_shuffle", 2, tmp_path, _shuffle_payload(2),
+                    device="cuda")
+    one = run_ranks("torch_rank_jobs:card_shuffle", 1, tmp_path, _shuffle_payload(1),
+                    device="cuda")
+    assert [r["backend"] for r in two] == ["gloo", "gloo"] and one[0]["backend"] == "nccl"
+    assert {r["device"] for r in two + one} == {"cuda:0"}
+    assert two[0]["records"].tobytes() == two[1]["records"].tobytes() == \
+        one[0]["records"].tobytes()
+    assert len(one[0]["records"]) == 300
+
+
+@pytest.mark.gpu
+def test_nccl_refuses_two_ranks_on_one_card(cuda_device, tmp_path):
+    """NCCL's answer to two ranks on one device (the reason two ranks on the
+    one card run over gloo): both ranks fail; the words are printed."""
+    from torch_ranks import init_url, launch
+
+    script = ("import sys, torch; from photon_ml_tpu_torch.parallel import multihost\n"
+              "mh = multihost.initialize(sys.argv[1], 2, int(sys.argv[2]), device='cuda', "
+              "backend='nccl')\n"
+              "mh.mesh_context().sum(torch.ones(4, device='cuda'))\n")
+    init = init_url(tmp_path)
+    outs = launch([["-c", script, init, str(r)] for r in range(2)], timeout=150,
+                  env={"PHOTON_COLLECTIVE_TIMEOUT": "60"}, check=False)
+    assert all(o.returncode != 0 for o in outs)
+    for o in outs:
+        print("\n".join(ln for ln in o.stderr.splitlines() if "NCCL" in ln or "Error" in ln))
