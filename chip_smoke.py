@@ -3996,16 +3996,16 @@ def phase_streaming_glm(torch, fused_glm, workdir, driver6, dev="cuda"):
     return out
 
 
-def hold_block_slabs(torch, fused_sparse, manifest, label, indices=None):
+def hold_block_slabs(torch, fused_sparse, manifest, label, indices=None, device="cuda"):
     """Both sparse kernels on every block's slab of a streaming manifest, or
-    on the blocks ``indices`` (the per-block coordinate builds it on the
-    card), held against their plain version as ``hold_driver_slab`` holds
-    the driver's slab."""
+    on the blocks ``indices`` (the per-block coordinate builds it on
+    ``device``), held against their plain version as ``hold_driver_slab``
+    holds the driver's slab."""
     from photon_ml_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
     from photon_ml_tpu_torch.types import TaskType
 
     errs = {"gevm": 0.0, "hvp": 0.0}
-    for i, ds, _, _ in manifest.iter_blocks(0, indices=indices, device="cuda"):
+    for i, ds, _, _ in manifest.iter_blocks(0, indices=indices, device=device):
         sub = RandomEffectCoordinate(ds, TaskType.LOGISTIC_REGRESSION, sparse_kernel="pallas",
                                      solve_label=f"{label} block {i}")
         e_ = hold_driver_slab(torch, fused_sparse, sub)
@@ -4085,27 +4085,27 @@ def phase_streaming_game(torch, fused_sparse, workdir, inmem, dev="cuda"):
         f"against the in-memory update's {c_peak[0]} B ({c_peak[0] / max(inc, 1):.1f}x the "
         f"streaming one's); GEVM launches {l1['gevm']}")
     want = tree_bytes(os.path.join(dir1, "best"))
-    _, r0, dir0, _ = run("depth 0", GAME_FLAGS, {"PHOTON_PREFETCH_DEPTH": "0"})
-    check(tree_bytes(os.path.join(dir0, "best")) == want,
-          "(b) the depth-0 run's model bytes differ from the pipelined run's")
-    _, rs, dirs, ls = run("compacted", GAME_FLAGS + ["--solve-compaction", str(SCHED_CHUNK)])
-    check(tree_bytes(os.path.join(dirs, "best")) == want,
-          "(b) the --solve-compaction run's model bytes differ from the one-shot run's")
-    say("  (b) PHOTON_PREFETCH_DEPTH=0 and --solve-compaction 8: model bytes equal to the "
-        f"pipelined one-shot run's (GEVM launches compacted {ls['gevm']})")
-
+    # a subprocess stopped at a block boundary runs beside the depth-0 and
+    # compacted runs (a cut, see CUTS): it only reads the cache (b) filled
     here = os.path.dirname(os.path.abspath(__file__))
     argv = base + ["--output-dir", os.path.join(workdir, "out22b-stopped"),
                    "--checkpoint-dir", os.path.join(workdir, "ck22b")] + GAME_FLAGS
     env = dict(os.environ, PHOTON_SPARSE_KERNEL="pallas",
                PHOTON_PREEMPT_AT=f"block:{STREAM_BLOCK_STOP}")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "photon_ml_tpu_torch.cli.game_training_driver",
-                           *argv], cwd=here, env=env, capture_output=True, text=True,
-                          timeout=600)
-    sub_s = time.perf_counter() - t0
-    check(proc.returncode == 75, f"(b) the subprocess stopped at block {STREAM_BLOCK_STOP} "
-                                 f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    stopped = start_rank_group("game_training_driver", argv, 1, workdir, "(22b stopped)",
+                               plain=True, env=env)
+    try:
+        _, r0, dir0, _ = run("depth 0", GAME_FLAGS, {"PHOTON_PREFETCH_DEPTH": "0"})
+        check(tree_bytes(os.path.join(dir0, "best")) == want,
+              "(b) the depth-0 run's model bytes differ from the pipelined run's")
+        _, rs, dirs, ls = run("compacted", GAME_FLAGS + ["--solve-compaction", str(SCHED_CHUNK)])
+        check(tree_bytes(os.path.join(dirs, "best")) == want,
+              "(b) the --solve-compaction run's model bytes differ from the one-shot run's")
+        say("  (b) PHOTON_PREFETCH_DEPTH=0 and --solve-compaction 8: model bytes equal to the "
+            f"pipelined one-shot run's (GEVM launches compacted {ls['gevm']})")
+        sub_s, _ = join_rank_group(stopped, expect_rc=75)
+    finally:
+        stop_rank_groups(stopped)
     preemption.reset()
     # a new process resumes into an output dir of its own: the stopped run's
     # dir keeps the spilled state the checkpoint refers to by reference
@@ -4116,8 +4116,9 @@ def phase_streaming_game(torch, fused_sparse, workdir, inmem, dev="cuda"):
           "(b) the run resumed from a block boundary wrote other model bytes")
     check(resumed.results[0][1].objective_history == r1.objective_history,
           "(b) the resumed objective history differs")
-    say(f"  (b) a subprocess stopped at block boundary {STREAM_BLOCK_STOP} exited 75 after "
-        f"{sub_s:.2f} s; resumed in {wall_r:.2f} s: model bytes and objective history equal")
+    say(f"  (b) a subprocess stopped at block boundary {STREAM_BLOCK_STOP}, beside the depth-0 "
+        f"and compacted runs, exited 75 after {sub_s:.2f} s; resumed in {wall_r:.2f} s: model "
+        "bytes and objective history equal")
     out.update(subprocess_s=sub_s, resume_s=wall_r)
     say("  (b) both sparse kernels on every block's slab")
     out["max_abs_err"] = (hold_block_slabs(torch, fused_sparse, manifest, "(b)")
@@ -4654,6 +4655,10 @@ def phase_retrain(torch, fused_sparse, workdir, stream_game, dev="cuda"):
     out.update(blocks=by, frozen_blocks=len(frozen), frozen_users=len(frozen_users),
                dirty_users=len(dirty), max_abs_err=errs, fixed_max_abs_err=fixed_err,
                launches={"cold": cold["launches"], "short-circuit": la, "delta": lb})
+    # what phase 26 (d) is held against: the delta file, the run, its frozen users
+    out["_delta_b"] = {"file": os.path.join(workdir, "skew", "train", "part-00001.avro"),
+                       "dir": dir_b, "n_new": n_new, "mid_users": mid_users,
+                       "frozen_users": sorted(frozen_users)}
 
     # (c) and (d): in-memory bucketed warm starts and the planner, 2000 users
     small = os.path.join(workdir, "skew-small")
@@ -4772,44 +4777,52 @@ def _free_init(workdir):
     return f"file://{os.path.join(workdir, 'pg-' + uuid.uuid4().hex)}"
 
 
-def start_rank_group(module, argv, world, workdir, label, hold=False):
+def start_rank_group(module, argv, world, workdir, label, hold=False, plain=False, env=None):
     """Start ``world`` processes of ``python -m
     photon_ml_tpu_torch.cli.<module>`` on the card with one file://
     rendezvous; every rank starts with its kernel counts at 0 (a fresh
     process). With ``hold`` each rank runs the training driver through this
     script's HOLD_RANK mode, which then holds the kernels on the rank's own
-    coordinates. Each rank's output goes to files under ``workdir`` (a pipe
-    nobody reads while another group is joined could fill). Returns the
-    handle ``join_rank_group`` takes."""
-    init = _free_init(workdir)
-    env = dict(os.environ, PHOTON_SPARSE_KERNEL="pallas")
+    coordinates. ``plain`` starts one process of the module with ``argv``
+    alone (no rendezvous), ``env`` replaces the environment. Each rank's
+    output goes to files under ``workdir`` (a pipe nobody reads while
+    another group is joined could fill). Returns the handle
+    ``join_rank_group`` takes."""
+    env = env or dict(os.environ, PHOTON_SPARSE_KERNEL="pallas")
     head = ([os.path.abspath(__file__), HOLD_RANK] if hold
             else ["-m", f"photon_ml_tpu_torch.cli.{module}"])
+    mh = [] if plain else ["--multihost-coordinator", _free_init(workdir),
+                           "--multihost-num-processes", str(world)]
     tag = re.sub(r"\W+", "-", label).strip("-")
     logs = [tuple(open(os.path.join(workdir, f"{tag}-rank{r}.{k}"), "w+")
                   for k in ("out", "err")) for r in range(world)]
     t0, launched_at = time.perf_counter(), time.time()
     procs = [subprocess.Popen(
-        [sys.executable] + head + [
-         "--multihost-coordinator", init, "--multihost-num-processes", str(world),
-         "--multihost-process-id", str(r)] + argv,
+        [sys.executable] + head + mh + ([] if plain else ["--multihost-process-id", str(r)])
+        + argv,
         cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=out, stderr=err,
         text=True) for r, (out, err) in enumerate(logs)]
-    return label, procs, logs, t0, launched_at
+    # each rank's exit time, taken when it exits, however late the join
+    exited = [None] * world
+
+    def watch(r, proc):
+        proc.wait()
+        exited[r] = (time.perf_counter(), time.time())
+
+    for r, proc in enumerate(procs):
+        threading.Thread(target=watch, args=(r, proc), daemon=True).start()
+    return label, procs, logs, t0, launched_at, exited
 
 
-def join_rank_group(handle):
+def join_rank_group(handle, expect_rc=0):
     """Wait for a started group under MH_TIMEOUT_S (killing it and failing
-    past that); fail if a rank exited non-zero. Returns (wall, [(returncode,
+    past that); fail if a rank exited other than ``expect_rc``. Returns (wall, [(returncode,
     stdout, stderr, launched_at, exited_at)]): epoch seconds, each rank's
-    exit within the 0.05 s poll."""
-    label, procs, logs, t0, launched_at = handle
-    exited = [None] * len(procs)
+    exit as its watcher saw it, so a group joined after it ended keeps its
+    own wall."""
+    label, procs, logs, t0, launched_at, exited = handle
     while None in exited:
-        for r, p_ in enumerate(procs):
-            if exited[r] is None and p_.poll() is not None:
-                exited[r] = (time.perf_counter(), time.time())
-        if None in exited and time.perf_counter() - t0 > MH_TIMEOUT_S:
+        if time.perf_counter() - t0 > MH_TIMEOUT_S:
             for p_ in procs:
                 p_.kill()
                 p_.wait()
@@ -4823,7 +4836,7 @@ def join_rank_group(handle):
         out.close()
         err.close()
     for r, (rc, _, err, *_) in enumerate(outs):
-        if rc != 0:
+        if rc != expect_rc:
             say(f"  {label} rank {r} exited {rc}; its stderr ends:\n{err[-4000:]}")
             fail(f"{label}: rank {r} exited {rc}")
     return max(t for t, _ in exited) - t0, outs
@@ -4931,9 +4944,20 @@ def run_multihost_in_process(torch, fused_sparse, argv, workdir):
 def hold_rank_kernels(torch, fused_glm, fused_sparse, result, label):
     """The kernels on one multihost rank's own coordinates, against their
     plain versions: the fused kernel on its fixed-effect rows, both sparse
-    kernels on its per-user slab. {"fused_glm", "gevm", "hvp"}: max |kernel
+    kernels on its per-user slab; under --streaming-random-effects both
+    sparse kernels on every block the rank owns (the streaming fixed
+    effect's chunk passes are the plain objective: no fused kernel on that
+    path, ``"fused_glm"`` None). {"fused_glm", "gevm", "hvp"}: max |kernel
     - plain|."""
+    from photon_ml_tpu_torch.parallel.perhost_streaming import (
+        PerHostStreamingRandomEffectCoordinate,
+    )
+
     coords = result["coordinates"]
+    re_coord = coords["per-user"]
+    if isinstance(re_coord, PerHostStreamingRandomEffectCoordinate):
+        return {"fused_glm": None, **hold_block_slabs(torch, fused_sparse, re_coord.manifest,
+                                                      label, device=re_coord._device)}
     held_ = {"fused_glm": hold_driver_fixed(torch, fused_glm, coords["fixed"],
                                             f"phase 25 {label}")}
     held_.update(hold_driver_slab(torch, fused_sparse, coords["per-user"].coordinate))
@@ -4941,8 +4965,8 @@ def hold_rank_kernels(torch, fused_glm, fused_sparse, result, label):
 
 
 def hold_rank(argv):
-    """One rank of phase 25 (c) (``chip_smoke.py --hold-rank <driver
-    flags>``): the multihost training driver, then the kernels held on
+    """One rank of phase 25 (c) or 26 (c) (``chip_smoke.py --hold-rank
+    <driver flags>``): the multihost training driver, then the kernels held on
     this rank's coordinates. The driver has written its summary, launch
     counts included, before the holds launch anything; the holds go to
     kernel-holds-<rank>.json beside it."""
@@ -4971,7 +4995,7 @@ def phase_multihost(torch, fused_sparse, fused_glm, workdir, dev="cuda"):
     versions. (d) the multihost scoring driver, 2 ranks, on (c)'s model
     against the single-process scoring driver at elementwise; (e) (c)
     extended by one iteration resumes only the new updates; (d) and (e) run
-    side by side."""
+    side by side, started here and joined by ``finish_multihost``."""
     say(f"== phase 25: multi-process GAME training on phase 10's data ({GAME_USERS} users): "
         "--distributed, the multihost driver at 1 rank (NCCL) and 2 ranks (gloo, one card), "
         "multihost scoring, the 2-rank run resumed from its checkpoint")
@@ -5058,7 +5082,8 @@ def phase_multihost(torch, fused_sparse, fused_glm, workdir, dev="cuda"):
                             "objective_history": ranks[0]["objective_history"],
                             "auc": ranks[0]["validation_metrics"]["AUC"]}
         say(f"  ({key}) game_multihost_driver at {world} rank(s)"
-            + ("" if world == 1 else ", beside (a) and (b)") + f": backend {want_backend}, wall "
+            + ("" if world == 1 else ", beside (a), (b) and phase 26's (b)-(c) ranks")
+            + f": backend {want_backend}, wall "
             f"{wall:.2f} s (in the driver " + ", ".join(f"{r['wall_s']:.2f}" for r in ranks)
             + " s" + ("" if world == 1 else "; start-up " + ", ".join(
                 f"{r['startup_s']:.2f}" for r in ranks) + " s; set-up " + ", ".join(
@@ -5098,13 +5123,29 @@ def phase_multihost(torch, fused_sparse, fused_glm, workdir, dev="cuda"):
     group_e = start_rank_group("game_multihost_driver", ["--output-dir", o3, "--checkpoint-dir",
                                                          ckpt] + flags3, 2, workdir,
                                "(25e) extended to 3 iterations")
+    out["_groups"] = [group_d, group_e]
     try:
         single, swall = run_scoring(torch, ["--output-dir", os.path.join(workdir, "sp-scores")]
                                     + score_flags)
-        wall, _ = join_rank_group(group_d)
-        w3, outs = join_rank_group(group_e)
-    finally:
+    except BaseException:
         stop_rank_groups(group_d, group_e)
+        raise
+    out["_finish"] = {"single": single, "swall": swall, "steps_c": steps_c, "o3": o3,
+                      "ckpt": ckpt}
+    return out
+
+
+def finish_multihost(workdir, out):
+    """Phase 25 (d) and (e), joined after phase 26 (a) ran beside them and
+    beside 26 (d) and (e): (d)'s
+    multihost scores against the scoring driver's at elementwise; (e)
+    restored (c)'s step 4 and ran only steps 5-6."""
+    fin = out.pop("_finish")
+    group_d, group_e = out.pop("_groups")
+    single, swall, steps_c, o3, ckpt = (fin[k] for k in ("single", "swall", "steps_c", "o3",
+                                                          "ckpt"))
+    wall, _ = join_rank_group(group_d)
+    w3, outs = join_rank_group(group_e)
     got = _scores_by_uid(os.path.join(workdir, "mh-scores", "scores"))
     want = _scores_by_uid(os.path.join(workdir, "sp-scores", "scores"))
     check(got.shape == want.shape and np.allclose(got, want, rtol=ELEMENTWISE[0],
@@ -5113,7 +5154,9 @@ def phase_multihost(torch, fused_sparse, fused_glm, workdir, dev="cuda"):
     out["runs"]["d"] = {"backend": "gloo", "world": 2, "wall_s": wall, "single_wall_s": swall,
                         "max_abs_diff": float(np.max(np.abs(got - want))),
                         "auc_single": single.metrics["AUC"]}
-    say(f"  (d) multihost scoring at 2 ranks, beside (e): wall {wall:.2f} s; {len(got)} scores "
+    say(f"  (d) multihost scoring at 2 ranks, beside (e) and 26 (a), (d), (e): wall "
+        f"{wall:.2f} s; "
+        f"{len(got)} scores "
         f"within elementwise of the scoring driver's (max |diff| "
         f"{out['runs']['d']['max_abs_diff']:.3g}, single-process wall {swall:.2f} s)")
     resumed = _rank_summaries(o3, 2, outs)
@@ -5127,16 +5170,301 @@ def phase_multihost(torch, fused_sparse, fused_glm, workdir, dev="cuda"):
                         "rank_walls_s": [r["wall_s"] for r in resumed],
                         "launches_by_rank": [r["launches"] for r in resumed],
                         "steps": [steps_c, steps3]}
-    say(f"  (e) (c) extended to 3 iterations, beside (d): wall {w3:.2f} s (in the driver "
+    say(f"  (e) (c) extended to 3 iterations, beside (d) and 26 (a), (d), (e): wall {w3:.2f} s "
+        "(in the driver "
         + ", ".join(f"{r['wall_s']:.2f}" for r in resumed) + " s), restoring step 4 "
         f"(steps {steps_c}) and running only steps 5-6 ({steps3}); launches by rank "
         + "; ".join(str(r["launches"]) for r in resumed))
     return out
 
 
+def start_multihost_streaming(workdir, retrain, dev="cuda"):
+    """Phase 26's data and its rank groups (b) and (c), started after
+    phase 24 and run beside 26 (a): phase 20's rows in the same order over
+    MH_PARTS part files, an off-heap index of them, the streaming multihost
+    driver at 1 NCCL rank (b) and at 2 gloo ranks through --hold-rank (c).
+    Phase 24 (b)'s delta part file moves out of 22 (b)'s training dir (26
+    (a) runs 22 (b)'s command) into (d)'s. Returns what
+    ``phase_multihost_streaming`` takes."""
+    from photon_ml_tpu_torch.cli import feature_indexing
+
+    say(f"== phase 26 (start): phase 20's data ({SKEW_USERS} users) over {MH_PARTS} part files "
+        "and its off-heap index; the streaming multihost driver at 1 NCCL rank (b) and at 2 gloo "
+        "ranks (c), started beside 26 (a)")
+    delta_dir = os.path.join(workdir, "mh-skew-delta")
+    os.makedirs(delta_dir, exist_ok=True)
+    shutil.move(retrain["_delta_b"]["file"], os.path.join(delta_dir, f"part-{MH_PARTS:05d}.avro"))
+    data = os.path.join(workdir, "mh-skew")
+    t0 = time.perf_counter()
+    write_game_avro(data, SKEW_USERS, SEED + 20, rows_per_user=skewed_rows(SKEW_USERS, SKEW_SEED),
+                    parts=MH_PARTS)
+    idx = os.path.join(workdir, "index26")
+    feature_indexing.main(["--data-input-dirs", os.path.join(data, "train"), "--output-dir", idx,
+                           "--partition-num", "8", "--format", "OFFHEAP",
+                           "--feature-shard-id-to-feature-section-keys-map",
+                           "global:fixedFeatures|per_user:userFeatures"])
+    data_s = time.perf_counter() - t0
+    say(f"  Avro over {MH_PARTS} part files and the off-heap index in {data_s:.1f} s")
+    flags = ["--train-input-dirs", os.path.join(data, "train"),
+             "--validate-input-dirs", os.path.join(data, "validate"), "--device", dev,
+             "--offheap-indexmap-dir", idx, "--delete-output-dir-if-exists", "true",
+             "--streaming-random-effects", "true", "--re-memory-budget-mb",
+             str(STREAM_BUDGET_MB)] + GAME_FLAGS
+    groups = [start_rank_group("game_multihost_driver",
+                               ["--output-dir", os.path.join(workdir, f"out26{key}")] + flags,
+                               world, workdir, f"(26{key})", hold=world > 1)
+              for key, world in (("b", 1), ("c", 2))]
+    return {"data": data, "idx": idx, "flags": flags, "data_s": data_s, "groups": groups,
+            "delta_dir": delta_dir}
+
+
+def phase_multihost_streaming(torch, fused_sparse, workdir, stream_game, started, dev="cuda"):
+    """Phase 26, last, beside phase 25, on phase 20's data over MH_PARTS
+    part files with an off-heap index of them: per-host streaming GAME
+    training. (b) (started before phase 25) the multihost driver, 1 NCCL
+    rank, streaming: per-user
+    coefficients held against 22 (b) by phase 25's limits, the fixed effect
+    at ``solver``; (c) (started with (b)) the same at 2 gloo ranks on the
+    one card: every coefficient bitwise (b)'s, each rank's GEVM and HVP
+    bitwise their plain versions on its owned blocks (--hold-rank). Then
+    starts (d) and (e), which ``finish_multihost_streaming`` joins: (d)
+    --warm-start-from (c) with phase 24 (b)'s delta part file beside (c)'s
+    files; (e) --warm-start-from (c) on (c)'s own files; and beside them
+    runs (a), the GAME driver with --distributed --streaming-random-effects
+    on a 1-rank NCCL group: 22 (b)'s first run's model bytes."""
+    prior_dir, base22 = stream_game["_prior"]
+    data, idx, flags = started["data"], started["idx"], started["flags"]
+    group_b, group_c = started["groups"]
+    say(f"== phase 26: per-host streaming GAME training on phase 20's data over {MH_PARTS} part "
+        f"files, --re-memory-budget-mb {STREAM_BUDGET_MB}: --distributed "
+        "--streaming-random-effects, the multihost driver streaming at 1 rank (NCCL) and 2 ranks "
+        "(gloo, one card), --warm-start-from at 2 ranks")
+    out = {"runs": {}, "data_s": started["data_s"]}
+    joined = {"b": join_rank_group(group_b), "c": join_rank_group(group_c)}
+    phase22 = _game_models(prior_dir, idx)
+    models, holds = {}, {"b": []}
+    for key, world in (("b", 1), ("c", 2)):
+        o = os.path.join(workdir, f"out26{key}")
+        wall, outs_ = joined[key]
+        ranks = _rank_summaries(o, world, outs_)
+        if world > 1:
+            for r in range(world):
+                with open(os.path.join(o, f"kernel-holds-{r}.json")) as f:
+                    holds["c"] = holds.get("c", []) + [json.load(f)]
+            for h in holds["c"]:
+                check(h["gevm"] == 0.0 and h["hvp"] == 0.0,
+                      f"26 (c) a rank's sparse kernels are not bitwise their plain version on "
+                      f"its blocks: {h}")
+        want_backend = "nccl" if world == 1 else "gloo"
+        check(all(r["backend"] == want_backend for r in ranks),
+              f"26 ({key}) backends {[r['backend'] for r in ranks]}, not {want_backend}")
+        check(all(r["objective_history"] == ranks[0]["objective_history"] for r in ranks),
+              f"26 ({key}) the ranks walked different trajectories")
+        for r, summary in enumerate(ranks):
+            check(summary["launches"]["gevm"] > 0,
+                  f"26 ({key}) rank {r} launched {summary['launches']}: GEVM did not launch")
+        blocks = [sorted(r["streaming_blocks"]["per-user"]) for r in ranks]
+        check(sorted(g for b in blocks for g in b) == list(range(len(stream_game["blocks"]))),
+              f"26 ({key}) owned blocks {blocks} are not a split of 22 (b)'s "
+              f"{len(stream_game['blocks'])} blocks")
+        parts = sorted(os.listdir(os.path.join(o, "best", "random-effect", "per-user",
+                                               "coefficients")))
+        check(len(parts) == world, f"26 ({key}) random-effect part files {parts}")
+        models[key] = _game_models(o, idx)
+        out["runs"][key] = {"backend": want_backend, "world": world, "wall_s": wall,
+                            "rank_walls_s": [r["wall_s"] for r in ranks],
+                            "blocks_by_rank": blocks,
+                            "launches_by_rank": [r["launches"] for r in ranks],
+                            "lane_iterations_by_rank": [r["block_lane_iterations"]
+                                                        for r in ranks],
+                            "kernel_holds_by_rank": holds[key],
+                            "objective_history": ranks[0]["objective_history"],
+                            "auc": ranks[0]["validation_metrics"]["AUC"]}
+        say(f"  ({key}) game_multihost_driver --streaming-random-effects at {world} rank(s)"
+            + ", beside phase 25" + ("" if world == 1 else " and (b)")
+            + f": backend {want_backend}, wall {wall:.2f} s (in the driver "
+            + ", ".join(f"{r['wall_s']:.2f}" for r in ranks) + " s), blocks by rank "
+            + "; ".join(str(b) for b in blocks) + ", launches by rank "
+            + "; ".join(str(r["launches"]) for r in ranks) + ", block lane-iterations by rank "
+            + ", ".join(str(r["block_lane_iterations"]) for r in ranks)
+            + f", AUC {ranks[0]['validation_metrics']['AUC']:.6f}, parts {parts}"
+            + ("" if world == 1 else "; each rank's GEVM and HVP bitwise their plain versions "
+               "on its owned blocks' slabs"))
+    worst, outside, bitwise = models_held("26 (b) against 22 (b)", models["b"], phase22)
+    out["runs"]["b"].update(max_abs_diff_vs_22b=worst, users_outside_vs_22b=outside,
+                            bitwise_vs_22b=bitwise)
+    say(f"  (b) held against 22 (b): max |diff| {worst:.3g}; bitwise {bitwise}")
+    same = (np.array_equal(models["c"][0], models["b"][0]) and set(models["c"][1])
+            == set(models["b"][1]) and all(np.array_equal(models["c"][1][k], models["b"][1][k])
+                                           for k in models["b"][1]))
+    check(same, "26 (c): the 2-rank coefficients are not bitwise (b)'s")
+    gevm_b = out["runs"]["b"]["launches_by_rank"][0]["gevm"]
+    gevm_c = [n["gevm"] for n in out["runs"]["c"]["launches_by_rank"]]
+    check(sum(gevm_c) == gevm_b,
+          f"26 (c): GEVM launches by rank {gevm_c} do not sum to (b)'s {gevm_b}")
+    say("  (c) every coefficient (fixed effect and each user's) bitwise (b)'s; GEVM launches by "
+        f"rank {gevm_c} sum to (b)'s {gevm_b}")
+    out["max_abs_err"] = {k: max(h[k] for h in holds["c"]) for k in ("gevm", "hvp")}
+
+    # (d) phase 24 (b)'s delta part file; (e) (c)'s own files: both warm
+    # from (c), side by side
+    out_c = os.path.join(workdir, "out26c")
+    # (c)'s part files where they were, the delta file after them
+    flags_d = list(flags)
+    flags_d[flags_d.index("--train-input-dirs") + 1] = (os.path.join(data, "train") + ","
+                                                         + started["delta_dir"])
+    started["groups"] += [
+        start_rank_group("game_multihost_driver", ["--output-dir", os.path.join(
+            workdir, "out26d"), "--warm-start-from", out_c] + flags_d, 2, workdir, "(26d)"),
+        start_rank_group("game_multihost_driver", ["--output-dir", os.path.join(
+            workdir, "out26e"), "--warm-start-from", out_c] + flags, 2, workdir, "(26e)")]
+    # (a) the single-process driver's per-host streaming coordinate on a
+    # 1-rank group, 22 (b)'s first command plus --distributed
+    out_a = os.path.join(workdir, "out26a")
+    driver, wall, launches, stages, _ = run_game_training(
+        torch, fused_sparse, base22 + ["--output-dir", out_a, "--distributed", "true"]
+        + GAME_FLAGS, "pallas")
+    with open(os.path.join(out_a, "photon-ml-tpu-game.log")) as f:
+        group = re.search(r"distributed: (\d+)-rank mesh \((\w+), ", f.read())
+    check(group is not None and group.groups() == ("1", "nccl"),
+          f"26 (a) did not run on a 1-rank NCCL group: {group and group.groups()}")
+    check("sharding=perhost_streaming" in driver.plan.describe(),
+          f"26 (a): {driver.plan.describe()}")
+    kernels_launched(driver, launches, "phase 26 (a)")
+    check(tree_bytes(os.path.join(out_a, "best")) == tree_bytes(os.path.join(prior_dir, "best")),
+          "26 (a) --distributed --streaming-random-effects did not write 22 (b)'s model bytes")
+    out["runs"]["a"] = {"backend": "nccl", "world": 1, "wall_s": wall, "launches": launches,
+                        "stages_s": stages}
+    say(_run_line("(a) --distributed --streaming-random-effects, beside (d) and (e)", driver,
+                  wall, launches, stages) + "; model bytes equal 22 (b)'s first run's")
+    out["_finish"] = {"models_c": models["c"], "idx": idx}
+    return out
+
+
+def finish_multihost_streaming(workdir, started, out, retrain):
+    """Phase 26 (d) and (e), run beside each other. (d) --warm-start-from
+    (c) with phase 24 (b)'s delta part file beside (c)'s four: the prior
+    blocking pinned, the blocks with no new rows frozen (their users'
+    coefficients bitwise (c)'s), the rest re-solved warm, on the plan both
+    ranks agree; each rank's GEVM launches below (c)'s; the new users in
+    the model; held against phase 24 (b), the single-process streaming
+    delta run of the same rows from 22 (b): the same frozen users, the
+    coefficients under phase 25's limits. (e) --warm-start-from (c) on
+    (c)'s files: both coordinates frozen on both ranks, (c)'s model bytes,
+    no GEVM launch."""
+    fin = out.pop("_finish")
+    delta_b = retrain["_delta_b"]
+    group_d, group_e = started["groups"][2:]
+    wall_d, outs_d = join_rank_group(group_d)
+    wall_e, outs_e = join_rank_group(group_e)
+    out_c = os.path.join(workdir, "out26c")
+    ranks_c = _rank_summaries(out_c, 2)
+    for key, wall, outs_ in (("d", wall_d, outs_d), ("e", wall_e, outs_e)):
+        o = os.path.join(workdir, f"out26{key}")
+        ranks = _rank_summaries(o, 2, outs_)
+        digests = [r["delta_digest"] for r in ranks]
+        check(digests[0] is not None and digests[0] == digests[1],
+              f"26 ({key}) the ranks' delta digests {digests} do not agree")
+        logs = []
+        for r in range(2):
+            with open(os.path.join(o, f"photon-ml-tpu-mh-{r}.log")) as f:
+                logs.append(f.read())
+        out["runs"][key] = {"backend": "gloo", "world": 2, "wall_s": wall,
+                            "rank_walls_s": [r["wall_s"] for r in ranks],
+                            "blocks_by_rank": [sorted(r["streaming_blocks"]["per-user"])
+                                               for r in ranks],
+                            "launches_by_rank": [r["launches"] for r in ranks],
+                            "lane_iterations_by_rank": [r["block_lane_iterations"]
+                                                        for r in ranks],
+                            "delta_digest": digests[0],
+                            "objective_history": ranks[0]["objective_history"]}
+        if key == "d":
+            frozen = []
+            for r in range(2):
+                check("fixed=dirty per-user=dirty" in logs[r]
+                      and "warm start: ['fixed', 'per-user'] seeded" in logs[r]
+                      and "; frozen [" not in logs[r],
+                      f"26 (d) rank {r} did not warm-start both coordinates")
+                found = re.search(r"freezing (\d+)/(\d+) unchanged blocks, (\d+) on this host",
+                                  logs[r])
+                check(found is not None, f"26 (d) rank {r} froze no block")
+                frozen.append(tuple(int(x) for x in found.groups()))
+                check(ranks[r]["launches"]["gevm"] < ranks_c[r]["launches"]["gevm"],
+                      f"26 (d) rank {r} launched GEVM {ranks[r]['launches']['gevm']} times, not "
+                      f"below (c)'s {ranks_c[r]['launches']['gevm']}")
+            n_frozen, n_blocks = frozen[0][:2]
+            frozen_g = [r["frozen_blocks"]["per-user"] for r in ranks]
+            check(n_frozen > 0 and sum(f[2] for f in frozen) == n_frozen
+                  and [len(g) for g in frozen_g] == [f[2] for f in frozen],
+                  f"26 (d) frozen blocks by rank {frozen}, by global id {frozen_g}")
+            from photon_ml_tpu_torch.parallel.perhost_streaming import (
+                EntityShardPlan,
+                PerHostStreamingManifest,
+            )
+
+            man_d = os.path.join(o, "streaming-re", "per-user", "process-0")
+            plan_d = EntityShardPlan.from_sidecars(man_d)
+            vocab_d = PerHostStreamingManifest.load(man_d).vocab
+            frozen_users = sorted(vocab_d[v] for g in frozen_g[0] + frozen_g[1]
+                                  for v in plan_d.blocks[g])
+            m_d = _game_models(o, fin["idx"])
+            check(all(np.array_equal(m_d[1][u], fin["models_c"][1][u]) for u in frozen_users),
+                  "26 (d): a frozen block's user moved from (c)'s coefficients")
+            new_users = [f"user{SKEW_USERS + j}" for j in range(RETRAIN_NEW_USERS)]
+            check(all(u in m_d[1] for u in new_users), "26 (d): a new user is missing")
+            mid_users = delta_b["mid_users"]
+            moved = sum(not np.array_equal(m_d[1][u], fin["models_c"][1][u]) for u in mid_users)
+            check(moved == len(mid_users), f"26 (d): {len(mid_users) - moved} dirty users did "
+                                           "not move")
+            # against phase 24 (b): the same rows, the same pinning rule
+            check(frozen_users == delta_b["frozen_users"],
+                  f"26 (d) froze {len(frozen_users)} users, 24 (b) "
+                  f"{len(delta_b['frozen_users'])}: not the same users")
+            worst, outside, _ = models_held("26 (d) against 24 (b)", m_d,
+                                            _game_models(delta_b["dir"], fin["idx"]))
+            out["runs"]["d"].update(delta_rows=delta_b["n_new"], mid_block_users=len(mid_users),
+                                    mid_users_moved=moved, frozen_blocks=n_frozen,
+                                    blocks=n_blocks, frozen_users=len(frozen_users),
+                                    frozen_by_rank=[f[2] for f in frozen],
+                                    max_abs_diff_vs_24b=worst, users_outside_vs_24b=outside)
+            say(f"  (d) --warm-start-from (c) with phase 24 (b)'s delta part file "
+                f"({delta_b['n_new']} rows: 2 for each of the {len(mid_users)} users of the "
+                f"middle block, 4-12 for each of {RETRAIN_NEW_USERS} new users), 2 ranks beside "
+                "(e), (a) and 25 (d)-(e): wall "
+                f"{wall:.2f} s; the prior blocking pinned: {n_frozen} of {n_blocks} blocks "
+                f"frozen (by rank {[f[2] for f in frozen]}; {len(frozen_users)} users bitwise "
+                f"(c)'s, the users 24 (b) froze), the rest re-solved warm, on the plan both "
+                f"ranks agree (digest "
+                f"{digests[0]}); {moved} of the middle block's users moved; GEVM launches by "
+                "rank " + ", ".join(str(r["launches"]["gevm"]) for r in ranks) + " against (c)'s "
+                + ", ".join(str(r["launches"]["gevm"]) for r in ranks_c)
+                + "; block lane-iterations by rank "
+                + ", ".join(str(r["block_lane_iterations"]) for r in ranks) + " against (c)'s "
+                + ", ".join(str(r["block_lane_iterations"]) for r in ranks_c))
+        else:
+            for r in range(2):
+                check("frozen ['fixed', 'per-user']" in logs[r],
+                      f"26 (e) rank {r} did not freeze both coordinates")
+                check(ranks[r]["launches"]["gevm"] == 0,
+                      f"26 (e) rank {r} launched GEVM {ranks[r]['launches']['gevm']} times")
+            check(tree_bytes(os.path.join(o, "best")) == tree_bytes(os.path.join(out_c, "best")),
+                  "26 (e): the frozen run's model bytes differ from (c)'s")
+            say(f"  (e) --warm-start-from (c) on (c)'s files, 2 ranks beside (d), (a) and 25 "
+                "(d)-(e): "
+                f"wall {wall:.2f} s; both coordinates frozen, every owned block on both ranks "
+                "(blocks " + "; ".join(str(b) for b in out["runs"]["e"]["blocks_by_rank"])
+                + f"), model bytes equal (c)'s, digest {digests[0]} agreed, GEVM launches 0")
+    return out
+
+
 CUTS = [
-    "phase 25: (c)'s two ranks run beside (a) and (b) in this process, and (d) beside (e) "
-    "(each only reads what the runs before it wrote)",
+    "phases 25 and 26 run last, side by side (each only reads what the runs before it wrote): "
+    "26 (b)'s rank and (c)'s two ranks start before phase 25 and run beside it; 25 (c)'s two "
+    "ranks run beside 25 (a) and (b) in this process; 25 (d)'s and (e)'s ranks and 26 (d)'s "
+    "and (e)'s run beside each other and beside 26 (a) in this process; no rank group runs "
+    "beside any other phase",
+    "phase 22 (b): the subprocess stopped at a block boundary runs beside the depth-0 and "
+    "--solve-compaction runs (it only reads the tensor cache the first run filled)",
     "graph timings of a slow call replay the graph fewer times (as many as fill 1.5 s of device "
     "time, at least 5): phase 15's deterministic scatter is timed over 5 replays, not 30",
     f"phase 17: phase 10's generator and widths at {CHECKPOINT_USERS} users, not "
@@ -5239,31 +5567,46 @@ def main() -> None:
     sparse_err = timed("7", phase_sparse_vs_plain, torch, fused_sparse, losses)
     sparse_times = timed("8", phase_sparse_times, torch, fused_sparse, losses)
     re_runs = timed("9", phase_re_solve, torch, fused_sparse, sparse_times["full width"])
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as workdir:
-        game_runs, trained = timed("10", phase_game_driver, torch, fused_sparse, workdir)
-        timed("11", phase_ingest, workdir, trained)
-        timed("12", phase_scoring, torch, workdir, trained)
-        timed("13", phase_offheap, torch, fused_sparse, workdir, trained)
+    # phase 10's dir stays until phase 25, which runs last, beside 26
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as game_dir:
+        game_runs, trained = timed("10", phase_game_driver, torch, fused_sparse, game_dir)
+        timed("11", phase_ingest, game_dir, trained)
+        timed("12", phase_scoring, torch, game_dir, trained)
+        timed("13", phase_offheap, torch, fused_sparse, game_dir, trained)
         timed("14", phase_random_projection, torch, trained)
-        checkpoints = timed("17", phase_checkpoints, torch, fused_sparse, workdir)
-        game_grid = timed("19ab", phase_game_grid, torch, fused_sparse, workdir)
-        cache_game = timed("22c", phase_cache_game, torch, fused_sparse, workdir)
-        serving = timed("23", phase_serving, torch, workdir)
-        multihost = timed("25", phase_multihost, torch, fused_sparse, fused_glm, workdir)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as workdir:
-        sparse_glm = timed("15", phase_sparse_glm, torch, fused_sparse, losses, workdir)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as workdir:
-        wide = timed("16", phase_game_wide, torch, fused_sparse, workdir)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_full_") as workdir:
-        full_game = timed("19c", phase_full_game, torch, fused_sparse, workdir)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_bucketed_") as workdir:
-        bucketed = timed("20", phase_bucketed, torch, fused_sparse, workdir)
-        scheduler = timed("21", phase_scheduler, torch, fused_sparse, workdir, bucketed)
-        dense_bits = timed("21f", phase_dense_stack_bits, torch)
-        stream_game = timed("22b", phase_streaming_game, torch, fused_sparse, workdir,
-                            bucketed.pop("_inmemory"))
-        retrain = timed("24", phase_retrain, torch, fused_sparse, workdir, stream_game)
-        stream_game.pop("_prior")
+        checkpoints = timed("17", phase_checkpoints, torch, fused_sparse, game_dir)
+        game_grid = timed("19ab", phase_game_grid, torch, fused_sparse, game_dir)
+        cache_game = timed("22c", phase_cache_game, torch, fused_sparse, game_dir)
+        serving = timed("23", phase_serving, torch, game_dir)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as sparse_dir:
+            sparse_glm = timed("15", phase_sparse_glm, torch, fused_sparse, losses, sparse_dir)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as workdir:
+            wide = timed("16", phase_game_wide, torch, fused_sparse, workdir)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_full_") as workdir:
+            full_game = timed("19c", phase_full_game, torch, fused_sparse, workdir)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_bucketed_") as workdir:
+            bucketed = timed("20", phase_bucketed, torch, fused_sparse, workdir)
+            scheduler = timed("21", phase_scheduler, torch, fused_sparse, workdir, bucketed)
+            dense_bits = timed("21f", phase_dense_stack_bits, torch)
+            stream_game = timed("22b", phase_streaming_game, torch, fused_sparse, workdir,
+                                bucketed.pop("_inmemory"))
+            retrain = timed("24", phase_retrain, torch, fused_sparse, workdir, stream_game)
+            # phases 25 and 26 last, side by side: their rank groups run
+            # beside each other and beside 25 (a)-(b) and 26 (a), no other
+            # phase; a failed check stops every group
+            started = timed("26start", start_multihost_streaming, workdir, retrain)
+            multihost = {}
+            try:
+                multihost = timed("25", phase_multihost, torch, fused_sparse, fused_glm,
+                                  game_dir)
+                mh_stream = timed("26", phase_multihost_streaming, torch, fused_sparse, workdir,
+                                  stream_game, started)
+                timed("25de", finish_multihost, game_dir, multihost)
+                timed("26de", finish_multihost_streaming, workdir, started, mh_stream, retrain)
+            finally:
+                stop_rank_groups(*started["groups"], *multihost.get("_groups", ()))
+            stream_game.pop("_prior")
+            retrain.pop("_delta_b")
     say(f"  -- the whole call {time.perf_counter() - start:.1f} s")
 
     bf16 = times["bfloat16"]
@@ -5274,6 +5617,14 @@ def main() -> None:
         runs = multihost["runs"]
         return {"a": runs["a"]["launches"][key],
                 **{f"{k}_rank{r}": n[key] for k in ("b", "c")
+                   for r, n in enumerate(runs[k]["launches_by_rank"])}}
+
+    def mh_stream_launches(key):
+        """Phase 26's launches: (a), then each rank of (b)-(e), each rank
+        counted from 0 in its own process."""
+        runs = mh_stream["runs"]
+        return {"a": runs["a"]["launches"][key],
+                **{f"{k}_rank{r}": n[key] for k in ("b", "c", "d", "e")
                    for r, n in enumerate(runs[k]["launches_by_rank"])}}
 
     kernels = [{
@@ -5295,6 +5646,7 @@ def main() -> None:
                               for k, v in bucketed["runs"].items()},
         "launches_delta_retrain": {k: v["fused_glm"] for k, v in retrain["launches"].items()},
         "launches_multihost": mh_launches("fused_glm"),
+        "launches_multihost_streaming": mh_stream_launches("fused_glm"),
         "max_abs_err": max(max_abs_err, game_runs["fixed_max_abs_err"],
                            game_grid["fixed_max_abs_err"], full_game["fixed_max_abs_err"],
                            bucketed["fixed_max_abs_err"], retrain["fixed_max_abs_err"],
@@ -5339,6 +5691,7 @@ def main() -> None:
             # phase 24: 22 (b)'s cold run, the short-circuited rerun, the delta run
             "launches_delta_retrain": {k: v[key] for k, v in retrain["launches"].items()},
             "launches_multihost": mh_launches(key),
+            "launches_multihost_streaming": mh_stream_launches(key),
             # replays launch through their graphs, not the wrappers: phase 21
             # (a)'s traced device-loop solve, by torch.profiler
             "launches_device_loop_traced": {
@@ -5347,7 +5700,7 @@ def main() -> None:
             "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key],
                                bucketed["max_abs_err"][key], scheduler["max_abs_err"][key],
                                stream_game["max_abs_err"][key], retrain["max_abs_err"][key],
-                               multihost["max_abs_err"][key]),
+                               multihost["max_abs_err"][key], mh_stream["max_abs_err"][key]),
             "ms": t["ms"],
             "graph_ms": t["graph_ms"],
             "host_ms": t["host_ms"],
@@ -5369,6 +5722,7 @@ def main() -> None:
                     "scheduler": scheduler, "dense_stack_bits": dense_bits,
                     "streaming": {"glm": stream_glm, "game": stream_game, "cache": cache_game},
                     "serving": serving, "retrain": retrain, "multihost": multihost,
+                    "multihost_streaming": mh_stream,
                     "phase_walls_s": walls, "cuts": CUTS, "card": card}, default=str))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))

@@ -9,14 +9,16 @@ chunk: chunk rows are contiguous, so a chunk's residuals are a slice of
 the global (N,) vector (Coordinate.scala:43-49, chunked).
 
 A drop-in for ``CoordinateDescent`` (``update`` / ``score`` /
-``initial_coefficients`` / ``regularization_term``). The per-host variant
-(chunks owned by processes, partials merged across them) is not yet ported.
+``initial_coefficients`` / ``regularization_term``).
+:class:`PerHostStreamingFixedEffectCoordinate` is the per-host variant: each
+rank streams the chunks it owns of a global chunk list and the per-chunk
+partials merge exactly across the ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +30,8 @@ from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem, _split_reg
 from photon_ml_tpu_torch.optim.streaming import (
     ChunkedGLMSource,
     lbfgs_minimize_streaming,
+    make_perhost_hvp,
+    make_perhost_value_and_grad,
     make_streaming_hvp,
     make_streaming_value_and_grad,
     pipelined_device_chunks,
@@ -138,6 +142,119 @@ class StreamingFixedEffectCoordinate:
             self._chunk_sizes)]
         return (torch.cat(outs) if outs
                 else torch.zeros((0,), dtype=real_dtype(), device=self._device))
+
+    def regularization_term(self, coefficients: Tensor) -> Tensor:
+        return self.problem.regularization_term_value(coefficients)
+
+
+@dataclasses.dataclass
+class PerHostStreamingFixedEffectCoordinate:
+    """Fixed-effect coordinate over a global chunk list of which this rank
+    owns some chunks (per-host streaming coordinate descent,
+    parallel/perhost_streaming.py): every evaluation streams the owned
+    chunks through the single-host coordinate's chunk arithmetic, the
+    per-chunk partials merge exactly across the ranks and every rank
+    replays the single-host fold, so the LBFGS or TRON trajectory is the
+    same on every rank and bitwise the single-host streaming run on the
+    same chunk list (optim/streaming.make_perhost_value_and_grad). Scoring
+    writes the owned chunks' margins into the global (N,) vector and merges
+    the disjoint writes exactly.
+
+    ``chunk_sizes`` is the global per-chunk row count (chunks tile [0, N)
+    in order; in the multihost driver a chunk is one input part file, so
+    ownership is the per-rank file share); ``owned_loaders`` maps this
+    rank's global chunk ids to loaders of {"x", "y", optional "offsets" /
+    "weights"} host dicts. The elastic re-plan hook is not yet ported."""
+
+    chunk_sizes: List[int]
+    owned_loaders: Dict[int, object]  # chunk id -> () -> host chunk dict
+    dim: int
+    problem: GLMOptimizationProblem
+    ctx: Optional[object] = None  # parallel.mesh.MeshContext
+    num_processes: int = 1
+    norm: NormalizationContext = dataclasses.field(default_factory=NormalizationContext.identity)
+    prefetch_depth: Optional[int] = None
+    bucketer: Optional[object] = None
+    # the resolved compile.plan.ExecutionPlan: fills the ladder and depth when unset
+    plan: Optional[object] = None
+    device: Optional[object] = None  # where chunks are evaluated (default cuda)
+    elastic: Optional[object] = None
+
+    def __post_init__(self):
+        from photon_ml_tpu_torch.compile.canonical import resolve_bucketer
+
+        if self.elastic is not None:
+            raise NotImplementedError("elastic (the re-plan monitor) on the per-host streaming "
+                                      "fixed effect is not yet ported to photon_ml_tpu_torch")
+        if self.num_processes > 1 and self.ctx is None:
+            raise ValueError("PerHostStreamingFixedEffectCoordinate needs a MeshContext to merge "
+                             "chunk partials across processes")
+        if self.plan is not None:
+            if self.bucketer is None:
+                self.bucketer = self.plan.bucketer or "off"
+            if self.prefetch_depth is None:
+                self.prefetch_depth = self.plan.prefetch_depth
+        self.bucketer = resolve_bucketer(self.bucketer)
+        self._device = resolve_device(self.device)
+        self._owned_ids = sorted(self.owned_loaders)
+        self._chunk_starts = np.concatenate([[0], np.cumsum(self.chunk_sizes)]).astype(np.int64)
+        self.num_rows = int(self._chunk_starts[-1])
+        # the factories close over this source; update swaps its loaders for
+        # the residual view
+        self._live_source = ChunkedGLMSource(
+            loaders=[self.owned_loaders[c] for c in self._owned_ids], dim=self.dim,
+            num_rows=sum(int(self.chunk_sizes[c]) for c in self._owned_ids))
+        l1, l2 = _split_reg_weight(self.problem.regularization, None)
+        self._l1, self._l2 = float(l1), float(l2)
+        kw = dict(l2_weight=self._l2, prefetch_depth=self.prefetch_depth, bucketer=self.bucketer,
+                  device=self._device)
+        args = (self._live_source, self._owned_ids, len(self.chunk_sizes),
+                self.problem.objective, self.norm, self.ctx, self.num_processes)
+        self._vg = make_perhost_value_and_grad(*args, **kw)
+        self._hvp = (make_perhost_hvp(*args, **kw)
+                     if self.problem.optimizer == OptimizerType.TRON else None)
+
+    def initial_coefficients(self) -> Tensor:
+        return torch.zeros((self.dim,), dtype=real_dtype(), device=self._device)
+
+    def _residual_loaders(self, residual_offsets) -> list:
+        """Owned-chunk loaders with the (N,) residuals folded into the
+        offsets: each chunk takes its contiguous global row slice."""
+        resid = torch.as_tensor(residual_offsets).detach().cpu().numpy()
+        loaders = []
+        for c in self._owned_ids:
+            lo, n_c = int(self._chunk_starts[c]), int(self.chunk_sizes[c])
+
+            def wrap(load=self.owned_loaders[c], lo=lo, n_c=n_c):
+                chunk = dict(load())
+                base = np.asarray(chunk.get("offsets", np.zeros(n_c, np.float32)))
+                chunk["offsets"] = base + resid[lo: lo + n_c]
+                return chunk
+
+            loaders.append(wrap)
+        return loaders
+
+    def update(self, residual_offsets: Tensor, init_coefficients: Tensor
+               ) -> Tuple[Tensor, OptResult]:
+        self._live_source.loaders = self._residual_loaders(residual_offsets)
+        return _streamed_update(self.problem, self._vg, self._hvp, self._l1, init_coefficients)
+
+    def score(self, coefficients: Tensor) -> Tensor:
+        """(N,) raw margins: the owned chunks' margins (the single-host
+        coordinate's ``x @ w_eff + shift``, pad rows sliced off) written
+        into their global rows, merged exactly across the ranks."""
+        from photon_ml_tpu_torch.parallel.perhost_streaming import disjoint_fill, merge_disjoint
+
+        self._live_source.loaders = [self.owned_loaders[c] for c in self._owned_ids]
+        w_eff = self.norm.effective_coefficients(coefficients)
+        shift = self.norm.margin_shift(w_eff)
+        local = disjoint_fill(self.num_rows, real_dtype(), self._device)
+        chunks = pipelined_device_chunks(self._live_source, real_dtype(), self.prefetch_depth,
+                                         self.bucketer, self._device)
+        for c, (x, _, _, _) in zip(self._owned_ids, chunks):
+            lo, n_c = int(self._chunk_starts[c]), int(self.chunk_sizes[c])
+            local[lo: lo + n_c] = (x @ w_eff + shift)[:n_c]
+        return merge_disjoint(local, self.ctx, self.num_processes)
 
     def regularization_term(self, coefficients: Tensor) -> Tensor:
         return self.problem.regularization_term_value(coefficients)

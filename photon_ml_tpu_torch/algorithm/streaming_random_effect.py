@@ -458,6 +458,9 @@ class StreamingRandomEffectCoordinate:
     frozen_blocks: Optional[frozenset] = None
     elastic: Optional[object] = None
     initial_epoch: int = 0
+    # the score buffer's entries before the blocks write theirs (the
+    # per-host subclass merges -0.0 where it owns no row)
+    _SCORE_FILL = 0.0
 
     def __post_init__(self):
         if self.elastic is not None:
@@ -511,7 +514,18 @@ class StreamingRandomEffectCoordinate:
         self._skipped_scores: dict = {}
         self.skip_decisions: list = []
 
+    def _make_state(self, dir_path: str) -> SpilledREState:
+        """The state under ``dir_path`` (the per-host subclass names its
+        spill files by global block id)."""
+        return SpilledREState(dir=dir_path, shapes=self._shapes)
+
     # -- adaptive-schedule plumbing (optim/convergence.py) -------------------
+    def _ledger_gid(self, i: int) -> int:
+        """The ledger key of local block ``i``: the block's global id in the
+        per-host subclass, ``i`` here (a single-host manifest holds every
+        block)."""
+        return int(i)
+
     def _ledger_dir(self) -> str:
         """The ledger sidecar's directory: next to the manifest, unless the
         manifest is a cache entry (then under this run's state root)."""
@@ -532,12 +546,13 @@ class StreamingRandomEffectCoordinate:
     def _record_block_result(self, i: int, res: OptResult) -> None:
         """Fold a solved block into the ledger and ``solve_stats``: the score
         is the largest lane gradient norm, the cost the lane-iterations."""
+        gid = self._ledger_gid(i)
         score = float(torch.max(res.grad_norm)) if res.grad_norm.numel() else 0.0
         executed = int(torch.sum(res.iterations))
         under = self.adaptive is not None and score < self.adaptive.tolerance
-        self._ledger.observe(i, score, executed=executed, epoch=self._epoch,
+        self._ledger.observe(gid, score, executed=executed, epoch=self._epoch,
                              under_tolerance=under)
-        solve_stats.record_block(f"g{i}", score=score, executed=executed)
+        solve_stats.record_block(f"g{gid}", score=score, executed=executed)
         self._adaptive_skipped.discard(i)
         self._skipped_scores.pop(i, None)
         self._save_ledger()
@@ -549,9 +564,10 @@ class StreamingRandomEffectCoordinate:
         degrades the epoch to visit-everything, recorded."""
         if self.adaptive is None or not pending:
             return pending, []
-        rank = {g: r for r, g in enumerate(self._ledger.order(pending))}
-        by_gap = sorted(pending, key=lambda i: rank[i])
-        candidates = [i for i in by_gap if self._ledger.should_skip(i, self.adaptive)]
+        gid_of = {i: self._ledger_gid(i) for i in pending}
+        rank = {g: r for r, g in enumerate(self._ledger.order(gid_of.values()))}
+        by_gap = sorted(pending, key=lambda i: rank[gid_of[i]])
+        candidates = [i for i in by_gap if self._ledger.should_skip(gid_of[i], self.adaptive)]
         if candidates:
             try:
                 faults.inject("optim.block_skip", epoch=self._epoch, blocks=len(candidates))
@@ -571,7 +587,7 @@ class StreamingRandomEffectCoordinate:
         return self.manifest.num_entities
 
     def initial_coefficients(self) -> SpilledREState:
-        return SpilledREState(dir=os.path.join(self.state_root, "init"), shapes=self._shapes)
+        return self._make_state(os.path.join(self.state_root, "init"))
 
     def _sub_for(self, ds: RandomEffectDataset, block: Optional[int] = None,
                  slab=None) -> RandomEffectCoordinate:
@@ -657,6 +673,20 @@ class StreamingRandomEffectCoordinate:
             arrays = {f"inner.{k}": v for k, v in inner["arrays"].items()}
         return {"meta": meta, "arrays": arrays}
 
+    def _resume_done_locals(self, m: dict, active) -> set:
+        """The local blocks a resume payload records as solved this epoch:
+        ``done_blocks`` when present, else the prefix of the active order
+        that ``blocks_done`` counts (older payloads)."""
+        if m.get("done_blocks") is not None:
+            return {int(i) for i in m["done_blocks"]}
+        return set(active[: int(m["blocks_done"])])
+
+    def _resume_inner_ok(self, m: dict) -> bool:
+        """Whether a paused block solve's scheduler snapshot may resume (the
+        per-host subclass drops it across a plan change; the block then
+        re-solves whole, bitwise the same)."""
+        return True
+
     def update(self, residual_offsets: Tensor, state: SpilledREState,
                resume: Optional[dict] = None) -> Tuple[SpilledREState, tuple]:
         """One block resident at a time: gather the block rows' residuals,
@@ -678,10 +708,9 @@ class StreamingRandomEffectCoordinate:
                                  "streaming-RE progress snapshot")
             # continue the interrupted epoch in place: its dir holds the done blocks
             self._epoch = int(m["epoch"])
-            new_state = SpilledREState(dir=m["epoch_dir"], shapes=self._shapes)
-            done_locals = ({int(i) for i in m["done_blocks"]} if m.get("done_blocks") is not None
-                           else set(active[: int(m["blocks_done"])]))
-            if m.get("inner") is not None:
+            new_state = self._make_state(m["epoch_dir"])
+            done_locals = set(self._resume_done_locals(m, active))
+            if m.get("inner") is not None and self._resume_inner_ok(m):
                 inner_resume = {"meta": m["inner"],
                                 "arrays": {k[len("inner."):]: v
                                            for k, v in (resume.get("arrays") or {}).items()
@@ -692,8 +721,7 @@ class StreamingRandomEffectCoordinate:
                 old_dir = os.path.join(self.state_root, f"epoch-{old}")
                 if os.path.abspath(old_dir) != os.path.abspath(state.dir):
                     shutil.rmtree(old_dir, ignore_errors=True)
-            new_state = SpilledREState(dir=os.path.join(self.state_root, f"epoch-{self._epoch}"),
-                                       shapes=self._shapes)
+            new_state = self._make_state(os.path.join(self.state_root, f"epoch-{self._epoch}"))
             done_locals = set()
         resid = torch.as_tensor(residual_offsets, device=self._device)
         # frozen blocks never solve: an atomic per-block copy of the
@@ -705,12 +733,13 @@ class StreamingRandomEffectCoordinate:
         pending, skipped = self._adaptive_partition(pending)
         if skipped:
             for i in skipped:
+                gid = self._ledger_gid(i)
                 new_state.write(i, state.block(i))
-                self._ledger.record_skip(i, epoch=self._epoch)
-                solve_stats.record_block(f"g{i}", skipped=True)
+                self._ledger.record_skip(gid, epoch=self._epoch)
+                solve_stats.record_block(f"g{gid}", skipped=True)
                 self.skip_decisions.append(PlanDecision(
                     "adaptive", "skipped",
-                    f"block g{i} scored under tolerance "
+                    f"block g{gid} scored under tolerance "
                     f"{self.adaptive.tolerance:g} for >= "
                     f"{self.adaptive.patience} consecutive epochs; epoch "
                     f"{self._epoch} carries its coefficients forward",
@@ -752,7 +781,8 @@ class StreamingRandomEffectCoordinate:
         """(N,) scores, block by block; a frozen block reuses the scores of
         its first pass, a skipped block those of its last pass (their
         coefficients have not changed since)."""
-        total = torch.zeros((self.manifest.num_rows,), dtype=real_dtype(), device=self._device)
+        total = torch.full((self.manifest.num_rows,), self._SCORE_FILL, dtype=real_dtype(),
+                           device=self._device)
         stream = []
         for i in range(len(self.manifest.blocks)):
             cached = None

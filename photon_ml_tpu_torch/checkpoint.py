@@ -41,8 +41,11 @@ per-rank entity blocks, are all-gathered in rank order into the global
 array), ONLY the coordinator writes, and a barrier fences the write; a
 restore agrees on the step with a collective min over every rank's latest
 complete step and hands each rank its own block of the sharded leaves. The
-directory is shared by the ranks. The plan-versioned elastic restore is not
-yet ported.
+directory is shared by the ranks. With ``per_rank=True`` (the per-host
+streaming coordinates, whose spilled-state references and mid-update
+progress are each rank's own) every rank writes its own directory instead,
+still fenced by a barrier, and the restore's collective min picks a step
+every rank holds. The plan-versioned elastic restore is not yet ported.
 """
 
 from __future__ import annotations
@@ -286,16 +289,19 @@ class CoordinateDescentCheckpointer:
     """Atomic per-step checkpoint writer/reader with retention."""
 
     def __init__(self, directory: str, run_fingerprint: str = "", keep: int = 2,
-                 multihost=None, sharded: Optional[Dict[str, Any]] = None):
-        """``multihost``/``sharded``: see the module docstring; ``sharded``
-        maps a coordinate to the indices of its state's leaves that are the
-        rank's entity block (a coordinate's ``rank_sharded_leaves``)."""
+                 multihost=None, sharded: Optional[Dict[str, Any]] = None,
+                 per_rank: bool = False):
+        """``multihost``/``sharded``/``per_rank``: see the module docstring;
+        ``sharded`` maps a coordinate to the indices of its state's leaves
+        that are the rank's entity block (a coordinate's
+        ``rank_sharded_leaves``)."""
         self.directory = directory
         self.run_fingerprint = run_fingerprint
         self.keep = max(keep, 1)
         self.multihost = multihost
         self.sharded = dict(sharded or {})
-        if multihost is None or multihost.coordinator_only_io():
+        self.per_rank = per_rank
+        if self.writes():
             os.makedirs(directory, exist_ok=True)
             self._sweep_stale_tmp()
 
@@ -307,6 +313,13 @@ class CoordinateDescentCheckpointer:
                 stale = os.path.join(self.directory, name)
                 logger.warning("removing stale checkpoint temp dir %s", stale)
                 shutil.rmtree(stale, ignore_errors=True)
+
+    def writes(self) -> bool:
+        """Whether this rank commits: always outside multihost, the
+        coordinator alone in a shared directory, every rank with
+        ``per_rank``."""
+        return (self.multihost is None or self.per_rank
+                or self.multihost.coordinator_only_io())
 
     def _gathers(self) -> bool:
         return (self.multihost is not None and self.multihost.num_processes > 1
@@ -405,7 +418,7 @@ class CoordinateDescentCheckpointer:
     def save(self, state: CheckpointState) -> str:
         arrays, meta = self._prepare(state)
         mh = self.multihost
-        if mh is not None and not mh.coordinator_only_io():
+        if not self.writes():
             # the other ranks fence the coordinator's write
             mh.barrier("ckpt-write")
             return os.path.join(self.directory, f"{STEP_PREFIX}{state.step}")

@@ -125,8 +125,7 @@ class AsyncCheckpointer:
         # (and, multihost, together on every rank: the sharded-leaf gather)
         arrays, meta = self.inner._prepare(state)
         final_dir = f"{self.inner.directory}/{STEP_PREFIX}{state.step}"
-        mh = self.inner.multihost
-        if mh is not None and not mh.coordinator_only_io():
+        if not self.inner.writes():
             # only the coordinator commits; the fence is wait()/close()
             return final_dir
         self._ensure_worker()

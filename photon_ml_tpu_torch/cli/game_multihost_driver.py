@@ -1,4 +1,4 @@
-"""Multi-process SPMD GAME training driver (port of the in-memory path of
+"""Multi-process SPMD GAME training driver (port of
 photon_ml_tpu/cli/game_multihost_driver.py).
 
 Every process runs this SAME program, one process per device: it decodes
@@ -19,10 +19,33 @@ combo's coefficients), plain, bucketed and factored random effects under
 the INDEX_MAP, RANDOM and IDENTITY projectors, ``--checkpoint-dir``
 (resuming at the step every process can restore), ``--max-restarts``,
 validation and ``retrain.json``. Feature maps must be prebuilt
-(``--offheap-indexmap-dir`` or a name-and-term path). Not yet ported, each
-raising and naming itself: ``--streaming-random-effects`` (and the
-``--solve-compaction`` that needs it), the multihost
-``--warm-start-from``, relaunch adoption and fixed-effect chunk ownership.
+(``--offheap-indexmap-dir`` or a name-and-term path).
+
+``--streaming-random-effects`` runs the per-host streaming path
+(parallel/perhost_streaming.py): the ranks agree the entity counts and the
+blocking, route each random-effect row once to its block's owner, and each
+rank builds and solves only its blocks under
+``<output>/streaming-re/<name>/process-<rank>/`` (``--solve-compaction``
+compacts each owned block, and is refused without streaming); the fixed
+effect streams one chunk per input part file, each rank its own files'
+chunks, the partials merged exactly, so the run is bitwise the single-host
+streaming descent on the same chunks and blocking. ``--warm-start-from``
+plans each rank's delta against the prior ``retrain.json`` and agrees it
+across the ranks in one collective; any disagreement or failure makes
+every rank train cold, recorded. With new or changed part files a
+streaming random effect pins the prior blocking (``_agree_delta_pins``)
+by the single-process delta build's rule (``retrain.delta.pin_prior_blocks``),
+so its blocks without new or lost rows freeze, bitwise the prior model;
+the JAX multihost driver freezes only a coordinate whose inputs are all
+unchanged. Not yet
+ported, each raising and naming itself: relaunch adoption of a prior
+cohort's layout and an adopted re-plan's fixed-effect chunk ownership (the
+elastic fleet).
+
+Each process's ``photon-ml-tpu-mh-<I>.json`` also records the streaming
+blocks it owned, the agreed delta-plan digest of a ``--warm-start-from``
+run, the blocks it froze (by global id), and its streaming blocks'
+executed lane-iterations.
 
 Run (one process per device):
 
@@ -232,17 +255,12 @@ def _check_multihost_support(p) -> None:
             "cycle over the whole grid cannot hold them)")
     from photon_ml_tpu_torch.optim.scheduler import resolve_schedule
 
-    if p.streaming_random_effects:
-        raise _not_ported("--streaming-random-effects under the multihost driver "
-                          "(per-host streaming)")
-    if resolve_schedule(p.solve_compaction) is not None:
+    if resolve_schedule(p.solve_compaction) is not None and not p.streaming_random_effects:
         raise ValueError(
             "multihost driver composes --solve-compaction with --streaming-random-effects "
-            "(each host compacts its owned blocks) — the in-memory per-host random-effect "
-            "solver runs one-shot; drop --solve-compaction (--streaming-random-effects "
-            "--solve-compaction is not yet ported to photon_ml_tpu_torch)")
-    if p.warm_start_from:
-        raise _not_ported("the multihost --warm-start-from (_prepare_multihost_warm)")
+            "(each host compacts its owned blocks; updates are owner-computes, no "
+            "collective) — the in-memory per-host random-effect solver runs one-shot; add "
+            "--streaming-random-effects or drop --solve-compaction")
 
 
 def _attempt_relaunch_adoption(p, mh, ctx, logger):
@@ -257,6 +275,160 @@ def _fe_chunk_share(all_files, adopted, mh, logger):
     if adopted:
         raise _not_ported("fixed-effect chunk ownership (an adopted re-plan's FE chunks)")
     return host_file_share(all_files, mh.num_processes, mh.process_id)
+
+
+def _attach_fe_ownership(mh, all_files, g_file_counts, streaming_manifests, logger) -> None:
+    """A fresh ingest records the per-host file split it used (chunk c is
+    input file c) into every streaming coordinate's plan sidecars, so a
+    later relaunch re-plan re-bases fixed-effect chunks as it does blocks."""
+    from photon_ml_tpu_torch.parallel.perhost_streaming import attach_fe_chunks_to_sidecars
+
+    owners = np.zeros(len(all_files), np.int32)
+    for pid in range(mh.num_processes):
+        for _, ordinal in host_file_share(all_files, mh.num_processes, pid):
+            owners[ordinal] = pid
+    for name, sm in streaming_manifests.items():
+        try:
+            attach_fe_chunks_to_sidecars(sm.dir, owners, g_file_counts)
+        except (OSError, ValueError) as e:
+            logger.warn(f"streaming RE {name}: could not record FE chunk ownership in the plan "
+                        f"sidecars ({e}) — a relaunch re-plan falls back to the positional "
+                        "file share")
+
+
+def _fe_chunk_loaders(gds, shard: str, dim: int) -> Dict[int, object]:
+    """One fixed-effect chunk per decoded input file, densified inside its
+    loader: one dense chunk is resident at a time, the CSR shards persist."""
+    loaders: Dict[int, object] = {}
+    for ordinal, gd in gds:
+        f = gd.shards[shard]
+
+        def load(f=f, gd=gd):
+            dense = np.zeros((gd.num_rows, dim), np.float32)
+            dense[np.repeat(np.arange(gd.num_rows), np.diff(f.indptr)), f.indices] = f.values
+            return {"x": dense, "y": gd.response.astype(np.float32),
+                    "offsets": gd.offset.astype(np.float32),
+                    "weights": gd.weight.astype(np.float32)}
+
+        loaders[ordinal] = load
+    return loaders
+
+
+def _agree_digest(canon: Optional[str], ctx, num_processes: int) -> Optional[int]:
+    """One collective vote on a rank's outcome: the SHA-256 of ``canon`` as
+    a non-negative int63, or the poison value -1 where ``canon`` is None
+    (this rank failed). Returns the digest every rank holds, None when any
+    rank failed or two disagree; every rank votes whatever happened."""
+    from photon_ml_tpu_torch.parallel.shuffle import collective_max
+
+    digest = (-1 if canon is None
+              else int.from_bytes(hashlib.sha256(canon.encode()).digest()[:8], "big") >> 1)
+    d = np.asarray([digest], np.int64)
+    dmax = int(collective_max(d, ctx, num_processes)[0])
+    dmin = -int(collective_max(-d, ctx, num_processes)[0])
+    return dmin if dmax == dmin and dmin >= 0 else None
+
+
+def _agree_delta_pins(p, mh, ctx, logger, all_files, id_types) -> Dict[str, tuple]:
+    """``--warm-start-from`` with streaming: each streaming random effect's
+    prior plan (its coordinator manifest's sidecars), the prior vocabulary,
+    the prior per-entity row counts and the dirty entities (raw ids with
+    rows in a new or changed file), which pin the prior blocking
+    (``perhost_streaming.pin_prior_blocking``, the single-process delta
+    build's rule) so that a delta retrain can freeze its unchanged blocks.
+    Every rank reads the same files; one vote compares a digest of the
+    outcome, and any disagreement or failure builds the fresh blocking
+    everywhere (the routing collectives need one blocking). Returns
+    {coordinate: (prior plan, prior vocab, prior row counts, dirty raw ids)}."""
+    if not p.warm_start_from or not p.streaming_random_effects:
+        return {}
+    from photon_ml_tpu_torch import retrain
+    from photon_ml_tpu_torch.parallel.perhost_streaming import (
+        EntityShardPlan,
+        PerHostStreamingManifest,
+        load_plan_entity_rows,
+    )
+
+    pins: Dict[str, tuple] = {}
+    canon, why = None, ""
+    try:
+        prior = retrain.load_prior_manifest(p.warm_start_from)
+        files = retrain.diff_files(prior.stat_by_path(), all_files)
+        dirty = retrain.probe_dirty_entities(files, id_types)
+        for name, dc in p.random_effect_data_configs.items():
+            rec = prior.coordinates.get(name)
+            if (name in p.factored_configs or rec is None or rec.kind != "streaming_random"
+                    or not rec.streaming_manifest_dir):
+                continue
+            prior_plan = EntityShardPlan.from_sidecars(rec.streaming_manifest_dir)
+            prior_rows = load_plan_entity_rows(rec.streaming_manifest_dir)
+            if prior_plan is None or prior_rows is None:
+                continue
+            prior_vocab = PerHostStreamingManifest.load(rec.streaming_manifest_dir).vocab
+            pins[name] = (prior_plan, prior_vocab, prior_rows,
+                          set(dirty.get(dc.random_effect_id, ())))
+        canon = json.dumps({n: [int(pin[0].version), len(pin[0].blocks),
+                                retrain.dirty_set_digest(pin[3])]
+                            for n, pin in sorted(pins.items())}, sort_keys=True)
+    except Exception as e:  # noqa: BLE001 — an unusable prior builds the fresh blocking (the warm agreement then decides the run), never one rank pinned alone
+        pins, why = {}, f"{type(e).__name__}: {e}"
+    if _agree_digest(canon, ctx, mh.num_processes) is None:
+        logger.warn("delta retrain: the prior blocking is not pinned on every host"
+                    + (f" (here: {why})" if why else "") + " — fresh blocking everywhere")
+        return {}
+    for name, pin in sorted(pins.items()):
+        logger.info(f"delta retrain [{name}]: prior blocking pinned, {len(pin[3])} dirty entities")
+    return pins
+
+
+def _build_streaming_manifest(p, plan, mh, ctx, name, dc, rows, all_files, logger, pin=None,
+                              pin_status=None):
+    """The per-host streaming ingest of one random effect: agree, plan,
+    route, build the owned blocks (through a shard-scoped tensor cache with
+    ``--tensor-cache``). ``pin`` (``_agree_delta_pins``' entry) pins the
+    prior blocking, and the blocks' statuses by global id go to
+    ``pin_status[name]``. Returns (manifest, cache key)."""
+    from photon_ml_tpu_torch.parallel.perhost_streaming import (
+        build_perhost_streaming_manifest,
+        pin_prior_blocking,
+    )
+
+    budget = int(p.re_memory_budget_mb * 1e6) if p.re_memory_budget_mb is not None else None
+    block_entities = None if budget is not None else 1024
+    pinned = None
+    if pin is not None:
+        prior_plan, prior_vocab, prior_rows, dirty_raw = pin
+
+        def pinned(vocab, counts):
+            blocks, statuses = pin_prior_blocking(
+                prior_plan, prior_vocab, prior_rows, vocab, counts, dirty_raw,
+                global_dim=rows.global_dim, active_upper_bound=dc.active_upper_bound,
+                block_entities=block_entities, memory_budget_bytes=budget)
+            pin_status[name] = statuses
+            return blocks
+
+    cache = cache_key = None
+    if p.tensor_cache_dir and pin is None:
+        from photon_ml_tpu_torch.io.tensor_cache import TensorCache, process_shard_scope
+
+        cache = TensorCache(p.tensor_cache_dir,
+                            shard_scope=process_shard_scope(mh.process_id, mh.num_processes))
+        bk = plan.bucketer
+        # keyed on the global file list: this rank's blocks hold rows routed
+        # from every rank's files, so a peer's input change must miss here
+        cache_key = cache.key_for(all_files, {
+            "kind": "perhost_streaming_re_blocks", "coord": name, "config": str(dc),
+            "budget": budget, "n_files": len(all_files),
+            "ladder": f"{bk.base}:{bk.growth:g}" if bk is not None else None})
+    manifest = build_perhost_streaming_manifest(
+        rows, dc, os.path.join(p.output_dir, "streaming-re", name, f"process-{mh.process_id}"),
+        ctx, mh.num_processes, mh.process_id,
+        block_entities=block_entities, memory_budget_bytes=budget,
+        # "off", never None: the plan already read PHOTON_SHAPE_LADDER
+        bucketer=plan.bucketer or "off", tensor_cache=cache, cache_key=cache_key, pin=pinned)
+    logger.info(f"streaming RE {name}: host {mh.process_id} owns {len(manifest.blocks)}/"
+                f"{manifest.num_blocks_total} blocks {manifest.global_block_ids}")
+    return manifest, cache_key
 
 
 def _shard_maps(p, needed_shards) -> Dict[str, object]:
@@ -332,15 +504,22 @@ def _main_once(mh_args: dict, p, entered_at: float, restart: bool = False) -> di
     with resilience.resilience_scope(io_resilience_config(
             p.on_corrupt, p.corrupt_skip_budget, p.io_retries, p.io_retry_base_delay)):
         out = _train(mh_args, p, mh, ctx, restart)
+    from photon_ml_tpu_torch.optim.scheduler import solve_stats
+
     out["wall_s"] = time.perf_counter() - t_start
     out["launches"] = kernel_launches()
+    # the streaming blocks' executed lane-iterations in this process
+    out["block_lane_iterations"] = sum(e["executed"] for e in solve_stats.block_totals().values())
     out["entered_at"], out["started_at"], out["finished_at"] = (entered_at, started_at,
                                                                 time.time())
     with open(os.path.join(p.output_dir, f"photon-ml-tpu-mh-{mh.process_id}.json"), "w") as f:
         json.dump({k: out[k] for k in ("process_id", "num_processes", "backend", "device",
                                        "wall_s", "launches", "objective_history",
                                        "validation_metrics", "num_rows", "entered_at",
-                                       "started_at", "finished_at")}, f, default=str)
+                                       "started_at", "finished_at", "streaming_blocks",
+                                       "delta_digest", "frozen_blocks",
+                                       "block_lane_iterations")}, f,
+                  default=str)
     return out
 
 
@@ -416,10 +595,23 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
 
     # ---- datasets, built once (combo-invariant) ------------------------------
     fe_coords: Dict[str, MultihostFixedEffectCoordinate] = {}
+    fe_chunks: Dict[str, tuple] = {}  # streaming: (chunk sizes, owned loaders, dim)
     re_datasets: Dict[str, object] = {}
+    streaming_manifests: Dict[str, object] = {}
+    coord_cache_keys: Dict[str, Optional[str]] = {}
+    # per-file row counts, the same on every rank: the streaming fixed
+    # effect's global chunk grid (chunk c is input file c)
+    g_file_counts = np.diff(np.append(file_base, n_global)).astype(np.int64)
+    pins = _agree_delta_pins(p, mh, ctx, logger, all_files, id_types)
+    pin_status: Dict[str, List[str]] = {}  # streaming coordinate -> status by global block
     for name in p.updating_sequence:
         if name in p.fixed_effect_data_configs:
             spec = p.fixed_effect_data_configs[name]
+            if p.streaming_random_effects:
+                dim = len(shard_maps[spec.feature_shard_id])
+                fe_chunks[name] = ([int(c) for c in g_file_counts],
+                                   _fe_chunk_loaders(gds, spec.feature_shard_id, dim), dim)
+                continue
             local = _local_game_data(gds, spec.feature_shard_id,
                                      len(shard_maps[spec.feature_shard_id]))
             batch = build_fixed_effect_batch(local, spec.feature_shard_id, dense=True,
@@ -440,6 +632,10 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
                 "shard space")
         rows = _host_rows(gds, file_base, dc.feature_shard_id, dc.random_effect_id,
                           len(shard_maps[dc.feature_shard_id]))
+        if p.streaming_random_effects and name not in p.factored_configs:
+            streaming_manifests[name], coord_cache_keys[name] = _build_streaming_manifest(
+                p, plan, mh, ctx, name, dc, rows, all_files, logger, pins.get(name), pin_status)
+            continue
         bucketed = p.bucketed_random_effects and name not in p.factored_configs
         re_datasets[name] = per_host_re_dataset(
             rows, ctx, mh.num_processes, mh.process_id,
@@ -448,9 +644,19 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
             projection_seed=dc.seed, projection_keep_intercept=dc.random_projection_intercept)
         logger.info(f"random effect {name}: {re_datasets[name].num_entities} entities, "
                     f"{re_datasets[name].entities_per_device} lanes on this process")
+    if streaming_manifests:
+        _attach_fe_ownership(mh, all_files, g_file_counts, streaming_manifests, logger)
+
+    # ---- --warm-start-from: every rank plans its delta, one collective agrees
+    warm_init, frozen_blocks, frozen_names, delta_digest = _prepare_multihost_warm(
+        p, mh, ctx, logger, plan, shard_maps, all_files, streaming_manifests, combos, pin_status)
+    stream_state_seq = [0]
 
     def build_coords(combo: Dict[str, CoordinateOptConfig]) -> Dict[str, object]:
         from photon_ml_tpu_torch.algorithm.factored_random_effect import MFOptimizationConfig
+        from photon_ml_tpu_torch.algorithm.streaming_fixed_effect import (
+            PerHostStreamingFixedEffectCoordinate,
+        )
         from photon_ml_tpu_torch.parallel.perhost_factored import (
             PerHostFactoredRandomEffectCoordinate,
         )
@@ -458,11 +664,36 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
             PerHostBucketedRandomEffectSolver,
             PerHostRandomEffectSolver,
         )
+        from photon_ml_tpu_torch.parallel.perhost_streaming import (
+            PerHostStreamingRandomEffectCoordinate,
+        )
 
         coords: Dict[str, object] = {}
         for name in p.updating_sequence:
             cfg = combo.get(name, CoordinateOptConfig())
-            if name in fe_coords:
+            if name in fe_chunks:
+                chunk_sizes, owned_loaders, dim = fe_chunks[name]
+                coords[name] = PerHostStreamingFixedEffectCoordinate(
+                    chunk_sizes, owned_loaders, dim,
+                    GLMOptimizationProblem(p.task_type, cfg.optimizer, cfg.optimizer_config(),
+                                           cfg.regularization_context()),
+                    ctx=ctx, num_processes=mh.num_processes, plan=plan, device=ctx.device)
+            elif name in streaming_manifests:
+                stream_state_seq[0] += 1
+                coords[name] = PerHostStreamingRandomEffectCoordinate(
+                    manifest=streaming_manifests[name], task=p.task_type,
+                    optimizer=cfg.optimizer, optimizer_config=cfg.optimizer_config(),
+                    regularization=cfg.regularization_context(),
+                    # spilled state per rank and combo, under this run's
+                    # output dir (never inside a shared cache entry)
+                    state_root=os.path.join(p.output_dir, "streaming-re-state",
+                                            f"{name}-host{mh.process_id}-{stream_state_seq[0]}"),
+                    # the schedule, the per-block sparse race, the depth
+                    plan=plan, device=ctx.device, ctx=ctx, num_processes=mh.num_processes,
+                    # the delta retrain's frozen blocks (local indices), set
+                    # only when every rank agreed to freeze the coordinate
+                    frozen_blocks=frozen_blocks.get(name))
+            elif name in fe_coords:
                 coords[name] = fe_coords[name].rebind(GLMOptimizationProblem(
                     p.task_type, cfg.optimizer, cfg.optimizer_config(),
                     cfg.regularization_context()))
@@ -516,8 +747,12 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
             from photon_ml_tpu_torch.checkpoint import CoordinateDescentCheckpointer, fingerprint
             from photon_ml_tpu_torch.checkpoint_async import maybe_async
 
+            # per-host streaming state is each rank's own: every rank keeps
+            # its own checkpoint dir, and the restore agrees on the step
+            per_rank = bool(streaming_manifests)
+            ck_dir = os.path.join(p.checkpoint_dir, f"combo-{i}")
             checkpointer = maybe_async(CoordinateDescentCheckpointer(
-                os.path.join(p.checkpoint_dir, f"combo-{i}"),
+                os.path.join(ck_dir, f"process-{mh.process_id}") if per_rank else ck_dir,
                 run_fingerprint=fingerprint({
                     "multihost": True,
                     "coordinates": p.updating_sequence,
@@ -528,13 +763,19 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
                 }),
                 multihost=mh,
                 sharded={n: c.rank_sharded_leaves for n, c in coords.items()
-                         if hasattr(c, "rank_sharded_leaves")}),
+                         if hasattr(c, "rank_sharded_leaves")},
+                per_rank=per_rank),
                 p.checkpoint_async)
         cd = CoordinateDescent(coords, loss_fn)
         try:
+            # combo 0 (every combo without --grid-warm-start) starts from
+            # the delta retrain's warm start; later combos under
+            # --grid-warm-start from the previous combo's coefficients
             result = cd.run(p.num_iterations, n_global, checkpointer,
-                            initial_params=(prev_coefficients if mh_args["grid_warm_start"]
-                                            else None))
+                            initial_params=(prev_coefficients
+                                            if mh_args["grid_warm_start"]
+                                            and prev_coefficients is not None else warm_init),
+                            frozen=frozen_names)
         finally:
             if checkpointer is not None and hasattr(checkpointer, "close"):
                 checkpointer.close()
@@ -583,6 +824,7 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
         else:
             dc = p.random_effect_data_configs[name]
             save = (_save_factored_parts if name in p.factored_configs
+                    else _save_streaming_re_parts if name in streaming_manifests
                     else _save_random_effect_parts)
             save(out, name, p, dc, coords[name], w, shard_maps[dc.feature_shard_id], mh)
         mh.barrier(f"saved-{name}")
@@ -590,7 +832,8 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
     if mh.coordinator_only_io():
         try:
             _write_mh_retrain_manifest(p, plan, out, shard_maps, combos, best_index,
-                                       train_file_stats, logger)
+                                       streaming_manifests, coord_cache_keys, train_file_stats,
+                                       logger, coord_objs=coords)
         except (OSError, TypeError, ValueError) as e:
             # a failed manifest write degrades tomorrow's run to cold; it
             # must not fail today's finished training run
@@ -610,6 +853,13 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
         "output": out,
         "coordinates": coords,
         "result": result,
+        # each streaming coordinate's owned global block ids
+        "streaming_blocks": {n: [int(g) for g in m.global_block_ids]
+                             for n, m in streaming_manifests.items()},
+        "delta_digest": delta_digest,
+        # a delta retrain's frozen blocks on this rank, by global block id
+        "frozen_blocks": {n: sorted(int(streaming_manifests[n].global_block_ids[i]) for i in fb)
+                          for n, fb in frozen_blocks.items() if n in streaming_manifests},
     }
 
 
@@ -626,15 +876,171 @@ def _mh_ingest_inputs(p, plan) -> Dict[str, object]:
     }
 
 
-def _write_mh_retrain_manifest(p, plan, best_dir, shard_maps, combos, best_index,
-                               train_file_stats, logger) -> None:
-    """The coordinator's ``retrain.json``: the next run's planner diffs
-    against it."""
+def _mh_eval_identity(p) -> Dict[str, object]:
+    """The validation side's identity (file stats and evaluator specs): a
+    changed validation set re-scores even when training has nothing to do."""
     from photon_ml_tpu_torch.cli.game_training_driver import (
         _input_files,
         resolve_date_range_dirs,
     )
-    from photon_ml_tpu_torch.io.tensor_cache import file_stat_token, index_map_digest
+    from photon_ml_tpu_torch.io.tensor_cache import file_stat_token
+
+    val_files = (_input_files(resolve_date_range_dirs(
+        p.validate_input_dirs, p.validate_date_range, p.validate_date_range_days_ago))
+        if p.validate_input_dirs else [])
+    return {"validate_files": file_stat_token(val_files),
+            "evaluators": [[etype.value, k, id_name]
+                           for etype, k, id_name in (p.evaluators or [])]}
+
+
+def _mh_ingest_digest(p, plan, shard_maps) -> str:
+    """SHA-256 of the ingest identity with each shard's feature-map digest
+    (the feature space a warm start needs)."""
+    from photon_ml_tpu_torch.io.tensor_cache import index_map_digest
+
+    cfg = dict(_mh_ingest_inputs(p, plan), index_maps={
+        shard: index_map_digest(imap) for shard, imap in sorted(shard_maps.items())})
+    return hashlib.sha256(json.dumps(cfg, sort_keys=True, default=str).encode()).hexdigest()
+
+
+def _blocking_unchanged(prior, name, manifest) -> bool:
+    """Whether the prior run's entity blocking is this run's (``block_of``
+    is a function of the agreed counts alone, so the check holds across
+    rank counts); False for a prior without plan sidecars."""
+    from photon_ml_tpu_torch.parallel.perhost_streaming import _PLAN_BLOCK_OF
+
+    rec = prior.coordinates.get(name)
+    if rec is None or not rec.streaming_manifest_dir:
+        return False
+    try:
+        prior_bo = np.load(os.path.join(rec.streaming_manifest_dir, _PLAN_BLOCK_OF))
+        cur_bo, _ = manifest.plan_arrays()
+    except OSError:
+        return False
+    return bool(np.array_equal(np.asarray(prior_bo), np.asarray(cur_bo)))
+
+
+def _prepare_multihost_warm(p, mh, ctx, logger, plan, shard_maps, all_files,
+                            streaming_manifests, combos, pin_status=None):
+    """``--warm-start-from``: every rank plans its own delta against the
+    prior ``retrain.json`` and builds its warm seeds, and one collective
+    compares a digest of the outcome (classification, warm and frozen sets)
+    across the ranks. A disagreement, or any rank's unusable prior (an
+    injected ``retrain.multihost_delta_agree`` fault included), makes every
+    rank train cold, recorded; no rank is left waiting in a collective.
+
+    A fixed effect warm-starts (and freezes when unchanged); a streaming
+    random effect is seeded for the rank's owned blocks and freezes every
+    owned block when the coordinate is unchanged and the prior blocking is
+    this run's, or, when its inputs moved under the pinned prior blocking
+    (``pin_status``) and its configuration did not, freezes the owned
+    blocks whose entities and rows are the prior's; an in-memory random
+    effect trains cold (its slabs are built by the shuffle, with no seeding
+    path). Returns ``(initial params or None, frozen blocks by coordinate,
+    frozen coordinate names, the agreed digest or None)``."""
+    if not p.warm_start_from:
+        return None, {}, set(), None
+    from photon_ml_tpu_torch import retrain
+    from photon_ml_tpu_torch.resilience import faults
+    from photon_ml_tpu_torch.retrain.delta import NEW
+
+    prior = delta = None
+    warm: Dict[str, object] = {}
+    frozen_blocks: Dict[str, frozenset] = {}
+    frozen: set = set()
+    canon, why = None, ""
+    try:
+        # the fault fires first and the vote runs after it, whatever
+        # happens: a failure poisons this rank's digest, and the rank still
+        # votes below
+        faults.inject("retrain.multihost_delta_agree", process=int(mh.process_id))
+        prior = retrain.load_prior_manifest(p.warm_start_from)
+        combo_configs = None
+        if len(combos) == 1:
+            combo_configs = {name: str(combos[0].get(name, CoordinateOptConfig()))
+                             for name in p.updating_sequence}
+        delta = retrain.plan_delta(prior, all_files, task=p.task_type.value,
+                                   updating_sequence=p.updating_sequence,
+                                   ingest_inputs=_mh_ingest_inputs(p, plan),
+                                   combo_configs=combo_configs,
+                                   eval_identity=_mh_eval_identity(p))
+        freezable = delta.frozen_coordinates() if len(combos) == 1 else set()
+        for name in p.updating_sequence:
+            cdelta = delta.coordinates.get(name)
+            if cdelta is None or cdelta.status == NEW:
+                continue
+            if name in p.fixed_effect_data_configs:
+                spec = p.fixed_effect_data_configs[name]
+                w0 = retrain.fixed_effect_init(prior.model_dir, name,
+                                               shard_maps[spec.feature_shard_id])
+                if w0 is None:
+                    logger.info(f"warm start {name}: prior fixed-effect model missing — cold")
+                    continue
+                warm[name] = torch.from_numpy(np.asarray(w0)).to(ctx.device)
+                if name in freezable:
+                    frozen.add(name)
+            elif name in streaming_manifests:
+                dc = p.random_effect_data_configs[name]
+                means = retrain.random_effect_entity_means(prior.model_dir, name,
+                                                           shard_maps[dc.feature_shard_id])
+                if means is None:
+                    logger.info(f"warm start {name}: prior random-effect model missing or "
+                                "factored — cold")
+                    continue
+                warm[name] = retrain.seed_perhost_spilled_state(
+                    streaming_manifests[name], means,
+                    os.path.join(p.output_dir, "retrain-warm", f"{name}-host{mh.process_id}"))
+                sm = streaming_manifests[name]
+                if name in freezable and _blocking_unchanged(prior, name, sm):
+                    frozen.add(name)
+                    # every owned block skips its solve, bitwise the prior
+                    frozen_blocks[name] = frozenset(range(len(sm.blocks)))
+                elif (name in (pin_status or {}) and combo_configs is not None
+                      and combo_configs[name] == prior.coordinates[name].opt_config):
+                    # the pinned prior blocking's unchanged blocks, by
+                    # their local index among this rank's blocks
+                    status = pin_status[name]
+                    frozen_blocks[name] = frozenset(
+                        i for i, g in enumerate(sm.global_block_ids) if status[g] == "unchanged")
+                    logger.info(f"delta retrain [{name}]: freezing "
+                                f"{sum(s_ == 'unchanged' for s_ in status)}/{len(status)} "
+                                f"unchanged blocks, {len(frozen_blocks[name])} on this host")
+            else:
+                logger.info(f"warm start {name}: no multihost warm path for this coordinate "
+                            "kind — cold")
+        canon = json.dumps({"status": {n: c.status for n, c in delta.coordinates.items()},
+                            "warm": sorted(warm), "frozen": sorted(frozen),
+                            "frozen_blocks": {n: sorted(g for g, st in enumerate(
+                                (pin_status or {}).get(n, ())) if st == "unchanged")
+                                for n in frozen_blocks}}, sort_keys=True)
+    except Exception as e:  # noqa: BLE001 — any unusable prior (bad JSON, a vanished model, an unwritable seed dir, an injected fault) degrades to a cold run, never a wrong warm result or a stranded collective
+        warm, frozen_blocks, frozen = {}, {}, set()
+        canon, why = None, f"{type(e).__name__}: {e}"
+    dmin = _agree_digest(canon, ctx, mh.num_processes)
+    if dmin is None:
+        logger.warn("--warm-start-from: delta plan disagrees across hosts or failed on at "
+                    "least one host"
+                    + (f" (here: {why})" if why else "")
+                    + " — retraining cold everywhere (recorded decision)")
+        return None, {}, set(), None
+    logger.info(f"delta retrain plan (agreed across {mh.num_processes} hosts, digest {dmin}): "
+                f"files {delta.files.describe()}; "
+                + " ".join(f"{n}={c.status}" for n, c in delta.coordinates.items()))
+    for line in delta.describe_decisions():
+        logger.info(f"delta retrain: {line}")
+    if warm:
+        logger.info(f"warm start: {sorted(warm)} seeded from {prior.model_dir}"
+                    + (f"; frozen {sorted(frozen)}" if frozen else ""))
+    return (warm or None), frozen_blocks, frozen, dmin
+
+
+def _write_mh_retrain_manifest(p, plan, best_dir, shard_maps, combos, best_index,
+                               streaming_manifests, coord_cache_keys, train_file_stats, logger,
+                               coord_objs=None) -> None:
+    """The coordinator's ``retrain.json``: the next run's planner diffs
+    against it. A streaming coordinate records the coordinator's manifest
+    dir (its plan sidecars name the run's blocking) and its convergence
+    ledger (the coordinator's own blocks, by global id)."""
     from photon_ml_tpu_torch.retrain.manifest import CoordinateRecord, RetrainManifest
 
     sel = combos[best_index]
@@ -642,24 +1048,23 @@ def _write_mh_retrain_manifest(p, plan, best_dir, shard_maps, combos, best_index
     for name in p.updating_sequence:
         kind = ("fixed" if name in p.fixed_effect_data_configs
                 else "factored" if name in p.factored_configs
+                else "streaming_random" if name in streaming_manifests
                 else "bucketed" if p.bucketed_random_effects else "random")
-        coords[name] = CoordinateRecord(kind=kind,
-                                        opt_config=str(sel.get(name, CoordinateOptConfig())))
-    ingest = _mh_ingest_inputs(p, plan)
-    digest = hashlib.sha256(json.dumps(dict(ingest, index_maps={
-        shard: index_map_digest(imap) for shard, imap in sorted(shard_maps.items())}),
-        sort_keys=True, default=str).encode()).hexdigest()
-    val_files = (_input_files(resolve_date_range_dirs(
-        p.validate_input_dirs, p.validate_date_range, p.validate_date_range_days_ago))
-        if p.validate_input_dirs else [])
+        sm = streaming_manifests.get(name)
+        export = getattr((coord_objs or {}).get(name), "ledger_export", None)
+        coords[name] = CoordinateRecord(
+            kind=kind, opt_config=str(sel.get(name, CoordinateOptConfig())),
+            cache_key=coord_cache_keys.get(name),
+            streaming_manifest_dir=os.path.abspath(sm.dir) if sm is not None else None,
+            shard_plan_version=int(getattr(sm, "plan_version", 1)) if sm is not None else 1,
+            convergence_ledger=(export() or None) if callable(export) else None)
     manifest = RetrainManifest(
         output_dir=os.path.abspath(p.output_dir), model_dir=os.path.abspath(best_dir),
-        task=p.task_type.value, file_stats=train_file_stats, ingest_inputs=ingest,
-        ingest_digest=digest, updating_sequence=list(p.updating_sequence),
-        coordinates=coords, data_cache_key=None,
-        eval_identity={"validate_files": file_stat_token(val_files),
-                       "evaluators": [[etype.value, k, id_name]
-                                      for etype, k, id_name in (p.evaluators or [])]})
+        task=p.task_type.value, file_stats=train_file_stats,
+        ingest_inputs=_mh_ingest_inputs(p, plan),
+        ingest_digest=_mh_ingest_digest(p, plan, shard_maps),
+        updating_sequence=list(p.updating_sequence), coordinates=coords, data_cache_key=None,
+        eval_identity=_mh_eval_identity(p))
     logger.info(f"retrain manifest written: {manifest.save(p.output_dir)}")
 
 
@@ -705,6 +1110,22 @@ def _save_random_effect_parts(out, name, p, dc, coord, w, imap, mh) -> None:
                 valid = lh[lane] >= 0
                 dense[lh[lane][valid]] = wh[lane][valid]
             records.append(model_io._model_record(raw, p.task_type, dense, None, imap))
+    avro_io.write_container(
+        os.path.join(base, model_io.COEFFICIENTS, f"part-{mh.process_id:05d}.avro"), records,
+        schemas.BAYESIAN_LINEAR_MODEL)
+
+
+def _save_streaming_re_parts(out, name, p, dc, coord, state, imap, mh) -> None:
+    """A per-host streaming random effect: each process writes ONE part file
+    with the entities of the blocks it owns (the spilled state never
+    crosses processes; the means come from block bookkeeping alone)."""
+    from photon_ml_tpu_torch.io import avro as avro_io
+    from photon_ml_tpu_torch.io import schemas
+
+    base = _re_dir(out, name, dc, mh, f"{dc.random_effect_id}\n{dc.feature_shard_id}\n")
+    means = coord.entity_means_by_raw_id(state)
+    records = [model_io._model_record(raw, p.task_type, np.asarray(vec, np.float32), None, imap)
+               for raw, vec in sorted(means.items())]
     avro_io.write_container(
         os.path.join(base, model_io.COEFFICIENTS, f"part-{mh.process_id:05d}.avro"), records,
         schemas.BAYESIAN_LINEAR_MODEL)
@@ -779,6 +1200,10 @@ def _validate(p, mh, ctx, coords, result, val_data) -> Dict[str, float]:
         PerHostFactoredRandomEffectCoordinate,
     )
     from photon_ml_tpu_torch.parallel.perhost_ingest import score_routed_rows
+    from photon_ml_tpu_torch.parallel.perhost_streaming import (
+        PerHostStreamingRandomEffectCoordinate,
+        score_routed_rows_streaming,
+    )
 
     vgds, file_base, nv = val_data["vgds"], val_data["file_base"], val_data["nv"]
     scores = val_data["offsets"].astype(np.float64).copy()
@@ -795,6 +1220,14 @@ def _validate(p, mh, ctx, coords, result, val_data) -> Dict[str, float]:
             scores += collective_sum(local, ctx, mh.num_processes)
             continue
         dc = p.random_effect_data_configs[name]
+        if isinstance(coord, PerHostStreamingRandomEffectCoordinate):
+            # rows go to their block's owner, which dots them with its means
+            vrows = _host_rows(vgds, file_base, dc.feature_shard_id, dc.random_effect_id,
+                               coord.manifest.global_dim)
+            scores += score_routed_rows_streaming(coord.manifest, coord.entity_means_by_raw_id(w),
+                                                  vrows, nv, ctx, mh.num_processes,
+                                                  mh.process_id)
+            continue
         vrows = _host_rows(vgds, file_base, dc.feature_shard_id, dc.random_effect_id,
                            coord.data.global_dim)
         if isinstance(coord, PerHostFactoredRandomEffectCoordinate):

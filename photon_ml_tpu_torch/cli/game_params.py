@@ -20,7 +20,8 @@ plus ``--device`` (default ``cuda``). Grid alternatives are ';'-separated
 the flag, every flag whose code path is not yet ported when it is set away
 from its default: the fused cycle and the persistent cache (``_FENCED``).
 ``--distributed`` runs on the process group (parallel/; with
-``--streaming-random-effects`` it is not yet ported). Streaming random
+``--streaming-random-effects`` through the per-host streaming coordinate,
+parallel/perhost_streaming.py). Streaming random
 effects (``--streaming-random-effects``,
 ``--re-memory-budget-mb``, which implies it), ``--tensor-cache``,
 ``--export-serve-store`` with ``--store-dtype``, the delta retrain
@@ -435,10 +436,6 @@ class GameTrainingParams:
                 "output dir would destroy the prior model the warm "
                 "start reads)"
             )
-        if self.distributed and self.streaming_random_effects:
-            # the JAX path is PerHostStreamingRandomEffectCoordinate
-            errors.append("--streaming-random-effects --distributed is not yet ported to "
-                          "photon_ml_tpu_torch")
         errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
                       for flag in self.unported_flags)
         if errors:

@@ -60,7 +60,8 @@ unchanged blocks. Any unusable prior degrades to a logged cold run.
 unset and writes ``cost-model.json`` beside ``retrain.json``; the next run
 reads it from the ``--warm-start-from`` dir, else from its own output dir.
 ``--distributed`` brings up a process group of one rank (NCCL on the card)
-and trains on it, bitwise the plain run; this driver reads every input file
+and trains on it, bitwise the plain run (with ``--streaming-random-effects``
+through the per-host streaming coordinate); this driver reads every input file
 and writes the model on every process, so it refuses a larger group:
 multi-process training is ``cli/game_multihost_driver``'s.
 
@@ -318,6 +319,14 @@ class GameTrainingDriver:
             from photon_ml_tpu_torch.parallel import multihost
 
             mh = multihost.initialize(device=str(self.device))
+            if mh.num_processes > 1 and self.params.streaming_random_effects:
+                # this driver's manifest holds every block on every process:
+                # a merge would count each score once a process
+                raise ValueError(
+                    "--streaming-random-effects with --distributed under a multi-process "
+                    "runtime requires the multihost driver (game_multihost_driver): this "
+                    "driver's single-host manifest owns every block on every process, so "
+                    f"merging would {mh.num_processes}x-count the scores")
             if mh.num_processes > 1:
                 raise ValueError(
                     f"--distributed under a {mh.num_processes}-process group: this driver "
@@ -579,7 +588,7 @@ class GameTrainingDriver:
                     latent_regularization=spec.latent_factor.regularization_context(),
                 )
             elif name in self.streaming_manifests:
-                coords[name] = StreamingRandomEffectCoordinate(
+                common = dict(
                     manifest=self.streaming_manifests[name],
                     task=p.task_type,
                     optimizer=cfg.optimizer,
@@ -604,6 +613,18 @@ class GameTrainingDriver:
                         p.output_dir, "streaming-re-state",
                         f"{name}-{os.getpid()}-{self._next_stream_state_seq()}"),
                 )
+                if p.distributed:
+                    # the entity-sharded streaming coordinate on the 1-rank
+                    # group: its merges are copies, its results bitwise the
+                    # plain streaming run's
+                    from photon_ml_tpu_torch.parallel.perhost_streaming import (
+                        PerHostStreamingRandomEffectCoordinate,
+                    )
+
+                    coords[name] = PerHostStreamingRandomEffectCoordinate(
+                        ctx=self._mesh_context(), num_processes=1, **common)
+                else:
+                    coords[name] = StreamingRandomEffectCoordinate(**common)
             elif name in self.bucketed_bundles:
                 coords[name] = BucketedRandomEffectCoordinate(
                     self.train_data,

@@ -27,8 +27,9 @@ sidecar of ``cost_model_dir`` (loaded, or static priors when the sidecar is
 missing or torn, each a recorded decision); ``record_realized`` feeds a
 run's realized costs back and ``save_cost_model`` writes the sidecar.
 ``plan="off"`` (the default) resolves bitwise as before. ``--distributed``
-resolves ``sharding="mesh"`` (parallel/); ``--fused-cycle`` and
-``--streaming-random-effects --distributed`` raise "not yet ported".
+resolves ``sharding="mesh"`` (parallel/), and ``"perhost_streaming"`` with
+``--streaming-random-effects`` (owner-computes blocks,
+parallel/perhost_streaming.py); ``--fused-cycle`` raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ class ExecutionPlan:
     decisions: Tuple[PlanDecision, ...] = ()
     prefetch_depth: Optional[int] = None  # io.pipeline depth, resolved once
     streaming: bool = False
-    sharding: str = "none"  # "mesh" under --distributed
+    sharding: str = "none"  # "mesh" under --distributed ("perhost_streaming" streaming)
     # "off": every knob is the flag or env the caller set (bitwise the
     # resolution without a planner); "auto": unset knobs were chosen by
     # the cost model
@@ -136,9 +137,6 @@ class ExecutionPlan:
 
         if fused_cycle:
             raise _not_ported("--fused-cycle")
-        if distributed and streaming:
-            # the JAX path is PerHostStreamingRandomEffectCoordinate
-            raise _not_ported("--streaming-random-effects --distributed")
         overrides = resolve_overrides(plan)
         # an explicit prefetch depth (argument or env) wins over the
         # planner: probe before resolve_depth folds in its default
@@ -198,7 +196,9 @@ class ExecutionPlan:
             bucketed = False
 
         # ---- sharding mode + composition notes ----------------------------
-        sharding = "mesh" if distributed else "none"
+        sharding = "none"
+        if distributed:
+            sharding = "perhost_streaming" if streaming else "mesh"
         if sharding == "mesh" and schedule is not None:
             decisions.append(PlanDecision(
                 "schedule", "composed",
@@ -213,6 +213,13 @@ class ExecutionPlan:
                 "block of the entities (the kernels are bitwise the plain "
                 "formulation, so the selection changes no result)",
             ))
+        if sharding == "perhost_streaming" and schedule is not None:
+            decisions.append(PlanDecision(
+                "schedule", "composed",
+                "per-host streaming updates are owner-computes (no "
+                "collective), so each rank compacts its owned blocks "
+                "independently",
+            ))
 
         # ---- adaptive block scheduling: needs block/bucket granularity ----
         if adaptive is not None and not (streaming or bucketed):
@@ -224,6 +231,13 @@ class ExecutionPlan:
                 "compaction schedule's job) — pinned to always-visit",
             ))
             adaptive = None
+        elif adaptive is not None and sharding == "perhost_streaming":
+            decisions.append(PlanDecision(
+                "adaptive", "composed",
+                "per-host streaming visits owned blocks in "
+                "descending-gap order and skips persistently-converged "
+                "ones; the per-block ledger is keyed by global block id",
+            ))
         elif adaptive is not None:
             decisions.append(PlanDecision(
                 "adaptive", "composed",

@@ -23,8 +23,9 @@ pass does not take the fused kernel either.
 Chunks move through io/pipeline.py: a background thread reads up to
 ``prefetch_depth`` chunks ahead, and on the card each chunk is copied from
 pinned memory on a side stream while the previous chunk's pass runs. The
-per-host factories (multihost, chunk partials merged across processes) are
-not yet ported.
+per-host factories (:func:`make_perhost_value_and_grad`,
+:func:`make_perhost_hvp`) run the same chunk arithmetic over a rank's
+chunks of a global chunk list and merge the partials exactly across ranks.
 """
 
 from __future__ import annotations
@@ -265,14 +266,82 @@ def make_streaming_hvp(source: ChunkedGLMSource, objective: GLMObjective,
     return hvp
 
 
-def _per_host_not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "the per-host streamed passes (chunk partials merged across processes) are not yet "
-        "ported to photon_ml_tpu_torch")
+# ---------------------------------------------------------------------------
+# the per-host streamed passes (each rank owns some chunks of a global chunk
+# list; the partials merge exactly across the ranks)
+# ---------------------------------------------------------------------------
 
 
-make_perhost_value_and_grad = _per_host_not_ported
-make_perhost_hvp = _per_host_not_ported
+def make_perhost_value_and_grad(source: ChunkedGLMSource, owned_chunk_ids: Sequence[int],
+                                num_chunks_global: int, objective: GLMObjective,
+                                norm: NormalizationContext, ctx, num_processes: int = 1,
+                                l2_weight: float = 0.0, dtype=None,
+                                prefetch_depth: Optional[int] = None, bucketer=None,
+                                device=None):
+    """:func:`make_streaming_value_and_grad` over a global chunk list of
+    which ``source`` holds this rank's chunks (chunk c of the source is
+    global chunk ``owned_chunk_ids[c]``). Each owned chunk's (value,
+    gradient) partial comes from the single-host pass's chunk arithmetic
+    started at zero, the ``(num_chunks, 1 + D)`` partials merge exactly
+    across the ranks in one collective, and every rank replays the
+    single-host fold in global chunk order: bitwise the single-host pass on
+    the same chunk list, for any assignment of chunks to ranks. Rows never
+    move after ingest."""
+    from photon_ml_tpu_torch.parallel.perhost_streaming import disjoint_fill, merge_disjoint
+
+    dtype = dtype or real_dtype()
+    owned = list(owned_chunk_ids)
+    acc_vg, add_reg = _vg_chunk_kernels(objective, norm)
+
+    def vg(w: Tensor, l2_weight=l2_weight) -> Tuple[Tensor, Tensor]:
+        parts = disjoint_fill((num_chunks_global, 1 + source.dim), dtype, w.device)
+        chunks = pipelined_device_chunks(source, dtype, prefetch_depth, bucketer,
+                                         device or w.device)
+        for cid, (x, y, off, wt) in zip(owned, chunks):
+            f_c, g_c = acc_vg(torch.zeros((), dtype=dtype, device=w.device),
+                              torch.zeros((source.dim,), dtype=dtype, device=w.device),
+                              w, x, y, off, wt)
+            parts[cid, 0] = f_c
+            parts[cid, 1:] = g_c
+        merged = merge_disjoint(parts, ctx, num_processes)
+        # the single-host running sum, replayed over global chunk order
+        f = torch.zeros((), dtype=dtype, device=w.device)
+        g = torch.zeros((source.dim,), dtype=dtype, device=w.device)
+        for c in range(num_chunks_global):
+            f = f + merged[c, 0]
+            g = g + merged[c, 1:]
+        return add_reg(f, g, w, l2_weight)
+
+    return vg
+
+
+def make_perhost_hvp(source: ChunkedGLMSource, owned_chunk_ids: Sequence[int],
+                     num_chunks_global: int, objective: GLMObjective,
+                     norm: NormalizationContext, ctx, num_processes: int = 1,
+                     l2_weight: float = 0.0, dtype=None, prefetch_depth: Optional[int] = None,
+                     bucketer=None, device=None):
+    """:func:`make_streaming_hvp` with the same exact merge and replayed
+    fold as :func:`make_perhost_value_and_grad` (one merge per CG step)."""
+    from photon_ml_tpu_torch.parallel.perhost_streaming import disjoint_fill, merge_disjoint
+
+    dtype = dtype or real_dtype()
+    owned = list(owned_chunk_ids)
+    acc_hvp = _hvp_chunk_kernel(objective, norm)
+
+    def hvp(w: Tensor, v: Tensor, l2_weight=l2_weight) -> Tensor:
+        parts = disjoint_fill((num_chunks_global, source.dim), dtype, w.device)
+        chunks = pipelined_device_chunks(source, dtype, prefetch_depth, bucketer,
+                                         device or w.device)
+        for cid, (x, y, off, wt) in zip(owned, chunks):
+            parts[cid] = acc_hvp(torch.zeros((source.dim,), dtype=dtype, device=w.device),
+                                 w, v, x, y, off, wt)
+        merged = merge_disjoint(parts, ctx, num_processes)
+        hv = torch.zeros((source.dim,), dtype=dtype, device=w.device)
+        for c in range(num_chunks_global):
+            hv = hv + merged[c]
+        return hv + l2_weight * v
+
+    return hvp
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ The reference's Spark substrate (SURVEY.md §5.8) maps onto a
   partitionBy/join    -> balanced entity -> rank owners agreed at ingest
   groupByKey shuffle  -> one all_to_all of fixed-width records (shuffle.py)
   driver / executors  -> SPMD per-host ingest (perhost_ingest.py)
+  spill to disk       -> per-host streaming entity blocks (perhost_streaming.py)
 
 The JAX package's single-process entity-sharded solvers
 (``DistributedRandomEffectSolver``,
@@ -17,12 +18,9 @@ The JAX package's single-process entity-sharded solvers
 ``mesh_ctx``) split one process's dataset over its devices; the port runs
 one process per device, and their work is the per-host solvers'.
 
-Not yet ported: ``elastic`` (membership changes, relaunch re-plans) and the
-per-host streaming names of ``perhost_streaming`` (``EntityShardPlan``,
-``PerHostSpilledREState``, ``PerHostStreamingManifest``,
-``PerHostStreamingRandomEffectCoordinate``,
-``build_perhost_streaming_manifest``, ``merge_disjoint``,
-``merge_disjoint_devices``).
+Not yet ported: ``elastic`` (membership changes, relaunch re-plans, the
+fleet), which re-plans the ``EntityShardPlan`` and the plan sidecars that
+``perhost_streaming`` writes.
 """
 
 from photon_ml_tpu_torch.parallel import multihost, shuffle
@@ -38,6 +36,15 @@ from photon_ml_tpu_torch.parallel.perhost_ingest import (
     densify_row_ids,
     local_shards,
     per_host_re_dataset,
+)
+from photon_ml_tpu_torch.parallel.perhost_streaming import (
+    EntityShardPlan,
+    PerHostSpilledREState,
+    PerHostStreamingManifest,
+    PerHostStreamingRandomEffectCoordinate,
+    build_perhost_streaming_manifest,
+    merge_disjoint,
+    merge_disjoint_devices,
 )
 
 __all__ = [
@@ -57,4 +64,11 @@ __all__ = [
     "densify_row_ids",
     "local_shards",
     "per_host_re_dataset",
+    "EntityShardPlan",
+    "PerHostSpilledREState",
+    "PerHostStreamingManifest",
+    "PerHostStreamingRandomEffectCoordinate",
+    "build_perhost_streaming_manifest",
+    "merge_disjoint",
+    "merge_disjoint_devices",
 ]

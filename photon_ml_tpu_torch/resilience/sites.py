@@ -22,7 +22,10 @@ FAULT_SITES: Dict[str, str] = {
     "multihost.barrier": "cross-process sync points (parallel/multihost.py)",
     "multihost.heartbeat": "per-host heartbeat writes (parallel/multihost.py)",
     "multihost.entity_route": "host-granular entity-routing exchange (parallel/shuffle.py)",
+    "multihost.streaming_reduce": "exact cross-rank streaming merges: score scatters, FE chunk partials, reg terms; fired before the collective and retried (parallel/perhost_streaming.py)",
+    "io.perhost_block_write": "per-host streaming entity-block writes, retried (parallel/perhost_streaming.py)",
     "optim.step": "coordinate-descent updates, NaN corruption (algorithm/coordinate_descent.py)",
+    "retrain.multihost_delta_agree": "cross-rank delta-plan agreement; a disagreement or an injected fault on any rank degrades every rank to a recorded cold run (cli/game_multihost_driver.py)",
     "retrain.delta_plan": "delta-retrain prior manifest/model reads; failure degrades to a recorded cold run (retrain/manifest.py)",
     "optim.block_skip": "adaptive-schedule skip decision boundary; an injected fault degrades the epoch to visit-everything, never a silent skip (algorithm/bucketed_random_effect.py)",
     "optim.device_drain": "device-loop dispatch gate; an injected fault degrades the solve to the host chunk loop, bitwise (optim/scheduler.py)",

@@ -21,8 +21,8 @@ takes) into a loop that skips unchanged work:
 A corrupt prior manifest, a vanished prior model or a lost block layout
 degrades to a recorded cold solve (the ``retrain.delta_plan`` fault site),
 never a wrong warm result. The GAME driver runs the loop with
-``--warm-start-from PRIOR_OUTPUT_DIR``. The multi-host seeding
-(``seed_perhost_spilled_state``) is not yet ported.
+``--warm-start-from PRIOR_OUTPUT_DIR``, and so does the multihost driver,
+whose per-host streaming state ``seed_perhost_spilled_state`` seeds.
 """
 
 from photon_ml_tpu_torch.retrain.delta import (

@@ -49,6 +49,7 @@ __all__ = [
     "build_delta_streaming_manifest",
     "diff_files",
     "dirty_set_digest",
+    "pin_prior_blocks",
     "plan_delta",
     "probe_dirty_entities",
 ]
@@ -282,30 +283,30 @@ def dirty_set_digest(dirty_raw: Set[str]) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _pinned_blocking(
-    prior_manifest, vocab: List[str], counts: np.ndarray,
-    dirty_raw: Set[str],
+def pin_prior_blocks(
+    prior_blocks, vocab: List[str], counts: np.ndarray, dirty_raw: Set[str],
 ) -> Tuple[List[Tuple[np.ndarray, str, Optional[int], str]], np.ndarray, List[str]]:
-    """Prior blocking pinned onto the new vocab: per prior block, the
-    surviving entities (sorted new dense ids) + classification; returns
-    (blocks, assigned mask, degrade reasons). Raw-id order and sorted-dense
-    order agree across runs because both vocabs sort raw ids. A prior
-    block whose file is unreadable (lost cache entry) contributes no pin —
-    its entities fall through to the fresh-blocking leftover and rebuild
-    cold, with the reason recorded."""
+    """The prior run's blocking pinned onto the new vocab: the one rule of
+    the single-process and the per-host delta builds. ``prior_blocks``
+    holds, per prior block, ``(raw entity ids, its row count)``, or a
+    reason string when the block could not be read. Per prior block, the
+    surviving entities (sorted new dense ids) keep their block, classified
+    ``unchanged`` only when none left, none is dirty and the block's row
+    count (uncapped) is the prior's: an entity can lose rows from a changed
+    file without appearing in its new content. Returns (blocks, assigned
+    mask, degrade reasons). Raw-id order and sorted-dense order agree
+    across runs because both vocabs sort raw ids. An unreadable prior
+    block contributes no pin: its entities fall through to the fresh
+    blocking's leftover and rebuild cold, with the reason recorded."""
     raw_to_new = {r: i for i, r in enumerate(vocab)}
     assigned = np.zeros(len(vocab), bool)
     out = []
     degraded: List[str] = []
-    for bi in range(len(prior_manifest.blocks)):
-        try:
-            meta = prior_manifest.load_block_meta(bi, "cpu")
-        except (OSError, KeyError, ValueError) as e:
-            degraded.append(
-                f"prior block {bi} unreadable ({type(e).__name__}: {e})"
-            )
+    for bi, prior in enumerate(prior_blocks):
+        if isinstance(prior, str):
+            degraded.append(f"prior block {bi} unreadable ({prior})")
             continue
-        prior_raws = [prior_manifest.vocab[v] for v in meta.entity_ids]
+        prior_raws, prior_rows = prior
         keep = [
             raw_to_new[r]
             for r in prior_raws
@@ -315,13 +316,33 @@ def _pinned_blocking(
             continue  # every entity of this block left the dataset
         ent = np.sort(np.asarray(keep, np.int64))
         assigned[ent] = True
+        rows = int(np.asarray(counts)[ent].sum())
         if len(keep) != len(prior_raws):
             out.append((ent, DIRTY, bi, "entity membership changed"))
         elif any(r in dirty_raw for r in prior_raws):
             out.append((ent, DIRTY, bi, "contains dirty entities"))
+        elif rows != int(prior_rows):
+            out.append((ent, DIRTY, bi, f"row count moved ({int(prior_rows)} -> {rows}) "
+                                        "— rows left a changed file"))
         else:
             out.append((ent, UNCHANGED, bi, ""))
     return out, assigned, degraded
+
+
+def _pinned_blocking(prior_manifest, vocab: List[str], counts: np.ndarray,
+                     dirty_raw: Set[str]):
+    """:func:`pin_prior_blocks` over a single-process prior manifest's
+    block files (each block's entity ids and row selector)."""
+    prior_blocks = []
+    for bi in range(len(prior_manifest.blocks)):
+        try:
+            meta = prior_manifest.load_block_meta(bi, "cpu")
+        except (OSError, KeyError, ValueError) as e:
+            prior_blocks.append(f"{type(e).__name__}: {e}")
+            continue
+        prior_blocks.append(([prior_manifest.vocab[v] for v in meta.entity_ids],
+                             len(meta.row_sel)))
+    return pin_prior_blocks(prior_blocks, vocab, counts, dirty_raw)
 
 
 def build_delta_streaming_manifest(

@@ -123,11 +123,19 @@ def bucketed_random_effect_init(entity_means: Dict[str, np.ndarray], bundle) -> 
 
 
 def seed_perhost_spilled_state(manifest, entity_means: Dict[str, np.ndarray], state_dir: str):
-    """The multi-host twin of :func:`seed_spilled_state` (per-host owned
-    blocks, files keyed by global block id)."""
-    raise NotImplementedError(
-        "seed_perhost_spilled_state (multi-host streaming state) is not yet "
-        "ported to photon_ml_tpu_torch")
+    """The multi-host twin of :func:`seed_spilled_state`: a
+    ``PerHostSpilledREState`` under ``state_dir`` seeded from the prior
+    model for this rank's owned blocks only, its files keyed by global block
+    id. The same bookkeeping-only walk, the same bitwise prior coefficients
+    for unchanged blocks; untouched blocks stay unwritten (zeros)."""
+    from photon_ml_tpu_torch.parallel.perhost_streaming import PerHostSpilledREState
+
+    shapes = [(b["num_entities"], b["local_dim"]) for b in manifest.blocks]
+    state = PerHostSpilledREState(dir=state_dir, shapes=shapes,
+                                  global_ids=[int(g) for g in manifest.global_block_ids],
+                                  plan_version=int(getattr(manifest, "plan_version", 1)))
+    _seed_blocks(manifest, entity_means, state)
+    return state
 
 
 def seed_spilled_state(manifest, entity_means: Dict[str, np.ndarray], state_dir: str):
@@ -136,18 +144,24 @@ def seed_spilled_state(manifest, entity_means: Dict[str, np.ndarray], state_dir:
     no data slab is read). Blocks whose every entity carries a prior row
     (the unchanged blocks) hold the prior coefficients bitwise; untouched
     blocks stay unwritten, which the state serves as zeros."""
-    from photon_ml_tpu_torch.algorithm.streaming_random_effect import (
-        SpilledREState,
-        _positions_of_dense,
-    )
+    from photon_ml_tpu_torch.algorithm.streaming_random_effect import SpilledREState
 
     shapes = [(b["num_entities"], b["local_dim"]) for b in manifest.blocks]
     state = SpilledREState(dir=state_dir, shapes=shapes)
+    _seed_blocks(manifest, entity_means, state)
+    return state
+
+
+def _seed_blocks(manifest, entity_means: Dict[str, np.ndarray], state) -> None:
+    """Write each block of ``manifest`` whose entities have prior rows into
+    ``state``, from the block bookkeeping alone."""
+    from photon_ml_tpu_torch.algorithm.streaming_random_effect import _positions_of_dense
+
     for i in range(len(manifest.blocks)):
         meta = manifest.load_block_meta(i, "cpu")
         pos_of_dense = _positions_of_dense(meta)
         local_to_global = meta.local_to_global.numpy()
-        w = np.zeros(shapes[i], _np_real())
+        w = np.zeros(state.shapes[i], _np_real())
         touched = False
         for j, vi in enumerate(meta.entity_ids):
             raw = manifest.vocab[vi]
@@ -157,4 +171,3 @@ def seed_spilled_state(manifest, entity_means: Dict[str, np.ndarray], state_dir:
                 touched = True
         if touched:
             state.write(i, w)
-    return state

@@ -245,7 +245,12 @@ def test_explicit_knobs_always_win_under_auto():
 
 
 def test_unsupported_topologies_still_raise_under_auto():
-    for kw in (dict(fused_cycle=True), dict(distributed=True, streaming=True)):
+    # the per-host streaming topology resolves and records its sharding call
+    p = ExecutionPlan.resolve(plan="auto", workload=SKEWED, distributed=True, streaming=True)
+    assert p.sharding == "perhost_streaming"
+    assert any(d.policy == "sharding" and d.action == "planned:perhost_streaming"
+               for d in p.decisions)
+    for kw in (dict(fused_cycle=True), dict(distributed=True, streaming=True, fused_cycle=True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ExecutionPlan.resolve(plan="auto", workload=SKEWED, **kw)
 

@@ -91,14 +91,17 @@ def test_unported_policies_raise(kw, flag):
         assert plan.plan_mode == "auto" and plan.cost_model is not None
         assert plan.describe().endswith("plan=auto[static-priors]")
     elif flag == "--distributed":
-        # the mesh is ported (parallel/, tests/test_torch_parallel.py); its
-        # streaming path (the per-host streaming coordinate) is not
+        # the mesh is ported (parallel/, tests/test_torch_parallel.py), and
+        # with streaming it resolves the per-host streaming coordinates
+        # (parallel/perhost_streaming.py), as the JAX plan does
         assert ExecutionPlan.resolve(**kw).describe() == (
             "execution plan: ladder=off schedule=one-shot adaptive=off sharding=mesh "
             "sparse=off streaming=off")
-        with pytest.raises(NotImplementedError,
-                           match="--streaming-random-effects --distributed is not yet ported"):
-            ExecutionPlan.resolve(streaming=True, **kw)
+        assert ExecutionPlan.resolve(streaming=True, **kw).describe() == (
+            "execution plan: ladder=off schedule=one-shot adaptive=off "
+            "sharding=perhost_streaming sparse=off streaming=on")
+        with pytest.raises(NotImplementedError, match="--fused-cycle.* not yet ported"):
+            ExecutionPlan.resolve(streaming=True, fused_cycle=True, **kw)
     else:
         with pytest.raises(NotImplementedError, match=f"{flag}.* not yet ported"):
             ExecutionPlan.resolve(**kw)

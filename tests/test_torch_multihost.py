@@ -16,7 +16,8 @@ and 2 validation part files, an off-heap index):
     scoring driver at ``elementwise``;
   * the single-process driver's ``--distributed`` at one rank writes the
     plain run's model bytes;
-  * every path not yet ported raises naming itself; the bring-up helpers
+  * every path not yet ported raises naming itself (the per-host streaming
+    paths are tests/test_torch_perhost_streaming.py's); the bring-up helpers
     (shares, slices, heartbeats, deadlines, backend choice) match the JAX
     package's.
 """
@@ -268,9 +269,13 @@ def test_distributed_keeps_the_jax_refusals(mh_data, tmp_path):
 
 
 FENCED = {
-    "streaming": (["--streaming-random-effects", "true"], "--streaming-random-effects"),
+    # the multihost driver compacts only the per-host streaming blocks
     "solve-compaction": (["--solve-compaction", "4"], "--solve-compaction"),
-    "warm-start-from": (["--warm-start-from", "prior"], "the multihost --warm-start-from"),
+    # --streaming-random-effects and --warm-start-from run now
+    # (tests/test_torch_perhost_streaming.py (e) and (g)): they parse and
+    # pass the scope checks
+    "streaming": (["--streaming-random-effects", "true"], None),
+    "warm-start-from": (["--warm-start-from", "prior"], None),
 }
 
 
@@ -278,16 +283,21 @@ FENCED = {
 def test_every_fenced_remainder_raises_naming_itself(mh_data, name):
     _, flags, _ = mh_data
     extra, named = FENCED[name]
-    with pytest.raises((NotImplementedError, ValueError), match=named):
-        mhdriver.main(["--output-dir", "unused", "--device", "cpu"] + flags + extra)
+    if named is None:
+        mhdriver._check_multihost_support(
+            tparams.parse_training_params(["--output-dir", "unused"] + flags + extra))
+    else:
+        with pytest.raises((NotImplementedError, ValueError), match=named):
+            mhdriver.main(["--output-dir", "unused", "--device", "cpu"] + flags + extra)
     with pytest.raises(NotImplementedError, match="relaunch adoption .*not yet ported"):
         mhdriver._attempt_relaunch_adoption(None, None, None, None)
     with pytest.raises(NotImplementedError, match="fixed-effect chunk ownership .*not yet"):
         mhdriver._fe_chunk_share(["a"], {"per-user": object()}, None, None)
-    with pytest.raises(ValueError,
-                       match="--streaming-random-effects --distributed is not yet ported"):
-        tparams.parse_training_params(["--output-dir", "o", "--distributed", "true",
+    # --streaming-random-effects --distributed resolves the per-host
+    # streaming plan (tests/test_torch_perhost_streaming.py (j))
+    p = tparams.parse_training_params(["--output-dir", "o", "--distributed", "true",
                                        "--streaming-random-effects", "true"] + flags)
+    assert p.distributed and p.streaming_random_effects
     for scope in (["--compute-variance", "true"], ["--vmapped-grid", "true"]):
         with pytest.raises(ValueError, match="multihost driver does not implement"):
             mhdriver.main(["--output-dir", "unused", "--device", "cpu"] + flags + scope)

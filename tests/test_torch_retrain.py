@@ -526,8 +526,25 @@ def test_seed_spilled_state_is_the_prior_bitwise(tmp_path, rng):
     for i in range(len(manifest.blocks)):
         assert np.array_equal(state.block(i), jstate.block(i)), i
     assert sorted(os.listdir(state.dir)) == sorted(os.listdir(jstate.dir))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        retrain.seed_perhost_spilled_state(manifest, means, str(tmp_path / "x"))
+    # the per-host seeding of a 1-rank per-host manifest of the same rows
+    # (its vocabulary the sorted raw ids): JAX's coefficients and file names
+    from photon_ml_tpu.parallel.perhost_streaming import (
+        build_perhost_streaming_manifest as j_perhost_manifest,
+    )
+    from photon_ml_tpu_torch.parallel.perhost_streaming import build_perhost_streaming_manifest
+    from test_perhost_streaming import _host_rows as j_host_rows
+
+    rows = j_host_rows(gd)
+    pmanifest = build_perhost_streaming_manifest(rows, cfg, str(tmp_path / "pblocks"),
+                                                 block_entities=5)
+    jpmanifest = j_perhost_manifest(rows, jcfg, str(tmp_path / "jpblocks"), block_entities=5)
+    pstate = retrain.seed_perhost_spilled_state(pmanifest, means, str(tmp_path / "x"))
+    jpstate = jretrain.seed_perhost_spilled_state(jpmanifest, means, str(tmp_path / "jx"))
+    for i in range(len(pmanifest.blocks)):
+        assert np.array_equal(pstate.block(i), jpstate.block(i)), i
+    assert sorted(os.listdir(pstate.dir)) == sorted(os.listdir(jpstate.dir))
+    assert pstate.__checkpoint_ref__() == dict(jpstate.__checkpoint_ref__(),
+                                               dir=pstate.dir)
 
 
 # ---------------------------------------------------------------------------

@@ -204,10 +204,30 @@ def test_pipelined_is_bitwise_synchronous(tmp_path, monkeypatch):
     assert all(torch.equal(r, runs[0]) for r in runs[1:])
 
 
-def test_per_host_factories_are_fenced():
-    for fn in (tstream.make_perhost_value_and_grad, tstream.make_perhost_hvp):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            fn()
+def test_per_host_factories_are_fenced(tmp_path):
+    """The per-host factories, once fenced, now run: at one rank over every
+    chunk they are bitwise the single-host streamed passes, and the JAX
+    package's per-host passes hold them at ``elementwise``."""
+    ts, js = _sources("LOGISTIC_REGRESSION", tmp_path)
+    tobj, jobj = GLMObjective(tlosses.logistic), JObjective(jlosses.logistic)
+    norm = NormalizationContext.identity()
+    owned = list(range(len(ts.loaders)))
+    vg = tstream.make_streaming_value_and_grad(ts, tobj, norm, device="cpu")
+    hvp = tstream.make_streaming_hvp(ts, tobj, norm, device="cpu")
+    pvg = tstream.make_perhost_value_and_grad(ts, owned, len(owned), tobj, norm, None,
+                                              device="cpu")
+    phvp = tstream.make_perhost_hvp(ts, owned, len(owned), tobj, norm, None, device="cpu")
+    jvg = jstream.make_perhost_value_and_grad(js, owned, len(owned), jobj, JNorm.identity(),
+                                              None)
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy((rng.normal(size=D) * 0.2).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=D).astype(np.float32))
+    (f, g), (pf, pg) = vg(w, l2_weight=0.3), pvg(w, l2_weight=0.3)
+    assert torch.equal(f, pf) and torch.equal(g, pg)
+    assert torch.equal(hvp(w, v, l2_weight=0.3), phvp(w, v, l2_weight=0.3))
+    jf, jg = jvg(jnp.asarray(w.numpy()), l2_weight=0.3)
+    assert_allclose(float(pf), float(jf), kind="elementwise", dtype=np.float32)
+    assert_allclose(pg.numpy(), np.asarray(jg), kind="elementwise")
 
 
 @pytest.mark.parametrize("opt", ["LBFGS", "TRON"])

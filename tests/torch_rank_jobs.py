@@ -216,3 +216,176 @@ def perhost_factored(mh, payload):
             "reg": float(coord.regularization_term(state)),
             "w": _np(coord.random_effect_coefficients(state)),
             "factors": coord.latent_factors_by_raw_id(state)}
+
+
+def _streaming_inputs(data, payload):
+    """The dense fixed-effect rows and the global chunk sizes, shared by the
+    rank job and the single-host reference."""
+    n = data.num_rows
+    gf = data.shards["global"]
+    x_fe = np.zeros((n, gf.dim), np.float32)
+    x_fe[np.repeat(np.arange(n), np.diff(gf.indptr)), gf.indices] = gf.values
+    rows = payload["chunk_rows"]
+    sizes = [min(rows, n - c * rows) for c in range(-(-n // rows))]
+    return x_fe, sizes
+
+
+def streaming_coordinates(data, payload, ctx=None, num_processes=1, process_id=0,
+                          outdir=None, single_host=False, plan=None):
+    """The descent's two coordinates: the per-host streaming pair on this
+    rank's rows and chunks, or (``single_host``) the single-host streaming
+    pair on every row and chunk. Imports the port only."""
+    from photon_ml_tpu_torch.algorithm.streaming_fixed_effect import (
+        PerHostStreamingFixedEffectCoordinate,
+        StreamingFixedEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.algorithm.streaming_random_effect import (
+        StreamingRandomEffectCoordinate,
+        write_re_entity_blocks,
+    )
+    from photon_ml_tpu_torch.data.game import RandomEffectDataConfig
+    from photon_ml_tpu_torch.optim.streaming import ChunkedGLMSource
+    from photon_ml_tpu_torch.parallel.perhost_ingest import HostRows, csr_to_padded
+    from photon_ml_tpu_torch.parallel.perhost_streaming import (
+        PerHostStreamingRandomEffectCoordinate,
+        build_perhost_streaming_manifest,
+    )
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+
+    import os
+
+    cfg = RandomEffectDataConfig("userId", "per_user")
+    x_fe, sizes = _streaming_inputs(data, payload)
+    n = data.num_rows
+    fe_problem = _problem(payload["fe"])
+    re_problem = _problem(payload["re"])
+    re_kw = dict(task=TaskType.LOGISTIC_REGRESSION, optimizer=OptimizerType.LBFGS,
+                 optimizer_config=re_problem.optimizer_config,
+                 regularization=re_problem.regularization, plan=plan, device="cpu")
+    y = data.response.astype(np.float32)
+    if single_host:
+        man = write_re_entity_blocks(data, cfg, os.path.join(outdir, "ref-blocks"),
+                                     block_entities=payload["block_entities"])
+        re = StreamingRandomEffectCoordinate(manifest=man,
+                                             state_root=os.path.join(outdir, "ref-state"), **re_kw)
+        fe = StreamingFixedEffectCoordinate(
+            ChunkedGLMSource.from_arrays(x_fe, y, payload["chunk_rows"]), fe_problem, plan=plan,
+            device="cpu")
+        return fe, re
+    # this rank "decodes" its contiguous block of the rows
+    lo = process_id * (n // num_processes)
+    hi = n if process_id == num_processes - 1 else (process_id + 1) * (n // num_processes)
+    fi, fv = csr_to_padded(data.shards["per_user"], n)
+    vocab = data.id_vocabs["userId"]
+    rows = HostRows(entity_raw_ids=[vocab[i] for i in data.ids["userId"][lo:hi]],
+                    row_index=np.arange(lo, hi, dtype=np.int64), labels=y[lo:hi],
+                    weights=data.weight[lo:hi].astype(np.float32),
+                    offsets=data.offset[lo:hi].astype(np.float32), feat_idx=fi[lo:hi],
+                    feat_val=fv[lo:hi], global_dim=data.shards["per_user"].dim)
+    man = build_perhost_streaming_manifest(
+        rows, cfg, os.path.join(outdir, f"re-host{process_id}"), ctx, num_processes,
+        process_id, block_entities=payload["block_entities"],
+        bucketer=plan.bucketer if plan is not None else None)
+    re = PerHostStreamingRandomEffectCoordinate(
+        manifest=man, state_root=os.path.join(outdir, f"re-state-host{process_id}"), ctx=ctx,
+        num_processes=num_processes, **re_kw)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    owned = {}
+    for c in range(len(sizes)):
+        if c % num_processes == process_id:  # round-robin chunk ownership
+            owned[c] = (lambda s=int(starts[c]), e=int(starts[c + 1]):
+                        {"x": x_fe[s:e], "y": y[s:e]})
+    fe = PerHostStreamingFixedEffectCoordinate(sizes, owned, x_fe.shape[1], fe_problem,
+                                               ctx=ctx, num_processes=num_processes, plan=plan,
+                                               device="cpu")
+    return fe, re
+
+
+def streaming_descent(coords, data, num_iterations=2):
+    from photon_ml_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
+    from photon_ml_tpu_torch.ops import losses
+
+    labels = torch.from_numpy(data.response.astype(np.float32))
+    weights = torch.from_numpy(data.weight.astype(np.float32))
+    fe, re = coords
+    cd = CoordinateDescent({"fixed": fe, "per-user": re},
+                           lambda s: torch.sum(weights * losses.logistic.loss(s, labels)))
+    return cd.run(num_iterations, data.num_rows)
+
+
+def perhost_streaming_cd(mh, payload):
+    """Agree, plan, route, build the owned blocks, then the streaming
+    descent over both coordinates on this rank's share, under the plan of
+    ``payload["plan"]`` (the execution-plan flags) and the sparse race
+    decisions of ``payload["race_decisions"]``. Returns the fixed
+    effect, the total scores, the objectives, this rank's entity means and
+    owned block ids, and the compacted solves' chunk count."""
+    from photon_ml_tpu_torch.compile.plan import ExecutionPlan
+    from photon_ml_tpu_torch.ops import fused_sparse
+    from photon_ml_tpu_torch.optim.scheduler import solve_stats
+
+    # the reference's race winners: the ranks race nothing and select as it did
+    fused_sparse.adopt_race_decisions(payload.get("race_decisions") or [])
+    ctx = mh.mesh_context()
+    plan = ExecutionPlan.resolve(distributed=mh.num_processes > 1, streaming=True,
+                                 num_processes=mh.num_processes, **payload.get("plan", {}))
+    fe, re = streaming_coordinates(payload["data"], payload, ctx, mh.num_processes,
+                                   mh.process_id, payload["outdir"], plan=plan)
+    res = streaming_descent((fe, re), payload["data"])
+    means = re.entity_means_by_raw_id(res.coefficients["per-user"])
+    return {"fe": _np(res.coefficients["fixed"]), "total": _np(res.total_scores),
+            "objectives": list(res.objective_history), "means": means,
+            "owned": list(re.manifest.global_block_ids),
+            "blocks_total": re.manifest.num_blocks_total,
+            "reg": float(re.regularization_term(res.coefficients["per-user"])),
+            "chunk_dispatches": solve_stats.totals()["chunk_dispatches"]}
+
+
+def merge_signed_zero(mh, payload):
+    """merge_disjoint of a score vector whose rank-owned entries include a
+    -0.0: each rank writes its own rows into a -0.0 buffer."""
+    from photon_ml_tpu_torch.parallel.perhost_streaming import disjoint_fill, merge_disjoint
+
+    ctx = mh.mesh_context()
+    full = torch.from_numpy(payload["scores"])
+    owner = payload["owner"] % mh.num_processes
+    local = disjoint_fill(full.shape, full.dtype)
+    mine = torch.from_numpy(owner == mh.process_id)
+    local[mine] = full[mine]
+    terms = np.where(owner == mh.process_id, payload["scores"].astype(np.float64), -0.0)
+    return {"merged": _np(merge_disjoint(local, ctx, mh.num_processes)),
+            "merged64": merge_disjoint(terms, ctx, mh.num_processes)}
+
+
+def lose_a_rank_mid_block(mh, payload):
+    """Rank 1 dies hard after its first block spill inside the update; the
+    survivor's post-update barrier must fail with a diagnosis."""
+    import os
+
+    from photon_ml_tpu_torch.algorithm import streaming_random_effect as sre
+    from photon_ml_tpu_torch.parallel import multihost
+
+    ctx = mh.mesh_context()
+    _, re = streaming_coordinates(payload["data"], payload, ctx, mh.num_processes,
+                                  mh.process_id, payload["outdir"])
+    if mh.process_id == 1:
+        write = sre.SpilledREState.write
+
+        def dying_write(self, i, arr):
+            write(self, i, arr)
+            print("LOSTHOST-DYING", flush=True)
+            os._exit(17)
+
+        sre.SpilledREState.write = dying_write
+    hb = os.path.join(payload["outdir"], "heartbeats")
+    mh.write_heartbeat(hb, step=0)
+    re.update(torch.zeros(payload["data"].num_rows), re.initial_coefficients())
+    from photon_ml_tpu_torch.parallel.mesh import CollectiveError
+
+    try:
+        mh.barrier("post-update")
+    except (multihost.BarrierTimeoutError, CollectiveError) as e:
+        # our deadline, or the backend seeing the dead peer first: both name
+        # the failure; neither hangs
+        return {"error": f"{type(e).__name__}: {e}", "heartbeats": mh.describe_heartbeats(hb)}
+    return {"error": None}

@@ -59,12 +59,15 @@ def _join(procs, timeout: float) -> List[subprocess.CompletedProcess]:
 
 
 def launch(argvs: Sequence[Sequence[str]], timeout: float = 240.0,
-           env: Optional[dict] = None, check: bool = True) -> List[subprocess.CompletedProcess]:
+           env: Optional[dict] = None, check: bool = True,
+           rank_envs: Optional[Sequence[dict]] = None) -> List[subprocess.CompletedProcess]:
     """One process per command line, started together, joined under a
-    deadline; with ``check`` every rank must exit 0."""
-    procs = [subprocess.Popen([sys.executable] + list(a), cwd=REPO, env=_env(env),
+    deadline; with ``check`` every rank must exit 0. ``rank_envs[r]`` adds
+    to rank ``r``'s environment only."""
+    procs = [subprocess.Popen([sys.executable] + list(a), cwd=REPO,
+                              env=_env({**(env or {}), **(rank_envs[r] if rank_envs else {})}),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for a in argvs]
+             for r, a in enumerate(argvs)]
     outs = _join(procs, timeout)
     if check:
         for r, o in enumerate(outs):
@@ -73,20 +76,26 @@ def launch(argvs: Sequence[Sequence[str]], timeout: float = 240.0,
 
 
 def run_ranks(target: str, world: int, tmp_path, payload=None, timeout: float = 180.0,
-              env: Optional[dict] = None, device: str = "cpu") -> list:
+              env: Optional[dict] = None, device: str = "cpu", check: bool = True,
+              rank_envs: Optional[Sequence[dict]] = None) -> list:
     """``target`` ("module:function") on ``world`` ranks, each on
     ``device`` (every rank on the card is ``cuda:0`` there); their
-    results."""
+    results. Without ``check`` a rank that exits non-zero gives its
+    ``CompletedProcess`` in place of a result."""
     tag = uuid.uuid4().hex
     inp = os.path.join(str(tmp_path), f"ranks-{tag}.in")
     with open(inp, "wb") as f:
         pickle.dump(payload, f)
     init = init_url(tmp_path)
     outs = [os.path.join(str(tmp_path), f"ranks-{tag}-{r}.out") for r in range(world)]
-    launch([[__file__, target, str(r), str(world), init, inp, outs[r], device]
-            for r in range(world)], timeout=timeout, env=env)
+    done = launch([[__file__, target, str(r), str(world), init, inp, outs[r], device]
+                   for r in range(world)], timeout=timeout, env=env, check=check,
+                  rank_envs=rank_envs)
     results = []
-    for path in outs:
+    for path, proc in zip(outs, done):
+        if proc.returncode != 0:
+            results.append(proc)
+            continue
         with open(path, "rb") as f:
             results.append(pickle.load(f))
     return results
