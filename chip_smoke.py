@@ -558,6 +558,10 @@ DIAG_FLAGS = ["--task", "LOGISTIC_REGRESSION", "--input-file-format", "LIBSVM",
               "--regularization-type", "L2", "--normalization-type", "STANDARDIZATION",
               "--diagnostic-mode", "ALL", "--coefficient-box-constraints", GLM_BOX]
 BOOTSTRAP_SAMPLES = 10
+# phase 18 (b)'s card-against-CPU pair and (c)'s Avro copy: the first quarter
+# of phase 6's training rows (a cut for the call's time, see CUTS; on an
+# eighth the fitting diagnostic has too few rows for its learning curves)
+DIAG_CPU_ROWS = N_FULL // 4
 # the section titles the JAX driver writes (photon_ml_tpu/cli/glm_driver.py
 # diagnose): per chapter, in order; the CPU tests hold the port's HTML to the
 # JAX driver's, here the card's HTML is held to these
@@ -941,13 +945,13 @@ def phase_glm_diagnostics(torch, fused_glm, workdir, dev="cuda"):
         f"and records equal the first's; stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(spans.items())))
     out["all"] = {"wall_s": [wall, wall2], "launches": launches, "spans_s": spans}
-    # card against CPU on the first quarter of the training rows (a cut for
+    # card against CPU on the first DIAG_CPU_ROWS training rows (a cut for
     # the call's time): one more card run, then the CPU run, on that subset
     quarter = os.path.join(workdir, "train-quarter")
     os.makedirs(quarter, exist_ok=True)
     with open(os.path.join(workdir, "train", "part-00000.txt")) as f, \
             open(os.path.join(quarter, "part-00000.txt"), "w") as g:
-        for _, line in zip(range(N_FULL // 4), f):
+        for _, line in zip(range(DIAG_CPU_ROWS), f):
             g.write(line)
     io_q = lambda out, device: [a if a != os.path.join(workdir, "train") else quarter
                                 for a in io(out, device)]
@@ -964,7 +968,7 @@ def phase_glm_diagnostics(torch, fused_glm, workdir, dev="cuda"):
     errs = _diagnostics_held(card_q[:5], cpu, path_q, cpu_path)
     moved = [int(np.abs(np.subtract(a, b)).sum()) for i in range(2)
              for a, b in zip(card_counts[i], cpu_counts[i])]
-    say(f"  (b) card and CPU on the first {N_FULL // 4} training rows: card wall "
+    say(f"  (b) card and CPU on the first {DIAG_CPU_ROWS} training rows: card wall "
         f"{card_q[1]:.2f} s, CPU wall {cpu[1]:.2f} s; card vs CPU within the solver tolerance, largest "
         f"|diff| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; Kendall counts moved by {moved[:3]} pairs and HL bin counts by {moved[3:]} rows "
@@ -972,7 +976,7 @@ def phase_glm_diagnostics(torch, fused_glm, workdir, dev="cuda"):
     out["all"].update(cpu_wall_s=cpu[1], cpu_abs_err=errs)
 
     # (c) Avro input: selected features and summaries, then an off-heap index;
-    # the training split is (b)'s quarter (a cut for the call's time)
+    # the training split is (b)'s subset (a cut for the call's time)
     names = [f"f{j}" for j in range(GLM_DRIVER_D)]
     t0 = time.perf_counter()
     for split, src in (("train", quarter), ("validate", os.path.join(workdir, "validate"))):
@@ -1681,12 +1685,14 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
 
 
 def phase_ingest(workdir, trained):
-    """Phase 11: read_game_data on the validation rows natively and through
-    the Python row loop (PHOTON_ML_TPU_NATIVE=0), every array byte-equal."""
+    """Phase 11 (run after phase 17): read_game_data on the validation rows of
+    phase 17's data (phase 10's generator at CHECKPOINT_USERS users; a cut,
+    see CUTS) natively and through the Python row loop
+    (PHOTON_ML_TPU_NATIVE=0), every array byte-equal."""
     from photon_ml_tpu_torch.io import avro_data
 
-    val_dir = os.path.join(workdir, "validate")
-    say("== phase 11: read_game_data on the validation dir, native decoder against the "
+    val_dir = os.path.join(workdir, "ck17-data", "validate")
+    say("== phase 11: read_game_data on phase 17's validation dir, native decoder against the "
         "Python row loop")
     args = ([val_dir], trained.shard_index_maps, GAME_SECTIONS, ["userId"])
     reads = {}
@@ -2108,7 +2114,6 @@ FIXED_WIDE_NAMES, FIXED_WIDE_PER_ROW = 1 << 17, 32
 # phase 16's card-against-CPU pair runs at this depth (users), the same
 # generator and widths: the CPU run at GAME_USERS took 65 s of the call
 WIDE_CPU_USERS = 2000
-WIDE_USERS = 5000  # phase 16's one card run (timings); a depth cut, see CUTS
 # the quickstart's fixed effect (LBFGS, L2 lambda 0.01) with its iteration
 # cap raised from 50 until the card and the CPU both converge: 131073
 # columns at lambda 0.01 are nearly separable, and after 50 iterations the
@@ -2344,10 +2349,9 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     the fixed section widened to FIXED_WIDE_NAMES names, FIXED_WIDE_PER_ROW a
     row, and the quickstart's fixed effect run to convergence: the fixed
     effect takes the sparse layout, the GEVM kernel launches, every fixed
-    solve converges; one card run at WIDE_USERS users for the timings, and at
-    WIDE_CPU_USERS users two card runs write byte-equal models and the
-    objective history on the card holds against the same command on the
-    CPU. The first fixed solve of that
+    solve converges; at WIDE_CPU_USERS users two card runs write byte-equal
+    models (the first gives the timings) and the objective history on the
+    card holds against the same command on the CPU. The first fixed solve of that
     pair then runs again on each side's batch at the quickstart's own cap of
     50, a witness of how far two unconverged trajectories part (printed, not
     held)."""
@@ -2356,14 +2360,13 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     from photon_ml_tpu_torch.types import ConvergenceReason
 
     say(f"== phase 16: game_training_driver.main, phase 10's data with the fixed section "
-        f"widened to {FIXED_WIDE_PER_ROW} of {FIXED_WIDE_NAMES} names a row ({WIDE_USERS} "
-        f"users), the quickstart's flags with the fixed effect's cap raised to "
-        f"{FIXED_WIDE_ITERS} LBFGS iterations (L2 lambda 0.01), spec pallas; once on {dev}; "
-        f"then at {WIDE_CPU_USERS} users twice on {dev} and once on the CPU, and the first "
-        "fixed solve of the card and CPU pair at the quickstart's cap of 50 on each")
+        f"widened to {FIXED_WIDE_PER_ROW} of {FIXED_WIDE_NAMES} names a row, the quickstart's "
+        f"flags with the fixed effect's cap raised to {FIXED_WIDE_ITERS} LBFGS iterations (L2 "
+        f"lambda 0.01), spec pallas; at {WIDE_CPU_USERS} users twice on {dev} and once on the "
+        "CPU, and the first fixed solve of the card and CPU pair at the quickstart's cap of 50 "
+        "on each")
     small = os.path.join(workdir, "small")
-    for users, where, seed in ((WIDE_USERS, workdir, SEED + 16),
-                               (WIDE_CPU_USERS, small, SEED + 17)):
+    for users, where, seed in ((WIDE_CPU_USERS, small, SEED + 17),):
         t0 = time.perf_counter()
         n_train, n_val = write_game_avro(where, users, seed,
                                          wide=(FIXED_WIDE_NAMES, FIXED_WIDE_PER_ROW))
@@ -2382,7 +2385,7 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
     runs = {}
     FixedEffectCoordinate.update = recorded
     try:
-        for label, device, data in (("card", dev, workdir), ("card small", dev, small),
+        for label, device, data in (("card small", dev, small),
                                     ("card small again", dev, small),
                                     ("cpu small", "cpu", small)):
             out = os.path.join(workdir, "out-" + label.replace(" ", "-"))
@@ -2434,7 +2437,8 @@ def phase_game_wide(torch, fused_sparse, workdir, dev="cuda"):
         f"{c:.6f}, CPU {u:.6f}, |diff| {abs(c - u):.6f}; run to convergence above: card "
         f"{runs['card small'][0].objective_history[0]:.6f}, CPU "
         f"{runs['cpu small'][0].objective_history[0]:.6f}")
-    return {"launches": runs["card"][2], "wall_s": runs["card"][3], "objective_abs_err": err,
+    return {"launches": runs["card small"][2], "wall_s": runs["card small"][3],
+            "objective_abs_err": err,
             "fixed_solves": {k: runs[k][4] for k in runs}, "first_solve_cap_50": capped,
             "objective_history": {k: runs[k][0].objective_history for k in runs}}
 
@@ -2467,13 +2471,11 @@ def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
     generator at CHECKPOINT_USERS users under spec pallas and spec scatter:
     an uninterrupted run (the checkpoint's bytes and save time per step),
     and a run stopped by PHOTON_PREEMPT_AT (exit 75: a subprocess under
-    pallas, in-process under scatter) and resumed; under pallas also
-    --checkpoint-async true, and --max-restarts 1 with an injected
-    preemption; every run's model bytes equal the uninterrupted run's. Then
-    the same pair under spec auto (``checkpoints_under_auto``)."""
-    from photon_ml_tpu_torch import checkpoint
-    from photon_ml_tpu_torch.resilience import preemption
-
+    pallas, started first and run beside this process's runs, in-process
+    under scatter) and resumed; under pallas also --checkpoint-async true,
+    and --max-restarts 1 with an injected preemption; every run's model
+    bytes equal the uninterrupted run's. Then the same pair under spec auto
+    (``checkpoints_under_auto``)."""
     say("== phase 17: checkpoints and preemption: phase 10's command with --checkpoint-dir on "
         f"phase 10's generator at {CHECKPOINT_USERS} users, spec pallas, scatter, then auto")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2485,8 +2487,35 @@ def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
     base = ["--train-input-dirs", os.path.join(data, "train"),
             "--validate-input-dirs", os.path.join(data, "validate"),
             "--device", dev, "--delete-output-dir-if-exists", "true"] + GAME_FLAGS
+    # spec pallas's stopped run is a process of its own (the exit code 75 a
+    # supervisor reads); it runs beside this process's runs (a cut, see CUTS)
+    sub_argv = lambda spec: base + ["--output-dir", os.path.join(workdir, f"ck17-{spec}-sub"),
+                                    "--checkpoint-dir", os.path.join(workdir, f"ck17-{spec}-ck-sub")]
+    sub_err = tempfile.TemporaryFile("w+")
+    t_sub = time.perf_counter()
+    sub_proc = subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.game_training_driver",
+         *sub_argv("pallas")], cwd=here, stdout=subprocess.DEVNULL, stderr=sub_err, text=True,
+        env=dict(os.environ, PHOTON_SPARSE_KERNEL="pallas", PHOTON_PREEMPT_AT="cycle:2"))
+    try:
+        return _checkpoints(torch, fused_sparse, workdir, base, sub_argv, sub_proc, sub_err,
+                            t_sub)
+    finally:
+        if sub_proc.poll() is None:
+            sub_proc.kill()
+            sub_proc.wait()
+        sub_err.close()
+
+
+def _checkpoints(torch, fused_sparse, workdir, base, sub_argv, sub_proc, sub_err, t_sub):
+    """Phase 17's runs, beside spec pallas's stopped subprocess."""
+    from photon_ml_tpu_torch import checkpoint
+    from photon_ml_tpu_torch.resilience import preemption
+
     out = {}
-    for spec in ("pallas", "scatter"):
+    # scatter first and pallas's resume last: the pallas subprocess runs
+    # beside every in-process run before its resume
+    for spec in ("scatter", "pallas"):
         tag = lambda name: os.path.join(workdir, f"ck17-{spec}-{name}")
         saves = []
         inner_save = checkpoint.CoordinateDescentCheckpointer.save
@@ -2515,16 +2544,44 @@ def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
         check(len(saves) == 4 and steps == ["step-3", "step-4"],
               f"spec {spec}: checkpoint saves {saves}, kept {steps}")
 
-        argv = base + ["--output-dir", tag("sub"), "--checkpoint-dir", tag("ck-sub")]
+        extra = {}
+        if spec == "pallas":
+            # the async commit and the in-process restart, before the
+            # subprocess's resume (they do not depend on the solve family:
+            # they run under pallas only, cut for time)
+            preemption.reset()
+            _, wall_a, _, _, _ = run_game_training(
+                torch, fused_sparse, base + ["--output-dir", tag("async"), "--checkpoint-dir",
+                                             tag("ck-async"), "--checkpoint-async", "true"], spec)
+            check(tree_bytes(os.path.join(tag("async"), "best")) == want,
+                  f"spec {spec}: the async run's model bytes differ")
+            preemption.reset()
+            os.environ["PHOTON_PREEMPT_AT"] = "cycle:3"
+            try:
+                _, wall_m, _, _, _ = run_game_training(
+                    torch, fused_sparse, base + ["--output-dir", tag("restart"),
+                                                 "--checkpoint-dir", tag("ck-restart"),
+                                                 "--max-restarts", "1"], spec)
+            finally:
+                del os.environ["PHOTON_PREEMPT_AT"]
+                preemption.reset()
+            check(tree_bytes(os.path.join(tag("restart"), "best")) == want,
+                  f"spec {spec}: the restarted run's model bytes differ")
+            say(f"  spec {spec}: --checkpoint-async true {wall_a:.2f} s and --max-restarts 1 with "
+                f"a preemption at step 3 {wall_m:.2f} s: model bytes equal to the uninterrupted "
+                "run's")
+            extra = {"async_s": wall_a, "restart_s": wall_m}
+        else:
+            say(f"  spec {spec}: --checkpoint-async and --max-restarts runs cut (run under "
+                "pallas only)")
+
+        argv = sub_argv(spec)
         t0 = time.perf_counter()
         if spec == "pallas":
-            # a process of its own: the exit code 75 a supervisor reads
-            env = dict(os.environ, PHOTON_SPARSE_KERNEL=spec, PHOTON_PREEMPT_AT="cycle:2")
-            proc = subprocess.run([sys.executable, "-m",
-                                   "photon_ml_tpu_torch.cli.game_training_driver", *argv],
-                                  cwd=here, env=env, capture_output=True, text=True, timeout=600)
-            code, how = proc.returncode, "subprocess"
-            detail = proc.stderr[-2000:]
+            code = sub_proc.wait(timeout=600)
+            sub_err.seek(0)
+            how, detail, t0 = ("subprocess (started first, beside the in-process runs)",
+                               sub_err.read()[-2000:], t_sub)
         else:
             code, how, detail = stopped_in_process(torch, fused_sparse, argv, spec,
                                                    "cycle:2"), "in-process run", ""
@@ -2541,34 +2598,8 @@ def phase_checkpoints(torch, fused_sparse, workdir, dev="cuda"):
         say(f"  spec {spec}: {how} stopped at step 2 exited 75 after {sub_s:.2f} s (kept "
             f"{kept}); resumed in {wall_r:.2f} s (GEVM launches {launches_r['gevm']}): model "
             "bytes and objective history equal to the uninterrupted run's")
-
-        out[spec] = {"saves": saves, "wall_s": wall, "subprocess_s": sub_s, "resume_s": wall_r}
-        if spec != "pallas":
-            # the async commit and the in-process restart do not depend on
-            # the solve family: they run under pallas only (cut for time)
-            say(f"  spec {spec}: --checkpoint-async and --max-restarts runs cut (run under "
-                "pallas only)")
-            continue
-        preemption.reset()
-        _, wall_a, _, _, _ = run_game_training(
-            torch, fused_sparse, base + ["--output-dir", tag("async"), "--checkpoint-dir",
-                                         tag("ck-async"), "--checkpoint-async", "true"], spec)
-        check(tree_bytes(os.path.join(tag("async"), "best")) == want,
-              f"spec {spec}: the async run's model bytes differ")
-        preemption.reset()
-        os.environ["PHOTON_PREEMPT_AT"] = "cycle:3"
-        try:
-            restarted, wall_m, _, _, _ = run_game_training(
-                torch, fused_sparse, base + ["--output-dir", tag("restart"), "--checkpoint-dir",
-                                             tag("ck-restart"), "--max-restarts", "1"], spec)
-        finally:
-            del os.environ["PHOTON_PREEMPT_AT"]
-            preemption.reset()
-        check(tree_bytes(os.path.join(tag("restart"), "best")) == want,
-              f"spec {spec}: the restarted run's model bytes differ")
-        say(f"  spec {spec}: --checkpoint-async true {wall_a:.2f} s and --max-restarts 1 with a "
-            f"preemption at step 3 {wall_m:.2f} s: model bytes equal to the uninterrupted run's")
-        out[spec].update(async_s=wall_a, restart_s=wall_m)
+        out[spec] = {"saves": saves, "wall_s": wall, "subprocess_s": sub_s, "resume_s": wall_r,
+                     **extra}
     out["auto"] = checkpoints_under_auto(torch, fused_sparse, workdir, base)
     return out
 
@@ -2621,8 +2652,9 @@ def checkpoints_under_auto(torch, fused_sparse, workdir, base):
 
 
 # the lambda grid of bench.py:2411-2438 on phase 10's data: the fixed
-# effect at four lambdas, the random effect at 0.1, bench.py's solver caps
-GRID_LAMBDAS = ("0.01", "0.1", "1", "10")
+# effect at the first two of its four lambdas (0.01, 0.1, 1, 10; a cut, see
+# CUTS), the random effect at 0.1, bench.py's solver caps
+GRID_LAMBDAS = ("0.01", "0.1")
 GRID_FLAGS = [
     "--task-type", "LOGISTIC_REGRESSION",
     "--feature-shard-id-to-feature-section-keys-map", "global:fixedFeatures|per_user:userFeatures",
@@ -2807,11 +2839,15 @@ def phase_game_grid(torch, fused_sparse, workdir, dev="cuda"):
 
     say(f"== phase 19 (b): phase 10's command with the fixed effect down-sampled at "
         f"{SAMPLING_RATE} and Pearson selection on the per-user features at ratio "
-        f"{PEARSON_RATIO}, spec pallas; on {dev}, then the same command on the CPU")
+        f"{PEARSON_RATIO}, spec pallas, on phase 17's data ({CHECKPOINT_USERS} users of phase "
+        f"10's generator); on {dev}, then the same command on the CPU")
     sampled = {}
+    small = os.path.join(workdir, "ck17-data")
     for label, device in (("card", dev), ("cpu", "cpu")):
         out = os.path.join(workdir, f"sampled-{label}")
-        argv = base[:-1] + [device, "--output-dir", out] + SAMPLED_FLAGS
+        argv = ["--train-input-dirs", os.path.join(small, "train"), "--validate-input-dirs",
+                os.path.join(small, "validate"), "--device", device,
+                "--output-dir", out] + SAMPLED_FLAGS
         driver, wall, launches, stages, _ = run_game_training(torch, fused_sparse, argv, "pallas")
         _, result, metrics = driver.results[0]
         check(all(np.isfinite(result.objective_history)), f"{label}: non-finite objective")
@@ -2880,8 +2916,11 @@ def phase_full_game(torch, fused_sparse, workdir, dev="cuda"):
                                           FULL_SEED)
     say(f"  Avro written in {time.perf_counter() - t0:.1f} s: {n_train} train rows, "
         f"{n_val} validation rows")
+    # the first card run decodes the training Avro into a tensor cache, the
+    # second card run and the CPU run read the columns from it (a cut, see CUTS)
     base = ["--train-input-dirs", os.path.join(workdir, "train"),
-            "--validate-input-dirs", os.path.join(workdir, "validate")] + FULL_GAME_FLAGS
+            "--validate-input-dirs", os.path.join(workdir, "validate"),
+            "--tensor-cache", os.path.join(workdir, "tcache19c")] + FULL_GAME_FLAGS
     runs = {}
     for label, device, ck in (("card", dev, True), ("card again", dev, True),
                               ("cpu", "cpu", False)):
@@ -3009,7 +3048,6 @@ def phase_full_game(torch, fused_sparse, workdir, dev="cuda"):
 SKEW_USERS, SKEW_SMALL_USERS, SKEW_SEED = 20000, 2000, 31  # small: a depth cut, see CUTS
 SKEW_ZIPF, SKEW_MIN_ROWS, SKEW_MAX_ROWS = 1.9, 4, 2048
 BUCKETED_FLAGS = GAME_FLAGS + ["--bucketed-random-effects", "true"]
-SKEW_CACHE = "tcache20"  # phases 20 and 21: the tensor cache of phase 20's training columns
 
 
 def skewed_rows(num_users, seed):
@@ -3083,19 +3121,21 @@ def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
     """Phase 20: the GAME driver with --bucketed-random-effects true on a
     heavy-tailed variant of phase 10's data. (a) the data, each bucket's
     stack and the padded elements bucketed against unbucketed; (b) spec
-    pallas twice on the card: byte-equal models, one GEVM launch per bucket
-    per evaluation; (c) the same command unbucketed, held against (b) by
-    ``scores_held``'s rule and the objective histories; (d) spec auto with
-    --shape-canonicalization on: every bucket's race report, scores held
-    against (b); (e) both sparse kernels held against their plain version
-    on every bucket's slab and on the unbucketed one; (f) at 4000 users one
-    bucketed run on the card and one on the CPU, held likewise."""
+    pallas on the card: one GEVM launch per bucket per evaluation; (c) the
+    same command unbucketed, held against (b) by ``scores_held``'s rule and
+    the objective histories; (e) both sparse kernels held against their
+    plain version on every bucket's slab and on the unbucketed one; then at
+    SKEW_SMALL_USERS users (cuts, see CUTS): (f) two bucketed runs on the
+    card (byte-equal models) and one on the CPU, held likewise; (d) spec
+    auto with --shape-canonicalization on: every bucket's race report,
+    scores held against (f)'s card run."""
     from photon_ml_tpu_torch.ops import fused_glm
 
     say(f"== phase 20: game_training_driver.main --bucketed-random-effects true, phase 10's "
         f"generator with min(zipf({SKEW_ZIPF}) + {SKEW_MIN_ROWS}, {SKEW_MAX_ROWS}) rows a user "
-        f"(seed {SKEW_SEED}), {SKEW_USERS} users; spec pallas twice, unbucketed once, spec auto "
-        f"with --shape-canonicalization on; then {SKEW_SMALL_USERS} users on {dev} and the CPU")
+        f"(seed {SKEW_SEED}), {SKEW_USERS} users; spec pallas, unbucketed; then "
+        f"{SKEW_SMALL_USERS} users twice on {dev} and once on the CPU, and spec auto with "
+        "--shape-canonicalization on")
     rows = skewed_rows(SKEW_USERS, SKEW_SEED)
     t0 = time.perf_counter()
     big = os.path.join(workdir, "skew")
@@ -3111,13 +3151,9 @@ def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
         f"({elems['unbucketed'] / elems['bucketed']:.1f}x)")
     base = ["--train-input-dirs", os.path.join(big, "train"),
             "--validate-input-dirs", os.path.join(big, "validate"), "--device", dev]
-    # the bucketed runs here and phase 21's read the training columns from
-    # one tensor cache, filled by (b)'s first run (a cut, see CUTS); the
-    # unbucketed run (c) decodes (a cache would store its 1.2 GB stack)
-    cached = base[:-2] + ["--tensor-cache", os.path.join(workdir, SKEW_CACHE)] + base[-2:]
     out = {"buckets": buckets, "unbucketed": [e_all, m_all], "padded_elements": elems, "runs": {}}
 
-    def run(label, flags, spec, data_base=cached):
+    def run(label, flags, spec, data_base=base):
         d = os.path.join(workdir, "out20-" + label.replace(" ", "-"))
         with SlabEvaluations() as evals:
             driver, wall, launches, stages, _ = run_game_training(
@@ -3143,13 +3179,8 @@ def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
     kernels_launched(b1, l1, "(b) bucketed")
     check(l1["gevm"] == n1, f"(b): {l1['gevm']} GEVM launches for {n1} slab evaluations")
     fixed_err = [hold_driver_fixed(torch, fused_glm, b1.combo_coords[0]["fixed"], "phase 20 (b)")]
-    b2 = run("(b) bucketed again", BUCKETED_FLAGS, "pallas")
-    check(tree_bytes(os.path.join(d1, "best")) == tree_bytes(os.path.join(b2[2], "best")),
-          "(b): two bucketed card runs wrote different model bytes")
-    check(b2[1].objective_history == r1.objective_history, "(b): objective histories differ")
-    say(f"  (b) two bucketed card runs: model bytes equal; GEVM launches {l1['gevm']} = one a "
-        f"bucket per evaluation ({len(buckets)} buckets)")
-    del b2
+    say(f"  (b) GEVM launches {l1['gevm']} = one a bucket per evaluation ({len(buckets)} "
+        "buckets)")
 
     from photon_ml_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
 
@@ -3167,10 +3198,43 @@ def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
     say("  (c) stages, bucketed | unbucketed: " + ", ".join(
         f"{key} {tb[key]:.2f} | {tc[key]:.2f} s" for key in tb))
 
+    say("  (e) both sparse kernels on every bucket's slab and on the unbucketed slab")
+    errs = {"gevm": 0.0, "hvp": 0.0}
+    for sub in list(coord._subs) + [c.combo_coords[0]["per-user"]]:
+        e_ = hold_driver_slab(torch, fused_sparse, sub)
+        errs = {key: max(errs[key], e_[key]) for key in errs}
+    out["max_abs_err"] = errs
+    del c
+
+    small = os.path.join(workdir, "skew-small")
+    write_game_avro(small, SKEW_SMALL_USERS, SEED + 21,
+                    rows_per_user=skewed_rows(SKEW_SMALL_USERS, SKEW_SEED + 1))
+    pair, small_dirs = {}, {}
+    sargv = lambda device: ["--train-input-dirs", os.path.join(small, "train"),
+                            "--validate-input-dirs", os.path.join(small, "validate"),
+                            "--device", device]
+    for label, device in (("(f) card", dev), ("(f) card again", dev), ("(f) cpu", "cpu")):
+        driver, result, small_dirs[label], launches, _ = run(label, BUCKETED_FLAGS, "pallas",
+                                                             sargv(device))
+        if device != "cpu":
+            kernels_launched(driver, launches, label)
+            fixed_err.append(hold_driver_fixed(torch, fused_glm, driver.combo_coords[0]["fixed"],
+                                               "phase 20 (f)"))
+        pair[label] = (driver, result)
+    check(tree_bytes(os.path.join(small_dirs["(f) card"], "best"))
+          == tree_bytes(os.path.join(small_dirs["(f) card again"], "best")),
+          "(f): two bucketed card runs wrote different model bytes")
+    check(pair["(f) card again"][1].objective_history == pair["(f) card"][1].objective_history,
+          "(f): the two card runs' objective histories differ")
+    say("  (f) two bucketed card runs: model bytes and objective histories equal")
+    del pair["(f) card again"]
+    out["held_card_cpu"] = scores_held("(f)", pair["(f) card"], pair["(f) cpu"])
+    objectives_held("(f) card vs CPU", pair["(f) card"][1], pair["(f) cpu"][1])
+
     fused_sparse._race_cache.clear()
     fused_sparse._race_reports.clear()
     (dd, rd, _, ld, nd) = run("(d) auto + ladder", BUCKETED_FLAGS + [
-        "--shape-canonicalization", "on"], "auto")
+        "--shape-canonicalization", "on"], "auto", sargv(dev))
     out["races"] = race_lines(fused_sparse)
     subs = dd.combo_coords[0]["per-user"]._subs
     check(len(out["races"]) >= 1, "(d): no sparse race was recorded")
@@ -3184,33 +3248,10 @@ def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
     say("  (d) buckets (E, M) on the ladder and their families: " + ", ".join(
         f"{tuple(s_.dataset.x.shape[:2])} {s_.slab.kernel if s_.slab is not None else 'dense'}"
         for s_ in subs))
-    out["held_auto"] = scores_held("(d)", (dd, rd), (b1, r1), "auto + ladder vs (b)")
-    objectives_held("(d) auto + ladder vs (b)", rd, r1)
+    card_f = pair["(f) card"]
+    out["held_auto"] = scores_held("(d)", (dd, rd), card_f, "auto + ladder vs (f) card")
+    objectives_held("(d) auto + ladder vs (f) card", rd, card_f[1])
     del dd
-
-    say("  (e) both sparse kernels on every bucket's slab and on the unbucketed slab")
-    errs = {"gevm": 0.0, "hvp": 0.0}
-    for sub in list(coord._subs) + [c.combo_coords[0]["per-user"]]:
-        e_ = hold_driver_slab(torch, fused_sparse, sub)
-        errs = {key: max(errs[key], e_[key]) for key in errs}
-    out["max_abs_err"] = errs
-    del c
-
-    small = os.path.join(workdir, "skew-small")
-    write_game_avro(small, SKEW_SMALL_USERS, SEED + 21,
-                    rows_per_user=skewed_rows(SKEW_SMALL_USERS, SKEW_SEED + 1))
-    pair = {}
-    for label, device in (("(f) card", dev), ("(f) cpu", "cpu")):
-        argv = ["--train-input-dirs", os.path.join(small, "train"),
-                "--validate-input-dirs", os.path.join(small, "validate"), "--device", device]
-        driver, result, _, launches, _ = run(label, BUCKETED_FLAGS, "pallas", argv)
-        if device != "cpu":
-            kernels_launched(driver, launches, label)
-            fixed_err.append(hold_driver_fixed(torch, fused_glm, driver.combo_coords[0]["fixed"],
-                                               "phase 20 (f)"))
-        pair[label] = (driver, result)
-    out["held_card_cpu"] = scores_held("(f)", pair["(f) card"], pair["(f) cpu"])
-    objectives_held("(f) card vs CPU", pair["(f) card"][1], pair["(f) cpu"][1])
     out["fixed_max_abs_err"] = max(fixed_err)
     return out
 
@@ -3536,14 +3577,14 @@ def phase_scheduler(torch, fused_sparse, workdir, bucketed, dev="cuda"):
     """Phase 21, run after phase 20 in its directory: (a) the full-width RE
     solve three ways (``phase_scheduler_solve``); (b) batch independence
     of the lane-indirect kernels at every rung, on (a)'s slab and on phase
-    20's tail bucket; (c) phase 20 (b)'s command with --solve-compaction 8
-    and device:8, model bytes equal to phase 20 (b)'s; (e) at 4000 users
-    (phase 20 (f)'s data) with --checkpoint-dir, stopped by
-    PHOTON_PREEMPT_AT=chunk:N (host loop) and rung:N (device loop) and
-    resumed, model bytes equal to the uninterrupted run's; (d) on the same
-    data, the device loop with --adaptive-schedule 0 (byte-equal), on
-    (scores held) and 1:1 over 3 iterations (buckets skipped, each a
-    recorded decision)."""
+    20 (f)'s tail bucket; (c) on phase 20 (f)'s SKEW_SMALL_USERS users,
+    phase 20 (f)'s command with --solve-compaction 8 and device:8 and
+    --checkpoint-dir, model bytes equal to phase 20 (f)'s card run; (e) the
+    same commands stopped by PHOTON_PREEMPT_AT=chunk:N (host loop) and
+    rung:N (device loop) and resumed, model bytes equal to (c)'s
+    uninterrupted runs; (d) on the same data, the device loop with
+    --adaptive-schedule 0 (byte-equal), on (scores held) and 1:1 over 3
+    iterations (buckets skipped, each a recorded decision)."""
     from photon_ml_tpu_torch.compile import ShapeBucketer, compile_stats
     from photon_ml_tpu_torch.optim.fused_schedule import rung_ladder
     from photon_ml_tpu_torch.optim.scheduler import solve_stats
@@ -3554,16 +3595,17 @@ def phase_scheduler(torch, fused_sparse, workdir, bucketed, dev="cuda"):
     launches = {k: sum(r["launches"][k] for o in out["solve"].values() for r in o.values())
                 for k in ("gevm", "hvp")}
 
-    say("== phase 21 (c)-(e): the GAME driver on phase 20's data with the scheduler")
-    data = os.path.join(workdir, "skew")
-    base = ["--train-input-dirs", os.path.join(data, "train"),
-            "--validate-input-dirs", os.path.join(data, "validate"),
-            "--tensor-cache", os.path.join(workdir, SKEW_CACHE), "--device", dev]
-    want = tree_bytes(os.path.join(workdir, "out20-(b)-bucketed", "best"))
-    ref_train = bucketed["runs"]["(b) bucketed"]["stages_s"]["train"]
+    say(f"== phase 21 (c)-(e): the GAME driver on phase 20 (f)'s data ({SKEW_SMALL_USERS} "
+        "users) with the scheduler")
+    small = os.path.join(workdir, "skew-small")
+    sbase = ["--train-input-dirs", os.path.join(small, "train"),
+             "--validate-input-dirs", os.path.join(small, "validate"), "--device", dev,
+             "--delete-output-dir-if-exists", "true"]
+    want = tree_bytes(os.path.join(workdir, "out20-(f)-card", "best"))
+    ref_train = bucketed["runs"]["(f) card"]["stages_s"]["train"]
     runs = {}
 
-    def run(label, flags, data_base=base):
+    def run(label, flags, data_base=sbase):
         d = os.path.join(workdir, "out21-" + label)
         solve_stats.reset()
         compile_stats.reset()
@@ -3576,24 +3618,27 @@ def phase_scheduler(torch, fused_sparse, workdir, bucketed, dev="cuda"):
         site = compile_stats.snapshot().get("scheduler.rung", {})
         runs[label] = {"wall_s": wall, "stages_s": stages, "launches": l_, "solve_totals": t,
                        "captures": site.get("traces", 0), "replays": site.get("cache_hits", 0)}
-        say(f"  {label}: wall {wall:.2f} s, train stage {stages['train']:.2f} s (phase 20 (b) "
+        say(f"  {label}: wall {wall:.2f} s, train stage {stages['train']:.2f} s (phase 20 (f) "
             f"unscheduled {ref_train:.2f} s), launches {l_}; captures {runs[label]['captures']} "
             f"replays {runs[label]['replays']}")
         for line in solve_stats.summary().splitlines():
             say(f"    {line}")
         return driver, d
 
-    drivers = {}
+    # (c)'s runs are checkpointed: they are (e)'s uninterrupted runs too
+    drivers, clean = {}, {}
     for loop, flags in SCHEDULED_FLAGS.items():
-        drivers[loop], d = run(f"(c)-{loop}", flags)
+        clean[loop] = run(f"(c)-{loop}", flags + ["--checkpoint-dir",
+                          os.path.join(workdir, f"ck21-{loop}-clean")])
+        drivers[loop], d = clean[loop]
         check(tree_bytes(os.path.join(d, "best")) == want,
-              f"(c) --solve-compaction {flags[1]}: model bytes differ from phase 20 (b)'s")
-    say("  (c) host and device loops: model bytes equal to phase 20 (b)'s unscheduled run")
+              f"(c) --solve-compaction {flags[1]}: model bytes differ from phase 20 (f)'s")
+    say("  (c) host and device loops: model bytes equal to phase 20 (f)'s unscheduled card run")
 
     coord = drivers["device"].combo_coords[0]["per-user"]
     tail = coord._subs[-1]
     errs = batch_independence(
-        torch, fused_sparse, f"phase 20's tail bucket E={tail.dataset.num_entities} "
+        torch, fused_sparse, f"phase 20 (f)'s tail bucket E={tail.dataset.num_entities} "
         f"M={tail.slab.num_rows} K={tail.slab.max_nnz}", tail.slab, tail.dataset.labels,
         tail.dataset.weights, tail.gathered_offsets(torch.zeros(
             (int(tail.dataset.row_index.max()) + 1,), device=tail.slab.device)),
@@ -3610,16 +3655,10 @@ def phase_scheduler(torch, fused_sparse, workdir, bucketed, dev="cuda"):
                                            rows + 0.5, 0.1 * rows)
     del drivers, coord, tail, slab, x
 
-    # (e), then (d) on (e)'s data: phase 20 (f)'s 4000 users
-    small = os.path.join(workdir, "skew-small")
-    sbase = ["--train-input-dirs", os.path.join(small, "train"),
-             "--validate-input-dirs", os.path.join(small, "validate"), "--device", dev,
-             "--delete-output-dir-if-exists", "true"]
-    preempt, clean = {}, {}
+    # (e), then (d), on (c)'s data
+    preempt = {}
     for loop, site, n in (("host", "chunk", 3), ("device", "rung", 2)):
         flags = SCHEDULED_FLAGS[loop]
-        clean[loop] = run(f"(e)-{loop}-clean", flags + ["--checkpoint-dir",
-                          os.path.join(workdir, f"ck21-{loop}-clean")], sbase)
         dc = clean[loop][1]
         ck = os.path.join(workdir, f"ck21-{loop}")
         argv = sbase + ["--output-dir", os.path.join(workdir, f"out21-(e)-{loop}")] + \
@@ -4777,20 +4816,22 @@ def _free_init(workdir):
     return f"file://{os.path.join(workdir, 'pg-' + uuid.uuid4().hex)}"
 
 
-def start_rank_group(module, argv, world, workdir, label, hold=False, plain=False, env=None):
+def start_rank_group(module, argv, world, workdir, label, hold=False, plain=False, env=None,
+                     head=None):
     """Start ``world`` processes of ``python -m
     photon_ml_tpu_torch.cli.<module>`` on the card with one file://
     rendezvous; every rank starts with its kernel counts at 0 (a fresh
     process). With ``hold`` each rank runs the training driver through this
     script's HOLD_RANK mode, which then holds the kernels on the rank's own
     coordinates. ``plain`` starts one process of the module with ``argv``
-    alone (no rendezvous), ``env`` replaces the environment. Each rank's
+    alone (no rendezvous), ``env`` replaces the environment, ``head``
+    replaces the command before the flags. Each rank's
     output goes to files under ``workdir`` (a pipe nobody reads while
     another group is joined could fill). Returns the handle
     ``join_rank_group`` takes."""
     env = env or dict(os.environ, PHOTON_SPARSE_KERNEL="pallas")
-    head = ([os.path.abspath(__file__), HOLD_RANK] if hold
-            else ["-m", f"photon_ml_tpu_torch.cli.{module}"])
+    head = head or ([os.path.abspath(__file__), HOLD_RANK] if hold
+                    else ["-m", f"photon_ml_tpu_torch.cli.{module}"])
     mh = [] if plain else ["--multihost-coordinator", _free_init(workdir),
                            "--multihost-num-processes", str(world)]
     tag = re.sub(r"\W+", "-", label).strip("-")
@@ -5014,9 +5055,11 @@ def phase_multihost(torch, fused_sparse, fused_glm, workdir, dev="cuda"):
                                ["--output-dir", os.path.join(workdir, "out-mh2"), "--checkpoint-dir",
                                 ckpt] + mh_flags, 2, workdir, "(25c)", hold=True)
     try:
-        # (a) the single-process driver on a 1-rank group
+        # (a) the single-process driver on a 1-rank group; it reads phase 10's
+        # training columns from phase 19 (a)'s tensor cache (a cut, see CUTS)
         base = ["--train-input-dirs", os.path.join(workdir, "train"),
-                "--validate-input-dirs", os.path.join(workdir, "validate"), "--device", dev]
+                "--validate-input-dirs", os.path.join(workdir, "validate"), "--device", dev,
+                "--tensor-cache", os.path.join(workdir, "tcache19")]
         dist_out = os.path.join(workdir, "out-dist")
         driver, wall, launches, stages, _ = run_game_training(
             torch, fused_sparse, base + ["--output-dir", dist_out, "--distributed", "true"]
@@ -5218,7 +5261,8 @@ def start_multihost_streaming(workdir, retrain, dev="cuda"):
             "delta_dir": delta_dir}
 
 
-def phase_multihost_streaming(torch, fused_sparse, workdir, stream_game, started, dev="cuda"):
+def phase_multihost_streaming(torch, fused_sparse, workdir, stream_game, started, dev="cuda",
+                              also_start=None):
     """Phase 26, last, beside phase 25, on phase 20's data over MH_PARTS
     part files with an off-heap index of them: per-host streaming GAME
     training. (b) (started before phase 25) the multihost driver, 1 NCCL
@@ -5231,7 +5275,8 @@ def phase_multihost_streaming(torch, fused_sparse, workdir, stream_game, started
     --warm-start-from (c) with phase 24 (b)'s delta part file beside (c)'s
     files; (e) --warm-start-from (c) on (c)'s own files; and beside them
     runs (a), the GAME driver with --distributed --streaming-random-effects
-    on a 1-rank NCCL group: 22 (b)'s first run's model bytes."""
+    on a 1-rank NCCL group: 22 (b)'s first run's model bytes. ``also_start()``
+    runs once (d) and (e) have started, before (a): phase 27 (b)'s ranks."""
     prior_dir, base22 = stream_game["_prior"]
     data, idx, flags = started["data"], started["idx"], started["flags"]
     group_b, group_c = started["groups"]
@@ -5318,6 +5363,8 @@ def phase_multihost_streaming(torch, fused_sparse, workdir, stream_game, started
             workdir, "out26d"), "--warm-start-from", out_c] + flags_d, 2, workdir, "(26d)"),
         start_rank_group("game_multihost_driver", ["--output-dir", os.path.join(
             workdir, "out26e"), "--warm-start-from", out_c] + flags, 2, workdir, "(26e)")]
+    if also_start is not None:
+        also_start()
     # (a) the single-process driver's per-host streaming coordinate on a
     # 1-rank group, 22 (b)'s first command plus --distributed
     out_a = os.path.join(workdir, "out26a")
@@ -5457,12 +5504,416 @@ def finish_multihost_streaming(workdir, started, out, retrain):
     return out
 
 
+ELASTIC_RANK = "--elastic-rank"  # the argument that runs this script as one phase 27 (b) rank
+# phase 27 (b): three logical owners on the two ranks, owner 2 on rank 0
+ELASTIC_MEMBERSHIP = (1, [0, 1, 2], {0: 0, 1: 1, 2: 0})
+
+
+def elastic_rank(argv):
+    """One rank of phase 27 (b) (``chip_smoke.py --elastic-rank <multihost
+    driver flags>``): the multihost driver's per-host streaming path, built
+    from the driver's own helpers as ``_train`` builds it (positional file
+    share, one fixed-effect chunk a part file, the agreed blocking), over
+    ELASTIC_MEMBERSHIP's logical owners, with an ``ElasticMonitor`` in both
+    coordinates, as tests/elastic_reshard_worker.py's loss arm: when rank 0
+    reaches its first block of the last epoch, owner 2 stops beating and is
+    declared lost (rank 1 fires at its own first block of that epoch). Each
+    rank drains at its next safe boundary, the session agrees plan v2, moves only
+    the changed blocks and re-bases, and the descent resumes from the
+    emergency checkpoint on a coordinate rebuilt on the re-based manifest.
+    Then the model is saved as the driver saves it, both sparse kernels are
+    held against their plain versions on every block the rank owns after the
+    re-plan, and ``elastic-<rank>.json`` records the rank's run."""
+    import torch
+
+    from photon_ml_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
+    from photon_ml_tpu_torch.algorithm.streaming_fixed_effect import (
+        PerHostStreamingFixedEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.checkpoint import CoordinateDescentCheckpointer
+    from photon_ml_tpu_torch.cli import game_multihost_driver as mhd
+    from photon_ml_tpu_torch.cli.game_params import CoordinateOptConfig, parse_training_params
+    from photon_ml_tpu_torch.cli.game_training_driver import (
+        _input_files,
+        resolve_date_range_dirs,
+    )
+    from photon_ml_tpu_torch.compile.plan import ExecutionPlan
+    from photon_ml_tpu_torch.device import enable_determinism
+    from photon_ml_tpu_torch.io import model_io
+    from photon_ml_tpu_torch.ops import fused_sparse
+    from photon_ml_tpu_torch.ops import losses as losses_mod
+    from photon_ml_tpu_torch.optim.problem import GLMOptimizationProblem
+    from photon_ml_tpu_torch.parallel import multihost
+    from photon_ml_tpu_torch.parallel.elastic import (
+        ElasticMonitor,
+        ElasticSession,
+        FleetMembership,
+        ReplanBarrierError,
+        ReplanRequired,
+        declare_lost_hosts,
+    )
+    from photon_ml_tpu_torch.parallel.perhost_streaming import (
+        PerHostStreamingRandomEffectCoordinate,
+        build_perhost_streaming_manifest,
+    )
+    from photon_ml_tpu_torch.utils.io_utils import prepare_output_dir
+
+    enable_determinism()
+    t_start = time.perf_counter()
+    mh_args, rest = mhd._add_multihost_flags(argv)
+    p = parse_training_params(rest)
+    mh = multihost.initialize(mh_args["coordinator"], mh_args["num_processes"],
+                              mh_args["process_id"], device=p.device)
+    try:
+        ctx, pid, n = mh.mesh_context(), mh.process_id, mh.num_processes
+        if mh.coordinator_only_io():
+            prepare_output_dir(p.output_dir, True)
+        mh.barrier("output-dir")
+        plan = ExecutionPlan.resolve(
+            shape_canonicalization=p.shape_canonicalization,
+            solve_compaction=p.solve_compaction, adaptive_schedule=p.adaptive_schedule,
+            distributed=True, streaming=True, bucketed=p.bucketed_random_effects, plan=p.plan,
+            num_processes=n)
+        shards = {"global", "per_user"}
+        shard_maps = mhd._shard_maps(p, shards)
+        all_files = _input_files(resolve_date_range_dirs(
+            p.train_input_dirs, p.train_date_range, p.train_date_range_days_ago))
+        gds = mhd._decode_share(p, mhd.host_file_share(all_files, n, pid), shard_maps, shards,
+                                ["userId"])
+        file_base, n_global = mhd.global_row_layout(len(all_files), gds, ctx, n)
+
+        def assemble(vec_per_gd):
+            return torch.from_numpy(np.asarray(mhd.merge_row_vectors(
+                gds, file_base, n_global, ctx, n, vec_per_gd))).to(ctx.device)
+
+        labels = assemble(lambda gd: gd.response.astype(np.float32))
+        weights = assemble(lambda gd: gd.weight.astype(np.float32))
+        offsets = assemble(lambda gd: gd.offset.astype(np.float32))
+        g_file_counts = np.diff(np.append(file_base, n_global)).astype(np.int64)
+        dc = p.random_effect_data_configs["per-user"]
+        rows = mhd._host_rows(gds, file_base, "per_user", "userId", len(shard_maps["per_user"]))
+        version, hosts, binding = ELASTIC_MEMBERSHIP
+        membership = FleetMembership(version, hosts, binding)
+        manifest = build_perhost_streaming_manifest(
+            rows, dc, os.path.join(p.output_dir, "streaming-re", "per-user", f"process-{pid}"),
+            ctx, n, pid, memory_budget_bytes=int(p.re_memory_budget_mb * 1e6),
+            bucketer=plan.bucketer or "off", membership=membership)
+        del rows
+        fleet_dir = os.path.join(p.output_dir, "fleet")
+        monitor = ElasticMonitor(fleet_dir, membership, process_id=pid, heartbeat_deadline=60.0,
+                                 min_poll_interval=0.0, num_processes=n)
+        session = ElasticSession(fleet_dir, pid, n, monitor, barrier_timeout=120.0)
+        combo = p.config_grid()[0]
+        fe_cfg, re_cfg = combo["fixed"], combo["per-user"]
+        dim = len(shard_maps["global"])
+        fe = PerHostStreamingFixedEffectCoordinate(
+            [int(c) for c in g_file_counts], mhd._fe_chunk_loaders(gds, "global", dim), dim,
+            GLMOptimizationProblem(p.task_type, fe_cfg.optimizer, fe_cfg.optimizer_config(),
+                                   fe_cfg.regularization_context()),
+            ctx=ctx, num_processes=n, plan=plan, device=ctx.device, elastic=monitor)
+        re_kw = dict(task=p.task_type, optimizer=re_cfg.optimizer,
+                     optimizer_config=re_cfg.optimizer_config(),
+                     regularization=re_cfg.regularization_context(),
+                     state_root=os.path.join(p.output_dir, "streaming-re-state",
+                                             f"per-user-host{pid}-1"),
+                     plan=plan, device=ctx.device, ctx=ctx, num_processes=n, elastic=monitor)
+        re = PerHostStreamingRandomEffectCoordinate(manifest=manifest, **re_kw)
+        fired, log = {"done": False}, []
+
+        def fire():
+            monitor.silence_host(2)
+            declare_lost_hosts(fleet_dir, [2], reason="logical owner 2 reclaimed")
+            log.append(f"rank {pid} declared owner 2 lost")
+
+        # each rank fires before its first block of the last epoch (the
+        # marker writes are idempotent), so it drains at that block's
+        # boundary, mid-epoch, whatever its peer's timing
+        slab_for, calls = re._slab_for, {"n": 0}
+        first_of_last = (p.num_iterations - 1) * len(re.manifest.blocks) + 1
+
+        def hooked(i, ds, extra):
+            calls["n"] += 1
+            if not fired["done"] and calls["n"] == first_of_last:
+                fired["done"] = True
+                fire()
+            return slab_for(i, ds, extra)
+
+        re._slab_for = hooked
+        loss = losses_mod.for_task(p.task_type)
+        ck = CoordinateDescentCheckpointer(os.path.join(p.output_dir, f"ckpt-{pid}"),
+                                           run_fingerprint="phase-27b")
+        replans, result, t_run = [], None, time.perf_counter()
+        while result is None:
+            cd = CoordinateDescent({"fixed": fe, "per-user": re},
+                                   lambda s: torch.sum(weights * loss.loss(s + offsets, labels)))
+            try:
+                result = cd.run(p.num_iterations, n_global, checkpointer=ck)
+            except ReplanRequired as e:
+                where = (f"mid-epoch, {len(e.partial['meta']['done_global_ids'])} blocks done"
+                         if e.partial else "no partial")
+                log.append(f"rank {pid} drained for v{e.proposal['version']} ({where}): {e}")
+                t0 = time.perf_counter()
+                try:
+                    res = session.replan(re.manifest, e.proposal,
+                                         state_dir=re.replan_state_dirs(), epoch=re._epoch)
+                except ReplanBarrierError as err:
+                    log.append(f"supervised-relaunch fallback: {err}")
+                    raise
+                moved_bytes = sum(os.path.getsize(os.path.join(res.manifest.dir, b["file"]))
+                                  for g, b in zip(res.manifest.global_block_ids,
+                                                  res.manifest.blocks) if g in res.incoming)
+                replans.append({"version": res.plan_version, "moved": res.moved,
+                                "incoming": res.incoming, "rebuilt": res.rebuilt,
+                                "blocks_total": res.blocks_total,
+                                "incoming_block_bytes": moved_bytes,
+                                "seconds": time.perf_counter() - t0,
+                                "decisions": res.decisions})
+                re = PerHostStreamingRandomEffectCoordinate(
+                    manifest=res.manifest, initial_epoch=re._epoch + 1, **re_kw)
+        run_s = time.perf_counter() - t_run
+        launches = mhd.kernel_launches()
+        out = os.path.join(p.output_dir, "best")
+        mh.barrier("pre-save")
+        if mh.coordinator_only_io():
+            os.makedirs(out, exist_ok=True)
+            model_io.save_fixed_effect(out, "fixed", p.task_type,
+                                       result.coefficients["fixed"].detach().cpu().numpy(),
+                                       shard_maps["global"], feature_shard_id="global")
+        mh.barrier("saved-fixed")
+        mhd._save_streaming_re_parts(out, "per-user", p, dc, re, result.coefficients["per-user"],
+                                     shard_maps["per_user"], mh)
+        mh.barrier("saved-per-user")
+        # (the kernels need the card: a CPU rehearsal records no holds)
+        holds = (hold_block_slabs(torch, fused_sparse, re.manifest, f"27 (b) rank {pid}",
+                                  device=re._device) if re._device.type == "cuda"
+                 else {"gevm": None, "hvp": None})
+        with open(os.path.join(p.output_dir, f"elastic-{pid}.json"), "w") as f:
+            json.dump({"backend": ctx.backend, "replans": replans, "log": log,
+                       "launches": launches, "holds": holds, "run_s": run_s,
+                       "wall_s": time.perf_counter() - t_start,
+                       "owned": [int(g) for g in re.manifest.global_block_ids],
+                       "plan_version": monitor.membership.version,
+                       "objective_history": result.objective_history}, f, default=str)
+    finally:
+        multihost.shutdown()
+
+
+def start_elastic_seed(workdir, started26):
+    """Phase 27 (a)'s seed, started with phase 26's first groups (beside
+    phase 25): 26 (c)'s 2-rank command with --checkpoint-dir, stopped after
+    its first checkpointed iteration (``PHOTON_PREEMPT_AT=cycle:2``, exit
+    75). A watcher thread starts the relaunch, the same command at one rank
+    on the same dirs, as soon as both seed ranks have exited 75."""
+    say("== phase 27 (start): (a)'s 2-rank seed, stopped after one checkpointed iteration, "
+        "beside phase 25; its 1-rank relaunch starts when it exits")
+    seed_argv = (["--output-dir", os.path.join(workdir, "out27a"), "--checkpoint-dir",
+                  os.path.join(workdir, "ck27a")] + started26["flags"])
+    env = dict(os.environ, PHOTON_SPARSE_KERNEL="pallas", PHOTON_PREEMPT_AT="cycle:2")
+    seed = start_rank_group("game_multihost_driver", seed_argv, 2, workdir, "(27a seed)", env=env)
+    started = {"seed": seed, "seed_argv": seed_argv, "groups": [seed], "lock": threading.Lock(),
+               "stopping": False}
+
+    def relaunch_when_seed_ends():
+        for proc in seed[1]:
+            proc.wait()
+        with started["lock"]:
+            if not started["stopping"] and all(p_.returncode == 75 for p_ in seed[1]):
+                # the seed's split, read before the relaunch re-bases it
+                started["seed_blocks"] = {}
+                for r in range(2):
+                    with open(os.path.join(workdir, "out27a", "streaming-re", "per-user",
+                                           f"process-{r}", "manifest.json")) as f:
+                        started["seed_blocks"][r] = sorted(json.load(f)["global_block_ids"])
+                started["relaunch"] = start_rank_group(
+                    "game_multihost_driver", seed_argv, 1, workdir, "(27a relaunch)")
+                started["groups"].append(started["relaunch"])
+
+    started["watcher"] = threading.Thread(target=relaunch_when_seed_ends, daemon=True)
+    started["watcher"].start()
+    return started
+
+
+def start_elastic_live(workdir, started26, started):
+    """Phase 27 (b)'s two ranks (ELASTIC_RANK), started beside 26 (a), (d)
+    and (e)."""
+    say("== phase 27 (b) start: the live re-plan's 2 ranks, beside 26 (a), (d) and (e)")
+    started["live"] = start_rank_group(
+        "game_multihost_driver", ["--output-dir", os.path.join(workdir, "out27b")]
+        + started26["flags"], 2, workdir, "(27b)",
+        head=[os.path.abspath(__file__), ELASTIC_RANK])
+    started["groups"].append(started["live"])
+
+
+def stop_elastic(started):
+    """Stop phase 27's groups, the watcher first (it may start one)."""
+    if "lock" in started:
+        with started["lock"]:
+            started["stopping"] = True
+        stop_rank_groups(*started["groups"])
+        started["watcher"].join(timeout=30)
+    stop_rank_groups(*started["groups"])
+
+
+def relaunch_elastic(workdir, started):
+    """Phase 27 (a)'s seed joined (exit 75); the relaunch the watcher
+    started on the seed's exit, after reading the seed's split."""
+    started["seed_wall"], _ = join_rank_group(started["seed"], expect_rc=75)
+    started["watcher"].join(timeout=60)
+    check("relaunch" in started, "27 (a): the relaunch did not start after the seed exited")
+
+
+def phase_elastic(workdir, started26, started, mh_stream):
+    """Phase 27, after phase 26, on its data (phase 20's 20000 skewed users
+    over MH_PARTS part files, 1 MB blocks). (a) the relaunch re-plan: 26
+    (c)'s command seeded on 2 gloo ranks and stopped after one checkpointed
+    iteration, relaunched on the same output dir as 1 NCCL rank: the driver
+    adopts the layout at plan v2, copies only the lost rank's blocks and
+    spilled coefficients, decodes no random-effect shard, and writes 26
+    (b)'s coefficients bit for bit. (b) the live re-plan of ``elastic_rank``
+    on 2 gloo ranks with 3 logical owners: owner 2 lost mid-epoch, one
+    re-plan to v2, no fallback and no cold rebuild, 26 (b)'s coefficients
+    bit for bit, each rank's GEVM and HVP bitwise their plain versions on
+    its blocks after the re-plan."""
+    say("== phase 27: elastic re-planning on phase 26's data: (a) a 2-rank run relaunched as 1 "
+        "rank adopts its layout at plan v2; (b) a live re-plan after a logical owner's loss")
+    idx = started26["idx"]
+    model_b = _game_models(os.path.join(workdir, "out26b"), idx)
+    out = {}
+
+    def bitwise_26b(model):
+        return (np.array_equal(model[0], model_b[0]) and set(model[1]) == set(model_b[1])
+                and all(np.array_equal(model[1][k], model_b[1][k]) for k in model_b[1]))
+
+    # (a) the seed (joined by relaunch_elastic), then the relaunch at 1 rank
+    out_a = os.path.join(workdir, "out27a")
+    seed_wall, seed_blocks = started["seed_wall"], started["seed_blocks"]
+    wall_a, outs_a = join_rank_group(started["relaunch"])
+    summary, = _rank_summaries(out_a, 1, outs_a)
+    with open(os.path.join(out_a, "photon-ml-tpu-mh-0.log")) as f:
+        log_a = f.read()
+    adopted = summary["adopted"].get("per-user")
+    check(adopted is not None and adopted["plan_version"] == 2
+          and "adopted relaunch re-plan v2" in log_a,
+          f"27 (a) the relaunch did not adopt the layout at plan v2: {summary['adopted']}")
+    check(summary["backend"] == "nccl", f"27 (a) relaunch backend {summary['backend']}")
+    check(sorted(adopted["blocks"]) == seed_blocks[1]
+          and sorted(g for g, _, _ in adopted["moved"]) == seed_blocks[1],
+          f"27 (a) copied blocks {adopted['blocks']}, not the lost rank's {seed_blocks[1]}")
+    check(adopted["state_files"] >= len(seed_blocks[1]),
+          f"27 (a) {adopted['state_files']} state files for {len(seed_blocks[1])} blocks")
+    check("per_user" not in summary["decoded_shard_rows"]
+          and summary["decoded_shard_rows"].get("global") == summary["num_rows"],
+          f"27 (a) the relaunch decoded {summary['decoded_shard_rows']}: a random-effect shard "
+          "was decoded again")
+    check(summary["launches"]["gevm"] > 0, f"27 (a) relaunch launches {summary['launches']}")
+    check(bitwise_26b(_game_models(out_a, idx)),
+          "27 (a) the relaunched run's coefficients are not bitwise 26 (b)'s")
+    proc0 = os.path.join(out_a, "streaming-re", "per-user", "process-0")
+    with open(os.path.join(proc0, "manifest.json")) as f:
+        m0 = json.load(f)
+    files = dict(zip(m0["global_block_ids"], (b["file"] for b in m0["blocks"])))
+    block_bytes = sum(os.path.getsize(os.path.join(proc0, files[g])) for g in adopted["blocks"])
+    state_root = os.path.join(out_a, "streaming-re-state")
+    state_bytes = sum(os.path.getsize(os.path.join(root, f)) for root, _, fs in os.walk(state_root)
+                      if "-host0-" in root for f in fs
+                      if any(f == f"coefs-g{g:05d}.npy" for g in adopted["blocks"]))
+    out["a"] = {"seed_wall_s": seed_wall, "relaunch_wall_s": wall_a,
+                "relaunch_in_driver_s": summary["wall_s"], "replan_s": adopted["seconds"],
+                "blocks_by_seed_rank": seed_blocks, "adopted_blocks": adopted["blocks"],
+                "state_files": adopted["state_files"], "block_bytes": block_bytes,
+                "state_bytes": state_bytes, "launches": summary["launches"],
+                "decoded_shard_rows": summary["decoded_shard_rows"],
+                "startup_s": summary["startup_s"]}
+    say(f"  (a) seed: 26 (c)'s command on 2 gloo ranks with --checkpoint-dir, stopped after one "
+        f"checkpointed iteration (exit 75), wall {seed_wall:.2f} s, blocks by rank "
+        f"{seed_blocks[0]}; {seed_blocks[1]}; relaunch on the same output dir at 1 NCCL rank: "
+        f"adopted at plan v2 in {adopted['seconds']:.3f} s, {len(adopted['blocks'])} of "
+        f"{len(seed_blocks[0]) + len(seed_blocks[1])} blocks copied ({block_bytes} bytes) and "
+        f"{adopted['state_files']} coefficient files ({state_bytes} bytes), rows decoded by "
+        f"shard {summary['decoded_shard_rows']} (no random-effect shard), wall {wall_a:.2f} s "
+        f"(in the driver {summary['wall_s']:.2f} s), launches {summary['launches']}; every "
+        "coefficient bitwise 26 (b)'s")
+
+    # (b) the live re-plan
+    out_b = os.path.join(workdir, "out27b")
+    wall_b, _ = join_rank_group(started["live"])
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_b, f"elastic-{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r, rank in enumerate(ranks):
+        check(rank["backend"] == "gloo", f"27 (b) rank {r} backend {rank['backend']}")
+        check([x["version"] for x in rank["replans"]] == [2] and rank["plan_version"] == 2,
+              f"27 (b) rank {r} re-plans {[x['version'] for x in rank['replans']]}")
+        check(not any("supervised-relaunch" in line for line in rank["log"])
+              and rank["replans"][0]["rebuilt"] == [],
+              f"27 (b) rank {r} fell back: {rank['log']} {rank['replans'][0]['rebuilt']}")
+        check(rank["holds"]["gevm"] == 0.0 and rank["holds"]["hvp"] == 0.0,
+              f"27 (b) rank {r}'s sparse kernels are not bitwise their plain version on its "
+              f"blocks after the re-plan: {rank['holds']}")
+        check(rank["launches"]["gevm"] > 0, f"27 (b) rank {r} launches {rank['launches']}")
+    moved = ranks[0]["replans"][0]["moved"]
+    check(moved and moved == ranks[1]["replans"][0]["moved"]
+          and sorted(ranks[0]["owned"] + ranks[1]["owned"])
+          == list(range(ranks[0]["replans"][0]["blocks_total"])),
+          f"27 (b) the ranks disagree on the moved blocks or the new split: {moved}, "
+          f"{ranks[0]['owned']}, {ranks[1]['owned']}")
+    check(any("mid-epoch" in line for rank in ranks for line in rank["log"]),
+          f"27 (b) no rank drained mid-epoch: {[rank['log'] for rank in ranks]}")
+    check(ranks[0]["objective_history"] == mh_stream["runs"]["b"]["objective_history"],
+          "27 (b) the objectives are not 26 (b)'s")
+    check(bitwise_26b(_game_models(out_b, idx)),
+          "27 (b) the live re-planned run's coefficients are not bitwise 26 (b)'s")
+    out["b"] = {"wall_s": wall_b, "rank_walls_s": [x["wall_s"] for x in ranks],
+                "run_s": [x["run_s"] for x in ranks], "moved": moved,
+                "incoming_by_rank": [x["replans"][0]["incoming"] for x in ranks],
+                "incoming_block_bytes_by_rank": [x["replans"][0]["incoming_block_bytes"]
+                                                 for x in ranks],
+                "replan_s_by_rank": [x["replans"][0]["seconds"] for x in ranks],
+                "owned_by_rank": [x["owned"] for x in ranks],
+                "launches_by_rank": [x["launches"] for x in ranks],
+                "holds_by_rank": [x["holds"] for x in ranks], "log": ranks[0]["log"]
+                + ranks[1]["log"]}
+    say(f"  (b) 2 gloo ranks, logical owners {ELASTIC_MEMBERSHIP[1]} bound "
+        f"{ELASTIC_MEMBERSHIP[2]}: " + "; ".join(ranks[0]["log"] + ranks[1]["log"])
+        + f"; plan v2 moved {len(moved)} of {ranks[0]['replans'][0]['blocks_total']} blocks "
+        f"{[g for g, _, _ in moved]} (incoming bytes by rank "
+        f"{out['b']['incoming_block_bytes_by_rank']}, re-plan "
+        + ", ".join(f"{x:.3f}" for x in out["b"]["replan_s_by_rank"]) + " s by rank), owned "
+        f"after it {ranks[0]['owned']}; {ranks[1]['owned']}; wall {wall_b:.2f} s (descent "
+        + ", ".join(f"{x:.2f}" for x in out["b"]["run_s"]) + " s by rank), launches by rank "
+        + "; ".join(str(x["launches"]) for x in ranks) + "; no fallback, no cold rebuild; every "
+        "coefficient bitwise 26 (b)'s; each rank's GEVM and HVP bitwise their plain versions "
+        "on its blocks after the re-plan")
+    out["max_abs_err"] = {k: max(x["holds"][k] or 0.0 for x in ranks) for k in ("gevm", "hvp")}
+    return out
+
+
 CUTS = [
-    "phases 25 and 26 run last, side by side (each only reads what the runs before it wrote): "
-    "26 (b)'s rank and (c)'s two ranks start before phase 25 and run beside it; 25 (c)'s two "
-    "ranks run beside 25 (a) and (b) in this process; 25 (d)'s and (e)'s ranks and 26 (d)'s "
-    "and (e)'s run beside each other and beside 26 (a) in this process; no rank group runs "
+    "phases 25, 26 and 27 run last, side by side (each only reads what the runs before it "
+    "wrote): 26 (b)'s rank, (c)'s two ranks and 27 (a)'s two seed ranks start before phase 25 "
+    "and run beside it; 25 (c)'s two ranks run beside 25 (a) and (b) in this process; 27 (a)'s "
+    "relaunched rank starts when the seed exits; 25 (d)'s and (e)'s ranks, 26 (d)'s and (e)'s "
+    "and 27 (b)'s run beside each other and beside 26 (a) in this process; no rank group runs "
     "beside any other phase",
+    "phase 17: spec pallas's stopped subprocess starts first and runs beside the in-process "
+    "runs (it writes its own dirs)",
+    "phase 19 (a): the grid's fixed-effect lambdas 0.01 and 0.1, the first two of bench.py's "
+    "four (phase 23 swaps between their stores)",
+    "phase 19 (c): the first card run decodes the training Avro into a tensor cache; the "
+    "second card run and the CPU run read the columns from it",
+    f"phase 19 (b): the sampled card and CPU pair on phase 17's data ({CHECKPOINT_USERS} users "
+    f"of phase 10's generator), not phase 10's {GAME_USERS}",
+    "phase 25 (a): the --distributed run reads phase 10's training columns from phase 19 (a)'s "
+    "tensor cache",
+    f"phase 11 (after phase 17): the native and row-loop reads of phase 17's validation rows "
+    f"({CHECKPOINT_USERS} users), not phase 10's",
+    f"phase 20: the byte-equal pair of bucketed card runs and the spec auto run with "
+    f"--shape-canonicalization on run at {SKEW_SMALL_USERS} users ((f)'s data; (d) held against "
+    f"(f)'s card run), not {SKEW_USERS}; (b) and the unbucketed (c) keep {SKEW_USERS}",
+    f"phase 21 (c): the host and device loops at {SKEW_SMALL_USERS} users (phase 20 (f)'s data, "
+    f"model bytes held against 20 (f)'s card run), not {SKEW_USERS}; they are (e)'s "
+    "uninterrupted runs, checkpointed",
     "phase 22 (b): the subprocess stopped at a block boundary runs beside the depth-0 and "
     "--solve-compaction runs (it only reads the tensor cache the first run filled)",
     "graph timings of a slow call replay the graph fewer times (as many as fill 1.5 s of device "
@@ -5471,13 +5922,15 @@ CUTS = [
     f"{GAME_USERS} (4000 before phase 22 was added)",
     "phase 17: specs scatter and auto run the uninterrupted and the stopped-and-resumed pair "
     "only; --checkpoint-async and --max-restarts run under spec pallas alone",
-    f"phase 16: one card run at {WIDE_USERS} users (timings), not 20000 (10000 before phase "
-    "25's (b) and (c) held the kernels on their ranks' blocks); the byte-equal pair "
-    f"of card runs and the card and CPU pair at {WIDE_CPU_USERS} users, not 4000",
+    f"phase 16: no card run of its own for the timings, the byte-equal pair's first run at "
+    f"{WIDE_CPU_USERS} users gives them (one at 5000 users before phase 27 was added, 20000 "
+    f"before phase 25); the byte-equal pair and the card and CPU pair at {WIDE_CPU_USERS} "
+    "users, not 4000",
     f"phase 20 (f) and phase 21 (d)-(e): {SKEW_SMALL_USERS} users, not 4000",
-    "phase 18 (b): the card-against-CPU pair of ALL + TRON + box runs on the first quarter of "
-    "phase 6's training rows; the two byte-equal card runs keep every row",
-    "phase 18 (c): the TrainingExampleAvro copy's training split is (b)'s quarter of phase 6's "
+    f"phase 18 (b): the card-against-CPU pair of ALL + TRON + box runs on the first "
+    f"{DIAG_CPU_ROWS} of phase 6's training rows (a quarter); the two byte-equal card runs keep "
+    "every row",
+    "phase 18 (c): the TrainingExampleAvro copy's training split is (b)'s subset of phase 6's "
     "training rows (all of them before phase 25 was added); the validation split keeps every row",
     "phase 17: only spec pallas stops a subprocess (exit 75); under scatter and auto the "
     "stopped run is in-process (SystemExit 75), auto's with its race caches emptied first",
@@ -5488,9 +5941,6 @@ CUTS = [
     + ", not all 37488 (32 serves every row; 8192 at 1, 8 and 128 before this cut)",
     "phase 19 (a)-(b): the per-combo run decodes phase 10's training Avro into a tensor "
     "cache; the --vmapped-grid run and the sampled card and CPU runs read the columns from it",
-    "phases 20 (b)-(d) and 21 (c): phase 20 (b)'s first run decodes the training Avro into a "
-    "tensor cache; the second (b) run, (d) and 21 (c)'s two runs read from it (the unbucketed "
-    "(c) decodes)",
 ]
 
 
@@ -5570,11 +6020,11 @@ def main() -> None:
     # phase 10's dir stays until phase 25, which runs last, beside 26
     with tempfile.TemporaryDirectory(prefix="chip_smoke_game_") as game_dir:
         game_runs, trained = timed("10", phase_game_driver, torch, fused_sparse, game_dir)
-        timed("11", phase_ingest, game_dir, trained)
         timed("12", phase_scoring, torch, game_dir, trained)
         timed("13", phase_offheap, torch, fused_sparse, game_dir, trained)
         timed("14", phase_random_projection, torch, trained)
         checkpoints = timed("17", phase_checkpoints, torch, fused_sparse, game_dir)
+        timed("11", phase_ingest, game_dir, trained)
         game_grid = timed("19ab", phase_game_grid, torch, fused_sparse, game_dir)
         cache_game = timed("22c", phase_cache_game, torch, fused_sparse, game_dir)
         serving = timed("23", phase_serving, torch, game_dir)
@@ -5595,16 +6045,23 @@ def main() -> None:
             # beside each other and beside 25 (a)-(b) and 26 (a), no other
             # phase; a failed check stops every group
             started = timed("26start", start_multihost_streaming, workdir, retrain)
-            multihost = {}
+            multihost, started27 = {}, {"groups": []}
             try:
+                # phase 27, on phase 26's data: (a)'s seed beside phase 25,
+                # its relaunch when the seed exits; (b) beside 26 (a), (d), (e)
+                started27 = timed("27start", start_elastic_seed, workdir, started)
                 multihost = timed("25", phase_multihost, torch, fused_sparse, fused_glm,
                                   game_dir)
                 mh_stream = timed("26", phase_multihost_streaming, torch, fused_sparse, workdir,
-                                  stream_game, started)
+                                  stream_game, started, "cuda",
+                                  lambda: start_elastic_live(workdir, started, started27))
+                timed("27relaunch", relaunch_elastic, workdir, started27)
                 timed("25de", finish_multihost, game_dir, multihost)
                 timed("26de", finish_multihost_streaming, workdir, started, mh_stream, retrain)
+                elastic = timed("27", phase_elastic, workdir, started, started27, mh_stream)
             finally:
                 stop_rank_groups(*started["groups"], *multihost.get("_groups", ()))
+                stop_elastic(started27)
             stream_game.pop("_prior")
             retrain.pop("_delta_b")
     say(f"  -- the whole call {time.perf_counter() - start:.1f} s")
@@ -5627,6 +6084,12 @@ def main() -> None:
                 **{f"{k}_rank{r}": n[key] for k in ("b", "c", "d", "e")
                    for r, n in enumerate(runs[k]["launches_by_rank"])}}
 
+    def elastic_launches(key):
+        """Phase 27's launches: (a)'s relaunched rank, then each rank of (b),
+        each counted from 0 in its own process."""
+        return {"a_relaunch": elastic["a"]["launches"][key],
+                **{f"b_rank{r}": n[key] for r, n in enumerate(elastic["b"]["launches_by_rank"])}}
+
     kernels = [{
         "name": "fused_glm_value_grad",
         "route": "cuda",
@@ -5647,6 +6110,7 @@ def main() -> None:
         "launches_delta_retrain": {k: v["fused_glm"] for k, v in retrain["launches"].items()},
         "launches_multihost": mh_launches("fused_glm"),
         "launches_multihost_streaming": mh_stream_launches("fused_glm"),
+        "launches_elastic": elastic_launches("fused_glm"),
         "max_abs_err": max(max_abs_err, game_runs["fixed_max_abs_err"],
                            game_grid["fixed_max_abs_err"], full_game["fixed_max_abs_err"],
                            bucketed["fixed_max_abs_err"], retrain["fixed_max_abs_err"],
@@ -5692,6 +6156,7 @@ def main() -> None:
             "launches_delta_retrain": {k: v[key] for k, v in retrain["launches"].items()},
             "launches_multihost": mh_launches(key),
             "launches_multihost_streaming": mh_stream_launches(key),
+            "launches_elastic": elastic_launches(key),
             # replays launch through their graphs, not the wrappers: phase 21
             # (a)'s traced device-loop solve, by torch.profiler
             "launches_device_loop_traced": {
@@ -5700,7 +6165,8 @@ def main() -> None:
             "max_abs_err": max(sparse_err[key], game_runs["max_abs_err"][key],
                                bucketed["max_abs_err"][key], scheduler["max_abs_err"][key],
                                stream_game["max_abs_err"][key], retrain["max_abs_err"][key],
-                               multihost["max_abs_err"][key], mh_stream["max_abs_err"][key]),
+                               multihost["max_abs_err"][key], mh_stream["max_abs_err"][key],
+                               elastic["max_abs_err"][key]),
             "ms": t["ms"],
             "graph_ms": t["graph_ms"],
             "host_ms": t["host_ms"],
@@ -5722,7 +6188,7 @@ def main() -> None:
                     "scheduler": scheduler, "dense_stack_bits": dense_bits,
                     "streaming": {"glm": stream_glm, "game": stream_game, "cache": cache_game},
                     "serving": serving, "retrain": retrain, "multihost": multihost,
-                    "multihost_streaming": mh_stream,
+                    "multihost_streaming": mh_stream, "elastic": elastic,
                     "phase_walls_s": walls, "cuts": CUTS, "card": card}, default=str))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))
@@ -5733,5 +6199,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == [HOLD_RANK]:
         hold_rank(sys.argv[2:])
+    elif sys.argv[1:2] == [ELASTIC_RANK]:
+        elastic_rank(sys.argv[2:])
     else:
         main()

@@ -12,7 +12,10 @@ A drop-in for ``CoordinateDescent`` (``update`` / ``score`` /
 ``initial_coefficients`` / ``regularization_term``).
 :class:`PerHostStreamingFixedEffectCoordinate` is the per-host variant: each
 rank streams the chunks it owns of a global chunk list and the per-chunk
-partials merge exactly across the ranks.
+partials merge exactly across the ranks. Both poll a re-plan monitor
+(``elastic``, parallel/elastic.py) at update and score entry only: a
+streamed evaluation may hold collectives, so a drain inside one could
+strand a peer there.
 """
 
 from __future__ import annotations
@@ -40,6 +43,15 @@ from photon_ml_tpu_torch.optim.streaming import (
 from photon_ml_tpu_torch.types import OptimizerType, real_dtype
 
 Tensor = torch.Tensor
+
+
+def _elastic_entry_drain(monitor, where: str) -> None:
+    """The fixed effects' drain hook, at whole-evaluation entries."""
+    if monitor is None:
+        return
+    from photon_ml_tpu_torch.parallel.elastic import drain_if_replan_pending
+
+    drain_if_replan_pending(monitor, where=where)
 
 
 def _streamed_update(problem: GLMOptimizationProblem, vg, hvp, l1_weight,
@@ -71,14 +83,13 @@ class StreamingFixedEffectCoordinate:
     # the resolved compile.plan.ExecutionPlan: fills the ladder and depth when unset
     plan: Optional[object] = None
     device: Optional[object] = None  # where chunks are evaluated (default cuda)
+    # the re-plan monitor (parallel/elastic.ElasticMonitor), polled at
+    # update and score entry; None = off
     elastic: Optional[object] = None
 
     def __post_init__(self):
         from photon_ml_tpu_torch.compile.canonical import resolve_bucketer
 
-        if self.elastic is not None:
-            raise NotImplementedError("elastic (the re-plan monitor) on the streaming fixed "
-                                      "effect is not yet ported to photon_ml_tpu_torch")
         if self.plan is not None:
             if self.bucketer is None:
                 self.bucketer = self.plan.bucketer or "off"
@@ -127,6 +138,7 @@ class StreamingFixedEffectCoordinate:
 
     def update(self, residual_offsets: Tensor, init_coefficients: Tensor
                ) -> Tuple[Tensor, OptResult]:
+        _elastic_entry_drain(self.elastic, "streaming-FE update entry")
         self._live_source.loaders = self._residual_loaders(residual_offsets)
         return _streamed_update(self.problem, self._vg, self._hvp, self._l1, init_coefficients)
 
@@ -134,6 +146,7 @@ class StreamingFixedEffectCoordinate:
         """(N,) raw margins, chunk by chunk through the pipeline (no
         offsets: GAME scores are additive margin contributions). Pad rows
         of ladder-padded chunks are sliced off."""
+        _elastic_entry_drain(self.elastic, "streaming-FE score entry")
         w_eff = self.norm.effective_coefficients(coefficients)
         shift = self.norm.margin_shift(w_eff)
         outs = [(x @ w_eff + shift)[:n_here] for (x, _, _, _), n_here in zip(
@@ -164,7 +177,7 @@ class PerHostStreamingFixedEffectCoordinate:
     in order; in the multihost driver a chunk is one input part file, so
     ownership is the per-rank file share); ``owned_loaders`` maps this
     rank's global chunk ids to loaders of {"x", "y", optional "offsets" /
-    "weights"} host dicts. The elastic re-plan hook is not yet ported."""
+    "weights"} host dicts."""
 
     chunk_sizes: List[int]
     owned_loaders: Dict[int, object]  # chunk id -> () -> host chunk dict
@@ -178,14 +191,13 @@ class PerHostStreamingFixedEffectCoordinate:
     # the resolved compile.plan.ExecutionPlan: fills the ladder and depth when unset
     plan: Optional[object] = None
     device: Optional[object] = None  # where chunks are evaluated (default cuda)
+    # the re-plan monitor, polled at update and score entry only (the
+    # chunk evaluations hold collectives)
     elastic: Optional[object] = None
 
     def __post_init__(self):
         from photon_ml_tpu_torch.compile.canonical import resolve_bucketer
 
-        if self.elastic is not None:
-            raise NotImplementedError("elastic (the re-plan monitor) on the per-host streaming "
-                                      "fixed effect is not yet ported to photon_ml_tpu_torch")
         if self.num_processes > 1 and self.ctx is None:
             raise ValueError("PerHostStreamingFixedEffectCoordinate needs a MeshContext to merge "
                              "chunk partials across processes")
@@ -236,6 +248,7 @@ class PerHostStreamingFixedEffectCoordinate:
 
     def update(self, residual_offsets: Tensor, init_coefficients: Tensor
                ) -> Tuple[Tensor, OptResult]:
+        _elastic_entry_drain(self.elastic, "perhost-FE update entry")
         self._live_source.loaders = self._residual_loaders(residual_offsets)
         return _streamed_update(self.problem, self._vg, self._hvp, self._l1, init_coefficients)
 
@@ -245,6 +258,7 @@ class PerHostStreamingFixedEffectCoordinate:
         into their global rows, merged exactly across the ranks."""
         from photon_ml_tpu_torch.parallel.perhost_streaming import disjoint_fill, merge_disjoint
 
+        _elastic_entry_drain(self.elastic, "perhost-FE score entry")
         self._live_source.loaders = [self.owned_loaders[c] for c in self._owned_ids]
         w_eff = self.norm.effective_coefficients(coefficients)
         shift = self.norm.margin_shift(w_eff)

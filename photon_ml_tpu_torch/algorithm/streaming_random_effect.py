@@ -31,9 +31,13 @@ Block boundaries are preemption drain points (site ``"block"``).
 
 ``frozen_blocks`` (the delta retrain's unchanged blocks, retrain/delta.py)
 never solve: their coefficients carry forward bitwise from the warm-seeded
-state, and their scores are computed once and cached. The elastic re-plan
-monitor (``elastic``) and ``initial_epoch`` are not yet ported: setting one
-raises.
+state, and their scores are computed once and cached. ``elastic`` (an
+``ElasticMonitor`` of parallel/elastic.py, or anything with ``poll()``) is
+polled at update entry, at every block boundary and at score entry; a
+pending membership proposal unwinds with ``ReplanRequired`` carrying the
+block progress by global id. ``initial_epoch`` is the epoch floor of a
+coordinate rebuilt on a re-planned manifest: its spill dirs never collide
+with the ones the checkpointed state still references.
 """
 
 from __future__ import annotations
@@ -78,11 +82,6 @@ _instance_seq = 0
 _DATASET_FIELDS = RandomEffectDataset.TENSOR_FIELDS
 # a block's host-resident slab, uploaded with the block (see _slab_for)
 _SLAB_TABLES = ("lane_cols", "lane_slots", "cols", "col_end", "slots")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} on the streaming random effect is not yet ported to photon_ml_tpu_torch")
 
 
 def plan_entity_blocks(counts: np.ndarray, *, global_dim: int,
@@ -456,17 +455,17 @@ class StreamingRandomEffectCoordinate:
     # and their scores are computed once and cached. The caller seeds the
     # state with the prior coefficients (retrain.warm.seed_spilled_state).
     frozen_blocks: Optional[frozenset] = None
+    # the re-plan monitor (parallel/elastic.ElasticMonitor, or anything
+    # with poll() -> Optional[proposal]); None = off
     elastic: Optional[object] = None
+    # the epoch numbering floor of a coordinate rebuilt mid-run on a
+    # re-planned manifest; 0 = a fresh run
     initial_epoch: int = 0
     # the score buffer's entries before the blocks write theirs (the
     # per-host subclass merges -0.0 where it owns no row)
     _SCORE_FILL = 0.0
 
     def __post_init__(self):
-        if self.elastic is not None:
-            raise _not_ported("elastic (the re-plan monitor)")
-        if self.initial_epoch:
-            raise _not_ported("initial_epoch (an elastic rebuild's epoch floor)")
         if self.plan is not None:
             if self.solve_schedule is None:
                 self.solve_schedule = self.plan.schedule
@@ -491,7 +490,10 @@ class StreamingRandomEffectCoordinate:
                 # run state goes to a private temp dir instead
                 base = tempfile.mkdtemp(prefix="photon-re-state-")
             self.state_root = os.path.join(base, f"state-{os.getpid()}-{_instance_seq}")
-        self._epoch = 0
+        self._epoch = int(self.initial_epoch)
+        # the last update's input and output spill dirs (replan_state_dirs)
+        self._last_input_state_dir: Optional[str] = None
+        self._last_output_state_dir: Optional[str] = None
         self._shapes = [(b["num_entities"], b["local_dim"]) for b in self.manifest.blocks]
         self.frozen_blocks = frozenset(self.frozen_blocks or ())
         bad = [i for i in self.frozen_blocks if not 0 <= i < len(self.manifest.blocks)]
@@ -580,6 +582,28 @@ class StreamingRandomEffectCoordinate:
                 ))
                 return by_gap, []
         return [i for i in by_gap if i not in candidates], candidates
+
+    # -- the elastic re-plan hooks (parallel/elastic.py) --------------------
+    def replan_state_dirs(self) -> List[str]:
+        """The spill dirs a re-plan re-bases: the input of the last (or
+        in-flight) update, which a checkpoint taken before it references,
+        and the last finished update's output, which one taken after it
+        references. A moved block's coefficients are copied into both."""
+        dirs: List[str] = []
+        for d in (self._last_input_state_dir, self._last_output_state_dir):
+            if d is not None and d not in dirs:
+                dirs.append(d)
+        return dirs
+
+    def _elastic_drain(self, partial=None, where: str = "") -> None:
+        """Poll the re-plan monitor; a pending proposal unwinds with
+        ``ReplanRequired`` (``partial`` may be a callable, built only when a
+        drain fires)."""
+        if self.elastic is None:
+            return
+        from photon_ml_tpu_torch.parallel.elastic import drain_if_replan_pending
+
+        drain_if_replan_pending(self.elastic, partial=partial, where=where)
 
     # -- coordinate protocol ------------------------------------------------
     @property
@@ -698,6 +722,9 @@ class StreamingRandomEffectCoordinate:
         the epoch dir and the finished blocks (and a paused block solve's
         snapshot); passing that payload back as ``resume`` continues from
         the first unfinished block, bitwise as an uninterrupted update."""
+        # the spill the incoming parameters reference: a re-plan copies moved
+        # blocks' coefficients into it
+        self._last_input_state_dir = getattr(state, "dir", None)
         n_blocks = len(self.manifest.blocks)
         active = [i for i in range(n_blocks) if i not in self.frozen_blocks]
         inner_resume = None
@@ -716,6 +743,9 @@ class StreamingRandomEffectCoordinate:
                                            for k, v in (resume.get("arrays") or {}).items()
                                            if k.startswith("inner.")}}
         else:
+            # a pending proposal re-runs the whole update after the re-plan:
+            # drain before any work, and before the epoch advances
+            self._elastic_drain(where="streaming-RE update entry")
             self._epoch += 1
             for old in range(1, self._epoch - 1):
                 old_dir = os.path.join(self.state_root, f"epoch-{old}")
@@ -749,38 +779,50 @@ class StreamingRandomEffectCoordinate:
             self._save_ledger()
         blocks = self.manifest.iter_blocks(self.prefetch_depth, indices=pending,
                                            device=self._device, extra=self._host_slab)
-        for k, (i, ds, row_sel, extra) in enumerate(blocks):
-            local_resid = self._padded_resid(resid[row_sel], ds)
-            w0 = torch.from_numpy(state.block(i)).to(self._device)
-            slab = self._slab_for(i, ds, extra)
-            sub = self._sub_for(ds, block=i, slab=slab)
-            try:
-                coefs, res = sub.update(local_resid, w0,
-                                        resume=inner_resume if k == 0 else None)
-            except preemption.Preempted as e:
-                # inside block i: wrap the solve's snapshot with this
-                # coordinate's block progress and unwind
-                raise preemption.Preempted(
-                    str(e), site=e.site,
-                    partial=self._partial_payload(new_state, done_locals, e.partial)) from e
-            new_state.write(i, coefs.detach().cpu().numpy())
-            summaries[i] = _host_result(res)
-            self._record_block_result(i, summaries[i])
-            del ds, coefs, res, sub, slab, extra
-            done_locals.add(i)
-            if len(done_locals) < len(active) and preemption.check(
-                    "block", block=i, epoch=self._epoch):
-                raise preemption.Preempted(
-                    f"preempted at block boundary ({len(done_locals)}/"
-                    f"{len(active)} active blocks, epoch {self._epoch}): "
-                    f"{preemption.reason()}",
-                    site="block", partial=self._partial_payload(new_state, done_locals))
+        # a drain unwinds out of the loop: close the pipeline (its worker
+        # stops and is joined) before the exception leaves the update
+        try:
+            for k, (i, ds, row_sel, extra) in enumerate(blocks):
+                local_resid = self._padded_resid(resid[row_sel], ds)
+                w0 = torch.from_numpy(state.block(i)).to(self._device)
+                slab = self._slab_for(i, ds, extra)
+                sub = self._sub_for(ds, block=i, slab=slab)
+                try:
+                    coefs, res = sub.update(local_resid, w0,
+                                            resume=inner_resume if k == 0 else None)
+                except preemption.Preempted as e:
+                    # inside block i: wrap the solve's snapshot with this
+                    # coordinate's block progress and unwind
+                    raise preemption.Preempted(
+                        str(e), site=e.site,
+                        partial=self._partial_payload(new_state, done_locals, e.partial)) from e
+                new_state.write(i, coefs.detach().cpu().numpy())
+                summaries[i] = _host_result(res)
+                self._record_block_result(i, summaries[i])
+                del ds, coefs, res, sub, slab, extra
+                done_locals.add(i)
+                if len(done_locals) < len(active):
+                    if preemption.check("block", block=i, epoch=self._epoch):
+                        raise preemption.Preempted(
+                            f"preempted at block boundary ({len(done_locals)}/"
+                            f"{len(active)} active blocks, epoch {self._epoch}): "
+                            f"{preemption.reason()}",
+                            site="block", partial=self._partial_payload(new_state, done_locals))
+                    # the re-plan drain at the same boundary
+                    self._elastic_drain(
+                        partial=lambda: self._partial_payload(new_state, done_locals),
+                        where=f"block boundary (epoch {self._epoch})")
+        finally:
+            blocks.close()
+        self._last_output_state_dir = new_state.dir
         return new_state, tuple(summaries)
 
     def score(self, state: SpilledREState) -> Tensor:
         """(N,) scores, block by block; a frozen block reuses the scores of
         its first pass, a skipped block those of its last pass (their
-        coefficients have not changed since)."""
+        coefficients have not changed since). Drains for a pending re-plan
+        first (before the per-host subclass's merge collective)."""
+        self._elastic_drain(where="streaming-RE score entry")
         total = torch.full((self.manifest.num_rows,), self._SCORE_FILL, dtype=real_dtype(),
                            device=self._device)
         stream = []

@@ -45,7 +45,18 @@ directory is shared by the ranks. With ``per_rank=True`` (the per-host
 streaming coordinates, whose spilled-state references and mid-update
 progress are each rank's own) every rank writes its own directory instead,
 still fenced by a barrier, and the restore's collective min picks a step
-every rank holds. The plan-versioned elastic restore is not yet ported.
+every rank holds.
+
+The restore is plan-versioned for the elastic re-plan
+(parallel/elastic.py): the per-host spilled-state reference
+(``perhost_streaming.PerHostSpilledREState``) records its shapes and its
+written coefficient files by global block id, so a checkpoint written
+under entity-shard plan v1 restores under v2, each still-owned block
+validated by global id (and every recorded coefficient file checked to be
+there after the re-base) in place of the old positional shape list. The
+mid-update ``partial`` is keyed the same way (``done_global_ids``), so a
+mid-epoch drain resumes onto the new owner map. A ``partial`` of any kind
+goes back to the coordinate it names, which checks its kind.
 """
 
 from __future__ import annotations
@@ -79,10 +90,6 @@ def fingerprint(parts: Dict[str, Any]) -> str:
     anything the caller adds); resuming with a different fingerprint fails."""
     blob = json.dumps(parts, sort_keys=True, default=str).encode()
     return hashlib.sha256(blob).hexdigest()[:16]
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to photon_ml_tpu_torch")
 
 
 def _flatten(value: Any) -> Tuple[List[Any], str]:
@@ -267,10 +274,6 @@ class CheckpointState:
     # a drain inside an update: the in-flight coordinate's progress
     # ({"meta", "arrays"}; meta names the coordinate and its resume_step)
     partial: Optional[Dict[str, Any]] = None
-
-
-#: the mid-coordinate payload kinds a restore hands back to a coordinate
-RESUMABLE_PARTIALS = ("scheduler", "bucketed_re", "streaming_re")
 
 
 def _sharded_flat_indices(params: Dict[str, Any], sharded: Dict[str, Any]) -> List[int]:
@@ -479,9 +482,6 @@ class CoordinateDescentCheckpointer:
                     f"this run ({self.run_fingerprint!r}); refusing to resume"
                 )
             partial_meta = meta.get("partial")
-            if partial_meta is not None and partial_meta.get("kind") not in RESUMABLE_PARTIALS:
-                raise _not_ported(f"resuming inside a coordinate from a "
-                                  f"{partial_meta.get('kind')!r} payload")
 
             def load_arrays() -> Dict[str, np.ndarray]:
                 with np.load(os.path.join(path, ARRAYS_FILE)) as npz:

@@ -37,10 +37,17 @@ streaming random effect pins the prior blocking (``_agree_delta_pins``)
 by the single-process delta build's rule (``retrain.delta.pin_prior_blocks``),
 so its blocks without new or lost rows freeze, bitwise the prior model;
 the JAX multihost driver freezes only a coordinate whose inputs are all
-unchanged. Not yet
-ported, each raising and naming itself: relaunch adoption of a prior
-cohort's layout and an adopted re-plan's fixed-effect chunk ownership (the
-elastic fleet).
+unchanged.
+
+A streaming run relaunched onto its output dir (a fresh process on a dir
+that holds a prior per-host layout, with ``--checkpoint-dir``; or an
+in-process ``--max-restarts`` restart) keeps the dir and tries relaunch
+adoption (parallel/elastic.relaunch_replan): every rank re-plans the prior
+cohort's plan sidecars onto this cohort and copies in only the blocks and
+spilled coefficients it now owns, and the fixed-effect files follow the
+plan's re-based chunk ownership. The ranks vote; if any rank fails, every
+rank re-ingests, recorded. An adopted coordinate's feature shard is not
+decoded again (``decoded_shard_rows`` in the summary below).
 
 Each process's ``photon-ml-tpu-mh-<I>.json`` also records the streaming
 blocks it owned, the agreed delta-plan digest of a ``--warm-start-from``
@@ -106,10 +113,6 @@ Tensor = torch.Tensor
 
 MH_FLAGS = ("--multihost-coordinator", "--multihost-num-processes", "--multihost-process-id",
             "--grid-warm-start")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to photon_ml_tpu_torch")
 
 
 def _local_game_data(gds, shard: str, dim: int):
@@ -263,17 +266,133 @@ def _check_multihost_support(p) -> None:
             "--streaming-random-effects or drop --solve-compaction")
 
 
-def _attempt_relaunch_adoption(p, mh, ctx, logger):
-    """Relaunch adoption of a prior cohort's per-host streaming layout
-    (parallel/elastic.py's relaunch re-plan). Only a streaming run adopts."""
-    raise _not_ported("relaunch adoption (the multihost relaunch re-plan)")
+def _streaming_names(p) -> List[str]:
+    """The per-host streaming random effects, in updating order."""
+    return [n for n in p.updating_sequence
+            if n in p.random_effect_data_configs and n not in p.factored_configs]
+
+
+def _prior_layout_dirs(p) -> List[str]:
+    """The committed ``process-<r>`` manifest dirs of the first streaming
+    random effect's layout under the output dir (empty without one)."""
+    names = _streaming_names(p)
+    root = os.path.join(p.output_dir, "streaming-re", names[0]) if names else None
+    if not root or not os.path.isdir(root):
+        return []
+    return [os.path.join(root, d) for d in sorted(os.listdir(root))
+            if d.startswith("process-") and os.path.isfile(os.path.join(root, d, "manifest.json"))]
+
+
+def _is_relaunch(p) -> bool:
+    """A fresh process started on an output dir that holds a prior per-host
+    streaming layout and a checkpoint dir: a supervised relaunch, which keeps
+    the dir (its blocks, spilled state and checkpoints are the resume)."""
+    return bool(p.streaming_random_effects and p.checkpoint_dir
+                and os.path.isdir(p.checkpoint_dir) and _prior_layout_dirs(p))
+
+
+def _epoch_floor(state_root: str) -> int:
+    """The highest ``epoch-N`` spill dir under ``state_root`` (0 without
+    one): a relaunched coordinate numbers its epochs above it, so its spills
+    never overwrite the ones the restored checkpoint references."""
+    if not os.path.isdir(state_root):
+        return 0
+    return max([int(d.split("-", 1)[1]) for d in os.listdir(state_root)
+                if d.startswith("epoch-") and d.split("-", 1)[1].isdigit()], default=0)
+
+
+def _attempt_relaunch_adoption(p, mh, ctx, logger) -> Dict[str, object]:
+    """The relaunch re-plan (``parallel.elastic.relaunch_replan``) of every
+    streaming random effect: read the prior cohort's plan sidecars, re-plan
+    onto this cohort and copy only the moved block and state files, so a
+    relaunch onto a smaller or larger cohort resumes instead of
+    re-ingesting.
+
+    Returns ``{coordinate: RelaunchReplanResult}`` only when every rank
+    adopted every coordinate (one unanimous vote: 0 failed, 1 adopted, 2
+    same cohort). A failure anywhere, or a same-cohort restart (which needs
+    no re-plan), returns ``{}`` on every rank, and every rank re-ingests."""
+    import re
+
+    from photon_ml_tpu_torch.parallel.elastic import ElasticError, relaunch_replan
+    from photon_ml_tpu_torch.parallel.perhost_streaming import load_plan_sidecars
+    from photon_ml_tpu_torch.parallel.shuffle import collective_max
+
+    names = _streaming_names(p)
+    state_base = os.path.join(p.output_dir, "streaming-re-state")
+    adopted: Dict[str, object] = {}
+    code, why = 1, ""
+    try:
+        prior_cohort = None
+        dirs = _prior_layout_dirs(p)
+        meta = load_plan_sidecars(dirs[0])[0] if dirs else None
+        if meta is not None:
+            prior_cohort = sorted({int(q) for q in meta["binding"].values()})
+        if prior_cohort is None:
+            code, why = 0, "no committed plan-versioned prior layout"
+        elif prior_cohort == list(range(mh.num_processes)):
+            code = 2
+        else:
+            for name in names:
+                # the prior spill roots by old rank, one group per state
+                # instance (the -<seq> suffix), each paired with this rank's
+                # root of the same instance
+                pairs = []
+                if os.path.isdir(state_base):
+                    pat = re.compile(re.escape(name) + r"-host(\d+)-(\d+)$")
+                    by_seq: Dict[int, Dict[int, str]] = {}
+                    for d in os.listdir(state_base):
+                        m = pat.match(d)
+                        if m:
+                            by_seq.setdefault(int(m.group(2)), {})[int(m.group(1))] = \
+                                os.path.join(state_base, d)
+                    pairs = [(srcs, os.path.join(state_base, f"{name}-host{mh.process_id}-{seq}"))
+                             for seq, srcs in sorted(by_seq.items())]
+                adopted[name] = relaunch_replan(
+                    os.path.join(p.output_dir, "streaming-re", name), mh.process_id,
+                    mh.num_processes, state_root_pairs=pairs)
+    except (ElasticError, OSError, ValueError, KeyError) as e:
+        code, why = 0, f"{type(e).__name__}: {e}"
+        adopted = {}
+    # every rank votes, failed or not: a mixed resume would strand the
+    # routing collectives, so all adopt or all re-ingest
+    v = np.asarray([code], np.int64)
+    vmax = int(collective_max(v, ctx, mh.num_processes)[0])
+    vmin = -int(collective_max(-v, ctx, mh.num_processes)[0])
+    if vmax != vmin or vmin != 1:
+        if vmax == vmin == 2:
+            logger.info("relaunch: same cohort as the prior run — plain resume from the "
+                        "plan-versioned checkpoints, no re-plan needed")
+        else:
+            logger.warn("relaunch re-plan unavailable on at least one host"
+                        + (f" (here: {why})" if code != 1 else "")
+                        + " — full re-ingest on the new cohort (recorded decision)")
+        return {}
+    for name, res in adopted.items():
+        logger.info(f"relaunch: adopted {name} at plan v{res.plan.version}: "
+                    f"{len(res.adopted)} blocks and {res.state_files_adopted} state files "
+                    f"copied onto process {mh.process_id}, {len(res.moved)}/"
+                    f"{len(res.plan.owners)} blocks moved")
+    return adopted
 
 
 def _fe_chunk_share(all_files, adopted, mh, logger):
-    """This host's input-file share: the positional share, or an adopted
-    re-plan's fixed-effect chunk ownership."""
+    """This host's input-file share. An adopted re-plan carries the prior
+    run's fixed-effect chunk ownership re-based onto the new cohort (chunk c
+    is input file c, versioned with the plan); otherwise the positional
+    share."""
     if adopted:
-        raise _not_ported("fixed-effect chunk ownership (an adopted re-plan's FE chunks)")
+        result = next(iter(adopted.values()))
+        shard_plan = result.plan
+        own = getattr(shard_plan, "fe_chunk_owners", None)
+        if own is not None and len(own) == len(all_files):
+            chunks = shard_plan.owned_fe_chunks(mh.process_id, membership=result.membership)
+            logger.info(f"host {mh.process_id}: FE chunk ownership from re-based plan "
+                        f"v{shard_plan.version} ({len(chunks)}/{len(all_files)} chunks)")
+            return [(all_files[int(c)], int(c)) for c in chunks]
+        logger.info("adopted plan has no usable FE chunk ownership — positional file share "
+                    "(chunk merge is exact either way; ownership only balances the streaming "
+                    "fixed-effect load)")
     return host_file_share(all_files, mh.num_processes, mh.process_id)
 
 
@@ -386,8 +505,9 @@ def _build_streaming_manifest(p, plan, mh, ctx, name, dc, rows, all_files, logge
     """The per-host streaming ingest of one random effect: agree, plan,
     route, build the owned blocks (through a shard-scoped tensor cache with
     ``--tensor-cache``). ``pin`` (``_agree_delta_pins``' entry) pins the
-    prior blocking, and the blocks' statuses by global id go to
-    ``pin_status[name]``. Returns (manifest, cache key)."""
+    prior blocking, and the blocks' statuses by global id (after any
+    re-block of an outgrown pinned block) go to ``pin_status[name]``.
+    Returns (manifest, cache key)."""
     from photon_ml_tpu_torch.parallel.perhost_streaming import (
         build_perhost_streaming_manifest,
         pin_prior_blocking,
@@ -404,8 +524,9 @@ def _build_streaming_manifest(p, plan, mh, ctx, name, dc, rows, all_files, logge
                 prior_plan, prior_vocab, prior_rows, vocab, counts, dirty_raw,
                 global_dim=rows.global_dim, active_upper_bound=dc.active_upper_bound,
                 block_entities=block_entities, memory_budget_bytes=budget)
+            # the build updates the list in place if it re-blocks a pin
             pin_status[name] = statuses
-            return blocks
+            return blocks, statuses
 
     cache = cache_key = None
     if p.tensor_cache_dir and pin is None:
@@ -457,11 +578,11 @@ def _shard_maps(p, needed_shards) -> Dict[str, object]:
 
 def _decode_share(p, share, shard_maps, needed_shards, id_types, response_required=True):
     """[(global ordinal, GameData)] of this host's ``share`` [(file,
-    global ordinal)]."""
+    global ordinal)], decoding only the ``needed_shards``."""
     gds = []
     for f, ordinal in share:
         gds.append((ordinal, read_game_data(
-            [f], shard_maps,
+            [f], {s: shard_maps[s] for s in needed_shards},
             {s: p.feature_shard_sections.get(s) or ["features"] for s in needed_shards},
             id_types,
             shard_intercepts={s: p.feature_shard_intercepts.get(s, True) for s in needed_shards},
@@ -518,7 +639,8 @@ def _main_once(mh_args: dict, p, entered_at: float, restart: bool = False) -> di
                                        "validation_metrics", "num_rows", "entered_at",
                                        "started_at", "finished_at", "streaming_blocks",
                                        "delta_digest", "frozen_blocks",
-                                       "block_lane_iterations")}, f,
+                                       "block_lane_iterations", "decoded_shard_rows",
+                                       "adopted")}, f,
                   default=str)
     return out
 
@@ -539,6 +661,7 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
     # the coordinator owns the output dir's lifecycle (stale per-host part
     # files of another topology must never merge into a reloaded model);
     # a supervised relaunch keeps the dir (its checkpoints are the resume)
+    restart = restart or _is_relaunch(p)
     if mh.coordinator_only_io():
         from photon_ml_tpu_torch.utils.io_utils import prepare_output_dir
 
@@ -578,9 +701,27 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
     all_files = _input_files(resolve_date_range_dirs(
         p.train_input_dirs, p.train_date_range, p.train_date_range_days_ago))
     train_file_stats = file_stat_token(all_files)
-    host_files = _fe_chunk_share(all_files, {}, mh, logger)
+    # a relaunch onto another cohort adopts the prior layout (re-plan, copy
+    # only the moved files); any rank failing makes every rank re-ingest
+    adopted: Dict[str, object] = {}
+    adoption_s = 0.0
+    if restart and p.streaming_random_effects:
+        t_adopt = time.perf_counter()
+        adopted = _attempt_relaunch_adoption(p, mh, ctx, logger)
+        adoption_s = time.perf_counter() - t_adopt
+    host_files = _fe_chunk_share(all_files, adopted, mh, logger)
     id_types = sorted({c.random_effect_id for c in p.random_effect_data_configs.values()})
-    gds = _decode_share(p, host_files, shard_maps, needed_shards, id_types)
+    # an adopted coordinate's blocks are on disk: its shard and entity ids
+    # are not decoded again
+    fresh_re = [dc for n, dc in p.random_effect_data_configs.items() if n not in adopted]
+    train_shards = ({c.feature_shard_id for c in p.fixed_effect_data_configs.values()}
+                    | {dc.feature_shard_id for dc in fresh_re})
+    gds = _decode_share(p, host_files, shard_maps, train_shards,
+                        sorted({dc.random_effect_id for dc in fresh_re}))
+    # the rows the decode gave each feature shard (an adopted coordinate's
+    # shard gets none)
+    decoded_shard_rows = {s: sum(gd.num_rows for _, gd in gds if s in gd.shards)
+                          for s in sorted({s for _, gd in gds for s in gd.shards})}
     file_base, n_global = global_row_layout(len(all_files), gds, ctx, mh.num_processes)
     logger.info(f"host {mh.process_id}: {len(gds)}/{len(all_files)} files, "
                 f"{sum(gd.num_rows for _, gd in gds)}/{n_global} rows")
@@ -630,6 +771,14 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
                 f"factored coordinate {name!r} requires an IDENTITY projector in its data "
                 f"config (got {dc.projector!r}) — the latent matrix projects the global "
                 "shard space")
+        if name in adopted:
+            # the re-based manifest is this run's ingest: no row is routed
+            streaming_manifests[name], coord_cache_keys[name] = adopted[name].manifest, None
+            logger.info(f"streaming RE {name}: adopted relaunch re-plan "
+                        f"v{adopted[name].plan.version} — host {mh.process_id} owns "
+                        f"{len(adopted[name].manifest.blocks)}/"
+                        f"{adopted[name].manifest.num_blocks_total} blocks, no re-ingest")
+            continue
         rows = _host_rows(gds, file_base, dc.feature_shard_id, dc.random_effect_id,
                           len(shard_maps[dc.feature_shard_id]))
         if p.streaming_random_effects and name not in p.factored_configs:
@@ -644,7 +793,7 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
             projection_seed=dc.seed, projection_keep_intercept=dc.random_projection_intercept)
         logger.info(f"random effect {name}: {re_datasets[name].num_entities} entities, "
                     f"{re_datasets[name].entities_per_device} lanes on this process")
-    if streaming_manifests:
+    if streaming_manifests and not adopted:
         _attach_fe_ownership(mh, all_files, g_file_counts, streaming_manifests, logger)
 
     # ---- --warm-start-from: every rank plans its delta, one collective agrees
@@ -680,14 +829,16 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
                     ctx=ctx, num_processes=mh.num_processes, plan=plan, device=ctx.device)
             elif name in streaming_manifests:
                 stream_state_seq[0] += 1
+                state_root = os.path.join(p.output_dir, "streaming-re-state",
+                                          f"{name}-host{mh.process_id}-{stream_state_seq[0]}")
                 coords[name] = PerHostStreamingRandomEffectCoordinate(
                     manifest=streaming_manifests[name], task=p.task_type,
                     optimizer=cfg.optimizer, optimizer_config=cfg.optimizer_config(),
                     regularization=cfg.regularization_context(),
                     # spilled state per rank and combo, under this run's
-                    # output dir (never inside a shared cache entry)
-                    state_root=os.path.join(p.output_dir, "streaming-re-state",
-                                            f"{name}-host{mh.process_id}-{stream_state_seq[0]}"),
+                    # output dir (never inside a shared cache entry); a
+                    # relaunch numbers its epochs above the restored ones
+                    state_root=state_root, initial_epoch=_epoch_floor(state_root),
                     # the schedule, the per-block sparse race, the depth
                     plan=plan, device=ctx.device, ctx=ctx, num_processes=mh.num_processes,
                     # the delta retrain's frozen blocks (local indices), set
@@ -860,6 +1011,13 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
         # a delta retrain's frozen blocks on this rank, by global block id
         "frozen_blocks": {n: sorted(int(streaming_manifests[n].global_block_ids[i]) for i in fb)
                           for n, fb in frozen_blocks.items() if n in streaming_manifests},
+        # rows this run's training decode put into each feature shard, and
+        # each adopted coordinate's relaunch re-plan
+        "decoded_shard_rows": decoded_shard_rows,
+        "adopted": {n: {"plan_version": int(r.plan.version), "blocks": [int(g) for g in r.adopted],
+                        "state_files": int(r.state_files_adopted),
+                        "moved": [list(map(int, m)) for m in r.moved], "seconds": adoption_s}
+                    for n, r in adopted.items()},
     }
 
 

@@ -28,6 +28,7 @@ import zlib
 from typing import Any, BinaryIO, Dict, Iterable, Iterator, List, Optional, Union
 
 from photon_ml_tpu_torch import resilience
+from photon_ml_tpu_torch.resilience import faults
 
 MAGIC = b"Obj\x01"
 DEFAULT_SYNC = b"\x50\x48\x4f\x54\x4f\x4e\x2d\x54\x50\x55\x2d\x53\x59\x4e\x43\x21"  # 16B
@@ -398,6 +399,7 @@ def read_container(
             decode failures become CorruptBlockError (never retried —
             re-reading corrupt bytes cannot help)."""
             f.seek(offset)
+            faults.inject("io.read_block", path=path, block=index, offset=offset)
             try:
                 count = read_long(f)
             except EOFError:

@@ -22,6 +22,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from photon_ml_tpu_torch import native_build, resilience
+from photon_ml_tpu_torch.resilience import faults
 from photon_ml_tpu_torch.data.game import GameData, HostFeatures, _np_real
 from photon_ml_tpu_torch.io import avro as avro_io
 from photon_ml_tpu_torch.io import avro_native
@@ -57,7 +58,8 @@ def _native_columns(paths: Sequence[str]):
     native path (all-or-nothing keeps the assembly uniform); None at once
     with ``PHOTON_ML_TPU_NATIVE=0``.
 
-    Whole-file reads retry under the active policy. A file the decoder
+    Whole-file reads retry under the active policy (the ``io.read_block``
+    fault site covers the whole-file parse, block=-1). A file the decoder
     rejects (an unsupported schema shape, a corrupt block) is logged and
     counted, and the read goes to the Python row loop, which owns the
     block-granular corrupt-shard skip/raise semantics.
@@ -65,11 +67,16 @@ def _native_columns(paths: Sequence[str]):
     if not native_build.native_enabled():
         return None
     policy = resilience.current_config().io_policy
+
+    def read_one(f: str):
+        faults.inject("io.read_block", path=f, block=-1, offset=0)
+        return avro_native.read_columns(f)
+
     cols = []
     for f in _expand_part_files(paths):
         try:
             c = resilience.call_with_retry(
-                lambda f=f: avro_native.read_columns(f), policy, describe=f"native read {f}"
+                lambda f=f: read_one(f), policy, describe=f"native read {f}"
             )
             reason = "unsupported schema shape or undecodable data"
         except ValueError as e:

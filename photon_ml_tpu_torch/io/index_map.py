@@ -16,6 +16,7 @@ import zlib
 from typing import Dict, Iterable, List, Optional
 
 from photon_ml_tpu_torch import resilience
+from photon_ml_tpu_torch.resilience import faults
 
 DELIMITER = "\x01"  # reference feature key separator (Utils.scala getFeatureKey)
 INTERCEPT_KEY = "(INTERCEPT)"  # reference constant GLMSuite.INTERCEPT_NAME_TERM
@@ -92,8 +93,10 @@ class IndexMap:
 
     @staticmethod
     def load(path: str) -> "IndexMap":
-        """Read a ``save``d map, retrying under the active I/O policy."""
+        """Read a ``save``d map, retrying under the active I/O policy (fault
+        site ``io.index_load``)."""
         def read() -> list:
+            faults.inject("io.index_load", path=path)
             with open(path) as f:
                 return json.load(f)
 

@@ -35,6 +35,7 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 
 from photon_ml_tpu_torch import native_build, resilience
+from photon_ml_tpu_torch.resilience import faults
 from photon_ml_tpu_torch.io.index_map import INTERCEPT_KEY, IndexMap, partition_keys
 
 logger = logging.getLogger(__name__)
@@ -317,6 +318,7 @@ class OffHeapIndexMap:
         policy = resilience.current_config().io_policy
 
         def read_meta() -> dict:
+            faults.inject("io.index_load", path=store_dir)
             with open(os.path.join(store_dir, META_FILE)) as f:
                 return json.load(f)
 

@@ -51,6 +51,8 @@ __all__ = [
 ]
 
 DEFAULT_DEPTH = 2
+# how long Prefetcher.close waits for its worker to finish the item in hand
+CLOSE_JOIN_S = 60.0
 _DEPTH_ENV = "PHOTON_PREFETCH_DEPTH"
 
 
@@ -142,13 +144,18 @@ class Prefetcher:
             self.close()
 
     def close(self) -> None:
-        """Stop the worker (idempotent); it exits at its next queue call."""
+        """Stop the worker (idempotent) and wait for it: it exits at its
+        next queue call, so no worker is left inside a block read or a
+        pinned copy when the consumer unwinds (a process that exits with a
+        worker still in a CUDA call can abort at teardown)."""
         self._stop.set()
         if self._queue is not None:
             try:  # unblock a worker waiting on a full queue
                 self._queue.get_nowait()
             except queue.Empty:
                 pass
+        if self._thread is not None and self._thread is not threading.current_thread():
+            self._thread.join(timeout=CLOSE_JOIN_S)
 
     def __enter__(self) -> "Prefetcher":
         return self

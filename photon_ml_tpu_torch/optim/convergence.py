@@ -215,6 +215,20 @@ class ConvergenceLedger:
                 out[int(g)] = e["executed"] / e["visits"]
         return out
 
+    def merge(self, other: Dict[int, dict]) -> None:
+        """Fold another rank's entries in (the elastic re-base,
+        parallel/elastic.py). Ownership makes entries disjoint; on a
+        conflict the more recent entry wins (``last_epoch``, then
+        ``visits``, then the earlier source in the caller's order), so every
+        rank computes the same merged ledger."""
+        for g, e in sorted((int(g), e) for g, e in other.items()):
+            mine = self._entries.get(g)
+            if mine is None or ((e.get("last_epoch", 0), e.get("visits", 0))
+                                > (mine["last_epoch"], mine["visits"])):
+                fresh = _fresh_entry()
+                fresh.update(e)
+                self._entries[g] = fresh
+
     # -- persistence (atomic sidecar + retrain.json embedding) --------------
     def to_json(self) -> Dict[str, dict]:
         return {str(g): dict(e) for g, e in sorted(self._entries.items())}

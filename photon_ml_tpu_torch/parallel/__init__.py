@@ -11,19 +11,19 @@ The reference's Spark substrate (SURVEY.md §5.8) maps onto a
   groupByKey shuffle  -> one all_to_all of fixed-width records (shuffle.py)
   driver / executors  -> SPMD per-host ingest (perhost_ingest.py)
   spill to disk       -> per-host streaming entity blocks (perhost_streaming.py)
+  lost executors      -> versioned membership and re-plans (elastic.py)
 
 The JAX package's single-process entity-sharded solvers
 (``DistributedRandomEffectSolver``,
 ``DistributedFactoredRandomEffectCoordinate``, the coordinates'
 ``mesh_ctx``) split one process's dataset over its devices; the port runs
 one process per device, and their work is the per-host solvers'.
-
-Not yet ported: ``elastic`` (membership changes, relaunch re-plans, the
-fleet), which re-plans the ``EntityShardPlan`` and the plan sidecars that
-``perhost_streaming`` writes.
+``elastic`` re-plans the ``EntityShardPlan`` and the plan sidecars that
+``perhost_streaming`` writes when owners are lost or added, live or at a
+relaunch.
 """
 
-from photon_ml_tpu_torch.parallel import multihost, shuffle
+from photon_ml_tpu_torch.parallel import elastic, multihost, shuffle
 from photon_ml_tpu_torch.parallel.distributed import DistributedFixedEffectSolver
 from photon_ml_tpu_torch.parallel.mesh import MeshContext, data_mesh, pad_leading, pad_rows
 from photon_ml_tpu_torch.parallel.perhost_ingest import (
@@ -52,6 +52,7 @@ __all__ = [
     "data_mesh",
     "pad_rows",
     "pad_leading",
+    "elastic",
     "multihost",
     "shuffle",
     "DistributedFixedEffectSolver",

@@ -28,12 +28,12 @@ order. Block composition, block bytes, the block solves and every merge
 being exact, an N-rank run is bitwise the single-host streaming run on the
 same chunk list and the same blocking (tests/test_torch_perhost_streaming.py).
 
-The plan's re-plan methods (:meth:`EntityShardPlan.replan`,
-:meth:`EntityShardPlan.moved_blocks`) are here as numpy functions of the
-plan; the elastic session that calls them (``parallel/elastic.py``) is not
-yet ported. A ``membership`` argument is any object with ``hosts``,
-``binding`` and ``physical_owners`` (the JAX package's
-``FleetMembership``); ``None`` is the identity over the ranks.
+The blocking never depends on the fleet's membership, so a membership
+change (parallel/elastic.py) re-runs only the owner packing
+(:meth:`EntityShardPlan.replan`) and moves only the blocks whose owner
+changed (:meth:`EntityShardPlan.moved_blocks`). A ``membership`` argument
+is a ``FleetMembership`` (or any object with ``hosts``, ``binding`` and
+``physical_owners``); ``None`` is the identity over the ranks.
 """
 
 from __future__ import annotations
@@ -180,17 +180,11 @@ def agree_entity_counts(raw_ids: Sequence[str], ctx: Optional[MeshContext],
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass
-class _IdentityMembership:
-    """One logical owner per rank, bound to itself (the JAX package's
-    ``FleetMembership.initial``): what the plan sidecars record."""
-
-    hosts: List[int]
-    binding: Dict[int, int]
-
-    @classmethod
-    def initial(cls, num_hosts: int) -> "_IdentityMembership":
-        return cls(list(range(num_hosts)), {h: h for h in range(num_hosts)})
+def _block_costs(counts: np.ndarray, blocks: List[np.ndarray],
+                 active_upper_bound: Optional[int]) -> np.ndarray:
+    """Each block's solve cost: its entities' active (capped) rows."""
+    cap = active_upper_bound or (int(counts.max()) if counts.sum() else 1)
+    return np.asarray([int(np.minimum(counts[b], cap).sum()) for b in blocks], np.int64)
 
 
 @dataclasses.dataclass
@@ -229,10 +223,9 @@ class EntityShardPlan:
                                         active_upper_bound=active_upper_bound,
                                         block_entities=block_entities,
                                         memory_budget_bytes=memory_budget_bytes)
-        cap = active_upper_bound or (int(counts.max()) if counts.sum() else 1)
         # a block's cost is the active rows it solves; the min-heap packing
         # is RandomEffectIdPartitioner's at block granularity
-        costs = np.asarray([int(np.minimum(counts[b], cap).sum()) for b in blocks], np.int64)
+        costs = _block_costs(counts, blocks, active_upper_bound)
         host_list = (sorted(int(h) for h in hosts) if hosts is not None
                      else list(range(max(num_processes, 1))))
         owners = balanced_owners_over_hosts(costs, host_list)
@@ -350,34 +343,27 @@ def pin_prior_blocking(prior_plan: EntityShardPlan, prior_vocab: Sequence[str],
     plan's blocks pinned by ``retrain.delta.pin_prior_blocks``, the rule of
     the single-process delta build, with ``prior_rows`` the prior run's
     (V,) uncapped row counts by prior vocab id (:func:`load_plan_entity_rows`).
-    A dirty pin that the fresh blocking would split outgrew its sizing and
-    is re-blocked in its place (the single-process build re-blocks on the
-    built slab's budget error, which a rank cannot see before the routing);
-    the entities no pin holds are blocked afresh after the pins. Every rank
-    gets the same blocking from the agreed counts. Returns (blocks, the
-    statuses ``unchanged`` / ``dirty`` / ``new`` by block)."""
-    from photon_ml_tpu_torch.retrain.delta import NEW, UNCHANGED, pin_prior_blocks
+    A pin stays whole here, as in the single-process build: a pinned block
+    whose built slab outgrows the budget is re-blocked by its owner, after
+    the routing (:func:`build_perhost_streaming_manifest`). The entities no
+    pin holds are blocked afresh after the pins. Every rank gets the same
+    blocking from the agreed counts. Returns (blocks, the statuses
+    ``unchanged`` / ``dirty`` / ``new`` by block)."""
+    from photon_ml_tpu_torch.retrain.delta import NEW, pin_prior_blocks
 
     counts = np.asarray(counts)
     prior_rows = np.asarray(prior_rows)
-    fresh_kw = dict(global_dim=global_dim, active_upper_bound=active_upper_bound,
-                    block_entities=block_entities, memory_budget_bytes=memory_budget_bytes)
     pinned, assigned, _ = pin_prior_blocks(
         [([prior_vocab[int(v)] for v in ents], int(prior_rows[ents].sum()))
          for ents in prior_plan.blocks], list(vocab), counts, dirty_raw)
-    blocks: List[np.ndarray] = []
-    statuses: List[str] = []
-    for ent, status, _, _ in pinned:
-        split = [ent]
-        if status != UNCHANGED:
-            sub = np.zeros_like(counts)
-            sub[ent] = counts[ent]
-            split = plan_entity_blocks(sub, **fresh_kw)
-        blocks += split
-        statuses += [status] * len(split)
+    blocks = [ent for ent, _, _, _ in pinned]
+    statuses = [status for _, status, _, _ in pinned]
     leftover = np.where(assigned, 0, counts)
     if leftover.any():
-        fresh = plan_entity_blocks(leftover, **fresh_kw)
+        fresh = plan_entity_blocks(leftover, global_dim=global_dim,
+                                   active_upper_bound=active_upper_bound,
+                                   block_entities=block_entities,
+                                   memory_budget_bytes=memory_budget_bytes)
         blocks += fresh
         statuses += [NEW] * len(fresh)
     return blocks, statuses
@@ -567,7 +553,8 @@ def build_perhost_streaming_manifest(
         ctx: Optional[MeshContext] = None, num_processes: int = 1, process_id: int = 0,
         block_entities: Optional[int] = None, memory_budget_bytes: Optional[int] = None,
         bucketer=None, shared_vocab: Optional[List[str]] = None, tensor_cache=None,
-        cache_key: Optional[str] = None, pin=None) -> PerHostStreamingManifest:
+        cache_key: Optional[str] = None, pin=None, membership=None, block_cache=None,
+        block_key_base: Optional[str] = None) -> PerHostStreamingManifest:
     """The per-host streaming ingest, collective: agree the vocabulary and
     counts, derive the plan, route this rank's rows to their block's owner
     and build only the owned blocks (atomic writes through the retry
@@ -580,12 +567,29 @@ def build_perhost_streaming_manifest(
     collectively: the routing below is a collective, so every rank rebuilds
     unless every rank hits. ``pin(vocab, counts)``
     (a delta retrain's :func:`pin_prior_blocking`, the same on every rank)
-    gives the blocking in place of the counts' fresh one. The owners are the
-    identity over the ranks: the elastic membership (and its per-block
-    cache entries) is not yet ported."""
+    gives the blocking and its statuses in place of the counts' fresh
+    blocking. A pinned block whose built slab outgrows the budget is
+    re-blocked in its place by its owner, the single-process delta build's
+    rule (``retrain.delta.build_delta_streaming_manifest``); one collective
+    agrees which blocks split, every rank renumbers the blocks alike, and
+    the statuses list ``pin`` returned is updated in place. A pinned build
+    takes no ``tensor_cache`` (a cache retry could run that collective twice
+    on one rank).
+
+    ``membership`` (``parallel.elastic.FleetMembership``) makes the plan's
+    owners logical ids bound to ranks; None is the identity over the ranks
+    (the same plan bytes as ``FleetMembership.initial``). ``block_cache`` +
+    ``block_key_base`` keep one tensor-cache entry per owned block, keyed
+    on the block's identity with no rank scope: a block's tensors depend
+    on the global data and the plan alone, so after a topology change every
+    block that stays keeps its warm entry, and a re-plan whose copy fails
+    can fetch a moved block from the cache."""
     from photon_ml_tpu_torch.compile import resolve_bucketer
 
     bucketer = resolve_bucketer(bucketer)
+    if pin is not None and tensor_cache is not None:
+        raise ValueError("a pinned per-host build takes no tensor_cache: its re-block agrees "
+                         "collectively inside the build, which a cache retry could repeat")
     if config.projector == "RANDOM":
         raise ValueError(
             "streaming random effects support INDEX_MAP/IDENTITY projectors (a shared RANDOM "
@@ -639,19 +643,32 @@ def build_perhost_streaming_manifest(
                          "or widen the exchange record format")
 
     # ---- the agreed plan --------------------------------------------------
+    pinned, statuses = pin(vocab, counts) if pin is not None else (None, None)
     plan = EntityShardPlan.build(
         counts, num_processes, global_dim=rows.global_dim,
         active_upper_bound=config.active_upper_bound, block_entities=block_entities,
         memory_budget_bytes=memory_budget_bytes,
-        blocks=pin(vocab, counts) if pin is not None else None)
+        hosts=membership.hosts if membership is not None else None,
+        version=membership.version if membership is not None else 1, blocks=pinned)
+    phys_owners = (membership.physical_owners(plan.owners) if membership is not None
+                   else plan.owners)
 
     # ---- route rows to their block's owner --------------------------------
-    host_data, row_to_global = _route_and_assemble(rows, dense, vocab, plan, plan.owners, config,
+    host_data, row_to_global = _route_and_assemble(rows, dense, vocab, plan, phys_owners, config,
                                                    ctx, num_processes, process_id)
+
+    # the single-process delta build's re-block sizing
+    reblock_kw = dict(global_dim=rows.global_dim, active_upper_bound=config.active_upper_bound,
+                      block_entities=(block_entities if (block_entities is None)
+                                      != (memory_budget_bytes is None) else 1024),
+                      memory_budget_bytes=memory_budget_bytes)
 
     def build(dir_path: str) -> None:
         _write_owned_blocks(dir_path, host_data, row_to_global, config, plan, vocab, counts,
-                            bucketer, memory_budget_bytes, n_global, process_id)
+                            bucketer, memory_budget_bytes, n_global, process_id,
+                            membership=membership, block_cache=block_cache,
+                            block_key_base=block_key_base, statuses=statuses,
+                            reblock_kw=reblock_kw, ctx=ctx, num_processes=num_processes)
 
     if tensor_cache is not None and cache_key is not None:
         from photon_ml_tpu_torch.resilience import RetryError
@@ -719,27 +736,75 @@ def _route_and_assemble(rows: HostRows, dense: np.ndarray, vocab: List[str],
 def _write_owned_blocks(dir_path: str, host_data: GameData, row_to_global: np.ndarray,
                         config: RandomEffectDataConfig, plan: EntityShardPlan, vocab: List[str],
                         counts: np.ndarray, bucketer, memory_budget_bytes: Optional[int],
-                        n_global: int, process_id: int) -> None:
+                        n_global: int, process_id: int, membership=None, block_cache=None,
+                        block_key_base: Optional[str] = None,
+                        statuses: Optional[List[str]] = None,
+                        reblock_kw: Optional[dict] = None, ctx: Optional[MeshContext] = None,
+                        num_processes: int = 1) -> None:
+    """Build, write and commit this rank's blocks. With ``statuses`` (a
+    pinned delta blocking) a pinned block whose slab outgrows the budget is
+    re-blocked (:func:`_reblock_pinned`)."""
     from photon_ml_tpu_torch import resilience
-    from photon_ml_tpu_torch.resilience import faults
+    from photon_ml_tpu_torch.parallel.elastic import FleetMembership
+    from photon_ml_tpu_torch.resilience import RetryError, faults
+    from photon_ml_tpu_torch.retrain.delta import NEW
 
-    owned = plan.owned_block_ids(process_id)
-    metas = []
-    for gi in owned:
-        payload = build_block_payload(host_data, config, plan.blocks[gi], bucketer=bucketer,
-                                      memory_budget_bytes=memory_budget_bytes,
-                                      label=f"block {gi}", row_to_global=row_to_global)
-
-        def write_once(gi=gi, payload=payload):
+    def write(gi, name, payload):
+        def write_once():
             faults.inject("io.perhost_block_write", block=gi, process=process_id)
-            return write_block_file(dir_path, f"block-{gi:05d}.npz", payload)
+            return write_block_file(dir_path, name, payload)
 
-        metas.append(resilience.call_with_retry(
-            write_once, resilience.current_config().io_policy,
-            describe=f"per-host block {gi} write"))
+        return resilience.call_with_retry(write_once, resilience.current_config().io_policy,
+                                          describe=f"per-host block {gi} write")
+
+    owned = plan.owned_block_ids(process_id, membership)
+    metas: Dict[int, List[dict]] = {}
+    reblocked: Dict[int, str] = {}  # owned pinned gid -> why it was re-blocked
+    cache_hits = 0
+    for gi in owned:
+        block_key = (f"{block_key_base}-g{gi:05d}"
+                     if block_cache is not None and block_key_base is not None else None)
+        hit = block_cache.get(block_key) if block_key is not None else None
+        if hit is not None:
+            # per-block entries have no rank scope: block gi's tensors are
+            # the same whichever rank builds them
+            payload = {k: np.asarray(v) for k, v in hit.arrays.items()}
+            cache_hits += 1
+        else:
+            try:
+                payload = build_block_payload(host_data, config, plan.blocks[gi],
+                                              bucketer=bucketer,
+                                              memory_budget_bytes=memory_budget_bytes,
+                                              label=f"block {gi}", row_to_global=row_to_global)
+            except ValueError as e:
+                if statuses is None or statuses[gi] == NEW:
+                    raise  # fresh blocks keep the cold builder's contract
+                # a pinned block outgrew the budget: its entities re-block
+                # in its place, each part written under a provisional name
+                # until the ranks agree the new block ids
+                reblocked[gi] = str(e)
+                metas[gi] = [write(gi, f"block-{gi:05d}.{j}.npz", build_block_payload(
+                    host_data, config, part, bucketer=bucketer,
+                    memory_budget_bytes=memory_budget_bytes, label=f"block {gi}.{j}",
+                    row_to_global=row_to_global))
+                    for j, part in enumerate(_split_pinned(counts, plan.blocks[gi], reblock_kw))]
+                continue
+        metas[gi] = [write(gi, f"block-{gi:05d}.npz", payload)]
+        if block_key is not None and hit is None:
+            try:
+                block_cache.put(block_key, payload)
+            except RetryError as e:
+                logger.warning("per-block cache write for block %d failed after retries (%s); "
+                               "continuing uncached", gi, e)
         del payload
+    if cache_hits:
+        logger.info("per-host streaming build: %d/%d owned blocks served from the per-block "
+                    "tensor cache", cache_hits, len(owned))
+    if statuses is not None:
+        plan, owned = _reblock_pinned(dir_path, plan, counts, statuses, metas, reblocked,
+                                      owned, reblock_kw, ctx, num_processes)
     write_plan_entity_rows(dir_path, counts)
-    mem = _IdentityMembership.initial(plan.num_processes)
+    mem = membership if membership is not None else FleetMembership.initial(plan.num_processes)
     base = types.SimpleNamespace(
         num_rows=int(n_global), global_dim=int(host_data.shards[config.feature_shard_id].dim),
         vocab=list(vocab), random_effect_id=config.random_effect_id,
@@ -748,10 +813,66 @@ def _write_owned_blocks(dir_path: str, host_data: GameData, row_to_global: np.nd
         num_entities_global=int(plan.num_entities), process_index=int(process_id),
         num_processes=int(plan.num_processes))
     commit_perhost_manifest(
-        dir_path, metas, base, owned_gids=owned, owners=plan.owners,
+        dir_path, [m for gi in sorted(metas) for m in metas[gi]], base, owned_gids=owned,
+        owners=plan.owners,
         block_of=plan.block_of_vocab, plan_version=plan.version, membership=mem,
         block_costs=(plan.block_costs if plan.block_costs is not None
                      else np.zeros(len(plan.blocks), np.int64)))
+
+
+def _split_pinned(counts: np.ndarray, block: np.ndarray, reblock_kw: dict) -> List[np.ndarray]:
+    """A pinned block's entities re-blocked afresh (the single-process delta
+    build's rule for a pinned block that outgrew the budget)."""
+    sub = np.zeros_like(counts)
+    sub[block] = counts[block]
+    return plan_entity_blocks(sub, **reblock_kw)
+
+
+def _reblock_pinned(dir_path: str, plan: EntityShardPlan, counts: np.ndarray,
+                    statuses: List[str], metas: Dict[int, List[dict]], reblocked: Dict[int, str],
+                    owned: List[int], reblock_kw: dict, ctx: Optional[MeshContext],
+                    num_processes: int) -> Tuple[EntityShardPlan, List[int]]:
+    """Agree which pinned blocks their owners re-blocked (one collective),
+    then renumber: each such block's parts take consecutive ids in its
+    place, owned by its owner, the later blocks shift up. Every rank
+    re-derives the parts from the agreed counts; the owner renames its
+    files (highest id first, so no name is taken twice) and ``statuses`` is
+    updated in place (a part is ``dirty``). Returns (plan, owned ids)."""
+    from photon_ml_tpu_torch.retrain.delta import DIRTY
+
+    n = len(plan.blocks)
+    flags = np.zeros(n, np.int64)
+    flags[list(reblocked)] = 1
+    flags = collective_max(flags, ctx, num_processes)
+    if not flags.any():
+        return plan, owned
+    parts = {g: _split_pinned(counts, plan.blocks[g], reblock_kw) for g in np.nonzero(flags)[0]}
+    blocks, owners, new_statuses, first = [], [], [], []
+    for g in range(n):
+        first.append(len(blocks))
+        sub = parts.get(g, [plan.blocks[g]])
+        blocks += sub
+        owners += [int(plan.owners[g])] * len(sub)
+        new_statuses += [DIRTY if g in parts else statuses[g]] * len(sub)
+    for g in sorted(metas, reverse=True):
+        for j, meta in enumerate(metas[g]):
+            name = f"block-{first[g] + j:05d}.npz"
+            if meta["file"] != name:
+                os.replace(os.path.join(dir_path, meta["file"]), os.path.join(dir_path, name))
+                meta["file"] = name
+    for g in sorted(reblocked):
+        logger.info("delta retrain: pinned block %d outgrew the budget (%s) — re-blocked into "
+                    "blocks %d-%d", g, reblocked[g], first[g], first[g] + len(parts[g]) - 1)
+    block_of = np.full(len(counts), -1, np.int32)
+    for gi, ents in enumerate(blocks):
+        block_of[ents] = gi
+    statuses[:] = new_statuses
+    plan = dataclasses.replace(plan, blocks=blocks, owners=np.asarray(owners, np.int32),
+                               block_of_vocab=block_of,
+                               block_costs=_block_costs(counts, blocks,
+                                                        reblock_kw["active_upper_bound"]))
+    return plan, [gi for g in owned
+                  for gi in range(first[g], first[g] + (len(parts[g]) if g in parts else 1))]
 
 
 # ---------------------------------------------------------------------------
@@ -789,8 +910,8 @@ class PerHostSpilledREState(SpilledREState):
 
         if ref.get("kind") == "spilled_re_state":
             raise CheckpointRefError(
-                "checkpoint holds a positional (single-host) spill ref; per-host states are "
-                "keyed by global block id — falling back to an older step or a fresh epoch")
+                "checkpoint holds a pre-elastic positional per-host spill ref; per-host states "
+                "are keyed by global block id — falling back to an older step or a fresh epoch")
         if ref.get("kind") != "perhost_spilled_re_state":
             raise CheckpointRefError(
                 f"checkpoint ref kind {ref.get('kind')!r} is not a per-host spilled streaming "

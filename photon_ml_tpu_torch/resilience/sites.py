@@ -15,6 +15,8 @@ __all__ = ["FAULT_SITES", "PREEMPT_SITES"]
 
 #: site -> where it fires; keys are the exact literals production code passes
 FAULT_SITES: Dict[str, str] = {
+    "io.read_block": "per Avro container block read (io/avro.py, io/avro_data.py)",
+    "io.index_load": "index-map / off-heap store loads (io/index_map.py, io/offheap.py)",
     "io.cache_read": "tensor-cache entry reads and probes; a read fault that survives retries degrades to a miss (io/tensor_cache.py)",
     "io.cache_write": "tensor-cache entry commits; a write that stays broken raises RetryError and the drivers go on uncached (io/tensor_cache.py)",
     "io.cache_invalidate": "tensor-cache entry removal; a failure is a logged no-op (io/tensor_cache.py)",
@@ -22,6 +24,10 @@ FAULT_SITES: Dict[str, str] = {
     "multihost.barrier": "cross-process sync points (parallel/multihost.py)",
     "multihost.heartbeat": "per-host heartbeat writes (parallel/multihost.py)",
     "multihost.entity_route": "host-granular entity-routing exchange (parallel/shuffle.py)",
+    "multihost.membership": "elastic fleet-membership reads/commits (parallel/elastic.py)",
+    "multihost.replan_barrier": "elastic re-plan barrier entry; a failure that survives retries falls back to supervised relaunch (parallel/elastic.py)",
+    "io.block_transfer": "delta block/state file copies during an elastic re-shard; a failed block copy degrades to a recorded cold rebuild (parallel/elastic.py)",
+    "multihost.relaunch_replan": "relaunch-time re-plan of a smaller/larger cohort from plan sidecars; a failure degrades to a recorded full re-ingest (parallel/elastic.py)",
     "multihost.streaming_reduce": "exact cross-rank streaming merges: score scatters, FE chunk partials, reg terms; fired before the collective and retried (parallel/perhost_streaming.py)",
     "io.perhost_block_write": "per-host streaming entity-block writes, retried (parallel/perhost_streaming.py)",
     "optim.step": "coordinate-descent updates, NaN corruption (algorithm/coordinate_descent.py)",

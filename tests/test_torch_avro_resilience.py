@@ -4,7 +4,9 @@ package (CPU): a container with a corrupted block read with ``on_corrupt``
 same records, within and beyond the budget), the process-wide config, a
 transiently failing file healed by per-block retries, and a whole GAME read
 whose file the native decoder rejects read by the row loop with the skip
-policy, equal to the JAX read under the same policy.
+policy, equal to the JAX read under the same policy. The ``io.read_block``
+and ``io.index_load`` fault sites fire in both packages alike: the same
+records read, the same fires counted, ``RetryError`` raised or not.
 """
 
 import builtins
@@ -16,7 +18,11 @@ from photon_ml_tpu import resilience as jres
 from photon_ml_tpu.io import avro as javro
 from photon_ml_tpu.io import avro_data as javro_data
 from photon_ml_tpu.io.index_map import IndexMap as JIndexMap
+from photon_ml_tpu.io import offheap as joffheap
+from photon_ml_tpu.resilience import faults as jfaults
 from photon_ml_tpu_torch import resilience as tres
+from photon_ml_tpu_torch.io import offheap as toffheap
+from photon_ml_tpu_torch.resilience import faults as tfaults
 from photon_ml_tpu_torch.io import avro as tavro
 from photon_ml_tpu_torch.io import avro_data as tavro_data
 from photon_ml_tpu_torch.io.index_map import IndexMap
@@ -165,3 +171,97 @@ def test_game_read_of_a_corrupt_file_skips_as_the_jax_package(tmp_path, monkeypa
     assert np.array_equal(got.response, want.response) and got.id_vocabs == want.id_vocabs
     assert np.array_equal(got.shards["g"].indices, want.shards["g"].indices)
     assert np.array_equal(got.shards["g"].values, want.shards["g"].values)
+
+
+# ---------------------------------------------------------------------------
+# the io.read_block and io.index_load fault sites, both packages alike
+# ---------------------------------------------------------------------------
+
+PACKAGES = {"port": (tres, tfaults), "jax": (jres, jfaults)}
+
+
+def _under_faults(pkg, site, rate, attempts, seed, call):
+    """(result or "RetryError", fires) of ``call()`` under one package's
+    fault plan at ``site`` and retry policy."""
+    res, faults = PACKAGES[pkg]
+    plan = faults.FaultPlan([faults.FaultSpec(site, rate=rate, seed=seed, times=None)])
+    cfg = res.ResilienceConfig(io_policy=res.RetryPolicy(max_attempts=attempts, base_delay=0.0))
+    with faults.fault_scope(plan), res.resilience_scope(cfg):
+        try:
+            out = call()
+        except res.RetryError:
+            out = "RetryError"
+    return out, plan.fire_count(site)
+
+
+@pytest.mark.parametrize("rate,attempts", [(0.3, 8), (1.0, 2)])
+def test_read_block_faults_heal_or_exhaust_as_in_the_jax_package(tmp_path, rate, attempts):
+    """tests/test_avro_io.py's retryable-fault and retry-exhaustion cases:
+    a 0.3 rate heals under 8 attempts, a certain fault exhausts 2."""
+    path = str(tmp_path / "part-0.avro")
+    recs = _write_blocks(path)
+    got = _under_faults("port", "io.read_block", rate, attempts, 13,
+                        lambda: list(tavro.read_container(path)))
+    want = _under_faults("jax", "io.read_block", rate, attempts, 13,
+                         lambda: list(javro.read_container(path)))
+    assert got == want
+    assert got[1] > 0
+    assert got[0] == (recs if rate < 1.0 else "RetryError")
+
+
+def test_the_native_whole_file_read_fires_read_block(tmp_path, monkeypatch):
+    """The columnar GAME read's whole-file parse is the site at block -1:
+    a certain fault exhausts the retries in both packages."""
+    recs = _train_records(40)
+    for i, r in enumerate(recs):
+        r["metadataMap"] = {"userId": f"user{i % 5}"}
+    d = tmp_path / "data"
+    d.mkdir()
+    tavro.write_container(str(d / "part-0.avro"), recs, TRAIN_SCHEMA)
+    keys = tavro_data.collect_feature_keys([str(d / "part-0.avro")])
+    args = ({"g": ["features"]}, ["userId"])
+    blocks = []
+    real_inject = tfaults.inject
+
+    def spy(site, **context):
+        if site == "io.read_block":
+            blocks.append(context["block"])
+        real_inject(site, **context)
+
+    monkeypatch.setattr(tfaults, "inject", spy)
+    got = _under_faults("port", "io.read_block", 1.0, 2, 3, lambda: tavro_data.read_game_data(
+        [str(d)], {"g": IndexMap.build(keys)}, *args))
+    want = _under_faults("jax", "io.read_block", 1.0, 2, 3, lambda: javro_data.read_game_data(
+        [str(d)], {"g": JIndexMap.build(keys)}, *args))
+    assert got == want == ("RetryError", 2)
+    assert blocks == [-1, -1]
+
+
+@pytest.mark.parametrize("loader", ["index_map", "offheap"])
+@pytest.mark.parametrize("rate,attempts", [(0.5, 8), (1.0, 3)])
+def test_index_load_fires_in_both_loaders_as_in_the_jax_package(tmp_path, loader, rate,
+                                                                attempts):
+    keys = [f"f{i}\u0001t" for i in range(12)]
+    if loader == "index_map":
+        path = str(tmp_path / "map.json")
+        IndexMap.build(keys).save(path)
+
+        def load_t():
+            return IndexMap.load(path).index_to_name
+
+        def load_j():
+            return JIndexMap.load(path).index_to_name
+    else:
+        path = str(tmp_path / "store")
+        toffheap.build_offheap_store(path, keys, num_partitions=2, force_python=True)
+
+        def load_t():
+            return [toffheap.OffHeapIndexMap(path, force_python=True).get_index(k) for k in keys]
+
+        def load_j():
+            return [joffheap.OffHeapIndexMap(path, force_python=True).get_index(k) for k in keys]
+    got = _under_faults("port", "io.index_load", rate, attempts, 7, load_t)
+    want = _under_faults("jax", "io.index_load", rate, attempts, 7, load_j)
+    assert got == want
+    assert got[1] > 0
+    assert (got[0] == "RetryError") == (rate == 1.0)

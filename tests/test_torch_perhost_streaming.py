@@ -312,6 +312,74 @@ def test_the_per_host_pinning_is_the_single_process_rule(glmix, tmp_path, case):
         assert st == ("unchanged" if case == "same" or g != ge else "dirty"), (g, st)
 
 
+def _pinned_case_data(counts, dim=64, feats_per_user=2, seed=0):
+    """Users ``u000``... with ``counts`` rows each, every user's rows on two
+    features of a 64-wide shard: a block's padded stack is far below the
+    fresh blocking's estimate. Each user's first rows are the same at any
+    count (one generator a user)."""
+    ids, indptr, idx, val, y = [], [0], [], [], []
+    for u, c in enumerate(counts):
+        rng = np.random.default_rng([seed, u])
+        fs = np.sort(rng.choice(dim, feats_per_user, replace=False))
+        for _ in range(c):
+            ids.append(u)
+            idx.extend(fs)
+            val.extend(rng.normal(size=feats_per_user))
+            y.append(float(rng.random() > 0.5))
+            indptr.append(len(idx))
+    n = len(ids)
+    return tgame.GameData(
+        response=np.asarray(y, np.float32), offset=np.zeros(n, np.float32),
+        weight=np.ones(n, np.float32), ids={"userId": np.asarray(ids, np.int32)},
+        id_vocabs={"userId": [f"u{u:03d}" for u in range(len(counts))]},
+        shards={"per_user": tgame.HostFeatures(np.asarray(indptr, np.int64),
+                                               np.asarray(idx, np.int32),
+                                               np.asarray(val, np.float32), dim)})
+
+
+@pytest.mark.parametrize("grown", [12, 200], ids=["slab-fits", "slab-outgrows"])
+def test_a_dirty_pinned_block_grown_past_the_estimate_reblocks_as_the_single_process_build(
+        tmp_path, grown):
+    """A delta that grows a pinned block's dirty entity: at 12 rows the
+    fresh blocking's estimate would split the block but its built slab fits
+    the budget, so both builds keep it whole; at 200 rows the slab outgrows
+    the budget and both re-block it in its place, the per-host build at 1
+    and 2 ranks alike (its owner re-blocks, the ranks renumber)."""
+    from photon_ml_tpu_torch.retrain.delta import build_delta_streaming_manifest
+
+    budget, prior_counts = 3000, [3, 4, 5, 5, 6, 6, 7, 8]
+    new_counts = [grown] + prior_counts[1:]
+    prior = _pinned_case_data(prior_counts)
+    new = _pinned_case_data(new_counts)
+    prior_man = write_re_entity_blocks(prior, TCFG, str(tmp_path / "prior"),
+                                       memory_budget_bytes=budget)
+    assert [b["num_entities"] for b in prior_man.blocks][0] == 2  # u000 pinned with u001
+    sub = np.zeros(8, np.int64)
+    sub[[0, 1]] = np.asarray(new_counts)[[0, 1]]
+    assert len(plan_entity_blocks(sub, global_dim=64, memory_budget_bytes=budget)) == 2
+    single, deltas = build_delta_streaming_manifest(new, TCFG, str(tmp_path / "single"),
+                                                    prior_man, {"u000"},
+                                                    memory_budget_bytes=budget)
+    want_blocks = [sorted(single.load_block_meta(i, "cpu").entity_ids.tolist())
+                   for i in range(len(single.blocks))]
+    want_status = [d.status for d in deltas]
+    assert want_blocks[:2] == ([[0, 1], [2, 3]] if grown == 12 else [[1], [0]])
+    payload = {"data": new, "prior_counts": np.asarray(prior_counts), "budget": budget,
+               "dirty": {"u000"}, "outdir": str(tmp_path)}
+    for world in (1, 2):
+        ranks = run_ranks("torch_rank_jobs:pinned_perhost_build", world, tmp_path, payload)
+        arrays = {}
+        for r in ranks:
+            assert r["blocks"] == want_blocks and r["statuses"] == want_status
+            arrays.update(r["arrays"])
+        # the same block bytes as the single-process build's
+        assert sorted(arrays) == list(range(len(want_blocks)))
+        for g, b in enumerate(single.blocks):
+            with np.load(os.path.join(single.dir, b["file"])) as z:
+                for k in ("x", "labels", "weights", "entity_ids", "row_sel"):
+                    assert np.array_equal(z[k], arrays[g][k]), (world, g, k)
+
+
 @pytest.mark.parametrize("kw", [dict(block_entities=16), dict(memory_budget_bytes=8000)],
                          ids=["16-a-block", "budget"])
 def test_a_one_rank_manifest_is_the_jax_manifest_and_the_single_host_blocks(glmix, tmp_path,

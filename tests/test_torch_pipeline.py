@@ -38,6 +38,24 @@ from photon_ml_tpu_torch.resilience import faults
 
 
 class TestPrefetcher:
+    def test_close_joins_the_worker(self):
+        """A consumer that stops early leaves no worker behind: close()
+        waits for the item in hand (a process that exits with a worker
+        inside a pinned copy can abort at teardown)."""
+        started = threading.Event()
+
+        def gen():
+            for i in range(1000):
+                started.set()
+                time.sleep(0.01)
+                yield i
+
+        p = Prefetcher(gen, depth=2, name="close-test")
+        it = iter(p)
+        assert next(it) == 0 and started.wait(5.0)
+        it.close()  # the generator's finally closes the prefetcher
+        assert p._thread is not None and not p._thread.is_alive()
+
     def test_preserves_order(self):
         assert list(prefetched(lambda: iter(range(100)), depth=3)) == list(range(100))
 

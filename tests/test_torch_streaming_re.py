@@ -282,6 +282,23 @@ def test_block_preemption_resumes_bitwise(glmix, manifest, tmp_path, schedule):
     assert all(np.array_equal(a, b) for a, b in zip(_spilled(got), _spilled(want)))
 
 
+def test_a_block_boundary_drain_leaves_no_prefetch_worker(glmix, manifest):
+    """A preemption at a block boundary unwinds out of the block loop: the
+    pipeline is closed and its worker joined before the exception leaves
+    the update."""
+    import threading
+
+    _, tdata, resid = glmix
+    coord = _port(manifest, prefetch_depth=2)
+    preemption.install_plan({"block": 1})
+    try:
+        with pytest.raises(preemption.Preempted):
+            coord.update(torch.from_numpy(resid), coord.initial_coefficients())
+    finally:
+        preemption.reset()
+    assert not [t for t in threading.enumerate() if t.name == "re-block-prefetch"]
+
+
 def test_spilled_state_checkpoints_by_reference(glmix, manifest, tmp_path):
     _, tdata, resid = glmix
     coord = _port(manifest)
@@ -327,9 +344,26 @@ def test_unported_hooks_raise(manifest, field):
         with pytest.raises(ValueError, match="out of range"):
             _port(manifest, frozen_blocks=frozenset({len(manifest.blocks)}))
         return
-    value = {"elastic": object(), "initial_epoch": 2}[field]
-    with pytest.raises(NotImplementedError, match=f"{field} .* not yet ported"):
-        _port(manifest, **{field: value})
+    # the re-plan hooks run now (tests/test_torch_elastic.py holds the
+    # protocol): a pending proposal drains at update entry, and an epoch
+    # floor numbers the first update's spill above it
+    from photon_ml_tpu_torch.parallel.elastic import ReplanRequired
+
+    class _Pending:
+        def poll(self, step=None, force=False):
+            return {"version": 2, "hosts": [0], "binding": {"0": 0}, "reason": "stub"}
+
+    resid = torch.zeros(manifest.num_rows)
+    if field == "elastic":
+        coord = _port(manifest, elastic=_Pending())
+        with pytest.raises(ReplanRequired, match="update entry") as err:
+            coord.update(resid, coord.initial_coefficients())
+        assert err.value.partial is None and err.value.proposal["version"] == 2
+        return
+    coord = _port(manifest, initial_epoch=2)
+    state, _ = coord.update(resid, coord.initial_coefficients())
+    assert os.path.basename(state.dir) == "epoch-3"
+    assert coord.replan_state_dirs() == [coord.initial_coefficients().dir, state.dir]
 
 
 # ---------------------------------------------------------------------------

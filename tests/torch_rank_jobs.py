@@ -231,10 +231,13 @@ def _streaming_inputs(data, payload):
 
 
 def streaming_coordinates(data, payload, ctx=None, num_processes=1, process_id=0,
-                          outdir=None, single_host=False, plan=None):
+                          outdir=None, single_host=False, plan=None, membership=None,
+                          elastic=None):
     """The descent's two coordinates: the per-host streaming pair on this
     rank's rows and chunks, or (``single_host``) the single-host streaming
-    pair on every row and chunk. Imports the port only."""
+    pair on every row and chunk. ``membership`` and ``elastic`` (a
+    ``parallel.elastic`` membership and monitor) go to the per-host pair.
+    Imports the port only."""
     from photon_ml_tpu_torch.algorithm.streaming_fixed_effect import (
         PerHostStreamingFixedEffectCoordinate,
         StreamingFixedEffectCoordinate,
@@ -285,10 +288,10 @@ def streaming_coordinates(data, payload, ctx=None, num_processes=1, process_id=0
     man = build_perhost_streaming_manifest(
         rows, cfg, os.path.join(outdir, f"re-host{process_id}"), ctx, num_processes,
         process_id, block_entities=payload["block_entities"],
-        bucketer=plan.bucketer if plan is not None else None)
+        bucketer=plan.bucketer if plan is not None else None, membership=membership)
     re = PerHostStreamingRandomEffectCoordinate(
         manifest=man, state_root=os.path.join(outdir, f"re-state-host{process_id}"), ctx=ctx,
-        num_processes=num_processes, **re_kw)
+        num_processes=num_processes, elastic=elastic, **re_kw)
     starts = np.concatenate([[0], np.cumsum(sizes)])
     owned = {}
     for c in range(len(sizes)):
@@ -297,7 +300,7 @@ def streaming_coordinates(data, payload, ctx=None, num_processes=1, process_id=0
                         {"x": x_fe[s:e], "y": y[s:e]})
     fe = PerHostStreamingFixedEffectCoordinate(sizes, owned, x_fe.shape[1], fe_problem,
                                                ctx=ctx, num_processes=num_processes, plan=plan,
-                                               device="cpu")
+                                               device="cpu", elastic=elastic)
     return fe, re
 
 
@@ -389,3 +392,170 @@ def lose_a_rank_mid_block(mh, payload):
         # the failure; neither hangs
         return {"error": f"{type(e).__name__}: {e}", "heartbeats": mh.describe_heartbeats(hb)}
     return {"error": None}
+
+
+def elastic_streaming_cd(mh, payload):
+    """tests/elastic_reshard_worker.py in the port: the per-host streaming
+    descent under an elastic monitor, with a membership change mid-run.
+
+    ``mode="loss"``: three logical owners on two ranks (owner 2 on rank 0);
+    when rank 0 reaches its first block of epoch 2, owner 2 stops beating
+    and is declared lost. ``mode="scaleup"``: two owners, and at the same
+    point an operator request adds owner 2 on rank 1. Each rank fires the
+    change itself (rank 1 at its epoch-2 update entry), drains at its next
+    safe boundary (``ReplanRequired``, the emergency checkpoint), agrees
+    plan v2 through the session, moves only the changed blocks and
+    resumes on a coordinate rebuilt over the re-based manifest."""
+    import os
+
+    from photon_ml_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
+    from photon_ml_tpu_torch.checkpoint import CoordinateDescentCheckpointer
+    from photon_ml_tpu_torch.compile.plan import ExecutionPlan
+    from photon_ml_tpu_torch.ops import losses
+    from photon_ml_tpu_torch.parallel.elastic import (
+        ElasticMonitor,
+        ElasticSession,
+        FleetMembership,
+        ReplanBarrierError,
+        ReplanRequired,
+        declare_lost_hosts,
+        request_scale_up,
+    )
+    from photon_ml_tpu_torch.parallel.perhost_streaming import (
+        PerHostStreamingRandomEffectCoordinate,
+    )
+
+    ctx = mh.mesh_context()
+    pid, n = mh.process_id, mh.num_processes
+    data, outdir, mode = payload["data"], payload["outdir"], payload["mode"]
+    membership = (FleetMembership(1, [0, 1, 2], {0: 0, 1: 1, 2: 0}) if mode == "loss"
+                  else FleetMembership.initial(n))
+    fleet_dir = os.path.join(outdir, "fleet")
+    monitor = ElasticMonitor(fleet_dir, membership, process_id=pid, heartbeat_deadline=15.0,
+                             min_poll_interval=0.0, num_processes=n)
+    session = ElasticSession(fleet_dir, pid, n, monitor, barrier_timeout=90.0)
+    plan = ExecutionPlan.resolve(distributed=n > 1, streaming=True, num_processes=n,
+                                 **payload.get("plan", {}))
+    fe, re = streaming_coordinates(data, payload, ctx, n, pid, outdir, plan=plan,
+                                   membership=membership, elastic=monitor)
+    log = []
+    fired = {"done": False}
+
+    def fire():
+        if mode == "loss":
+            monitor.silence_host(2)
+            declare_lost_hosts(fleet_dir, [2], reason="logical owner reclaimed")
+        else:
+            request_scale_up(fleet_dir, {2: 1}, reason="capacity arrived")
+        log.append("TRIGGERED")
+
+    if pid == 0:
+        slab_for, calls = re._slab_for, {"n": 0}
+        first_of_epoch2 = len(re.manifest.blocks) + 1
+
+        def hooked(i, ds, extra):
+            calls["n"] += 1
+            if not fired["done"] and calls["n"] == first_of_epoch2:
+                fired["done"] = True
+                fire()
+            return slab_for(i, ds, extra)
+
+        re._slab_for = hooked
+    else:
+        update = re.update
+
+        def entry_trigger(resid, state, resume=None):
+            if not fired["done"] and re._epoch >= 1 and resume is None:
+                fired["done"] = True
+                fire()
+            return update(resid, state, resume=resume)
+
+        re.update = entry_trigger
+
+    labels = torch.from_numpy(data.response.astype(np.float32))
+    weights = torch.from_numpy(data.weight.astype(np.float32))
+    ck = CoordinateDescentCheckpointer(os.path.join(outdir, f"ckpt-host{pid}"),
+                                       run_fingerprint="elastic-harness")
+    re_kw = dict(task=re.task, optimizer=re.optimizer, optimizer_config=re.optimizer_config,
+                 regularization=re.regularization, plan=plan, device="cpu",
+                 state_root=re.state_root, ctx=ctx, num_processes=n, elastic=monitor)
+    replans, result = [], None
+    while result is None:
+        cd = CoordinateDescent({"fixed": fe, "per-user": re},
+                               lambda s: torch.sum(weights * losses.logistic.loss(s, labels)))
+        try:
+            result = cd.run(2, data.num_rows, checkpointer=ck)
+        except ReplanRequired as e:
+            log.append(f"DRAINED v{e.proposal['version']} partial={e.partial is not None}")
+            old_epoch = re._epoch
+            try:
+                res = session.replan(re.manifest, e.proposal, state_dir=re.replan_state_dirs(),
+                                     epoch=old_epoch)
+            except ReplanBarrierError as err:
+                log.append(f"supervised-relaunch fallback: {err}")
+                raise
+            replans.append({"version": res.plan_version, "moved": res.moved,
+                            "incoming": res.incoming, "rebuilt": res.rebuilt,
+                            "blocks_total": res.blocks_total, "decisions": res.decisions})
+            # the coordinate rebuilt on the re-based manifest, its epochs
+            # above the interrupted numbering; the restore resumes mid-epoch
+            re = PerHostStreamingRandomEffectCoordinate(manifest=res.manifest,
+                                                        initial_epoch=old_epoch + 1, **re_kw)
+    mh.barrier("cd-done")
+    return {"fe": _np(result.coefficients["fixed"]), "total": _np(result.total_scores),
+            "objectives": list(result.objective_history),
+            "means": re.entity_means_by_raw_id(result.coefficients["per-user"]),
+            "owned": list(re.manifest.global_block_ids), "replans": replans, "log": log,
+            "plan_version": monitor.membership.version}
+
+
+def pinned_perhost_build(mh, payload):
+    """The per-host streaming build of ``payload["data"]`` (each rank its
+    contiguous block of the rows) under the prior blocking pinned by
+    ``pin_prior_blocking``: the committed plan's blocks, the statuses after
+    any re-block, and this rank's block files' arrays by global id."""
+    import os
+
+    from photon_ml_tpu_torch.data.game import RandomEffectDataConfig
+    from photon_ml_tpu_torch.parallel.perhost_ingest import HostRows, csr_to_padded
+    from photon_ml_tpu_torch.parallel.perhost_streaming import (
+        EntityShardPlan,
+        build_perhost_streaming_manifest,
+        pin_prior_blocking,
+    )
+
+    data, n, pid = payload["data"], mh.num_processes, mh.process_id
+    rows_n = data.num_rows
+    lo, hi = pid * (rows_n // n), rows_n if pid == n - 1 else (pid + 1) * (rows_n // n)
+    feats = data.shards["per_user"]
+    fi, fv = csr_to_padded(feats, rows_n)
+    vocab = data.id_vocabs["userId"]
+    rows = HostRows(entity_raw_ids=[vocab[i] for i in data.ids["userId"][lo:hi]],
+                    row_index=np.arange(lo, hi, dtype=np.int64),
+                    labels=data.response[lo:hi].astype(np.float32),
+                    weights=data.weight[lo:hi].astype(np.float32),
+                    offsets=data.offset[lo:hi].astype(np.float32), feat_idx=fi[lo:hi],
+                    feat_val=fv[lo:hi], global_dim=feats.dim)
+    prior_counts = payload["prior_counts"]
+    budget = payload["budget"]
+    prior_plan = EntityShardPlan.build(prior_counts, 1, global_dim=feats.dim,
+                                       memory_budget_bytes=budget)
+    got = {}
+
+    def pin(v, counts):
+        blocks, statuses = pin_prior_blocking(prior_plan, vocab, prior_counts, v, counts,
+                                              payload["dirty"], global_dim=feats.dim,
+                                              memory_budget_bytes=budget)
+        got["statuses"] = statuses
+        return blocks, statuses
+
+    man = build_perhost_streaming_manifest(
+        rows, RandomEffectDataConfig("userId", "per_user"),
+        os.path.join(payload["outdir"], f"pinned-{n}-{pid}"), mh.mesh_context(), n, pid,
+        memory_budget_bytes=budget, pin=pin)
+    arrays = {}
+    for g, b in zip(man.global_block_ids, man.blocks):
+        with np.load(os.path.join(man.dir, b["file"])) as z:
+            arrays[int(g)] = {k: z[k] for k in z.files}
+    return {"blocks": [b.tolist() for b in EntityShardPlan.from_sidecars(man.dir).blocks],
+            "statuses": list(got["statuses"]), "arrays": arrays}
