@@ -89,6 +89,13 @@ shapes and times it, then drives the port's main paths at full width:
     starts at 2000 users on the card and the CPU; (d) ``--plan off`` and
     ``--plan auto`` (the cost model written, then loaded).
 
+  * the serving fleet (phase 28, after phase 15 on phase 23's models): a
+    2-replica fleet in this process and as two ``cli.fleet_driver``
+    replica processes over local TCP sharing the card, scores
+    ``np.array_equal`` to the single server's, a fleet swap and a killed
+    replica under load, and an SLO ledger that ``tools/fleetctl.py status
+    --slo`` reads back.
+
   * multi-process GAME training (phase 25, after phase 23 on phase 10's
     data): (a) the GAME driver with ``--distributed`` on a 1-rank NCCL
     group, model bytes equal to phase 10's; (b) ``cli.game_multihost_driver``
@@ -4260,9 +4267,9 @@ SERVE_BATCH_ROWS = (1, 8, 32, 128)
 SERVE_THREADS, SWAP_THREADS = 32, 16
 # warmup's nnz cap: the fixed shard carries 33 nnz a row (rung 64)
 SERVE_WARM_NNZ = 64
-# phase 23 (b): rows served at max_batch_rows 1, and at 8 and 128 (depth
-# cuts, see CUTS)
-SERVE_PREFIX_ROWS = {1: 2048, 8: 4096, 128: 4096}
+# phase 23 (b): rows served at each max_batch_rows (depth cuts, see CUTS);
+# (c) holds the quantized stores on the rows served at 32
+SERVE_PREFIX_ROWS = {1: 2048, 8: 4096, 32: 8192, 128: 4096}
 SERVE_SUBPROCESS_ROWS = 256  # phase 23 (e): score lines, half before the swap line
 
 
@@ -4342,7 +4349,7 @@ def quant_budget(meta, requests, ref):
     return budget + 1e-6 + 1e-6 * np.abs(np.asarray(ref, np.float64))
 
 
-def phase_serving(torch, workdir, dev="cuda"):
+def phase_serving(torch, workdir, dev="cuda", after_b=None):
     """Phase 23, on phase 10's data and model (phase 22 (c)'s warm run and
     its --export-serve-store store). (a) bf16 and int8 exports of the same
     model; slab bytes on disk and on the device by store dtype. (b) the
@@ -4360,7 +4367,23 @@ def phase_serving(torch, workdir, dev="cuda"):
     two of phase 19 (a)'s lambda models: no request dropped, no new shape in
     the probe, the new model's scores served after. (e) serve_driver as a
     subprocess fed JSON lines (score lines, one swap line, score lines,
-    EOF): every response equals the in-process server's score."""
+    EOF), started right after (b) so that its start-up and warmup run
+    beside (c)-(d): every response equals the in-process server's score.
+    ``after_b`` (if given) is called right after (b) too: main starts phase
+    28's exports there. No process of the call runs beside (a)-(b)."""
+    procs = []
+    try:
+        return _serving(torch, workdir, dev, procs, after_b)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _serving(torch, workdir, dev, procs, after_b):
+    """Phase 23's body; (e)'s serve driver, once started, is put in
+    ``procs``."""
     from photon_ml_tpu_torch.cli import game_scoring_driver
     from photon_ml_tpu_torch.compile import ShapeBucketer
     from photon_ml_tpu_torch.serve import (ModelStore, ModelSwapper, ScoringServer, ServeStats,
@@ -4386,6 +4409,7 @@ def phase_serving(torch, workdir, dev="cuda"):
         srv.warmup(warm_nnz=SERVE_WARM_NNZ)
         return srv
 
+    quant_rows = requests[:SERVE_PREFIX_ROWS[32]]
     for dt, path in stores.items():
         srv = server_of(path, 128)
         fp = srv.store.footprint()
@@ -4393,9 +4417,9 @@ def phase_serving(torch, workdir, dev="cuda"):
                              "device_bytes": device_bytes(srv.model),
                              "slab_shape": list(srv.store.random[0].slab.shape)}
         if dt != "f32":
-            # every row as one request, split into 128-row batches; held
-            # against the f32 scores in (c)
-            out["stores"][dt]["scores"] = srv.score_rows(requests)
+            # the rows served at 32 as one request, split into 128-row
+            # batches; held against the f32 scores in (c)
+            out["stores"][dt]["scores"] = srv.score_rows(quant_rows)
         srv.close()
         say(f"  (a) {dt}: slab {tuple(out['stores'][dt]['slab_shape'])}, "
             f"{fp['slab_bytes_disk']} slab bytes on disk (slab and scales files), "
@@ -4444,14 +4468,26 @@ def phase_serving(torch, workdir, dev="cuda"):
             f"({split['padded_rows']} padded rows)"
             + (f", device busy {split['device_busy_share']:.3f} of it"
                if "device_busy_share" in split else ""))
-    say(f"  (b) at max_batch_rows 32 the {len(requests)} served f32 scores are np.array_equal "
+    say(f"  (b) at max_batch_rows 32 the {len(served32)} served f32 scores are np.array_equal "
         "to game_scoring_driver.main's device scores")
+    # (e)'s serve driver starts now: its start-up and warmup run beside (c)-(d)
+    t_start = time.perf_counter()
+    procs.append(subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve_driver",
+         "--model-store-dir", stores["f32"],
+         "--feature-shard-id-to-feature-section-keys-map",
+         "global:fixedFeatures|per_user:userFeatures", "--max-batch-rows", "32",
+         "--warm-nnz", str(SERVE_WARM_NNZ), "--device", dev],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))))
+    if after_b is not None:
+        after_b()
 
     # (c) quantized stores within their budget of the f32 scores
     for dt in ("bf16", "int8"):
         meta = ModelStore(stores[dt]).meta
         got = out["stores"][dt].pop("scores")
-        budget = quant_budget(meta, requests, served32)
+        budget = quant_budget(meta, quant_rows, served32)
         diff = np.abs(got.astype(np.float64) - served32)
         check(bool((diff <= budget).all()), f"(c) {dt}: {int((diff > budget).sum())} scores "
                                             "outside the quantization budget")
@@ -4516,18 +4552,11 @@ def phase_serving(torch, workdir, dev="cuda"):
     lines += [json.dumps({"id": f"b{i}", "rows": [q]})
               for i, q in enumerate(requests[n // 2:n])]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve_driver",
-         "--model-store-dir", stores["f32"],
-         "--feature-shard-id-to-feature-section-keys-map",
-         "global:fixedFeatures|per_user:userFeatures", "--max-batch-rows", "32",
-         "--warm-nnz", str(SERVE_WARM_NNZ), "--device", dev],
-        input="\n".join(lines) + "\n", capture_output=True, text=True, timeout=600,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"(e) serve_driver exited {proc.returncode}: "
-                                f"{proc.stderr[-2000:]}")
-    by_id = {r.get("id"): r for r in map(json.loads, proc.stdout.splitlines())}
+    proc = procs[0]
+    stdout, stderr = proc.communicate("\n".join(lines) + "\n", timeout=600)
+    wall, since_start = time.perf_counter() - t0, time.perf_counter() - t_start
+    check(proc.returncode == 0, f"(e) serve_driver exited {proc.returncode}: {stderr[-2000:]}")
+    by_id = {r.get("id"): r for r in map(json.loads, stdout.splitlines())}
     check(by_id.get("swap", {}).get("swap", {}).get("new_compiles") == 0,
           f"(e) the swap line's response {by_id.get('swap')}")
     fresh = server_of(lam_stores[1], 32)
@@ -4537,12 +4566,14 @@ def phase_serving(torch, workdir, dev="cuda"):
     got_b = np.asarray([by_id[f"b{i}"]["scores"][0] for i in range(n - n // 2)], np.float32)
     check(np.array_equal(got_a, served32[:n // 2]) and np.array_equal(got_b, want_b),
           "(e) the serve driver's responses differ from the in-process server's scores")
-    summary = [line for line in proc.stderr.splitlines() if "serve stats:" in line]
+    summary = [line for line in stderr.splitlines() if "serve stats:" in line]
     check(bool(summary), "(e) the serve driver logged no stats summary at shutdown")
-    out["subprocess"] = {"wall_s": wall, "responses": len(by_id)}
+    out["subprocess"] = {"wall_s": wall, "since_start_s": since_start, "responses": len(by_id)}
     say(f"  (e) serve_driver subprocess: {n} score lines and one swap line in {wall:.2f} s "
-        "(start and warmup included); every response equals the in-process server's score; "
+        f"({since_start:.2f} s since its start beside (c)-(d), start and warmup included); "
+        "every response equals the in-process server's score; "
         f"its shutdown summary: {summary[-1].split('serve stats: ')[-1]}")
+    out["_served32"] = served32  # phase 28 holds its fleets against these scores
     return out
 
 
@@ -5889,6 +5920,481 @@ def phase_elastic(workdir, started26, started, mh_stream):
     return out
 
 
+# --- phase 28: the serving fleet ------------------------------------------------
+
+FLEET_REPLICAS = 2
+# phase 28: the first validation rows it serves (a depth cut, see CUTS)
+FLEET_ROWS = 1024
+FLEET_HB_DEADLINE_S = 2.0  # a replica whose heartbeat is older is dead to the router
+FLEET_READY_S = 300  # an export not done, or a replica not READY, this long after its start fails
+FLEET_KILL_AFTER_S = 0.5  # (b): load runs this long before replica 1 is killed ...
+FLEET_KILL_TAIL_S = 1.0  # ... and this long after the router marks it dead
+# the SLO ledger's latency limits: wide, the ledger's gate here is its attribution
+FLEET_SLO_MS = 1e4
+FLEET_MODELS = {"fleet28": ("out22c-warm", "best"),
+                "fleet28-lambda0": ("grid-per-combo", "all", "0"),
+                "fleet28-lambda1": ("grid-per-combo", "all", "1")}
+
+
+def _fleet_driver(argv, out, err):
+    return subprocess.Popen([sys.executable, "-m", "photon_ml_tpu_torch.cli.fleet_driver"] + argv,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdin=subprocess.DEVNULL, stdout=out, stderr=err, text=True)
+
+
+def start_fleet(workdir, dev="cuda"):
+    """Phase 28's set-up, started in phase 23 right after (b): a thread
+    runs three ``cli.fleet_driver --build-fleet-stores`` processes at once
+    (2-replica exports of phase 23's f32 model and of phase 19 (a)'s lambda
+    0.01 and 0.1 models; ``fleet_exported`` waits for them), then, once
+    ``fleet_ready`` releases them, two ``cli.fleet_driver`` replica
+    processes on the lambda 0.01 fleet, sharing the card, with heartbeats
+    under ``fleet28-coord/heartbeats``. Every process writes to files (a
+    pipe nobody reads could fill). Returns at once."""
+    coord = os.path.join(workdir, "fleet28-coord")
+    hb = os.path.join(coord, "heartbeats")
+    os.makedirs(hb, exist_ok=True)
+    dirs = {name: os.path.join(workdir, name) for name in FLEET_MODELS}
+    started = {"dirs": dirs, "coord": coord, "hb": hb, "procs": [], "logs": [], "builds": [],
+               "errors": [], "exported": threading.Event(), "release": threading.Event(),
+               "done": threading.Event(), "stopping": threading.Event()}
+
+    def log_pair(tag):
+        pair = tuple(open(os.path.join(coord, f"{tag}.{k}"), "w+") for k in ("out", "err"))
+        started["logs"].append(pair)
+        return pair
+
+    def starter():
+        try:
+            t0 = time.perf_counter()
+            for name, parts in FLEET_MODELS.items():
+                started["builds"].append((name, _fleet_driver(
+                    ["--fleet-dir", dirs[name], "--game-model-input-dir",
+                     os.path.join(workdir, *parts), "--num-fleet-replicas", str(FLEET_REPLICAS),
+                     "--build-fleet-stores", "true", "--device", dev], *log_pair(f"build-{name}"))))
+            for name, proc in started["builds"]:
+                if proc.wait() != 0:
+                    started["errors"].append(f"the {name} export exited {proc.returncode}")
+            started["export_s"] = time.perf_counter() - t0
+            started["exported"].set()
+            started["release"].wait()
+            if started["errors"] or started["stopping"].is_set():
+                return
+            t1 = time.perf_counter()
+            for r in range(FLEET_REPLICAS):
+                started["procs"].append(_fleet_driver(
+                    ["--fleet-dir", dirs["fleet28-lambda0"], "--replica-id", str(r),
+                     "--num-fleet-replicas", str(FLEET_REPLICAS), "--heartbeat-dir", hb,
+                     "--feature-shard-id-to-feature-section-keys-map",
+                     "global:fixedFeatures|per_user:userFeatures", "--max-batch-rows", "32",
+                     "--warm-nnz", str(SERVE_WARM_NNZ), "--device", dev],
+                    *log_pair(f"replica-{r}")))
+            # each replica's address from the READY line it prints once warm
+            logs = started["logs"][len(started["builds"]):]
+            addrs = [None] * FLEET_REPLICAS
+            while None in addrs and not started["stopping"].is_set():
+                for r, (proc, (out, err)) in enumerate(zip(started["procs"], logs)):
+                    if addrs[r] is not None:
+                        continue
+                    out.seek(0)
+                    ready = [x for x in out.read().splitlines() if x.startswith("READY ")]
+                    if ready:
+                        addrs[r] = ready[0].split()[1]
+                    elif proc.poll() is not None:
+                        err.seek(0)
+                        started["errors"].append(f"replica {r} exited {proc.returncode} before "
+                                                 f"READY: {err.read()[-2000:]}")
+                        return
+                if time.perf_counter() - t1 > FLEET_READY_S:
+                    started["errors"].append(f"the replicas were not READY {FLEET_READY_S} s "
+                                             "after their start")
+                    return
+                time.sleep(0.1)
+            started["addrs"] = addrs
+            started["ready_s"] = time.perf_counter() - t1
+        except Exception as exc:  # noqa: BLE001 — reported by fleet_ready, which fails the phase
+            started["errors"].append(repr(exc))
+        finally:
+            started["exported"].set()
+            started["done"].set()
+
+    threading.Thread(target=starter, name="fleet28-starter", daemon=True).start()
+    say(f"  phase 28 set-up: {len(FLEET_MODELS)} fleet_driver exports of "
+        f"{FLEET_REPLICAS}-replica fleets started beside phase 23 (c)-(e)")
+    return started
+
+
+def fleet_exported(started):
+    """Wait for the set-up's exports; fails if one failed or they took
+    more than FLEET_READY_S."""
+    check(started["exported"].wait(FLEET_READY_S + 5.0) and not started["errors"],
+          f"28: the fleet exports failed or timed out: {started['errors']}")
+
+
+def fleet_ready(started):
+    """Release the replica processes (once the exports are done) and
+    return each one's bound address once it is READY; fails if an export
+    or a replica failed, or a replica was not READY within FLEET_READY_S
+    of its start."""
+    fleet_exported(started)
+    started["release"].set()
+    check(started["done"].wait(FLEET_READY_S + 5.0) and not started["errors"]
+          and None not in started.get("addrs", [None]),
+          f"28: the fleet set-up failed or timed out: {started['errors']}")
+    return started["addrs"]
+
+
+def stop_fleet(started):
+    """Stop every process of the set-up: kill an export still running, then
+    shut each replica down (a shutdown message, then a kill past 30 s); a
+    failed check must leave no process behind."""
+    import socket
+
+    started["stopping"].set()
+    started["release"].set()
+    for _, proc in started["builds"]:
+        if proc.poll() is None:
+            proc.kill()
+    started["done"].wait(60)
+    for _, proc in started["builds"]:
+        proc.wait()
+    logs = started["logs"][len(started["builds"]):]
+    for proc, (out, _) in zip(started["procs"], logs):
+        if proc.poll() is not None:
+            continue
+        out.seek(0)
+        ready = [line for line in out.read().splitlines() if line.startswith("READY ")]
+        if ready:
+            host, _, port = ready[0].split()[1].rpartition(":")
+            try:
+                with socket.create_connection((host, int(port)), timeout=5) as s:
+                    s.settimeout(5)
+                    s.sendall(b'{"cmd": "shutdown"}\n')
+                    s.recv(100)
+            except OSError:
+                pass
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    for out, err in started["logs"]:
+        out.close()
+        err.close()
+
+
+def fleet_load(router, requests, threads, ledger=None, stop=None):
+    """Single-row requests from ``threads`` closed-loop client threads
+    (each sends its next request when its last one is answered). Without
+    ``stop`` every request is sent once; with it the clients cycle through
+    the requests until it is set. Returns ([(request index, score)], the
+    failed requests' errors, wall seconds); each answer's latency goes into
+    ``ledger``."""
+    answered, errors = [], []
+
+    def client(k):
+        i = k
+        while (i < len(requests)) if stop is None else not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                got = router.score_rows([requests[i % len(requests)]])
+                if len(got) != 1:
+                    raise RuntimeError(f"request {i} came back with {len(got)} scores")
+            except Exception as exc:  # noqa: BLE001 — a failed request is what the phase counts
+                errors.append(repr(exc))
+                if ledger is not None:
+                    ledger.record_error()
+            else:
+                if ledger is not None:
+                    ledger.record_request(time.perf_counter() - t0)
+                answered.append((i % len(requests), got[0]))
+            i += threads
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
+    for t in pool:
+        t.start()
+    return answered, errors, pool, t0
+
+
+def fleet_join(pool, t0):
+    for t in pool:
+        t.join()
+    return time.perf_counter() - t0
+
+
+def in_order(answered, n):
+    scores = np.full(n, np.nan, np.float32)
+    for i, s in answered:
+        scores[i] = s
+    return scores
+
+
+def phase_fleet(torch, fused_glm, fused_sparse, workdir, serving, started, dev="cuda"):
+    """Phase 28, on phase 23's stores and requests (the first FLEET_ROWS
+    validation rows). (a) a 2-replica fleet in this process (two
+    ReplicaEngines on ``dev`` behind LocalReplicaClients) over the export of
+    phase 23's f32 model, 32 closed-loop clients at max_batch_rows 32:
+    scores np.array_equal to phase 23's single server at 32 on the same
+    rows, p50/p99, QPS and scatter counts beside phase 23's, no new batch
+    shape after warmup. (b) the two fleet_driver replica processes, over
+    local TCP with the router in this process: scores
+    bitwise an in-process single server on phase 23's lambda 0.01 store;
+    a fleet swap to the lambda 0.1 fleet under 16 clients (no request
+    failed, no new shape on any replica, every answer one generation's
+    score, the new model's after); then replica 1 killed under 16 clients:
+    the router marks it dead (its failed calls open its circuit, its
+    heartbeat goes stale), no request fails, every row
+    it owned comes back exact or as the cold-entity score, and the router's
+    degraded rows equal the cold answers observed (each counted once). (c)
+    an SLO ledger over (a) and (b), its gate passed, its sidecar read back
+    by ``tools/fleetctl.py status --slo``. Serving runs no kernel: the
+    three kernel counts stay 0 through the phase. The replica processes
+    start at the phase's start, beside (b)'s single-server references and
+    (a)'s engine warmups; (a)'s load starts once they are READY (idle)."""
+    from photon_ml_tpu_torch.serve import FleetStats, ModelStore, ScoringServer, ServeStats
+    from photon_ml_tpu_torch.serve.fleet import (FleetRouter, FleetSwapper, LocalReplicaClient,
+                                                 ReplicaEngine, ServeShardPlan,
+                                                 TcpReplicaClient, load_fleet_meta,
+                                                 replica_store_dir)
+    from photon_ml_tpu_torch.slo import PhaseSLO, SLOLedger, SLOSpec
+
+    say(f"== phase 28: the serving fleet on {dev}: {FLEET_REPLICAS} replicas in this process "
+        f"and as fleet_driver processes over local TCP, a fleet swap and a killed replica under "
+        f"load, an SLO ledger read by fleetctl ({FLEET_ROWS} validation rows)")
+    counters = {"fused_glm": fused_glm.fused_value_grad_kernel,
+                "gevm": fused_sparse.sparse_gevm_kernel, "hvp": fused_sparse.sparse_hvp_kernel}
+    for c in counters.values():
+        c.launches = 0
+    dirs = started["dirs"]
+    fleet_exported(started)
+    started["release"].set()  # the replica processes start now
+    meta = load_fleet_meta(dirs["fleet28"])
+    requests = serve_requests(workdir)[:FLEET_ROWS]
+    served32 = serving.pop("_served32")[:len(requests)]
+    single32 = serving["batch_rows"][32]
+    killed = ("cold_entity_zero", "chaos_absorbed_retry", "dead_replica_skip",
+              "rerouted_fixed", "replica_killed")
+    ledger = SLOLedger(SLOSpec([
+        PhaseSLO("fleet-local", p50_ms=FLEET_SLO_MS, p99_ms=FLEET_SLO_MS),
+        PhaseSLO("fleet-tcp-swap", p50_ms=FLEET_SLO_MS, p99_ms=FLEET_SLO_MS),
+        PhaseSLO("fleet-tcp-kill", p50_ms=FLEET_SLO_MS, p99_ms=FLEET_SLO_MS,
+                 allowed_degradations=killed, chaos_window=True)]))
+    out = {"rows": len(requests), "export_s": started["export_s"]}
+
+    def single(store, rows=requests):
+        srv = ScoringServer(ModelStore(store), shard_sections=GAME_SECTIONS, max_batch_rows=32,
+                            max_wait_ms=2.0, stats=ServeStats(), device=dev)
+        srv.warmup(warm_nnz=SERVE_WARM_NNZ)
+        got = srv.score_rows(rows)
+        srv.close()
+        return got
+
+    def latency(snap):
+        return {k: snap[k] for k in ("requests", "p50_ms", "p99_ms", "qps", "scatter_calls",
+                                     "hedges", "reroutes", "routed_retries", "stale_rescores",
+                                     "degraded_rows", "dead_replica_skips")}
+
+    # while the replica processes start: (b)'s single-server references
+    # and (a)'s engines, warmed
+    lam = [os.path.join(workdir, f"store23-lambda{i}") for i in (0, 1)]
+    ref0, ref1 = single(lam[0]), single(lam[1])
+    cold1 = single(lam[1], [dict(q, ids={}) for q in requests])
+    engines = [ReplicaEngine(ModelStore(replica_store_dir(dirs["fleet28"], r)), replica_id=r,
+                             num_replicas=FLEET_REPLICAS, shard_sections=GAME_SECTIONS,
+                             max_batch_rows=32, max_wait_ms=2.0, stats=ServeStats(), device=dev)
+               for r in range(FLEET_REPLICAS)]
+    try:
+        check(all(e.device.type == torch.device(dev).type for e in engines),
+              f"28 (a): an engine is not on {dev}")
+        warm = [e.warmup(warm_nnz=SERVE_WARM_NNZ) for e in engines]
+        # (a) the in-process fleet, once the replica processes are READY (idle)
+        t0 = time.perf_counter()
+        addrs = fleet_ready(started)
+        out["ready_s"], out["ready_wait_s"] = started["ready_s"], time.perf_counter() - t0
+        say(f"  the exports took {started['export_s']:.2f} s beside phase 23 (c)-(e) (three "
+            f"processes); the replica processes were READY {started['ready_s']:.2f} s after "
+            f"their start ({out['ready_wait_s']:.2f} s waited after this process's set-up); "
+            f"entities by replica {[rep['entities'] for rep in meta['replicas']]}")
+        router = FleetRouter(meta, [LocalReplicaClient(e) for e in engines], stats=FleetStats())
+        ledger.begin_phase("fleet-local", stats=router.stats)
+        answered, errors, pool, t0 = fleet_load(router, requests, SERVE_THREADS, ledger)
+        wall = fleet_join(pool, t0)
+        ledger.end_phase()
+        snap = router.stats.snapshot()
+        new_shapes = sum(e.new_request_compiles() for e in engines)
+        router.close()
+    finally:
+        for e in engines:
+            e.close()
+    scores = in_order(answered, len(requests))
+    check(not errors, f"28 (a): {len(errors)} requests failed: {errors[:3]}")
+    check(np.array_equal(scores, served32),
+          "28 (a): the in-process fleet's scores differ from phase 23's single server at 32")
+    check(new_shapes == 0, f"28 (a): {new_shapes} new batch shapes after warmup")
+    check(snap["degraded_rows"] == 0 and snap["scatter_calls"] >= snap["requests"],
+          f"28 (a): fleet stats {latency(snap)}")
+    out["a"] = {"wall_s": wall, **latency(snap), "new_shapes": new_shapes,
+                "warm_batches": [w["warm_batches"] for w in warm],
+                "single_32": {k: single32[k] for k in ("p50_ms", "p99_ms", "qps")}}
+    say(f"  (a) in-process fleet: {len(requests)} single-row requests from {SERVE_THREADS} "
+        f"closed-loop clients in {wall:.2f} s; p50 {snap['p50_ms']:.3f} ms, p99 "
+        f"{snap['p99_ms']:.3f} ms, {snap['qps']:.1f} req/s, {snap['scatter_calls']} scattered "
+        f"sub-requests ({snap['scatter_calls'] / snap['requests']:.3f} a request); phase 23's "
+        f"single server at 32: p50 {single32['p50_ms']:.3f} ms, p99 {single32['p99_ms']:.3f} "
+        f"ms, {single32['qps']:.1f} req/s; scores np.array_equal to phase 23's; no new batch "
+        "shape after warmup")
+
+    # (b) the replica processes over TCP
+    for r, (_, err) in enumerate(started["logs"][len(started["builds"]):]):
+        err.seek(0)
+        check(f"epoch 0 on {dev}" in err.read(),
+              f"28 (b): replica {r}'s log does not show it serving on {dev}")
+    meta0 = load_fleet_meta(dirs["fleet28-lambda0"])
+    router = FleetRouter(meta0, [TcpReplicaClient(a, connect_timeout_s=5.0) for a in addrs],
+                         heartbeat_dir=started["hb"], heartbeat_deadline_s=FLEET_HB_DEADLINE_S,
+                         request_timeout_s=30.0, probe_cooldown_s=600.0, stats=FleetStats())
+    try:
+        ledger.begin_phase("fleet-tcp-swap", stats=router.stats)
+        answered, errors, pool, t0 = fleet_load(router, requests, SERVE_THREADS, ledger)
+        wall = fleet_join(pool, t0)
+        snap_b = router.stats.snapshot()
+        check(not errors, f"28 (b): {len(errors)} requests failed: {errors[:3]}")
+        check(np.array_equal(in_order(answered, len(requests)), ref0),
+              "28 (b): the TCP fleet's scores differ from the single server's")
+        stop = threading.Event()
+        answered, errors, pool, t0 = fleet_load(router, requests, SWAP_THREADS, ledger, stop)
+        time.sleep(0.5)
+        report = FleetSwapper(router).swap(dirs["fleet28-lambda1"])
+        ledger.mark_flip(report["generation"])
+        time.sleep(0.5)
+        stop.set()
+        swap_wall = fleet_join(pool, t0)
+        mixed = sum(1 for i, s in answered if s != ref0[i] and s != ref1[i])
+        ledger.record_mixed_generation(mixed)
+        after = router.score_rows(requests[:256])
+        new_shapes = router.new_request_compiles()
+        ledger.end_phase()
+        check(not errors, f"28 (b): {len(errors)} requests failed during the swap: {errors[:3]}")
+        check(report["new_compiles"] == 0 and report["dropped_requests"] == 0
+              and report["commit_failures"] == [], f"28 (b): swap report {report}")
+        check(mixed == 0, f"28 (b): {mixed} answers match neither generation")
+        check(np.array_equal(after, ref1[:256]),
+              "28 (b): after the swap the fleet does not serve the lambda 0.1 model")
+        check(new_shapes == 0, f"28 (b): {new_shapes} new batch shapes on the replicas")
+        out["b"] = {"wall_s": wall, **latency(snap_b),
+                    "swap": {k: report[k] for k in ("generation", "new_compiles",
+                                                    "dropped_requests", "commit_failures")},
+                    "swap_requests": len(answered), "swap_wall_s": swap_wall}
+        say(f"  (b) {FLEET_REPLICAS} fleet_driver replica processes over TCP: {len(requests)} "
+            f"requests from {SERVE_THREADS} clients in {wall:.2f} s, p50 {snap_b['p50_ms']:.3f} "
+            f"ms, p99 {snap_b['p99_ms']:.3f} ms, {snap_b['qps']:.1f} req/s, scores "
+            f"np.array_equal to the single server's; swap to the lambda 0.1 fleet under "
+            f"{SWAP_THREADS} clients ({len(answered)} requests answered, 0 failed, 0 mixed): "
+            f"generation {report['generation']}, {report['new_compiles']} new shapes in the "
+            "probes, 0 new shapes on the replicas since warmup; the new model's scores after")
+
+        # the kill: rows replica 1 owns whose cold score equals their full
+        # score cannot show which they got, and sit out the window
+        owners = ServeShardPlan.from_json(meta0["plan"]).owners_of(
+            [(q.get("ids") or {}).get("userId") for q in requests])
+        keep = [i for i in range(len(requests)) if owners[i] != 1 or ref1[i] != cold1[i]]
+        reqs_k = [requests[i] for i in keep]
+        ref_k, cold_k, own_k = ref1[keep], cold1[keep], owners[keep]
+        ledger.begin_phase("fleet-tcp-kill", stats=router.stats)
+        before = router.stats.snapshot()
+        stop = threading.Event()
+        answered, errors, pool, t0 = fleet_load(router, reqs_k, SWAP_THREADS, ledger, stop)
+        time.sleep(FLEET_KILL_AFTER_S)
+        started["procs"][1].kill()
+        t_kill = time.perf_counter()
+        while 1 in router.live_replicas():
+            if time.perf_counter() - t_kill > 10 * FLEET_HB_DEADLINE_S:
+                stop.set()
+                fleet_join(pool, t0)
+                fail("28 (b): the router did not mark the killed replica dead")
+            time.sleep(0.05)
+        detect_s = time.perf_counter() - t_kill
+        time.sleep(FLEET_KILL_TAIL_S)
+        stop.set()
+        kill_wall = fleet_join(pool, t0)
+        ledger.attribute("replica_killed", detail=f"replica 1 (SIGKILL), dead to the router "
+                                                  f"after {detect_s:.2f} s")
+        after_kill = router.score_rows(reqs_k[:256])
+        rec_k = ledger.end_phase()
+        snap_k = router.stats.snapshot()
+    finally:
+        router.close()
+    cold_seen = sum(1 for i, s in answered if own_k[i] == 1 and s == cold_k[i])
+    wrong = sum(1 for i, s in answered if s != ref_k[i] and not (own_k[i] == 1
+                                                                 and s == cold_k[i]))
+    degraded = snap_k["degraded_rows"] - before["degraded_rows"]
+    late_cold = int(np.sum(own_k[:256] == 1))
+    check(not errors, f"28 (b): {len(errors)} requests failed around the kill: {errors[:3]}")
+    check(wrong == 0, f"28 (b): {wrong} answers are neither the full nor the cold score")
+    check(cold_seen > 0, "28 (b): no row replica 1 owned came back degraded after the kill")
+    check(degraded == cold_seen + late_cold,
+          f"28 (b): the router counted {degraded} degraded rows, {cold_seen} cold answers under "
+          f"load and {late_cold} after")
+    check(np.array_equal(after_kill[own_k[:256] != 1], ref_k[:256][own_k[:256] != 1])
+          and np.array_equal(after_kill[own_k[:256] == 1], cold_k[:256][own_k[:256] == 1]),
+          "28 (b): after the kill the fleet's scores are not the survivors' and the cold ones")
+    out["b"]["kill"] = {"detect_s": detect_s, "requests": len(answered), "wall_s": kill_wall,
+                        "cold_answers": cold_seen, "degraded_rows": degraded,
+                        "window_rows": len(reqs_k), **{k: snap_k[k] - before[k] for k in (
+                            "routed_retries", "reroutes", "dead_replica_skips")},
+                        "ledger_degradations": rec_k["degradations"]}
+    say(f"  (b) replica 1 killed under {SWAP_THREADS} clients: dead to the router "
+        f"{detect_s:.2f} s later (heartbeat deadline {FLEET_HB_DEADLINE_S} s); "
+        f"{len(answered)} requests answered in {kill_wall:.2f} s, 0 failed; "
+        f"{cold_seen} cold answers under load + {late_cold} after = {degraded} degraded rows "
+        f"counted; the ledger attributed {rec_k['degradations']}")
+
+    # (c) the SLO ledger and fleetctl
+    payload = ledger.enforce()
+    slo_dir = os.path.join(workdir, "slo28")
+    ledger.write(slo_dir, payload)
+    proc = subprocess.run([sys.executable, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools", "fleetctl.py"), "status", started["coord"],
+        "--slo", slo_dir, "--json"], capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"28 (c): fleetctl exited {proc.returncode}: {proc.stderr}")
+    status = json.loads(proc.stdout)
+    slo = status["slo"]
+    check(slo is not None and slo["sidecars"] == 1 and slo["unreadable"] == 0
+          and slo["requests"] == payload["totals"]["requests"] and slo["ok"]
+          and slo["phases"]["fleet-tcp-kill"]["degradations"]
+          == payload["phases"][2]["degradations"],
+          f"28 (c): fleetctl read {slo} from the ledger {payload['totals']}")
+    check(sorted(status["heartbeat_ages"]) == ["0", "1"],
+          f"28 (c): fleetctl saw heartbeats {status['heartbeat_ages']}")
+    launches = {k: c.launches for k, c in counters.items()}
+    check(all(n == 0 for n in launches.values()), f"28: serving launched kernels {launches}")
+    out["slo"] = {p["name"]: {k: p[k] for k in ("requests", "p50_ms", "p99_ms", "qps",
+                                                 "degradations", "violations")}
+                  for p in payload["phases"]}
+    out["fleetctl"] = {"requests": slo["requests"], "degraded": slo["degraded"],
+                       "heartbeat_ages": status["heartbeat_ages"]}
+    out["launches"] = launches
+    say(f"  (c) SLO ledger: {payload['totals']['requests']} requests over "
+        f"{len(payload['phases'])} phases, every phase within its SLO; fleetctl status --slo "
+        f"read it back ({slo['requests']} requests, {slo['degraded']} attributed degradations) "
+        f"with the replicas' heartbeats; kernel launches in the phase {launches}")
+    return out
+
+
+def readings_line(call_s, walls, sparse_glm, serving, serving_fleet):
+    """The call's wall, every phase's wall, phase 15's wide-op times, phase
+    23 (b)'s latency and rate at each max_batch_rows and phase 28's
+    readings."""
+    return {"call_s": call_s, "phase_walls_s": walls,
+            "sparse_glm_ops": {k: sparse_glm["times"][k]
+                               for k in ("matvec", "rmatvec scatter", "rmatvec sorted")},
+            "serving_batch_rows": {rows: {k: r[k] for k in ("requests", "p50_ms", "p99_ms", "qps")}
+                                   for rows, r in serving["batch_rows"].items()},
+            "serving_fleet": {k: serving_fleet[k] for k in (
+                "rows", "export_s", "ready_s", "ready_wait_s", "a", "b", "slo")}}
+
+
 CUTS = [
     "phases 25, 26 and 27 run last, side by side (each only reads what the runs before it "
     "wrote): 26 (b)'s rank, (c)'s two ranks and 27 (a)'s two seed ranks start before phase 25 "
@@ -5938,9 +6444,19 @@ CUTS = [
     f"data, as (e)), not {SKEW_USERS}",
     "phase 23 (b): single-row requests of the first "
     + ", ".join(f"{n} validation rows at max_batch_rows {b}" for b, n in SERVE_PREFIX_ROWS.items())
-    + ", not all 37488 (32 serves every row; 8192 at 1, 8 and 128 before this cut)",
+    + ", not all 37488 (8192 at 1, 8 and 128 before an earlier cut; 32 served every row before "
+    "phase 28 was added); (c) holds the bf16 and int8 scores on the rows served at 32",
+
     "phase 19 (a)-(b): the per-combo run decodes phase 10's training Avro into a tensor "
     "cache; the --vmapped-grid run and the sampled card and CPU runs read the columns from it",
+    f"phase 28: the first {FLEET_ROWS} validation rows, not all 37488 (4096 in its first card "
+    "trial: the fleet answers one device call a request, about 124 req/s in process); (b)'s "
+    "swap and kill windows cycle through them for about a second each",
+    "phase 28: the three fleet exports (fleet_driver build-mode processes) start in phase 23 "
+    "right after (b) and run beside (c)-(e); phase 15 starts when they are done; the two "
+    "replica processes start at phase 28's start, and (a) runs once they are READY",
+    "phase 23 (e): the serve driver subprocess starts right after (b); its start-up and "
+    "warmup run beside (c)-(d), its request lines are sent after (d)",
 ]
 
 
@@ -6027,9 +6543,21 @@ def main() -> None:
         timed("11", phase_ingest, game_dir, trained)
         game_grid = timed("19ab", phase_game_grid, torch, fused_sparse, game_dir)
         cache_game = timed("22c", phase_cache_game, torch, fused_sparse, game_dir)
-        serving = timed("23", phase_serving, torch, game_dir)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as sparse_dir:
-            sparse_glm = timed("15", phase_sparse_glm, torch, fused_sparse, losses, sparse_dir)
+        # phase 28's exports start in phase 23 after (b) and end before phase
+        # 15; its replica processes start after phase 15
+        fleet = []
+        try:
+            serving = timed("23", phase_serving, torch, game_dir, "cuda",
+                            lambda: fleet.append(start_fleet(game_dir)))
+            timed("28exports", fleet_exported, fleet[0])
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_sparse_") as sparse_dir:
+                sparse_glm = timed("15", phase_sparse_glm, torch, fused_sparse, losses,
+                                   sparse_dir)
+            serving_fleet = timed("28", phase_fleet, torch, fused_glm, fused_sparse, game_dir,
+                                  serving, fleet[0])
+        finally:
+            for started in fleet:
+                stop_fleet(started)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as workdir:
             wide = timed("16", phase_game_wide, torch, fused_sparse, workdir)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_full_") as workdir:
@@ -6064,7 +6592,8 @@ def main() -> None:
                 stop_elastic(started27)
             stream_game.pop("_prior")
             retrain.pop("_delta_b")
-    say(f"  -- the whole call {time.perf_counter() - start:.1f} s")
+    call_s = time.perf_counter() - start
+    say(f"  -- the whole call {call_s:.1f} s")
 
     bf16 = times["bfloat16"]
 
@@ -6111,6 +6640,7 @@ def main() -> None:
         "launches_multihost": mh_launches("fused_glm"),
         "launches_multihost_streaming": mh_stream_launches("fused_glm"),
         "launches_elastic": elastic_launches("fused_glm"),
+        "launches_serving_fleet": serving_fleet["launches"]["fused_glm"],
         "max_abs_err": max(max_abs_err, game_runs["fixed_max_abs_err"],
                            game_grid["fixed_max_abs_err"], full_game["fixed_max_abs_err"],
                            bucketed["fixed_max_abs_err"], retrain["fixed_max_abs_err"],
@@ -6157,6 +6687,7 @@ def main() -> None:
             "launches_multihost": mh_launches(key),
             "launches_multihost_streaming": mh_stream_launches(key),
             "launches_elastic": elastic_launches(key),
+            "launches_serving_fleet": serving_fleet["launches"][key],
             # replays launch through their graphs, not the wrappers: phase 21
             # (a)'s traced device-loop solve, by torch.profiler
             "launches_device_loop_traced": {
@@ -6189,9 +6720,16 @@ def main() -> None:
                     "streaming": {"glm": stream_glm, "game": stream_game, "cache": cache_game},
                     "serving": serving, "retrain": retrain, "multihost": multihost,
                     "multihost_streaming": mh_stream, "elastic": elastic,
-                    "phase_walls_s": walls, "cuts": CUTS, "card": card}, default=str))
+                    "serving_fleet": serving_fleet,
+                    "phase_walls_s": walls, "call_s": call_s, "cuts": CUTS, "card": card},
+                   default=str))
     say(card)  # name and power limit, as nvidia-smi gives them
     say(json.dumps({"kernels": kernels}))
+    # the call's wall and the readings of phases 15, 23 and 28 once more,
+    # short, after the long lines above (a caller that keeps only the tail
+    # of the output keeps this line)
+    say(json.dumps({"readings": readings_line(call_s, walls, sparse_glm, serving, serving_fleet),
+                    "card": card}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
 

@@ -30,7 +30,8 @@ effects (``--streaming-random-effects``,
 execution plan (compile/plan.py), as the JAX parser checks them. The scoring parser takes every flag of the JAX
 scoring driver, plus ``--device``. The serve parser takes every flag of the
 JAX serve driver, plus ``--device``; ``--persistent-cache`` is fenced
-there too.
+there too. The fleet parser (``GameFleetParams``) takes every flag of the
+JAX fleet driver, plus ``--device``, with ``--persistent-cache`` fenced.
 """
 
 from __future__ import annotations
@@ -946,6 +947,187 @@ def parse_serve_params(argv: Optional[List[str]] = None) -> GameServeParams:
         build_store_only=_truthy(ns.build_store_only),
         num_store_partitions=ns.num_store_partitions,
         store_dtype=ns.store_dtype,
+        log_path=ns.log_path,
+        unported_flags=(["--persistent-cache"]
+                        if str(ns.persistent_cache_dir or "").strip().lower() not in _UNSET
+                        else []),
+        device=ns.device,
+    )
+    params.validate()
+    return params
+
+
+@dataclasses.dataclass
+class GameFleetParams:
+    """Sharded serving fleet parameters (photon_ml_tpu_torch.serve.fleet; the
+    JAX package's GameFleetParams with ``device``). One driver, three modes:
+    export the sharded stores, run one replica, or run the router."""
+
+    fleet_dir: str = ""
+    # export mode: shard --game-model-input-dir into fleet_dir
+    build_fleet_stores: bool = False
+    game_model_input_dir: Optional[str] = None
+    num_fleet_replicas: int = 2
+    num_buckets: int = 64
+    # build mode: slab storage policy for EVERY replica store (recorded in
+    # fleet.json; a mixed-dtype fleet is refused at load)
+    store_dtype: str = "f32"
+    # replica mode: serve this replica's shard store over TCP
+    replica_id: Optional[int] = None
+    port: int = 0
+    host: str = "127.0.0.1"
+    # router mode: scatter/gather over these replica addresses
+    replica_addresses: List[str] = dataclasses.field(default_factory=list)
+    heartbeat_dir: Optional[str] = None
+    heartbeat_deadline_s: float = 5.0
+    request_timeout_s: float = 30.0
+    hedge_ms: Optional[float] = None
+    # shared serving knobs (the serve driver's surface)
+    feature_shard_sections: Dict[str, List[str]] = dataclasses.field(default_factory=dict)
+    max_batch_rows: int = 128
+    max_wait_ms: float = 2.0
+    shape_canonicalization: str = "on"
+    # the JAX replica's persistent XLA cache; the port has no counterpart
+    # (the command line fences it)
+    persistent_cache_dir: Optional[str] = None
+    warmup: bool = True
+    warm_nnz: Optional[int] = None
+    log_path: Optional[str] = None
+    # flags given away from their default whose code paths are not yet
+    # ported (filled by the parser; validate refuses them)
+    unported_flags: List[str] = dataclasses.field(default_factory=list)
+    # where a replica scores: "cuda" (default) or "cpu"
+    device: str = "cuda"
+
+    def mode(self) -> str:
+        if self.build_fleet_stores:
+            return "build"
+        if self.replica_id is not None:
+            return "replica"
+        return "router"
+
+    def validate(self) -> None:
+        errors = []
+        if not self.fleet_dir:
+            errors.append("--fleet-dir is required")
+        if self.build_fleet_stores and not self.game_model_input_dir:
+            errors.append("--build-fleet-stores needs --game-model-input-dir")
+        if self.num_fleet_replicas < 1:
+            errors.append("--num-fleet-replicas must be >= 1")
+        if self.num_buckets < self.num_fleet_replicas:
+            errors.append("--num-buckets must be >= --num-fleet-replicas")
+        if self.replica_id is not None and not 0 <= self.replica_id < self.num_fleet_replicas:
+            errors.append("--replica-id must be in [0, --num-fleet-replicas)")
+        if self.replica_id is not None and self.build_fleet_stores:
+            errors.append("--replica-id and --build-fleet-stores are exclusive")
+        if self.mode() == "router" and len(self.replica_addresses) != self.num_fleet_replicas:
+            errors.append("router mode needs exactly --num-fleet-replicas "
+                          "--replica-addresses entries")
+        if self.max_batch_rows < 1:
+            errors.append("--max-batch-rows must be >= 1")
+        if self.max_wait_ms < 0:
+            errors.append("--max-wait-ms must be >= 0")
+        if self.hedge_ms is not None and self.hedge_ms <= 0:
+            errors.append("--hedge-ms must be > 0")
+        if self.heartbeat_deadline_s <= 0:
+            errors.append("--heartbeat-deadline-s must be > 0")
+        try:
+            from photon_ml_tpu_torch.serve.quantize import validate_store_dtype
+
+            validate_store_dtype(self.store_dtype)
+        except ValueError as e:
+            errors.append(f"--store-dtype: {e}")
+        try:
+            from photon_ml_tpu_torch.compile import resolve_bucketer
+
+            resolve_bucketer(self.shape_canonicalization)
+        except ValueError as e:
+            errors.append(f"--shape-canonicalization: {e}")
+        if self.device not in ("cuda", "cpu"):
+            errors.append(f"--device must be cuda or cpu, got {self.device!r}")
+        errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
+                      for flag in self.unported_flags)
+        if errors:
+            raise ValueError("; ".join(errors))
+
+
+def build_fleet_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="photon-ml-tpu-torch game-serve-fleet",
+        description="sharded GAME serving fleet (photon_ml_tpu_torch.serve.fleet): "
+        "export sharded stores, run a replica, or run the router",
+    )
+    a = p.add_argument
+    a("--fleet-dir", required=True,
+      help="fleet export dir (fleet.json + replica-<r>/ shard stores)")
+    a("--build-fleet-stores", default="false",
+      help="export --game-model-input-dir into --fleet-dir sharded stores, then exit")
+    a("--game-model-input-dir", default=None,
+      help="saved GAME model dir to shard-export in build mode")
+    a("--num-fleet-replicas", type=int, default=2,
+      help="replica count the plan partitions entities across")
+    a("--num-buckets", type=int, default=64,
+      help="consistent-hash bucket count (granularity of the balanced blocking; must be "
+           ">= the replica count)")
+    a("--store-dtype", default="f32", choices=_store_dtype_choices(),
+      help="build mode: slab storage policy for every replica store (one dial per fleet, "
+           "recorded in fleet.json; mixed-dtype fleets are refused at load)")
+    a("--replica-id", type=int, default=None,
+      help="run THIS replica (serves its shard store over TCP until a shutdown message)")
+    a("--port", type=int, default=0,
+      help="replica TCP port (0 = ephemeral; the bound address is printed as a READY line)")
+    a("--host", default="127.0.0.1", help="replica bind host")
+    a("--replica-addresses", default="",
+      help="router mode: comma-separated host:port per replica, in replica-id order")
+    a("--heartbeat-dir", default=None,
+      help="shared dir for replica heartbeats; the router stops dispatching to a replica "
+           "whose heartbeat goes stale")
+    a("--heartbeat-deadline-s", type=float, default=5.0,
+      help="heartbeat age beyond which the router treats a replica as dead")
+    a("--request-timeout-s", type=float, default=30.0,
+      help="per sub-request call timeout (failures degrade, never hang)")
+    a("--hedge-ms", type=float, default=None,
+      help="fire a backup fixed-only sub-request if the owner has not replied within this "
+           "window (off by default)")
+    a("--feature-shard-id-to-feature-section-keys-map", dest="shard_sections", default=None)
+    a("--max-batch-rows", type=int, default=128)
+    a("--max-wait-ms", type=float, default=2.0)
+    a("--shape-canonicalization", default="on")
+    a("--persistent-cache", dest="persistent_cache_dir", default=None,
+      help="not yet ported to photon_ml_tpu_torch")
+    a("--no-warmup", action="store_true")
+    a("--warm-nnz", type=int, default=None)
+    a("--log-path", default=None)
+    a("--device", dest="device", default="cuda", choices=["cuda", "cpu"],
+      help="where a replica scores (default cuda; cuda without a card raises)")
+    return p
+
+
+def parse_fleet_params(argv: Optional[List[str]] = None) -> GameFleetParams:
+    ns = build_fleet_parser().parse_args(argv)
+    params = GameFleetParams(
+        fleet_dir=ns.fleet_dir,
+        build_fleet_stores=_truthy(ns.build_fleet_stores),
+        game_model_input_dir=ns.game_model_input_dir,
+        num_fleet_replicas=ns.num_fleet_replicas,
+        num_buckets=ns.num_buckets,
+        store_dtype=ns.store_dtype,
+        replica_id=ns.replica_id,
+        port=ns.port,
+        host=ns.host,
+        replica_addresses=[s.strip() for s in (ns.replica_addresses or "").split(",")
+                           if s.strip()],
+        heartbeat_dir=ns.heartbeat_dir,
+        heartbeat_deadline_s=ns.heartbeat_deadline_s,
+        request_timeout_s=ns.request_timeout_s,
+        hedge_ms=ns.hedge_ms,
+        feature_shard_sections=parse_shard_sections(ns.shard_sections),
+        max_batch_rows=ns.max_batch_rows,
+        max_wait_ms=ns.max_wait_ms,
+        shape_canonicalization=ns.shape_canonicalization,
+        persistent_cache_dir=ns.persistent_cache_dir,
+        warmup=not ns.no_warmup,
+        warm_nnz=ns.warm_nnz,
         log_path=ns.log_path,
         unported_flags=(["--persistent-cache"]
                         if str(ns.persistent_cache_dir or "").strip().lower() not in _UNSET

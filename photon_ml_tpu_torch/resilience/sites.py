@@ -37,6 +37,10 @@ FAULT_SITES: Dict[str, str] = {
     "optim.device_drain": "device-loop dispatch gate; an injected fault degrades the solve to the host chunk loop, bitwise (optim/scheduler.py)",
     "preempt.signal": "preemption polls; flags instead of raising (resilience/preemption.py)",
     "serve.dequant": "quantized-store open gate: scale-sidecar/budget validation before a bf16/int8 slab may serve (serve/model_store.py)",
+    "serve.route": "fleet router request-routing entry (serve/fleet/router.py)",
+    "serve.replica_scatter": "per sub-request dispatch to a slab-owner replica (serve/fleet/router.py)",
+    "serve.fleet_swap_barrier": "fleet-wide swap generation barrier, between prepare-all and commit (serve/fleet/swap.py)",
+    "serve.fleet_delta_rollout": "delta-retrain fleet rollout entry: export-manifest validation before the generation barrier; a failure aborts to the old generation (serve/fleet/swap.py)",
 }
 
 #: preemption poll boundaries (the safe drain points) accepted by

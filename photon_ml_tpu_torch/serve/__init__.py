@@ -1,5 +1,5 @@
 """Online scoring service on the card: the persistent GAME request path
-(port of photon_ml_tpu/serve/, one host; the fleet is not yet ported).
+(port of photon_ml_tpu/serve/).
 
   * :mod:`.model_store` — mmap'd off-heap coefficient store (the
     ``io/offheap.py`` pmix machinery generalized from feature indices to
@@ -16,6 +16,10 @@
   * :mod:`.stats` — p50/p99 latency, batch-fill ratio, QPS telemetry.
 
 Driver: ``photon_ml_tpu_torch.cli.serve_driver``.
+
+Fleet: :mod:`photon_ml_tpu_torch.serve.fleet` shards the store across
+replicas behind a consistent-hash router for models that do not fit one
+replica (driver ``photon_ml_tpu_torch.cli.fleet_driver``).
 """
 
 from __future__ import annotations

@@ -47,7 +47,7 @@ import dataclasses
 import json
 import logging
 import os
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -112,6 +112,7 @@ def build_model_store(
     num_partitions: int = 1,
     bucketer: Optional[ShapeBucketer] = None,
     force_python: bool = False,
+    entity_filter: Optional[Callable[[str], bool]] = None,
     store_dtype: str = "f32",
 ) -> dict:
     """Export a saved GAME model dir into the serving layout. Returns the
@@ -128,10 +129,44 @@ def build_model_store(
     coefficient records mention) — no training inputs needed at export
     time. Features a request carries that the model never weighted resolve
     to index -1 and drop out, which contributes exactly the 0.0 their zero
-    coefficient would have. (The JAX function's ``entity_filter``, the
-    fleet's sharded export, waits for the fleet.)
+    coefficient would have.
+
+    ``entity_filter`` (raw entity id -> keep?) restricts every
+    random-effect slab to the matching entities: the fleet's sharded
+    export (:func:`~photon_ml_tpu_torch.serve.fleet.build_fleet_stores`)
+    writes each replica's owned rows this way.
+    """
+    return build_model_stores(model_dir, lambda _ids: {store_dir: entity_filter},
+                              num_partitions, bucketer, force_python, store_dtype)[store_dir]
+
+
+def build_model_stores(
+    model_dir: str,
+    stores_for: Callable[[List[str]], Dict[str, Optional[Callable[[str], bool]]]],
+    num_partitions: int = 1,
+    bucketer: Optional[ShapeBucketer] = None,
+    force_python: bool = False,
+    store_dtype: str = "f32",
+) -> Dict[str, dict]:
+    """Export one saved GAME model into several stores, reading it once.
+
+    ``stores_for`` is called once with the sorted union of the model's
+    random-effect entity ids and returns ``{store_dir: entity_filter}``;
+    each store is the bytes :func:`build_model_store` writes with that
+    filter. Returns each store's meta by dir, in the order given.
     """
     quantize.validate_store_dtype(store_dtype)
+    model = _read_model(model_dir)
+    entity_ids = sorted({str(rec["modelId"]) for recs in model["random_recs"].values()
+                         for rec in recs})
+    return {store_dir: _write_store(model, store_dir, num_partitions, bucketer, force_python,
+                                    entity_filter, store_dtype)
+            for store_dir, entity_filter in stores_for(entity_ids).items()}
+
+
+def _read_model(model_dir: str) -> dict:
+    """Pass 1 of the export: the saved model's coordinates, their raw
+    coefficient records and each shard's feature vocabulary."""
     layout = model_io.list_game_model(model_dir)
     fixed_entries = []
     for name in layout[model_io.FIXED_EFFECT]:
@@ -150,7 +185,7 @@ def build_model_store(
         shard = lines[1] if len(lines) > 1 else ""
         random_entries.append((name, re_id, shard))
 
-    # pass 1: raw records per coordinate + per-shard feature vocabulary
+    # raw records per coordinate + per-shard feature vocabulary
     fixed_recs: Dict[str, dict] = {}
     random_recs: Dict[str, List[dict]] = {}
     shard_keys: Dict[str, set] = {}
@@ -175,6 +210,20 @@ def build_model_store(
             keys.update(_record_keys(rec))
         task = task or (recs[0].get("modelClass") if recs else None)
 
+    return {"model_dir": model_dir, "fixed_entries": fixed_entries,
+            "random_entries": random_entries, "fixed_recs": fixed_recs,
+            "random_recs": random_recs, "shard_keys": shard_keys, "task": task}
+
+
+def _write_store(model: dict, store_dir: str, num_partitions: int,
+                 bucketer: Optional[ShapeBucketer], force_python: bool,
+                 entity_filter: Optional[Callable[[str], bool]], store_dtype: str) -> dict:
+    """Pass 2 of the export: the store of ``_read_model``'s model under
+    ``store_dir``, its random-effect rows restricted to ``entity_filter``."""
+    model_dir, task = model["model_dir"], model["task"]
+    fixed_entries, random_entries = model["fixed_entries"], model["random_entries"]
+    fixed_recs, random_recs = model["fixed_recs"], model["random_recs"]
+    shard_keys = model["shard_keys"]
     os.makedirs(store_dir, exist_ok=True)
 
     # feature index stores (one per shard; the batch drivers open these
@@ -218,6 +267,8 @@ def build_model_store(
         base = os.path.join(store_dir, RANDOM_DIR, name)
         os.makedirs(base, exist_ok=True)
         recs = random_recs[name]
+        if entity_filter is not None:
+            recs = [r for r in recs if entity_filter(str(r["modelId"]))]
         entity_ids = sorted(str(rec["modelId"]) for rec in recs)
         build_slab_index(
             os.path.join(base, ROWS_DIR),

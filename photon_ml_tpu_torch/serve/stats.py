@@ -179,8 +179,8 @@ class FleetStats(ServeStats):
     scatter fan-out, hedges, routed retries, degraded rows (a dead owner's
     random-effect contribution replaced by the cold-entity 0), and
     fleet-swap accounting. The request/latency/QPS surface is inherited so
-    the serve driver's stats command works unchanged against a router. The
-    fleet that records into it is not yet ported."""
+    the serve driver's stats command works unchanged against a router
+    (:class:`~photon_ml_tpu_torch.serve.fleet.FleetRouter` records into it)."""
 
     def __init__(self, max_samples: int = 100_000):
         super().__init__(max_samples)

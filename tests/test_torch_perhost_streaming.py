@@ -470,7 +470,9 @@ def test_the_flags_hold_the_flags_off_descent(two_rank_runs):
     """Compaction and the adaptive order are bitwise the one-shot solve; a
     block the race hands a sparse family solves on the slab, whose gradient
     sums in the kernels' flat order, not the dense stack's: its lanes may
-    stop an iteration apart, so the arms agree at ``solver``."""
+    stop an iteration apart, so the arms agree at ``solver``. The JAX slab
+    families part from their dense stack the same way (by design:
+    ``test_a_slab_family_is_not_bitwise_the_dense_stack_in_either_package``)."""
     (off, off_means, _, _), _ = two_rank_runs["flags-off"]
     (on, on_means, _, _), _ = two_rank_runs["compaction-adaptive-sparse"]
     assert_allclose(on.objective_history, off.objective_history, kind="solver",
@@ -478,6 +480,51 @@ def test_the_flags_hold_the_flags_off_descent(two_rank_runs):
     assert_allclose(on.coefficients["fixed"].numpy(), off.coefficients["fixed"].numpy(),
                     kind="solver")
     assert sorted(on_means) == sorted(off_means)
+
+
+def test_a_slab_family_is_not_bitwise_the_dense_stack_in_either_package(glmix):
+    """The question behind the flags-on arm, asked of both packages on one
+    block's solve (the worker's LBFGS at 6 iterations, 1e-8, L2 0.2): a
+    slab family sums its gradient in its own order, so in JAX (``scatter``,
+    ``segment``) as in the port (``pallas``, ``scatter``) the block's
+    coefficients are not bitwise the package's own dense stack (``off``);
+    each agrees with it at ``solver``. The JAX 2-process gate's bitwise
+    claim holds because its race hands every block back to the dense stack
+    on the CPU."""
+    import jax.numpy as jnp
+
+    from photon_ml_tpu.algorithm.random_effect import RandomEffectCoordinate as JRandom
+    from photon_ml_tpu.data.game import build_random_effect_dataset as j_build
+    from photon_ml_tpu_torch import interop
+    from photon_ml_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+
+    jdata, tdata = glmix
+    jds = j_build(jdata, JCFG)
+    tds = tgame.build_random_effect_dataset(tdata, TCFG, device="cpu")
+    cfg, reg = JConfig(max_iterations=6, tolerance=1e-8), JReg.l2(0.2)
+    resid = np.random.default_rng(2).normal(scale=0.3, size=jdata.num_rows).astype(np.float32)
+
+    def jax_block(spec):
+        c = JRandom(jds, JTask.LOGISTIC_REGRESSION, JOpt.LBFGS, cfg, reg, sparse_kernel=spec)
+        assert (c._slab is None) == (spec == "off")
+        return np.asarray(c.update(jnp.asarray(resid), c.initial_coefficients())[0])
+
+    def port_block(spec):
+        c = RandomEffectCoordinate(tds, TaskType.LOGISTIC_REGRESSION, OptimizerType.LBFGS,
+                                   interop.from_jax_numpy(cfg, "cpu"),
+                                   interop.from_jax_numpy(reg, "cpu"), sparse_kernel=spec)
+        assert (c.slab is None) == (spec == "off")
+        return c.update(torch.from_numpy(resid), c.initial_coefficients())[0].numpy()
+
+    for block, families in ((jax_block, ("scatter", "segment")),
+                            (port_block, ("pallas", "scatter"))):
+        dense = block("off")
+        assert np.array_equal(block("off"), dense)  # the dense stack is deterministic
+        for fam in families:
+            got = block(fam)
+            assert not np.array_equal(got, dense), (block.__name__, fam)
+            assert_allclose(got, dense, kind="solver", err_msg=f"{block.__name__} {fam}")
 
 
 def test_the_jax_single_process_perhost_descent_holds_the_port(glmix, two_rank_runs, tmp_path):
