@@ -119,6 +119,7 @@ package is not beside this script. Imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -455,7 +456,9 @@ def phase_train_grid(torch, fused_glm, kernel_ms):
     say(f"  kernel device time {launches} x {kernel_ms:.4f} ms (graph reading) = "
         f"{launches * kernel_ms / 1e3:.4f} s, "
         f"{launches * kernel_ms / 1e3 / kernel_s:.3f} of the kernel-path grid wall")
-    return launches
+    # phase 29 (c) runs the lambda-batched grid on this batch
+    return launches, {"batch": batch, "norm": norm, "problem": problem, "trained": trained,
+                      "seconds": kernel_s}
 
 
 def _write_libsvm(path, n, d, nnz, w_true, rng):
@@ -1640,7 +1643,19 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
         argv = ["--train-input-dirs", os.path.join(workdir, "train"),
                 "--validate-input-dirs", os.path.join(workdir, "validate"),
                 "--output-dir", out, "--device", dev] + GAME_FLAGS
-        driver, wall, launches, stages, counts = run_game_training(torch, fused_sparse, argv, spec)
+        # the pallas run is phase 22 (c)'s cold run: it fills the tensor
+        # cache 22 (c)'s warm run reads (a cut, see CUTS)
+        cache = ["--tensor-cache", os.path.join(workdir, "tcache22c")] if spec == "pallas" else []
+        with counted_reads() as reads:
+            driver, wall, launches, stages, counts = run_game_training(
+                torch, fused_sparse, argv + cache, spec)
+        if spec == "pallas":
+            runs["_cache_cold"] = {"dir": out, "wall_s": wall, "stages_s": stages,
+                                   "read_game_data_calls": len(reads),
+                                   "objective_history": driver.results[0][1].objective_history,
+                                   "spans_s": {k: driver.timer.totals[k] for k in (
+                                       "prepare-feature-maps", "read-train-data",
+                                       "build-random-effect-datasets")}}
         drivers[spec] = driver
         _, result, metrics = driver.results[0]
         check(driver.device.type == dev, f"GAME driver ran off {dev}")
@@ -1685,7 +1700,8 @@ def phase_game_driver(torch, fused_sparse, workdir, dev="cuda"):
         check(abs(a - b) <= 1e-2 * abs(b) + 2e-3, f"objective histories differ: {a} vs {b}")
     say("  objective histories of the pallas and off runs agree within the solver tolerance")
     out = {spec: {"launches": r[1], "stages_s": r[2], "wall_s": r[3], "auc": r[4]}
-           for spec, r in runs.items()}
+           for spec, r in runs.items() if spec != "_cache_cold"}
+    out["_cache_cold"] = runs["_cache_cold"]
     out["max_abs_err"] = held
     out["fixed_max_abs_err"] = fixed_err
     return out, drivers["pallas"]
@@ -1774,9 +1790,9 @@ def run_scoring(torch, argv):
 
 def phase_scoring(torch, workdir, trained, dev="cuda"):
     """Phase 12: cli.game_scoring_driver.main on phase 10's pallas model:
-    the validation rows on the card and with --host-scoring, the training
-    rows on the card; the scoring gather and the fixed-effect matvec timed
-    against their bytes bound; rows without a model score exactly 0."""
+    the validation rows on the card and with --host-scoring; the scoring
+    gather and the fixed-effect matvec on the card run's rows, timed against
+    their bytes bound; rows without a model score exactly 0."""
     from photon_ml_tpu_torch.cli import game_scoring_driver as gsd
     from photon_ml_tpu_torch.io import avro as avro_io
     from photon_ml_tpu_torch.io import model_io
@@ -1791,8 +1807,7 @@ def phase_scoring(torch, workdir, trained, dev="cuda"):
     runs = {}
     for label, data_dir, files, extra in (
             ("validate, card", "validate", 1, []),
-            ("validate, host", "validate", 1, ["--host-scoring", "true"]),
-            ("train, card", "train", 4, [])):
+            ("validate, host", "validate", 2, ["--host-scoring", "true"])):
         out = os.path.join(workdir, "scores-" + label.replace(", ", "-"))
         driver, wall = run_scoring(torch, ["--input-dirs", os.path.join(workdir, data_dir),
                                            "--output-dir", out,
@@ -1823,8 +1838,8 @@ def phase_scoring(torch, workdir, trained, dev="cuda"):
         f"rtol 1e-4, atol 1e-5); scoring AUC = training validation AUC {train_auc:.6f} "
         "within 1e-6")
 
-    # the device path's two functions on the training rows' own inputs
-    driver = runs["train, card"][0]
+    # the device path's two functions on the validation rows' own inputs
+    driver = runs["validate, card"][0]
     data = driver.data
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     means = model_io.load_fixed_effect(model, "fixed", driver.shard_index_maps["global"])[0]
@@ -2687,7 +2702,7 @@ SAMPLED_FLAGS = [
 FULL_USERS, FULL_ITEMS, FULL_ARTISTS = 10000, 2000, 200
 FULL_D = {"fixed": 32, "user": 8, "item": 8, "artist": 16}
 FULL_SEED, FULL_LATENT = 23, 4
-FULL_ITERATIONS = 3  # bench.py:2512
+FULL_ITERATIONS = 2  # bench.py:2512 runs 3 (a cut, see CUTS)
 FULL_SECTIONS = {"global": "fixedFeatures", "per_user": "userFeatures",
                  "per_item": "itemFeatures", "per_artist": "artistFeatures"}
 FULL_GAME_FLAGS = [
@@ -3233,6 +3248,9 @@ def phase_bucketed(torch, fused_sparse, workdir, dev="cuda"):
           "(f): two bucketed card runs wrote different model bytes")
     check(pair["(f) card again"][1].objective_history == pair["(f) card"][1].objective_history,
           "(f): the two card runs' objective histories differ")
+    # phase 24 (c) retrains from the card run (its cold run; a cut, see CUTS)
+    out["_f_card"] = (pair["(f) card"][0], out["runs"]["(f) card"]["launches"],
+                      small_dirs["(f) card"])
     say("  (f) two bucketed card runs: model bytes and objective histories equal")
     del pair["(f) card again"]
     out["held_card_cpu"] = scores_held("(f)", pair["(f) card"], pair["(f) cpu"])
@@ -3998,13 +4016,21 @@ def phase_streaming_glm(torch, fused_glm, workdir, driver6, dev="cuda"):
     for sub in ("output", "best"):
         check(tree_bytes(os.path.join(d_warm, sub)) == tree_bytes(os.path.join(d_cold, sub)),
               f"(a) the warm run's {sub}/ bytes differ from the cold run's")
-    _, d_sync = run("lbfgs-depth0", ["--tensor-cache", cache], {"PHOTON_PREFETCH_DEPTH": "0"})
-    for sub in ("output", "best"):
-        check(tree_bytes(os.path.join(d_sync, sub)) == tree_bytes(os.path.join(d_cold, sub)),
-              f"(a) the depth-0 run's {sub}/ bytes differ from the pipelined run's")
+    # depth 0 solves the grid's first lambda only (a cut, see CUTS): the
+    # warm-started grid's first solve starts from zeros in every run
+    first = max(LAMBDAS)
+    _, d_sync = run("lbfgs-depth0", ["--tensor-cache", cache, "--regularization-weights",
+                                     f"{first:g}"], {"PHOTON_PREFETCH_DEPTH": "0"})
+    from photon_ml_tpu_torch.utils.io_utils import read_models_from_text
+
+    sync_models = read_models_from_text(os.path.join(d_sync, "output"))
+    cold_models = read_models_from_text(os.path.join(d_cold, "output"))
+    check(list(sync_models) == [first] and sync_models[first] == cold_models[first],
+          f"(a) the depth-0 run's lambda={first:g} model differs from the pipelined run's")
     say(f"  (a) warm --tensor-cache: preprocess {out['lbfgs-warm']['preprocess_s']:.2f} s "
         f"against the cold {out['lbfgs-cold']['preprocess_s']:.2f} s, no training file parsed, "
-        "nothing spilled, model bytes equal; PHOTON_PREFETCH_DEPTH=0: model bytes equal")
+        "nothing spilled, model bytes equal; PHOTON_PREFETCH_DEPTH=0: the lambda="
+        f"{first:g} model equal")
     tron, _ = run("tron", ["--tensor-cache", cache, "--optimizer", "TRON"])
     problem = GLMOptimizationProblem(tron.problem.task, OptimizerType.TRON,
                                      tron.problem.optimizer_config, tron.problem.regularization)
@@ -4175,67 +4201,77 @@ def phase_streaming_game(torch, fused_sparse, workdir, inmem, dev="cuda"):
     return out
 
 
-def phase_cache_game(torch, fused_sparse, workdir, dev="cuda"):
-    """Phase 22 (c), on phase 10's data: phase 10's command with
-    --tensor-cache cold, then warm; the warm run never calls
-    read_game_data on the training files (counted) and writes the cold
-    run's model bytes; the preprocess spans of both. The warm run also
-    takes --export-serve-store: its store is byte-equal to the
-    ``build_model_store`` export of its saved model (phase 23 serves it)."""
-    from photon_ml_tpu_torch.compile import ShapeBucketer
+@contextlib.contextmanager
+def counted_reads():
+    """Counts the read_game_data calls made inside the block (each call is
+    one decode of a set of Avro files); yields the list of the calls' file
+    counts."""
     from photon_ml_tpu_torch.io import avro_data
-    from photon_ml_tpu_torch.serve import build_model_store
 
-    say("== phase 22 (c): phase 10's command with --tensor-cache, cold then warm")
-    cache = os.path.join(workdir, "tcache22c")
-    real = avro_data.read_game_data
-    calls = []
+    real, calls = avro_data.read_game_data, []
 
     def counted(files, *a, **kw):
         calls.append(len(files))
         return real(files, *a, **kw)
 
-    out = {}
     avro_data.read_game_data = counted
     try:
-        for label in ("cold", "warm"):
-            calls.clear()
-            d = os.path.join(workdir, f"out22c-{label}")
-            argv = ["--train-input-dirs", os.path.join(workdir, "train"),
-                    "--validate-input-dirs", os.path.join(workdir, "validate"),
-                    "--output-dir", d, "--device", dev, "--tensor-cache", cache] + GAME_FLAGS
-            if label == "warm":
-                argv += ["--export-serve-store", os.path.join(workdir, SERVE_STORE)]
-            driver, wall, launches, stages, _ = run_game_training(torch, fused_sparse, argv,
-                                                                  "pallas")
-            tot = driver.timer.totals
-            out[label] = {"wall_s": wall, "stages_s": stages, "read_game_data_calls": len(calls),
-                          "spans_s": {k: tot[k] for k in ("prepare-feature-maps",
-                                                          "read-train-data",
-                                                          "build-random-effect-datasets")}}
-            say(_run_line(f"(c) {label}", driver, wall, launches, stages)
-                + "; preprocess spans " + ", ".join(f"{k} {v:.2f} s"
-                                                    for k, v in out[label]["spans_s"].items())
-                + f"; read_game_data calls {len(calls)}")
-            out[label]["dir"] = d
-            if label == "warm":
-                out[label]["driver_export_s"] = tot["export-serve-store"]
+        yield calls
     finally:
         avro_data.read_game_data = real
-    check(out["cold"]["read_game_data_calls"] == 2 and out["warm"]["read_game_data_calls"] == 1,
-          f"(c) read_game_data calls cold {out['cold']['read_game_data_calls']}, warm "
-          f"{out['warm']['read_game_data_calls']} (the warm run reads only the validation files)")
-    check(tree_bytes(os.path.join(out["warm"]["dir"], "best"))
-          == tree_bytes(os.path.join(out["cold"]["dir"], "best")),
+
+
+def phase_cache_game(torch, fused_sparse, workdir, game_runs, dev="cuda"):
+    """Phase 22 (c), on phase 10's data: phase 10's pallas run is the cold
+    run of phase 10's command with --tensor-cache (a cut, see CUTS); the
+    warm run never calls read_game_data on the training files (counted)
+    and writes the cold run's model bytes; the preprocess spans of both.
+    The warm run also takes --export-serve-store: its store is byte-equal
+    to the ``build_model_store`` export of its saved model (phase 23 serves
+    it). The warm run is phase 29 (a)'s: it takes --fused-cycle true, so its
+    bytes equal to the cold run's are the fused cycle's against the unfused
+    descent."""
+    from photon_ml_tpu_torch.compile import ShapeBucketer
+    from photon_ml_tpu_torch.serve import build_model_store
+
+    say("== phase 22 (c): phase 10's command with --tensor-cache, warm (phase 10's pallas run "
+        "filled the cache)")
+    cold = game_runs["_cache_cold"]
+    d = os.path.join(workdir, "out22c-warm")
+    argv = ["--train-input-dirs", os.path.join(workdir, "train"),
+            "--validate-input-dirs", os.path.join(workdir, "validate"),
+            "--output-dir", d, "--device", dev, "--tensor-cache",
+            os.path.join(workdir, "tcache22c")] + GAME_FLAGS + [
+            "--export-serve-store", os.path.join(workdir, SERVE_STORE)]
+    with counted_reads() as reads:
+        driver, fused = fused_cycle_run(torch, fused_sparse, argv, "22 (c) warm")
+    tot = driver.timer.totals
+    warm = {"dir": d, "wall_s": fused["wall_s"], "stages_s": fused["stages_s"],
+            "read_game_data_calls": len(reads),
+            "objective_history": fused["objective_history"],
+            "spans_s": {k: tot[k] for k in ("prepare-feature-maps", "read-train-data",
+                                            "build-random-effect-datasets")},
+            "driver_export_s": tot["export-serve-store"]}
+    out = {"cold": cold, "warm": warm, "_fused": fused}
+    for label, rec in (("cold", cold), ("warm", warm)):
+        say(f"  (c) {label}: wall {rec['wall_s']:.2f} s; stages "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in rec["stages_s"].items())
+            + "; preprocess spans " + ", ".join(f"{k} {v:.2f} s"
+                                                for k, v in rec["spans_s"].items())
+            + f"; read_game_data calls {rec['read_game_data_calls']}")
+    check(cold["read_game_data_calls"] == 2 and warm["read_game_data_calls"] == 1,
+          f"(c) read_game_data calls cold {cold['read_game_data_calls']}, warm "
+          f"{warm['read_game_data_calls']} (the warm run reads only the validation files)")
+    check(tree_bytes(os.path.join(d, "best")) == tree_bytes(os.path.join(cold["dir"], "best")),
           "(c) the warm run's model bytes differ from the cold run's")
     say(f"  (c) warm run: training files never decoded, model bytes equal; preprocess "
-        f"{out['warm']['stages_s']['preprocess']:.2f} s against the cold "
-        f"{out['cold']['stages_s']['preprocess']:.2f} s")
+        f"{warm['stages_s']['preprocess']:.2f} s against the cold "
+        f"{cold['stages_s']['preprocess']:.2f} s")
     store, again = os.path.join(workdir, SERVE_STORE), os.path.join(workdir, "store22c-again")
-    build_model_store(os.path.join(out["warm"]["dir"], "best"), again, bucketer=ShapeBucketer())
+    build_model_store(os.path.join(d, "best"), again, bucketer=ShapeBucketer())
     check(stores_equal(store, again), "(c) the warm run's --export-serve-store store differs "
                                       "from build_model_store's export of its saved model")
-    out["export_serve_store_s"] = out["warm"]["driver_export_s"]
+    out["export_serve_store_s"] = warm["driver_export_s"]
     say(f"  (c) warm run's --export-serve-store ({out['export_serve_store_s']:.2f} s): the "
         "store is byte-equal to build_model_store's export of the saved model (meta.json's "
         "source_model_dir aside)")
@@ -4269,7 +4305,7 @@ SERVE_THREADS, SWAP_THREADS = 32, 16
 SERVE_WARM_NNZ = 64
 # phase 23 (b): rows served at each max_batch_rows (depth cuts, see CUTS);
 # (c) holds the quantized stores on the rows served at 32
-SERVE_PREFIX_ROWS = {1: 2048, 8: 4096, 32: 8192, 128: 4096}
+SERVE_PREFIX_ROWS = {1: 1024, 8: 4096, 32: 8192, 128: 4096}
 SERVE_SUBPROCESS_ROWS = 256  # phase 23 (e): score lines, half before the swap line
 
 
@@ -4347,6 +4383,34 @@ def quant_budget(meta, requests, ref):
                                               for f in q["features"].get(sec) or [])
                                     for q in requests])
     return budget + 1e-6 + 1e-6 * np.abs(np.asarray(ref, np.float64))
+
+
+def cold_serve_start(argv):
+    """A serve-driver start in this process on an empty --persistent-cache
+    with --assert-warm: it must raise, having built into the cache and
+    recorded the warmed shapes there. The driver's run scopes the cache: this
+    process then builds and loads in the package's build directory again."""
+    import io
+
+    from photon_ml_tpu_torch import native_build
+    from photon_ml_tpu_torch.cli import serve_driver
+    from photon_ml_tpu_torch.cli.game_params import parse_serve_params
+
+    driver = serve_driver.GameServeDriver(parse_serve_params(argv))
+    t0 = time.perf_counter()
+    try:
+        driver.run(in_stream=io.StringIO(""), out_stream=io.StringIO())
+        message = None
+    except RuntimeError as e:
+        message = str(e)
+    check(native_build.BUILD_DIR == native_build.DEFAULT_BUILD_DIR,
+          f"(e) the cold start left this process building in {native_build.BUILD_DIR}")
+    report = driver.cache_report or {}
+    check(message is not None and message.startswith("--assert-warm: startup built"),
+          f"(e) a cold start on an empty --persistent-cache passed --assert-warm ({message})")
+    check(report.get("builds", 0) >= 1 and report.get("new_shapes", 0) > 0,
+          f"(e) the cold start's cache report {report}")
+    return dict(report, wall_s=time.perf_counter() - t0)
 
 
 def phase_serving(torch, workdir, dev="cuda", after_b=None):
@@ -4470,14 +4534,21 @@ def _serving(torch, workdir, dev, procs, after_b):
                if "device_busy_share" in split else ""))
     say(f"  (b) at max_batch_rows 32 the {len(served32)} served f32 scores are np.array_equal "
         "to game_scoring_driver.main's device scores")
+    # (e)'s persistent cache: a cold start in this process fails --assert-warm
+    # (it builds the store's host library into the empty cache and warms
+    # shapes the cache has not recorded) and fills the cache; (e)'s serve
+    # driver then starts warm, with --assert-warm
+    cache23 = os.path.join(workdir, "cache23")
+    serve_argv = ["--model-store-dir", stores["f32"],
+                  "--feature-shard-id-to-feature-section-keys-map",
+                  "global:fixedFeatures|per_user:userFeatures", "--max-batch-rows", "32",
+                  "--warm-nnz", str(SERVE_WARM_NNZ), "--device", dev,
+                  "--persistent-cache", cache23, "--assert-warm", "true"]
+    out["cold_start"] = cold_serve_start(serve_argv)
     # (e)'s serve driver starts now: its start-up and warmup run beside (c)-(d)
     t_start = time.perf_counter()
     procs.append(subprocess.Popen(
-        [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve_driver",
-         "--model-store-dir", stores["f32"],
-         "--feature-shard-id-to-feature-section-keys-map",
-         "global:fixedFeatures|per_user:userFeatures", "--max-batch-rows", "32",
-         "--warm-nnz", str(SERVE_WARM_NNZ), "--device", dev],
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve_driver"] + serve_argv,
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__))))
     if after_b is not None:
@@ -4568,6 +4639,14 @@ def _serving(torch, workdir, dev, procs, after_b):
           "(e) the serve driver's responses differ from the in-process server's scores")
     summary = [line for line in stderr.splitlines() if "serve stats:" in line]
     check(bool(summary), "(e) the serve driver logged no stats summary at shutdown")
+    check("serving fully warm: nothing built, no new batch shape" in stderr
+          and "native builds: 0 " in stderr,
+          "(e) the serve driver's --assert-warm start was not warm against phase 23's cache")
+    say(f"  (e) --persistent-cache: the cold start in this process built "
+        f"{out['cold_start']['builds']} host libraries into the empty cache and warmed "
+        f"{out['cold_start']['new_shapes']} batch shapes it had not recorded, so --assert-warm "
+        f"raised ({out['cold_start']['wall_s']:.2f} s); the serve driver's start on the filled "
+        "cache built nothing, warmed no new shape and passed --assert-warm")
     out["subprocess"] = {"wall_s": wall, "since_start_s": since_start, "responses": len(by_id)}
     say(f"  (e) serve_driver subprocess: {n} score lines and one swap line in {wall:.2f} s "
         f"({since_start:.2f} s since its start beside (c)-(d), start and warmup included); "
@@ -4600,7 +4679,7 @@ def planned_lines(driver):
     return [d.describe() for d in driver.plan.decisions if d.planned_choice() is not None]
 
 
-def phase_retrain(torch, fused_sparse, workdir, stream_game, dev="cuda"):
+def phase_retrain(torch, fused_sparse, workdir, stream_game, f_card, dev="cuda"):
     """Phase 24, the daily retrain loop, last, on phase 20's data: phase 22
     (b)'s first streaming run is yesterday's run. (a) the same command with
     --warm-start-from it: a short circuit (the prior model copied forward,
@@ -4739,9 +4818,8 @@ def phase_retrain(torch, fused_sparse, workdir, stream_game, dev="cuda"):
                  "--output-dir", os.path.join(workdir, "out24-" + label)]
                 + BUCKETED_FLAGS + list(extra))
 
-    c_cold, lc = run("(c) cold", small_argv("c-cold"))
+    c_cold, lc, dir_cc = f_card  # phase 20 (f)'s card run: the same command
     kernels_launched(c_cold, lc, "(c) cold")
-    dir_cc = os.path.join(workdir, "out24-c-cold")
     _, _ = run("(d) plan off", small_argv("d-off", extra=["--plan", "off"]))
     check(tree_bytes(os.path.join(workdir, "out24-d-off", "best"))
           == tree_bytes(os.path.join(dir_cc, "best")),
@@ -6382,11 +6460,317 @@ def phase_fleet(torch, fused_glm, fused_sparse, workdir, serving, started, dev="
     return out
 
 
-def readings_line(call_s, walls, sparse_glm, serving, serving_fleet):
+# --- phase 29: the fused descent cycle and the lambda-batched grid -------------
+
+def replay_kernel_counts(torch, prof):
+    """The kernels of the three wrappers in a torch.profiler trace: GEVM
+    and HVP sparse passes by kind, the fused dense kernel by its first
+    stage (one a launch); None when the session holds no device event.
+    Reads the session's raw records: building the profiler's Python events
+    for the tens of thousands of kernels a fused iteration replays takes
+    longer than the iteration."""
+    names = [ev.name() for ev in prof.profiler.kineto_results.events()
+             if ev.device_type() == torch.autograd.DeviceType.CUDA]
+    if not names:
+        return None
+    counts = {"gevm": 0, "hvp": 0, "fused_glm": 0}
+    for name in names:
+        kind = sparse_kernel_kind(name)
+        if kind in counts:
+            counts[kind] += 1
+        elif "glm_value_grad_stage1" in name:
+            counts["fused_glm"] += 1
+    return counts
+
+
+def fused_cycle_run(torch, fused_sparse, argv, label):
+    """One --fused-cycle GAME run (spec pallas) through run_game_training,
+    with the fused cycle's captures, replays, counted host reads, the
+    launches its capture records, and the kernels one replay launched from
+    its graph, read from a torch.profiler trace of the run's first replay
+    (no wrapper counts a replay; a trace may drop a record, never add one,
+    and a session CUPTI delivers no device event leaves them unmeasured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_ml_tpu_torch.algorithm import coordinate_descent as cdm
+    from photon_ml_tpu_torch.compile import compile_stats
+    from photon_ml_tpu_torch.ops import fused_glm
+    from photon_ml_tpu_torch.optim.common import HostReads
+
+    counters = {"gevm": fused_sparse.sparse_gevm_kernel, "hvp": fused_sparse.sparse_hvp_kernel,
+                "fused_glm": fused_glm.fused_value_grad_kernel}
+    captured = {k: 0 for k in counters}
+    traced = {}
+    real_capture, real_replay = cdm._CycleGraph._capture, cdm._CycleGraph.replay
+
+    def capture(graph, cd):
+        before = {k: c.launches for k, c in counters.items()}
+        real_capture(graph, cd)
+        for k, c in counters.items():
+            captured[k] += c.launches - before[k]
+
+    def replay(graph, *state):
+        if traced:
+            return real_replay(graph, *state)
+        before = {k: c.launches for k, c in counters.items()}
+        sync(torch)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = real_replay(graph, *state)
+            sync(torch)
+        traced["wall_s"] = time.perf_counter() - t0
+        traced["wrapper_launches"] = {k: c.launches - before[k] for k, c in counters.items()}
+        traced["counts"] = replay_kernel_counts(torch, prof)
+        return out
+
+    site = "cd.fused_cycle"
+    before = compile_stats.snapshot().get(site, {"traces": 0, "calls": 0})
+    reads0 = HostReads.count
+    cdm._CycleGraph._capture, cdm._CycleGraph.replay = capture, replay
+    try:
+        driver, wall, launches, stages, _ = run_game_training(
+            torch, fused_sparse, argv + ["--fused-cycle", "true"], "pallas")
+    finally:
+        cdm._CycleGraph._capture, cdm._CycleGraph.replay = real_capture, real_replay
+    after = compile_stats.snapshot().get(site, {"traces": 0, "calls": 0})
+    captures = after["traces"] - before["traces"]
+    replays = after["calls"] - before["calls"]  # every call replays, the capturing one too
+    iterations = int(argv[argv.index("--num-iterations") + 1])
+    check(driver.plan.cycle_fusion == "full", f"{label}: the plan fused {driver.plan.cycle_fusion}")
+    _, result, metrics = driver.results[0]
+    check(list(result.timings) == ["(fused-cycle)"], f"{label}: timings {result.timings}")
+    replayed = traced.get("counts")
+    check(bool(traced) and not any(traced["wrapper_launches"].values()),
+          f"{label}: no replay was traced, or a wrapper counted a replay: {traced}")
+    check(replayed is None or (0 < replayed["gevm"] <= captured["gevm"] and all(
+        replayed[k] <= captured[k] for k in captured)),
+          f"{label}: a traced replay launched {replayed}, its capture {captured}")
+    rec = {"wall_s": wall, "stages_s": stages, "launches": launches, "captures": captures,
+           "replays": replays, "iterations": iterations, "captured_launches": captured,
+           "replayed_launches_traced": replayed, "traced_replay_wall_s": traced["wall_s"],
+           "host_reads": HostReads.count - reads0, "auc": metrics["AUC"],
+           "objective_history": result.objective_history}
+    rec["host_reads_per_iteration"] = rec["host_reads"] / iterations
+    return driver, rec
+
+
+def _replayed(rec) -> str:
+    """One replay's kernels as its trace holds them, for the phase lines."""
+    got = rec["replayed_launches_traced"]
+    return (f"one replay by torch.profiler {got} (traced replay {rec['traced_replay_wall_s']:.3f}"
+            " s)" if got is not None else
+            "one replay's kernels not measured (CUPTI delivered no device event)")
+
+
+def phase_fused_cycle(torch, fused_sparse, game_dir, game_runs, cache_game, dev="cuda"):
+    """Phase 29 (a), phase 22 (c)'s warm run: phase 10's command with
+    --fused-cycle true, warm through the tensor cache 22 (c)'s cold run
+    filled. Every iteration's solves run their fixed-trip form with no host
+    read between updates, captured as one CUDA graph after a one-trip
+    warm-up and replayed once an iteration (a replay runs under
+    set_sync_debug_mode("error"), so a host read raises); its model bytes
+    equal the cold run's (22 (c) checks them: phase 10's command unfused)
+    and so does its objective history; launches (the wrappers count the
+    warm-up and the capture, not replays), captures, replays and counted
+    host reads; the train stage against phase 10's."""
+    say("== phase 29 (a): phase 10's command with --fused-cycle true (phase 22 (c)'s warm run, "
+        "through its --tensor-cache): one CUDA graph replayed an iteration, after a one-trip "
+        "warm-up")
+    rec = cache_game["_fused"]
+    driver_kernels = rec["launches"]
+    check(driver_kernels["gevm"] > 0 and driver_kernels["fused_glm"] > 0,
+          f"29 (a): a kernel of the path did not launch: {driver_kernels}")
+    check(rec["captures"] == 1 and rec["replays"] == rec["iterations"],
+          f"29 (a): {rec['captures']} captures, {rec['replays']} replays over "
+          f"{rec['iterations']} iterations")
+    check(rec["host_reads"] == rec["iterations"] + rec["captures"],
+          f"29 (a): {rec['host_reads']} counted host reads (one history read an iteration and "
+          "one a capture)")
+    check(rec["objective_history"] == cache_game["cold"]["objective_history"],
+          "29 (a): the fused objective history differs from the unfused cold run's")
+    rec["train_s_phase10"] = game_runs["pallas"]["stages_s"]["train"]
+    rec["train_s_unfused_cold"] = cache_game["cold"]["stages_s"]["train"]  # phase 10's
+    say(f"  (a) model bytes (held in 22 (c)) and objective history equal to the unfused cold "
+        f"run's; {rec['captures']} capture, {rec['replays']} replays (no host read in a "
+        f"replay); counted host reads {rec['host_reads']} ({rec['host_reads_per_iteration']:.1f} "
+        f"an iteration); launches by the wrappers {rec['launches']} (the one-trip warm-up and "
+        f"the capture; the capture {rec['captured_launches']}), {_replayed(rec)}; train stage {rec['stages_s']['train']:.2f} s against "
+        f"phase 10's {rec['train_s_phase10']:.2f} s and 22 (c) cold's "
+        f"{rec['train_s_unfused_cold']:.2f} s (unfused)")
+    return rec
+
+
+# phase 29 (b): the bucketed pair's solver caps (a cut, see CUTS)
+FUSED_BUCKETED_CAPS = ("fixed:10,1e-7,0.01,1,LBFGS,L2", "per-user:10,1e-6,0.1,1,LBFGS,L2")
+
+
+def phase_fused_bucketed(torch, fused_sparse, workdir, dev="cuda"):
+    """Phase 29 (b): --bucketed-random-effects with --fused-cycle on phase
+    20 (f)'s data, at solver caps of 10 iterations (a cut, see CUTS): the
+    model bytes and objective history equal the same command unfused."""
+    fe_cap, re_cap = FUSED_BUCKETED_CAPS
+    say(f"== phase 29 (b): --bucketed-random-effects true, unfused then --fused-cycle true, on "
+        f"phase 20 (f)'s data ({SKEW_SMALL_USERS} users), caps {fe_cap} and {re_cap}")
+    small = os.path.join(workdir, "skew-small")
+    caps = {"fixed:50,1e-7,0.01,1,LBFGS,L2": fe_cap, "per-user:40,1e-6,0.1,1,LBFGS,L2": re_cap}
+    check(all(c in BUCKETED_FLAGS for c in caps), "29 (b): the quickstart's caps moved")
+    flags = [caps.get(f, f) for f in BUCKETED_FLAGS]
+    argv = lambda d: ["--train-input-dirs", os.path.join(small, "train"),
+                      "--validate-input-dirs", os.path.join(small, "validate"),
+                      "--device", dev, "--output-dir", os.path.join(workdir, d)] + flags
+    plain, wall, launches, stages, _ = run_game_training(torch, fused_sparse, argv("out29b"),
+                                                         "pallas")
+    kernels_launched(plain, launches, "29 (b) unfused")
+    driver, rec = fused_cycle_run(torch, fused_sparse, argv("out29b-fused"), "(b)")
+    kernels_launched(driver, rec["launches"], "29 (b)")
+    check(tree_bytes(os.path.join(workdir, "out29b-fused", "best"))
+          == tree_bytes(os.path.join(workdir, "out29b", "best")),
+          "29 (b): the fused bucketed run's model bytes differ from the unfused run's")
+    check(rec["objective_history"] == plain.results[0][1].objective_history,
+          "29 (b): the fused objective history differs from the unfused run's")
+    check(rec["captures"] == 1 and rec["replays"] == rec["iterations"],
+          f"29 (b): {rec['captures']} captures, {rec['replays']} replays")
+    rec["unfused"] = {"wall_s": wall, "launches": launches, "train_s": stages["train"]}
+    say(f"  (b) {_run_line('unfused', plain, wall, launches, stages)}")
+    say(f"  (b) {_run_line('fused', driver, rec['wall_s'], rec['launches'], rec['stages_s'])}"
+        f"; model bytes and objective history equal to the unfused run's; "
+        f"{rec['captures']} capture, {rec['replays']} replays; host reads {rec['host_reads']}; "
+        f"the capture's launches {rec['captured_launches']}, {_replayed(rec)}")
+    return rec
+
+
+def phase_vmapped_grid(torch, grid):
+    """Phase 29 (c): train_glm_grid_vmapped at phase 5's shape: every lambda
+    a lane of one solve (each lane the plain objective, as the JAX package
+    evaluates it outside any Pallas kernel), held against phase 5's
+    warm-started sequential grid at ``solver``."""
+    from photon_ml_tpu_torch.training import train_glm_grid_vmapped
+
+    batch, norm, problem, seq, seq_s = (grid[k] for k in ("batch", "norm", "problem",
+                                                           "trained", "seconds"))
+    say(f"== phase 29 (c): train_glm_grid_vmapped N={N_FULL} D={D_FULL} bf16 storage, lambdas "
+        f"{list(LAMBDAS)} as the lanes of one solve, against phase 5's sequential grid")
+    sync(torch)
+    t0 = time.perf_counter()
+    par = train_glm_grid_vmapped(problem, batch, norm, LAMBDAS)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    check(par.weights == seq.weights, f"29 (c): weights {par.weights} against {seq.weights}")
+    worst = 0.0
+    for lam, mp, ms, rp, rs in zip(par.weights, par.models, seq.models, par.results, seq.results):
+        a, b = mp.coefficients.means.double(), ms.coefficients.means.double()
+        diff = (a - b).abs()
+        ok = bool((diff <= 2e-3 + 1e-2 * b.abs()).all())
+        fv, sv = float(rp.value), float(rs.value)
+        check(ok and abs(fv - sv) <= 1e-2 * abs(sv) + 2e-3,
+              f"29 (c): lambda={lam:g} beyond solver tolerance (max |diff| {float(diff.max()):.3e},"
+              f" objective {fv} against {sv})")
+        worst = max(worst, float(diff.max()))
+        say(f"  (c) lambda={lam:g}: {int(rp.iterations)} iterations (sequential {int(rs.iterations)}"
+            f"), objective {fv:.6f} against {sv:.6f}, max |coefficient diff| "
+            f"{float(diff.max()):.3e}")
+    say(f"  (c) the vmapped grid {wall:.4f} s against the sequential grid {seq_s:.4f} s")
+    return {"wall_s": wall, "sequential_s": seq_s, "max_abs_coef_diff": worst,
+            "iterations": [int(r.iterations) for r in par.results]}
+
+
+# --- phase 30: the day in the life --------------------------------------------
+
+def phase_day(torch, fused_glm, fused_sparse, workdir, dev="cuda"):
+    """Phase 30: photon_ml_tpu_torch.cli.day_in_life at the default DayConfig
+    (real retrain, kill arm, dtype migration, batch oracle) on the card,
+    enforced: the ledger's verdict, p50 and p99 per phase, the delta
+    retrain's kernel launches (spec pallas: its block solves run the GEVM
+    kernel), the killed replica's detection time; every kernel's counts set
+    to 0 just before the day and read just after."""
+    from photon_ml_tpu_torch.cli import day_in_life as day
+
+    say("== phase 30: the day in the life (cli.day_in_life, the default DayConfig: real "
+        "--warm-start-from retrain, the TCP kill arm, the dtype migration), enforced, on "
+        f"{dev}")
+    counters = {"fused_glm": fused_glm.fused_value_grad_kernel,
+                "gevm": fused_sparse.sparse_gevm_kernel, "hvp": fused_sparse.sparse_hvp_kernel}
+    window = {}
+    real_setup = day._setup_real_models
+
+    def setup(cfg, tmp, rng):
+        # the retrain window's launches: the counts around the delta retrain
+        s = real_setup(cfg, tmp, rng)
+        window["day0"] = {k: c.launches for k, c in counters.items()}
+        inner = s["retrain"]
+
+        def retrain():
+            before = {k: c.launches for k, c in counters.items()}
+            out = inner()
+            window["retrain"] = {k: c.launches - before[k] for k, c in counters.items()}
+            return out
+
+        s["retrain"] = retrain
+        return s
+
+    os.environ["PHOTON_SPARSE_KERNEL"] = "pallas"
+    day._setup_real_models = setup
+    sync(torch)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        result = day.run_day(day.DayConfig(out_dir=os.path.join(workdir, "day30"),
+                                           device=dev), enforce=True)
+    finally:
+        day._setup_real_models = real_setup
+        del os.environ["PHOTON_SPARSE_KERNEL"]
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    led, extra = result["ledger"], result["extra"]
+    check(led["ok"] is True and led["violations_total"] == 0,
+          f"30: the ledger is not ok: {led['violations_total']} violations")
+    check([p["name"] for p in led["phases"]] == list(day.DIURNAL_CURVE),
+          f"30: phases {[p['name'] for p in led['phases']]}")
+    check(window.get("retrain", {}).get("gevm", 0) > 0,
+          f"30: the delta retrain launched no GEVM kernel: {window}")
+    check(extra.get("morning_batch_driver_bitwise") is True,
+          "30: the morning scores are not the batch scoring driver's")
+    degr = led["totals"]["degradations"]
+    check(degr.get("replica_killed", 0) == 1 and "elastic_heartbeat_detect_s" in extra,
+          f"30: the kill arm did not run: {degr}")
+    out = {"wall_s": wall, "ok": led["ok"], "launches": launches, "windows": window,
+           "detect_s": extra["elastic_heartbeat_detect_s"],
+           "retrain_s": extra.get("retrain_seconds"),
+           "phases": {p["name"]: {k: p[k] for k in ("requests", "p50_ms", "p99_ms", "qps")}
+                      for p in led["phases"]},
+           "totals": {k: led["totals"][k] for k in ("requests", "errors", "stale_answers",
+                                                    "mixed_generation", "bytes_moved")},
+           "degradations": degr}
+    for name, p in out["phases"].items():
+        say(f"  (30) {name}: {p['requests']} requests, p50 {p['p50_ms']:.3f} ms, p99 "
+            f"{p['p99_ms']:.3f} ms, {p['qps']:.1f} req/s")
+    say(f"  (30) ledger ok, 0 violations; {out['totals']}; degradations {degr}; the kill seen "
+        f"in {out['detect_s']} s; the delta retrain ({out['retrain_s']} s) launched "
+        f"{window['retrain']}; day 0's training {window.get('day0')}; the whole day {launches}; "
+        f"wall {wall:.1f} s")
+    return out
+
+
+def readings_line(call_s, walls, sparse_glm, serving, serving_fleet, fused, fused_bucketed,
+                  vmapped, day):
     """The call's wall, every phase's wall, phase 15's wide-op times, phase
-    23 (b)'s latency and rate at each max_batch_rows and phase 28's
-    readings."""
+    23 (b)'s latency and rate at each max_batch_rows, phase 23 (e)'s cold
+    start, and the readings of phases 28, 29 and 30."""
+    pick = lambda r: {k: r[k] for k in ("wall_s", "launches", "replayed_launches_traced",
+                                        "traced_replay_wall_s", "captures",
+                                        "replays", "host_reads_per_iteration")}
     return {"call_s": call_s, "phase_walls_s": walls,
+            "serve_cold_start": serving["cold_start"],
+            "fused_cycle": {"a": dict(pick(fused), train_s=fused["stages_s"]["train"],
+                                      train_s_phase10=fused["train_s_phase10"]),
+                            "b": dict(pick(fused_bucketed),
+                                      train_s=fused_bucketed["stages_s"]["train"],
+                                      unfused=fused_bucketed["unfused"])},
+            "vmapped_grid": vmapped,
+            "day": {k: day[k] for k in ("wall_s", "ok", "launches", "windows", "detect_s",
+                                        "retrain_s", "phases")},
             "sparse_glm_ops": {k: sparse_glm["times"][k]
                                for k in ("matvec", "rmatvec scatter", "rmatvec sorted")},
             "serving_batch_rows": {rows: {k: r[k] for k in ("requests", "p50_ms", "p99_ms", "qps")}
@@ -6444,8 +6828,9 @@ CUTS = [
     f"data, as (e)), not {SKEW_USERS}",
     "phase 23 (b): single-row requests of the first "
     + ", ".join(f"{n} validation rows at max_batch_rows {b}" for b, n in SERVE_PREFIX_ROWS.items())
-    + ", not all 37488 (8192 at 1, 8 and 128 before an earlier cut; 32 served every row before "
-    "phase 28 was added); (c) holds the bf16 and int8 scores on the rows served at 32",
+    + ", not all 37488 (8192 at 1, 8 and 128 before an earlier cut, 2048 at 1 before phases "
+    "29-30 were added; 32 served every row before phase 28 was added); (c) holds the bf16 and "
+    "int8 scores on the rows served at 32",
 
     "phase 19 (a)-(b): the per-combo run decodes phase 10's training Avro into a tensor "
     "cache; the --vmapped-grid run and the sampled card and CPU runs read the columns from it",
@@ -6457,6 +6842,27 @@ CUTS = [
     "replica processes start at phase 28's start, and (a) runs once they are READY",
     "phase 23 (e): the serve driver subprocess starts right after (b); its start-up and "
     "warmup run beside (c)-(d), its request lines are sent after (d)",
+
+    "phase 12: the training rows are no longer scored (17.2 s); the scoring gather and "
+    "the fixed-effect matvec are timed on the card run's validation rows (37488, not 192667), "
+    "and the host-scoring run writes 2 part files where the training run wrote 4",
+    f"phase 19 (c): {FULL_ITERATIONS} descent iterations, not bench.py's 3",
+    "phase 22 (a): the PHOTON_PREFETCH_DEPTH=0 run solves the grid's first lambda only "
+    "(its model held against the pipelined run's model at that lambda), not all three",
+    "phase 22 (c): phase 10's pallas run takes --tensor-cache and is 22 (c)'s cold run; 22 "
+    "(c) runs the warm run only",
+    "phase 29 (a): phase 22 (c)'s warm run takes --fused-cycle true and is 29 (a)'s run; "
+    "the cold run (phase 10's pallas run) is its unfused reference",
+    f"phase 29 (b): the bucketed pair (unfused, then --fused-cycle) on phase 20 (f)'s "
+    f"{SKEW_SMALL_USERS} users, not {SKEW_USERS}, at solver caps of 10 iterations, not the "
+    "quickstart's 50 and 40 (a fused iteration runs every capped iteration and line-search "
+    "step)",
+    "phase 24 (c): the cold run is phase 20 (f)'s card run (the same command on the same "
+    "data), not a run of its own",
+    "phase 23 (e): the --persistent-cache cold start runs in this process (it raises "
+    "--assert-warm after its warmup); the serve driver subprocess is the warm start",
+    "phase 30: the day's kill-arm replica processes start at once, each then waited "
+    "for (the JAX harness starts them one after another)",
 ]
 
 
@@ -6524,7 +6930,10 @@ def main() -> None:
 
     max_abs_err = timed("3", phase_kernel_vs_plain, torch, fused_glm, losses)
     times = timed("4", phase_times, torch, fused_glm, losses)
-    grid_launches = timed("5", phase_train_grid, torch, fused_glm, times["bfloat16"]["graph_ms"])
+    grid_launches, grid5 = timed("5", phase_train_grid, torch, fused_glm,
+                                 times["bfloat16"]["graph_ms"])
+    vmapped = timed("29c", phase_vmapped_grid, torch, grid5)
+    del grid5
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         driver_launches, driver6 = timed("6", phase_driver, torch, fused_glm, workdir)
         glm_diag = timed("18", phase_glm_diagnostics, torch, fused_glm, workdir)
@@ -6542,7 +6951,9 @@ def main() -> None:
         checkpoints = timed("17", phase_checkpoints, torch, fused_sparse, game_dir)
         timed("11", phase_ingest, game_dir, trained)
         game_grid = timed("19ab", phase_game_grid, torch, fused_sparse, game_dir)
-        cache_game = timed("22c", phase_cache_game, torch, fused_sparse, game_dir)
+        cache_game = timed("22c", phase_cache_game, torch, fused_sparse, game_dir, game_runs)
+        fused = timed("29a", phase_fused_cycle, torch, fused_sparse, game_dir, game_runs,
+                      cache_game)
         # phase 28's exports start in phase 23 after (b) and end before phase
         # 15; its replica processes start after phase 15
         fleet = []
@@ -6558,17 +6969,21 @@ def main() -> None:
         finally:
             for started in fleet:
                 stop_fleet(started)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_day_") as workdir:
+            day = timed("30", phase_day, torch, fused_glm, fused_sparse, workdir)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as workdir:
             wide = timed("16", phase_game_wide, torch, fused_sparse, workdir)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_full_") as workdir:
             full_game = timed("19c", phase_full_game, torch, fused_sparse, workdir)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_bucketed_") as workdir:
             bucketed = timed("20", phase_bucketed, torch, fused_sparse, workdir)
+            fused_bucketed = timed("29b", phase_fused_bucketed, torch, fused_sparse, workdir)
             scheduler = timed("21", phase_scheduler, torch, fused_sparse, workdir, bucketed)
             dense_bits = timed("21f", phase_dense_stack_bits, torch)
             stream_game = timed("22b", phase_streaming_game, torch, fused_sparse, workdir,
                                 bucketed.pop("_inmemory"))
-            retrain = timed("24", phase_retrain, torch, fused_sparse, workdir, stream_game)
+            retrain = timed("24", phase_retrain, torch, fused_sparse, workdir, stream_game,
+                            bucketed.pop("_f_card"))
             # phases 25 and 26 last, side by side: their rank groups run
             # beside each other and beside 25 (a)-(b) and 26 (a), no other
             # phase; a failed check stops every group
@@ -6619,6 +7034,16 @@ def main() -> None:
         return {"a_relaunch": elastic["a"]["launches"][key],
                 **{f"b_rank{r}": n[key] for r, n in enumerate(elastic["b"]["launches_by_rank"])}}
 
+    def fused_launches(key):
+        """Phase 29's launches: the wrappers' counts of (a) and (b) (the
+        warm-up and the capture), and the kernels one replay of each
+        launched from its graph, by torch.profiler (None: not measured)."""
+        one = lambda r: None if r["replayed_launches_traced"] is None else \
+            r["replayed_launches_traced"][key]
+        return {"a": fused["launches"][key], "a_one_replay_traced": one(fused),
+                "b": fused_bucketed["launches"][key],
+                "b_one_replay_traced": one(fused_bucketed)}
+
     kernels = [{
         "name": "fused_glm_value_grad",
         "route": "cuda",
@@ -6641,6 +7066,10 @@ def main() -> None:
         "launches_multihost_streaming": mh_stream_launches("fused_glm"),
         "launches_elastic": elastic_launches("fused_glm"),
         "launches_serving_fleet": serving_fleet["launches"]["fused_glm"],
+        # phase 29: the wrappers count the warm-up and the capture; a
+        # replay launches through its graph: one replay's kernels, traced
+        "launches_fused_cycle": fused_launches("fused_glm"),
+        "launches_day": dict(day["windows"], whole_day=day["launches"]),
         "max_abs_err": max(max_abs_err, game_runs["fixed_max_abs_err"],
                            game_grid["fixed_max_abs_err"], full_game["fixed_max_abs_err"],
                            bucketed["fixed_max_abs_err"], retrain["fixed_max_abs_err"],
@@ -6688,6 +7117,10 @@ def main() -> None:
             "launches_multihost_streaming": mh_stream_launches(key),
             "launches_elastic": elastic_launches(key),
             "launches_serving_fleet": serving_fleet["launches"][key],
+            "launches_fused_cycle": fused_launches(key),
+            "launches_day": {"day0": day["windows"].get("day0", {}).get(key),
+                             "retrain": day["windows"].get("retrain", {}).get(key),
+                             "whole_day": day["launches"][key]},
             # replays launch through their graphs, not the wrappers: phase 21
             # (a)'s traced device-loop solve, by torch.profiler
             "launches_device_loop_traced": {
@@ -6720,7 +7153,8 @@ def main() -> None:
                     "streaming": {"glm": stream_glm, "game": stream_game, "cache": cache_game},
                     "serving": serving, "retrain": retrain, "multihost": multihost,
                     "multihost_streaming": mh_stream, "elastic": elastic,
-                    "serving_fleet": serving_fleet,
+                    "serving_fleet": serving_fleet, "fused_cycle": [fused, fused_bucketed],
+                    "vmapped_grid": vmapped, "day": day,
                     "phase_walls_s": walls, "call_s": call_s, "cuts": CUTS, "card": card},
                    default=str))
     say(card)  # name and power limit, as nvidia-smi gives them
@@ -6728,7 +7162,8 @@ def main() -> None:
     # the call's wall and the readings of phases 15, 23 and 28 once more,
     # short, after the long lines above (a caller that keeps only the tail
     # of the output keeps this line)
-    say(json.dumps({"readings": readings_line(call_s, walls, sparse_glm, serving, serving_fleet),
+    say(json.dumps({"readings": readings_line(call_s, walls, sparse_glm, serving, serving_fleet,
+                                              fused, fused_bucketed, vmapped, day),
                     "card": card}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -185,6 +185,8 @@ class BucketedRandomEffectCoordinate:
     def __post_init__(self):
         if self.mesh_ctx is not None:
             raise _not_ported("mesh_ctx")
+        # per-bucket chunk pauses and adaptive skips re-enter the host
+        self.cd_jit = self.solve_schedule is None and self.adaptive is None
         if self.bundle is None:
             self.bundle = BucketedDatasetBundle.build(
                 self.data, self.config, self.max_buckets, self.bucketer, self.device)

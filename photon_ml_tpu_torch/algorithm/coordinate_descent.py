@@ -23,7 +23,28 @@ without solving.
 ``run_grid`` trains a lambda grid on coordinates built once: combo ``g``
 runs the same cycle with every coordinate's total regularization weight
 overridden (``reg_weight``), from the same seeded state; it checkpoints per
-cycle in the JAX grid's lane layout. The fused cycle is not yet ported.
+cycle in the JAX grid's lane layout.
+
+``fused_cycle=True`` is the JAX package's one XLA program per descent
+iteration. Its counterpart here is an iteration with no host read between
+its updates: every solve runs in its fixed-trip form
+(``optim.common.fixed_trip_solves``: all iterations, line-search and CG
+steps, converged lanes masked as exact identities), scores and objective
+terms stay on the device, and the histories are read once per iteration.
+On the card, when every coordinate can be captured, the iteration body is
+captured once as one ``torch.cuda.CUDAGraph`` on static state buffers,
+after a warm-up that runs it eagerly at one trip a solve (kernel builds,
+races and transpose plans read sizes back there), and every iteration is
+one replay (site ``cd.fused_cycle`` in ``compile.stats``). A
+down-sampled fixed effect draws its sample on the host every update, so
+such a cycle runs eagerly. Fused results are bitwise the per-update run.
+As in the JAX package: checkpoints land at iteration boundaries, a resume
+refuses a mid-iteration checkpoint, the divergence guard rolls back whole
+iterations as ``"(fused-cycle)"``, timings collapse into one
+``"(fused-cycle)"`` entry, trackers stay empty, frozen coordinates are
+refused, and coordinates that re-enter the host inside an update
+(``cd_jit=False``: multi-process, streaming or scheduled ones) are refused.
+No fallback hides the graph: a capture or replay error raises.
 """
 
 from __future__ import annotations
@@ -36,7 +57,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from photon_ml_tpu_torch.checkpoint import CheckpointState
+from photon_ml_tpu_torch.compile.stats import instrumented_capture
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.optim.common import HostReads, fixed_trip_solves
 from photon_ml_tpu_torch.resilience import faults, preemption
 from photon_ml_tpu_torch.resilience.guards import DivergenceGuard, GuardEvent
 from photon_ml_tpu_torch.types import real_dtype
@@ -79,12 +102,16 @@ class CoordinateDescent:
                  training_loss: Callable[[Tensor], Tensor],
                  validation_scorer: Optional[Callable[[Dict[str, Tensor]], Tensor]] = None,
                  validation_evaluators: Optional[Dict[str, Tuple[object, dict]]] = None,
-                 divergence_guard: Optional[DivergenceGuard] = None):
+                 divergence_guard: Optional[DivergenceGuard] = None,
+                 fused_cycle: bool = False):
         self.coordinates = coordinates
         self.training_loss = training_loss
         self.validation_scorer = validation_scorer
         self.validation_evaluators = validation_evaluators or {}
         self.divergence_guard = divergence_guard
+        self.fused_cycle = fused_cycle
+        # the captured iteration, by state layout (site cd.fused_cycle)
+        self._cycle_graphs: dict = {}
 
     def _objective(self, total: Tensor, params: Dict[str, Tensor],
                    lam: Optional[Dict[str, float]] = None) -> Tensor:
@@ -293,6 +320,12 @@ class CoordinateDescent:
                     f"frozen coordinates {sorted(unseeded)} have no "
                     "initial_params — freezing needs the prior coefficients"
                 )
+            if self.fused_cycle:
+                raise ValueError(
+                    "frozen coordinates cannot compose with fused_cycle "
+                    "(per-coordinate skip lives outside the compiled "
+                    "iteration); use the per-update path"
+                )
         params, scores, total = self._seeded_state(num_rows, initial_params)
         history = _History()
         timings = {n: 0.0 for n in names}
@@ -309,6 +342,9 @@ class CoordinateDescent:
                 history = _History(restored.objective_history, restored.validation_history)
                 midstep = restored.partial
 
+        if self.fused_cycle:
+            return self._run_fused(num_iterations, checkpointer, params, scores, total,
+                                   history, start_step)
         guard = self.divergence_guard
         guard_events_start = len(guard.events) if guard is not None else 0
         step = 0
@@ -385,6 +421,208 @@ class CoordinateDescent:
         )
 
 
+    # ------------------------------------------------------------------
+    # the fused cycle
+    # ------------------------------------------------------------------
+
+    def _require_capturable_coordinates(self, mode: str) -> None:
+        """The fused cycle runs every coordinate inside one iteration with
+        no host read; a ``cd_jit=False`` coordinate re-enters the host (or
+        other ranks) inside its update. Refused with the JAX message."""
+        bad = [n for n, c in self.coordinates.items() if not getattr(c, "cd_jit", True)]
+        if bad:
+            raise ValueError(
+                f"{mode} compiles all coordinates into one jitted program, "
+                f"but {bad} hold multihost-sharded arrays that cannot be "
+                "closed over (cd_jit=False) — use the per-update run() path"
+            )
+
+    def _cycle_body(self, params: Dict[str, object], scores: Dict[str, Tensor],
+                    total: Tensor, trips: Optional[int] = None):
+        """One descent iteration over every coordinate with no host read:
+        each update a fixed-trip solve (``trips`` iterations when given,
+        the warm-up's), then its score, the objective and the validation
+        metrics, all on the device. Returns (params, scores, total,
+        objectives, validation metrics), one objective and one metrics dict
+        per update."""
+        params, scores = dict(params), dict(scores)
+        objs, vals = [], []
+        with fixed_trip_solves(trips):
+            for name, coord in self.coordinates.items():
+                partial = total - scores[name]
+                params[name], _ = coord.update(partial, params[name])
+                scores[name] = coord.score(params[name])
+                total = partial + scores[name]
+                objs.append(self._objective(total, params))
+                if self.validation_scorer is not None:
+                    vals.append(self._validation_metrics(params))
+        return params, scores, total, objs, vals
+
+    def _capturable(self, device: torch.device) -> bool:
+        """The iteration is captured on the card unless a coordinate draws
+        on the host in its update (down-sampling)."""
+        return device.type == "cuda" and not any(
+            getattr(c, "down_sampling_rate", None) for c in self.coordinates.values())
+
+    def _fused_iteration(self, params, scores, total, capture: bool):
+        """One fused iteration: eagerly, or on the card as a replay of the
+        captured iteration (captured on first use for this state layout)."""
+        if not capture:
+            return self._cycle_body(params, scores, total)
+        return instrumented_capture(
+            _CycleGraph.SITE, _layout((params, scores, total)), self._cycle_graphs,
+            lambda: _CycleGraph(self, params, scores, total),
+            lambda graph: graph.replay(params, scores, total))
+
+    def _run_fused(self, num_iterations: int, checkpointer, params, scores, total,
+                   history: "_History", start_step: int) -> CoordinateDescentResult:
+        names = list(self.coordinates)
+        n_coords = len(names)
+        if start_step % n_coords != 0:
+            raise ValueError(
+                f"fused_cycle resume requires an iteration-aligned "
+                f"checkpoint; restored step {start_step} is mid-iteration "
+                f"(coordinates={n_coords}). Re-run unfused to finish the "
+                "partial iteration first."
+            )
+        self._require_capturable_coordinates("fused_cycle")
+        guard = self.divergence_guard
+        guard_events_start = len(guard.events) if guard is not None else 0
+        timings: Dict[str, float] = {}
+        capture = self._capturable(total.device)
+        for it in range(num_iterations):
+            step = (it + 1) * n_coords
+            if step <= start_step:
+                continue
+            t0 = time.perf_counter()
+            new_params, new_scores, new_total, objs, vals = self._fused_iteration(
+                params, scores, total, capture)
+            if guard is not None:
+                # iteration granularity: a non-finite outcome rolls the
+                # whole iteration back to its entry state
+                new_params, new_total, ok = guard.filter_update(
+                    "(fused-cycle)", step, new_params, new_total, params, total)
+                if not ok:
+                    new_scores = scores
+                    # the rolled-back state evaluated once and repeated per
+                    # update: the histories keep one entry per update
+                    objs = [self._objective(total, params)] * n_coords
+                    vals = ([self._validation_metrics(params)] * n_coords
+                            if self.validation_scorer is not None else [])
+            params, scores, total = new_params, new_scores, new_total
+            history.read_iteration(objs, vals)
+            timings["(fused-cycle)"] = timings.get("(fused-cycle)", 0.0) + (
+                time.perf_counter() - t0)
+            is_last = it == num_iterations - 1
+            # the checkpointer saves every step, so every iteration crosses
+            # a save boundary
+            path = None
+            if checkpointer is not None:
+                path = checkpointer.save(CheckpointState(
+                    step=step, params=params, scores=scores, total_scores=total,
+                    objective_history=history.objective,
+                    validation_history=history.validation,
+                ))
+            # iteration boundaries are the fused cycle's only drain points,
+            # and iteration-aligned, so an emergency checkpoint here always
+            # satisfies the resume contract above
+            if not is_last and preemption.check("cycle", step=step):
+                if checkpointer is not None:
+                    checkpointer.wait()  # an async commit is durable before exit
+                raise preemption.Preempted(
+                    f"preempted at iteration boundary (step {step}): {preemption.reason()}",
+                    site="cycle", checkpoint_path=path,
+                )
+        return CoordinateDescentResult(
+            coefficients=params,
+            total_scores=total,
+            objective_history=history.objective,
+            validation_history=history.validation,
+            timings=timings,
+            guard_events=list(guard.events[guard_events_start:]) if guard is not None else [],
+        )
+
+
+class _CycleGraph:
+    """One captured iteration on static buffers: the graph reads them and
+    writes its own outputs; each replay copies the carried state into the
+    buffers and hands back clones of the outputs (the next replay
+    overwrites them, and a rolled-back iteration keeps its entry state).
+    Before the capture, the iteration runs once eagerly with one trip a
+    solve, its results discarded: every operation runs outside the capture
+    first (kernel builds and loads, the races' and transpose plans' host
+    reads, library handles), at a fraction of a full iteration's cost."""
+
+    SITE = "cd.fused_cycle"
+    WARMUP_TRIPS = 1
+
+    def __init__(self, cd: CoordinateDescent, params, scores, total):
+        HostReads.count += 1  # the capture's set-up synchronizes once
+        self.inputs = _tree_map(torch.clone, (params, scores, total))
+        self._warm_up(cd)
+        self._capture(cd)
+
+    def _warm_up(self, cd: CoordinateDescent) -> None:
+        """The iteration at one trip a solve, on a side stream (as the rung
+        programs of optim/fused_schedule.py warm up), results discarded."""
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            cd._cycle_body(*self.inputs, trips=self.WARMUP_TRIPS)
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+
+    def _capture(self, cd: CoordinateDescent) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outputs = cd._cycle_body(*self.inputs)
+
+    def replay(self, params, scores, total):
+        for buf, new in zip(_tree_leaves(self.inputs), _tree_leaves((params, scores, total))):
+            if buf is not new:
+                buf.copy_(new)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")  # a replay reads nothing back
+        try:
+            self.graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        return _tree_map(torch.clone, self.outputs)
+
+
+def _tree_leaves(tree) -> List[Tensor]:
+    """The tensors of a (params, scores, total, ...) structure, in order:
+    dicts by key order, lists and tuples, ``FactoredState`` leaves."""
+    if isinstance(tree, Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tree_leaves(v)]
+    if hasattr(tree, "tree_flatten"):
+        return _tree_leaves(list(tree.tree_flatten()[0]))
+    return []
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of ``tree``, keeping its structure."""
+    if isinstance(tree, Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    if hasattr(tree, "tree_flatten"):
+        children, aux = tree.tree_flatten()
+        return type(tree).tree_unflatten(aux, [_tree_map(fn, c) for c in children])
+    return tree
+
+
+def _layout(tree) -> tuple:
+    """The shapes and dtypes of a state: one captured graph per layout."""
+    return tuple((tuple(t.shape), t.dtype) for t in _tree_leaves(tree))
+
+
 def _leaves(value) -> List[Tensor]:
     """A coordinate's parameters as a list of tensors: a tensor, the
     per-bucket tuple of a bucketed coordinate, or a ``FactoredState``."""
@@ -407,6 +645,20 @@ class _History:
     validation: List[Dict[str, float]] = dataclasses.field(default_factory=list)
     objective_dev: List[Tensor] = dataclasses.field(default_factory=list)
     validation_dev: List[Dict[str, Tensor]] = dataclasses.field(default_factory=list)
+
+    def read_iteration(self, objs: List[Tensor], vals: List[Dict[str, Tensor]]) -> None:
+        """Append one fused iteration's objectives and metrics with one
+        host read (f32 values widen to float64 exactly, so each entry is
+        ``float`` of its scalar, as ``drain`` gives it)."""
+        scalars = list(objs) + [v for m in vals for v in m.values()]
+        if not scalars:
+            return
+        HostReads.count += 1
+        host = torch.stack([torch.as_tensor(v).reshape(()).to(torch.float64)
+                            for v in scalars]).tolist()
+        self.objective.extend(host[:len(objs)])
+        rest = iter(host[len(objs):])
+        self.validation.extend({k: next(rest) for k in m} for m in vals)
 
     def drain(self) -> None:
         self.objective.extend(float(v) for v in self.objective_dev)

@@ -155,6 +155,9 @@ class RandomEffectCoordinate:
                 else OptimizerConfig.lbfgs_default()
             )
         self.slab: Optional[fused_sparse.SparseSlab] = self.sparse_slab
+        # chunk or rung pauses re-enter the host: the fused cycle refuses
+        # a scheduled coordinate (its plan fuses per solve instead)
+        self.cd_jit = self.solve_schedule is None
         # the device loop's captured rung programs, keyed by this
         # coordinate's own tensors (optim/fused_schedule.py)
         self._graphs: dict = {}

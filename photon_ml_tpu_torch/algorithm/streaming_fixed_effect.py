@@ -72,6 +72,8 @@ def _streamed_update(problem: GLMOptimizationProblem, vg, hvp, l1_weight,
 class StreamingFixedEffectCoordinate:
     """Fixed-effect coordinate over a :class:`ChunkedGLMSource`."""
 
+    # every evaluation streams chunks through the host: no fused cycle
+    cd_jit = False
     source: ChunkedGLMSource
     problem: GLMOptimizationProblem
     norm: NormalizationContext = dataclasses.field(default_factory=NormalizationContext.identity)
@@ -178,6 +180,8 @@ class PerHostStreamingFixedEffectCoordinate:
     ownership is the per-rank file share); ``owned_loaders`` maps this
     rank's global chunk ids to loaders of {"x", "y", optional "offsets" /
     "weights"} host dicts."""
+
+    cd_jit = False  # streamed and merged across ranks every evaluation
 
     chunk_sizes: List[int]
     owned_loaders: Dict[int, object]  # chunk id -> () -> host chunk dict

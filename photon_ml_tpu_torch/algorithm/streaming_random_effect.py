@@ -427,6 +427,8 @@ def _host_result(res: OptResult) -> OptResult:
 class StreamingRandomEffectCoordinate:
     """Random-effect coordinate over disk-resident entity blocks."""
 
+    # blocks stream through the host every update: no fused cycle
+    cd_jit = False
     manifest: StreamingREManifest
     task: TaskType
     optimizer: OptimizerType = OptimizerType.LBFGS

@@ -44,6 +44,7 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
+from photon_ml_tpu_torch import native_build
 from photon_ml_tpu_torch.cli.game_params import GameFleetParams, parse_fleet_params
 from photon_ml_tpu_torch.device import enable_determinism
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
@@ -61,6 +62,8 @@ class GameFleetDriver:
         self.router = None
         self.engine = None
         self.handled = 0
+        # a replica's builds and new batch shapes against --persistent-cache
+        self.cache_report: Optional[dict] = None
 
     # -- build mode ----------------------------------------------------------
     def build_stores(self) -> dict:
@@ -80,6 +83,11 @@ class GameFleetDriver:
 
     # -- replica mode --------------------------------------------------------
     def run_replica(self, out_stream=None) -> None:
+        with native_build.use_persistent_cache(self.params.persistent_cache_dir,
+                                               self.logger) as cache_mark:
+            self._serve_replica(out_stream, cache_mark)
+
+    def _serve_replica(self, out_stream, cache_mark) -> None:
         from photon_ml_tpu_torch.compile import compile_stats
         from photon_ml_tpu_torch.serve import ModelStore
         from photon_ml_tpu_torch.serve.fleet import (
@@ -123,6 +131,16 @@ class GameFleetDriver:
             self.logger.info(f"replica warmup: {report['warm_batches']} batches, "
                              f"{report['new_traces']} new batch shapes")
         self.logger.info(compile_stats.summary())
+        if cache_mark is not None and p.warmup:
+            self.cache_report = self.engine.check_persistent_cache(p.persistent_cache_dir,
+                                                                  cache_mark)
+        if p.assert_warm and not self.engine.fully_warm():
+            self.engine.close()
+            raise RuntimeError(
+                f"--assert-warm: replica startup built {self.cache_report['builds']} "
+                f"native libraries and warmed {self.cache_report['new_shapes']} batch "
+                "shapes the persistent cache had not seen (persistent cache cold or "
+                "ladder changed)")
         server = ReplicaServer(self.engine, host=p.host, port=p.port)
         out.write(f"READY {server.address}\n")
         out.flush()

@@ -70,6 +70,7 @@ to split a process's life into start-up, set-up, run and exit.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -142,6 +143,8 @@ class MultihostFixedEffectCoordinate:
     distributed one (each rank's fused or plain pass, then the fixed-order
     sum), and scoring scatters this rank's margins into the global (N,)
     vector merged by one fixed-order sum (each row is scored by one rank)."""
+
+    cd_jit = False  # rows span ranks: the fused cycle refuses it
 
     def __init__(self, batch: GLMBatch, row_ids: np.ndarray, num_rows: int,
                  problem: GLMOptimizationProblem, ctx: MeshContext):
@@ -249,6 +252,7 @@ def _check_multihost_support(p) -> None:
     driver does not implement are refused, never ignored."""
     unsupported = [flag for flag, on in (
         ("--compute-variance", p.compute_variance),
+        ("--fused-cycle", p.fused_cycle),
         ("--vmapped-grid", p.vmapped_grid != "false"),
     ) if on]
     if unsupported:
@@ -623,8 +627,9 @@ def _main_once(mh_args: dict, p, entered_at: float, restart: bool = False) -> di
                               mh_args["process_id"], device=p.device)
     ctx = mh.mesh_context()
     with resilience.resilience_scope(io_resilience_config(
-            p.on_corrupt, p.corrupt_skip_budget, p.io_retries, p.io_retry_base_delay)):
-        out = _train(mh_args, p, mh, ctx, restart)
+            p.on_corrupt, p.corrupt_skip_budget, p.io_retries, p.io_retry_base_delay)), \
+            contextlib.ExitStack() as scope:
+        out = _train(mh_args, p, mh, ctx, restart, scope)
     from photon_ml_tpu_torch.optim.scheduler import solve_stats
 
     out["wall_s"] = time.perf_counter() - t_start
@@ -645,7 +650,8 @@ def _main_once(mh_args: dict, p, entered_at: float, restart: bool = False) -> di
     return out
 
 
-def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
+def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool,
+           scope: contextlib.ExitStack) -> dict:
     from photon_ml_tpu_torch.algorithm.coordinate_descent import CoordinateDescent
     from photon_ml_tpu_torch.cli.game_training_driver import (
         _default_evaluators,
@@ -673,11 +679,18 @@ def _train(mh_args: dict, p, mh, ctx: MeshContext, restart: bool) -> dict:
     logger = PhotonLogger(os.path.join(p.output_dir, f"photon-ml-tpu-mh-{mh.process_id}.log"))
     logger.info(f"multihost: process {mh.process_id} of {mh.num_processes}, backend "
                 f"{ctx.backend}, device {ctx.device}")
+    if p.persistent_cache_dir:
+        # a directory a process: ranks build the same libraries and must not
+        # race each other's files on a shared filesystem
+        from photon_ml_tpu_torch import native_build
+
+        scope.enter_context(native_build.use_persistent_cache(
+            os.path.join(p.persistent_cache_dir, f"process-{mh.process_id}"), logger))
     plan = ExecutionPlan.resolve(
         shape_canonicalization=p.shape_canonicalization, solve_compaction=p.solve_compaction,
         adaptive_schedule=p.adaptive_schedule, distributed=True,
-        streaming=p.streaming_random_effects, bucketed=p.bucketed_random_effects, plan=p.plan,
-        num_processes=mh.num_processes)
+        streaming=p.streaming_random_effects, bucketed=p.bucketed_random_effects,
+        fused_cycle=p.fused_cycle, plan=p.plan, num_processes=mh.num_processes)
     logger.info(plan.describe())
     for line in plan.describe_decisions():
         logger.info(f"execution plan: {line}")

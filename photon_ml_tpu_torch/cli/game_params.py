@@ -16,10 +16,10 @@ grammars:
 
 The training parser takes every flag of the JAX driver under the same name,
 plus ``--device`` (default ``cuda``). Grid alternatives are ';'-separated
-(``config_grid`` is their Cartesian product). ``validate`` rejects, naming
-the flag, every flag whose code path is not yet ported when it is set away
-from its default: the fused cycle and the persistent cache (``_FENCED``).
-``--distributed`` runs on the process group (parallel/; with
+(``config_grid`` is their Cartesian product). ``--fused-cycle`` runs the
+fused descent cycle (algorithm/coordinate_descent.py) and
+``--persistent-cache DIR`` builds and loads the port's compiled code in DIR
+(native_build.use_persistent_cache). ``--distributed`` runs on the process group (parallel/; with
 ``--streaming-random-effects`` through the per-host streaming coordinate,
 parallel/perhost_streaming.py). Streaming random
 effects (``--streaming-random-effects``,
@@ -29,9 +29,8 @@ effects (``--streaming-random-effects``,
 ``--solve-compaction`` and ``--adaptive-schedule`` are checked through the
 execution plan (compile/plan.py), as the JAX parser checks them. The scoring parser takes every flag of the JAX
 scoring driver, plus ``--device``. The serve parser takes every flag of the
-JAX serve driver, plus ``--device``; ``--persistent-cache`` is fenced
-there too. The fleet parser (``GameFleetParams``) takes every flag of the
-JAX fleet driver, plus ``--device``, with ``--persistent-cache`` fenced.
+JAX serve driver, plus ``--device``. The fleet parser (``GameFleetParams``)
+takes every flag of the JAX fleet driver, plus ``--device``.
 """
 
 from __future__ import annotations
@@ -302,9 +301,17 @@ class GameTrainingParams:
     # --distributed: the coordinates solve over the process group's ranks
     # (parallel/distributed.py); one rank is bitwise the plain run
     distributed: bool = False
+    # the fused descent cycle: each iteration with no host read between
+    # its updates, one captured CUDA graph where it can be captured
+    # (iteration-granular checkpoints)
+    fused_cycle: bool = False
     re_memory_budget_mb: Optional[float] = None
     # content-addressed cache of built ingest tensors (io/tensor_cache.py)
     tensor_cache_dir: Optional[str] = None
+    # the build cache of the port's compiled code (native_build): a warm
+    # start compiles nothing; composes with --tensor-cache for a fully
+    # warm restart
+    persistent_cache_dir: Optional[str] = None
     # export the trained best model as an mmap'd serving store
     # (serve/model_store.py) right after save, with this slab policy
     # (serve/quantize.py): f32 (bitwise default) | bf16 | int8
@@ -329,9 +336,6 @@ class GameTrainingParams:
     # the cost-based planner (compile/cost.py): "off" | "auto"; None
     # defers to PHOTON_PLAN
     plan: Optional[str] = None
-    # flags of the JAX driver given away from their default whose code paths
-    # are not yet ported (filled by the parser; validate refuses them)
-    unported_flags: List[str] = dataclasses.field(default_factory=list)
     # where tensors live: "cuda" (default) or "cpu"
     device: str = "cuda"
 
@@ -426,7 +430,7 @@ class GameTrainingParams:
                 shape_canonicalization=ladder_spec, solve_compaction=compaction_spec,
                 adaptive_schedule=adaptive_spec, bucketed=self.bucketed_random_effects,
                 vmapped_grid=self.vmapped_grid, streaming=self.streaming_random_effects,
-                plan=plan_spec)
+                fused_cycle=self.fused_cycle, plan=plan_spec)
         except ValueError as e:
             errors.append(str(e))
         if self.warm_start_from and (os.path.abspath(self.warm_start_from)
@@ -437,8 +441,6 @@ class GameTrainingParams:
                 "output dir would destroy the prior model the warm "
                 "start reads)"
             )
-        errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
-                      for flag in self.unported_flags)
         if errors:
             raise ValueError("; ".join(errors))
 
@@ -463,20 +465,6 @@ def _io_errors(params) -> List[str]:
     if params.io_retries < 1:
         errors.append("--io-retries must be >= 1")
     return errors
-
-
-# flag -> its default; a parsed value other than the default (or an "off"
-# spelling) names the flag in validate's "not yet ported" error
-_FENCED = {
-    "--fused-cycle": "false",
-    "--persistent-cache": None,
-}
-# values that leave a fenced flag unset, besides its default
-_UNSET = ("", "none", "off", "false", "0", "no")
-
-
-def _dest(flag: str) -> str:
-    return flag.lstrip("-").replace("-", "_")
 
 
 def build_training_parser() -> argparse.ArgumentParser:
@@ -600,10 +588,14 @@ def build_training_parser() -> argparse.ArgumentParser:
            "PlanDecision with predicted AND realized cost. Explicit flags "
            "and env knobs always win over the planner. Default defers to "
            "PHOTON_PLAN (off = today's behavior, bitwise)")
-    for flag, default in _FENCED.items():
-        kind = type(default) if isinstance(default, (int, float)) else None
-        a(flag, dest=_dest(flag), default=default, type=kind,
-          help="not yet ported to photon_ml_tpu_torch")
+    a("--fused-cycle", default="false",
+      help="run each coordinate-descent iteration with no host read between its "
+           "updates (fixed-trip solves; one captured CUDA graph replayed per "
+           "iteration where it can be captured; iteration-granular checkpoints)")
+    a("--persistent-cache", dest="persistent_cache_dir", default=None,
+      help="build cache dir of the port's compiled code (CUDA kernels, host "
+           "libraries): warm driver runs compile nothing (composes with "
+           "--tensor-cache for a fully warm restart)")
     a("--device", dest="device", default="cuda", choices=["cuda", "cpu"],
       help="where tensors live and the solve runs (default cuda; cuda without "
            "a card raises)")
@@ -630,11 +622,6 @@ def _store_dtype_choices() -> List[str]:
 
 def _truthy(v) -> bool:
     return str(v).strip().lower() in ("true", "1", "yes")
-
-
-def _unported(ns: argparse.Namespace) -> List[str]:
-    return [flag for flag, default in _FENCED.items()
-            if str(getattr(ns, _dest(flag))).strip().lower() not in _UNSET + (str(default).lower(),)]
 
 
 def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParams:
@@ -684,6 +671,8 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         re_memory_budget_mb=(float(ns.re_memory_budget_mb)
                              if ns.re_memory_budget_mb is not None else None),
         tensor_cache_dir=ns.tensor_cache_dir,
+        persistent_cache_dir=ns.persistent_cache_dir,
+        fused_cycle=_truthy(ns.fused_cycle),
         export_serve_store=ns.export_serve_store,
         store_dtype=ns.store_dtype,
         shape_canonicalization=ns.shape_canonicalization,
@@ -691,7 +680,6 @@ def parse_training_params(argv: Optional[List[str]] = None) -> GameTrainingParam
         adaptive_schedule=ns.adaptive_schedule,
         warm_start_from=ns.warm_start_from,
         plan=ns.plan,
-        unported_flags=_unported(ns),
         device=ns.device,
     )
     params.validate()
@@ -817,8 +805,8 @@ class GameServeParams:
     max_wait_ms: float = 2.0
     # canonical shape ladder — defaults ON for serving
     shape_canonicalization: str = "on"
-    # the JAX server's persistent XLA cache; the port has no counterpart
-    # (the command line fences it, the driver warns on it)
+    # the build cache of the port's compiled code (native_build) and the
+    # batch shapes a start warmed: a warm start builds nothing
     persistent_cache_dir: Optional[str] = None
     # warmup: score every (rows, nnz) ladder rung at startup; nnz cap per
     # shard for the warmed rungs
@@ -832,9 +820,6 @@ class GameServeParams:
     # slab storage policy when THIS driver exports the store
     store_dtype: str = "f32"
     log_path: Optional[str] = None
-    # flags given away from their default whose code paths are not yet
-    # ported (filled by the parser; validate refuses them)
-    unported_flags: List[str] = dataclasses.field(default_factory=list)
     # where the server scores: "cuda" (default) or "cpu"
     device: str = "cuda"
 
@@ -877,8 +862,6 @@ class GameServeParams:
             errors.append(f"--shape-canonicalization: {e}")
         if self.device not in ("cuda", "cpu"):
             errors.append(f"--device must be cuda or cpu, got {self.device!r}")
-        errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
-                      for flag in self.unported_flags)
         if errors:
             raise ValueError("; ".join(errors))
 
@@ -908,15 +891,17 @@ def build_serve_parser() -> argparse.ArgumentParser:
       help="batch-shape ladder: off | on | BASE:GROWTH (default ON — every "
            "request shape rounds up to a warmed canonical shape)")
     a("--persistent-cache", dest="persistent_cache_dir", default=None,
-      help="not yet ported to photon_ml_tpu_torch")
+      help="build cache dir of the port's compiled code and of the warmed batch "
+           "shapes: a warm server start builds nothing (asserted when "
+           "--assert-warm)")
     a("--no-warmup", action="store_true",
       help="skip the startup ladder warmup")
     a("--warm-nnz", type=int, default=None,
       help="nnz-per-row cap the warmup assumes (default 64, clamped to the "
            "feature dim)")
     a("--assert-warm", default="false",
-      help="fail startup unless zero new compiles after warmup (needs the "
-           "persistent cache, which the port does not have)")
+      help="fail startup unless it built nothing and warmed no batch shape the "
+           "persistent cache had not seen (needs --persistent-cache)")
     a("--build-store-only", default="false",
       help="export --game-model-input-dir into --model-store-dir, then exit")
     a("--num-store-partitions", type=int, default=1,
@@ -948,9 +933,6 @@ def parse_serve_params(argv: Optional[List[str]] = None) -> GameServeParams:
         num_store_partitions=ns.num_store_partitions,
         store_dtype=ns.store_dtype,
         log_path=ns.log_path,
-        unported_flags=(["--persistent-cache"]
-                        if str(ns.persistent_cache_dir or "").strip().lower() not in _UNSET
-                        else []),
         device=ns.device,
     )
     params.validate()
@@ -960,8 +942,9 @@ def parse_serve_params(argv: Optional[List[str]] = None) -> GameServeParams:
 @dataclasses.dataclass
 class GameFleetParams:
     """Sharded serving fleet parameters (photon_ml_tpu_torch.serve.fleet; the
-    JAX package's GameFleetParams with ``device``). One driver, three modes:
-    export the sharded stores, run one replica, or run the router."""
+    JAX package's GameFleetParams with ``device`` and the serve driver's
+    ``assert_warm`` for a replica). One driver, three modes: export the
+    sharded stores, run one replica, or run the router."""
 
     fleet_dir: str = ""
     # export mode: shard --game-model-input-dir into fleet_dir
@@ -987,15 +970,14 @@ class GameFleetParams:
     max_batch_rows: int = 128
     max_wait_ms: float = 2.0
     shape_canonicalization: str = "on"
-    # the JAX replica's persistent XLA cache; the port has no counterpart
-    # (the command line fences it)
+    # the build cache of the port's compiled code (native_build)
     persistent_cache_dir: Optional[str] = None
     warmup: bool = True
     warm_nnz: Optional[int] = None
     log_path: Optional[str] = None
-    # flags given away from their default whose code paths are not yet
-    # ported (filled by the parser; validate refuses them)
-    unported_flags: List[str] = dataclasses.field(default_factory=list)
+    # replica mode: fail startup unless it built nothing and warmed no
+    # batch shape the persistent cache had not seen (the serve driver's gate)
+    assert_warm: bool = False
     # where a replica scores: "cuda" (default) or "cpu"
     device: str = "cuda"
 
@@ -1043,10 +1025,11 @@ class GameFleetParams:
             resolve_bucketer(self.shape_canonicalization)
         except ValueError as e:
             errors.append(f"--shape-canonicalization: {e}")
+        if self.assert_warm and not (self.persistent_cache_dir and self.warmup):
+            errors.append("--assert-warm needs --persistent-cache and warmup (a replica "
+                          "start is warm only against a filled persistent cache)")
         if self.device not in ("cuda", "cpu"):
             errors.append(f"--device must be cuda or cpu, got {self.device!r}")
-        errors.extend(f"{flag} is not yet ported to photon_ml_tpu_torch"
-                      for flag in self.unported_flags)
         if errors:
             raise ValueError("; ".join(errors))
 
@@ -1094,8 +1077,12 @@ def build_fleet_parser() -> argparse.ArgumentParser:
     a("--max-wait-ms", type=float, default=2.0)
     a("--shape-canonicalization", default="on")
     a("--persistent-cache", dest="persistent_cache_dir", default=None,
-      help="not yet ported to photon_ml_tpu_torch")
+      help="build cache dir of the port's compiled code: a warm replica start "
+           "builds nothing")
     a("--no-warmup", action="store_true")
+    a("--assert-warm", default="false",
+      help="replica mode: fail startup unless it built nothing and warmed no batch "
+           "shape the persistent cache had not seen (needs --persistent-cache)")
     a("--warm-nnz", type=int, default=None)
     a("--log-path", default=None)
     a("--device", dest="device", default="cuda", choices=["cuda", "cpu"],
@@ -1126,12 +1113,10 @@ def parse_fleet_params(argv: Optional[List[str]] = None) -> GameFleetParams:
         max_wait_ms=ns.max_wait_ms,
         shape_canonicalization=ns.shape_canonicalization,
         persistent_cache_dir=ns.persistent_cache_dir,
+        assert_warm=_truthy(ns.assert_warm),
         warmup=not ns.no_warmup,
         warm_nnz=ns.warm_nnz,
         log_path=ns.log_path,
-        unported_flags=(["--persistent-cache"]
-                        if str(ns.persistent_cache_dir or "").strip().lower() not in _UNSET
-                        else []),
         device=ns.device,
     )
     params.validate()

@@ -144,14 +144,18 @@ class GameScoringDriver:
 
     def _prepare_feature_maps(self, shards: List[str]) -> None:
         p = self.params
+        scanned = {}
+        if shards and not p.offheap_indexmap_dir:
+            # one read of the input files gives every shard's vocabulary
+            scanned = avro_data.collect_shard_feature_keys(
+                self._resolved_input_paths(),
+                {shard: p.feature_shard_sections.get(shard) or ["features"] for shard in shards})
         for shard in shards:
             if p.offheap_indexmap_dir:
                 self.shard_index_maps[shard] = load_shard_index_map(p.offheap_indexmap_dir, shard)
             else:
-                sections = p.feature_shard_sections.get(shard) or ["features"]
-                keys = avro_data.collect_feature_keys(self._resolved_input_paths(), sections)
                 add_intercept = p.feature_shard_intercepts.get(shard, True)
-                self.shard_index_maps[shard] = IndexMap.build(keys, add_intercept)
+                self.shard_index_maps[shard] = IndexMap.build(scanned[shard], add_intercept)
 
     # ------------------------------------------------------------------
     def run(self) -> None:
@@ -166,19 +170,21 @@ class GameScoringDriver:
         try:
             fixed, random = self._load_model_layout()
             shards = sorted({s for _, s in fixed if s} | {s for _, _, s in random if s})
-            with self.timer.measure("prepare-feature-maps"):
-                self._prepare_feature_maps(shards)
-            id_types = sorted(set(p.random_effect_id_types) | {rid for _, rid, _ in random if rid})
-            with self.timer.measure("read-data"):
-                self.data = avro_data.read_game_data(
-                    self._resolved_input_paths(),
-                    self.shard_index_maps,
-                    p.feature_shard_sections,
-                    id_types,
-                    shard_intercepts=p.feature_shard_intercepts or None,
-                    # evaluators need labels; pure inference reads tolerate nulls
-                    response_required=bool(p.evaluators),
-                )
+            with avro_data.reuse_parses():  # the scan's parses feed the read
+                with self.timer.measure("prepare-feature-maps"):
+                    self._prepare_feature_maps(shards)
+                id_types = sorted(set(p.random_effect_id_types)
+                                  | {rid for _, rid, _ in random if rid})
+                with self.timer.measure("read-data"):
+                    self.data = avro_data.read_game_data(
+                        self._resolved_input_paths(),
+                        self.shard_index_maps,
+                        p.feature_shard_sections,
+                        id_types,
+                        shard_intercepts=p.feature_shard_intercepts or None,
+                        # evaluators need labels; pure inference reads tolerate nulls
+                        response_required=bool(p.evaluators),
+                    )
             self.logger.info(f"scoring {self.data.num_rows} rows")
             with self.timer.measure("score"):
                 if self.host_scoring:

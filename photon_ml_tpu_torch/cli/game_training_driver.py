@@ -133,7 +133,7 @@ from photon_ml_tpu_torch.data.game import (
     padded_row_coo,
 )
 from photon_ml_tpu_torch.device import enable_determinism, resolve_device
-from photon_ml_tpu_torch import resilience
+from photon_ml_tpu_torch import native_build, resilience
 from photon_ml_tpu_torch.resilience import preemption
 from photon_ml_tpu_torch.resilience.guards import DivergenceGuard
 from photon_ml_tpu_torch import retrain
@@ -262,6 +262,7 @@ class GameTrainingDriver:
             vmapped_grid=params.vmapped_grid,
             streaming=params.streaming_random_effects,
             distributed=params.distributed,
+            fused_cycle=params.fused_cycle,
             plan=params.plan,
             # warm starts inherit the prior run's realized costs; cold runs
             # read back their own sidecar on the next invocation
@@ -269,6 +270,8 @@ class GameTrainingDriver:
         self.bucketer = self.plan.bucketer
         self.solve_schedule = self.plan.schedule
         self._race_mark = len(fused_glm.race_log)  # where this run's race decisions start
+        # the build cache's watermark (--persistent-cache), set when the run starts
+        self._cache_mark = None
         self._own_logger = logger is None
         self.logger = logger or PhotonLogger(
             os.path.join(params.output_dir, "photon-ml-tpu-game.log")
@@ -367,18 +370,22 @@ class GameTrainingDriver:
                                    for s in (p.feature_shard_sections.get(shard) or ["features"])})
             nt_container = NameAndTermFeatureSetContainer.read_from_text(
                 p.feature_name_and_term_set_path, all_sections)
-        paths = None
+        sections = {shard: p.feature_shard_sections.get(shard) or ["features"]
+                    for shard in self._shard_ids()}
+        scanned = {}
+        if not p.offheap_indexmap_dir and nt_container is None:
+            # one read of the training files gives every shard's vocabulary
+            scanned = avro_data.collect_shard_feature_keys(
+                _input_files(self._train_dirs()), sections)
         for shard in self._shard_ids():
-            sections = p.feature_shard_sections.get(shard) or ["features"]
             add_intercept = p.feature_shard_intercepts.get(shard, True)
             if p.offheap_indexmap_dir:
                 self.shard_index_maps[shard] = load_shard_index_map(p.offheap_indexmap_dir, shard)
             elif nt_container is not None:
-                self.shard_index_maps[shard] = nt_container.index_map(sections, add_intercept)
+                self.shard_index_maps[shard] = nt_container.index_map(sections[shard],
+                                                                      add_intercept)
             else:
-                paths = paths or _input_files(self._train_dirs())
-                keys = avro_data.collect_feature_keys(paths, sections)
-                self.shard_index_maps[shard] = IndexMap.build(keys, add_intercept)
+                self.shard_index_maps[shard] = IndexMap.build(scanned[shard], add_intercept)
             self.logger.info(
                 f"feature shard {shard!r}: {len(self.shard_index_maps[shard])} features"
             )
@@ -919,7 +926,11 @@ class GameTrainingDriver:
             self.combo_coords.append(coords)
             guard = (None if p.divergence_guard == "off"
                      else DivergenceGuard(mode=p.divergence_guard))
-            cd = CoordinateDescent(coords, loss_fn, scorer, evaluators, divergence_guard=guard)
+            # full-cycle fusion only when the plan resolved it so: under a
+            # schedule or streaming the flag fuses per solve
+            # (cycle_fusion="solve") and the descent loop stays host-side
+            cd = CoordinateDescent(coords, loss_fn, scorer, evaluators, divergence_guard=guard,
+                                   fused_cycle=self.plan.cycle_fusion == "full")
             checkpointer = self._make_checkpointer(i, opt_configs)
             try:
                 with self.timer.measure(f"combo-{i}"), maybe_trace(f"game-combo-{i}"):
@@ -1035,7 +1046,9 @@ class GameTrainingDriver:
         the output dir the interrupted attempt wrote into."""
         p = self.params
         with resilience.resilience_scope(io_resilience_config(
-                p.on_corrupt, p.corrupt_skip_budget, p.io_retries, p.io_retry_base_delay)):
+                p.on_corrupt, p.corrupt_skip_budget, p.io_retries, p.io_retry_base_delay)), \
+                native_build.use_persistent_cache(p.persistent_cache_dir, self.logger) as mark:
+            self._cache_mark = mark
             self._run(restart)
 
     def _run(self, restart: bool = False) -> None:
@@ -1071,10 +1084,11 @@ class GameTrainingDriver:
                     self._short_circuit_run()
                 self._log_run_summaries()
                 return
-            with self.timer.measure("prepare-feature-maps"):
-                self.prepare_feature_maps()
-            with self.timer.measure("prepare-datasets"):
-                self.prepare_datasets()
+            with avro_data.reuse_parses():  # the scan's parses feed the dataset read
+                with self.timer.measure("prepare-feature-maps"):
+                    self.prepare_feature_maps()
+                with self.timer.measure("prepare-datasets"):
+                    self.prepare_datasets()
             with self.timer.measure("train"):
                 self.train()
             if p.model_output_mode != ModelOutputMode.NONE:
@@ -1135,6 +1149,8 @@ class GameTrainingDriver:
             from photon_ml_tpu_torch.io.tensor_cache import cache_stats
 
             self.logger.info(cache_stats.summary())
+        if self._cache_mark is not None and self._cache_mark.new_builds() == 0:
+            self.logger.info("persistent cache fully warm: nothing built")
         if self.solve_schedule is not None or self.plan.adaptive is not None:
             self.logger.info(solve_stats.summary())
         if self.plan.adaptive is not None:
@@ -1520,6 +1536,13 @@ class GameTrainingDriver:
                 f"delta retrain [{n}]: classified unchanged but no warm "
                 "state could be built — re-solving instead of freezing"
             )
+        if out and self.plan.cycle_fusion == "full":
+            self.logger.info(
+                "delta retrain: --fused-cycle compiles every coordinate "
+                "into one program — frozen coordinates re-solve warm "
+                "instead of skipping"
+            )
+            return set()
         return out
 
     def _short_circuit_run(self) -> None:

@@ -43,7 +43,9 @@ from photon_ml_tpu_torch.cli.glm_params import (
     InputFormatType,
     parse_from_command_line,
 )
+from photon_ml_tpu_torch import native_build
 from photon_ml_tpu_torch.compile.canonical import resolve_bucketer
+from photon_ml_tpu_torch.compile.stats import compile_stats
 from photon_ml_tpu_torch.data.validators import sanity_check_data
 from photon_ml_tpu_torch.device import enable_determinism, resolve_device
 from photon_ml_tpu_torch.diagnostics import (
@@ -162,21 +164,26 @@ class Driver:
                          + (f" ({torch.cuda.get_device_name(self.device)})"
                             if self.device.type == "cuda" else ""))
         try:
-            with self.timer.measure("preprocess"):
-                self.preprocess()
-            with self.timer.measure("train"):
-                self.train()
-            if p.validating_data_dir:
-                with self.timer.measure("validate"):
-                    self.validate()
-            if p.diagnostic_mode.runs_train or p.diagnostic_mode.runs_validate:
-                with self.timer.measure("diagnose"):
-                    self.diagnose()
-            self.logger.info(self.timer.summary())
-            if p.tensor_cache_dir:
-                from photon_ml_tpu_torch.io.tensor_cache import cache_stats
+            with native_build.use_persistent_cache(p.persistent_cache_dir,
+                                                   self.logger) as cache_mark:
+                with self.timer.measure("preprocess"):
+                    self.preprocess()
+                with self.timer.measure("train"):
+                    self.train()
+                if p.validating_data_dir:
+                    with self.timer.measure("validate"):
+                        self.validate()
+                if p.diagnostic_mode.runs_train or p.diagnostic_mode.runs_validate:
+                    with self.timer.measure("diagnose"):
+                        self.diagnose()
+                self.logger.info(self.timer.summary())
+                self.logger.info(compile_stats.summary())
+                if p.tensor_cache_dir:
+                    from photon_ml_tpu_torch.io.tensor_cache import cache_stats
 
-                self.logger.info(cache_stats.summary())
+                    self.logger.info(cache_stats.summary())
+                if cache_mark is not None and cache_mark.new_builds() == 0:
+                    self.logger.info("persistent cache fully warm: nothing built")
         finally:
             if self._own_logger:
                 self.logger.close()

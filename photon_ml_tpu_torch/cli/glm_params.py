@@ -4,9 +4,9 @@ photon_ml_tpu/cli/glm_params.py).
 Reference spec: Params.scala:42-205 and OptionNames.scala:24-59. Flag names
 are the JAX driver's, plus ``--device`` (default ``cuda``). The out-of-core
 flags ``--streaming-chunk-rows``, ``--tensor-cache`` and
-``--shape-canonicalization`` run; ``--persistent-cache`` (XLA's compilation
-cache, which has no counterpart here) is not yet ported: it is parsed and
-then rejected by ``validate`` with a ValueError that names the flag.
+``--shape-canonicalization`` run; ``--persistent-cache DIR`` builds and
+loads the port's compiled code (the CUDA kernels and host libraries) in DIR,
+the counterpart of XLA's compilation cache (native_build.use_persistent_cache).
 """
 
 from __future__ import annotations
@@ -80,12 +80,6 @@ class GLMParams:
     # where tensors live: "cuda" (default) or "cpu"
     device: str = "cuda"
 
-    def _not_yet_ported(self) -> List[str]:
-        checks = [
-            (self.persistent_cache_dir is not None, "--persistent-cache"),
-        ]
-        return [f"{flag} is not yet ported to photon_ml_tpu_torch" for bad, flag in checks if bad]
-
     def validate(self) -> None:
         """Cross-field validation (Params.scala:175-197 parity)."""
         errors = []
@@ -138,7 +132,6 @@ class GLMParams:
             )
         if self.device not in ("cuda", "cpu"):
             errors.append(f"--device must be cuda or cpu, got {self.device!r}")
-        errors.extend(self._not_yet_ported())
         if errors:
             raise ValueError("; ".join(errors))
 

@@ -13,9 +13,11 @@ requests on stdin/stdout (photon_ml_tpu_torch/serve):
      live through the by-reference swap path,
   5. at EOF or ``{"cmd": "shutdown"}``, log the serving stats summary.
 
-The JAX driver's persistent XLA cache has no counterpart here: the command
-line fences ``--persistent-cache``, and ``--assert-warm`` raises, as the
-JAX driver does on a jax without the cache API.
+``--persistent-cache DIR`` is the counterpart of the JAX driver's
+persistent XLA cache: the port's compiled code (native_build) is built and
+loaded in DIR, and the warmed batch shapes are recorded there. A warm start
+builds nothing and warms no shape DIR has not seen; ``--assert-warm``
+fails the start otherwise (a cold cache cannot pass it).
 
 Usage::
 
@@ -31,6 +33,7 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
+from photon_ml_tpu_torch import native_build
 from photon_ml_tpu_torch.cli.game_params import GameServeParams, parse_serve_params
 from photon_ml_tpu_torch.device import enable_determinism
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
@@ -47,6 +50,8 @@ class GameServeDriver:
         self.server = None
         self.swapper = None
         self.warm_report: Optional[dict] = None
+        # builds and new batch shapes against --persistent-cache
+        self.cache_report: Optional[dict] = None
         self.handled = 0
 
     # ------------------------------------------------------------------
@@ -82,26 +87,14 @@ class GameServeDriver:
         )
         return store
 
-    def start(self):
-        """Everything up to (not including) the blocking request loop."""
+    def start(self, cache_mark=None):
+        """Everything up to (not including) the blocking request loop;
+        ``cache_mark`` is the watermark of ``run``'s --persistent-cache
+        scope."""
         from photon_ml_tpu_torch.compile import compile_stats
         from photon_ml_tpu_torch.serve import ModelSwapper, ScoringServer
 
         p = self.params
-        if p.persistent_cache_dir:
-            self.logger.warn(
-                "--persistent-cache requested, but the port keeps no compiled-graph "
-                "cache across processes; serving uncached"
-            )
-        if p.assert_warm:
-            # the JAX driver's error where jax has no cache API: with no
-            # cache a start cannot be warm, so the gate cannot hold
-            raise RuntimeError(
-                "--assert-warm needs a working persistent cache (enabled=False) "
-                "and the jax.monitoring compile listeners (installed="
-                f"{compile_stats.install_xla_listeners()}) to be verifiable on "
-                "this jax version"
-            )
         store = self.resolve_store()
         if p.build_store_only:
             store.close()
@@ -124,24 +117,39 @@ class GameServeDriver:
                 f"{self.warm_report['new_traces']} new batch shapes"
             )
         self.logger.info(compile_stats.summary())
+        if cache_mark is not None and p.warmup:
+            self.cache_report = self.server.check_persistent_cache(p.persistent_cache_dir,
+                                                                  cache_mark)
+        if self.server.fully_warm():
+            self.logger.info("serving fully warm: nothing built, no new batch shape")
+        elif p.assert_warm:
+            # the gate must not be vacuously satisfiable: a cold cache has
+            # recorded no shape, and every library it lacks is built here
+            raise RuntimeError(
+                f"--assert-warm: startup built {self.cache_report['builds']} native "
+                f"libraries and warmed {self.cache_report['new_shapes']} batch shapes "
+                "the persistent cache had not seen (persistent cache cold or ladder "
+                "changed)")
         return self.server
 
     def run(self, in_stream=None, out_stream=None) -> None:
         from photon_ml_tpu_torch.serve import serve_json_lines
 
         try:
-            if self.start() is None:
-                return  # --build-store-only
-            self.logger.info(
-                f"serving on {self.server.device} (max_batch_rows="
-                f"{self.params.max_batch_rows}, max_wait_ms={self.params.max_wait_ms})"
-            )
-            self.handled = serve_json_lines(
-                self.server,
-                in_stream if in_stream is not None else sys.stdin,
-                out_stream if out_stream is not None else sys.stdout,
-                swapper=self.swapper,
-            )
+            with native_build.use_persistent_cache(self.params.persistent_cache_dir,
+                                                   self.logger) as cache_mark:
+                if self.start(cache_mark) is None:
+                    return  # --build-store-only
+                self.logger.info(
+                    f"serving on {self.server.device} (max_batch_rows="
+                    f"{self.params.max_batch_rows}, max_wait_ms={self.params.max_wait_ms})"
+                )
+                self.handled = serve_json_lines(
+                    self.server,
+                    in_stream if in_stream is not None else sys.stdin,
+                    out_stream if out_stream is not None else sys.stdout,
+                    swapper=self.swapper,
+                )
         finally:
             if self.server is not None:
                 self.logger.info(self.server.stats.summary())

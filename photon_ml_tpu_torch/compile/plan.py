@@ -29,7 +29,16 @@ run's realized costs back and ``save_cost_model`` writes the sidecar.
 ``plan="off"`` (the default) resolves bitwise as before. ``--distributed``
 resolves ``sharding="mesh"`` (parallel/), and ``"perhost_streaming"`` with
 ``--streaming-random-effects`` (owner-computes blocks,
-parallel/perhost_streaming.py); ``--fused-cycle`` raises "not yet ported".
+parallel/perhost_streaming.py).
+
+``--fused-cycle`` resolves ``cycle_fusion``: ``"full"`` (the whole descent
+iteration runs with no host read between updates, one captured CUDA graph
+replayed per iteration where it can be captured:
+``CoordinateDescent(fused_cycle=True)``), or ``"solve"`` where a host loop
+remains (a solve schedule, promoted to the device rung loop of
+optim/fused_schedule.py; streaming blocks, one solve each), each a recorded
+decision with the JAX reason. ``--adaptive-schedule`` beside it is a
+:class:`PlanError`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -79,10 +88,6 @@ class PlanDecision:
         return None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to photon_ml_tpu_torch")
-
-
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """The resolved, immutable execution policy of one training run.
@@ -96,6 +101,12 @@ class ExecutionPlan:
     prefetch_depth: Optional[int] = None  # io.pipeline depth, resolved once
     streaming: bool = False
     sharding: str = "none"  # "mesh" under --distributed ("perhost_streaming" streaming)
+    fused_cycle: bool = False
+    # what --fused-cycle resolved to: "off" (flag unset), "full" (the whole
+    # descent iteration, CoordinateDescent's fused branch) or "solve" (a
+    # host loop remains: fusion applies per solve). Drivers gate
+    # CoordinateDescent(fused_cycle=...) on cycle_fusion == "full".
+    cycle_fusion: str = "off"
     # "off": every knob is the flag or env the caller set (bitwise the
     # resolution without a planner); "auto": unset knobs were chosen by
     # the cost model
@@ -135,8 +146,6 @@ class ExecutionPlan:
         from photon_ml_tpu_torch.optim.scheduler import resolve_schedule
         from photon_ml_tpu_torch.io.pipeline import resolve_depth
 
-        if fused_cycle:
-            raise _not_ported("--fused-cycle")
         overrides = resolve_overrides(plan)
         # an explicit prefetch depth (argument or env) wins over the
         # planner: probe before resolve_depth folds in its default
@@ -161,13 +170,41 @@ class ExecutionPlan:
                 cost_model, profile, decisions,
                 schedule=schedule, bucketer=bucketer, sparse=sparse,
                 prefetch_depth=prefetch_depth, prefetch_explicit=prefetch_explicit,
-                vmapped_grid=vmapped_grid, resolve_schedule=resolve_schedule,
+                fused_cycle=fused_cycle, vmapped_grid=vmapped_grid,
+                resolve_schedule=resolve_schedule,
             )
             # the blocking-drift call: realized per-block costs decide when
             # re-blocking beats another pinned day (always recorded)
             action, predicted, reason = cost_model.reblock_recommendation(block_costs)
             decisions.append(PlanDecision("blocking", f"planned:{action}", reason,
                                           predicted_cost=predicted))
+
+        # ---- whole-cycle fusion: promotion, not fences ---------------------
+        cycle_fusion = "off"
+        if fused_cycle:
+            cycle_fusion = "full"
+            if schedule is not None:
+                schedule = dataclasses.replace(schedule, loop="device")
+                cycle_fusion = "solve"
+                decisions.append(PlanDecision(
+                    "schedule", "composed",
+                    "--solve-compaction under --fused-cycle promotes to "
+                    "the fused DEVICE loop (optim/fused_schedule.py): the "
+                    "whole chunk→compact→resume cycle compiles into one "
+                    "XLA program per ladder rung, so no chunk pause "
+                    "re-enters the host; cycle fusion applies per solve, "
+                    "results bitwise vs the host chunk loop",
+                ))
+            if streaming:
+                cycle_fusion = "solve"
+                decisions.append(PlanDecision(
+                    "fused-cycle", "composed",
+                    "--streaming-random-effects streams blocks through "
+                    "the host per evaluation, so the descent cycle cannot "
+                    "be ONE program; the block loop hands each block one "
+                    "fused solve instead (cycle fusion at solve "
+                    "granularity)",
+                ))
 
         # ---- impossible pairs (the fences the plan keeps) -----------------
         if vmapped_grid == "true" and schedule is not None:
@@ -176,6 +213,12 @@ class ExecutionPlan:
                 "--solve-compaction: chunk pauses re-enter the host "
                 "inside the compiled grid cycle; use --vmapped-grid auto "
                 "to fall back to the per-combo grid"
+            )
+        if fused_cycle and adaptive is not None:
+            raise PlanError(
+                "--adaptive-schedule orders and skips block visits on the "
+                "host between solves; --fused-cycle (one XLA program per "
+                "iteration) cannot compose"
             )
         if vmapped_grid == "true" and adaptive is not None:
             raise PlanError(
@@ -268,6 +311,7 @@ class ExecutionPlan:
         return cls(bucketer=bucketer, schedule=schedule, adaptive=adaptive,
                    sparse_kernel=sparse, decisions=tuple(decisions),
                    prefetch_depth=prefetch_depth, streaming=streaming, sharding=sharding,
+                   fused_cycle=fused_cycle, cycle_fusion=cycle_fusion,
                    plan_mode=overrides.plan_mode,
                    cost_model=cost_model, workload=workload,
                    sparse_candidates=sparse_candidates)
@@ -305,21 +349,21 @@ class ExecutionPlan:
     @classmethod
     def _plan_choices(cls, model: CostModel, profile: WorkloadProfile, decisions: list, *,
                       schedule, bucketer, sparse, prefetch_depth, prefetch_explicit,
-                      vmapped_grid, resolve_schedule):
+                      fused_cycle, vmapped_grid, resolve_schedule):
         """Choose every knob the caller left unset; explicit settings are
         never overridden (the planner fills gaps). The candidates and their
-        order are the JAX package's (without ``--fused-cycle``, which the
-        port does not have)."""
+        order are the JAX package's: under ``--fused-cycle`` the host chunk
+        loop's pauses cannot compose, so the schedule's candidates narrow
+        to one-shot and the device loop."""
         from photon_ml_tpu_torch.io.pipeline import DEFAULT_DEPTH
 
         # solve-chunk size; never into the --vmapped-grid fence
         if schedule is None and vmapped_grid != "true":
-            action, predicted, reason = model.choose(
-                "schedule",
-                ("one-shot", "chunk:2", "chunk:4", "chunk:8", "chunk:16", "chunk:32",
-                 "device:8", "device:16"),
-                profile,
-            )
+            candidates = (
+                ("one-shot", "device:8", "device:16") if fused_cycle
+                else ("one-shot", "chunk:2", "chunk:4", "chunk:8", "chunk:16", "chunk:32",
+                      "device:8", "device:16"))
+            action, predicted, reason = model.choose("schedule", candidates, profile)
             if action.startswith("chunk:"):
                 schedule = resolve_schedule(action.split(":", 1)[1])
             elif action.startswith("device:"):
@@ -416,6 +460,8 @@ class ExecutionPlan:
             f"sparse={self.sparse_kernel or 'off'}",
             f"streaming={'on' if self.streaming else 'off'}",
         ]
+        if self.fused_cycle:
+            parts.append(f"fused-cycle={self.cycle_fusion}")
         if self.plan_mode != "off":
             parts.append(f"plan={self.plan_mode}"
                          + (f"[{self.cost_model.source}]" if self.cost_model else ""))

@@ -14,10 +14,13 @@ while the stream records it) and a **call** is a replay:
     (``traces``, ``calls``, ``cache_hits`` = replays of an existing graph,
     ``compile_seconds`` = seconds in capturing calls).
 
-XLA's persistent compilation cache has no counterpart: the port builds its
-kernels with nvcc (``native_build``) and keeps no compiled-graph cache
-across processes. ``install_xla_listeners`` returns False and the summary
-says so.
+XLA's persistent compilation cache corresponds to the port's own compiled
+code: the CUDA kernels and host libraries that ``native_build`` compiles
+with ``nvcc`` and ``g++`` into its build directory (``--persistent-cache
+DIR`` points it at DIR). Each build is counted here (``native_builds``,
+``record_build``), and a watermark reports the builds since it was taken:
+a warm start builds nothing. There are no XLA compile events to listen
+to, so ``install_xla_listeners`` returns False.
 """
 
 from __future__ import annotations
@@ -55,6 +58,13 @@ class CompileStats:
         self.xla_cache_hits = 0
         self.xla_cache_misses = 0
         self.backend_compile_seconds = 0.0
+        # libraries native_build compiled in this process (nvcc or g++)
+        self.native_builds = 0
+
+    def record_build(self) -> None:
+        """One library compiled by ``native_build``."""
+        with self._lock:
+            self.native_builds += 1
 
     def site(self, name: str) -> SiteStats:
         with self._lock:
@@ -100,6 +110,7 @@ class CompileStats:
             self.xla_cache_hits = 0
             self.xla_cache_misses = 0
             self.backend_compile_seconds = 0.0
+            self.native_builds = 0
 
     def summary(self) -> str:
         """One-line-per-site driver-log summary."""
@@ -108,8 +119,7 @@ class CompileStats:
             f"compile stats: {len(snap)} capture sites, "
             f"{sum(v['traces'] for v in snap.values())} CUDA-graph captures / "
             f"{sum(v['calls'] for v in snap.values())} calls (captures and replays); "
-            "XLA cache: no counterpart in the port (kernels built by nvcc, no "
-            "cross-process graph cache)"
+            f"native builds: {self.native_builds} (nvcc/g++ into the build cache)"
         ]
         for name, v in snap.items():
             lines.append(
@@ -126,6 +136,7 @@ class CompileStats:
                 self,
                 sum(s.traces for s in self._sites.values()),
                 self.xla_cache_misses,
+                self.native_builds,
             )
 
     def install_xla_listeners(self) -> bool:
@@ -142,12 +153,17 @@ class CompileWatermark:
     stats: CompileStats
     traces0: int
     xla_misses0: int
+    builds0: int = 0
 
     def new_traces(self) -> int:
         return self.stats.total_traces() - self.traces0
 
     def new_xla_misses(self) -> int:
         return self.stats.xla_cache_misses - self.xla_misses0
+
+    def new_builds(self) -> int:
+        """Libraries ``native_build`` compiled since the watermark."""
+        return self.stats.native_builds - self.builds0
 
     def clean(self) -> bool:
         """True when nothing was captured since the watermark."""

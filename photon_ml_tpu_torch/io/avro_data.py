@@ -16,7 +16,9 @@ counts the files each path read, so a caller can tell which one ran.
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,6 +55,36 @@ def _expand_part_files(paths: Sequence[str]) -> List[str]:
     return out
 
 
+# parses kept for reuse inside ``reuse_parses()``: {(path, size, mtime): columns}
+_reused_parses: Optional[Dict[tuple, object]] = None
+
+
+@contextlib.contextmanager
+def reuse_parses():
+    """Inside the block, a part file the native decoder has parsed (the same
+    path, size and modification time) is not parsed again: a driver's
+    vocabulary scan and its dataset read share one parse. The parses are
+    dropped on exit."""
+    global _reused_parses
+    outer = _reused_parses
+    if outer is None:
+        _reused_parses = {}
+    try:
+        yield
+    finally:
+        _reused_parses = outer
+
+
+def _parse_key(path: str) -> Optional[tuple]:
+    if _reused_parses is None:
+        return None
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None  # the read itself reports the missing file
+    return (os.path.abspath(path), st.st_size, st.st_mtime_ns)
+
+
 def _native_columns(paths: Sequence[str]):
     """NativeColumns per part file, or None if ANY file can't take the
     native path (all-or-nothing keeps the assembly uniform); None at once
@@ -74,6 +106,10 @@ def _native_columns(paths: Sequence[str]):
 
     cols = []
     for f in _expand_part_files(paths):
+        key = _parse_key(f)
+        if key is not None and key in _reused_parses:
+            cols.append(_reused_parses[key])
+            continue
         try:
             c = resilience.call_with_retry(
                 lambda f=f: read_one(f), policy, describe=f"native read {f}"
@@ -86,6 +122,8 @@ def _native_columns(paths: Sequence[str]):
             logger.warning("native decoder rejected %s (%s); reading through the "
                            "Python row loop", f, reason)
             return None
+        if key is not None:
+            _reused_parses[key] = c
         cols.append(c)
     return cols or None
 
@@ -117,6 +155,37 @@ def _padded_matrix(heap: bytes, offsets: np.ndarray, total: int) -> Tuple[np.nda
 
 
 _NONE_BYTES = np.frombuffer(b"None", np.uint8)
+
+
+def _row_hashes(mat: np.ndarray) -> np.ndarray:
+    """A 64-bit hash of each row of a (total, width) u8 matrix, eight bytes
+    at a time."""
+    total, width = mat.shape
+    words = np.zeros((total, (width + 7) // 8 * 8), np.uint8)
+    words[:, :width] = mat
+    h = np.zeros(total, np.uint64)
+    with np.errstate(over="ignore"):
+        for col in words.view(np.uint64).T:
+            h = (h ^ col) * np.uint64(0x100000001B3)
+            h ^= h >> np.uint64(29)
+    return h
+
+
+def _unique_rows(mat: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(first, inverse)`` of the distinct rows of a (total, width) u8
+    matrix: the index of one row of each, and each row's distinct row. The
+    rows' hashes are deduplicated (a sort of integers, not of the rows'
+    bytes); every row is then compared with its group's first row byte for
+    byte, and a collision, should one occur, dedupes the rows' bytes
+    instead."""
+    width = mat.shape[1]
+    _, first, inverse = np.unique(_row_hashes(mat), return_index=True, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    if np.array_equal(mat, mat[first[inverse]]):
+        return first, inverse
+    rows = mat.view(np.dtype((np.void, width))).ravel()
+    _, first, inverse = np.unique(rows, return_index=True, return_inverse=True)
+    return first, inverse.reshape(-1)
 
 
 def _ntv_keys_to_indices(raw: dict, index_map: IndexMap,
@@ -157,10 +226,7 @@ def _ntv_keys_to_indices(raw: dict, index_map: IndexMap,
         ],
         axis=1,
     )
-    rows = np.ascontiguousarray(combined).view(
-        np.dtype((np.void, combined.shape[1]))
-    ).ravel()
-    uniq, first, inverse = np.unique(rows, return_index=True, return_inverse=True)
+    first, inverse = _unique_rows(np.ascontiguousarray(combined))
 
     nbuf = raw["name_heap"]
     keys = []
@@ -185,9 +251,10 @@ class _AllKeys:
         return -1
 
 
-def _collect_feature_keys_columnar(cols_list, sections) -> Optional[set]:
-    """The keys of ``sections`` from native columns; None -> row loop."""
-    keys = set()
+def _section_keys_columnar(cols_list, sections) -> Optional[Dict[str, set]]:
+    """The keys of each of ``sections`` from native columns; None -> row
+    loop."""
+    out = {s: set() for s in sections}
     for cols in cols_list:
         for section in sections:
             if not cols.has_field(section):
@@ -195,8 +262,28 @@ def _collect_feature_keys_columnar(cols_list, sections) -> Optional[set]:
             ntv = cols.ntv_array_raw(section)
             if ntv is None:
                 return None
-            keys.update(_ntv_keys_to_indices(ntv, _AllKeys, return_keys=True)[1])
-    return keys
+            out[section].update(_ntv_keys_to_indices(ntv, _AllKeys, return_keys=True)[1])
+    return out
+
+
+def collect_shard_feature_keys(
+    paths: Sequence[str], shard_sections: Dict[str, Sequence[str]]
+) -> Dict[str, List[str]]:
+    """:func:`collect_feature_keys` for several shards over one read of the
+    files: ``{shard: sorted keys of its sections}``."""
+    sections = sorted({s for secs in shard_sections.values() for s in secs})
+    per_section = None
+    native = _native_columns(paths)
+    if native is not None:
+        per_section = _read_natively(native, _section_keys_columnar(native, sections))
+    if per_section is None:
+        per_section = {s: set() for s in sections}
+        for rec in _iter_records(paths):
+            for section in sections:
+                for f in rec.get(section) or []:
+                    per_section[section].add(feature_key(f["name"], f["term"]))
+    return {shard: sorted(set().union(*(per_section[s] for s in secs)))
+            for shard, secs in shard_sections.items()}
 
 
 def collect_feature_keys(
@@ -206,17 +293,7 @@ def collect_feature_keys(
     analogue). ``sections`` are the record fields holding FeatureAvro arrays
     (the reference's feature sections/bags). Columnar through the native
     decoder when the files support it."""
-    native = _native_columns(paths)
-    if native is not None:
-        keys = _read_natively(native, _collect_feature_keys_columnar(native, sections))
-        if keys is not None:
-            return sorted(keys)
-    keys = set()
-    for rec in _iter_records(paths):
-        for section in sections:
-            for f in rec.get(section) or []:
-                keys.add(feature_key(f["name"], f["term"]))
-    return sorted(keys)
+    return collect_shard_feature_keys(paths, {"": sections})[""]
 
 
 def collect_entity_ids(

@@ -13,13 +13,20 @@ Each becomes ``_build/lib<stem>-<hash>.so`` inside the package (the hash
 covers the source, the shared headers and the flags, so an edited source
 never loads a stale library). Nothing is prebuilt: a library is made from
 the sources in the checkout on the machine that runs it. A failed build
-raises with the compiler's output. ``PHOTON_ML_TPU_NATIVE=0`` is the one way
+raises with the compiler's output. Every build is counted in
+``compile.stats.compile_stats.native_builds``.
+
+``use_persistent_cache(DIR)`` is the drivers' ``--persistent-cache DIR``: the port's
+counterpart of XLA's persistent compilation cache is this directory of
+built libraries, so a start whose libraries are already in DIR launches no
+``nvcc`` or ``g++`` process. ``PHOTON_ML_TPU_NATIVE=0`` is the one way
 to ask for the pure-Python host paths instead (``native_enabled``); the
 host libraries are never skipped quietly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,7 +38,9 @@ from typing import Callable, Dict, Sequence
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
-BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+DEFAULT_BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+# where libraries are built and loaded from (use_persistent_cache moves it)
+BUILD_DIR = DEFAULT_BUILD_DIR
 # the framework-free C++ sources shared with the JAX package
 NATIVE_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "native")
 NATIVE_ENV = "PHOTON_ML_TPU_NATIVE"
@@ -53,6 +62,40 @@ def native_enabled() -> bool:
     """False when ``PHOTON_ML_TPU_NATIVE`` asks for the pure-Python host
     paths (0, false, no)."""
     return os.environ.get(NATIVE_ENV, "1").strip().lower() not in ("0", "false", "no")
+
+
+@contextlib.contextmanager
+def use_persistent_cache(directory, logger=None):
+    """A driver's ``--persistent-cache DIR`` for the length of the block:
+    build and load every library in ``directory`` (logged) and yield a
+    ``compile_stats`` watermark, whose ``new_builds()`` is 0 after a warm
+    start. Libraries loaded from another directory are dropped from the
+    process's cache meanwhile, so each kernel or host reader loads, or
+    builds, its library in ``directory``. On exit the process builds and
+    loads where it did before, with the libraries it had loaded there.
+    Without a directory nothing moves and the block gets None."""
+    if not directory:
+        yield None
+        return
+    from photon_ml_tpu_torch.compile.stats import compile_stats
+
+    global BUILD_DIR
+    path = os.path.abspath(directory)
+    os.makedirs(path, exist_ok=True)
+    with _lock:
+        before, loaded = BUILD_DIR, dict(_loaded)
+        if path != BUILD_DIR:
+            BUILD_DIR = path
+            _loaded.clear()
+    if logger is not None:
+        logger.info(f"persistent kernel build cache: {path}")
+    try:
+        yield compile_stats.watermark()
+    finally:
+        with _lock:
+            BUILD_DIR = before
+            _loaded.clear()
+            _loaded.update(loaded)
 
 
 def nvcc_path() -> str:
@@ -99,6 +142,9 @@ def _compile(command: Sequence[str], out: str, what: str) -> str:
             )
         build_logs[out] = proc.stdout + proc.stderr
         os.replace(tmp, out)
+        from photon_ml_tpu_torch.compile.stats import compile_stats
+
+        compile_stats.record_build()
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -9,6 +9,7 @@ the reference's OptimizationStatesTracker.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
@@ -56,6 +57,37 @@ class HostReads:
         """``t.item()``, counted."""
         cls.count += 1
         return t.item()
+
+
+class FixedTrips:
+    """The fused descent cycle's solver mode (``fixed_trip_solves``): while
+    ``on``, the one-shot lane solves (``lbfgs_minimize_lanes``,
+    ``tron_minimize_lanes`` and their single-problem forms) run their
+    fixed-trip-count form, ``max_iterations`` iterations of every
+    line-search or CG step with converged lanes masked, and test nothing on
+    the host. A masked step is exact, so every lane ends bitwise where the
+    host-tested solve leaves it. ``trips`` (when set) runs that many
+    iterations instead: the fused cycle's warm-up, which touches every
+    operation of the iteration once before it is captured."""
+
+    on = False
+    trips: Optional[int] = None
+
+    @classmethod
+    def count(cls, config: "OptimizerConfig") -> int:
+        return config.max_iterations if cls.trips is None else cls.trips
+
+
+@contextlib.contextmanager
+def fixed_trip_solves(trips: Optional[int] = None):
+    """Run the one-shot solves inside the block in their fixed-trip form
+    (:class:`FixedTrips`), ``trips`` iterations each when given."""
+    before = FixedTrips.on, FixedTrips.trips
+    FixedTrips.on, FixedTrips.trips = True, trips
+    try:
+        yield
+    finally:
+        FixedTrips.on, FixedTrips.trips = before
 
 
 class LaneSums(NamedTuple):

@@ -38,6 +38,7 @@ import torch
 
 from photon_ml_tpu_torch.optim.common import (
     LIBRARY_SUMS,
+    FixedTrips,
     HostReads,
     LaneSums,
     OptimizerConfig,
@@ -408,11 +409,18 @@ def lbfgs_minimize_lanes(value_and_grad_fn: LaneFn, w0: Tensor,
                          track_coefficients: bool = False,
                          sums: LaneSums = LIBRARY_SUMS) -> OptResult:
     """Minimize f_l(w_l) + l1_l * ||w_l||_1 for every lane l of ``w0`` (L, D),
-    within ``bounds`` when given."""
+    within ``bounds`` when given. Under ``common.fixed_trip_solves`` the
+    iterations run as one fixed-trip chunk to ``max_iterations``, with no
+    host test and the same bits."""
     state = lbfgs_init_(value_and_grad_fn, w0, config, l1_weight, bounds, track_coefficients,
                         sums)
-    final = lbfgs_advance_(value_and_grad_fn, state, config, l1_weight, bounds,
-                           iteration_limit=config.max_iterations, sums=sums)
+    if FixedTrips.on:
+        limit = torch.full((), config.max_iterations, dtype=torch.int64, device=w0.device)
+        final = lbfgs_chunk_(value_and_grad_fn, state, config, limit, FixedTrips.count(config),
+                             l1_weight, bounds, sums)
+    else:
+        final = lbfgs_advance_(value_and_grad_fn, state, config, l1_weight, bounds,
+                               iteration_limit=config.max_iterations, sums=sums)
     return lbfgs_result(final)
 
 

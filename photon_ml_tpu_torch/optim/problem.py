@@ -131,13 +131,20 @@ class GLMOptimizationProblem:
         batches: Sequence[GLMBatch],
         norm: NormalizationContext,
         w0: Tensor,
-        reg_weight: Optional[float] = None,
+        reg_weight=None,
     ) -> OptResult:
         """Solve one problem per batch as the lanes of one solve: lane ``l``
         minimizes this problem on ``batches[l]`` from ``w0[l]`` and stops on
-        its own test. Returns the lane-stacked result."""
+        its own test. ``reg_weight`` is one total weight for every lane, or
+        a sequence of one per lane. Returns the lane-stacked result."""
         obj = self.objective
-        l1, l2 = _split_reg_weight(self.regularization, reg_weight)
+        if reg_weight is None or isinstance(reg_weight, (int, float)):
+            l1, l2 = _split_reg_weight(self.regularization, reg_weight)
+            l2s = [l2] * len(batches)
+        else:
+            splits = [_split_reg_weight(self.regularization, lam) for lam in reg_weight]
+            l1 = torch.tensor([float(a) for a, _ in splits], dtype=w0.dtype, device=w0.device)
+            l2s = [b for _, b in splits]
         bounds = (
             (self.constraints.lower, self.constraints.upper)
             if self.constraints is not None
@@ -146,7 +153,7 @@ class GLMOptimizationProblem:
 
         coll = self.collective
 
-        def vg(w, b):
+        def vg(w, b, l2):
             if coll is None:
                 return obj.value_and_grad(w, b, norm, l2)
             lv, g = obj.data_value_and_grad(w, b, norm)
@@ -154,17 +161,18 @@ class GLMOptimizationProblem:
             return summed[0] + _l2_term(b.features, w, l2), summed[1:] + l2 * w
 
         def lane_vg(w_lanes):
-            vals, grads = zip(*(vg(w, b) for w, b in zip(w_lanes, batches)))
+            vals, grads = zip(*(vg(w, b, l2) for w, b, l2 in zip(w_lanes, batches, l2s)))
             return torch.stack(vals), torch.stack(grads)
 
         if self.optimizer == OptimizerType.TRON:
-            def hvp(w, v, b):
+            def hvp(w, v, b, l2):
                 if coll is None:
                     return obj.hessian_vector(w, v, b, norm, l2)
                 return coll(obj.data_hessian_vector(w, v, b, norm)) + l2 * v
 
             def lane_hvp(w_lanes, v_lanes):
-                return torch.stack([hvp(w, v, b) for w, v, b in zip(w_lanes, v_lanes, batches)])
+                return torch.stack([hvp(w, v, b, l2)
+                                    for w, v, b, l2 in zip(w_lanes, v_lanes, batches, l2s)])
 
             return tron_minimize_lanes(
                 lane_vg, lane_hvp, w0, self.optimizer_config, bounds=bounds,

@@ -35,6 +35,7 @@ import torch
 
 from photon_ml_tpu_torch.optim.common import (
     LIBRARY_SUMS,
+    FixedTrips,
     HostReads,
     LaneSums,
     OptimizerConfig,
@@ -344,10 +345,17 @@ def tron_minimize_lanes(value_and_grad_fn: LaneFn, hvp_fn: LaneHvp, w0: Tensor,
                         track_coefficients: bool = False,
                         sums: LaneSums = LIBRARY_SUMS) -> OptResult:
     """Minimize f_l(w_l) for every lane l of ``w0`` (L, D), within ``bounds``
-    when given."""
+    when given. Under ``common.fixed_trip_solves`` the iterations run as one
+    fixed-trip chunk to ``max_iterations``, with no host test and the same
+    bits."""
     state = tron_init_(value_and_grad_fn, w0, config, bounds, track_coefficients, sums)
-    final = tron_advance_(value_and_grad_fn, hvp_fn, state, config, bounds,
-                          iteration_limit=config.max_iterations, sums=sums)
+    if FixedTrips.on:
+        limit = torch.full((), config.max_iterations, dtype=torch.int64, device=w0.device)
+        final = tron_chunk_(value_and_grad_fn, hvp_fn, state, config, limit,
+                            FixedTrips.count(config), bounds, sums)
+    else:
+        final = tron_advance_(value_and_grad_fn, hvp_fn, state, config, bounds,
+                              iteration_limit=config.max_iterations, sums=sums)
     return tron_result(final, bounds, sums)
 
 

@@ -59,6 +59,12 @@ class PerHostFactoredRandomEffectCoordinate:
         default_factory=RegularizationContext.none)
     ctx: MeshContext = None  # type: ignore[assignment]
 
+    @property
+    def cd_jit(self) -> bool:
+        """The fused cycle refuses the coordinate across ranks (the JAX
+        ``cd_jit = process_count() == 1``)."""
+        return self.ctx.world == 1
+
     # the checkpoint gathers v across ranks; M is replicated
     rank_sharded_leaves = (0,)
 

@@ -613,6 +613,13 @@ class PerHostRandomEffectSolver:
     # the checkpoint gathers this state across ranks (leaf 0 is sharded)
     rank_sharded_leaves = (0,)
 
+    @property
+    def cd_jit(self) -> bool:
+        """Across ranks the scores merge through a collective inside the
+        update's score: the fused cycle refuses the coordinate (the JAX
+        ``cd_jit = process_count() == 1``)."""
+        return self.ctx.world == 1
+
     def __post_init__(self):
         self.coordinate = _block_coordinate(
             self.data, self.task, self.optimizer, self.optimizer_config, self.regularization,

@@ -33,8 +33,12 @@ is a batch shape seen before: each site reports the first sight of its key
 (batch rows, nnz, and the coefficients' dtype and shape) as a trace through
 ``compile.stats.instrumented_capture``. :meth:`warmup`,
 :meth:`new_request_compiles` and the swap probe's ``new_compiles`` count
-those first sights. XLA's persistent cache has no counterpart, so
-:meth:`fully_warm` is False.
+those first sights. XLA's persistent cache corresponds to the port's build
+cache (``--persistent-cache DIR``, native_build) together with the batch
+shapes a warmup scored, recorded in DIR (``serve-shapes.json``):
+:meth:`check_persistent_cache` counts the libraries built since the start
+and the warmed shapes DIR had not seen, and :meth:`fully_warm` is True only
+when both are 0.
 
 Request wire format (JSON lines on stdin via :func:`serve_json_lines`, or
 the in-process :meth:`ScoringServer.score_rows` API):
@@ -53,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 import queue
 import threading
 from typing import Callable, Dict, Hashable, List, Optional
@@ -85,11 +90,18 @@ DEFAULT_WARM_NNZ = 64
 #: the keys each scoring site has seen, process-wide (the counterpart of a
 #: jitted function's trace cache)
 _SEEN: Dict[str, dict] = {"serve.fixed_contrib": {}, "serve.re_gather": {}}
+#: the (site, key) pairs a warmup scores, on the warming thread
+_WARMING = threading.local()
+#: the warmed batch shapes a persistent cache dir has seen
+SHAPES_FILE = "serve-shapes.json"
 
 
 def _at_site(site: str, key: Hashable, fn: Callable[[], Tensor]) -> Tensor:
     """Run ``fn`` eagerly, counting the first sight of ``key`` at ``site``
     as a trace and every call as a call."""
+    keys = getattr(_WARMING, "keys", None)
+    if keys is not None:
+        keys.add(f"{site} {key!r}")
     return instrumented_capture(site, key, _SEEN[site], lambda: True, lambda _: fn())
 
 
@@ -466,10 +478,15 @@ class ScoringServer:
         k_rungs = self._ladder_rungs(1, cap)
         bundle = self._model
         batches = 0
-        for n in n_rungs:
-            for k in k_rungs:
-                self._score_with(bundle, self._zero_batch(bundle, n, k))
-                batches += 1
+        _WARMING.keys = set()
+        try:
+            for n in n_rungs:
+                for k in k_rungs:
+                    self._score_with(bundle, self._zero_batch(bundle, n, k))
+                    batches += 1
+            self._warm_shapes = sorted(_WARMING.keys)
+        finally:
+            _WARMING.keys = None
         self._request_watermark = compile_stats.watermark()
         return {
             "warm_batches": batches,
@@ -479,11 +496,35 @@ class ScoringServer:
             "new_xla_misses": wm.new_xla_misses(),
         }
 
+    def check_persistent_cache(self, cache_dir: str, mark) -> dict:
+        """After :meth:`warmup`: the libraries built since ``mark`` (a
+        ``compile_stats`` watermark taken when the cache was enabled) and
+        the warmed batch shapes ``cache_dir`` had not recorded; records
+        this warmup's shapes there. A start is fully warm when both are 0,
+        so the check cannot hold vacuously: an empty cache has seen no
+        shape."""
+        path = os.path.join(cache_dir, SHAPES_FILE)
+        known = set()
+        if os.path.exists(path):
+            with open(path) as f:
+                known = set(json.load(f))
+        warmed = set(getattr(self, "_warm_shapes", ()))
+        report = {"builds": mark.new_builds(), "new_shapes": len(warmed - known),
+                  "warm_shapes": len(warmed)}
+        if warmed - known:
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(sorted(known | warmed), f)
+            os.replace(tmp, path)
+        self._cache_report = report
+        return report
+
     def fully_warm(self) -> bool:
         """The JAX server's "zero new XLA compiles from the persistent
-        cache". The port has no such cache (``install_xla_listeners`` is
-        False), so this is always False."""
-        return compile_stats.install_xla_listeners() and compile_stats.xla_cache_misses == 0
+        cache": a start checked against its cache (:meth:`check_persistent_
+        cache`) that built nothing and warmed no new batch shape."""
+        r = getattr(self, "_cache_report", None)
+        return r is not None and r["warm_shapes"] > 0 and r["builds"] == 0 and r["new_shapes"] == 0
 
     def new_request_compiles(self) -> int:
         """New shapes since warmup finished — nonzero means a request shape

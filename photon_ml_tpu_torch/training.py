@@ -4,7 +4,8 @@
 Reference spec: ModelTraining.scala:51-197 — weights sorted high-to-low, each
 solve warm-started from the previous lambda's model.
 :func:`train_glm_grid_streaming` runs the same grid over chunk-streamed data
-(optim/streaming.py). The lambda-batched variant is not yet ported.
+(optim/streaming.py). :func:`train_glm_grid_vmapped` solves every lambda at
+once, each a lane of one lane-batched solve from a cold start.
 """
 
 from __future__ import annotations
@@ -74,6 +75,43 @@ def train_glm_grid(
         models.append(model)
         results.append(res)
     return TrainedModelList(weights, models, results)
+
+
+def train_glm_grid_vmapped(
+    problem: GLMOptimizationProblem,
+    batch: GLMBatch,
+    norm: NormalizationContext,
+    reg_weights: Sequence[float],
+) -> TrainedModelList:
+    """Solve every regularization weight at once: lane ``l`` of one
+    lane-batched LBFGS/OWL-QN or TRON solve (``problem.run_lanes``)
+    minimizes the problem at the ``l``-th weight (sorted high to low) from
+    zeros, and stops on its own test while the others advance (converged
+    lanes are masked no-ops). The trade against :func:`train_glm_grid` is
+    cold starts (no warm-start chain) and K coefficient vectors; both reach
+    the same per-lambda optima.
+
+    As in the JAX package, the fused value+gradient kernel is not raced
+    here: each lane's evaluation is the plain objective, whose margin and
+    gradient products the JAX package also computes outside any Pallas
+    kernel, so they stay ``torch.matmul``.
+    """
+    sorted_weights = sorted(reg_weights, reverse=True)
+    if problem.fused_block_rows is not None:
+        problem = dataclasses.replace(problem, fused_block_rows=None)
+    w0 = torch.zeros((len(sorted_weights), batch.dim), dtype=real_dtype(), device=batch.device)
+    res = problem.run_lanes([batch] * len(sorted_weights), norm, w0, sorted_weights)
+    models, results = [], []
+    for i, lam in enumerate(sorted_weights):
+        result = OptResult(*(None if f is None else f[i] for f in res))
+        w = result.coefficients
+        variances = None
+        if problem.compute_variance:
+            _, l2 = _split_reg_weight(problem.regularization, lam)
+            variances = variances_from_hessian_diag(problem.hessian_diagonal(w, batch, norm, l2))
+        models.append(GeneralizedLinearModel(Coefficients(w, variances), problem.task))
+        results.append(result)
+    return TrainedModelList(list(sorted_weights), models, results)
 
 
 def train_glm_grid_streaming(

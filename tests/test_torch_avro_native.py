@@ -1,7 +1,9 @@
 """The port's native Avro ingest against the JAX package and its own row
 loop (CPU): ``avro_native.read_columns`` column for column against the JAX
 decoder on the generators of tests/test_avro_native.py; ``read_game_data``,
-``read_training_examples`` and ``collect_feature_keys`` native, through the
+``read_training_examples``, ``collect_feature_keys`` and
+``collect_shard_feature_keys`` (one parse for every shard, and one for the
+scan and the dataset read inside ``reuse_parses``) native, through the
 port's Python row loop (``PHOTON_ML_TPU_NATIVE=0``) and through the JAX
 package, byte-equal; a file the decoder rejects is logged, counted and read
 by the row loop; a failed host build raises instead of falling back.
@@ -139,6 +141,92 @@ def test_read_training_examples_native_row_loop_and_jax_are_byte_equal(
             g, w = getattr(got, f), getattr(want, f)
             assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), f
         assert got.dim == want.dim
+
+
+TWO_SECTION_SCHEMA = {
+    "name": "S", "namespace": "t", "type": "record", "fields": [
+        {"name": "response", "type": "double"},
+        {"name": "features", "type": {"type": "array", "items": schemas.FEATURE}},
+        {"name": "userFeatures", "type": {"type": "array", "items": {
+            "type": "record", "name": "UserFeatureAvro", "fields": schemas.FEATURE["fields"]}}},
+    ],
+}
+
+
+def _two_section_records(n=120, seed=4):
+    rng = np.random.default_rng(seed)
+    feats = lambda prefix, k: [{"name": f"{prefix}{j}", "term": "t" if j % 3 else "",
+                                "value": float(rng.normal())}
+                               for j in rng.choice(12, k, replace=False)]
+    return [{"response": float(i % 2), "features": feats("f", 4),
+             "userFeatures": feats("u", 3)} for i in range(n)]
+
+
+def _count_parses(monkeypatch):
+    reads = []
+    real = tavro_native.read_columns
+    monkeypatch.setattr(tavro_native, "read_columns", lambda path: reads.append(path) or real(path))
+    return reads
+
+
+def test_one_read_gives_every_shards_keys(tmp_path, monkeypatch):
+    """collect_shard_feature_keys parses each part file once for all the
+    shards; each shard's keys are collect_feature_keys' of its sections,
+    natively, through the row loop and through the JAX package."""
+    d = _write(tmp_path, _two_section_records(), TWO_SECTION_SCHEMA, parts=3)
+    shards = {"global": ["features", "userFeatures"], "per_user": ["userFeatures"],
+              "absent": ["noSuchSection"]}
+    loop = _row_loop(monkeypatch, tavro_data.collect_shard_feature_keys, [d], shards)
+    reads = _count_parses(monkeypatch)
+    got = tavro_data.collect_shard_feature_keys([d], shards)
+    assert len(reads) == 3
+    assert got == loop
+    for shard, sections in shards.items():
+        assert got[shard] == javro_data.collect_feature_keys([d], sections)
+    assert got["absent"] == [] and set(got["per_user"]) < set(got["global"])
+
+
+def test_reuse_parses_parses_a_file_once_inside_the_scope(tmp_path, monkeypatch):
+    """Inside ``reuse_parses`` the vocabulary scan's parses feed the dataset
+    read (the same bytes as a read outside the scope); a file rewritten
+    inside the scope is parsed again, and outside it every read parses."""
+    d = _write(tmp_path, _with_ids(_train_records(seed=7)))
+    keys = tavro_data.collect_feature_keys([d])
+    maps, sections = {"g": IndexMap.build(keys)}, {"g": ["features"]}
+    reads = _count_parses(monkeypatch)
+    with tavro_data.reuse_parses():
+        assert tavro_data.collect_feature_keys([d]) == keys
+        inside = tavro_data.read_game_data([d], maps, sections, ["userId"])
+        assert len(reads) == 2  # two part files, each parsed once
+        part = f"{d}/part-0.avro"
+        recs = _with_ids(_train_records(seed=8))[:40]
+        tavro.write_container(part, recs, TRAIN_SCHEMA)
+        tavro_data.collect_feature_keys([d])
+        assert reads[2:] == [part]
+    assert tavro_data._reused_parses is None
+    _write(tmp_path, _with_ids(_train_records(seed=7)))
+    outside = tavro_data.read_game_data([d], maps, sections, ["userId"])
+    assert len(reads) == 5
+    _assert_same_game_data(inside, outside)
+
+
+@pytest.mark.parametrize("collide", [False, True])
+def test_key_dedupe_groups_rows_as_a_sort_of_their_bytes(monkeypatch, collide):
+    """_unique_rows groups a matrix's rows as np.unique over their bytes
+    does, through the hashes, and through the byte sort when every hash
+    collides."""
+    rng = np.random.default_rng(11)
+    mat = rng.integers(0, 3, size=(5000, 13), dtype=np.uint8)  # many repeated rows
+    if collide:
+        monkeypatch.setattr(tavro_data, "_row_hashes", lambda m: np.zeros(len(m), np.uint64))
+    first, inverse = tavro_data._unique_rows(mat)
+    rows = mat.view(np.dtype((np.void, 13))).ravel()
+    _, want_inverse = np.unique(rows, return_inverse=True)
+    assert np.array_equal(mat[first[inverse]], mat)
+    assert len(first) == len(set(rows.tolist())) == want_inverse.max() + 1
+    # the same partition of the rows: equal groups here are equal groups there
+    pairs = set(zip(inverse.reshape(-1).tolist(), want_inverse.reshape(-1).tolist()))
+    assert len(pairs) == len(first)
 
 
 def test_a_rejected_file_is_logged_counted_and_read_by_the_row_loop(tmp_path, caplog):

@@ -73,6 +73,11 @@ def test_summary_names_captures_and_the_missing_xla_cache(events):
     lines = s.summary().splitlines()
     assert lines[0].startswith(f"compile stats: {3 if events else 0} capture sites, "
                                f"{2 if events else 0} CUDA-graph captures")
-    assert "XLA cache: no counterpart in the port" in lines[0]
+    # the XLA cache's counterpart is the native build cache: its builds
+    assert "native builds: 0 (nvcc/g++ into the build cache)" in lines[0]
+    mark = s.watermark()
+    s.record_build()
+    assert mark.new_builds() == 1
+    assert "native builds: 1 " in s.summary().splitlines()[0]
     if events:
         assert "  scheduler.rung: 1 captures / 4 calls (0.25s in capturing calls)" in lines

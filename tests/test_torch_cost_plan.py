@@ -250,9 +250,20 @@ def test_unsupported_topologies_still_raise_under_auto():
     assert p.sharding == "perhost_streaming"
     assert any(d.policy == "sharding" and d.action == "planned:perhost_streaming"
                for d in p.decisions)
+    # the fused cycle is ported: under the planner the schedule's
+    # candidates narrow to one-shot and the device loop, and every decision
+    # and the cycle fusion are the JAX plan's
+    theirs = jcost.WorkloadProfile(**PROFILES["skewed"])
     for kw in (dict(fused_cycle=True), dict(distributed=True, streaming=True, fused_cycle=True)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ExecutionPlan.resolve(plan="auto", workload=SKEWED, **kw)
+        p = ExecutionPlan.resolve(plan="auto", workload=SKEWED, **kw)
+        j = JPlan.resolve(plan="auto", workload=theirs, **kw)
+        # (the per-host schedule note is worded for ranks in the port)
+        ours = lambda plan: [d for d in _decisions(plan)
+                             if d[0] == "fused-cycle" or d[1].startswith("planned:")]
+        assert ours(p) == ours(j) and ours(p)
+        assert p.cycle_fusion == j.cycle_fusion
+        assert not any(d.planned_choice() and d.planned_choice().startswith("chunk:")
+                       for d in p.decisions if d.policy == "schedule")
 
 
 def test_sidecar_sources_are_recorded_decisions(tmp_path):

@@ -49,6 +49,15 @@ COMBOS = [
     dict(streaming=True, bucketed=True),
     dict(streaming=True, adaptive_schedule="1e-3:2"),
     dict(streaming=True, solve_compaction="4", shape_canonicalization="on"),
+    dict(fused_cycle=True),
+    dict(fused_cycle=True, solve_compaction="on"),
+    dict(fused_cycle=True, solve_compaction="device:4", shape_canonicalization="on"),
+    dict(fused_cycle=True, streaming=True),
+    dict(fused_cycle=True, streaming=True, solve_compaction="4"),
+    dict(fused_cycle=True, adaptive_schedule="1e-4"),
+    dict(fused_cycle=True, adaptive_schedule="on", bucketed=True),
+    dict(fused_cycle=True, bucketed=True),
+    dict(fused_cycle=True, plan="auto"),
 ]
 
 
@@ -63,6 +72,8 @@ def _plan_of(cls, kw):
         None if p.adaptive is None else (p.adaptive.tolerance, p.adaptive.patience),
         None if p.bucketer is None else p.bucketer.describe(),
         [(d.policy, d.action, d.reason) for d in p.decisions],
+        p.cycle_fusion,
+        p.describe(),
     )
 
 
@@ -100,11 +111,17 @@ def test_unported_policies_raise(kw, flag):
         assert ExecutionPlan.resolve(streaming=True, **kw).describe() == (
             "execution plan: ladder=off schedule=one-shot adaptive=off "
             "sharding=perhost_streaming sparse=off streaming=on")
-        with pytest.raises(NotImplementedError, match="--fused-cycle.* not yet ported"):
-            ExecutionPlan.resolve(streaming=True, fused_cycle=True, **kw)
+        p = ExecutionPlan.resolve(streaming=True, fused_cycle=True, **kw)
+        assert p.cycle_fusion == "solve"
+        assert p.describe() == jplan.ExecutionPlan.resolve(
+            streaming=True, fused_cycle=True, **kw).describe()
     else:
-        with pytest.raises(NotImplementedError, match=f"{flag}.* not yet ported"):
-            ExecutionPlan.resolve(**kw)
+        # the fused cycle is ported: the whole iteration fuses, and the
+        # plan resolves and describes itself as the JAX plan does
+        p = ExecutionPlan.resolve(**kw)
+        assert p.cycle_fusion == "full" and p.fused_cycle
+        assert p.describe() == jplan.ExecutionPlan.resolve(**kw).describe()
+        assert p.describe().endswith("fused-cycle=full")
     assert ExecutionPlan.resolve(plan="off").describe() == \
         "execution plan: ladder=off schedule=one-shot adaptive=off sharding=none sparse=off " \
         "streaming=off"

@@ -5,10 +5,10 @@ flags (without ``--checkpoint-dir``) through both ``main([...])``.
 Objective histories and validation metrics at the ``solver`` tolerance of
 tests/tolerances.py, the same on-disk model layout, and each package loads
 the other's saved model. The pure-Python Avro codec writes the same bytes
-in both packages, every flag whose path is not yet ported raises (the grid,
+in both packages, every flag parses as the JAX parser parses it (the grid,
 factored and sampling flags run: tests/test_torch_game_grid*.py; so do
-``--export-serve-store`` and ``--store-dtype``), and interop carries the
-GAME objects across.
+``--export-serve-store``, ``--store-dtype``, ``--fused-cycle`` and
+``--persistent-cache``), and interop carries the GAME objects across.
 """
 
 import os
@@ -136,9 +136,17 @@ FENCED = [
 
 @pytest.mark.parametrize("extra", FENCED, ids=[f[0] for f in FENCED])
 def test_every_unported_flag_raises_naming_it(tmp_path, extra):
+    """The last fenced flags are ported: each parses as the JAX parser
+    parses it (the fused cycle runs in tests/test_torch_fused_cycle.py, the
+    build cache in tests/test_torch_persistent_cache.py)."""
+    from photon_ml_tpu.cli.game_params import parse_training_params as jparse
+
     argv = _argv("train", "validate", str(tmp_path / "o"), "LBFGS") + extra
-    with pytest.raises(ValueError, match=f"{extra[0]} is not yet ported"):
-        tparams.parse_training_params(argv)
+    got, want = tparams.parse_training_params(argv), jparse(argv)
+    field = {"--fused-cycle": "fused_cycle", "--persistent-cache": "persistent_cache_dir"}[
+        extra[0]]
+    assert getattr(got, field) == getattr(want, field)
+    assert getattr(got, field) not in (None, False)
 
 
 # the serving store's flags, fenced until the serving slice was ported
@@ -151,7 +159,6 @@ def test_store_flags_parse_like_the_jax_parser(tmp_path, extra):
 
     argv = _argv("train", "validate", str(tmp_path / "o"), "LBFGS") + extra
     got, want = tparams.parse_training_params(argv), jparse(argv)
-    assert got.unported_flags == []
     assert (got.export_serve_store, got.store_dtype) == \
         (want.export_serve_store, want.store_dtype)
 

@@ -108,10 +108,21 @@ OUT_OF_SLICE = [
 
 @pytest.mark.parametrize("extra,flag", OUT_OF_SLICE, ids=[f for _, f in OUT_OF_SLICE])
 def test_out_of_slice_flag_raises(tmp_path, extra, flag):
-    argv = _argv(tmp_path, "LOGISTIC_REGRESSION", "out", "--device", "cpu", *extra)
-    with pytest.raises(ValueError, match="not yet ported") as err:
-        tdriver.main(argv)
-    assert flag in str(err.value)
+    """The last out-of-slice flag runs: ``--persistent-cache DIR`` builds the
+    port's compiled code in DIR, and the run's models are the run's without
+    it, byte for byte."""
+    for name, n, seed in (("train", 200, 1), ("validate", 80, 2)):
+        (tmp_path / name).mkdir()
+        _write_libsvm(tmp_path / name / "part-0.txt", n, seed, "LOGISTIC_REGRESSION")
+    cache = str(tmp_path / "cache")
+    argv = lambda out, *more: _argv(tmp_path, "LOGISTIC_REGRESSION", out, "--device", "cpu",
+                                    *more)
+    tdriver.main(argv("plain"))
+    cached = tdriver.main(argv("out", *[a if a != "cache" else cache for a in extra]))
+    assert cached.params.persistent_cache_dir == cache and os.path.isdir(cache)
+    assert tread(str(tmp_path / "out" / "output")) == tread(str(tmp_path / "plain" / "output"))
+    with open(tmp_path / "out" / "photon-ml-tpu.log") as f:
+        assert f"persistent kernel build cache: {cache}" in f.read()
 
 
 def test_avro_input_and_sparse_width_raise(tmp_path):

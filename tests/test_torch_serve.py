@@ -441,7 +441,7 @@ class TestServingParity:
         assert np.array_equal(served, drv.scores)
         assert wm.new_traces() == 0
         assert server.new_request_compiles() == 0
-        assert not server.fully_warm()  # the port has no persistent cache
+        assert not server.fully_warm()  # not checked against a persistent cache
         snap = server.stats.snapshot()
         assert snap["requests"] == len(serving_world["requests"])
         assert snap["batches"] < snap["requests"]
@@ -921,21 +921,37 @@ class TestServeDriver:
             parse_serve_params(["--model-store-dir", "s", "--store-dtype", "fp8"])
 
     def test_persistent_cache_stays_fenced_naming_itself(self):
+        """``--persistent-cache`` is ported: it parses as the JAX parser
+        parses it, and ``--assert-warm`` without it is refused with the
+        JAX error."""
+        from photon_ml_tpu.cli.game_params import parse_serve_params as jparse
         from photon_ml_tpu_torch.cli.game_params import parse_serve_params
 
-        with pytest.raises(ValueError, match="--persistent-cache is not yet ported"):
-            parse_serve_params(["--model-store-dir", "s", "--persistent-cache", "cache"])
+        argv = ["--model-store-dir", "s", "--persistent-cache", "cache", "--assert-warm", "true"]
+        got, want = parse_serve_params(argv), jparse(argv)
+        assert (got.persistent_cache_dir, got.assert_warm) == \
+            (want.persistent_cache_dir, want.assert_warm) == ("cache", True)
+        with pytest.raises(ValueError) as jerr:
+            jparse(["--model-store-dir", "s", "--assert-warm", "true"])
+        with pytest.raises(ValueError) as terr:
+            parse_serve_params(["--model-store-dir", "s", "--assert-warm", "true"])
+        assert str(terr.value) == str(jerr.value)
+        assert "--assert-warm needs --persistent-cache" in str(terr.value)
 
     def test_assert_warm_raises_the_jax_no_cache_error(self, serving_world, tmp_path):
+        """A cold persistent cache cannot pass ``--assert-warm``: its first
+        start builds into it and warms batch shapes it has not seen."""
         from photon_ml_tpu_torch.cli import serve_driver
         from photon_ml_tpu_torch.cli.game_params import GameServeParams
 
         driver = serve_driver.GameServeDriver(GameServeParams(
             model_store_dir=serving_world["store_dir"], persistent_cache_dir=str(tmp_path),
             assert_warm=True, device="cpu"))
-        with pytest.raises(RuntimeError, match="--assert-warm needs a working persistent cache"):
+        with pytest.raises(RuntimeError, match="--assert-warm: startup built") as err:
             driver.run(in_stream=io.StringIO(""), out_stream=io.StringIO())
-        assert driver.server is None
+        assert "persistent cache cold or ladder changed" in str(err.value)
+        assert driver.cache_report["new_shapes"] > 0
+        assert not driver.server.fully_warm()
 
 
 # ---------------------------------------------------------------------------

@@ -918,7 +918,7 @@ class TestFleetParams:
 
         port = dataclasses.asdict(parse_fleet_params(argv))
         assert port.pop("device") == "cuda"
-        assert port.pop("unported_flags") == []
+        assert port.pop("assert_warm") is False  # the serve driver's gate, for a replica
         assert port == dataclasses.asdict(jparse(argv))
         assert parse_fleet_params(argv + ["--device", "cpu"]).device == "cpu"
 
@@ -941,11 +941,21 @@ class TestFleetParams:
         assert str(terr.value) == str(jerr.value)
 
     def test_the_persistent_cache_is_fenced(self):
+        """``--persistent-cache`` is ported: it parses as the JAX parser
+        parses it; a replica's ``--assert-warm`` needs it."""
+        import dataclasses
+
+        from photon_ml_tpu.cli.game_params import parse_fleet_params as jparse
         from photon_ml_tpu_torch.cli.game_params import parse_fleet_params
 
-        with pytest.raises(ValueError, match="--persistent-cache is not yet ported"):
+        argv = ["--fleet-dir", "f", "--replica-id", "0", "--persistent-cache", "/tmp/c"]
+        port = dataclasses.asdict(parse_fleet_params(argv))
+        port.pop("device"), port.pop("assert_warm")
+        assert port == dataclasses.asdict(jparse(argv))
+        assert port["persistent_cache_dir"] == "/tmp/c"
+        with pytest.raises(ValueError, match="--assert-warm needs --persistent-cache"):
             parse_fleet_params(["--fleet-dir", "f", "--replica-id", "0",
-                                "--persistent-cache", "/tmp/c"])
+                                "--assert-warm", "true"])
 
 
 # ---------------------------------------------------------------------------
